@@ -5,18 +5,27 @@
 
 1. prints the card, its power limit and the torch / nvcc versions;
 2. builds the port's CUDA kernels from dfd_clip_tpu_torch/csrc (timed);
-3. at the flagship shapes (CLIP ViT-B/16, 16 clips x 20 frames, kept layers
-   6-11, bf16) runs every kernel against its plain PyTorch version on the
-   same inputs, with stated tolerances, and times kernel, plain version,
-   a one-call PyTorch yardstick where one exists, and the card's bound;
-4. drives the port's main path: a Scorer over a full-width, randomly
+3. at the flagship shapes (CLIP ViT-B/16, 16 clips x 20 frames for serving
+   and 12 clips x 20 frames for training, kept layers 6-11, bf16) runs every
+   kernel against its plain PyTorch version on the same inputs, with stated
+   tolerances, and times kernel, plain version, a one-call PyTorch yardstick
+   where one exists, and the card's bound;
+4. drives the serving path: a Scorer over a full-width, randomly
    initialised (seeded) ViT-B/16 Detector answers four requests of decoded
    224x224 uint8 frames, with every launch counter zeroed just before and
    read just after; one batch's logits are held against the same Detector
    run through the plain versions; then a device-resident predict is timed
    and one predict and one request are traced with torch.profiler (device
    busy time and the kernels that take it);
-5. prints the kernel table as one JSON line, the card line, and last
+5. drives the training path: a flagship Trainer (batch 12, dropout 0.5,
+   SGD + OneCycle) takes four steps on seeded synthetic uint8 batches, with
+   every launch counter zeroed just before and read just after; one step's
+   loss and decoder gradients are held against the same step through the
+   plain versions of the decoder kernels and through the plain versions of
+   all kernels (same parameters, batch and dropout seed); then a
+   device-resident train step is timed, its peak memory read, and one step
+   traced with torch.profiler;
+6. prints the kernel table as one JSON line, the card line, and last
    {"ok": true, "device": {...}}.
 
 Any failed phase raises and the script exits nonzero without the last line.
@@ -34,12 +43,15 @@ import sys
 import time
 from pathlib import Path
 
-# flagship geometry (configs/deepfake/deepfake.yaml, bench.py)
-CLIPS, FRAMES, KEEP = 16, 20, (6, 7, 8, 9, 10, 11)
+# flagship geometry (configs/deepfake/deepfake.yaml, bench.py): serving batch,
+# training batch (bench.py:bench_train_step), frames per clip, kept layers
+CLIPS, TRAIN_CLIPS, FRAMES, KEEP = 16, 12, 20, (6, 7, 8, 9, 10, 11)
+TRAIN_STEPS = 4
 PEAK_BF16_TC = 989e12     # H100 SXM dense bf16 tensor-core FLOP/s (data sheet)
 PEAK_F32 = 67e12          # H100 SXM f32 outside the tensor cores
 HBM = 3.35e12             # H100 SXM device-memory bytes/s
 TOL_ENCODER, TOL_DECODER, TOL_PFAKE = 2e-2, 1e-2, 1e-2
+TOL_TRAIN_GRAD = 1e-1     # whole plain route, per-leaf relative L2 (see train_path)
 
 
 def card_line() -> str:
@@ -87,18 +99,31 @@ def compare(name: str, got, want, tol: float) -> float:
 
 
 @contextlib.contextmanager
-def plain_versions():
+def plain_versions(encoder: bool = True):
     """Route the Detector through the plain PyTorch versions (for the
-    end-to-end reference only)."""
+    end-to-end reference only); with ``encoder=False`` only the decoder's
+    kernels, so both routes decode the same encoder export."""
     from dfd_clip_tpu_torch.models import clip_vit, decoder
-    from dfd_clip_tpu_torch.ops import decoder_stack, encoder_block, fused_decoder_attention
+    from dfd_clip_tpu_torch.ops import (
+        decoder_attention_vjp,
+        decoder_stack,
+        encoder_block,
+        fused_decoder_attention,
+        fused_decoder_attention_bwd,
+    )
 
     swaps = [
         (clip_vit, "fused_encoder_attn_block", encoder_block.fused_encoder_attn_block_plain),
         (clip_vit, "fused_encoder_mlp_block", encoder_block.fused_encoder_mlp_block_plain),
+    ] if encoder else []
+    swaps += [
         (decoder, "fused_decoder_attention",
          fused_decoder_attention.fused_decoder_attention_plain),
         (decoder, "decoder_boundary", decoder_stack.decoder_boundary_plain),
+        (decoder_attention_vjp, "fused_decoder_attention",
+         fused_decoder_attention.fused_decoder_attention_plain),
+        (decoder_attention_vjp, "fused_decoder_attention_bwd",
+         fused_decoder_attention_bwd.fused_decoder_attention_bwd_plain),
     ]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
     try:
@@ -137,11 +162,15 @@ def check_kernels(rows: list) -> None:
     blk = to_device(blk, dev)
     h = torch.randn(n, t, w, generator=gen).to(dev, bf)
 
-    def row(name, replaces, source, ms, plain, lib, flops, nbytes, peak, err):
+    def row(name, replaces, source, ms, plain, lib, flops, nbytes, peak, err,
+            counter=None, paths=("serve", "train")):
+        """One kernel's line; its launches are read later from ``counter``
+        (default: the name) in the runs of ``paths``."""
         b, by = bound_ms(flops, nbytes, peak)
         rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                      "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain,
-                     "bound_ms": b, "bound_by": by, "library_ms": lib})
+                     "bound_ms": b, "bound_by": by, "library_ms": lib,
+                     "counter": counter or name, "paths": paths})
         print(f"  {name}: {ms:.4f} ms (plain {plain:.4f}, library "
               f"{'n/a' if lib is None else f'{lib:.4f}'}, bound {b:.4f} by {by})", flush=True)
 
@@ -284,8 +313,9 @@ def check_kernels(rows: list) -> None:
         time_ms(lambda: fda.fused_decoder_attention_plain(qs, qc, kall, vall, mask, pos,
                                                           layer=3)),
         None, 16.0 * valid * w, 4.0 * valid * w + 2.0 * l * w + b * l + 6.0 * b * w,
-        PEAK_F32, err)
+        PEAK_F32, err, paths=("serve",))
     del kall, vall
+    check_train_attention(rows, row, gen, dev)
 
     # -- decoder_boundary (first, middle and last forms) ---------------------------
     dgen = torch.Generator().manual_seed(2)
@@ -316,6 +346,69 @@ def check_kernels(rows: list) -> None:
         PEAK_BF16_TC, err)
 
 
+def check_train_attention(rows: list, row, gen, dev) -> None:
+    """The training forward (partials) and the backward of the decoder
+    attention at the flagship train shapes: slot 3 of a (6, 12, 4000, 12,
+    64) bf16 stack with pos, one sample partly and one fully masked."""
+    import torch
+
+    from dfd_clip_tpu_torch.models.decoder import token_mask
+    from dfd_clip_tpu_torch.ops import fused_decoder_attention as fda
+    from dfd_clip_tpu_torch.ops import fused_decoder_attention_bwd as fdb
+
+    b, p, nsel, hh, d = TRAIN_CLIPS, 200, len(KEEP), 12, 64
+    l, w, bf = FRAMES * p, hh * d, torch.bfloat16
+    kv_shape = (nsel, b, l, hh, d)
+    kall = (0.5 * torch.randn(kv_shape, generator=gen)).to(dev, bf)
+    vall = torch.randn(kv_shape, generator=gen).to(dev, bf)
+    kall.view(nsel, b, FRAMES, p, hh, d)[:, :, :, 196:] = 0
+    vall.view(nsel, b, FRAMES, p, hh, d)[:, :, :, 196:] = 0
+    pos = (0.04 * torch.randn(l, hh, d, generator=gen)).to(dev, bf)
+    qrow = torch.randn(b, 2 * w, generator=gen).to(dev, bf)
+    qs, qc = qrow[:, :w].reshape(b, 1, hh, d), qrow[:, w:].reshape(b, 1, hh, d)
+    frames_ok = torch.ones(b, FRAMES, dtype=torch.bool, device=dev)
+    frames_ok[b - 2, FRAMES // 2:] = False
+    frames_ok[b - 1] = False
+    mask = token_mask(frames_ok, p, 196)
+    args = (qs, qc, kall, vall, mask, pos, 3)
+    valid = mask.sum().item()
+
+    (o_sc, st), (o_p, st_p) = (fda.fused_decoder_attention(*args, partials=True),
+                               fda.fused_decoder_attention_plain(*args, partials=True))
+    err = compare("partials numerator|coda", o_sc, o_p, TOL_DECODER)
+    err = max(err, compare("partials denominator", st[: b - 1, 0], st_p[: b - 1, 0], TOL_DECODER))
+    err = max(err, compare("partials maximum", st[: b - 1, 1], st_p[: b - 1, 1], TOL_DECODER))
+    if o_sc[b - 1].abs().max().item() != 0 or st[b - 1, 0].abs().max().item() != 0 \
+            or (st[b - 1, 1] != -1e30).any().item():
+        raise SystemExit("FAIL partials: a fully masked sample is not (0, 0, -1e30)")
+    row("fused_decoder_attention partials", "dfd_clip_tpu/ops/pallas_decoder_attention.py:505",
+        "dfd_clip_tpu_torch/csrc/decoder_attention.cu",
+        time_ms(lambda: fda.fused_decoder_attention(*args, partials=True)),
+        time_ms(lambda: fda.fused_decoder_attention_plain(*args, partials=True)),
+        None, 16.0 * valid * w,
+        4.0 * valid * w + 2.0 * l * w + b * l + 4.0 * b * w + 8.0 * b * w + 8.0 * b * hh,
+        PEAK_F32, err, counter="fused_decoder_attention", paths=("train",))
+
+    denom, mx = st[:, 0], st[:, 1]
+    o_s = o_sc[:, 0].reshape(b, hh, d) / denom.clamp_min(1e-30)[..., None]
+    ct = (0.1 * torch.randn(b, 1, hh, d, generator=gen)).to(dev, bf)
+    bargs = args + (denom, mx, o_s, ct)
+    got, want = fdb.fused_decoder_attention_bwd(*bargs), fdb.fused_decoder_attention_bwd_plain(*bargs)
+    err = 0.0
+    for g_, w_, part in zip(got, want, ("dq_smax", "dq_coda", "dpos")):
+        err = max(err, compare(f"fused_decoder_attention_bwd {part}", g_, w_, TOL_DECODER))
+    if got[0][b - 1].abs().max().item() != 0 or got[1][b - 1].abs().max().item() != 0:
+        raise SystemExit("FAIL fused_decoder_attention_bwd: a fully masked sample's dq is not 0")
+    # bytes: valid K/V rows, pos, mask, queries, g0, stats; dq and dpos out
+    row("fused_decoder_attention_bwd", "dfd_clip_tpu/ops/pallas_decoder_attention.py:394",
+        "dfd_clip_tpu_torch/csrc/decoder_attention_bwd.cu",
+        time_ms(lambda: fdb.fused_decoder_attention_bwd(*bargs)),
+        time_ms(lambda: fdb.fused_decoder_attention_bwd_plain(*bargs)),
+        None, 27.0 * valid * w,
+        4.0 * valid * w + 2.0 * l * w + b * l + 4.0 * b * w + 4.0 * b * w + 12.0 * b * hh
+        + 8.0 * b * w + 4.0 * l * w, PEAK_F32, err, paths=("train",))
+
+
 def to_device(tree, dev):
     """Params to the card: matrix weights ("w") in bf16, the rest f32."""
     import torch
@@ -326,20 +419,40 @@ def to_device(tree, dev):
     return tree.to(dev, torch.float32)
 
 
-def main_path(rows: list, card: str) -> None:
-    """A Scorer over the flagship Detector answers four requests."""
-    import numpy as np
+def flagship_detector(**extra):
+    """The flagship Detector (bench.py:_detector_cfg) on the card, bf16."""
     import torch
 
     from dfd_clip_tpu_torch.models.detector import Detector
-    from dfd_clip_tpu_torch.ops import _cuda
-    from dfd_clip_tpu_torch.serve import Scorer
 
     cfg = Detector.get_default_config()
     cfg.merge_from_other_cfg({"decode_mode": "index", "decode_indices": list(KEEP),
                               "out_dim": [2], "losses": ["auc_roc"],
-                              "op_mode": {"temporal_position": 1}})
-    det = Detector(cfg, num_frames=FRAMES, compute_dtype=torch.bfloat16, device="cuda")
+                              "op_mode": {"temporal_position": 1}, **extra})
+    return Detector(cfg, num_frames=FRAMES, compute_dtype=torch.bfloat16, device="cuda")
+
+
+def check_counts(path: str, counts: dict, expected: dict, runs: int) -> None:
+    print("  kernels " + json.dumps(counts), flush=True)
+    for name, per_run in expected.items():
+        if counts.get(name, 0) != per_run * runs:
+            raise SystemExit(f"FAIL {path} path: {name} launched {counts.get(name, 0)} times, "
+                             f"expected {per_run * runs}")
+    for name in ("gemm", "layer_norm_rows", "encoder_attention"):
+        if counts.get(name, 0) <= 0:
+            raise SystemExit(f"FAIL {path} path: {name} never launched")
+
+
+def serve_path(card: str) -> dict:
+    """A Scorer over the flagship Detector answers four requests. Returns
+    the launch counts of those requests."""
+    import numpy as np
+    import torch
+
+    from dfd_clip_tpu_torch.ops import _cuda
+    from dfd_clip_tpu_torch.serve import Scorer
+
+    det = flagship_detector()
     scorer = Scorer(det, det.init_params(torch.Generator().manual_seed(0)), batch_size=CLIPS)
     rng = np.random.default_rng(0)
     base = rng.integers(0, 256, (1, 224, 224, 3), np.uint8)
@@ -367,18 +480,9 @@ def main_path(rows: list, card: str) -> None:
           f"{CLIPS * len(steady) / sum(steady):.2f} clips/s (padded batch clips), "
           f"{sum(len(f) // FRAMES for f in requests[1:]) / sum(steady):.2f} real clips/s, "
           f"peak memory {peak_gb:.3f} GB, on {card}", flush=True)
-    print("  kernels " + json.dumps(counts), flush=True)
-    expected = {"fused_encoder_attn_block": 12, "fused_encoder_mlp_block": 11,
-                "fused_decoder_attention": 6, "decoder_boundary": 7}
-    for name, per_predict in expected.items():
-        if counts.get(name, 0) != per_predict * len(requests):
-            raise SystemExit(f"FAIL main path: {name} launched {counts.get(name, 0)} times, "
-                             f"expected {per_predict * len(requests)}")
-    for name in ("gemm", "layer_norm_rows", "encoder_attention"):
-        if counts.get(name, 0) <= 0:
-            raise SystemExit(f"FAIL main path: {name} never launched")
-    for r in rows:
-        r["launches"] = counts.get(r["name"], 0)
+    check_counts("serve", counts, {"fused_encoder_attn_block": 12, "fused_encoder_mlp_block": 11,
+                                   "fused_decoder_attention": 6, "decoder_boundary": 7},
+                 len(requests))
 
     # one batch's logits: kernels vs the same Detector through the plain versions
     clips = requests[-1].transpose(0, 3, 1, 2).reshape(4, FRAMES, 3, 224, 224)
@@ -393,7 +497,122 @@ def main_path(rows: list, card: str) -> None:
     print(f"  predict |dP(fake)| max {dp:.3e} (tol {TOL_PFAKE:g})", flush=True)
     if dp > TOL_PFAKE:
         raise SystemExit(f"FAIL predict: |dP(fake)| {dp:.3e} > {TOL_PFAKE:g}")
-    profile_predict(scorer, x, m, requests[-1], card)
+
+    xd, md = torch.as_tensor(x, device="cuda"), torch.as_tensor(m, device="cuda")
+    ms = time_ms(lambda: scorer.predict(scorer.params, xd, md), iters=5, warmup=1)
+    print(f"  device-resident predict: {ms:.2f} ms per {CLIPS}-clip batch "
+          f"({CLIPS * 1e3 / ms:.2f} clips/s) on {card}", flush=True)
+    profile_device("predict", lambda: scorer.predict(scorer.params, xd, md))
+    profile_device("request", lambda: scorer.score_frames(requests[-1]))
+    return counts
+
+
+def train_path(card: str) -> dict:
+    """A flagship Trainer takes TRAIN_STEPS steps. Returns their launch
+    counts."""
+    import numpy as np
+    import torch
+
+    from dfd_clip_tpu_torch.engine.optim import named_leaves
+    from dfd_clip_tpu_torch.engine.trainer import Trainer
+    from dfd_clip_tpu_torch.ops import _cuda
+
+    det = flagship_detector(dropout=0.5)
+    tcfg = Trainer.get_default_config()
+    tcfg.merge_from_other_cfg({"max_steps": TRAIN_STEPS, "learning_rate": 2.5e-3})
+    rng = np.random.default_rng(1)
+    labels = (np.arange(TRAIN_CLIPS) % 2).astype(np.int32)
+    batches = [(rng.integers(0, 256, (TRAIN_CLIPS, FRAMES, 3, 224, 224), np.uint8), labels,
+                np.ones((TRAIN_CLIPS, FRAMES), bool), ["raw"] * TRAIN_CLIPS,
+                np.ones(TRAIN_CLIPS, np.float32), np.zeros(TRAIN_CLIPS, np.int64))
+               for _ in range(2)]
+    trainer = Trainer(tcfg, det, {"deepfake": batches}, seed=0)
+
+    # each step's time, loss and learning rate, read around the Trainer's own step
+    step, log = trainer.train_step, []
+
+    def logged_step(round_batches):
+        lr = trainer.current_lr()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(round_batches)
+        torch.cuda.synchronize()
+        log.append((time.perf_counter() - t0, float(trainer.batch_losses["deepfake"].mean()),
+                    lr, trainer.optimizer.param_groups[0]["lr"]))
+
+    trainer.train_step = logged_step
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launches()
+    trainer.run()
+    counts = _cuda.launches()
+    trainer.train_step = step
+    for i, (dt, loss, lr, used) in enumerate(log):
+        print(f"  step {i}: loss {loss:.6f}, lr {used:.6e}, {dt * 1e3:.2f} ms", flush=True)
+        if not np.isfinite(loss):
+            raise SystemExit(f"FAIL train step {i}: loss {loss}")
+        if abs(used - trainer.schedule(i)) > 1e-12 or abs(lr - used) > 1e-12:
+            raise SystemExit(f"FAIL train step {i}: lr {used} is not schedule({i}) "
+                             f"= {trainer.schedule(i)}")
+    if len(log) != TRAIN_STEPS:
+        raise SystemExit(f"FAIL train path: {len(log)} steps, expected {TRAIN_STEPS}")
+    print(f"  peak memory {torch.cuda.max_memory_allocated() / 1e9:.3f} GB, on {card}",
+          flush=True)
+    check_counts("train", counts, {"fused_encoder_attn_block": 12, "fused_encoder_mlp_block": 11,
+                                   "fused_decoder_attention": 6,
+                                   "fused_decoder_attention_bwd": 6, "decoder_boundary": 0},
+                 TRAIN_STEPS)
+
+    # one step's loss and decoder gradients: kernels vs the plain versions
+    batch = trainer.prepare_batch(batches[0])
+    leaves = named_leaves(trainer.trainable)
+
+    def loss_and_grads():
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        losses, _, _ = det.forward({**trainer.frozen, **trainer.trainable}, batch["x"],
+                                   [batch["label"]], batch["m"], batch["comp_is_raw"],
+                                   train=True, single_task=0, gen=gen)
+        loss = losses[0].mean()
+        return loss.item(), torch.autograd.grad(loss, [t for _, t in leaves])
+
+    # Decoder kernels alone: the same export decoded through the kernels and
+    # through their plain versions, held at TOL_DECODER on the loss and
+    # TOL_ENCODER of each leaf's max. The whole plain route also swaps the
+    # encoder, whose bf16 export differs from the kernels' by rounding order
+    # (about 7e-3 of the predict logits); the backward at dropout 0.5 amplifies
+    # that, so its leaves are held by relative L2 norm at TOL_TRAIN_GRAD.
+    loss_k, grads_k = loss_and_grads()
+    for route, encoder, measure, tol in (("decoder kernels", False, "max", TOL_ENCODER),
+                                         ("all kernels", True, "l2", TOL_TRAIN_GRAD)):
+        with plain_versions(encoder=encoder):
+            loss_p, grads_p = loss_and_grads()
+        rel = abs(loss_k - loss_p) / abs(loss_p)
+        print(f"  {route} vs plain: loss {loss_k:.6f} vs {loss_p:.6f}, rel {rel:.3e} "
+              f"(tol {TOL_DECODER:g})", flush=True)
+        if not rel <= TOL_DECODER:
+            raise SystemExit(f"FAIL train loss ({route}): relative error {rel:.3e} > "
+                             f"{TOL_DECODER:g}")
+        worst = []
+        for (path, _), gk, gp in zip(leaves, grads_k, grads_p):
+            if measure == "max":
+                err = (gk - gp).abs().max().item() / max(gp.abs().max().item(), 1e-30)
+            else:
+                err = (gk - gp).norm().item() / max(gp.norm().item(), 1e-30)
+            if not (torch.isfinite(gk).all() and err <= tol):
+                raise SystemExit(f"FAIL train gradient ({route}) {path}: {measure} rel "
+                                 f"{err:.3e} > {tol:g}")
+            worst.append((err, ".".join(map(str, path))))
+        worst.sort(reverse=True)
+        print(f"  {route}: {len(worst)} gradient leaves within {tol:g} ({measure} rel); worst "
+              + ", ".join(f"{name} {e:.3e}" for e, name in worst[:3]), flush=True)
+
+    dev_round = [("deepfake", batch)]
+    torch.cuda.reset_peak_memory_stats()
+    ms = time_ms(lambda: trainer.train_step(dev_round), iters=5, warmup=1)
+    print(f"  device-resident train step: {ms:.2f} ms per {TRAIN_CLIPS}-clip batch "
+          f"({TRAIN_CLIPS * 1e3 / ms:.2f} clips/s), peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB, on {card}", flush=True)
+    profile_device("train step", lambda: trainer.train_step(dev_round))
+    return counts
 
 
 def device_us(event) -> float:
@@ -402,34 +621,30 @@ def device_us(event) -> float:
     return getattr(event, "self_device_time_total", None) or event.self_cuda_time_total
 
 
-def profile_predict(scorer, x, m, frames, card: str) -> None:
-    """Device-resident predict time (CUDA events), and device time by kernel
-    for one predict and one request (torch.profiler): the breakdown of
-    PERF.md section 5."""
+def profile_device(name: str, fn) -> None:
+    """Device busy time and the kernels that take it over one call of fn
+    (torch.profiler): the breakdowns of PERF.md section 5."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    xd, md = torch.as_tensor(x, device="cuda"), torch.as_tensor(m, device="cuda")
-    ms = time_ms(lambda: scorer.predict(scorer.params, xd, md), iters=5, warmup=1)
-    print(f"  device-resident predict: {ms:.2f} ms per {CLIPS}-clip batch "
-          f"({CLIPS * 1e3 / ms:.2f} clips/s) on {card}", flush=True)
-    for name, fn in (("predict", lambda: scorer.predict(scorer.params, xd, md)),
-                     ("request", lambda: scorer.score_frames(frames))):
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        # device-side rows only (kernels, copies): an operator's row repeats
-        # the device time of the kernels it launched
-        events = [e for e in prof.key_averages()
-                  if e.self_cpu_time_total == 0 and device_us(e) > 0]
-        device = sum(device_us(e) for e in events) / 1e3
-        print(f"  profile {name}: wall {wall * 1e3:.2f} ms, device busy {device:.2f} ms "
-              f"({100 * device / (wall * 1e3):.1f} %)", flush=True)
-        for e in sorted(events, key=lambda e: -device_us(e))[:6]:
-            print(f"    {device_us(e) / 1e3:9.3f} ms {e.count:5d}x {e.key[:70]}", flush=True)
+        wall = time.perf_counter() - t0
+    # device-side rows only (kernels, copies): an operator's row repeats
+    # the device time of the kernels it launched, and a user annotation on
+    # the device timeline (the optimizer's step) spans kernels counted apart
+    events = [e for e in prof.key_averages()
+              if e.self_cpu_time_total == 0 and device_us(e) > 0
+              and not getattr(e, "is_user_annotation", False)]
+    device = sum(device_us(e) for e in events) / 1e3
+    print(f"  profile {name}: wall {wall * 1e3:.2f} ms, device busy {device:.2f} ms "
+          f"({100 * device / (wall * 1e3):.1f} %), {sum(e.count for e in events)} device "
+          f"kernels and copies", flush=True)
+    for e in sorted(events, key=lambda e: -device_us(e))[:8]:
+        print(f"    {device_us(e) / 1e3:9.3f} ms {e.count:5d}x {e.key[:70]}", flush=True)
 
 
 def main() -> int:
@@ -465,9 +680,17 @@ def main() -> int:
     rows: list = []
     print("[kernels] flagship shapes, bf16", flush=True)
     check_kernels(rows)
-    print("[main path] Scorer over ViT-B/16, 20 frames, keep 6-11, bf16, batch 16", flush=True)
-    main_path(rows, card)
+    counts = {}
+    print("[serve path] Scorer over ViT-B/16, 20 frames, keep 6-11, bf16, batch 16", flush=True)
+    counts["serve"] = serve_path(card)
+    print(f"[train path] Trainer over ViT-B/16, 20 frames, keep 6-11, bf16, batch "
+          f"{TRAIN_CLIPS}, dropout 0.5, SGD + OneCycle, {TRAIN_STEPS} steps", flush=True)
+    counts["train"] = train_path(card)
 
+    for r in rows:
+        key, paths = r.pop("counter"), r.pop("paths")
+        r["launches_by_path"] = {p: counts[p].get(key, 0) for p in paths}
+        r["launches"] = sum(r["launches_by_path"].values())
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

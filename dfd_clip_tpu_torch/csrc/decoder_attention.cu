@@ -1,11 +1,15 @@
 // Single-query dual-activation (softmax + CoDA) decoder attention.
 //
 // Replaces: dfd_clip_tpu/ops/pallas_decoder_attention.py
-// fused_decoder_attention (_kernel, forward, no `partials` and no int8 K/V
-// scales): one query per (sample, head) over L = frames x patches tokens of
-// slot `layer` of the stacked encoder export, with the shared temporal
-// positional embedding added to K and V, the token mask, an exact online
-// softmax, and CoDA's tanh(q_c . k) * 2 sigmoid(-|q_c - k|_1 * scale).
+// fused_decoder_attention (_kernel, forward, with and without `partials`; no
+// int8 K/V scales): one query per (sample, head) over L = frames x patches
+// tokens of slot `layer` of the stacked encoder export, with the shared
+// temporal positional embedding added to K and V, the token mask, an exact
+// online softmax, and CoDA's tanh(q_c . k) * 2 sigmoid(-|q_c - k|_1 * scale).
+// The `partials` form (the training forward) writes the softmax state
+// instead of the normalised output: the un-normalised numerator and the CoDA
+// output (B, 2, H*D) f32, and the denominator and running maximum (B, 2, H)
+// f32, both relative to the merged maximum.
 //
 // Bound on an H100: bytes. At the flagship shape (16 samples, 12 heads, 4000
 // tokens, head_dim 64) a call reads ~197 MB of K/V for ~0.2 GFLOP.
@@ -19,7 +23,8 @@
 // read at slot `layer` through a pointer offset, with no copy. Masked and
 // out-of-range tokens contribute 0; the running maximum starts at the finite
 // -1e30 of the TPU kernel and the denominator is floored at 1e-30, so a fully
-// masked sample returns 0, not NaN.
+// masked sample returns 0, not NaN (partials: numerator 0, denominator 0 and
+// maximum -1e30).
 #include "common.cuh"
 
 namespace {
@@ -29,11 +34,13 @@ constexpr int WARPS = 8;
 constexpr int UNROLL = 4;
 constexpr float NEG_BIG = -1e30f;
 
+template <bool PARTIALS>
 __global__ void __launch_bounds__(WARPS * 32)
 decoder_attention_kernel(const bf16* __restrict__ qs, const bf16* __restrict__ qc, long long q_stride,
                          const bf16* __restrict__ k, const bf16* __restrict__ v,
                          const unsigned char* __restrict__ mask, const bf16* __restrict__ pos,
-                         bf16* __restrict__ out, int L, int heads, float scale) {
+                         bf16* __restrict__ out, float* __restrict__ o_sc, float* __restrict__ st,
+                         int L, int heads, float scale) {
   __shared__ float sm_m[WARPS], sm_d[WARPS];
   __shared__ float sm_os[WARPS][D], sm_oc[WARPS][D];
 
@@ -128,7 +135,17 @@ decoder_attention_kernel(const bf16* __restrict__ qs, const bf16* __restrict__ q
       o_s += sm_os[w][d] * f;
       o_c += sm_oc[w][d];
     }
-    out[(size_t)b * tok_stride + h * D + d] = __float2bfloat16(0.5f * (o_s / fmaxf(dd, 1e-30f) + o_c));
+    if (PARTIALS) {
+      float* row = o_sc + (size_t)b * 2 * tok_stride + h * D + d;
+      row[0] = o_s;
+      row[tok_stride] = o_c;
+      if (d == 0) {
+        st[(size_t)b * 2 * heads + h] = dd;
+        st[(size_t)b * 2 * heads + heads + h] = mm;
+      }
+    } else {
+      out[(size_t)b * tok_stride + h * D + d] = __float2bfloat16(0.5f * (o_s / fmaxf(dd, 1e-30f) + o_c));
+    }
   }
 }
 
@@ -141,10 +158,24 @@ extern "C" int dfd_decoder_attention(const void* qs, const void* qc, long long q
                                      const void* k, const void* v, const void* mask,
                                      const void* pos, void* out, int batch, int L, int heads,
                                      float scale, void* stream) {
-  decoder_attention_kernel<<<batch * heads, WARPS * 32, 0, static_cast<cudaStream_t>(stream)>>>(
+  decoder_attention_kernel<false><<<batch * heads, WARPS * 32, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(qs), static_cast<const bf16*>(qc), q_stride,
       static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const unsigned char*>(mask), static_cast<const bf16*>(pos),
-      static_cast<bf16*>(out), L, heads, scale);
+      static_cast<bf16*>(out), nullptr, nullptr, L, heads, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The partials form: o_sc [B, 2, H * 64] f32 (numerator, CoDA output) and
+// st [B, 2, H] f32 (denominator, maximum), same inputs.
+extern "C" int dfd_decoder_attention_partials(const void* qs, const void* qc, long long q_stride,
+                                              const void* k, const void* v, const void* mask,
+                                              const void* pos, void* o_sc, void* st, int batch,
+                                              int L, int heads, float scale, void* stream) {
+  decoder_attention_kernel<true><<<batch * heads, WARPS * 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(qs), static_cast<const bf16*>(qc), q_stride,
+      static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const unsigned char*>(mask), static_cast<const bf16*>(pos), nullptr,
+      static_cast<float*>(o_sc), static_cast<float*>(st), L, heads, scale);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,12 +1,15 @@
-"""Temporal cross-attention decoder, inference (counterpart of
+"""Temporal cross-attention decoder (counterpart of
 dfd_clip_tpu/models/decoder.py).
 
-A learned CLS query cross-attends each kept encoder layer's K/V stream. The
-decoder is the JAX package's per-device path: a chain of block boundaries
+A learned CLS query cross-attends each kept encoder layer's K/V stream.
+Inference is the JAX package's per-device path: a chain of block boundaries
 (ops/decoder_stack.py) around one fused attention call per block
 (ops/fused_decoder_attention.py), which reads its slot of the stacked export
-in place. The 8-row pad of the export is masked as keys through
-``patch_valid``.
+in place. Training (``train=True``) is the JAX package's training
+composition: LayerNorms, linears, QuickGELU and dropout in plain torch under
+autograd, and the attention through the trainable Function of
+ops/decoder_attention_vjp.py (partials forward and backward kernels). The
+8-row pad of the export is masked as keys through ``patch_valid``.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from . import layers
+from ..ops.decoder_attention import dual_activation_attention
 from ..ops.decoder_stack import decoder_boundary
 from ..ops.fused_decoder_attention import fused_decoder_attention
 
@@ -105,10 +109,12 @@ def token_mask(m: torch.Tensor, patches: int, patch_valid: Optional[int]) -> tor
 
 
 def apply_decoder(params: Params, kvs: Dict[str, torch.Tensor], m: torch.Tensor,
-                  cfg: DecoderConfig, *, patch_valid: Optional[int] = None
+                  cfg: DecoderConfig, *, train: bool = False,
+                  gen: Optional[torch.Generator] = None, patch_valid: Optional[int] = None
                   ) -> Tuple[List[torch.Tensor], torch.Tensor]:
     """Decode K/V {"k", "v"}: (Lsel, B, T, P, H, D) with the (B, T) bool frame
-    mask into (task logits [(B, out_dim)], video feature)."""
+    mask into (task logits [(B, out_dim)], video feature). ``train`` runs the
+    differentiable composition, with dropout drawn from ``gen``."""
     if cfg.attn_mode or cfg.aug_query:
         raise NotImplementedError("attn_mode and aug_query are not ported yet")
     k_all, v_all = kvs["k"], kvs["v"]
@@ -119,7 +125,9 @@ def apply_decoder(params: Params, kvs: Dict[str, torch.Tensor], m: torch.Tensor,
     pos_tok = None
     if cfg.temporal_position:
         pos = params["positional_embedding"][:t]                  # (T, 1, H, D)
-        pos_tok = pos.expand(t, p, h, d).reshape(t * p, h, d).to(cd).contiguous()
+        pos_tok = pos.expand(t, p, h, d).reshape(t * p, h, d)
+        if not train:   # training casts inside the Function: dpos stays f32
+            pos_tok = pos_tok.to(cd).contiguous()
     k_all = k_all.reshape(nsel, b, t * p, h, d)
     v_all = v_all.reshape(nsel, b, t * p, h, d)
     mask = token_mask(m, p, patch_valid)
@@ -127,27 +135,40 @@ def apply_decoder(params: Params, kvs: Dict[str, torch.Tensor], m: torch.Tensor,
     x = layers.layer_norm(params["ln_pre"],
                           params["class_embedding"].to(cd).expand(b, cfg.width).contiguous())
     blocks = params["blocks"]
-
-    def query(blk):
-        return {"ln_1": blk["ln_1"], "in_proj": blk["attn"]["in_proj"]}
-
-    _, qrow = decoder_boundary(x, None, None, query(blocks[0]))
     results = []
-    for i, blk in enumerate(blocks):
-        q_smax = qrow[:, : cfg.width].reshape(b, 1, h, d)
-        q_coda = qrow[:, cfg.width:].reshape(b, 1, h, d)
-        attn_out = fused_decoder_attention(q_smax, q_coda, k_all, v_all, mask,
-                                           pos_tok, layer=i)
-        tail = {"attn_out_proj": blk["attn"]["out_proj"], "ln_2": blk["ln_2"],
-                "mlp": blk["mlp"]}
-        nxt = query(blocks[i + 1]) if i + 1 < len(blocks) else None
-        x, qrow = decoder_boundary(x, attn_out.reshape(b, cfg.width), tail, nxt)
-        results.append(x)
+    if train:
+        x = layers.dropout(x, cfg.dropout, gen, train)
+        for i, blk in enumerate(blocks):
+            qrow = layers.linear(blk["attn"]["in_proj"], layers.layer_norm(blk["ln_1"], x))
+            attn_out = dual_activation_attention(
+                qrow[:, : cfg.width].reshape(b, 1, h, d), qrow[:, cfg.width:].reshape(b, 1, h, d),
+                k_all, v_all, mask, temporal_pos=pos_tok, layer=i, differentiable=True)
+            x = x + layers.linear(blk["attn"]["out_proj"], attn_out.reshape(b, cfg.width))
+            y = layers.linear(blk["mlp"]["c_fc"], layers.layer_norm(blk["ln_2"], x))
+            y = layers.dropout(layers.quick_gelu(y), cfg.dropout, gen, train)
+            x = x + layers.linear(blk["mlp"]["c_proj"], y)
+            results.append(x)
+    else:
+        def query(blk):
+            return {"ln_1": blk["ln_1"], "in_proj": blk["attn"]["in_proj"]}
+
+        _, qrow = decoder_boundary(x, None, None, query(blocks[0]))
+        for i, blk in enumerate(blocks):
+            q_smax = qrow[:, : cfg.width].reshape(b, 1, h, d)
+            q_coda = qrow[:, cfg.width:].reshape(b, 1, h, d)
+            attn_out = fused_decoder_attention(q_smax, q_coda, k_all, v_all, mask,
+                                               pos_tok, layer=i)
+            tail = {"attn_out_proj": blk["attn"]["out_proj"], "ln_2": blk["ln_2"],
+                    "mlp": blk["mlp"]}
+            nxt = query(blocks[i + 1]) if i + 1 < len(blocks) else None
+            x, qrow = decoder_boundary(x, attn_out.reshape(b, cfg.width), tail, nxt)
+            results.append(x)
 
     feats = torch.stack(results, dim=1)                           # (B, blocks, W)
     if not cfg.global_prediction:
         feats = feats[:, -1]
-    video_feature = layers.layer_norm(params["ln_post"], feats).float()
+    feats = layers.layer_norm(params["ln_post"], feats)
+    video_feature = layers.dropout(feats, cfg.dropout, gen, train).float()
 
     task_logits = []
     for mats in params["task_projections"]:

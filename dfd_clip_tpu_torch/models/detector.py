@@ -1,19 +1,24 @@
-"""Deepfake video detector, inference (counterpart of
-dfd_clip_tpu/models/detector.py).
+"""Deepfake video detector (counterpart of dfd_clip_tpu/models/detector.py).
 
 uint8 frames -> device-side resize/crop/normalize -> frozen ViT with the
 stacked, 8-row-padded K/V export -> dual-activation decoder -> logits
-L2-normalised to norm 5. The adapter, patch-index gathering and training are
-not ported yet and raise.
+L2-normalised to norm 5 -> per-task losses. The frozen encoder always runs
+under ``torch.no_grad``; with ``train=True`` the decoder runs under autograd
+(its attention's Function saves the K/V export for its backward, so the
+export must not be an inference-mode tensor). The adapter, patch-index
+gathering, the compression and temporal losses, ``ema_frame`` and
+``patch_mask`` are not ported yet and raise.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from . import clip_vit, decoder as decoder_lib
 from ..device import resolve_device
@@ -23,6 +28,49 @@ Params = Dict[str, Any]
 
 CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
 CLIP_STD = (0.26862954, 0.26130258, 0.27577711)
+
+
+# -- loss factories (per-sample losses, reduction left to the caller) ----------
+
+def mse():
+    """Expectation-vs-bpm squared error over a 140-bin distribution head."""
+
+    def per_sample(logits: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        bins = torch.arange(140, dtype=torch.float32, device=logits.device)
+        expect = torch.softmax(logits[:, :140].float(), dim=-1) @ bins
+        return torch.square(expect - y.float()) / 1000.0
+
+    return per_sample
+
+
+def kl_div():
+    """Elementwise KL(target || softmax(logits)), reduction='none'."""
+
+    def per_sample(logits: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        log_q = torch.log_softmax(logits.float(), dim=1)
+        y = y.float()
+        # p * (log p - log q), with 0 log 0 := 0
+        log_p = torch.where(y > 0, torch.log(y.clamp_min(1e-38)), 0.0)
+        return y * (log_p - log_q)
+
+    return per_sample
+
+
+def auc_roc():
+    """Per-sample cross-entropy against class indices or soft targets."""
+
+    def per_sample(logits: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        log_p = torch.log_softmax(logits.float(), dim=-1)
+        if y.ndim == 1 and not y.is_floating_point():
+            targets = F.one_hot(y.long(), logits.shape[-1]).float()
+        else:
+            targets = y.float()
+        return -torch.sum(targets * log_p, dim=-1)
+
+    return per_sample
+
+
+LOSSES = {"mse": mse, "kl_div": kl_div, "auc_roc": auc_roc}
 
 
 def resolve_layer_indices(config, n_layers: int) -> Tuple[int, ...]:
@@ -91,6 +139,9 @@ class Detector:
         op = config.op_mode
         if op.get("compute_int8", 0) or op.get("kv_dtype", "auto") not in ("auto", "bf16"):
             raise NotImplementedError("int8 modes are not ported yet")
+        if not all(isinstance(loss, str) for loss in config.losses):
+            raise NotImplementedError("loss arguments are not ported yet")
+        self.losses = [LOSSES[loss]() for loss in config.losses]
         self.vit_cfg = clip_vit.ARCHITECTURES[config.architecture]
         self.transform = TransformSpec(self.vit_cfg.input_resolution, CLIP_MEAN, CLIP_STD)
         self.layer_indices = resolve_layer_indices(config, self.vit_cfg.layers)
@@ -132,6 +183,14 @@ class Detector:
 
         return _map_tree(place, params)
 
+    def partition_params(self, params: Params) -> Tuple[Params, Params]:
+        """(trainable, frozen): the encoder never trains."""
+        trainable = {k: v for k, v in params.items() if k != "encoder"}
+        return trainable, {"encoder": params["encoder"]}
+
+    def optimizer_spec(self):
+        return {"name": self.config.optimizer, "weight_decay": self.config.weight_decay}
+
     # -- compute --------------------------------------------------------------
     def preprocess(self, x: torch.Tensor) -> torch.Tensor:
         """uint8 (..., 3, H, W) -> normalized float (..., 3, n, n) on device."""
@@ -152,25 +211,60 @@ class Detector:
         return {s: f.reshape((f.shape[0], b, t) + tuple(f.shape[2:])) for s, f in kvs.items()}
 
     def predict(self, params: Params, x, m, *, train: bool = False,
-                patch_indices=None, with_video_features: bool = False):
+                gen: Optional[torch.Generator] = None, patch_indices=None,
+                with_video_features: bool = False):
         """Logits for a clip batch: x (B, T, 3, H, W) uint8 or float, m (B, T)
-        bool, as arrays or tensors. Returns (task logits list, features)."""
-        if train:
-            raise NotImplementedError("training is not ported yet")
+        bool, as arrays or tensors. Returns (task logits list, features).
+        ``train`` runs the decoder's differentiable composition (dropout
+        drawn from ``gen``, a generator on the detector's device)."""
         if patch_indices is not None:
             raise NotImplementedError("patch_indices is not ported yet")
         x = torch.as_tensor(np.asarray(x) if not torch.is_tensor(x) else x, device=self.device)
         m = torch.as_tensor(np.asarray(m) if not torch.is_tensor(m) else m,
                             device=self.device).bool()
-        with torch.inference_mode():
+        with torch.no_grad():
             x = self.preprocess(x)
             # the export's patch axis is 8-aligned (196 -> 200); the decoder
             # masks the pad rows as keys through patch_valid
             kvs = self.encode_kv(params, x, pad_tokens=True)
+        with contextlib.nullcontext() if train else torch.no_grad():
             task_logits, video = decoder_lib.apply_decoder(
-                params["decoder"], kvs, m, self.decoder_cfg,
+                params["decoder"], kvs, m, self.decoder_cfg, train=train, gen=gen,
                 patch_valid=self.vit_cfg.num_patches)
             task_logits = [5.0 * t / (torch.linalg.vector_norm(t, dim=-1, keepdim=True) + 1e-10)
                            for t in task_logits]
         features = {"video": video} if with_video_features else {}
         return task_logits, features
+
+    def forward(self, params: Params, x, y: Sequence[Optional[torch.Tensor]], m,
+                comp_is_raw: Optional[torch.Tensor] = None, *, train: bool = False,
+                single_task: Optional[int] = None, gen: Optional[torch.Generator] = None):
+        """Per-task losses and logits for a clip batch.
+
+        y: per-task labels on the detector's device (None = task inactive);
+        comp_is_raw: (B,) bool compression flags (``train_mode.nerf_raw``).
+        Returns (task_losses, task_logits), and with ``train`` also the
+        auxiliary losses (an empty dict: none is ported yet)."""
+        tm, op = self.config.train_mode, self.config.op_mode
+        unported = [name for name, on in (("compression", "compression" in tm),
+                                          ("temporal", "temporal" in tm),
+                                          ("patch_mask", "patch_mask" in tm),
+                                          ("ema_frame", bool(op.get("ema_frame", 0)))) if on]
+        if unported:
+            raise NotImplementedError(f"{', '.join(unported)} not ported yet")
+        b = x.shape[0]
+        task_logits, _ = self.predict(params, x, m, train=train, gen=gen)
+        task_losses = [
+            loss_fn(logits, labels)
+            if labels is not None and (single_task is None or i == single_task)
+            else torch.zeros(b, device=self.device)
+            for i, (loss_fn, logits, labels) in enumerate(zip(self.losses, task_logits, y))
+        ]
+        if not train:
+            return task_losses, task_logits
+        if "nerf_raw" in tm:
+            nerf_power = min(tm.nerf_raw, 0)
+            scale = torch.where(comp_is_raw.to(self.device), nerf_power, 2.0 - nerf_power)
+            task_losses = [loss * scale.reshape((b,) + (1,) * (loss.ndim - 1))
+                           for loss in task_losses]
+        return task_losses, task_logits, {}

@@ -8,7 +8,7 @@ activation dtype after the product.
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 
@@ -42,6 +42,19 @@ def linear_f32_bias(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.
     """x @ w + b with the bias added in f32 before the cast to x's dtype: the
     rounding point of the encoder block kernels."""
     return (x.float() @ w.to(x.dtype).float() + b.float()).to(x.dtype)
+
+
+def dropout(x: torch.Tensor, rate: float, gen: Optional[torch.Generator],
+            train: bool) -> torch.Tensor:
+    """Inverted dropout: keep each element with probability 1 - rate, drawn
+    from ``gen`` (a generator on x's device), and scale the kept ones by
+    1 / (1 - rate). Identity outside training, at rate 0 or without a
+    generator. The draws are not the JAX package's (other generator)."""
+    if not train or rate == 0.0 or gen is None:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 # -- initializers -------------------------------------------------------------

@@ -58,3 +58,16 @@ def params_from_jax(tree: Any) -> Any:
     if "encoder" in tree:
         out["encoder"] = encoder_from_jax(tree["encoder"])
     return out
+
+
+def to_numpy_tree(tree: Any) -> Any:
+    """The port's params (tensors on any device) -> numpy leaves in the same
+    nesting: for every non-encoder leaf the inverse of ``params_from_jax``.
+    The arrays are copies, never views of the live parameters. bf16 leaves
+    come back as float32 (numpy has no bfloat16)."""
+    if isinstance(tree, dict):
+        return {k: to_numpy_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [to_numpy_tree(v) for v in tree]
+    t = tree.detach().to("cpu", copy=True)
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()

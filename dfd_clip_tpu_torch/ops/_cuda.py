@@ -114,6 +114,9 @@ _SIGNATURES = {
     "dfd_layer_norm": [_P, _I, _P, _P, _P, _I, _I, _I, _F, _P],
     "dfd_encoder_attention": [_P, _P, _I, _I, _I, _F, _P],
     "dfd_decoder_attention": [_P, _P, _LL, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
+    "dfd_decoder_attention_partials": [_P, _P, _LL, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
+    "dfd_decoder_attention_bwd": [_P, _P, _LL, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                  _I, _I, _I, _F, _P],
 }
 
 

@@ -1,6 +1,7 @@
 """Plain dual-activation (softmax + CoDA) decoder attention (counterpart of
 dfd_clip_tpu/ops/decoder_attention.py:dual_activation_attention for a single
-query and no factorised ``attn_mode``).
+query and no factorised ``attn_mode``), and the plain ``partials`` form of
+the fused kernel.
 
 A learned query attends the flattened (frames x patches) K/V stream with the
 mean of a masked softmax and CoDA (tanh affinity gated by 2 sigmoid(-L1 x
@@ -10,31 +11,50 @@ NaN. All arithmetic in f32; the output takes v's dtype.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
+
+NEG_BIG = -1e30   # the kernels' finite start of the running maximum
+
+
+def _stream(k, v, temporal_pos, layer):
+    """The slot's K and V in f32, with the temporal embedding added."""
+    if layer is not None:
+        k, v = k[layer], v[layer]
+    kp, vp = k.float(), v.float()
+    if temporal_pos is not None:
+        pos = temporal_pos.float().expand(k.shape[1:])
+        kp, vp = kp + pos, vp + pos
+    return kp, vp
 
 
 def dual_activation_attention(
     q_smax: torch.Tensor, q_coda: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     mask: torch.Tensor, *, attn_mode: Sequence[str] = (),
     temporal_pos: Optional[torch.Tensor] = None, layer: Optional[int] = None,
+    differentiable: bool = False,
 ) -> torch.Tensor:
     """(B, 1, H, D) queries, (B, L, H, D) K/V -- or the stacked
     (Lsel, B, L, H, D) buffers read at ``layer`` -- and a (B, L) bool mask
-    -> (B, 1, H, D). ``temporal_pos`` (L, H, D) is added to K and V."""
+    -> (B, 1, H, D). ``temporal_pos`` (L, H, D) is added to K and V.
+
+    ``differentiable`` (the training path) routes to the fused kernels'
+    autograd Function (ops/decoder_attention_vjp.py), whose backward gives
+    the queries', the embedding's and, when asked, K/V's gradients."""
     if attn_mode:
         raise NotImplementedError("factorised attn_mode is not ported yet")
     if q_smax.shape[1] != 1:
         raise NotImplementedError("only the single-query decoder is ported")
-    if layer is not None:
-        k, v = k[layer], v[layer]
+    if differentiable:
+        # imported here: the Function's module imports this one
+        from .decoder_attention_vjp import fused_decoder_attention_trainable
+
+        return fused_decoder_attention_trainable(q_smax, q_coda, k, v, mask,
+                                                 temporal_pos, layer)
+    kp, vp = _stream(k, v, temporal_pos, layer)
     d = q_smax.shape[-1]
     scale = d ** -0.5
-    kp, vp = k.float(), v.float()
-    if temporal_pos is not None:
-        pos = temporal_pos.float().expand(k.shape[1:])
-        kp, vp = kp + pos, vp + pos
     qs, qc = q_smax[:, 0].float(), q_coda[:, 0].float()          # (B, H, D)
     m = mask[:, :, None]                                         # (B, L, 1)
 
@@ -48,3 +68,33 @@ def dual_activation_attention(
     aff = 0.5 * (aff_smax + coda * gate)
     out = torch.einsum("blh,blhd->bhd", aff, vp)
     return out[:, None].to(v.dtype)
+
+
+def decoder_attention_partials_plain(
+    q_smax: torch.Tensor, q_coda: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+    mask: torch.Tensor, temporal_pos: Optional[torch.Tensor] = None,
+    layer: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The softmax state of the single-query attention, as the fused
+    kernel's ``partials`` form returns it: ``(o_sc, st)`` with o_sc
+    (B, 2, H*D) f32 [row 0: the un-normalised softmax numerator, row 1: the
+    CoDA output] and st (B, 2, H) f32 [row 0: the denominator, row 1: the
+    maximum logit], numerator and denominator relative to that maximum. A
+    fully masked sample gives numerator 0, denominator 0 and maximum -1e30."""
+    kp, vp = _stream(k, v, temporal_pos, layer)
+    b, _, h, d = q_smax.shape
+    scale = d ** -0.5
+    qs, qc = q_smax[:, 0].float(), q_coda[:, 0].float()          # (B, H, D)
+    m = mask[:, :, None]                                         # (B, L, 1)
+
+    ls = torch.einsum("bhd,blhd->blh", qs * scale, kp)
+    mx = ls.masked_fill(~m, NEG_BIG).amax(dim=1)                 # (B, H)
+    p = (ls - mx[:, None]).masked_fill(~m, float("-inf")).exp()
+    num = torch.einsum("blh,blhd->bhd", p, vp)
+
+    coda = torch.tanh(torch.einsum("bhd,blhd->blh", qc * scale, kp))
+    l1 = (qc[:, None] - kp).abs().sum(-1)
+    wc = (coda * 2.0 * torch.sigmoid(-l1 * scale)).masked_fill(~m, 0.0)
+    o_c = torch.einsum("blh,blhd->bhd", wc, vp)
+    o_sc = torch.stack([num.reshape(b, h * d), o_c.reshape(b, h * d)], dim=1)
+    return o_sc, torch.stack([p.sum(1), mx], dim=1)

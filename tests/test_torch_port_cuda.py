@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain versions on the card, at small
 and ragged shapes the flagship run of chip_smoke.py does not reach (rows and
 columns that are not tile multiples, short token counts, a short decoder
-stream, a whole tiny detector).
+stream, the decoder attention's partials form and backward at token counts
+that are not tile multiples, a whole tiny detector and a tiny trainer).
 
 Marked ``cuda``; every test skips without a card. Run on a machine with one:
 
@@ -9,7 +10,8 @@ Marked ``cuda``; every test skips without a card. Run on a machine with one:
 
 Tolerance: max|kernel - plain| <= 2e-2 x max|plain| in bf16 (a few bf16
 ulps of rounding-order difference), 5e-2 for a whole bf16 predict against
-the f32 plain path, and exact zeros where the contract says zero.
+the f32 plain path (1e-1 for parameter updates after a bf16 forward), and
+exact zeros where the contract says zero.
 """
 
 import dataclasses
@@ -156,3 +158,132 @@ def test_tiny_wide_detector_predict_on_card(dev):
     assert _cuda.launches().get("fused_decoder_attention") == 2
     want = cpu.predict(cpu.prepare_params(params), x, m)[0][0]
     assert rel_err(got.cpu(), want) <= 5e-2     # bf16 through 3 layers vs f32
+
+
+def decoder_inputs(dev, gen, b, h, l, stacked):
+    """Queries as views of one (B, 2HD) row (the decoder's layout), K/V
+    stacked or not, pos, and a mask with sample 1 partly and the last
+    sample fully masked."""
+    q = randn(gen, b, 2 * h * 64).to(dev, torch.bfloat16)
+    qs, qc = q[:, : h * 64].reshape(b, 1, h, 64), q[:, h * 64:].reshape(b, 1, h, 64)
+    shape = ((2,) if stacked else ()) + (b, l, h, 64)
+    k = randn(gen, *shape, scale=0.5).to(dev, torch.bfloat16)
+    v = randn(gen, *shape).to(dev, torch.bfloat16)
+    pos = randn(gen, l, h, 64, scale=0.1).to(dev, torch.bfloat16)
+    mask = torch.ones(b, l, dtype=torch.bool, device=dev)
+    mask[1, l // 3:] = False
+    mask[b - 1] = False
+    return qs, qc, k, v, pos, mask
+
+
+DEC_GEOMETRIES = [(2, 77, True, True), (4, 200, False, True), (12, 130, True, False)]
+
+
+@pytest.mark.parametrize("geo", DEC_GEOMETRIES, ids=["h2-l77-stacked", "h4-l200", "h12-nopos"])
+def test_decoder_attention_partials_ragged(dev, geo):
+    from dfd_clip_tpu_torch.ops.fused_decoder_attention import (
+        fused_decoder_attention,
+        fused_decoder_attention_plain,
+    )
+
+    h, l, stacked, with_pos = geo
+    qs, qc, k, v, pos, mask = decoder_inputs(dev, torch.Generator().manual_seed(5), 3, h, l,
+                                             stacked)
+    pos = pos if with_pos else None
+    layer = 1 if stacked else None
+    got = fused_decoder_attention(qs, qc, k, v, mask, pos, layer, partials=True)
+    want = fused_decoder_attention_plain(qs, qc, k, v, mask, pos, layer, partials=True)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32
+        assert rel_err(g[:2], w[:2]) <= REL
+    assert torch.equal(got[0][2], torch.zeros_like(got[0][2]))
+    assert torch.equal(got[1][2, 0], torch.zeros_like(got[1][2, 0]))
+    assert torch.equal(got[1][2, 1], torch.full_like(got[1][2, 1], -1e30))
+
+
+@pytest.mark.parametrize("geo", DEC_GEOMETRIES, ids=["h2-l77-stacked", "h4-l200", "h12-nopos"])
+def test_decoder_attention_bwd_ragged(dev, geo):
+    """dq_smax, dq_coda and dpos against _bwd_math on the same stats (from
+    the plain partials): L not a multiple of the 64-token tile, 2 to 12
+    heads, with and without pos, stacked slot and plain K/V; the fully
+    masked sample's dq is exactly 0."""
+    from dfd_clip_tpu_torch.ops.fused_decoder_attention import fused_decoder_attention_plain
+    from dfd_clip_tpu_torch.ops.fused_decoder_attention_bwd import (
+        fused_decoder_attention_bwd,
+        fused_decoder_attention_bwd_plain,
+    )
+
+    h, l, stacked, with_pos = geo
+    gen = torch.Generator().manual_seed(6)
+    qs, qc, k, v, pos, mask = decoder_inputs(dev, gen, 3, h, l, stacked)
+    pos = pos if with_pos else None
+    layer = 1 if stacked else None
+    o_sc, st = fused_decoder_attention_plain(qs, qc, k, v, mask, pos, layer, partials=True)
+    denom, mx = st[:, 0], st[:, 1]
+    o_s = o_sc[:, 0].reshape(3, h, 64) / denom.clamp_min(1e-30)[..., None]
+    ct = randn(gen, 3, 1, h, 64).to(dev, torch.bfloat16)
+    args = (qs, qc, k, v, mask, pos, layer, denom, mx, o_s, ct)
+    got = fused_decoder_attention_bwd(*args)
+    want = fused_decoder_attention_bwd_plain(*args)
+    assert (got[2] is None) == (pos is None)
+    for g, w in zip(got, want):
+        if w is not None:
+            assert g.dtype == torch.float32
+            assert rel_err(g, w) <= REL
+    assert torch.equal(got[0][2], torch.zeros_like(got[0][2]))
+    assert torch.equal(got[1][2], torch.zeros_like(got[1][2]))
+
+
+def test_tiny_wide_trainer_on_card(dev):
+    """Two steps of a ViT-Test-Wide (head_dim 64) Trainer through the
+    kernels, against the same steps through the plain versions in f32 on
+    the CPU: per-step losses and every trainable leaf."""
+    from dfd_clip_tpu_torch.engine.trainer import Trainer
+    from dfd_clip_tpu_torch.models import clip_vit
+    from dfd_clip_tpu_torch.models.detector import Detector
+    from dfd_clip_tpu_torch.models.weights import to_numpy_tree
+    from dfd_clip_tpu_torch.ops import _cuda
+
+    cfg = Detector.get_default_config()
+    cfg.merge_from_other_cfg({"decode_mode": "index", "decode_indices": [0, 2],
+                              "out_dim": [2], "losses": ["auc_roc"]})
+    tiny = clip_vit.ARCHITECTURES["ViT-Test-Wide"]
+
+    def build(device, dtype):
+        det = Detector(cfg, num_frames=4, compute_dtype=dtype, device=device)
+        det.vit_cfg = tiny
+        det.transform = dataclasses.replace(det.transform, size=tiny.input_resolution)
+        det.decoder_cfg = dataclasses.replace(det.decoder_cfg, width=tiny.width,
+                                              heads=tiny.heads)
+        tcfg = Trainer.get_default_config()
+        tcfg.merge_from_other_cfg({"max_steps": 10, "learning_rate": 0.5})
+        params = det.init_params(torch.Generator().manual_seed(4))
+        return Trainer(tcfg, det, {}, params=params, device=device)
+
+    rng = np.random.default_rng(0)
+    batch = (rng.integers(0, 256, (2, 4, 3, 40, 48), dtype=np.uint8), np.array([0, 1]),
+             np.array([[True] * 4, [True, True, False, False]]), ["raw", "raw"],
+             np.ones(2, np.float32), np.zeros(2, np.int64))
+    card, cpu = build(dev, torch.bfloat16), build("cpu", torch.float32)
+    start = _leaves(to_numpy_tree(cpu.trainable))
+    _cuda.reset_launches()
+    for trainer in (card, cpu):
+        for _ in range(2):
+            trainer.train_step([("t", trainer.prepare_batch(batch))])
+    assert _cuda.launches().get("fused_decoder_attention_bwd") == 4
+    assert _cuda.launches().get("fused_decoder_attention") == 4
+    assert rel_err(torch.from_numpy(card.batch_losses["t"]),
+                   torch.from_numpy(cpu.batch_losses["t"])) <= 5e-2
+    # each leaf's update (trained - initial) within 1e-1 of its largest
+    # entry: the card's gradients come through bf16 activations
+    for g, w, s0 in zip(_leaves(to_numpy_tree(card.trainable)),
+                        _leaves(to_numpy_tree(cpu.trainable)), start):
+        assert rel_err(torch.from_numpy(g - s0), torch.from_numpy(w - s0)) <= 1e-1
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    if isinstance(tree, list):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]
