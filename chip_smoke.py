@@ -17,7 +17,17 @@
    run through the plain versions; then a device-resident predict is timed
    and one predict and one request are traced with torch.profiler (device
    busy time and the kernels that take it);
-5. drives the training path: a flagship Trainer (batch 12, dropout 0.5,
+5. checks the int8 kernels (W8A8 GEMM, the row quantisers, the f32
+   encoder attention, the whole int8 block, the int8 last_only layer and the
+   int8 K/V decoder attention) against their plain versions at the flagship
+   shapes, and drives int8 serving: a Scorer over the flagship Detector with
+   op_mode compute_int8 answers the same four requests, launch counters
+   zeroed before and read after; one batch's logits are held against its
+   plain route and compared with the bf16 Detector on the same parameters;
+   a device-resident predict is timed and traced; then a compute_int8 +
+   kv_dtype "int8_rows" Detector runs one device-resident predict, counted,
+   held against its plain route, timed and traced;
+6. drives the training path: a flagship Trainer (batch 12, dropout 0.5,
    SGD + OneCycle) takes four steps on seeded synthetic uint8 batches, with
    every launch counter zeroed just before and read just after; one step's
    loss and decoder gradients are held against the same step through the
@@ -25,7 +35,7 @@
    all kernels (same parameters, batch and dropout seed); then a
    device-resident train step is timed, its peak memory read, and one step
    traced with torch.profiler;
-6. prints the kernel table as one JSON line, the card line, and last
+7. prints the kernel table as one JSON line, the card line, and last
    {"ok": true, "device": {...}}.
 
 Any failed phase raises and the script exits nonzero without the last line.
@@ -37,6 +47,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import json
 import subprocess
 import sys
@@ -48,10 +59,17 @@ from pathlib import Path
 CLIPS, TRAIN_CLIPS, FRAMES, KEEP = 16, 12, 20, (6, 7, 8, 9, 10, 11)
 TRAIN_STEPS = 4
 PEAK_BF16_TC = 989e12     # H100 SXM dense bf16 tensor-core FLOP/s (data sheet)
+PEAK_INT8_TC = 1979e12    # H100 SXM dense int8 tensor-core OP/s (data sheet)
 PEAK_F32 = 67e12          # H100 SXM f32 outside the tensor cores
 HBM = 3.35e12             # H100 SXM device-memory bytes/s
 TOL_ENCODER, TOL_DECODER, TOL_PFAKE = 2e-2, 1e-2, 1e-2
 TOL_TRAIN_GRAD = 1e-1     # whole plain route, per-leaf relative L2 (see train_path)
+# int8 quantisers: values may differ by 1 on this share of the elements
+# (quant_rows: the same f32 operations; layer_norm_quant: LN sums in another
+# order), scales within TOL_SCALE relative
+TOL_FLIPS_QUANT, TOL_FLIPS_LN, TOL_SCALE = 1e-5, 1e-4, 1e-6
+TOL_COSINE = 0.99         # int8 vs bf16 logits on the same parameters
+PATHS = ("serve", "train", "int8_serve", "int8_rows")
 
 
 def card_line() -> str:
@@ -79,6 +97,20 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 def bound_ms(flops: float, nbytes: float, peak: float):
     t_ops, t_bytes = flops / peak, nbytes / HBM
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def kernel_row(rows: list, name, replaces, source, ms, plain, lib, flops, nbytes, peak, err,
+               counter=None, paths=("serve", "train"), bound=None):
+    """One kernel's line; its launches are read later from ``counter``
+    (default: the name) in the runs of ``paths``. ``bound`` (ms, by)
+    overrides the bound of ``flops`` at ``peak`` and ``nbytes``."""
+    b, by = bound or bound_ms(flops, nbytes, peak)
+    rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                 "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                 "bound_ms": b, "bound_by": by, "library_ms": lib,
+                 "counter": counter or name, "paths": paths})
+    print(f"  {name}: {ms:.4f} ms (plain {plain:.4f}, library "
+          f"{'n/a' if lib is None else f'{lib:.4f}'}, bound {b:.4f} by {by})", flush=True)
 
 
 def compare(name: str, got, want, tol: float) -> float:
@@ -115,6 +147,7 @@ def plain_versions(encoder: bool = True):
     swaps = [
         (clip_vit, "fused_encoder_attn_block", encoder_block.fused_encoder_attn_block_plain),
         (clip_vit, "fused_encoder_mlp_block", encoder_block.fused_encoder_mlp_block_plain),
+        (clip_vit, "fused_encoder_block", encoder_block.fused_encoder_block_plain),
     ] if encoder else []
     swaps += [
         (decoder, "fused_decoder_attention",
@@ -152,27 +185,9 @@ def check_kernels(rows: list) -> None:
     m_rows, t_out, nsel, bf = n * t, 200, len(KEEP), torch.bfloat16
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(1)
-    blk = clip_vit.init_clip_vision(gen, dataclasses.replace(cfg, layers=1))["blocks"][0]
-    for ln in (blk["ln_1"], blk["ln_2"]):
-        ln["scale"].add_(0.1 * torch.randn(w, generator=gen))
-        ln["bias"].add_(0.1 * torch.randn(w, generator=gen))
-    for lin in (blk["attn"]["in_proj"], blk["attn"]["out_proj"], blk["mlp"]["c_fc"],
-                blk["mlp"]["c_proj"]):
-        lin["b"].add_(0.02 * torch.randn(lin["b"].shape, generator=gen))
-    blk = to_device(blk, dev)
+    blk = random_block(gen, dev)
     h = torch.randn(n, t, w, generator=gen).to(dev, bf)
-
-    def row(name, replaces, source, ms, plain, lib, flops, nbytes, peak, err,
-            counter=None, paths=("serve", "train")):
-        """One kernel's line; its launches are read later from ``counter``
-        (default: the name) in the runs of ``paths``."""
-        b, by = bound_ms(flops, nbytes, peak)
-        rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                     "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain,
-                     "bound_ms": b, "bound_by": by, "library_ms": lib,
-                     "counter": counter or name, "paths": paths})
-        print(f"  {name}: {ms:.4f} ms (plain {plain:.4f}, library "
-              f"{'n/a' if lib is None else f'{lib:.4f}'}, bound {b:.4f} by {by})", flush=True)
+    row = functools.partial(kernel_row, rows)
 
     # -- layer_norm_rows ------------------------------------------------------
     h2 = h.reshape(m_rows, w)
@@ -184,7 +199,7 @@ def check_kernels(rows: list) -> None:
         time_ms(lambda: _cuda.layer_norm_rows(h2, ln1["scale"], ln1["bias"])),
         time_ms(lambda: layers.layer_norm(ln1, h2)),
         time_ms(lambda: F.layer_norm(h2, (w,), ln1["scale"].to(bf), ln1["bias"].to(bf))),
-        8.0 * m_rows * w, 4.0 * m_rows * w + 8.0 * w, PEAK_F32, err)
+        8.0 * m_rows * w, 4.0 * m_rows * w + 8.0 * w, PEAK_F32, err, paths=PATHS)
 
     # -- gemm (the qkv projection shape) -----------------------------------------
     y = layers.layer_norm(ln1, h2)
@@ -197,7 +212,7 @@ def check_kernels(rows: list) -> None:
         time_ms(lambda: layers.linear_f32_bias(y, wq, bq)),
         time_ms(lambda: torch.addmm(bq16, y, wq)),
         2.0 * m_rows * w * 3 * w, 2.0 * (m_rows * w + 3 * w * w + m_rows * 3 * w) + 12.0 * w,
-        PEAK_BF16_TC, err)
+        PEAK_BF16_TC, err, paths=PATHS)
 
     # -- encoder_attention --------------------------------------------------------
     qkv = got
@@ -313,9 +328,9 @@ def check_kernels(rows: list) -> None:
         time_ms(lambda: fda.fused_decoder_attention_plain(qs, qc, kall, vall, mask, pos,
                                                           layer=3)),
         None, 16.0 * valid * w, 4.0 * valid * w + 2.0 * l * w + b * l + 6.0 * b * w,
-        PEAK_F32, err, paths=("serve",))
+        PEAK_F32, err, paths=("serve", "int8_serve"))
     del kall, vall
-    check_train_attention(rows, row, gen, dev)
+    check_train_attention(row, gen, dev)
 
     # -- decoder_boundary (first, middle and last forms) ---------------------------
     dgen = torch.Generator().manual_seed(2)
@@ -343,10 +358,10 @@ def check_kernels(rows: list) -> None:
         time_ms(lambda: ds.decoder_boundary(x, o, tail, query), iters=100),
         time_ms(lambda: ds.decoder_boundary_plain(x, o, tail, query), iters=100),
         None, 2.0 * b * 11 * w * w, 22.0 * w * w + 4.0 * 12 * w + 2.0 * 6 * b * w,
-        PEAK_BF16_TC, err)
+        PEAK_BF16_TC, err, paths=PATHS)
 
 
-def check_train_attention(rows: list, row, gen, dev) -> None:
+def check_train_attention(row, gen, dev) -> None:
     """The training forward (partials) and the backward of the decoder
     attention at the flagship train shapes: slot 3 of a (6, 12, 4000, 12,
     64) bf16 stack with pos, one sample partly and one fully masked."""
@@ -410,13 +425,281 @@ def check_train_attention(rows: list, row, gen, dev) -> None:
 
 
 def to_device(tree, dev):
-    """Params to the card: matrix weights ("w") in bf16, the rest f32."""
+    """Params to the card: matrix weights ("w") in bf16, int8 weights as
+    they are, the rest f32."""
     import torch
 
     if isinstance(tree, dict):
         return {k: (v.to(dev, torch.bfloat16) if k == "w" else to_device(v, dev))
                 for k, v in tree.items()}
-    return tree.to(dev, torch.float32)
+    return tree.to(dev) if tree.dtype == torch.int8 else tree.to(dev, torch.float32)
+
+
+def random_block(gen, dev, int8: bool = False):
+    """One flagship encoder block's seeded random params on the card, with
+    LayerNorms and biases moved off their init values; with ``int8`` also
+    the pre-quantised weights (clip_vit.prepare_int8_params, from f32)."""
+    import torch
+
+    from dfd_clip_tpu_torch.models import clip_vit
+
+    cfg = clip_vit.VIT_B16
+    w = cfg.width
+    params = clip_vit.init_clip_vision(gen, dataclasses.replace(cfg, layers=1))
+    blk = params["blocks"][0]
+    for ln in (blk["ln_1"], blk["ln_2"]):
+        ln["scale"].add_(0.1 * torch.randn(w, generator=gen))
+        ln["bias"].add_(0.1 * torch.randn(w, generator=gen))
+    for lin in (blk["attn"]["in_proj"], blk["attn"]["out_proj"], blk["mlp"]["c_fc"],
+                blk["mlp"]["c_proj"]):
+        lin["b"].add_(0.02 * torch.randn(lin["b"].shape, generator=gen))
+    if int8:
+        blk = clip_vit.prepare_int8_params(params)["blocks"][0]
+    return to_device(blk, dev)
+
+
+def compare_int8(name: str, q, s, q_p, s_p, share: float, step: float = 1 / 127) -> float:
+    """int8 values and their (R,) scales against the plain version's: values
+    within 1 on at most ``share`` of the elements, scales within TOL_SCALE
+    relative. Returns the max abs error of the dequantised values q * s *
+    step (step 1/127 for _quant_rows' absmax scales, 1 for the K/V form's)."""
+    import torch
+
+    s_p = s_p.reshape(-1)
+    diff = (q.to(torch.int32) - q_p.to(torch.int32)).abs()
+    flips = (diff > 0).float().mean().item()
+    srel = ((s - s_p).abs() / s_p.abs().clamp_min(1e-30)).max().item()
+    err = step * (q.float() * s[:, None] - q_p.float() * s_p[:, None]).abs().max().item()
+    print(f"  {name}: int8 max |diff| {diff.max().item()}, share differing {flips:.3e} "
+          f"(tol {share:g}), scale rel {srel:.3e} (tol {TOL_SCALE:g}), dequant max_abs_err "
+          f"{err:.3e}", flush=True)
+    if diff.max().item() > 1 or flips > share or srel > TOL_SCALE:
+        raise SystemExit(f"FAIL {name}: int8 values or scales disagree with the plain version")
+    return err
+
+
+def check_int8_kernels(rows: list) -> None:
+    """The int8 serving kernels vs their plain versions at the flagship
+    shapes (320 frames x 197 tokens = 63040 rows, width 768, hidden 3072)."""
+    import torch
+    import torch.nn.functional as F
+
+    from dfd_clip_tpu_torch.models import clip_vit
+    from dfd_clip_tpu_torch.models.decoder import token_mask
+    from dfd_clip_tpu_torch.ops import _cuda, int8
+    from dfd_clip_tpu_torch.ops import encoder_block as eb
+    from dfd_clip_tpu_torch.ops import fused_decoder_attention as fda
+    from dfd_clip_tpu_torch.ops.attention import plain_attention_qkv
+
+    cfg = clip_vit.VIT_B16
+    n, t, w, hh, d = CLIPS * FRAMES, cfg.num_tokens, cfg.width, cfg.heads, cfg.head_dim
+    m_rows, t_out, nsel, bf = n * t, 200, len(KEEP), torch.bfloat16
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(3)
+    blk = random_block(gen, dev, int8=True)
+    h = torch.randn(n, t, w, generator=gen).to(dev, bf)
+    h2 = h.reshape(m_rows, w)
+    ln1, attn, mlp = blk["ln_1"], blk["attn"], blk["mlp"]
+    row = functools.partial(kernel_row, rows, paths=("int8_serve", "int8_rows"))
+
+    # -- layer_norm_quant (LN1 on the bf16 residual stream) ----------------------
+    yq, ys = _cuda.layer_norm_quant(h2, ln1["scale"], ln1["bias"])
+    err = compare_int8("layer_norm_quant", yq, ys,
+                       *int8.quant_rows_plain(int8.layer_norm_f32(ln1, h2)), TOL_FLIPS_LN)
+    row("layer_norm_quant", "dfd_clip_tpu/ops/pallas_attention.py:1008",
+        "dfd_clip_tpu_torch/csrc/quant_rows.cu",
+        time_ms(lambda: _cuda.layer_norm_quant(h2, ln1["scale"], ln1["bias"])),
+        time_ms(lambda: int8.quant_rows_plain(int8.layer_norm_f32(ln1, h2))),
+        None, 12.0 * m_rows * w, 3.0 * m_rows * w + 4.0 * m_rows + 8.0 * w, PEAK_F32, err)
+
+    # -- gemm_s8 at the qkv shape (768 -> 2304, bf16 out) -------------------------
+    wq, ws, bq = attn["in_proj"]["wq"], attn["in_proj"]["ws"], attn["in_proj"]["b"]
+    xf = _cuda.gemm_s8(yq, ys, wq, ws, bq)
+    err = compare("gemm_s8 qkv", xf,
+                  (int8.w8a8_dot_plain(yq, ys[:, None], wq, ws) + bq).to(bf), TOL_ENCODER)
+    n3 = 3 * w
+    row("gemm_s8", "dfd_clip_tpu/ops/pallas_attention.py:173",
+        "dfd_clip_tpu_torch/csrc/gemm_s8.cu",
+        time_ms(lambda: _cuda.gemm_s8(yq, ys, wq, ws, bq)),
+        time_ms(lambda: (int8.w8a8_dot_plain(yq, ys[:, None], wq, ws) + bq).to(bf)),
+        time_ms(lambda: torch._int_mm(yq, wq.t())),
+        2.0 * m_rows * n3 * w, m_rows * w + n3 * w + 4.0 * m_rows + 8.0 * n3 + 2.0 * m_rows * n3,
+        PEAK_INT8_TC, err)
+
+    # -- quant_rows, the K/V export form (bf16 K columns, CLS dropped, 4 pad rows)
+    kq = torch.full((nsel, n, t_out, w), 7, dtype=torch.int8, device=dev)
+    k_s = torch.full((n, t_out), 7.0, device=dev)
+    _cuda.quant_rows(xf[:, w: 2 * w], kv=True, export=(kq[2], k_s, t, t_out, 1))
+    q_p, s_p = int8.quant_kv_rows_plain(xf[:, w: 2 * w].reshape(n, t, w)[:, 1:])
+    compare_int8("quant_rows kv export", kq[2, :, : t - 1].reshape(-1, w),
+                 k_s[:, : t - 1].reshape(-1), q_p.reshape(-1, w), s_p, TOL_FLIPS_QUANT, step=1.0)
+    if kq[2, :, t - 1:].abs().max().item() != 0 or k_s[:, t - 1:].abs().max().item() != 0 \
+            or (kq[1] != 7).any().item():
+        raise SystemExit("FAIL quant_rows kv export: pad rows or other slots wrong")
+    del kq, k_s, q_p, s_p
+
+    # -- encoder_attention with the f32 output -----------------------------------
+    att = eb.encoder_attention(xf, n, t, hh, d, out_dtype=torch.float32)
+    err = compare("encoder_attention f32", att,
+                  plain_attention_qkv(xf.reshape(n, t, n3), hh, d,
+                                      out_dtype=torch.float32).reshape(m_rows, w), TOL_ENCODER)
+    q4, k4, v4 = (s.reshape(n, t, hh, d).transpose(1, 2) for s in xf.split(w, dim=-1))
+    row("encoder_attention f32", "dfd_clip_tpu/ops/pallas_attention.py:1022",
+        "dfd_clip_tpu_torch/csrc/encoder_attention.cu",
+        time_ms(lambda: eb.encoder_attention(xf, n, t, hh, d, out_dtype=torch.float32)),
+        time_ms(lambda: plain_attention_qkv(xf.reshape(n, t, n3), hh, d,
+                                            out_dtype=torch.float32)),
+        time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4)),
+        4.0 * n * hh * t * t * d, 2.0 * m_rows * n3 + 4.0 * m_rows * w, PEAK_BF16_TC, err,
+        counter="encoder_attention")
+    del att, q4, k4, v4, xf, yq, ys
+
+    # -- quant_rows (the f32 MLP intermediate, 3072 wide) and gemm_s8 at c_proj -----
+    mid = torch.randn(m_rows, 4 * w, generator=gen).to(dev)
+    mq, ms = _cuda.quant_rows(mid)
+    err = compare_int8("quant_rows", mq, ms, *int8.quant_rows_plain(mid), TOL_FLIPS_QUANT)
+    row("quant_rows", "dfd_clip_tpu/ops/pallas_attention.py:158",
+        "dfd_clip_tpu_torch/csrc/quant_rows.cu", time_ms(lambda: _cuda.quant_rows(mid)),
+        time_ms(lambda: int8.quant_rows_plain(mid)), None, 4.0 * m_rows * 4 * w,
+        5.0 * m_rows * 4 * w + 4.0 * m_rows, PEAK_F32, err)
+    del mid
+    wp, wps, bp = mlp["c_proj"]["wq"], mlp["c_proj"]["ws"], mlp["c_proj"]["b"]
+    hmid = torch.randn(m_rows, w, generator=gen).to(dev)
+
+    def c_proj_plain():
+        return (hmid + (int8.w8a8_dot_plain(mq, ms[:, None], wp, wps) + bp)).to(bf)
+
+    err = compare("gemm_s8 c_proj", _cuda.gemm_s8(mq, ms, wp, wps, bp, residual=hmid),
+                  c_proj_plain(), TOL_ENCODER)
+    k4w = 4 * w
+    row("gemm_s8 c_proj", "dfd_clip_tpu/ops/pallas_attention.py:1063",
+        "dfd_clip_tpu_torch/csrc/gemm_s8.cu",
+        time_ms(lambda: _cuda.gemm_s8(mq, ms, wp, wps, bp, residual=hmid)),
+        time_ms(c_proj_plain), time_ms(lambda: torch._int_mm(mq, wp.t())),
+        2.0 * m_rows * w * k4w,
+        m_rows * k4w + w * k4w + 4.0 * m_rows + 8.0 * w + 4.0 * m_rows * w + 2.0 * m_rows * w,
+        PEAK_INT8_TC, err, counter="gemm_s8")
+    del mq, ms, hmid
+
+    # -- fused_encoder_block: stacked bf16 export (compute_int8) and int8_rows ------
+    block_ops = 2.0 * m_rows * w * w * 12 / PEAK_INT8_TC + 4.0 * n * hh * t * t * d / PEAK_BF16_TC
+    block_bytes = (4.0 * m_rows * w + 12.0 * w * w + 4.0 * 2 * 9 * w + 16.0 * w
+                   + 4.0 * n * t_out * w)
+    err = 0.0
+    for rows8 in (False, True):
+        kv_dt = torch.int8 if rows8 else bf
+        bufs = [(torch.empty(nsel, n, t_out, w, dtype=kv_dt, device=dev),
+                 torch.empty(nsel, n, t_out, w, dtype=kv_dt, device=dev)) for _ in range(2)]
+        outs = [fn(h, ln1, attn, blk["ln_2"], mlp, hh, d, export=True, drop_cls=True,
+                   export_into=(kb, vb, 2, nsel), kv_rows8=rows8, kv_pad=4)
+                for fn, (kb, vb) in zip((eb.fused_encoder_block, eb.fused_encoder_block_plain),
+                                        bufs)]
+        form = "int8_rows" if rows8 else "bf16 export"
+        err = max(err, compare(f"fused_encoder_block {form} h", outs[0][0], outs[1][0],
+                               TOL_ENCODER))
+        for i, part in ((1, "k"), (2, "v")):
+            got, want = outs[0][i][2], outs[1][i][2]
+            if rows8:
+                got = got.float() * outs[0][i + 2]
+                want = want.float() * outs[1][i + 2]
+            err = max(err, compare(f"fused_encoder_block {form} {part}", got, want, TOL_ENCODER))
+            if outs[0][i][2, :, 196:].abs().max().item() != 0:
+                raise SystemExit(f"FAIL fused_encoder_block {form}: pad rows are not zero")
+        if rows8:
+            for i in (3, 4):
+                if outs[0][i][:, 196:].abs().max().item() != 0:
+                    raise SystemExit("FAIL fused_encoder_block int8_rows: pad scales are not 0")
+            rows8_ms = time_ms(lambda: eb.fused_encoder_block(
+                h, ln1, attn, blk["ln_2"], mlp, hh, d, export=True, drop_cls=True,
+                export_into=(*bufs[0], 2, nsel), kv_rows8=True, kv_pad=4), iters=10)
+            print(f"  fused_encoder_block int8_rows export: {rows8_ms:.4f} ms", flush=True)
+        else:
+            main_bufs = bufs[0]
+            block_plain = time_ms(lambda: eb.fused_encoder_block_plain(
+                h, ln1, attn, blk["ln_2"], mlp, hh, d, export=True, drop_cls=True,
+                export_into=(*bufs[1], 2, nsel), kv_pad=4), iters=3, warmup=1)
+        del outs
+    block_ms = time_ms(lambda: eb.fused_encoder_block(
+        h, ln1, attn, blk["ln_2"], mlp, hh, d, export=True, drop_cls=True,
+        export_into=(*main_bufs, 2, nsel), kv_pad=4), iters=10)
+    row("fused_encoder_block", "dfd_clip_tpu/ops/pallas_attention.py:1212",
+        "dfd_clip_tpu_torch/ops/encoder_block.py", block_ms, block_plain, None, 0, 0, 0, err,
+        bound=(max(block_ops, block_bytes / HBM) * 1e3,
+               "operations" if block_ops >= block_bytes / HBM else "bytes"))
+    del bufs, main_bufs
+
+    # -- the int8 last_only layer: bf16 export (compute_int8) and int8_rows ------------
+    err = 0.0
+    for rows8 in (False, True):
+        kv_dt = torch.int8 if rows8 else bf
+        outs = []
+        for fn in (eb.fused_encoder_attn_block, eb.fused_encoder_attn_block_plain):
+            kb = torch.zeros(nsel, n, t_out, w, dtype=kv_dt, device=dev)
+            outs.append(fn(h, ln1, attn, hh, d, drop_cls=True, last_only=True, int8_gemm=True,
+                           kv_rows8=rows8, export_into=(kb, torch.zeros_like(kb), 5, nsel),
+                           kv_pad=4))
+        form = "int8_rows" if rows8 else "bf16 export"
+        for i, part in ((0, "k"), (1, "v")):
+            got, want = outs[0][i][5], outs[1][i][5]
+            if rows8:
+                got, want = got.float() * outs[0][i + 2], want.float() * outs[1][i + 2]
+            err = max(err, compare(f"int8 last_only {form} {part}", got, want, TOL_ENCODER))
+        if rows8:
+            last_rows8_ms = time_ms(lambda: eb.fused_encoder_attn_block(
+                h, ln1, attn, hh, d, drop_cls=True, last_only=True, int8_gemm=True,
+                kv_rows8=True, export_into=(outs[0][0], outs[0][1], 5, nsel), kv_pad=4))
+            print(f"  int8 last_only int8_rows export: {last_rows8_ms:.4f} ms", flush=True)
+        else:
+            kl = (outs[0][0], outs[0][1])
+            last_plain = time_ms(lambda: eb.fused_encoder_attn_block_plain(
+                h, ln1, attn, hh, d, drop_cls=True, last_only=True, int8_gemm=True,
+                export_into=(*kl, 5, nsel), kv_pad=4), iters=3, warmup=1)
+        del outs
+    row("fused_encoder_attn_block int8 last_only", "dfd_clip_tpu/ops/pallas_attention.py:532",
+        "dfd_clip_tpu_torch/ops/encoder_block.py",
+        time_ms(lambda: eb.fused_encoder_attn_block(
+            h, ln1, attn, hh, d, drop_cls=True, last_only=True, int8_gemm=True,
+            export_into=(*kl, 5, nsel), kv_pad=4)),
+        last_plain, None, 2.0 * m_rows * w * 2 * w,
+        2.0 * m_rows * w + 2.0 * w * w + 4.0 * 2 * 2 * w + 8.0 * w + 4.0 * n * t_out * w,
+        PEAK_INT8_TC, err, counter="fused_encoder_attn_block")
+    del kl, h, h2
+
+    # -- fused_decoder_attention on int8 K/V (slot 3 of a (6, 16, 4000, 12, 64) stack)
+    b, p = CLIPS, t_out
+    l = FRAMES * p
+    kv_shape = (nsel, b, l, hh, d)
+    stacks = []
+    for scale in (0.5, 1.0):
+        x = (scale * torch.randn(kv_shape, generator=gen)).to(dev, bf)
+        x.view(nsel, b, FRAMES, p, hh, d)[:, :, :, 196:] = 0
+        q, s = int8.quant_kv_rows_plain(x.reshape(nsel, b, l, w))
+        s.view(nsel, b, FRAMES, p)[:, :, :, 196:] = 0
+        stacks.append((q.reshape(kv_shape), s))
+        del x
+    (kall, ks), (vall, vs) = stacks
+    pos = (0.04 * torch.randn(l, hh, d, generator=gen)).to(dev, bf)
+    qrow = torch.randn(b, 2 * w, generator=gen).to(dev, bf)
+    qs, qc = qrow[:, :w].reshape(b, 1, hh, d), qrow[:, w:].reshape(b, 1, hh, d)
+    frames_ok = torch.ones(b, FRAMES, dtype=torch.bool, device=dev)
+    frames_ok[b - 2, FRAMES // 2:] = False
+    frames_ok[b - 1] = False
+    mask = token_mask(frames_ok, p, 196)
+    args = (qs, qc, kall, vall, mask, pos, 3)
+    scales = dict(k_scale=ks, v_scale=vs)
+    got = fda.fused_decoder_attention(*args, **scales)
+    err = compare("fused_decoder_attention int8", got,
+                  fda.fused_decoder_attention_plain(*args, **scales), TOL_DECODER)
+    if got[b - 1].abs().max().item() != 0:
+        raise SystemExit("FAIL fused_decoder_attention int8: a fully masked sample is not 0")
+    valid = mask.sum().item()
+    row("fused_decoder_attention int8", "dfd_clip_tpu/ops/pallas_decoder_attention.py:633",
+        "dfd_clip_tpu_torch/csrc/decoder_attention.cu",
+        time_ms(lambda: fda.fused_decoder_attention(*args, **scales)),
+        time_ms(lambda: fda.fused_decoder_attention_plain(*args, **scales)),
+        None, 16.0 * valid * w,
+        2.0 * valid * w + 8.0 * valid + 2.0 * l * w + b * l + 6.0 * b * w,
+        PEAK_F32, err, counter="fused_decoder_attention_int8", paths=("int8_rows",))
 
 
 def flagship_detector(**extra):
@@ -432,32 +715,46 @@ def flagship_detector(**extra):
     return Detector(cfg, num_frames=FRAMES, compute_dtype=torch.bfloat16, device="cuda")
 
 
-def check_counts(path: str, counts: dict, expected: dict, runs: int) -> None:
+def check_counts(path: str, counts: dict, expected: dict, runs: int,
+                 used=("gemm", "layer_norm_rows", "encoder_attention")) -> None:
     print("  kernels " + json.dumps(counts), flush=True)
     for name, per_run in expected.items():
         if counts.get(name, 0) != per_run * runs:
             raise SystemExit(f"FAIL {path} path: {name} launched {counts.get(name, 0)} times, "
                              f"expected {per_run * runs}")
-    for name in ("gemm", "layer_norm_rows", "encoder_attention"):
+    for name in used:
         if counts.get(name, 0) <= 0:
             raise SystemExit(f"FAIL {path} path: {name} never launched")
 
 
-def serve_path(card: str) -> dict:
-    """A Scorer over the flagship Detector answers four requests. Returns
-    the launch counts of those requests."""
+def make_requests():
+    """Four requests of 40-80 synthetic decoded 224x224 frames (seeded)."""
     import numpy as np
+
+    rng = np.random.default_rng(0)
+    base = rng.integers(0, 256, (1, 224, 224, 3), np.uint8)
+    return [np.clip(base.astype(np.int16) + rng.integers(-40, 41, (nf, 224, 224, 3)),
+                    0, 255).astype(np.uint8) for nf in (40, 60, 80, 80)]
+
+
+def last_batch(requests):
+    """One batch from the last request: 4 clips padded to CLIPS, the last
+    clip's second half masked."""
+    import numpy as np
+
+    clips = requests[-1].transpose(0, 3, 1, 2).reshape(4, FRAMES, 3, 224, 224)
+    x = np.concatenate([clips, np.repeat(clips[-1:], CLIPS - 4, 0)])
+    m = np.ones((CLIPS, FRAMES), bool)
+    m[-1, FRAMES // 2:] = False
+    return x, m
+
+
+def answer(scorer, requests, card: str, label: str) -> dict:
+    """The Scorer answers the requests with every launch counter zeroed
+    just before and read just after. Returns the counts."""
     import torch
 
     from dfd_clip_tpu_torch.ops import _cuda
-    from dfd_clip_tpu_torch.serve import Scorer
-
-    det = flagship_detector()
-    scorer = Scorer(det, det.init_params(torch.Generator().manual_seed(0)), batch_size=CLIPS)
-    rng = np.random.default_rng(0)
-    base = rng.integers(0, 256, (1, 224, 224, 3), np.uint8)
-    requests = [np.clip(base.astype(np.int16) + rng.integers(-40, 41, (nf, 224, 224, 3)),
-                        0, 255).astype(np.uint8) for nf in (40, 60, 80, 80)]
 
     torch.cuda.reset_peak_memory_stats()
     _cuda.reset_launches()
@@ -474,29 +771,48 @@ def serve_path(card: str) -> dict:
         print(f"  request {i}: {len(frames)} frames -> {len(frames) // FRAMES} clips, "
               f"P(fake) {s:.6f}, {dt * 1e3:.2f} ms", flush=True)
         if not 0.0 <= s <= 1.0:
-            raise SystemExit(f"FAIL request {i}: P(fake) {s} outside [0, 1]")
+            raise SystemExit(f"FAIL {label} request {i}: P(fake) {s} outside [0, 1]")
     steady = times[1:]
     print(f"  predict batch {CLIPS} clips x {FRAMES} frames: "
           f"{CLIPS * len(steady) / sum(steady):.2f} clips/s (padded batch clips), "
           f"{sum(len(f) // FRAMES for f in requests[1:]) / sum(steady):.2f} real clips/s, "
           f"peak memory {peak_gb:.3f} GB, on {card}", flush=True)
+    return counts
+
+
+def hold_against_plain(label: str, predict, x, m):
+    """One batch's logits through the kernels vs the plain versions:
+    within TOL_ENCODER of the max and |dP(fake)| <= TOL_PFAKE. Returns the
+    kernels' logits."""
+    got = predict(x, m)
+    with plain_versions():
+        want = predict(x, m)
+    compare(f"{label} logits", got, want, TOL_ENCODER)
+    dp = (got.float().softmax(-1)[:, 1] - want.float().softmax(-1)[:, 1]).abs().max().item()
+    print(f"  {label} |dP(fake)| max {dp:.3e} (tol {TOL_PFAKE:g})", flush=True)
+    if dp > TOL_PFAKE:
+        raise SystemExit(f"FAIL {label}: |dP(fake)| {dp:.3e} > {TOL_PFAKE:g}")
+    return got
+
+
+def serve_path(card: str) -> dict:
+    """A Scorer over the flagship Detector answers four requests. Returns
+    the launch counts of those requests."""
+    import torch
+
+    from dfd_clip_tpu_torch.serve import Scorer
+
+    det = flagship_detector()
+    scorer = Scorer(det, det.init_params(torch.Generator().manual_seed(0)), batch_size=CLIPS)
+    requests = make_requests()
+    counts = answer(scorer, requests, card, "serve")
     check_counts("serve", counts, {"fused_encoder_attn_block": 12, "fused_encoder_mlp_block": 11,
                                    "fused_decoder_attention": 6, "decoder_boundary": 7},
                  len(requests))
 
     # one batch's logits: kernels vs the same Detector through the plain versions
-    clips = requests[-1].transpose(0, 3, 1, 2).reshape(4, FRAMES, 3, 224, 224)
-    x = np.concatenate([clips, np.repeat(clips[-1:], CLIPS - 4, 0)])
-    m = np.ones((CLIPS, FRAMES), bool)
-    m[-1, FRAMES // 2:] = False
-    got = scorer.predict(scorer.params, x, m)
-    with plain_versions():
-        want = scorer.predict(scorer.params, x, m)
-    compare("predict logits", got, want, TOL_ENCODER)
-    dp = (got.float().softmax(-1)[:, 1] - want.float().softmax(-1)[:, 1]).abs().max().item()
-    print(f"  predict |dP(fake)| max {dp:.3e} (tol {TOL_PFAKE:g})", flush=True)
-    if dp > TOL_PFAKE:
-        raise SystemExit(f"FAIL predict: |dP(fake)| {dp:.3e} > {TOL_PFAKE:g}")
+    x, m = last_batch(requests)
+    hold_against_plain("predict", lambda x_, m_: scorer.predict(scorer.params, x_, m_), x, m)
 
     xd, md = torch.as_tensor(x, device="cuda"), torch.as_tensor(m, device="cuda")
     ms = time_ms(lambda: scorer.predict(scorer.params, xd, md), iters=5, warmup=1)
@@ -505,6 +821,76 @@ def serve_path(card: str) -> dict:
     profile_device("predict", lambda: scorer.predict(scorer.params, xd, md))
     profile_device("request", lambda: scorer.score_frames(requests[-1]))
     return counts
+
+
+def int8_serve_path(card: str):
+    """A Scorer over the flagship compute_int8 Detector answers the four
+    requests; then one compute_int8 + int8_rows predict. Returns the launch
+    counts of the requests and of that predict."""
+    import torch
+    import torch.nn.functional as F
+
+    from dfd_clip_tpu_torch.ops import _cuda
+    from dfd_clip_tpu_torch.serve import Scorer
+
+    int8_mode = {"temporal_position": 1, "compute_int8": 1}
+    det = flagship_detector(op_mode=int8_mode)
+    raw = det.init_params(torch.Generator().manual_seed(0))
+    scorer = Scorer(det, raw, batch_size=CLIPS)
+    requests = make_requests()
+    counts = answer(scorer, requests, card, "int8 serve")
+    check_counts("int8 serve", counts,
+                 {"fused_encoder_block": 11, "fused_encoder_attn_block": 1,
+                  "fused_encoder_mlp_block": 0, "fused_decoder_attention": 6,
+                  "fused_decoder_attention_int8": 0, "decoder_boundary": 7},
+                 len(requests), used=("gemm_s8", "quant_rows", "layer_norm_quant",
+                                      "encoder_attention", "gemm", "layer_norm_rows"))
+
+    x, m = last_batch(requests)
+    got = hold_against_plain("int8 predict",
+                             lambda x_, m_: scorer.predict(scorer.params, x_, m_), x, m)
+    bf16 = flagship_detector()
+    bf16_params = bf16.prepare_params(raw)
+    ref = bf16.predict(bf16_params, x, m)[0][0].float()
+    del bf16_params
+    cos = F.cosine_similarity(got.float().flatten(), ref.flatten(), dim=0).item()
+    per_clip = F.cosine_similarity(got.float(), ref, dim=-1).min().item()
+    print(f"  int8 vs bf16 logits, same params: cosine {cos:.6f} (tol {TOL_COSINE:g}), "
+          f"lowest per clip {per_clip:.6f}", flush=True)
+    if not cos >= TOL_COSINE:
+        raise SystemExit(f"FAIL int8 predict: cosine to bf16 {cos:.6f} < {TOL_COSINE:g}")
+
+    xd, md = torch.as_tensor(x, device="cuda"), torch.as_tensor(m, device="cuda")
+    ms = time_ms(lambda: scorer.predict(scorer.params, xd, md), iters=5, warmup=1)
+    print(f"  device-resident int8 predict: {ms:.2f} ms per {CLIPS}-clip batch "
+          f"({CLIPS * 1e3 / ms:.2f} clips/s) on {card}", flush=True)
+    profile_device("int8 predict", lambda: scorer.predict(scorer.params, xd, md))
+    del scorer
+
+    print("[int8_rows predict] compute_int8 + kv_dtype int8_rows, device-resident batch",
+          flush=True)
+    rdet = flagship_detector(op_mode={**int8_mode, "kv_dtype": "int8_rows"})
+    rparams = rdet.prepare_params(raw)
+
+    def predict(x_, m_):
+        return rdet.predict(rparams, x_, m_)[0][0]
+
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    predict(xd, md)
+    torch.cuda.synchronize()
+    rows_counts = _cuda.launches()
+    check_counts("int8_rows", rows_counts,
+                 {"fused_encoder_block": 11, "fused_encoder_attn_block": 1,
+                  "fused_decoder_attention": 0, "fused_decoder_attention_int8": 6,
+                  "decoder_boundary": 7}, 1,
+                 used=("gemm_s8", "quant_rows", "layer_norm_quant", "encoder_attention"))
+    hold_against_plain("int8_rows predict", predict, xd, md)
+    ms = time_ms(lambda: predict(xd, md), iters=5, warmup=1)
+    print(f"  device-resident int8_rows predict: {ms:.2f} ms per {CLIPS}-clip batch "
+          f"({CLIPS * 1e3 / ms:.2f} clips/s) on {card}", flush=True)
+    profile_device("int8_rows predict", lambda: predict(xd, md))
+    return counts, rows_counts
 
 
 def train_path(card: str) -> dict:
@@ -680,9 +1066,14 @@ def main() -> int:
     rows: list = []
     print("[kernels] flagship shapes, bf16", flush=True)
     check_kernels(rows)
+    print("[kernels int8] flagship shapes, W8A8 and int8_rows K/V", flush=True)
+    check_int8_kernels(rows)
     counts = {}
     print("[serve path] Scorer over ViT-B/16, 20 frames, keep 6-11, bf16, batch 16", flush=True)
     counts["serve"] = serve_path(card)
+    print("[int8 serve path] Scorer over ViT-B/16, 20 frames, keep 6-11, compute_int8, "
+          "batch 16", flush=True)
+    counts["int8_serve"], counts["int8_rows"] = int8_serve_path(card)
     print(f"[train path] Trainer over ViT-B/16, 20 frames, keep 6-11, bf16, batch "
           f"{TRAIN_CLIPS}, dropout 0.5, SGD + OneCycle, {TRAIN_STEPS} steps", flush=True)
     counts["train"] = train_path(card)

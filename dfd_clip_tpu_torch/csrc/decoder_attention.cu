@@ -1,18 +1,23 @@
 // Single-query dual-activation (softmax + CoDA) decoder attention.
 //
 // Replaces: dfd_clip_tpu/ops/pallas_decoder_attention.py
-// fused_decoder_attention (_kernel, forward, with and without `partials`; no
-// int8 K/V scales): one query per (sample, head) over L = frames x patches
+// fused_decoder_attention (_kernel, forward, with and without `partials`; the
+// normalised forward also on int8_rows K/V with per-row scales, the `deq`
+// stage): one query per (sample, head) over L = frames x patches
 // tokens of slot `layer` of the stacked encoder export, with the shared
 // temporal positional embedding added to K and V, the token mask, an exact
 // online softmax, and CoDA's tanh(q_c . k) * 2 sigmoid(-|q_c - k|_1 * scale).
 // The `partials` form (the training forward) writes the softmax state
 // instead of the normalised output: the un-normalised numerator and the CoDA
 // output (B, 2, H*D) f32, and the denominator and running maximum (B, 2, H)
-// f32, both relative to the merged maximum.
+// f32, both relative to the merged maximum. With int8 K/V (kv_dtype
+// "int8_rows") each token's K row is int8 * k_scale and its V row int8 *
+// v_scale, in f32, before the embedding is added to both; the TPU kernel
+// rounds the dequantised K and the scale to bf16 instead (ROADMAP queue 3).
 //
 // Bound on an H100: bytes. At the flagship shape (16 samples, 12 heads, 4000
-// tokens, head_dim 64) a call reads ~197 MB of K/V for ~0.2 GFLOP.
+// tokens, head_dim 64) a call reads ~197 MB of K/V for ~0.2 GFLOP, half that
+// with int8 K/V.
 //
 // Design: one block per (sample, head), 8 warps. A warp takes 4 neighbouring
 // tokens per step (4 independent K and V row loads in flight); a lane owns 2
@@ -24,7 +29,8 @@
 // out-of-range tokens contribute 0; the running maximum starts at the finite
 // -1e30 of the TPU kernel and the denominator is floored at 1e-30, so a fully
 // masked sample returns 0, not NaN (partials: numerator 0, denominator 0 and
-// maximum -1e30).
+// maximum -1e30). The int8 form reads 2 bytes of K and of V a lane and the
+// token's two scales from the slot's (B, L) scale planes, also in place.
 #include "common.cuh"
 
 namespace {
@@ -34,10 +40,24 @@ constexpr int WARPS = 8;
 constexpr int UNROLL = 4;
 constexpr float NEG_BIG = -1e30f;
 
-template <bool PARTIALS>
+// Two neighbouring values of a K or V row as f32: bf16, or int8 times the
+// token's scale.
+__device__ __forceinline__ float2 load2(const bf16* p, const float*, size_t) {
+  const __nv_bfloat162 x = *reinterpret_cast<const __nv_bfloat162*>(p);
+  return make_float2(__low2float(x), __high2float(x));
+}
+
+__device__ __forceinline__ float2 load2(const int8_t* p, const float* scale, size_t tok) {
+  const char2 x = *reinterpret_cast<const char2*>(p);
+  const float s = scale[tok];
+  return make_float2(__fmul_rn(static_cast<float>(x.x), s), __fmul_rn(static_cast<float>(x.y), s));
+}
+
+template <bool PARTIALS, typename KV>
 __global__ void __launch_bounds__(WARPS * 32)
 decoder_attention_kernel(const bf16* __restrict__ qs, const bf16* __restrict__ qc, long long q_stride,
-                         const bf16* __restrict__ k, const bf16* __restrict__ v,
+                         const KV* __restrict__ k, const KV* __restrict__ v,
+                         const float* __restrict__ k_scale, const float* __restrict__ v_scale,
                          const unsigned char* __restrict__ mask, const bf16* __restrict__ pos,
                          bf16* __restrict__ out, float* __restrict__ o_sc, float* __restrict__ st,
                          int L, int heads, float scale) {
@@ -56,8 +76,9 @@ decoder_attention_kernel(const bf16* __restrict__ qs, const bf16* __restrict__ q
   const float qs0 = __low2float(qs2), qs1 = __high2float(qs2);
   const float qc0 = __low2float(qc2), qc1 = __high2float(qc2);
 
-  const bf16* kb = k + (size_t)b * L * tok_stride + h * D + d0;
-  const bf16* vb = v + (size_t)b * L * tok_stride + h * D + d0;
+  const KV* kb = k + (size_t)b * L * tok_stride + h * D + d0;
+  const KV* vb = v + (size_t)b * L * tok_stride + h * D + d0;
+  const size_t sb = (size_t)b * L;   // the sample's row of the scale planes
   const unsigned char* mb = mask + (size_t)b * L;
 
   float m = NEG_BIG, den = 0.f, os0 = 0.f, os1 = 0.f, oc0 = 0.f, oc1 = 0.f;
@@ -70,12 +91,12 @@ decoder_attention_kernel(const bf16* __restrict__ qs, const bf16* __restrict__ q
       ok[u] = l < L && mb[l] != 0;
       k0[u] = k1[u] = v0[u] = v1[u] = 0.f;
       if (ok[u]) {
-        const __nv_bfloat162 kk = *reinterpret_cast<const __nv_bfloat162*>(kb + l * tok_stride);
-        const __nv_bfloat162 vv = *reinterpret_cast<const __nv_bfloat162*>(vb + l * tok_stride);
-        k0[u] = __low2float(kk);
-        k1[u] = __high2float(kk);
-        v0[u] = __low2float(vv);
-        v1[u] = __high2float(vv);
+        const float2 kk = load2(kb + l * tok_stride, k_scale, sb + l);
+        const float2 vv = load2(vb + l * tok_stride, v_scale, sb + l);
+        k0[u] = kk.x;
+        k1[u] = kk.y;
+        v0[u] = vv.x;
+        v1[u] = vv.y;
         if (pos != nullptr) {
           const __nv_bfloat162 pp =
               *reinterpret_cast<const __nv_bfloat162*>(pos + l * tok_stride + h * D + d0);
@@ -152,29 +173,41 @@ decoder_attention_kernel(const bf16* __restrict__ qs, const bf16* __restrict__ q
 }  // namespace
 
 // out[B, H, 64] from queries (row stride q_stride elements between samples,
-// heads x 64 contiguous), K/V [B, L, H, 64] (already offset to the slot),
-// mask [B, L] bytes, and pos [L, H, 64] or null. The wrapper checks shapes.
+// heads x 64 contiguous), K/V [B, L, H, 64] (already offset to the slot; int8
+// when k_scale is not null, with k_scale / v_scale [B, L] f32 offset to the
+// same slot, else bf16), mask [B, L] bytes, and pos [L, H, 64] or null. The
+// wrapper checks shapes.
 extern "C" int dfd_decoder_attention(const void* qs, const void* qc, long long q_stride,
-                                     const void* k, const void* v, const void* mask,
-                                     const void* pos, void* out, int batch, int L, int heads,
-                                     float scale, void* stream) {
-  decoder_attention_kernel<false><<<batch * heads, WARPS * 32, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(qs), static_cast<const bf16*>(qc), q_stride,
-      static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const unsigned char*>(mask), static_cast<const bf16*>(pos),
-      static_cast<bf16*>(out), nullptr, nullptr, L, heads, scale);
+                                     const void* k, const void* v, const float* k_scale,
+                                     const float* v_scale, const void* mask, const void* pos,
+                                     void* out, int batch, int L, int heads, float scale,
+                                     void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (k_scale != nullptr)
+    decoder_attention_kernel<false, int8_t><<<batch * heads, WARPS * 32, 0, st>>>(
+        static_cast<const bf16*>(qs), static_cast<const bf16*>(qc), q_stride,
+        static_cast<const int8_t*>(k), static_cast<const int8_t*>(v), k_scale, v_scale,
+        static_cast<const unsigned char*>(mask), static_cast<const bf16*>(pos),
+        static_cast<bf16*>(out), nullptr, nullptr, L, heads, scale);
+  else
+    decoder_attention_kernel<false, bf16><<<batch * heads, WARPS * 32, 0, st>>>(
+        static_cast<const bf16*>(qs), static_cast<const bf16*>(qc), q_stride,
+        static_cast<const bf16*>(k), static_cast<const bf16*>(v), nullptr, nullptr,
+        static_cast<const unsigned char*>(mask), static_cast<const bf16*>(pos),
+        static_cast<bf16*>(out), nullptr, nullptr, L, heads, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The partials form: o_sc [B, 2, H * 64] f32 (numerator, CoDA output) and
-// st [B, 2, H] f32 (denominator, maximum), same inputs.
+// The partials form (bf16 K/V): o_sc [B, 2, H * 64] f32 (numerator, CoDA
+// output) and st [B, 2, H] f32 (denominator, maximum), same inputs.
 extern "C" int dfd_decoder_attention_partials(const void* qs, const void* qc, long long q_stride,
                                               const void* k, const void* v, const void* mask,
                                               const void* pos, void* o_sc, void* st, int batch,
                                               int L, int heads, float scale, void* stream) {
-  decoder_attention_kernel<true><<<batch * heads, WARPS * 32, 0, static_cast<cudaStream_t>(stream)>>>(
+  cudaStream_t cs = static_cast<cudaStream_t>(stream);
+  decoder_attention_kernel<true, bf16><<<batch * heads, WARPS * 32, 0, cs>>>(
       static_cast<const bf16*>(qs), static_cast<const bf16*>(qc), q_stride,
-      static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(k), static_cast<const bf16*>(v), nullptr, nullptr,
       static_cast<const unsigned char*>(mask), static_cast<const bf16*>(pos), nullptr,
       static_cast<float*>(o_sc), static_cast<float*>(st), L, heads, scale);
   return static_cast<int>(cudaGetLastError());

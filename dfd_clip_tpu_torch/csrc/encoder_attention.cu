@@ -19,7 +19,10 @@
 // O = P V with f32 accumulate. Keys past the 197 real rows are zero in
 // shared memory and get probability 0. The TPU kernel's exp clamp at 60 and
 // deferred normalisation are not carried over: they differ from this softmax
-// only where a logit exceeds 60.
+// only where a logit exceeds 60. The output is bf16, or f32 for the int8
+// whole block (_make_full_block_kernel), whose out-projection quantises the
+// f32 attention output `attn32` per row; no block here sees a whole row, so
+// that quantisation is csrc/quant_rows.cu's.
 #include <mma.h>
 
 #include "common.cuh"
@@ -54,7 +57,8 @@ __host__ __device__ inline Geometry geometry(int tokens) {
   return g;
 }
 
-__global__ void encoder_attention_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out,
+template <bool OUT_F32>
+__global__ void encoder_attention_kernel(const bf16* __restrict__ qkv, void* __restrict__ out,
                                          int tokens, int heads, float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
   const Geometry g = geometry(tokens);
@@ -161,13 +165,22 @@ __global__ void encoder_attention_kernel(const bf16* __restrict__ qkv, bf16* __r
 
     const int r = lane / 2, c0 = (lane % 2) * 32;
     if (q0 + r < tokens) {
-      bf16* dst = out + ((size_t)frame * tokens + q0 + r) * width + head * D + c0;
+      const size_t at = ((size_t)frame * tokens + q0 + r) * width + head * D + c0;
+      if (OUT_F32) {
+        float* dst = static_cast<float*>(out) + at;
 #pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        Pack8 p;
+        for (int k = 0; k < 8; ++k)
+          *reinterpret_cast<float4*>(dst + k * 4) =
+              *reinterpret_cast<const float4*>(&O[r * D + c0 + k * 4]);
+      } else {
+        bf16* dst = static_cast<bf16*>(out) + at;
 #pragma unroll
-        for (int e = 0; e < 8; ++e) p.h[e] = __float2bfloat16(O[r * D + c0 + k * 8 + e]);
-        *reinterpret_cast<uint4*>(dst + k * 8) = p.u;
+        for (int k = 0; k < 4; ++k) {
+          Pack8 p;
+#pragma unroll
+          for (int e = 0; e < 8; ++e) p.h[e] = __float2bfloat16(O[r * D + c0 + k * 8 + e]);
+          *reinterpret_cast<uint4*>(dst + k * 8) = p.u;
+        }
       }
     }
     __syncwarp();
@@ -176,17 +189,17 @@ __global__ void encoder_attention_kernel(const bf16* __restrict__ qkv, bf16* __r
 
 }  // namespace
 
-// out[frames * tokens, heads * 64] = attention over qkv[frames * tokens, 3 * heads * 64].
-// head_dim must be 64 and tokens <= 256 (the wrapper checks).
+// out[frames * tokens, heads * 64] (f32 when out_f32, else bf16) = attention
+// over qkv[frames * tokens, 3 * heads * 64]. head_dim must be 64 and tokens
+// <= 256 (the wrapper checks).
 extern "C" int dfd_encoder_attention(const void* qkv, void* out, int frames, int tokens,
-                                     int heads, float scale, void* stream) {
+                                     int heads, float scale, int out_f32, void* stream) {
   const Geometry g = geometry(tokens);
-  cudaError_t err = cudaFuncSetAttribute(encoder_attention_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+  auto kernel = out_f32 ? encoder_attention_kernel<true> : encoder_attention_kernel<false>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(g.smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  encoder_attention_kernel<<<frames * heads, g.warps * 32, g.smem,
-                             static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(qkv), static_cast<bf16*>(out), tokens, heads, scale);
+  kernel<<<frames * heads, g.warps * 32, g.smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(qkv), out, tokens, heads, scale);
   return static_cast<int>(cudaGetLastError());
 }

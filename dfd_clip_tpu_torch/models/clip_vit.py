@@ -8,7 +8,10 @@ stacked-export path: every block's attention half and MLP half go through
 ops/encoder_block.py, the kept layers write their CLS-dropped K/V straight
 into one (Lsel, N, T', W) buffer per K and V, blocks after the last kept
 layer are skipped, and the last kept layer runs LN1 + the K/V projection
-only.
+only. With ``compute_int8`` (W8A8, width <= 768) each block before the last
+kept one is one ``fused_encoder_block`` and the last kept layer the int8
+``last_only`` form; with ``kv_int8_rows`` the export is int8 with per-row
+scales.
 """
 
 from __future__ import annotations
@@ -20,7 +23,12 @@ import torch
 import torch.nn.functional as F
 
 from . import layers
-from ..ops.encoder_block import fused_encoder_attn_block, fused_encoder_mlp_block
+from ..ops.encoder_block import (
+    fused_encoder_attn_block,
+    fused_encoder_block,
+    fused_encoder_mlp_block,
+)
+from ..ops.int8 import quantize_weight
 
 Params = Dict[str, Any]
 
@@ -107,6 +115,25 @@ def embed_patches(params: Params, x: torch.Tensor, cfg: ViTConfig,
     return layers.layer_norm(params["ln_pre"], x)
 
 
+def prepare_int8_params(params: Params) -> Params:
+    """Pre-quantise the frozen tower's block GEMM weights for compute_int8
+    inference: beside each ``w`` of ``in_proj``, ``out_proj``, ``c_fc`` and
+    ``c_proj`` add ``wq`` int8, stored transposed (N, K) for the int8 GEMM,
+    and ``ws`` (1, N) f32, quantised from ``w`` in f32 (call it before
+    weights are cast to bf16)."""
+    def aug(p: Params) -> Params:
+        wq, ws = quantize_weight(p["w"])
+        return {**p, "wq": wq, "ws": ws}
+
+    blocks = [{**bp,
+               "attn": {**bp["attn"], "in_proj": aug(bp["attn"]["in_proj"]),
+                        "out_proj": aug(bp["attn"]["out_proj"])},
+               "mlp": {**bp["mlp"], "c_fc": aug(bp["mlp"]["c_fc"]),
+                       "c_proj": aug(bp["mlp"]["c_proj"])}}
+              for bp in params["blocks"]]
+    return {**params, "blocks": blocks}
+
+
 def clip_vision_kv(
     params: Params, x: torch.Tensor, cfg: ViTConfig,
     compute_dtype: torch.dtype = torch.bfloat16,
@@ -116,9 +143,15 @@ def clip_vision_kv(
     """Run the frozen tower, exporting the kept layers' head-split K and V.
 
     Returns {"k", "v"}: (Lsel, N, T', H, D), T' = T - drop_cls, zero-padded
-    up to a multiple of 8 rows with ``pad_tokens`` (196 -> 200 for CLIP-B)."""
-    if kv_int8 or kv_int8_rows or compute_int8:
-        raise NotImplementedError("int8 K/V and W8A8 compute are not ported yet")
+    up to a multiple of 8 rows with ``pad_tokens`` (196 -> 200 for CLIP-B).
+    ``compute_int8``: the W8A8 tower (the block GEMMs on int8 weights, see
+    prepare_int8_params). ``kv_int8_rows``: K/V int8, quantised per row at
+    the export, plus {"k_scale", "v_scale"}: (Lsel, N, T', 1) f32, dequant
+    q * s, pad rows 0."""
+    if kv_int8:
+        raise NotImplementedError("kv_dtype 'int8' (per-(layer, head) scales) is not ported yet")
+    if compute_int8 and cfg.width > 768:
+        raise NotImplementedError("the int8 split blocks of width > 768 are not ported yet")
     h = embed_patches(params, x, cfg, compute_dtype)
     n, t = h.shape[:2]
     w = cfg.width
@@ -128,22 +161,40 @@ def clip_vision_kv(
     last = max(keep)
     slot_of = {layer: s for s, layer in enumerate(keep)}
     nsel, t_out = len(keep), t_real + kv_pad
-    kacc = torch.empty((nsel, n, t_out, w), dtype=h.dtype, device=h.device)
+    kv_dt = torch.int8 if kv_int8_rows else h.dtype
+    kacc = torch.empty((nsel, n, t_out, w), dtype=kv_dt, device=h.device)
     vacc = torch.empty_like(kacc)
+    scales = {}
     for i in range(last + 1):
         bp = params["blocks"][i]
         into = (kacc, vacc, slot_of[i], nsel) if i in keep else None
         if i == last:
-            fused_encoder_attn_block(h, bp["ln_1"], bp["attn"], cfg.heads, cfg.head_dim,
-                                     drop_cls=drop_cls, last_only=True, export_into=into,
-                                     kv_pad=kv_pad)
+            out = fused_encoder_attn_block(h, bp["ln_1"], bp["attn"], cfg.heads, cfg.head_dim,
+                                           drop_cls=drop_cls, last_only=True, export_into=into,
+                                           kv_pad=kv_pad, int8_gemm=compute_int8,
+                                           kv_rows8=kv_int8_rows)
+            scales[i] = out[2:]
             break
-        if i in keep:
-            h, _, _ = fused_encoder_attn_block(h, bp["ln_1"], bp["attn"], cfg.heads,
-                                               cfg.head_dim, export=True, drop_cls=drop_cls,
-                                               export_into=into, kv_pad=kv_pad)
+        if compute_int8:
+            out = fused_encoder_block(h, bp["ln_1"], bp["attn"], bp["ln_2"], bp["mlp"],
+                                      cfg.heads, cfg.head_dim, export=i in keep,
+                                      drop_cls=drop_cls, export_into=into,
+                                      kv_rows8=kv_int8_rows, kv_pad=kv_pad)
+        elif i in keep:
+            out = fused_encoder_attn_block(h, bp["ln_1"], bp["attn"], cfg.heads, cfg.head_dim,
+                                           export=True, drop_cls=drop_cls, export_into=into,
+                                           kv_pad=kv_pad, kv_rows8=kv_int8_rows)
         else:
-            h = fused_encoder_attn_block(h, bp["ln_1"], bp["attn"], cfg.heads, cfg.head_dim)
-        h = fused_encoder_mlp_block(h, bp["ln_2"], bp["mlp"])
+            out = fused_encoder_attn_block(h, bp["ln_1"], bp["attn"], cfg.heads, cfg.head_dim)
+        if i in keep:
+            h, scales[i] = out[0], out[3:]
+        else:
+            h = out
+        if not compute_int8:
+            h = fused_encoder_mlp_block(h, bp["ln_2"], bp["mlp"])
     shape = (nsel, n, t_out, cfg.heads, cfg.head_dim)
-    return {"k": kacc.view(shape), "v": vacc.view(shape)}
+    result = {"k": kacc.view(shape), "v": vacc.view(shape)}
+    if kv_int8_rows:
+        result["k_scale"] = torch.stack([scales[i][0] for i in keep])
+        result["v_scale"] = torch.stack([scales[i][1] for i in keep])
+    return result

@@ -9,7 +9,9 @@ in place. Training (``train=True``) is the JAX package's training
 composition: LayerNorms, linears, QuickGELU and dropout in plain torch under
 autograd, and the attention through the trainable Function of
 ops/decoder_attention_vjp.py (partials forward and backward kernels). The
-8-row pad of the export is masked as keys through ``patch_valid``.
+8-row pad of the export is masked as keys through ``patch_valid``. With
+int8_rows K/V ({"k_scale", "v_scale"} in the export) the decoder computes in
+bf16 and the attention dequantises each token's row (inference only).
 """
 
 from __future__ import annotations
@@ -114,14 +116,19 @@ def apply_decoder(params: Params, kvs: Dict[str, torch.Tensor], m: torch.Tensor,
                   ) -> Tuple[List[torch.Tensor], torch.Tensor]:
     """Decode K/V {"k", "v"}: (Lsel, B, T, P, H, D) with the (B, T) bool frame
     mask into (task logits [(B, out_dim)], video feature). ``train`` runs the
-    differentiable composition, with dropout drawn from ``gen``."""
+    differentiable composition, with dropout drawn from ``gen``. int8 K/V
+    come with {"k_scale", "v_scale"}: (Lsel, B, T, P, 1) f32."""
     if cfg.attn_mode or cfg.aug_query:
         raise NotImplementedError("attn_mode and aug_query are not ported yet")
     k_all, v_all = kvs["k"], kvs["v"]
+    ks_all, vs_all = kvs.get("k_scale"), kvs.get("v_scale")
     nsel, b, t, p, h, d = k_all.shape
     if nsel != cfg.num_blocks:
         raise ValueError(f"{nsel} K/V slots for {cfg.num_blocks} decoder blocks")
-    cd = k_all.dtype
+    if train and ks_all is not None:
+        raise NotImplementedError("training on int8_rows K/V is not ported yet")
+    # int8 K/V: queries, residual stream and output in bf16 (the JAX rule)
+    cd = torch.bfloat16 if k_all.dtype == torch.int8 else k_all.dtype
     pos_tok = None
     if cfg.temporal_position:
         pos = params["positional_embedding"][:t]                  # (T, 1, H, D)
@@ -130,6 +137,9 @@ def apply_decoder(params: Params, kvs: Dict[str, torch.Tensor], m: torch.Tensor,
             pos_tok = pos_tok.to(cd).contiguous()
     k_all = k_all.reshape(nsel, b, t * p, h, d)
     v_all = v_all.reshape(nsel, b, t * p, h, d)
+    if ks_all is not None:
+        ks_all = ks_all.reshape(nsel, b, t * p, 1)
+        vs_all = vs_all.reshape(nsel, b, t * p, 1)
     mask = token_mask(m, p, patch_valid)
 
     x = layers.layer_norm(params["ln_pre"],
@@ -157,7 +167,8 @@ def apply_decoder(params: Params, kvs: Dict[str, torch.Tensor], m: torch.Tensor,
             q_smax = qrow[:, : cfg.width].reshape(b, 1, h, d)
             q_coda = qrow[:, cfg.width:].reshape(b, 1, h, d)
             attn_out = fused_decoder_attention(q_smax, q_coda, k_all, v_all, mask,
-                                               pos_tok, layer=i)
+                                               pos_tok, layer=i, k_scale=ks_all,
+                                               v_scale=vs_all)
             tail = {"attn_out_proj": blk["attn"]["out_proj"], "ln_2": blk["ln_2"],
                     "mlp": blk["mlp"]}
             nxt = query(blocks[i + 1]) if i + 1 < len(blocks) else None

@@ -5,9 +5,12 @@ stacked, 8-row-padded K/V export -> dual-activation decoder -> logits
 L2-normalised to norm 5 -> per-task losses. The frozen encoder always runs
 under ``torch.no_grad``; with ``train=True`` the decoder runs under autograd
 (its attention's Function saves the K/V export for its backward, so the
-export must not be an inference-mode tensor). The adapter, patch-index
-gathering, the compression and temporal losses, ``ema_frame`` and
-``patch_mask`` are not ported yet and raise.
+export must not be an inference-mode tensor). ``op_mode.compute_int8`` runs
+the W8A8 tower on weights that ``prepare_params`` pre-quantises, and
+``op_mode.kv_dtype = "int8_rows"`` keeps the K/V export int8 with per-row
+scales into the decoder; both are inference-only here. The adapter,
+patch-index gathering, ``kv_dtype = "int8"``, the compression and temporal
+losses, ``ema_frame`` and ``patch_mask`` are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -137,8 +140,10 @@ class Detector:
         if config.adapter.type != "none":
             raise NotImplementedError("the CompInv adapter is not ported yet")
         op = config.op_mode
-        if op.get("compute_int8", 0) or op.get("kv_dtype", "auto") not in ("auto", "bf16"):
-            raise NotImplementedError("int8 modes are not ported yet")
+        if op.get("kv_dtype", "auto") == "int8":
+            raise NotImplementedError("kv_dtype 'int8' (per-(layer, head) scales) is not "
+                                      "ported yet")
+        self.compute_int8 = bool(op.get("compute_int8", 0))
         if not all(isinstance(loss, str) for loss in config.losses):
             raise NotImplementedError("loss arguments are not ported yet")
         self.losses = [LOSSES[loss]() for loss in config.losses]
@@ -175,8 +180,16 @@ class Detector:
     def prepare_params(self, params: Params) -> Params:
         """Move params to the detector's device, with the matrix weights
         (linear ``w``, ``conv1``) in the compute dtype and everything else
-        (LayerNorms, biases, embeddings, task projections) in f32."""
+        (LayerNorms, biases, embeddings, task projections, int8 scales) in
+        f32. With ``compute_int8`` the tower's block weights are first
+        quantised from f32 (clip_vit.prepare_int8_params), and their int8
+        ``wq`` stay int8."""
+        if self.compute_int8:
+            params = {**params, "encoder": clip_vit.prepare_int8_params(params["encoder"])}
+
         def place(path, leaf):
+            if leaf.dtype == torch.int8:
+                return leaf.to(device=self.device).contiguous()
             is_matrix = path[-1] == "w" and "task_projections" not in path
             dtype = self.compute_dtype if is_matrix else torch.float32
             return leaf.to(device=self.device, dtype=dtype).contiguous()
@@ -199,15 +212,22 @@ class Detector:
         return image_ops.resize_crop_normalize(x, self.transform.size, self.transform.mean,
                                                self.transform.std)
 
+    def _kv_rows8(self) -> bool:
+        """op_mode.kv_dtype "int8_rows": per-row int8 K/V that stay
+        quantised into the decoder."""
+        return self.config.op_mode.get("kv_dtype", "auto") == "int8_rows"
+
     def encode_kv(self, params: Params, x: torch.Tensor,
                   pad_tokens: bool = False) -> Dict[str, torch.Tensor]:
         """(B, T, 3, H, W) -> {"k", "v"}: (Lsel, B, T, P, H, D); with
-        ``pad_tokens`` P is zero-padded to a multiple of 8."""
+        ``pad_tokens`` P is zero-padded to a multiple of 8. With int8_rows
+        also {"k_scale", "v_scale"}: (Lsel, B, T, P, 1) f32."""
         b, t = x.shape[:2]
         frames = x.reshape((b * t,) + tuple(x.shape[2:]))
         kvs = clip_vit.clip_vision_kv(
             params["encoder"], frames, self.vit_cfg, self.compute_dtype,
-            keep_layers=self.layer_indices, drop_cls=True, pad_tokens=pad_tokens)
+            keep_layers=self.layer_indices, drop_cls=True, pad_tokens=pad_tokens,
+            compute_int8=self.compute_int8, kv_int8_rows=self._kv_rows8())
         return {s: f.reshape((f.shape[0], b, t) + tuple(f.shape[2:])) for s, f in kvs.items()}
 
     def predict(self, params: Params, x, m, *, train: bool = False,
@@ -219,6 +239,9 @@ class Detector:
         drawn from ``gen``, a generator on the detector's device)."""
         if patch_indices is not None:
             raise NotImplementedError("patch_indices is not ported yet")
+        if train and (self.compute_int8 or self._kv_rows8()):
+            raise NotImplementedError("training with compute_int8 or int8_rows K/V is not "
+                                      "ported yet")
         x = torch.as_tensor(np.asarray(x) if not torch.is_tensor(x) else x, device=self.device)
         m = torch.as_tensor(np.asarray(m) if not torch.is_tensor(m) else m,
                             device=self.device).bool()

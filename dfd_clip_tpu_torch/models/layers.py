@@ -12,6 +12,8 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from ..ops.int8 import w8a8_dot_plain, weight_q
+
 Params = Dict[str, Any]
 
 
@@ -36,6 +38,23 @@ def linear(params: Params, x: torch.Tensor) -> torch.Tensor:
     if "b" in params:
         y = y + params["b"].to(x.dtype)
     return y
+
+
+def linear_w8a8(params: Params, x: torch.Tensor) -> torch.Tensor:
+    """x @ w (+ b) as W8A8: x quantised per row as round(x / s * 127) (the
+    JAX layers.linear_w8a8 form, not the kernels' y * (127 / s)), the
+    per-channel int8 weights of ``params`` ("wq" (N, K) and "ws" (1, N) when
+    pre-quantised, else from "w"), an exact integer product, the f32 dequant
+    and bias, then x's dtype."""
+    wq, w_scale = weight_q(params)
+    x32 = x.float()
+    x_scale = x32.abs().amax(-1, keepdim=True) + 1e-8
+    xq = torch.clamp(torch.round(x32 / x_scale * 127.0), -127, 127).to(torch.int8)
+    y = w8a8_dot_plain(xq.reshape(-1, x.shape[-1]), x_scale.reshape(-1, 1), wq, w_scale)
+    y = y.reshape(*x.shape[:-1], -1)
+    if "b" in params:
+        y = y + params["b"].float()
+    return y.to(x.dtype)
 
 
 def linear_f32_bias(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -12,8 +12,10 @@ in ``LAUNCHES`` where it launches, and nowhere else, so a run can show that
 its path went through the kernels (``reset_launches`` / ``launches``).
 
 ``gemm`` and ``layer_norm_rows`` are the shared building blocks of the fused
-encoder and decoder blocks; they take CUDA tensors only (the plain versions
-live beside the functions that use them).
+encoder and decoder blocks, and ``gemm_s8``, ``quant_rows`` and
+``layer_norm_quant`` those of the int8 (W8A8) encoder blocks; they take CUDA
+tensors only (the plain versions live beside the functions that use them,
+the int8 ones in ops/int8.py).
 """
 
 from __future__ import annotations
@@ -39,6 +41,8 @@ LAUNCHES: Counter = Counter()
 
 # gemm epilogue flags (csrc/gemm.cu)
 BIAS_F32, BIAS_BF16, GELU, RESID, STORE, EXPORT = 1, 2, 4, 8, 16, 32
+# gemm_s8 epilogue flags (csrc/gemm_s8.cu)
+S8_GELU, S8_RES_F32, S8_RES_BF16, S8_OUT_F32, S8_STORE, S8_EXPORT = 1, 2, 4, 8, 16, 32
 
 
 def reset_launches() -> None:
@@ -112,8 +116,12 @@ _SIGNATURES = {
     "dfd_gemm": [_P, _I, _P, _I, _P, _I, _I, _I, _I, _P, _P, _I, _I,
                  _P, _P, _I, _I, _I, _I, _I, _P],
     "dfd_layer_norm": [_P, _I, _P, _P, _P, _I, _I, _I, _F, _P],
-    "dfd_encoder_attention": [_P, _P, _I, _I, _I, _F, _P],
-    "dfd_decoder_attention": [_P, _P, _LL, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
+    "dfd_gemm_s8": [_P, _I, _P, _P, _I, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I,
+                    _P, _P, _I, _I, _I, _I, _I, _P],
+    "dfd_quant_rows": [_P, _I, _I, _I, _I, _I, _P, _I, _P, _I, _I, _I, _P],
+    "dfd_layer_norm_quant": [_P, _I, _I, _P, _P, _I, _I, _F, _P, _P, _P],
+    "dfd_encoder_attention": [_P, _P, _I, _I, _I, _F, _I, _P],
+    "dfd_decoder_attention": [_P, _P, _LL, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
     "dfd_decoder_attention_partials": [_P, _P, _LL, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
     "dfd_decoder_attention_bwd": [_P, _P, _LL, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                   _I, _I, _I, _F, _P],
@@ -169,6 +177,21 @@ def require_cuda(name: str, *tensors: torch.Tensor,
             raise ValueError(f"{name}: row strides must be multiples of 16 bytes")
 
 
+def _export_args(name: str, export: tuple, m: int, n: int, col_off: int) -> tuple:
+    """Check a GEMM's K/V export ``(k_slot, v_slot, tokens, t_out, lo,
+    width)`` into contiguous bf16 (frames, t_out, width) slot views; returns
+    the kernel's export arguments."""
+    k_slot, v_slot, tokens, t_out, lo, width = export
+    require_cuda(name, k_slot, v_slot)
+    frames = m // tokens
+    for t in (k_slot, v_slot):
+        if not t.is_contiguous() or t.shape != (frames, t_out, width):
+            raise ValueError(f"{name}: export slot {tuple(t.shape)} != {(frames, t_out, width)}")
+    if m % tokens or width % 8 or col_off + n > 3 * width:
+        raise ValueError(f"{name}: export geometry")
+    return (k_slot.data_ptr(), v_slot.data_ptr(), tokens, t_out, lo, width)
+
+
 def gemm(a: torch.Tensor, b: torch.Tensor, bias: torch.Tensor, *,
          bias_after_cast: bool = False, gelu: bool = False,
          residual: Optional[torch.Tensor] = None, store: bool = True,
@@ -202,15 +225,7 @@ def gemm(a: torch.Tensor, b: torch.Tensor, bias: torch.Tensor, *,
         flags |= RESID
     kv = (None, None, 1, 1, 0, 1)
     if export is not None:
-        k_slot, v_slot, tokens, t_out, lo, width = export
-        require_cuda("gemm", k_slot, v_slot)
-        frames = m // tokens
-        for t in (k_slot, v_slot):
-            if not t.is_contiguous() or t.shape != (frames, t_out, width):
-                raise ValueError(f"gemm: export slot {tuple(t.shape)} != {(frames, t_out, width)}")
-        if m % tokens or width % 8 or col_off + n > 3 * width:
-            raise ValueError("gemm: export geometry")
-        kv = (k_slot.data_ptr(), v_slot.data_ptr(), tokens, t_out, lo, width)
+        kv = _export_args("gemm", export, m, n, col_off)
         flags |= EXPORT
     err = library().dfd_gemm(
         a.data_ptr(), a.stride(0), b.data_ptr(), b.stride(0),
@@ -238,3 +253,116 @@ def layer_norm_rows(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
     check_launch("layer_norm_rows", err)
     LAUNCHES["layer_norm_rows"] += 1
     return y
+
+
+def gemm_s8(a: torch.Tensor, a_scale: torch.Tensor, b_t: torch.Tensor, w_scale: torch.Tensor,
+            bias: torch.Tensor, *, out_dtype: torch.dtype = torch.bfloat16, gelu: bool = False,
+            residual: Optional[torch.Tensor] = None, store: bool = True,
+            export: Optional[tuple] = None, col_off: int = 0) -> Optional[torch.Tensor]:
+    """W8A8 product ``a (M, K) int8 @ b_t (N, K) int8 ^T`` with an exact int32
+    accumulate and the dequant epilogue of _w8a8_dot, in f32:
+    ``acc * (a_scale / 127) * (w_scale / 127) + bias``, then QuickGELU with
+    ``gelu``, then ``residual`` (M, N) f32 or bf16 added in f32. ``a_scale``
+    (M,) and ``w_scale`` (N,) or (1, N), ``bias`` (N,) are f32. C is
+    ``out_dtype`` (f32 or bf16). ``export`` (bf16 output only) is gemm's K/V
+    export. Returns C (M, N) when ``store``."""
+    require_cuda("gemm_s8", a, b_t, dtype=torch.int8)
+    w_scale = w_scale.reshape(-1)
+    require_cuda("gemm_s8", a_scale, w_scale, bias, dtype=torch.float32)
+    m, k = a.shape
+    n, k2 = b_t.shape
+    if k != k2 or a_scale.shape != (m,) or w_scale.shape != (n,) or bias.shape != (n,) \
+            or not (a_scale.is_contiguous() and w_scale.is_contiguous() and bias.is_contiguous()):
+        raise ValueError(f"gemm_s8: shapes {tuple(a.shape)} @ {tuple(b_t.shape)}^T, scales "
+                         f"{tuple(a_scale.shape)} {tuple(w_scale.shape)}, bias {tuple(bias.shape)}")
+    if k % 64 or n % 8:
+        raise ValueError(f"gemm_s8: needs K % 64 == 0 and N % 8 == 0, got K={k}, N={n}")
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"gemm_s8: output {out_dtype} is neither f32 nor bf16")
+    flags = (S8_GELU if gelu else 0) | (S8_OUT_F32 if out_dtype == torch.float32 else 0)
+    c = None
+    if store:
+        c = torch.empty((m, n), dtype=out_dtype, device=a.device)
+        flags |= S8_STORE
+    if residual is not None:
+        require_cuda("gemm_s8", residual, dtype=residual.dtype)
+        if residual.shape != (m, n) or residual.dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError("gemm_s8: residual must be (M, N) f32 or bf16")
+        flags |= S8_RES_F32 if residual.dtype == torch.float32 else S8_RES_BF16
+    kv = (None, None, 1, 1, 0, 1)
+    if export is not None:
+        if out_dtype != torch.bfloat16:
+            raise ValueError("gemm_s8: the K/V export writes bf16")
+        kv = _export_args("gemm_s8", export, m, n, col_off)
+        flags |= S8_EXPORT
+    err = library().dfd_gemm_s8(
+        a.data_ptr(), a.stride(0), a_scale.data_ptr(), b_t.data_ptr(), b_t.stride(0),
+        w_scale.data_ptr(), bias.data_ptr(),
+        residual.data_ptr() if residual is not None else None,
+        residual.stride(0) if residual is not None else 0,
+        c.data_ptr() if c is not None else None, n, m, n, k, flags, *kv, col_off, stream())
+    check_launch("gemm_s8", err)
+    LAUNCHES["gemm_s8"] += 1
+    return c
+
+
+def quant_rows(x: torch.Tensor, *, kv: bool = False,
+               export: Optional[tuple] = None) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
+    """Per-row absmax int8 quantisation of x (R, C), f32 or bf16, any row
+    stride (16-byte multiple). ``kv=False``: the _quant_rows constants;
+    returns (q (R, C) int8, s (R,) f32). ``kv=True``: the _quant_kv_rows
+    constants; with ``export = (q_slot, s_slot, tokens, t_out, lo)`` the
+    rows go into the (frames, t_out, C) int8 slot view and the (frames,
+    t_out) f32 scale view, ``lo`` leading rows of each frame dropped and the
+    pad rows and pad scales zero (returns None)."""
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"quant_rows: takes f32 or bf16, got {x.dtype}")
+    require_cuda("quant_rows", x, dtype=x.dtype)
+    rows, cols = x.shape
+    if cols % 8:
+        raise ValueError(f"quant_rows: needs C % 8 == 0, got C={cols}")
+    if export is None:
+        q = torch.empty((rows, cols), dtype=torch.int8, device=x.device)
+        s = torch.empty((rows,), dtype=torch.float32, device=x.device)
+        geo = (rows, rows, 0)
+    else:
+        if not kv:
+            raise ValueError("quant_rows: the export is the K/V form (kv=True)")
+        q, s, tokens, t_out, lo = export
+        frames = rows // tokens
+        require_cuda("quant_rows", q, dtype=torch.int8)
+        if rows % tokens or t_out < tokens - lo or q.shape != (frames, t_out, cols) \
+                or not q.is_contiguous() or s.dtype != torch.float32 \
+                or s.shape != (frames, t_out) or not s.is_contiguous() or s.device != x.device:
+            raise ValueError(f"quant_rows: export slots {tuple(q.shape)} / {tuple(s.shape)} "
+                             f"for {rows} rows of {tokens} tokens")
+        geo = (tokens, t_out, lo)
+    err = library().dfd_quant_rows(x.data_ptr(), x.stride(0), int(x.dtype == torch.float32),
+                                   rows, cols, int(kv), q.data_ptr(), cols, s.data_ptr(),
+                                   *geo, stream())
+    check_launch("quant_rows", err)
+    LAUNCHES["quant_rows"] += 1
+    return None if export is not None else (q, s)
+
+
+def layer_norm_quant(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
+                     eps: float = 1e-5) -> Tuple[torch.Tensor, torch.Tensor]:
+    """LayerNorm of rows x (R, W), bf16 or f32, in f32, quantised with the
+    _quant_rows constants without a bf16 round trip -> (q (R, W) int8,
+    s (R,) f32)."""
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"layer_norm_quant: takes f32 or bf16, got {x.dtype}")
+    require_cuda("layer_norm_quant", x, dtype=x.dtype)
+    require_cuda("layer_norm_quant", scale, shift, dtype=torch.float32)
+    rows, width = x.shape
+    if width % 8 or width > 1024 or scale.shape != (width,) or shift.shape != (width,):
+        raise ValueError("layer_norm_quant: width must be a multiple of 8, at most 1024, "
+                         "and match scale/shift")
+    q = torch.empty((rows, width), dtype=torch.int8, device=x.device)
+    s = torch.empty((rows,), dtype=torch.float32, device=x.device)
+    err = library().dfd_layer_norm_quant(x.data_ptr(), x.stride(0), int(x.dtype == torch.float32),
+                                         scale.data_ptr(), shift.data_ptr(), rows, width, eps,
+                                         q.data_ptr(), s.data_ptr(), stream())
+    check_launch("layer_norm_quant", err)
+    LAUNCHES["layer_norm_quant"] += 1
+    return q, s

@@ -1,7 +1,9 @@
 """Plain dual-activation (softmax + CoDA) decoder attention (counterpart of
 dfd_clip_tpu/ops/decoder_attention.py:dual_activation_attention for a single
 query and no factorised ``attn_mode``), and the plain ``partials`` form of
-the fused kernel.
+the fused kernel. With int8_rows K/V (``k_scale``/``v_scale``) the plain
+version dequantises each token's row in f32, as the port's kernel does (the
+JAX XLA path rounds it to the query dtype, its kernel to bf16).
 
 A learned query attends the flattened (frames x patches) K/V stream with the
 mean of a masked softmax and CoDA (tanh affinity gated by 2 sigmoid(-L1 x
@@ -18,11 +20,16 @@ import torch
 NEG_BIG = -1e30   # the kernels' finite start of the running maximum
 
 
-def _stream(k, v, temporal_pos, layer):
-    """The slot's K and V in f32, with the temporal embedding added."""
+def _stream(k, v, temporal_pos, layer, k_scale=None, v_scale=None):
+    """The slot's K and V in f32 (int8 rows times their (B, L, 1) scales),
+    with the temporal embedding added."""
     if layer is not None:
         k, v = k[layer], v[layer]
+        if k_scale is not None:
+            k_scale, v_scale = k_scale[layer], v_scale[layer]
     kp, vp = k.float(), v.float()
+    if k_scale is not None:
+        kp, vp = kp * k_scale[..., None].float(), vp * v_scale[..., None].float()
     if temporal_pos is not None:
         pos = temporal_pos.float().expand(k.shape[1:])
         kp, vp = kp + pos, vp + pos
@@ -33,11 +40,14 @@ def dual_activation_attention(
     q_smax: torch.Tensor, q_coda: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     mask: torch.Tensor, *, attn_mode: Sequence[str] = (),
     temporal_pos: Optional[torch.Tensor] = None, layer: Optional[int] = None,
-    differentiable: bool = False,
+    differentiable: bool = False, k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """(B, 1, H, D) queries, (B, L, H, D) K/V -- or the stacked
     (Lsel, B, L, H, D) buffers read at ``layer`` -- and a (B, L) bool mask
-    -> (B, 1, H, D). ``temporal_pos`` (L, H, D) is added to K and V.
+    -> (B, 1, H, D). ``temporal_pos`` (L, H, D) is added to K and V. With
+    int8 K/V, ``k_scale``/``v_scale`` (B, L, 1) (stacked (Lsel, B, L, 1))
+    dequantise each token's row, and the output takes the queries' dtype.
 
     ``differentiable`` (the training path) routes to the fused kernels'
     autograd Function (ops/decoder_attention_vjp.py), whose backward gives
@@ -47,12 +57,14 @@ def dual_activation_attention(
     if q_smax.shape[1] != 1:
         raise NotImplementedError("only the single-query decoder is ported")
     if differentiable:
+        if k_scale is not None:
+            raise NotImplementedError("training on int8_rows K/V is not ported yet")
         # imported here: the Function's module imports this one
         from .decoder_attention_vjp import fused_decoder_attention_trainable
 
         return fused_decoder_attention_trainable(q_smax, q_coda, k, v, mask,
                                                  temporal_pos, layer)
-    kp, vp = _stream(k, v, temporal_pos, layer)
+    kp, vp = _stream(k, v, temporal_pos, layer, k_scale, v_scale)
     d = q_smax.shape[-1]
     scale = d ** -0.5
     qs, qc = q_smax[:, 0].float(), q_coda[:, 0].float()          # (B, H, D)
@@ -67,7 +79,7 @@ def dual_activation_attention(
     gate = torch.where(m, 2.0 * torch.sigmoid(-l1 * scale), torch.zeros((), device=l1.device))
     aff = 0.5 * (aff_smax + coda * gate)
     out = torch.einsum("blh,blhd->bhd", aff, vp)
-    return out[:, None].to(v.dtype)
+    return out[:, None].to(q_smax.dtype if k_scale is not None else v.dtype)
 
 
 def decoder_attention_partials_plain(

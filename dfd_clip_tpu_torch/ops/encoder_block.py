@@ -1,19 +1,33 @@
-"""The encoder block's two halves (counterparts of ``fused_encoder_attn_block``
-and ``fused_encoder_mlp_block`` in dfd_clip_tpu/ops/pallas_attention.py).
+"""The encoder block (counterparts of ``fused_encoder_attn_block``,
+``fused_encoder_mlp_block`` and ``fused_encoder_block`` in
+dfd_clip_tpu/ops/pallas_attention.py).
 
-On a CUDA tensor each half is a short chain of this package's kernels:
+On a CUDA tensor each function is a short chain of this package's kernels:
 
   attention half: layer_norm_rows -> gemm (qkv, + K/V export)
                   -> encoder_attention -> gemm (out-proj, + residual)
   MLP half:       layer_norm_rows -> gemm (c_fc, + QuickGELU)
                   -> gemm (c_proj, + residual)
+  whole int8 block (W8A8, the compute_int8 path at width <= 768):
+                  layer_norm_quant -> gemm_s8 (qkv -> bf16, + K/V export)
+                  -> encoder_attention (f32) -> quant_rows
+                  -> gemm_s8 (out-proj, + h -> f32 hmid)
+                  -> layer_norm_quant -> gemm_s8 (c_fc, QuickGELU -> f32)
+                  -> quant_rows -> gemm_s8 (c_proj, + f32 hmid -> bf16)
+  int8 last_only: layer_norm_quant -> gemm_s8 (K/V columns, + export)
 
-Unlike the TPU kernels, which keep the packed qkv stream and the (T, 4W) MLP
-intermediate on chip, this first decomposition writes both to device memory
-and reads them back (PERF.md counts the bytes); fusing them away is later
-work. On a CPU tensor the plain versions below run instead; they keep the
-kernels' rounding points (LayerNorm in f32, biases added in f32 before the
-bf16 cast, QuickGELU in f32, the residual added in the activation dtype).
+With ``kv_rows8`` (kv_dtype "int8_rows") the K/V export is quantised per
+row (quant_rows, the _quant_kv_rows constants) from the bf16 K/V columns into
+int8 slots, with (N, T', 1) f32 scales.
+
+Unlike the TPU kernels, which keep the packed qkv stream, the attention
+output and the (T, 4W) MLP intermediate on chip, this first decomposition
+writes them to device memory and reads them back (PERF.md counts the bytes);
+fusing them away is later work. On a CPU tensor the plain versions below run
+instead; they keep the kernels' rounding points (LayerNorm in f32, biases
+added in f32 before the bf16 cast, QuickGELU in f32, the residual added in
+the activation dtype; on the int8 block the f32 residual stream between the
+halves and the quantisation of f32 values without a bf16 round trip).
 """
 
 from __future__ import annotations
@@ -26,12 +40,14 @@ import torch.nn.functional as F
 from ..models.layers import layer_norm, linear_f32_bias
 from . import _cuda
 from .attention import plain_attention_qkv
+from .int8 import export_kv_rows8, layer_norm_f32, quant_rows_plain, w8a8_dot_plain, weight_q
 
 
 def encoder_attention(qkv: torch.Tensor, frames: int, tokens: int, heads: int,
-                      head_dim: int) -> torch.Tensor:
-    """Kernel: self-attention over packed qkv rows (frames * tokens, 3W) ->
-    (frames * tokens, W), bf16 on the card."""
+                      head_dim: int, out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """Kernel: self-attention over packed bf16 qkv rows (frames * tokens, 3W)
+    -> (frames * tokens, W) in ``out_dtype`` (bf16, or f32 for the int8
+    block's out-projection)."""
     _cuda.require_cuda("encoder_attention", qkv)
     w = heads * head_dim
     if head_dim != 64 or tokens > 256 or qkv.shape != (frames * tokens, 3 * w) \
@@ -39,21 +55,23 @@ def encoder_attention(qkv: torch.Tensor, frames: int, tokens: int, heads: int,
         raise ValueError(f"encoder_attention: takes head_dim 64, <= 256 tokens and "
                          f"contiguous (frames*tokens, 3W); got {tuple(qkv.shape)}, "
                          f"head_dim {head_dim}")
-    out = torch.empty((frames * tokens, w), dtype=qkv.dtype, device=qkv.device)
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"encoder_attention: output {out_dtype} is neither bf16 nor f32")
+    out = torch.empty((frames * tokens, w), dtype=out_dtype, device=qkv.device)
     err = _cuda.library().dfd_encoder_attention(
         qkv.data_ptr(), out.data_ptr(), frames, tokens, heads, head_dim ** -0.5,
-        _cuda.stream())
+        int(out_dtype == torch.float32), _cuda.stream())
     _cuda.check_launch("encoder_attention", err)
     _cuda.LAUNCHES["encoder_attention"] += 1
     return out
 
 
-def _kv_slots(n: int, t_out: int, w: int, like: torch.Tensor, export_into):
+def _kv_slots(n: int, t_out: int, w: int, dtype, device, export_into):
     if export_into is not None:
         kacc, vacc, slot, _ = export_into
         return kacc[slot], vacc[slot]
-    return (torch.empty((n, t_out, w), dtype=like.dtype, device=like.device),
-            torch.empty((n, t_out, w), dtype=like.dtype, device=like.device))
+    return (torch.empty((n, t_out, w), dtype=dtype, device=device),
+            torch.empty((n, t_out, w), dtype=dtype, device=device))
 
 
 def _kv_result(k, v, n, t_out, heads, head_dim, export_into):
@@ -62,10 +80,32 @@ def _kv_result(k, v, n, t_out, heads, head_dim, export_into):
     return k.reshape(n, t_out, heads, head_dim), v.reshape(n, t_out, heads, head_dim)
 
 
+def _export_plain(qkv2, n, t, w, lo, kv_pad, kv_rows8, export_into):
+    """The K/V export of the packed (N * T, 3W) qkv rows, plain: (k_slot,
+    v_slot, scales) with scales () on the bf16 path."""
+    if kv_rows8:
+        slots = None
+        if export_into is not None:
+            kacc, vacc, slot, _ = export_into
+            slots = (kacc[slot], vacc[slot])
+        k, v, ks, vs = export_kv_rows8(qkv2[:, w: 2 * w], qkv2[:, 2 * w:], n, t, lo, kv_pad,
+                                       slots)
+        return k, v, (ks, vs)
+    rows = qkv2.reshape(n, t, 3 * w)[:, lo:]
+    k = F.pad(rows[..., w: 2 * w], (0, 0, 0, kv_pad))
+    v = F.pad(rows[..., 2 * w:], (0, 0, 0, kv_pad))
+    if export_into is not None:
+        kacc, vacc, slot, _ = export_into
+        kacc[slot].copy_(k)
+        vacc[slot].copy_(v)
+    return k, v, ()
+
+
 def fused_encoder_attn_block(
     h: torch.Tensor, ln: dict, attn: dict, heads: int, head_dim: int, *,
     export: bool = False, drop_cls: bool = False, last_only: bool = False,
-    export_into: Optional[Tuple] = None, kv_pad: int = 0,
+    export_into: Optional[Tuple] = None, kv_pad: int = 0, int8_gemm: bool = False,
+    kv_rows8: bool = False,
 ):
     """LN1 -> qkv -> attention -> out-proj -> +residual on h (N, T, W).
 
@@ -73,63 +113,92 @@ def fused_encoder_attn_block(
     ``last_only`` (LN1 + the K/V columns of the qkv projection only). K/V are
     (N, T', H, D) with T' = T - drop_cls + kv_pad, the ``kv_pad`` rows zero;
     with ``export_into = (k_buf, v_buf, slot, n_slots)`` they are written into
-    slot ``slot`` of the (n_slots, N, T', W) buffers, which are returned."""
+    slot ``slot`` of the (n_slots, N, T', W) buffers, which are returned.
+    ``kv_rows8``: K/V int8 with per-row scales, and the returns gain
+    ``(k_scale, v_scale)``, (N, T', 1) f32, pad rows 0. ``int8_gemm``: the
+    W8A8 qkv projection of the int8 tower, in the ``last_only`` form only
+    (the other int8 forms run for width > 768, which the port's encoder
+    attention does not take yet)."""
+    if int8_gemm and not last_only:
+        raise NotImplementedError("the int8 split attention block (width > 768) is not "
+                                  "ported yet; width <= 768 runs fused_encoder_block")
     if _cuda.on_cpu("fused_encoder_attn_block", h):
         return fused_encoder_attn_block_plain(
             h, ln, attn, heads, head_dim, export=export, drop_cls=drop_cls,
-            last_only=last_only, export_into=export_into, kv_pad=kv_pad)
+            last_only=last_only, export_into=export_into, kv_pad=kv_pad, int8_gemm=int8_gemm,
+            kv_rows8=kv_rows8)
     n, t, w = h.shape
     if w != heads * head_dim:
         raise ValueError("fused_encoder_attn_block: width != heads * head_dim")
     lo = 1 if drop_cls else 0
     t_out = t - lo + kv_pad
     dt = h.dtype
-    w_qkv = attn["in_proj"]["w"].to(dt)
     b_qkv = attn["in_proj"]["b"].float()
     h2 = h.reshape(n * t, w)
-    kv = None
+    k_slot = v_slot = None
     if export or last_only:
-        k_slot, v_slot = _kv_slots(n, t_out, w, h, export_into)
-        kv = (k_slot, v_slot, t, t_out, lo, w)
-    y = _cuda.layer_norm_rows(h2, ln["scale"].float(), ln["bias"].float())
+        k_slot, v_slot = _kv_slots(n, t_out, w, torch.int8 if kv_rows8 else dt, h.device,
+                                   export_into)
+    bf16_export = (k_slot, v_slot, t, t_out, lo, w) if k_slot is not None and not kv_rows8 \
+        else None
+    scales = ()
     if last_only:
-        _cuda.gemm(y, w_qkv[:, w:], b_qkv[w:], store=False, export=kv, col_off=w)
+        if int8_gemm:
+            yq, ys = _cuda.layer_norm_quant(h2, ln["scale"].float(), ln["bias"].float())
+            wq, ws = weight_q(attn["in_proj"])
+            kv = _cuda.gemm_s8(yq, ys, wq[w:], ws[:, w:], b_qkv[w:], store=kv_rows8,
+                               export=bf16_export, col_off=w)
+        else:
+            y = _cuda.layer_norm_rows(h2, ln["scale"].float(), ln["bias"].float())
+            kv = _cuda.gemm(y, attn["in_proj"]["w"].to(dt)[:, w:], b_qkv[w:], store=kv_rows8,
+                            export=bf16_export, col_off=w)
+        if kv_rows8:
+            scales = export_kv_rows8(kv[:, :w], kv[:, w:], n, t, lo, kv_pad,
+                                     (k_slot, v_slot))[2:]
         _cuda.LAUNCHES["fused_encoder_attn_block"] += 1
-        return _kv_result(k_slot, v_slot, n, t_out, heads, head_dim, export_into)
-    qkv = _cuda.gemm(y, w_qkv, b_qkv, export=kv)
+        return (*_kv_result(k_slot, v_slot, n, t_out, heads, head_dim, export_into), *scales)
+    y = _cuda.layer_norm_rows(h2, ln["scale"].float(), ln["bias"].float())
+    qkv = _cuda.gemm(y, attn["in_proj"]["w"].to(dt), b_qkv, export=bf16_export)
+    if export and kv_rows8:
+        scales = export_kv_rows8(qkv[:, w: 2 * w], qkv[:, 2 * w:], n, t, lo, kv_pad,
+                                 (k_slot, v_slot))[2:]
     att = encoder_attention(qkv, n, t, heads, head_dim)
     h_out = _cuda.gemm(att, attn["out_proj"]["w"].to(dt), attn["out_proj"]["b"].float(),
                        residual=h2).reshape(n, t, w)
     _cuda.LAUNCHES["fused_encoder_attn_block"] += 1
     if export:
-        return (h_out, *_kv_result(k_slot, v_slot, n, t_out, heads, head_dim, export_into))
+        return (h_out, *_kv_result(k_slot, v_slot, n, t_out, heads, head_dim, export_into),
+                *scales)
     return h_out
 
 
 def fused_encoder_attn_block_plain(
     h: torch.Tensor, ln: dict, attn: dict, heads: int, head_dim: int, *,
     export: bool = False, drop_cls: bool = False, last_only: bool = False,
-    export_into: Optional[Tuple] = None, kv_pad: int = 0,
+    export_into: Optional[Tuple] = None, kv_pad: int = 0, int8_gemm: bool = False,
+    kv_rows8: bool = False,
 ):
     """Plain version of fused_encoder_attn_block (same contract)."""
+    if int8_gemm and not last_only:
+        raise NotImplementedError("the int8 split attention block (width > 768) is not "
+                                  "ported yet; width <= 768 runs fused_encoder_block")
     n, t, w = h.shape
     lo = 1 if drop_cls else 0
     t_out = t - lo + kv_pad
-    y = layer_norm(ln, h)
-    qkv = linear_f32_bias(y, attn["in_proj"]["w"], attn["in_proj"]["b"])
+    h2 = h.reshape(n * t, w)
+    if int8_gemm:
+        yq, ys = quant_rows_plain(layer_norm_f32(ln, h2))
+        wq, ws = weight_q(attn["in_proj"])
+        qkv = (w8a8_dot_plain(yq, ys, wq, ws) + attn["in_proj"]["b"].float()).to(h.dtype)
+    else:
+        qkv = linear_f32_bias(layer_norm(ln, h2), attn["in_proj"]["w"], attn["in_proj"]["b"])
     result = None
     if export or last_only:
-        rows = qkv[:, lo:]
-        k = F.pad(rows[..., w: 2 * w], (0, 0, 0, kv_pad))
-        v = F.pad(rows[..., 2 * w:], (0, 0, 0, kv_pad))
-        if export_into is not None:
-            kacc, vacc, slot, _ = export_into
-            kacc[slot].copy_(k)
-            vacc[slot].copy_(v)
-        result = _kv_result(k, v, n, t_out, heads, head_dim, export_into)
+        k, v, scales = _export_plain(qkv, n, t, w, lo, kv_pad, kv_rows8, export_into)
+        result = (*_kv_result(k, v, n, t_out, heads, head_dim, export_into), *scales)
     if last_only:
         return result
-    att = plain_attention_qkv(qkv, heads, head_dim)
+    att = plain_attention_qkv(qkv.reshape(n, t, 3 * w), heads, head_dim)
     h_out = h + linear_f32_bias(att, attn["out_proj"]["w"], attn["out_proj"]["b"])
     return (h_out, *result) if export else h_out
 
@@ -155,3 +224,98 @@ def fused_encoder_mlp_block_plain(h: torch.Tensor, ln: dict, mlp: dict) -> torch
     mid = y.float() @ mlp["c_fc"]["w"].to(h.dtype).float() + mlp["c_fc"]["b"].float()
     mid = (mid * torch.sigmoid(1.702 * mid)).to(h.dtype)
     return h + linear_f32_bias(mid, mlp["c_proj"]["w"], mlp["c_proj"]["b"])
+
+
+def fused_encoder_block(
+    h: torch.Tensor, ln1: dict, attn: dict, ln2: dict, mlp: dict, heads: int, head_dim: int,
+    *, export: bool = False, drop_cls: bool = False, export_into: Optional[Tuple] = None,
+    int8_gemm: bool = True, kv_rows8: bool = False, kv_pad: int = 0,
+):
+    """The whole encoder block on h (N, T, W) as W8A8 (int8_gemm), with the
+    TPU kernel's contract: ``h_out``, or with ``export`` ``(h_out, k, v)``
+    (K/V as in fused_encoder_attn_block, ``export_into`` and ``kv_pad``
+    alike), plus ``(k_scale, v_scale)`` with ``kv_rows8``. The four GEMMs
+    (qkv, out-proj, c_fc, c_proj) take the int8 weights of weight_q; the
+    residual stream between the halves stays f32 (``hmid32``)."""
+    if not int8_gemm:
+        raise NotImplementedError("the bf16 whole-block form (DFD_FUSED_BLOCK=full) is not "
+                                  "ported yet; bf16 towers run the split pair")
+    if _cuda.on_cpu("fused_encoder_block", h):
+        return fused_encoder_block_plain(h, ln1, attn, ln2, mlp, heads, head_dim,
+                                         export=export, drop_cls=drop_cls,
+                                         export_into=export_into, kv_rows8=kv_rows8,
+                                         kv_pad=kv_pad)
+    n, t, w = h.shape
+    if w != heads * head_dim:
+        raise ValueError("fused_encoder_block: width != heads * head_dim")
+    lo = 1 if drop_cls else 0
+    t_out = t - lo + kv_pad
+    h2 = h.reshape(n * t, w)
+    (wqkv, sqkv), (wo, so), (wfc, sfc), (wpr, spr) = (
+        weight_q(p) for p in (attn["in_proj"], attn["out_proj"], mlp["c_fc"], mlp["c_proj"]))
+    k_slot = v_slot = None
+    if export:
+        k_slot, v_slot = _kv_slots(n, t_out, w, torch.int8 if kv_rows8 else h.dtype, h.device,
+                                   export_into)
+    yq, ys = _cuda.layer_norm_quant(h2, ln1["scale"].float(), ln1["bias"].float())
+    xf = _cuda.gemm_s8(yq, ys, wqkv, sqkv, attn["in_proj"]["b"].float(),
+                       export=(k_slot, v_slot, t, t_out, lo, w) if export and not kv_rows8
+                       else None)
+    scales = ()
+    if export and kv_rows8:
+        scales = export_kv_rows8(xf[:, w: 2 * w], xf[:, 2 * w:], n, t, lo, kv_pad,
+                                 (k_slot, v_slot))[2:]
+    att = encoder_attention(xf, n, t, heads, head_dim, out_dtype=torch.float32)
+    aq, a_s = _cuda.quant_rows(att)
+    hmid = _cuda.gemm_s8(aq, a_s, wo, so, attn["out_proj"]["b"].float(), residual=h2,
+                         out_dtype=torch.float32)
+    y2q, y2s = _cuda.layer_norm_quant(hmid, ln2["scale"].float(), ln2["bias"].float())
+    mid = _cuda.gemm_s8(y2q, y2s, wfc, sfc, mlp["c_fc"]["b"].float(), gelu=True,
+                        out_dtype=torch.float32)
+    mq, m_s = _cuda.quant_rows(mid)
+    h_out = _cuda.gemm_s8(mq, m_s, wpr, spr, mlp["c_proj"]["b"].float(), residual=hmid,
+                          out_dtype=h.dtype).reshape(n, t, w)
+    _cuda.LAUNCHES["fused_encoder_block"] += 1
+    if export:
+        return (h_out, *_kv_result(k_slot, v_slot, n, t_out, heads, head_dim, export_into),
+                *scales)
+    return h_out
+
+
+def fused_encoder_block_plain(
+    h: torch.Tensor, ln1: dict, attn: dict, ln2: dict, mlp: dict, heads: int, head_dim: int,
+    *, export: bool = False, drop_cls: bool = False, export_into: Optional[Tuple] = None,
+    int8_gemm: bool = True, kv_rows8: bool = False, kv_pad: int = 0,
+):
+    """Plain version of fused_encoder_block (same contract), the arithmetic
+    of _make_full_block_kernel: LN1 in f32 -> _quant_rows -> W8A8 qkv + bias
+    -> bf16 xf (and its export) -> attention with an f32 output ->
+    _quant_rows -> W8A8 out-proj + bias + h in f32 -> LN2 in f32 ->
+    _quant_rows -> W8A8 c_fc + bias -> QuickGELU in f32 -> _quant_rows ->
+    W8A8 c_proj + bias + hmid in f32 -> h's dtype."""
+    if not int8_gemm:
+        raise NotImplementedError("the bf16 whole-block form (DFD_FUSED_BLOCK=full) is not "
+                                  "ported yet; bf16 towers run the split pair")
+    n, t, w = h.shape
+    lo = 1 if drop_cls else 0
+    t_out = t - lo + kv_pad
+    dt = h.dtype
+    h2 = h.reshape(n * t, w)
+
+    def w8a8(x32, p):
+        xq, xs = quant_rows_plain(x32)
+        wq, ws = weight_q(p)
+        return w8a8_dot_plain(xq, xs, wq, ws) + p["b"].float()
+
+    xf = w8a8(layer_norm_f32(ln1, h2), attn["in_proj"]).to(dt)
+    result = ()
+    if export:
+        k, v, scales = _export_plain(xf, n, t, w, lo, kv_pad, kv_rows8, export_into)
+        result = (*_kv_result(k, v, n, t_out, heads, head_dim, export_into), *scales)
+    att = plain_attention_qkv(xf.reshape(n, t, 3 * w), heads, head_dim,
+                              out_dtype=torch.float32).reshape(n * t, w)
+    hmid = h2.float() + w8a8(att, attn["out_proj"])
+    mid = w8a8(layer_norm_f32(ln2, hmid), mlp["c_fc"])
+    mid = mid * torch.sigmoid(1.702 * mid)
+    h_out = (hmid + w8a8(mid, mlp["c_proj"])).to(dt).reshape(n, t, w)
+    return (h_out, *result) if export else h_out

@@ -2,7 +2,10 @@
 and ragged shapes the flagship run of chip_smoke.py does not reach (rows and
 columns that are not tile multiples, short token counts, a short decoder
 stream, the decoder attention's partials form and backward at token counts
-that are not tile multiples, a whole tiny detector and a tiny trainer).
+that are not tile multiples, a whole tiny detector and a tiny trainer), and
+the int8 kernels: gemm_s8 at ragged M and N with each epilogue, quant_rows
+and layer_norm_quant on strided views, the int8 K/V export with pad rows,
+the int8 K/V decoder attention at a ragged L, and a whole int8 block.
 
 Marked ``cuda``; every test skips without a card. Run on a machine with one:
 
@@ -11,7 +14,11 @@ Marked ``cuda``; every test skips without a card. Run on a machine with one:
 Tolerance: max|kernel - plain| <= 2e-2 x max|plain| in bf16 (a few bf16
 ulps of rounding-order difference), 5e-2 for a whole bf16 predict against
 the f32 plain path (1e-1 for parameter updates after a bf16 forward), and
-exact zeros where the contract says zero.
+exact zeros where the contract says zero. The int8 kernels repeat their
+plain versions' f32 operations in order: gemm_s8's f32 outputs within 1e-5
+of the maximum; int8 values within 1 on at most 1e-3 of the elements (a
+LayerNorm sum taken in another order can move a value across a rounding
+boundary) and scales within 1e-5 relative.
 """
 
 import dataclasses
@@ -287,3 +294,196 @@ def _leaves(tree):
     if isinstance(tree, list):
         return [x for v in tree for x in _leaves(v)]
     return [tree]
+
+
+# -- the int8 kernels -------------------------------------------------------------------
+
+def int8_close(got, want, share=1e-3):
+    d = (got.to(torch.int32) - want.to(torch.int32)).abs()
+    assert d.max().item() <= 1 and (d > 0).float().mean().item() <= share
+
+
+def quantised(gen, dev, m, k, n):
+    """A (M, K) int8 with row scales, a (N, K) int8 weight with (1, N)
+    scales and an f32 bias, from the plain quantisers."""
+    from dfd_clip_tpu_torch.ops.int8 import quant_rows_plain, quantize_weight
+
+    aq, a_s = quant_rows_plain(randn(gen, m, k))
+    wq, ws = quantize_weight(randn(gen, k, n, scale=k ** -0.5))
+    return (aq.to(dev), a_s.reshape(-1).to(dev), wq.to(dev), ws.to(dev),
+            randn(gen, n, scale=0.1).to(dev))
+
+
+@pytest.mark.parametrize("case", ["k768_bf16", "k3072_f32_gelu", "res_f32_to_bf16",
+                                  "res_bf16_to_f32", "export"])
+def test_gemm_s8_ragged(dev, case):
+    """M = 200 (not a multiple of 128), N = 136 (a ragged column tile) or
+    3 x 64 with the K/V export, K = 768 or 3072."""
+    from dfd_clip_tpu_torch.ops import _cuda
+    from dfd_clip_tpu_torch.ops.int8 import w8a8_dot_plain
+
+    gen = torch.Generator().manual_seed(10)
+    frames, tokens, w = 8, 25, 64
+    m, k = frames * tokens, 3072 if case == "k3072_f32_gelu" else 768
+    n = 3 * w if case == "export" else 136
+    aq, a_s, wq, ws, bias = quantised(gen, dev, m, k, n)
+    v = w8a8_dot_plain(aq, a_s[:, None], wq, ws) + bias
+    if case == "k768_bf16":
+        got, want = _cuda.gemm_s8(aq, a_s, wq, ws, bias), v.to(torch.bfloat16)
+    elif case == "k3072_f32_gelu":
+        got = _cuda.gemm_s8(aq, a_s, wq, ws, bias, gelu=True, out_dtype=torch.float32)
+        want = v * torch.sigmoid(1.702 * v)
+    elif case == "res_f32_to_bf16":
+        res = randn(gen, m, n).to(dev)
+        got = _cuda.gemm_s8(aq, a_s, wq, ws, bias, residual=res)
+        want = (res + v).to(torch.bfloat16)
+    elif case == "res_bf16_to_f32":
+        res = randn(gen, m, n).to(dev, torch.bfloat16)
+        got = _cuda.gemm_s8(aq, a_s, wq, ws, bias, residual=res, out_dtype=torch.float32)
+        want = res.float() + v
+    else:
+        t_out = tokens - 1 + 8
+        kbuf = torch.full((2, frames, t_out, w), float("nan"), device=dev, dtype=torch.bfloat16)
+        vbuf = torch.full_like(kbuf, float("nan"))
+        _cuda.gemm_s8(aq, a_s, wq[w:], ws[:, w:], bias[w:], store=False, col_off=w,
+                      export=(kbuf[1], vbuf[1], tokens, t_out, 1, w))
+        rows = v.to(torch.bfloat16).reshape(frames, tokens, n)[:, 1:]
+        assert torch.equal(kbuf[1, :, tokens - 1:], torch.zeros_like(kbuf[1, :, tokens - 1:]))
+        assert torch.equal(vbuf[1, :, tokens - 1:], torch.zeros_like(vbuf[1, :, tokens - 1:]))
+        assert torch.isnan(kbuf[0]).all()          # other slots untouched
+        assert rel_err(kbuf[1, :, : tokens - 1], rows[..., w: 2 * w]) <= REL
+        assert rel_err(vbuf[1, :, : tokens - 1], rows[..., 2 * w:]) <= REL
+        return
+    assert got.dtype == want.dtype
+    assert rel_err(got, want) <= (1e-5 if got.dtype == torch.float32 else REL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_quant_rows_strided(dev, dtype):
+    """The K columns of a packed (37, 3 x 768) row block: a strided view."""
+    from dfd_clip_tpu_torch.ops import _cuda
+    from dfd_clip_tpu_torch.ops.int8 import quant_rows_plain
+
+    x = randn(torch.Generator().manual_seed(11), 37, 3 * 768, scale=3.0).to(dev, dtype)
+    view = x[:, 768: 2 * 768]
+    q, s = _cuda.quant_rows(view)
+    q_p, s_p = quant_rows_plain(view)
+    int8_close(q, q_p)
+    assert rel_err(s, s_p.reshape(-1)) <= 1e-5
+
+
+def test_quant_rows_kv_export_pad_rows(dev):
+    """The int8_rows export of 4 frames x 5 tokens (CLS dropped, 4 pad rows)
+    into slot 1 of a stacked buffer, from strided bf16 K/V column views."""
+    from dfd_clip_tpu_torch.ops.int8 import export_kv_rows8
+
+    frames, tokens, w = 4, 5, 256
+    xf = randn(torch.Generator().manual_seed(12), frames * tokens, 3 * w).to(dev, torch.bfloat16)
+    kacc = torch.full((2, frames, 8, w), 7, dtype=torch.int8, device=dev)
+    vacc = torch.full_like(kacc, 7)
+    got = export_kv_rows8(xf[:, w: 2 * w], xf[:, 2 * w:], frames, tokens, 1, 4,
+                          (kacc[1], vacc[1]))
+    want = export_kv_rows8(xf[:, w: 2 * w].cpu(), xf[:, 2 * w:].cpu(), frames, tokens, 1, 4)
+    for g, w_ in zip(got[:2], want[:2]):
+        int8_close(g.cpu(), w_)
+    for g, w_ in zip(got[2:], want[2:]):
+        assert rel_err(g.cpu(), w_) <= 1e-5
+        assert torch.equal(g[:, 4:], torch.zeros_like(g[:, 4:]))
+    assert (kacc[0] == 7).all() and torch.equal(kacc[1, :, 4:], torch.zeros_like(kacc[1, :, 4:]))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_layer_norm_quant_strided(dev, dtype):
+    """LN + _quant_rows on rows of stride 1024 (a (37, 1024) block's first
+    768 columns), f32 (the hmid input) and bf16 (the h input)."""
+    from dfd_clip_tpu_torch.ops import _cuda
+    from dfd_clip_tpu_torch.ops.int8 import layer_norm_f32, quant_rows_plain
+
+    gen = torch.Generator().manual_seed(13)
+    x = randn(gen, 37, 1024, scale=2.0).to(dev, dtype)[:, :768]
+    ln = {"scale": (1 + randn(gen, 768, scale=0.3)).to(dev),
+          "bias": randn(gen, 768, scale=0.1).to(dev)}
+    q, s = _cuda.layer_norm_quant(x, ln["scale"], ln["bias"])
+    q_p, s_p = quant_rows_plain(layer_norm_f32(ln, x))
+    int8_close(q, q_p)
+    assert rel_err(s, s_p.reshape(-1)) <= 1e-5
+
+
+def test_int8_kv_decoder_attention_ragged_l(dev):
+    """int8 K/V with per-row scales at slot 1 of a 2-slot stack, L = 77,
+    one sample partly and one fully masked."""
+    from dfd_clip_tpu_torch.ops.fused_decoder_attention import (
+        fused_decoder_attention,
+        fused_decoder_attention_plain,
+    )
+    from dfd_clip_tpu_torch.ops.int8 import quant_kv_rows_plain
+
+    gen = torch.Generator().manual_seed(14)
+    b, h, l = 3, 2, 77
+    qs, qc, k, v, pos, mask = decoder_inputs(dev, gen, b, h, l, True)
+    (kq, ks), (vq, vs) = (quant_kv_rows_plain(t.reshape(2, b, l, h * 64)) for t in (k, v))
+    kq, vq = kq.reshape(k.shape), vq.reshape(v.shape)
+    got = fused_decoder_attention(qs, qc, kq, vq, mask, pos, 1, k_scale=ks, v_scale=vs)
+    want = fused_decoder_attention_plain(qs, qc, kq, vq, mask, pos, 1, k_scale=ks, v_scale=vs)
+    assert got.dtype == torch.bfloat16
+    assert rel_err(got, want) <= REL
+    assert torch.equal(got[b - 1], torch.zeros_like(got[b - 1]))
+
+
+def test_fused_encoder_block_int8_on_card(dev):
+    """A whole int8 block (width 256, 4 heads of 64, 17 tokens, 4 frames)
+    with the stacked int8_rows export, against its plain version."""
+    from dfd_clip_tpu_torch.models import clip_vit
+    from dfd_clip_tpu_torch.ops import encoder_block as eb
+
+    gen = torch.Generator().manual_seed(15)
+    w, frames, tokens = 256, 4, 17
+    cfg = dataclasses.replace(clip_vit.ARCHITECTURES["ViT-Test-Wide"], layers=1)
+    blk = clip_vit.prepare_int8_params(clip_vit.init_clip_vision(gen, cfg))["blocks"][0]
+    blk = {k: {kk: ({n: t.to(dev) for n, t in vv.items()} if isinstance(vv, dict)
+                    else vv.to(dev)) for kk, vv in v.items()} for k, v in blk.items()}
+    h = randn(gen, frames, tokens, w).to(dev, torch.bfloat16)
+    outs = []
+    for fn in (eb.fused_encoder_block, eb.fused_encoder_block_plain):
+        into = (torch.zeros(2, frames, 24, w, dtype=torch.int8, device=dev),
+                torch.zeros(2, frames, 24, w, dtype=torch.int8, device=dev), 1, 2)
+        outs.append(fn(h, blk["ln_1"], blk["attn"], blk["ln_2"], blk["mlp"], 4, 64, export=True,
+                       drop_cls=True, export_into=into, kv_rows8=True, kv_pad=8))
+    got, want = outs
+    assert rel_err(got[0], want[0]) <= REL
+    for i in (1, 2):
+        int8_close(got[i][1], want[i][1])
+    for i in (3, 4):
+        assert rel_err(got[i], want[i]) <= 1e-5
+
+
+@pytest.mark.parametrize("last_only", [False, True], ids=["export", "last_only"])
+def test_bf16_attn_block_kv_rows8_on_card(dev, last_only):
+    """The bf16 split pair's int8_rows export (kv_dtype "int8_rows" without
+    compute_int8): width 256, 17 tokens, 4 frames, slot 1 of 2, 7 pad rows."""
+    from dfd_clip_tpu_torch.models import clip_vit
+    from dfd_clip_tpu_torch.ops import encoder_block as eb
+
+    gen = torch.Generator().manual_seed(16)
+    w, frames, tokens = 256, 4, 17
+    cfg = dataclasses.replace(clip_vit.ARCHITECTURES["ViT-Test-Wide"], layers=1)
+    blk = clip_vit.init_clip_vision(gen, cfg)["blocks"][0]
+    ln = {k: t.to(dev) for k, t in blk["ln_1"].items()}
+    attn = {k: {"w": p["w"].to(dev, torch.bfloat16), "b": p["b"].to(dev)}
+            for k, p in blk["attn"].items()}
+    h = randn(gen, frames, tokens, w).to(dev, torch.bfloat16)
+    outs = []
+    for fn in (eb.fused_encoder_attn_block, eb.fused_encoder_attn_block_plain):
+        into = (torch.zeros(2, frames, 23, w, dtype=torch.int8, device=dev),
+                torch.zeros(2, frames, 23, w, dtype=torch.int8, device=dev), 1, 2)
+        outs.append(fn(h, ln, attn, 4, 64, export=not last_only, last_only=last_only,
+                       drop_cls=True, export_into=into, kv_rows8=True, kv_pad=7))
+    got, want = outs
+    if not last_only:
+        assert rel_err(got[0], want[0]) <= REL
+        got, want = got[1:], want[1:]
+    for i in (0, 1):
+        int8_close(got[i][1], want[i][1])
+        assert torch.equal(got[i][1, :, tokens - 1:], torch.zeros_like(got[i][1, :, tokens - 1:]))
+    for i in (2, 3):
+        assert rel_err(got[i], want[i]) <= 1e-5

@@ -32,7 +32,8 @@ def test_port_imports_no_jax(path):
 
 @pytest.mark.parametrize("modules", [
     "dfd_clip_tpu_torch, dfd_clip_tpu_torch.serve, dfd_clip_tpu_torch.config, "
-    "dfd_clip_tpu_torch.ops._cuda, dfd_clip_tpu_torch.models.weights",
+    "dfd_clip_tpu_torch.ops._cuda, dfd_clip_tpu_torch.models.weights, "
+    "dfd_clip_tpu_torch.ops.int8",
     "dfd_clip_tpu_torch.engine.trainer, dfd_clip_tpu_torch.engine.optim, "
     "dfd_clip_tpu_torch.ops.decoder_attention_vjp",
 ], ids=["serve", "train"])
@@ -74,7 +75,7 @@ def test_unported_options_raise():
 
     cfg = Detector.get_default_config()
     cfg.merge_from_other_cfg({"decode_mode": "index", "decode_indices": [0], "out_dim": [2],
-                              "op_mode": {"compute_int8": 1}})
+                              "op_mode": {"kv_dtype": "int8"}})
     with pytest.raises(NotImplementedError):
         Detector(cfg, num_frames=4, device="cpu")
     cfg = Detector.get_default_config()
@@ -87,8 +88,11 @@ def test_unported_options_raise():
 @pytest.mark.parametrize("option", [{"train_mode": {"compression": "sync"}},
                                     {"train_mode": {"temporal": "ranking"}},
                                     {"train_mode": {"patch_mask": {"type": "batch"}}},
-                                    {"op_mode": {"ema_frame": 0.5}}],
-                         ids=["compression", "temporal", "patch_mask", "ema_frame"])
+                                    {"op_mode": {"ema_frame": 0.5}},
+                                    {"op_mode": {"compute_int8": 1}},
+                                    {"op_mode": {"kv_dtype": "int8_rows"}}],
+                         ids=["compression", "temporal", "patch_mask", "ema_frame",
+                              "compute_int8", "int8_rows"])
 def test_unported_train_modes_raise(option):
     from dfd_clip_tpu_torch.models.detector import Detector
 
