@@ -26,7 +26,10 @@
 // order of f32 operations: acc * (a_s / 127) * (w_s / 127) + bias, QuickGELU,
 // the f32 residual add, then the store as f32 or bf16 and, on the qkv
 // projection, the K/V export of the bf16 values into slot views of the
-// stacked (Lsel, N, T', W) buffers with the frame's zero pad rows. The
+// stacked (Lsel, N, T', W) buffers with the frame's zero pad rows. The int8
+// MLP half of the split pair (_make_mlp_block_kernel) rounds its c_proj
+// output to bf16 before it adds the bf16 residual (kResAfterCast, a separate
+// instantiation so that the other epilogues compile as before). The
 // products and sums are written with __fmul_rn / __fadd_rn so the compiler
 // fuses none of them into an FMA, keeping the plain version's roundings. A
 // wgmma/TMA pipeline is later work.
@@ -49,6 +52,7 @@ enum : int {
   kOutF32 = 8,     // C is f32 (else bf16)
   kStore = 16,     // write C
   kExport = 32,    // write the K/V columns into the stacked export buffers
+  kResAfterCast = 64,   // v = res + bf16(v), res bf16    (bf16 output)
 };
 
 struct Export {
@@ -69,6 +73,7 @@ __device__ __forceinline__ void mma_s8(int* c, const unsigned* a, const unsigned
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+template <bool RES_AFTER_CAST>
 __global__ void __launch_bounds__(THREADS, 2)
 gemm_s8_kernel(const int8_t* __restrict__ A, int lda, const float* __restrict__ a_scale,
                const int8_t* __restrict__ B, int ldb, const float* __restrict__ w_scale,
@@ -169,6 +174,8 @@ gemm_s8_kernel(const int8_t* __restrict__ A, int lda, const float* __restrict__ 
           if (flags & kResF32) x = __fadd_rn(static_cast<const float*>(res)[at], x);
           if (flags & kResBf16)
             x = __fadd_rn(__bfloat162float(static_cast<const bf16*>(res)[at]), x);
+          if (RES_AFTER_CAST)
+            x = __fadd_rn(__bfloat162float(static_cast<const bf16*>(res)[at]), bf16r(x));
           v[e] = x;
         }
         if (flags & kOutF32) {
@@ -217,15 +224,17 @@ extern "C" int dfd_gemm_s8(const void* A, int lda, const float* a_scale, const v
                            void* stream) {
   Export ex{static_cast<bf16*>(k_out), static_cast<bf16*>(v_out), tokens, t_out, lo, width,
             col_off};
-  static bool configured = false;
-  if (!configured) {
-    cudaError_t err = cudaFuncSetAttribute(gemm_s8_kernel,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  const bool after_cast = flags & kResAfterCast;
+  auto kernel = after_cast ? gemm_s8_kernel<true> : gemm_s8_kernel<false>;
+  static bool configured[2] = {false, false};
+  if (!configured[after_cast]) {
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           SMEM_BYTES);
     if (err != cudaSuccess) return static_cast<int>(err);
-    configured = true;
+    configured[after_cast] = true;
   }
   dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  gemm_s8_kernel<<<grid, THREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<grid, THREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(A), lda, a_scale, static_cast<const int8_t*>(B), ldb, w_scale,
       bias, res, ldr, C, ldc, M, N, K, flags, ex);
   return static_cast<int>(cudaGetLastError());

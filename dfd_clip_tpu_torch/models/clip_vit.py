@@ -3,15 +3,22 @@ dfd_clip_tpu/models/clip_vit.py).
 
 Params are plain dicts of tensors: ``conv1.w`` in PyTorch's OIHW layout and
 ``blocks`` a list of per-layer dicts (models/weights.py converts the JAX
-package's HWIO, layer-stacked form). The forward is the JAX package's fused,
-stacked-export path: every block's attention half and MLP half go through
-ops/encoder_block.py, the kept layers write their CLS-dropped K/V straight
-into one (Lsel, N, T', W) buffer per K and V, blocks after the last kept
-layer are skipped, and the last kept layer runs LN1 + the K/V projection
-only. With ``compute_int8`` (W8A8, width <= 768) each block before the last
-kept one is one ``fused_encoder_block`` and the last kept layer the int8
-``last_only`` form; with ``kv_int8_rows`` the export is int8 with per-row
-scales.
+package's HWIO, layer-stacked form). The kept layers write their CLS-dropped
+K/V straight into one (Lsel, N, T', W) buffer per K and V, blocks after the
+last kept layer are skipped, and the last kept layer runs LN1 + the K/V
+projection only. The JAX package's gate picks the block form
+(clip_vit.py:288-314):
+
+* width <= 768 (ViT-B): the fused blocks of ops/encoder_block.py, the split
+  attention/MLP pair in bf16, one whole ``fused_encoder_block`` a layer with
+  ``compute_int8`` (W8A8);
+* width 1024 (ViT-L) with ``compute_int8``: the split pair in its int8 forms;
+* wider bf16 towers (ViT-L): the XLA composition (clip_vit.py:438-497) in
+  torch ops, with ``linear`` on bf16 operands, LayerNorm through the row
+  kernel and the attention through ``encoder_self_attention_qkv``
+  (csrc/encoder_attention.cu, packed entry).
+
+With ``kv_int8_rows`` the export is int8 with per-row scales.
 """
 
 from __future__ import annotations
@@ -23,7 +30,9 @@ import torch
 import torch.nn.functional as F
 
 from . import layers
+from ..ops.attention import encoder_self_attention, encoder_self_attention_qkv
 from ..ops.encoder_block import (
+    export_kv,
     fused_encoder_attn_block,
     fused_encoder_block,
     fused_encoder_mlp_block,
@@ -41,6 +50,8 @@ class ViTConfig:
     layers: int = 12
     heads: int = 12
     output_dim: int = 512
+    # FFN family: "mlp" (CLIP, DINOv2 S/B/L) or "swiglufused" (DINOv2 giant2)
+    ffn_layer: str = "mlp"
 
     @property
     def grid(self) -> int:
@@ -134,6 +145,46 @@ def prepare_int8_params(params: Params) -> Params:
     return {**params, "blocks": blocks}
 
 
+def clip_mlp(mlp: Params, y: torch.Tensor) -> torch.Tensor:
+    """c_fc -> QuickGELU -> c_proj in y's dtype (the composition's MLP)."""
+    return layers.linear(mlp["c_proj"], layers.quick_gelu(layers.linear(mlp["c_fc"], y)))
+
+
+def composition_block(bp: Params, h: torch.Tensor, cfg: ViTConfig, export_into: Optional[tuple],
+                      drop_cls: bool, kv_pad: int = 0, kv_rows8: bool = False,
+                      attend: bool = True, ffn=clip_mlp, separate_qkv: bool = False):
+    """One block of the XLA composition (clip_vit.py:438-497, and DINOv2's
+    dinov2_vit.py:281-293) on h (N, T, W): LN1, the packed qkv projection
+    (product rounded to h's dtype, then the bias), the K/V export into
+    ``export_into``'s slot when given, then, with ``attend``, attention,
+    out-projection and residual, LN2, ``ffn`` and residual. The block's
+    LayerScale factors ``ls1``/``ls2`` (DINOv2) scale the two branches when
+    present. The attention reads the packed qkv (``encoder_self_attention_qkv``)
+    or, with ``separate_qkv``, its q, k and v column blocks as strided views
+    (``encoder_self_attention``). Returns (h, the kv_rows8 scales or ()); h
+    is None without ``attend`` (the last kept layer)."""
+    n, t, w = h.shape
+    qkv = layers.linear(bp["attn"]["in_proj"], layers.layer_norm_rows(bp["ln_1"], h))
+    scales = ()
+    if export_into is not None:
+        scales = export_kv(qkv.reshape(n * t, 3 * w), n, t, w, 1 if drop_cls else 0, kv_pad,
+                           kv_rows8, export_into)[2]
+    if not attend:
+        return None, scales
+    if separate_qkv:
+        q, k, v = (s.reshape(n, t, cfg.heads, cfg.head_dim) for s in qkv.split(w, dim=-1))
+        att = encoder_self_attention(q, k, v).reshape(n, t, w)
+    else:
+        att = encoder_self_attention_qkv(qkv, cfg.heads, cfg.head_dim)
+    h = h + _layer_scale(bp, "ls1", layers.linear(bp["attn"]["out_proj"], att))
+    y = ffn(bp["mlp"], layers.layer_norm_rows(bp["ln_2"], h))
+    return h + _layer_scale(bp, "ls2", y), scales
+
+
+def _layer_scale(bp: Params, key: str, y: torch.Tensor) -> torch.Tensor:
+    return bp[key].to(y.dtype) * y if key in bp else y
+
+
 def clip_vision_kv(
     params: Params, x: torch.Tensor, cfg: ViTConfig,
     compute_dtype: torch.dtype = torch.bfloat16,
@@ -150,8 +201,11 @@ def clip_vision_kv(
     q * s, pad rows 0."""
     if kv_int8:
         raise NotImplementedError("kv_dtype 'int8' (per-(layer, head) scales) is not ported yet")
-    if compute_int8 and cfg.width > 768:
-        raise NotImplementedError("the int8 split blocks of width > 768 are not ported yet")
+    fused = cfg.width <= 768 or (compute_int8 and cfg.width <= 1024)
+    if compute_int8 and not fused:
+        raise NotImplementedError("W8A8 towers wider than 1024 (the XLA linear_w8a8 "
+                                  "composition) are not ported yet")
+    whole_block = compute_int8 and cfg.width <= 768
     h = embed_patches(params, x, cfg, compute_dtype)
     n, t = h.shape[:2]
     w = cfg.width
@@ -168,6 +222,10 @@ def clip_vision_kv(
     for i in range(last + 1):
         bp = params["blocks"][i]
         into = (kacc, vacc, slot_of[i], nsel) if i in keep else None
+        if not fused:
+            h, scales[i] = composition_block(bp, h, cfg, into, drop_cls, kv_pad, kv_int8_rows,
+                                             attend=i < last)
+            continue
         if i == last:
             out = fused_encoder_attn_block(h, bp["ln_1"], bp["attn"], cfg.heads, cfg.head_dim,
                                            drop_cls=drop_cls, last_only=True, export_into=into,
@@ -175,7 +233,7 @@ def clip_vision_kv(
                                            kv_rows8=kv_int8_rows)
             scales[i] = out[2:]
             break
-        if compute_int8:
+        if whole_block:
             out = fused_encoder_block(h, bp["ln_1"], bp["attn"], bp["ln_2"], bp["mlp"],
                                       cfg.heads, cfg.head_dim, export=i in keep,
                                       drop_cls=drop_cls, export_into=into,
@@ -183,15 +241,17 @@ def clip_vision_kv(
         elif i in keep:
             out = fused_encoder_attn_block(h, bp["ln_1"], bp["attn"], cfg.heads, cfg.head_dim,
                                            export=True, drop_cls=drop_cls, export_into=into,
-                                           kv_pad=kv_pad, kv_rows8=kv_int8_rows)
+                                           kv_pad=kv_pad, int8_gemm=compute_int8,
+                                           kv_rows8=kv_int8_rows)
         else:
-            out = fused_encoder_attn_block(h, bp["ln_1"], bp["attn"], cfg.heads, cfg.head_dim)
+            out = fused_encoder_attn_block(h, bp["ln_1"], bp["attn"], cfg.heads, cfg.head_dim,
+                                           int8_gemm=compute_int8)
         if i in keep:
             h, scales[i] = out[0], out[3:]
         else:
             h = out
-        if not compute_int8:
-            h = fused_encoder_mlp_block(h, bp["ln_2"], bp["mlp"])
+        if not whole_block:
+            h = fused_encoder_mlp_block(h, bp["ln_2"], bp["mlp"], int8_gemm=compute_int8)
     shape = (nsel, n, t_out, cfg.heads, cfg.head_dim)
     result = {"k": kacc.view(shape), "v": vacc.view(shape)}
     if kv_int8_rows:

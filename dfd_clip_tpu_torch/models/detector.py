@@ -2,7 +2,11 @@
 
 uint8 frames -> device-side resize/crop/normalize -> frozen ViT with the
 stacked, 8-row-padded K/V export -> dual-activation decoder -> logits
-L2-normalised to norm 5 -> per-task losses. The frozen encoder always runs
+L2-normalised to norm 5 -> per-task losses. The tower is a CLIP ViT
+(``foundation`` "clip" or "farl", models/clip_vit.py) or DINOv2
+(``foundation`` "dinov2", models/dinov2_vit.py, ImageNet normalisation, an
+unpadded export; as in the JAX package it ignores ``compute_int8`` and
+``kv_dtype``). The frozen encoder always runs
 under ``torch.no_grad``; with ``train=True`` the decoder runs under autograd
 (its attention's Function saves the K/V export for its backward, so the
 export must not be an inference-mode tensor). ``op_mode.compute_int8`` runs
@@ -23,7 +27,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from . import clip_vit, decoder as decoder_lib
+from . import clip_vit, decoder as decoder_lib, dinov2_vit
 from ..device import resolve_device
 from ..ops import image_ops
 
@@ -31,6 +35,8 @@ Params = Dict[str, Any]
 
 CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
 CLIP_STD = (0.26862954, 0.26130258, 0.27577711)
+IMAGENET_MEAN = (0.485, 0.456, 0.406)
+IMAGENET_STD = (0.229, 0.224, 0.225)
 
 
 # -- loss factories (per-sample losses, reduction left to the caller) ----------
@@ -135,20 +141,26 @@ class Detector:
         self.config = config
         self.num_frames = num_frames
         self.compute_dtype = compute_dtype
-        if config.foundation not in ("clip", "farl"):
-            raise NotImplementedError(f"foundation {config.foundation!r} is not ported yet")
+        if config.foundation in ("clip", "farl"):
+            self.vit_cfg = clip_vit.ARCHITECTURES[config.architecture]
+            mean, std = CLIP_MEAN, CLIP_STD
+        elif config.foundation == "dinov2":
+            self.vit_cfg = dinov2_vit.ARCHITECTURES[config.architecture]
+            mean, std = IMAGENET_MEAN, IMAGENET_STD
+        else:
+            raise NotImplementedError(f"Unknown foundation: {config.foundation}")
         if config.adapter.type != "none":
             raise NotImplementedError("the CompInv adapter is not ported yet")
         op = config.op_mode
-        if op.get("kv_dtype", "auto") == "int8":
+        clip = config.foundation != "dinov2"
+        if clip and op.get("kv_dtype", "auto") == "int8":
             raise NotImplementedError("kv_dtype 'int8' (per-(layer, head) scales) is not "
                                       "ported yet")
-        self.compute_int8 = bool(op.get("compute_int8", 0))
+        self.compute_int8 = clip and bool(op.get("compute_int8", 0))
         if not all(isinstance(loss, str) for loss in config.losses):
             raise NotImplementedError("loss arguments are not ported yet")
         self.losses = [LOSSES[loss]() for loss in config.losses]
-        self.vit_cfg = clip_vit.ARCHITECTURES[config.architecture]
-        self.transform = TransformSpec(self.vit_cfg.input_resolution, CLIP_MEAN, CLIP_STD)
+        self.transform = TransformSpec(self.vit_cfg.input_resolution, mean, std)
         self.layer_indices = resolve_layer_indices(config, self.vit_cfg.layers)
         self.decoder_cfg = decoder_lib.DecoderConfig(
             width=self.vit_cfg.width,
@@ -170,7 +182,8 @@ class Detector:
         """Random f32 params (CPU) from ``gen``; the decoder's LayerNorms and
         MLPs are seeded from the encoder's kept layers."""
         if encoder_params is None:
-            encoder_params = clip_vit.init_clip_vision(gen, self.vit_cfg)
+            init = dinov2_vit.init_dinov2 if self._dinov2() else clip_vit.init_clip_vision
+            encoder_params = init(gen, self.vit_cfg)
         return {
             "encoder": encoder_params,
             "decoder": decoder_lib.init_decoder(gen, self.decoder_cfg,
@@ -212,22 +225,31 @@ class Detector:
         return image_ops.resize_crop_normalize(x, self.transform.size, self.transform.mean,
                                                self.transform.std)
 
+    def _dinov2(self) -> bool:
+        return self.config.foundation == "dinov2"
+
     def _kv_rows8(self) -> bool:
         """op_mode.kv_dtype "int8_rows": per-row int8 K/V that stay
-        quantised into the decoder."""
-        return self.config.op_mode.get("kv_dtype", "auto") == "int8_rows"
+        quantised into the decoder (CLIP towers only)."""
+        return not self._dinov2() and self.config.op_mode.get("kv_dtype", "auto") == "int8_rows"
 
     def encode_kv(self, params: Params, x: torch.Tensor,
                   pad_tokens: bool = False) -> Dict[str, torch.Tensor]:
         """(B, T, 3, H, W) -> {"k", "v"}: (Lsel, B, T, P, H, D); with
-        ``pad_tokens`` P is zero-padded to a multiple of 8. With int8_rows
-        also {"k_scale", "v_scale"}: (Lsel, B, T, P, 1) f32."""
+        ``pad_tokens`` a CLIP tower's P is zero-padded to a multiple of 8 (the
+        DINOv2 export is never padded). With int8_rows also {"k_scale",
+        "v_scale"}: (Lsel, B, T, P, 1) f32."""
         b, t = x.shape[:2]
         frames = x.reshape((b * t,) + tuple(x.shape[2:]))
-        kvs = clip_vit.clip_vision_kv(
-            params["encoder"], frames, self.vit_cfg, self.compute_dtype,
-            keep_layers=self.layer_indices, drop_cls=True, pad_tokens=pad_tokens,
-            compute_int8=self.compute_int8, kv_int8_rows=self._kv_rows8())
+        if self._dinov2():
+            kvs = dinov2_vit.dinov2_kv(params["encoder"], frames, self.vit_cfg,
+                                       self.compute_dtype, keep_layers=self.layer_indices,
+                                       drop_cls=True)
+        else:
+            kvs = clip_vit.clip_vision_kv(
+                params["encoder"], frames, self.vit_cfg, self.compute_dtype,
+                keep_layers=self.layer_indices, drop_cls=True, pad_tokens=pad_tokens,
+                compute_int8=self.compute_int8, kv_int8_rows=self._kv_rows8())
         return {s: f.reshape((f.shape[0], b, t) + tuple(f.shape[2:])) for s, f in kvs.items()}
 
     def predict(self, params: Params, x, m, *, train: bool = False,

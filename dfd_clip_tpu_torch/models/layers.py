@@ -1,9 +1,14 @@
 """Shared functional primitives (counterpart of dfd_clip_tpu/models/layers.py).
 
 Plain functions over parameter dicts of tensors, with the reference's
-numerics: LayerNorm computed in float32 and cast back, QuickGELU, and linear
-layers whose weights are stored ``(in, out)`` and whose bias is added in the
-activation dtype after the product.
+numerics: LayerNorm computed in float32 and cast back, QuickGELU, exact
+GELU, and linear layers whose weights are stored ``(in, out)`` and whose
+bias is added in the activation dtype after the product. ``linear`` on a
+bf16 tensor on the card multiplies bf16 operands in cuBLAS (``torch.matmul``,
+as the JAX package leaves these products to XLA), with f32 accumulation once
+``device.resolve_device`` has turned off the reduced-precision reductions;
+``layer_norm_rows`` is ``layer_norm`` through the port's row kernel on the
+card, for the towers' XLA compositions.
 """
 
 from __future__ import annotations
@@ -11,7 +16,9 @@ from __future__ import annotations
 from typing import Any, Dict, Optional
 
 import torch
+import torch.nn.functional as F
 
+from ..ops import _cuda
 from ..ops.int8 import w8a8_dot_plain, weight_q
 
 Params = Dict[str, Any]
@@ -27,14 +34,34 @@ def layer_norm(params: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tens
     return y.to(x.dtype)
 
 
+def layer_norm_rows(params: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """layer_norm over the last axis: csrc/layer_norm.cu (bf16 rows, f32
+    statistics) for a tensor on the card, layer_norm for a CPU tensor."""
+    if _cuda.on_cpu("layer_norm_rows", x):
+        return layer_norm(params, x, eps)
+    rows = x.reshape(-1, x.shape[-1])
+    return _cuda.layer_norm_rows(rows, params["scale"].float(), params["bias"].float(),
+                                 eps).reshape(x.shape)
+
+
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(1.702 * x)
 
 
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """Exact (erf) GELU, jax.nn.gelu(approximate=False), in x's dtype."""
+    return F.gelu(x)
+
+
 def linear(params: Params, x: torch.Tensor) -> torch.Tensor:
     """x @ w (+ b); w stored (in, out) and rounded to x's dtype; the product
-    (f32 accumulate) is rounded to x's dtype before the bias is added in it."""
-    y = (x.float() @ params["w"].to(x.dtype).float()).to(x.dtype)
+    (f32 accumulate, see the module note for bf16 on the card) is rounded to
+    x's dtype before the bias is added in it."""
+    w = params["w"].to(x.dtype)
+    if x.device.type == "cuda" and x.dtype == torch.bfloat16:
+        y = x @ w
+    else:
+        y = (x.float() @ w.float()).to(x.dtype)
     if "b" in params:
         y = y + params["b"].to(x.dtype)
     return y

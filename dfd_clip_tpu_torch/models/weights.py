@@ -9,6 +9,10 @@ Checkpoints are pickled pure-numpy pytrees (``best_weights.pt`` /
 * the encoder's layer-stacked ``blocks`` leaves (L, ...) -> a list of L
   per-layer dicts;
 * every other leaf, linear ``w`` (in, out) included, keeps its layout.
+
+A CLIP encoder tree and a DINOv2 one (``conv1.b``, the blocks' LayerScale
+``ls1``/``ls2``, ``mask_token`` and ``ln_post``, no ``ln_pre``) convert
+alike.
 """
 
 from __future__ import annotations

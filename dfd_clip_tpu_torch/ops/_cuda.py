@@ -12,10 +12,14 @@ in ``LAUNCHES`` where it launches, and nowhere else, so a run can show that
 its path went through the kernels (``reset_launches`` / ``launches``).
 
 ``gemm`` and ``layer_norm_rows`` are the shared building blocks of the fused
-encoder and decoder blocks, and ``gemm_s8``, ``quant_rows`` and
-``layer_norm_quant`` those of the int8 (W8A8) encoder blocks; they take CUDA
-tensors only (the plain versions live beside the functions that use them,
-the int8 ones in ops/int8.py).
+encoder and decoder blocks, ``gemm_s8``, ``quant_rows`` and
+``layer_norm_quant`` those of the int8 (W8A8) encoder blocks, and
+``encoder_attention_packed`` / ``encoder_attention_separate`` the two
+entries of the encoder attention kernel. They take CUDA tensors only; the
+two attention entries count nothing themselves, their callers count them
+under their own names (the plain versions live beside the functions that
+use them, the int8 ones in ops/int8.py, the attention in
+ops/attention.py).
 """
 
 from __future__ import annotations
@@ -43,6 +47,9 @@ LAUNCHES: Counter = Counter()
 BIAS_F32, BIAS_BF16, GELU, RESID, STORE, EXPORT = 1, 2, 4, 8, 16, 32
 # gemm_s8 epilogue flags (csrc/gemm_s8.cu)
 S8_GELU, S8_RES_F32, S8_RES_BF16, S8_OUT_F32, S8_STORE, S8_EXPORT = 1, 2, 4, 8, 16, 32
+S8_RES_AFTER_CAST = 64
+# largest token count of csrc/encoder_attention.cu (MAX_TOKENS)
+ATTENTION_MAX_TOKENS = 320
 
 
 def reset_launches() -> None:
@@ -120,7 +127,8 @@ _SIGNATURES = {
                     _P, _P, _I, _I, _I, _I, _I, _P],
     "dfd_quant_rows": [_P, _I, _I, _I, _I, _I, _P, _I, _P, _I, _I, _I, _P],
     "dfd_layer_norm_quant": [_P, _I, _I, _P, _P, _I, _I, _F, _P, _P, _P],
-    "dfd_encoder_attention": [_P, _P, _I, _I, _I, _F, _I, _P],
+    "dfd_encoder_attention": [_P, _P, _P, _LL, _P, _I, _I, _I, _F, _I, _P],
+    "dfd_encoder_attention_packed": [_P, _P, _I, _I, _I, _F, _I, _P],
     "dfd_decoder_attention": [_P, _P, _LL, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
     "dfd_decoder_attention_partials": [_P, _P, _LL, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
     "dfd_decoder_attention_bwd": [_P, _P, _LL, _P, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -257,15 +265,18 @@ def layer_norm_rows(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
 
 def gemm_s8(a: torch.Tensor, a_scale: torch.Tensor, b_t: torch.Tensor, w_scale: torch.Tensor,
             bias: torch.Tensor, *, out_dtype: torch.dtype = torch.bfloat16, gelu: bool = False,
-            residual: Optional[torch.Tensor] = None, store: bool = True,
-            export: Optional[tuple] = None, col_off: int = 0) -> Optional[torch.Tensor]:
+            residual: Optional[torch.Tensor] = None, residual_after_cast: bool = False,
+            store: bool = True, export: Optional[tuple] = None,
+            col_off: int = 0) -> Optional[torch.Tensor]:
     """W8A8 product ``a (M, K) int8 @ b_t (N, K) int8 ^T`` with an exact int32
     accumulate and the dequant epilogue of _w8a8_dot, in f32:
     ``acc * (a_scale / 127) * (w_scale / 127) + bias``, then QuickGELU with
-    ``gelu``, then ``residual`` (M, N) f32 or bf16 added in f32. ``a_scale``
-    (M,) and ``w_scale`` (N,) or (1, N), ``bias`` (N,) are f32. C is
-    ``out_dtype`` (f32 or bf16). ``export`` (bf16 output only) is gemm's K/V
-    export. Returns C (M, N) when ``store``."""
+    ``gelu``, then ``residual`` (M, N) f32 or bf16 added in f32, or with
+    ``residual_after_cast`` (bf16 residual and output) added to the value
+    rounded to bf16. ``a_scale`` (M,) and ``w_scale`` (N,) or (1, N),
+    ``bias`` (N,) are f32. C is ``out_dtype`` (f32 or bf16). ``export``
+    (bf16 output only) is gemm's K/V export. Returns C (M, N) when
+    ``store``."""
     require_cuda("gemm_s8", a, b_t, dtype=torch.int8)
     w_scale = w_scale.reshape(-1)
     require_cuda("gemm_s8", a_scale, w_scale, bias, dtype=torch.float32)
@@ -288,7 +299,12 @@ def gemm_s8(a: torch.Tensor, a_scale: torch.Tensor, b_t: torch.Tensor, w_scale: 
         require_cuda("gemm_s8", residual, dtype=residual.dtype)
         if residual.shape != (m, n) or residual.dtype not in (torch.float32, torch.bfloat16):
             raise ValueError("gemm_s8: residual must be (M, N) f32 or bf16")
-        flags |= S8_RES_F32 if residual.dtype == torch.float32 else S8_RES_BF16
+        if residual_after_cast:
+            if residual.dtype != torch.bfloat16 or out_dtype != torch.bfloat16:
+                raise ValueError("gemm_s8: residual_after_cast takes a bf16 residual and output")
+            flags |= S8_RES_AFTER_CAST
+        else:
+            flags |= S8_RES_F32 if residual.dtype == torch.float32 else S8_RES_BF16
     kv = (None, None, 1, 1, 0, 1)
     if export is not None:
         if out_dtype != torch.bfloat16:
@@ -366,3 +382,69 @@ def layer_norm_quant(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
     check_launch("layer_norm_quant", err)
     LAUNCHES["layer_norm_quant"] += 1
     return q, s
+
+
+def _attention_args(name: str, frames: int, tokens: int, heads: int, head_dim: int,
+                    out_dtype: torch.dtype) -> None:
+    if head_dim != 64 or not 1 <= tokens <= ATTENTION_MAX_TOKENS:
+        raise ValueError(f"{name}: takes head_dim 64 and 1 to {ATTENTION_MAX_TOKENS} tokens, "
+                         f"got head_dim {head_dim}, {tokens} tokens")
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"{name}: output {out_dtype} is neither bf16 nor f32")
+
+
+def _launch_attention(name: str, fn, args: tuple, frames: int, tokens: int, heads: int,
+                      head_dim: int, out_dtype: torch.dtype, device) -> torch.Tensor:
+    out = torch.empty((frames * tokens, heads * head_dim), dtype=out_dtype, device=device)
+    err = fn(*args, out.data_ptr(), frames, tokens, heads, head_dim ** -0.5,
+             int(out_dtype == torch.float32), stream())
+    check_launch(name, err)
+    return out
+
+
+def encoder_attention_packed(qkv: torch.Tensor, frames: int, tokens: int, heads: int,
+                             head_dim: int,
+                             out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """Self-attention over contiguous packed bf16 rows qkv (frames * tokens,
+    3W), [q | k | v], W = heads * head_dim -> (frames * tokens, W) in
+    ``out_dtype`` (bf16, or f32 for the int8 whole block)."""
+    name = "encoder_attention_packed"
+    require_cuda(name, qkv)
+    _attention_args(name, frames, tokens, heads, head_dim, out_dtype)
+    if qkv.shape != (frames * tokens, 3 * heads * head_dim) or not qkv.is_contiguous():
+        raise ValueError(f"{name}: takes contiguous (frames*tokens, 3W) rows, got "
+                         f"{tuple(qkv.shape)}")
+    return _launch_attention(name, library().dfd_encoder_attention_packed, (qkv.data_ptr(),),
+                             frames, tokens, heads, head_dim, out_dtype, qkv.device)
+
+
+def _row_pitch(x: torch.Tensor) -> Optional[int]:
+    """The row pitch of an (N, T, H, D) view whose (frame, token) rows hold
+    H * D values (head-major, D contiguous) at a fixed pitch, else None."""
+    n, t, h, d = x.shape
+    pitch = x.stride(1) if t > 1 else (x.stride(0) if n > 1 else h * d)
+    want = (t * pitch, pitch, d, 1)
+    ok = all(s == w or size == 1 for s, w, size in zip(x.stride(), want, x.shape))
+    return pitch if ok else None
+
+
+def encoder_attention_separate(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """Self-attention over bf16 q, k, v (N, T, H, D) -> (N * T, H * D) in
+    ``out_dtype``. The three must share one row pitch: three contiguous
+    tensors, or the [q | k | v] column blocks of one packed (N, T, 3HD)
+    buffer (no copy is made)."""
+    name = "encoder_attention_separate"
+    require_cuda(name, q, k, v)
+    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"{name}: q, k, v must be (N, T, H, D) of one shape, got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    n, t, h, d = q.shape
+    _attention_args(name, n, t, h, d, out_dtype)
+    pitch = _row_pitch(q)
+    if pitch is None or _row_pitch(k) != pitch or _row_pitch(v) != pitch:
+        raise ValueError(f"{name}: q, k and v must be rows of one pitch, got strides "
+                         f"{q.stride()}, {k.stride()}, {v.stride()}")
+    return _launch_attention(name, library().dfd_encoder_attention,
+                             (q.data_ptr(), k.data_ptr(), v.data_ptr(), pitch),
+                             n, t, h, d, out_dtype, q.device)

@@ -8,6 +8,11 @@ On a CUDA tensor each function is a short chain of this package's kernels:
                   -> encoder_attention -> gemm (out-proj, + residual)
   MLP half:       layer_norm_rows -> gemm (c_fc, + QuickGELU)
                   -> gemm (c_proj, + residual)
+  int8 split pair (W8A8, the compute_int8 path at width 1024, ViT-L):
+    attention:    layer_norm_quant -> gemm_s8 (qkv -> bf16, + K/V export)
+                  -> encoder_attention -> gemm (bf16 out-proj, + residual)
+    MLP:          layer_norm_quant -> gemm_s8 (c_fc, QuickGELU -> f32)
+                  -> quant_rows -> gemm_s8 (c_proj, rounded to bf16, + h)
   whole int8 block (W8A8, the compute_int8 path at width <= 768):
                   layer_norm_quant -> gemm_s8 (qkv -> bf16, + K/V export)
                   -> encoder_attention (f32) -> quant_rows
@@ -27,7 +32,11 @@ fusing them away is later work. On a CPU tensor the plain versions below run
 instead; they keep the kernels' rounding points (LayerNorm in f32, biases
 added in f32 before the bf16 cast, QuickGELU in f32, the residual added in
 the activation dtype; on the int8 block the f32 residual stream between the
-halves and the quantisation of f32 values without a bf16 round trip).
+halves and the quantisation of f32 values without a bf16 round trip). The
+int8 split pair keeps the Pallas kernels' points, not the XLA
+composition's: its out-projection is bf16, not W8A8
+(pallas_attention.py:403-407), and its MLP rounds the c_proj output to bf16
+before adding h (:1270).
 """
 
 from __future__ import annotations
@@ -47,21 +56,8 @@ def encoder_attention(qkv: torch.Tensor, frames: int, tokens: int, heads: int,
                       head_dim: int, out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """Kernel: self-attention over packed bf16 qkv rows (frames * tokens, 3W)
     -> (frames * tokens, W) in ``out_dtype`` (bf16, or f32 for the int8
-    block's out-projection)."""
-    _cuda.require_cuda("encoder_attention", qkv)
-    w = heads * head_dim
-    if head_dim != 64 or tokens > 256 or qkv.shape != (frames * tokens, 3 * w) \
-            or not qkv.is_contiguous():
-        raise ValueError(f"encoder_attention: takes head_dim 64, <= 256 tokens and "
-                         f"contiguous (frames*tokens, 3W); got {tuple(qkv.shape)}, "
-                         f"head_dim {head_dim}")
-    if out_dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"encoder_attention: output {out_dtype} is neither bf16 nor f32")
-    out = torch.empty((frames * tokens, w), dtype=out_dtype, device=qkv.device)
-    err = _cuda.library().dfd_encoder_attention(
-        qkv.data_ptr(), out.data_ptr(), frames, tokens, heads, head_dim ** -0.5,
-        int(out_dtype == torch.float32), _cuda.stream())
-    _cuda.check_launch("encoder_attention", err)
+    block's out-projection); at most 320 tokens."""
+    out = _cuda.encoder_attention_packed(qkv, frames, tokens, heads, head_dim, out_dtype)
     _cuda.LAUNCHES["encoder_attention"] += 1
     return out
 
@@ -80,9 +76,33 @@ def _kv_result(k, v, n, t_out, heads, head_dim, export_into):
     return k.reshape(n, t_out, heads, head_dim), v.reshape(n, t_out, heads, head_dim)
 
 
-def _export_plain(qkv2, n, t, w, lo, kv_pad, kv_rows8, export_into):
-    """The K/V export of the packed (N * T, 3W) qkv rows, plain: (k_slot,
-    v_slot, scales) with scales () on the bf16 path."""
+def _qkv_projection(h2, ln, in_proj, int8_gemm, *, col_off=0, store=True, export=None):
+    """Kernels: LN1 and the qkv projection (columns from ``col_off`` on) of
+    bf16 rows h2 (R, W): layer_norm_rows + gemm, or with ``int8_gemm``
+    layer_norm_quant + gemm_s8 (bf16 output), with gemm's K/V export."""
+    b = in_proj["b"].float()[col_off:]
+    if int8_gemm:
+        yq, ys = _cuda.layer_norm_quant(h2, ln["scale"].float(), ln["bias"].float())
+        wq, ws = weight_q(in_proj)
+        return _cuda.gemm_s8(yq, ys, wq[col_off:], ws[:, col_off:], b, store=store,
+                             export=export, col_off=col_off)
+    y = _cuda.layer_norm_rows(h2, ln["scale"].float(), ln["bias"].float())
+    return _cuda.gemm(y, in_proj["w"].to(h2.dtype)[:, col_off:], b, store=store, export=export,
+                      col_off=col_off)
+
+
+def _w8a8_plain(x32: torch.Tensor, p: dict) -> torch.Tensor:
+    """The kernels' W8A8 linear, plain: _quant_rows of f32 rows, the int8
+    product with its dequant, plus the bias, in f32."""
+    xq, xs = quant_rows_plain(x32)
+    wq, ws = weight_q(p)
+    return w8a8_dot_plain(xq, xs, wq, ws) + p["b"].float()
+
+
+def export_kv(qkv2, n, t, w, lo, kv_pad, kv_rows8, export_into):
+    """The K/V export of the packed (N * T, 3W) qkv rows with torch ops (the
+    kv_rows8 quantiser launches its kernel on a CUDA tensor): (k_slot, v_slot,
+    scales) with scales () on the bf16 path."""
     if kv_rows8:
         slots = None
         if export_into is not None:
@@ -116,12 +136,8 @@ def fused_encoder_attn_block(
     slot ``slot`` of the (n_slots, N, T', W) buffers, which are returned.
     ``kv_rows8``: K/V int8 with per-row scales, and the returns gain
     ``(k_scale, v_scale)``, (N, T', 1) f32, pad rows 0. ``int8_gemm``: the
-    W8A8 qkv projection of the int8 tower, in the ``last_only`` form only
-    (the other int8 forms run for width > 768, which the port's encoder
-    attention does not take yet)."""
-    if int8_gemm and not last_only:
-        raise NotImplementedError("the int8 split attention block (width > 768) is not "
-                                  "ported yet; width <= 768 runs fused_encoder_block")
+    W8A8 qkv projection of the int8 tower (LN1 quantised per row in f32);
+    the out-projection stays bf16, as in the TPU kernel."""
     if _cuda.on_cpu("fused_encoder_attn_block", h):
         return fused_encoder_attn_block_plain(
             h, ln, attn, heads, head_dim, export=export, drop_cls=drop_cls,
@@ -133,7 +149,6 @@ def fused_encoder_attn_block(
     lo = 1 if drop_cls else 0
     t_out = t - lo + kv_pad
     dt = h.dtype
-    b_qkv = attn["in_proj"]["b"].float()
     h2 = h.reshape(n * t, w)
     k_slot = v_slot = None
     if export or last_only:
@@ -143,22 +158,14 @@ def fused_encoder_attn_block(
         else None
     scales = ()
     if last_only:
-        if int8_gemm:
-            yq, ys = _cuda.layer_norm_quant(h2, ln["scale"].float(), ln["bias"].float())
-            wq, ws = weight_q(attn["in_proj"])
-            kv = _cuda.gemm_s8(yq, ys, wq[w:], ws[:, w:], b_qkv[w:], store=kv_rows8,
-                               export=bf16_export, col_off=w)
-        else:
-            y = _cuda.layer_norm_rows(h2, ln["scale"].float(), ln["bias"].float())
-            kv = _cuda.gemm(y, attn["in_proj"]["w"].to(dt)[:, w:], b_qkv[w:], store=kv_rows8,
-                            export=bf16_export, col_off=w)
+        kv = _qkv_projection(h2, ln, attn["in_proj"], int8_gemm, col_off=w, store=kv_rows8,
+                             export=bf16_export)
         if kv_rows8:
             scales = export_kv_rows8(kv[:, :w], kv[:, w:], n, t, lo, kv_pad,
                                      (k_slot, v_slot))[2:]
         _cuda.LAUNCHES["fused_encoder_attn_block"] += 1
         return (*_kv_result(k_slot, v_slot, n, t_out, heads, head_dim, export_into), *scales)
-    y = _cuda.layer_norm_rows(h2, ln["scale"].float(), ln["bias"].float())
-    qkv = _cuda.gemm(y, attn["in_proj"]["w"].to(dt), b_qkv, export=bf16_export)
+    qkv = _qkv_projection(h2, ln, attn["in_proj"], int8_gemm, export=bf16_export)
     if export and kv_rows8:
         scales = export_kv_rows8(qkv[:, w: 2 * w], qkv[:, 2 * w:], n, t, lo, kv_pad,
                                  (k_slot, v_slot))[2:]
@@ -179,22 +186,17 @@ def fused_encoder_attn_block_plain(
     kv_rows8: bool = False,
 ):
     """Plain version of fused_encoder_attn_block (same contract)."""
-    if int8_gemm and not last_only:
-        raise NotImplementedError("the int8 split attention block (width > 768) is not "
-                                  "ported yet; width <= 768 runs fused_encoder_block")
     n, t, w = h.shape
     lo = 1 if drop_cls else 0
     t_out = t - lo + kv_pad
     h2 = h.reshape(n * t, w)
     if int8_gemm:
-        yq, ys = quant_rows_plain(layer_norm_f32(ln, h2))
-        wq, ws = weight_q(attn["in_proj"])
-        qkv = (w8a8_dot_plain(yq, ys, wq, ws) + attn["in_proj"]["b"].float()).to(h.dtype)
+        qkv = _w8a8_plain(layer_norm_f32(ln, h2), attn["in_proj"]).to(h.dtype)
     else:
         qkv = linear_f32_bias(layer_norm(ln, h2), attn["in_proj"]["w"], attn["in_proj"]["b"])
     result = None
     if export or last_only:
-        k, v, scales = _export_plain(qkv, n, t, w, lo, kv_pad, kv_rows8, export_into)
+        k, v, scales = export_kv(qkv, n, t, w, lo, kv_pad, kv_rows8, export_into)
         result = (*_kv_result(k, v, n, t_out, heads, head_dim, export_into), *scales)
     if last_only:
         return result
@@ -203,23 +205,40 @@ def fused_encoder_attn_block_plain(
     return (h_out, *result) if export else h_out
 
 
-def fused_encoder_mlp_block(h: torch.Tensor, ln: dict, mlp: dict) -> torch.Tensor:
-    """LN2 -> c_fc -> QuickGELU (f32) -> c_proj -> +residual on h (N, T, W)."""
+def fused_encoder_mlp_block(h: torch.Tensor, ln: dict, mlp: dict,
+                            int8_gemm: bool = False) -> torch.Tensor:
+    """LN2 -> c_fc -> QuickGELU (f32) -> c_proj -> +residual on h (N, T, W).
+    ``int8_gemm``: both GEMMs W8A8 (LN2 and the GELU output quantised per row
+    in f32), the c_proj output rounded to h's dtype before h is added."""
     if _cuda.on_cpu("fused_encoder_mlp_block", h):
-        return fused_encoder_mlp_block_plain(h, ln, mlp)
+        return fused_encoder_mlp_block_plain(h, ln, mlp, int8_gemm=int8_gemm)
     n, t, w = h.shape
     dt = h.dtype
     h2 = h.reshape(n * t, w)
-    y = _cuda.layer_norm_rows(h2, ln["scale"].float(), ln["bias"].float())
-    mid = _cuda.gemm(y, mlp["c_fc"]["w"].to(dt), mlp["c_fc"]["b"].float(), gelu=True)
-    out = _cuda.gemm(mid, mlp["c_proj"]["w"].to(dt), mlp["c_proj"]["b"].float(),
-                     residual=h2)
+    if int8_gemm:
+        (wfc, sfc), (wpr, spr) = weight_q(mlp["c_fc"]), weight_q(mlp["c_proj"])
+        yq, ys = _cuda.layer_norm_quant(h2, ln["scale"].float(), ln["bias"].float())
+        mid = _cuda.gemm_s8(yq, ys, wfc, sfc, mlp["c_fc"]["b"].float(), gelu=True,
+                            out_dtype=torch.float32)
+        mq, m_s = _cuda.quant_rows(mid)
+        out = _cuda.gemm_s8(mq, m_s, wpr, spr, mlp["c_proj"]["b"].float(), residual=h2,
+                            residual_after_cast=True, out_dtype=dt)
+    else:
+        y = _cuda.layer_norm_rows(h2, ln["scale"].float(), ln["bias"].float())
+        mid = _cuda.gemm(y, mlp["c_fc"]["w"].to(dt), mlp["c_fc"]["b"].float(), gelu=True)
+        out = _cuda.gemm(mid, mlp["c_proj"]["w"].to(dt), mlp["c_proj"]["b"].float(),
+                         residual=h2)
     _cuda.LAUNCHES["fused_encoder_mlp_block"] += 1
     return out.reshape(n, t, w)
 
 
-def fused_encoder_mlp_block_plain(h: torch.Tensor, ln: dict, mlp: dict) -> torch.Tensor:
+def fused_encoder_mlp_block_plain(h: torch.Tensor, ln: dict, mlp: dict,
+                                  int8_gemm: bool = False) -> torch.Tensor:
     """Plain version of fused_encoder_mlp_block."""
+    if int8_gemm:
+        mid = _w8a8_plain(layer_norm_f32(ln, h), mlp["c_fc"])
+        mid = mid * torch.sigmoid(1.702 * mid)
+        return h + _w8a8_plain(mid, mlp["c_proj"]).to(h.dtype)
     y = layer_norm(ln, h)
     mid = y.float() @ mlp["c_fc"]["w"].to(h.dtype).float() + mlp["c_fc"]["b"].float()
     mid = (mid * torch.sigmoid(1.702 * mid)).to(h.dtype)
@@ -301,16 +320,11 @@ def fused_encoder_block_plain(
     t_out = t - lo + kv_pad
     dt = h.dtype
     h2 = h.reshape(n * t, w)
-
-    def w8a8(x32, p):
-        xq, xs = quant_rows_plain(x32)
-        wq, ws = weight_q(p)
-        return w8a8_dot_plain(xq, xs, wq, ws) + p["b"].float()
-
+    w8a8 = _w8a8_plain
     xf = w8a8(layer_norm_f32(ln1, h2), attn["in_proj"]).to(dt)
     result = ()
     if export:
-        k, v, scales = _export_plain(xf, n, t, w, lo, kv_pad, kv_rows8, export_into)
+        k, v, scales = export_kv(xf, n, t, w, lo, kv_pad, kv_rows8, export_into)
         result = (*_kv_result(k, v, n, t_out, heads, head_dim, export_into), *scales)
     att = plain_attention_qkv(xf.reshape(n, t, 3 * w), heads, head_dim,
                               out_dtype=torch.float32).reshape(n * t, w)

@@ -5,7 +5,11 @@ stream, the decoder attention's partials form and backward at token counts
 that are not tile multiples, a whole tiny detector and a tiny trainer), and
 the int8 kernels: gemm_s8 at ragged M and N with each epilogue, quant_rows
 and layer_norm_quant on strided views, the int8 K/V export with pad rows,
-the int8 K/V decoder attention at a ragged L, and a whole int8 block.
+the int8 K/V decoder attention at a ragged L, and a whole int8 block; and
+the 257-token towers: both encoder-attention entries at 17 to 320 tokens
+with 12 and 16 heads (the separate entry on strided views of one packed
+buffer and on contiguous tensors), the token limit, the int8 split pair at
+width 1024, and tiny DINOv2 and ViT-L-class detectors.
 
 Marked ``cuda``; every test skips without a card. Run on a machine with one:
 
@@ -487,3 +491,147 @@ def test_bf16_attn_block_kv_rows8_on_card(dev, last_only):
         assert torch.equal(got[i][1, :, tokens - 1:], torch.zeros_like(got[i][1, :, tokens - 1:]))
     for i in (2, 3):
         assert rel_err(got[i], want[i]) <= 1e-5
+
+
+# -- the 257-token towers ----------------------------------------------------------------
+
+@pytest.mark.parametrize("tokens", [17, 197, 257, 320])
+@pytest.mark.parametrize("heads", [12, 16])
+@pytest.mark.parametrize("entry", ["packed", "separate_views", "separate_contiguous"])
+def test_encoder_attention_entries(dev, entry, heads, tokens):
+    """Both entries of csrc/encoder_attention.cu against plain_attention,
+    2 frames, each counted under its own name."""
+    from dfd_clip_tpu_torch.ops import _cuda
+    from dfd_clip_tpu_torch.ops import attention as att
+
+    gen = torch.Generator().manual_seed(tokens + heads)
+    frames, w = 2, heads * 64
+    qkv = randn(gen, frames, tokens, 3 * w).to(dev, torch.bfloat16)
+    q, k, v = (s.reshape(frames, tokens, heads, 64) for s in qkv.split(w, dim=-1))
+    want = att.plain_attention(q, k, v)
+    _cuda.reset_launches()
+    if entry == "packed":
+        got = att.fused_encoder_attention_qkv(qkv, heads, 64).reshape(want.shape)
+        name = "fused_encoder_attention_qkv"
+    else:
+        if entry == "separate_contiguous":
+            q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        got = att.fused_encoder_attention(q, k, v)
+        name = "fused_encoder_attention"
+    assert _cuda.launches() == {name: 1}
+    assert got.dtype == torch.bfloat16
+    assert rel_err(got, want) <= REL
+
+
+def test_encoder_attention_limits(dev):
+    """321 tokens, head_dim 32 and q/k/v of different row pitches raise."""
+    from dfd_clip_tpu_torch.ops import attention as att
+    from dfd_clip_tpu_torch.ops.encoder_block import encoder_attention
+
+    qkv = torch.zeros(2, 321, 3 * 128, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="320 tokens"):
+        att.fused_encoder_attention_qkv(qkv, 2, 64)
+    with pytest.raises(ValueError, match="320 tokens"):
+        encoder_attention(qkv.reshape(642, -1), 2, 321, 2, 64)
+    with pytest.raises(ValueError):
+        att.fused_encoder_attention_qkv(qkv[:, :17], 4, 32)
+    q = qkv[:, :17, :128].reshape(2, 17, 2, 64)
+    with pytest.raises(ValueError, match="pitch"):
+        att.fused_encoder_attention(q, q.contiguous(), q)
+
+
+def _to(tree, dev, dtype=None):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev, dtype if k == "w" else None) for k, v in tree.items()}
+    return tree.to(dev) if dtype is None or tree.dtype == torch.int8 else tree.to(dev, dtype)
+
+
+@pytest.mark.parametrize("form", ["export_stacked", "rows8_stacked", "plain", "mlp"])
+def test_int8_split_pair_width_1024(dev, form):
+    """The int8 split pair at width 1024, 16 heads, 257 tokens, 2 frames,
+    against its plain versions on the same card inputs."""
+    from dfd_clip_tpu_torch.models import clip_vit
+    from dfd_clip_tpu_torch.ops import encoder_block as eb
+
+    gen = torch.Generator().manual_seed(17)
+    cfg = dataclasses.replace(clip_vit.VIT_L14, layers=1)
+    blk = clip_vit.prepare_int8_params(clip_vit.init_clip_vision(gen, cfg))["blocks"][0]
+    for lin in (blk["attn"]["in_proj"], blk["attn"]["out_proj"], blk["mlp"]["c_fc"],
+                blk["mlp"]["c_proj"]):
+        lin["b"] = randn(gen, *lin["b"].shape, scale=0.05)
+    blk = _to(blk, dev, torch.bfloat16)
+    frames, tokens, w = 2, 257, 1024
+    h = randn(gen, frames, tokens, w).to(dev, torch.bfloat16)
+    if form == "mlp":
+        got = eb.fused_encoder_mlp_block(h, blk["ln_2"], blk["mlp"], int8_gemm=True)
+        want = eb.fused_encoder_mlp_block_plain(h, blk["ln_2"], blk["mlp"], int8_gemm=True)
+        assert rel_err(got, want) <= REL
+        return
+    rows8 = form == "rows8_stacked"
+    outs = []
+    for fn in (eb.fused_encoder_attn_block, eb.fused_encoder_attn_block_plain):
+        into = None
+        if form != "plain":
+            kv_dt = torch.int8 if rows8 else torch.bfloat16
+            into = (torch.zeros(2, frames, 256, w, dtype=kv_dt, device=dev),
+                    torch.zeros(2, frames, 256, w, dtype=kv_dt, device=dev), 1, 2)
+        outs.append(fn(h, blk["ln_1"], blk["attn"], 16, 64, export=form != "plain",
+                       drop_cls=True, export_into=into, int8_gemm=True, kv_rows8=rows8))
+    got, want = outs
+    if form == "plain":
+        assert rel_err(got, want) <= REL
+        return
+    assert rel_err(got[0], want[0]) <= REL
+    for i in (1, 2):
+        if rows8:
+            int8_close(got[i][1], want[i][1])
+        else:
+            assert rel_err(got[i][1], want[i][1]) <= REL
+    with pytest.raises(ValueError, match="320 tokens"):
+        eb.fused_encoder_attn_block(torch.zeros(1, 321, w, dtype=torch.bfloat16, device=dev),
+                                    blk["ln_1"], blk["attn"], 16, 64, int8_gemm=True)
+
+
+TINY_TOWERS = {  # name: (foundation, width, heads, op_mode, launches)
+    "dinov2": ("dinov2", 128, 2, {}, {"fused_encoder_attention": 2}),
+    "vit_l_class_bf16": ("clip", 1024, 16, {}, {"fused_encoder_attention_qkv": 2}),
+    "vit_l_class_int8": ("clip", 1024, 16, {"compute_int8": 1},
+                         {"fused_encoder_attn_block": 3, "fused_encoder_mlp_block": 2}),
+}
+
+
+@pytest.mark.parametrize("tower", list(TINY_TOWERS))
+def test_tiny_wide_tower_predict_on_card(dev, tower):
+    """A 3-layer tower of head_dim 64 (keep 0 and 2) end to end through the
+    kernels, against the same params through the plain versions in bf16 on
+    the CPU."""
+    from dfd_clip_tpu_torch.models import clip_vit
+    from dfd_clip_tpu_torch.models.detector import Detector
+    from dfd_clip_tpu_torch.ops import _cuda
+
+    foundation, width, heads, op_mode, launches = TINY_TOWERS[tower]
+    cfg = Detector.get_default_config()
+    cfg.merge_from_other_cfg({"foundation": foundation, "decode_mode": "index",
+                              "decode_indices": [0, 2], "out_dim": [2],
+                              "op_mode": {"temporal_position": 1, **op_mode}})
+    patch = 14 if foundation == "dinov2" else 16
+    tiny = clip_vit.ViTConfig(input_resolution=2 * patch, patch_size=patch, width=width,
+                              layers=3, heads=heads, output_dim=32)
+
+    def build(device):
+        det = Detector(cfg, num_frames=4, compute_dtype=torch.bfloat16, device=device)
+        det.vit_cfg = tiny
+        det.transform = dataclasses.replace(det.transform, size=tiny.input_resolution)
+        det.decoder_cfg = dataclasses.replace(det.decoder_cfg, width=width, heads=heads)
+        return det
+
+    card, cpu = build(dev), build("cpu")
+    params = cpu.init_params(torch.Generator().manual_seed(4))
+    x = np.random.default_rng(0).integers(0, 256, (2, 4, 3, 40, 48), dtype=np.uint8)
+    m = np.array([[True] * 4, [True, True, False, False]])
+    _cuda.reset_launches()
+    got = card.predict(card.prepare_params(params), x, m)[0][0]
+    counts = _cuda.launches()
+    assert {k: counts.get(k, 0) for k in launches} == launches
+    want = cpu.predict(cpu.prepare_params(params), x, m)[0][0]
+    assert rel_err(got.cpu(), want) <= 5e-2

@@ -261,9 +261,16 @@ def test_fused_encoder_block_int8_bf16_close_to_pallas(block):
 
 
 def test_int8_split_forms_raise(block):
+    """The int8 split pair is ported (tests/test_torch_port_wide.py holds it
+    against its Pallas kernels): on the CPU both halves run their plain
+    versions. The bf16 whole-block form still raises."""
     t = th(block)
-    with pytest.raises(NotImplementedError):
-        eb.fused_encoder_attn_block(t["h"], t["ln1"], t["attn"], HEADS, D, int8_gemm=True)
+    got = eb.fused_encoder_attn_block(t["h"], t["ln1"], t["attn"], HEADS, D, int8_gemm=True)
+    assert torch.equal(got, eb.fused_encoder_attn_block_plain(t["h"], t["ln1"], t["attn"], HEADS,
+                                                              D, int8_gemm=True))
+    got = eb.fused_encoder_mlp_block(t["h"], t["ln2"], t["mlp"], int8_gemm=True)
+    assert torch.equal(got, eb.fused_encoder_mlp_block_plain(t["h"], t["ln2"], t["mlp"],
+                                                             int8_gemm=True))
     with pytest.raises(NotImplementedError):
         eb.fused_encoder_block(t["h"], t["ln1"], t["attn"], t["ln2"], t["mlp"], HEADS, D,
                                int8_gemm=False)

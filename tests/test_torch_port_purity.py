@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: no module of dfd_clip_tpu_torch, and not
 chip_smoke.py, imports jax, optax or the JAX package; importing the port
-(its training engine included) pulls in neither jax, optax nor yaml; its
-entry points default to the card and raise without one."""
+(its training engine and both towers included) pulls in neither jax, optax
+nor yaml; its entry points default to the card and raise without one; the
+options it has not ported raise."""
 
 import ast
 import subprocess
@@ -36,7 +37,9 @@ def test_port_imports_no_jax(path):
     "dfd_clip_tpu_torch.ops.int8",
     "dfd_clip_tpu_torch.engine.trainer, dfd_clip_tpu_torch.engine.optim, "
     "dfd_clip_tpu_torch.ops.decoder_attention_vjp",
-], ids=["serve", "train"])
+    "dfd_clip_tpu_torch.models.dinov2_vit, dfd_clip_tpu_torch.ops.attention, "
+    "dfd_clip_tpu_torch.ops.encoder_block, dfd_clip_tpu_torch.models.detector",
+], ids=["serve", "train", "towers"])
 def test_importing_the_port_loads_no_jax_or_yaml(modules):
     code = ("import sys\n"
             f"import {modules}\n"
@@ -103,3 +106,23 @@ def test_unported_train_modes_raise(option):
     with pytest.raises(NotImplementedError):
         det.forward(None, torch.zeros(1, 4, 3, 32, 32), [None], torch.ones(1, 4, dtype=torch.bool),
                     train=True)
+
+
+@pytest.mark.parametrize("option", ["swiglu_ffn", "int8_wider_than_1024", "foundation"])
+def test_unported_tower_options_raise(option):
+    """giant2's fused SwiGLU FFN, W8A8 towers wider than 1024 (JAX's XLA
+    linear_w8a8 composition) and unknown foundations raise."""
+    from dfd_clip_tpu_torch.models import clip_vit, dinov2_vit
+    from dfd_clip_tpu_torch.models.detector import Detector
+
+    with pytest.raises(NotImplementedError):
+        if option == "swiglu_ffn":
+            dinov2_vit.init_dinov2(torch.Generator(), dinov2_vit.ARCHITECTURES["ViT-g/14"])
+        elif option == "int8_wider_than_1024":
+            cfg = clip_vit.ViTConfig(input_resolution=32, width=1280, heads=16)
+            clip_vit.clip_vision_kv({}, torch.zeros(1, 3, 32, 32), cfg, compute_int8=True)
+        else:
+            cfg = Detector.get_default_config()
+            cfg.merge_from_other_cfg({"foundation": "resnet", "decode_mode": "index",
+                                      "decode_indices": [0], "out_dim": [2]})
+            Detector(cfg, num_frames=4, device="cpu")
