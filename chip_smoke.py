@@ -56,7 +56,25 @@
    device-resident predict of each is timed and traced;
 9. drives DINOv2 ViT-B/14 serving (`[dinov2 serve path]`, keep 6-11) the
    same way in bf16;
-10. prints the kernel table as one JSON line, the card line, and last
+10. checks the encoder's alternative kernels at the flagship shapes
+   (`[kernels variants]`): the bf16 whole block with its stacked export, the
+   int8 encoder attention in both modes at (320, 197, 12 x 64), and the
+   whole-encoder tower (12 layers, keep 6-11) in bf16 and int8 with int8
+   attention "0", "1" and "qk", each against its plain version (the tower
+   also against the per-layer kernel chain, which runs the same block
+   bodies), timed with its bound;
+11. drives the six paths of those kernels (`[variant serve paths]`): a
+   Scorer over the flagship Detector with EncoderKernels(block="full"), with
+   compute_int8 and int8_attn "1", and with tower=True in bf16 and in
+   compute_int8 with int8_attn "0", "1" and "qk" answers the four requests,
+   counters zeroed before and read after each; then one counted
+   device-resident predict of compute_int8 with int8_attn "qk" (the
+   per-layer qk form). Each path's encoder launch counts are asserted, one
+   batch is held against its plain route (|dP(fake)| <= 1e-2), the int8
+   paths' logits are compared with the bf16 whole block's by cosine (gated at
+   0.99 without int8 attention, recorded with it), and a device-resident
+   predict is timed and traced;
+12. prints the kernel table as one JSON line, the card line, and last
    {"ok": true, "device": {...}}.
 
 Any failed phase raises and the script exits nonzero without the last line.
@@ -91,6 +109,14 @@ TOL_TRAIN_GRAD = 1e-1     # whole plain route, per-leaf relative L2 (see train_p
 # order), scales within TOL_SCALE relative
 TOL_FLIPS_QUANT, TOL_FLIPS_LN, TOL_SCALE = 1e-5, 1e-4, 1e-6
 TOL_COSINE = 0.99         # int8 vs bf16 logits on the same parameters
+# The 12-layer towers against their plain version (the per-layer plain
+# chain): the kernels' f32 sums run in another order, which moves int8
+# quantisers across a rounding step (1/127 of a row's maximum) and bf16 by an
+# ulp, and the next layers carry that on (on an H100 80GB HBM3 at 700 W: bf16
+# 8.9e-3, int8 2.6-2.8e-2 of the max). Each tower is also held to the
+# per-layer kernel chain, whose block bodies it runs, at TOL_ENCODER
+# (bit-equal there).
+TOL_TOWER = 5e-2
 # The 257-token paths hold their logits (rel_err of the max) and P(fake)
 # against the plain versions computing in f32 (the exact route): on these
 # random towers the bf16 rounding of the path itself moves the normalised
@@ -103,6 +129,12 @@ TOL_PFAKE_F32, TOL_LOGITS_F32 = 3e-2, 5e-2
 PFAKE_SEEDS = 3           # parameter seeds each 257-token path is held on
 VITB_PATHS = ("serve", "train", "int8_serve", "int8_rows")
 VITL_PATHS = ("vitl_serve", "vitl_int8_serve")
+# the encoder's alternative kernel paths (EncoderKernels): block="full" in
+# bf16, compute_int8 with int8_attn "1" and "qk", and the tower
+VARIANT_PATHS = ("full_bf16", "int8_attn", "int8_qk", "tower_bf16", "tower_int8",
+                 "tower_int8_attn", "tower_int8_qk")
+INT8_VARIANTS = ("int8_attn", "int8_qk")      # the per-layer int8 whole block
+DECODER_GEMMS = 24        # gemm launches of the 7 decoder boundaries a predict (1 + 5 x 4 + 3)
 # ViT-L/14 @ 224 with decode_stride 4 (tests/test_models.py:433-440): 257
 # tokens, kept layers 0, 4, ..., 20; DINOv2 ViT-B/14 (configs/deepfake/dino/
 # deepfake.yaml:17-27): 257 tokens, kept layers 6-11
@@ -151,9 +183,10 @@ def kernel_row(rows: list, name, replaces, source, ms, plain, lib, flops, nbytes
           f"{'n/a' if lib is None else f'{lib:.4f}'}, bound {b:.4f} by {by})", flush=True)
 
 
-def compare(name: str, got, want, tol: float) -> float:
+def compare(name: str, got, want, tol: float, defer: bool = False) -> float:
     """Max abs error; fails when max|got - want| / max|want| exceeds tol or
-    anything is not finite."""
+    anything is not finite (with ``defer``, a relative error past tol fails
+    the run after its last phase: DEFERRED)."""
     import torch
 
     got, want = got.float(), want.float()
@@ -164,8 +197,16 @@ def compare(name: str, got, want, tol: float) -> float:
     rel = err / max(want.abs().max().item(), 1e-30)
     print(f"  {name}: max_abs_err {err:.3e} rel {rel:.3e} (tol {tol:g})", flush=True)
     if rel > tol:
-        raise SystemExit(f"FAIL {name}: relative error {rel:.3e} > {tol:g}")
+        fail(f"FAIL {name}: relative error {rel:.3e} > {tol:g}", defer)
     return err
+
+
+def fail(message: str, defer: bool) -> None:
+    """Stop the run now, or with ``defer`` after its last phase."""
+    if not defer:
+        raise SystemExit(message)
+    DEFERRED.append(message)
+    print("  " + message, flush=True)
 
 
 @contextlib.contextmanager
@@ -181,9 +222,11 @@ def plain_versions(encoder: bool = True):
         encoder_block,
         fused_decoder_attention,
         fused_decoder_attention_bwd,
+        tower,
     )
 
     swaps = [
+        (clip_vit, "fused_encoder_tower", tower.fused_encoder_tower_plain),
         (clip_vit, "fused_encoder_attn_block", encoder_block.fused_encoder_attn_block_plain),
         (clip_vit, "fused_encoder_mlp_block", encoder_block.fused_encoder_mlp_block_plain),
         (clip_vit, "fused_encoder_block", encoder_block.fused_encoder_block_plain),
@@ -231,7 +274,7 @@ def check_kernels(rows: list) -> None:
     # -- layer_norm_rows ------------------------------------------------------
     h2 = h.reshape(m_rows, w)
     ln1 = blk["ln_1"]
-    check_layer_norm(rows, "layer_norm_rows", h2, ln1, VITB_PATHS)
+    check_layer_norm(rows, "layer_norm_rows", h2, ln1, VITB_PATHS + VARIANT_PATHS)
 
     # -- gemm (the qkv projection shape) -----------------------------------------
     y = layers.layer_norm(ln1, h2)
@@ -244,7 +287,7 @@ def check_kernels(rows: list) -> None:
         time_ms(lambda: layers.linear_f32_bias(y, wq, bq)),
         time_ms(lambda: torch.addmm(bq16, y, wq)),
         2.0 * m_rows * w * 3 * w, 2.0 * (m_rows * w + 3 * w * w + m_rows * 3 * w) + 12.0 * w,
-        PEAK_BF16_TC, err, paths=VITB_PATHS + ("dinov2_serve",))
+        PEAK_BF16_TC, err, paths=VITB_PATHS + ("dinov2_serve",) + VARIANT_PATHS)
 
     # -- encoder_attention --------------------------------------------------------
     qkv = got
@@ -260,7 +303,8 @@ def check_kernels(rows: list) -> None:
         time_ms(lambda: eb.encoder_attention(qkv, n, t, hh, d)),
         time_ms(lambda: plain_attention_qkv(qkv.reshape(n, t, 3 * w), hh, d)),
         time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4)),
-        4.0 * n * hh * t * t * d, 2.0 * (m_rows * 3 * w + m_rows * w), PEAK_BF16_TC, err)
+        4.0 * n * hh * t * t * d, 2.0 * (m_rows * 3 * w + m_rows * w), PEAK_BF16_TC, err,
+        paths=("serve", "train", "full_bf16"))
     del qkv, q4, k4, v4, att, y, got
 
     # -- fused_encoder_attn_block: full + stacked export, and last_only -----------
@@ -305,7 +349,7 @@ def check_kernels(rows: list) -> None:
     nbytes = 4.0 * m_rows * w + 8.0 * w * w + 4.0 * n * t_out * w + 32.0 * w
     row("fused_encoder_attn_block", "dfd_clip_tpu/ops/pallas_attention.py:412",
         "dfd_clip_tpu_torch/ops/encoder_block.py", time_ms(attn_full), time_ms(attn_plain),
-        None, flops, nbytes, PEAK_BF16_TC, err)
+        None, flops, nbytes, PEAK_BF16_TC, err, paths=("serve", "train", "full_bf16"))
     last_ms = time_ms(lambda: eb.fused_encoder_attn_block(
         h, ln1, blk["attn"], hh, d, drop_cls=True, last_only=True,
         export_into=(kl, vl, 5, nsel), kv_pad=4))
@@ -330,9 +374,10 @@ def check_kernels(rows: list) -> None:
     # -- fused_decoder_attention and decoder_boundary (the ViT-B export: 200
     # rows a frame, 196 of them valid); DINOv2's boundaries run at this width
     check_decoder_attention(rows, "fused_decoder_attention", gen, dev, hh, t_out, 196,
-                            ("serve", "int8_serve"))
+                            ("serve", "int8_serve") + VARIANT_PATHS)
     check_train_attention(row, gen, dev)
-    check_decoder_boundary(rows, "decoder_boundary", blk, 2, VITB_PATHS + ("dinov2_serve",))
+    check_decoder_boundary(rows, "decoder_boundary", blk, 2,
+                           VITB_PATHS + ("dinov2_serve",) + VARIANT_PATHS)
 
 
 def check_layer_norm(rows: list, name: str, h2, ln: dict, paths: tuple) -> None:
@@ -582,7 +627,7 @@ def check_int8_kernels(rows: list) -> None:
     h = torch.randn(n, t, w, generator=gen).to(dev, bf)
     h2 = h.reshape(m_rows, w)
     ln1, attn, mlp = blk["ln_1"], blk["attn"], blk["mlp"]
-    int8_paths = ("int8_serve", "int8_rows")
+    int8_paths = ("int8_serve", "int8_rows") + INT8_VARIANTS
     row = functools.partial(kernel_row, rows, paths=int8_paths)
 
     # -- layer_norm_quant (LN1 on the bf16 residual stream) ----------------------
@@ -634,7 +679,7 @@ def check_int8_kernels(rows: list) -> None:
                                             out_dtype=torch.float32)),
         time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4)),
         4.0 * n * hh * t * t * d, 2.0 * m_rows * n3 + 4.0 * m_rows * w, PEAK_BF16_TC, err,
-        counter="encoder_attention", paths=int8_paths)
+        counter="encoder_attention", paths=("int8_serve", "int8_rows"))
     del att, q4, k4, v4, xf, yq, ys
 
     # -- quant_rows (the f32 MLP intermediate, 3072 wide) and gemm_s8 at c_proj -----
@@ -785,18 +830,20 @@ def check_int8_kernels(rows: list) -> None:
         PEAK_F32, err, counter="fused_decoder_attention_int8", paths=("int8_rows",))
 
 
-def detector(**extra):
+def detector(kernels=None, **extra):
     """A Detector on the card, bf16, 20 frames, out_dim [2]: the flagship
-    (bench.py:_detector_cfg) with ``extra``'s keys overridden."""
+    (bench.py:_detector_cfg) with ``extra``'s keys overridden and the
+    encoder's kernel paths ``kernels`` (EncoderKernels arguments)."""
     import torch
 
-    from dfd_clip_tpu_torch.models.detector import Detector
+    from dfd_clip_tpu_torch.models.detector import Detector, EncoderKernels
 
     cfg = Detector.get_default_config()
     cfg.merge_from_other_cfg({"decode_mode": "index", "decode_indices": list(KEEP),
                               "out_dim": [2], "losses": ["auc_roc"],
                               "op_mode": {"temporal_position": 1}, **extra})
-    return Detector(cfg, num_frames=FRAMES, compute_dtype=torch.bfloat16, device="cuda")
+    return Detector(cfg, num_frames=FRAMES, compute_dtype=torch.bfloat16, device="cuda",
+                    encoder_kernels=EncoderKernels(**(kernels or {})))
 
 
 def check_counts(path: str, counts: dict, expected: dict, runs: int,
@@ -869,18 +916,18 @@ def p_delta(a, b) -> float:
     return (a.float().softmax(-1)[:, 1] - b.float().softmax(-1)[:, 1]).abs().max().item()
 
 
-def hold_against_plain(label: str, predict, x, m):
+def hold_against_plain(label: str, predict, x, m, defer: bool = False):
     """One batch's logits through the kernels vs the plain versions: within
-    TOL_ENCODER of the max and |dP(fake)| <= TOL_PFAKE. Returns the kernels'
-    logits."""
+    TOL_ENCODER of the max and |dP(fake)| <= TOL_PFAKE (``defer``: see
+    compare). Returns the kernels' logits."""
     got = predict(x, m)
     with plain_versions():
         want = predict(x, m)
-    compare(f"{label} logits", got, want, TOL_ENCODER)
+    compare(f"{label} logits", got, want, TOL_ENCODER, defer)
     dp = p_delta(got, want)
     print(f"  {label} |dP(fake)| max {dp:.3e} (tol {TOL_PFAKE:g})", flush=True)
     if dp > TOL_PFAKE:
-        raise SystemExit(f"FAIL {label}: |dP(fake)| {dp:.3e} > {TOL_PFAKE:g}")
+        fail(f"FAIL {label}: |dP(fake)| {dp:.3e} > {TOL_PFAKE:g}", defer)
     return got
 
 
@@ -1415,9 +1462,8 @@ def wide_serve(card: str, label: str, det, raws: list, expected: dict, used: tup
         for (i, j), w in zip(PAIRS, worst)), flush=True)
     for k, name, tol in ((0, "logits rel_err", TOL_LOGITS_F32), (2, "|dP(fake)|", TOL_PFAKE_F32)):
         if worst[1][k] > tol:
-            DEFERRED.append(f"FAIL {label}: {name} of the kernels from the f32 plain route "
-                            f"{worst[1][k]:.3e} > {tol:g}")
-            print("  " + DEFERRED[-1], flush=True)
+            fail(f"FAIL {label}: {name} of the kernels from the f32 plain route "
+                 f"{worst[1][k]:.3e} > {tol:g}", True)
     ms = time_ms(lambda: scorer.predict(scorer.params, xd, md), iters=5, warmup=1)
     print(f"  device-resident {label} predict: {ms:.2f} ms per {CLIPS}-clip batch "
           f"({CLIPS * 1e3 / ms:.2f} clips/s) on {card}", flush=True)
@@ -1472,6 +1518,254 @@ def dinov2_serve_path(card: str, seeds: int) -> dict:
          "fused_encoder_attn_block": 0, "fused_encoder_mlp_block": 0,
          "fused_decoder_attention": 6, "decoder_boundary": 7},
         used=("fused_encoder_attention", "layer_norm_rows", "gemm"))
+    return counts
+
+
+def tower_params(gen, dev):
+    """A flagship ViT-B/16 tower's seeded blocks on the card, LayerNorms and
+    biases off their init values, with the pre-quantised int8 weights
+    beside the bf16 ones."""
+    import torch
+
+    from dfd_clip_tpu_torch.models import clip_vit
+
+    cfg = clip_vit.VIT_B16
+    params = clip_vit.init_clip_vision(gen, cfg)
+    w = cfg.width
+    for blk in params["blocks"]:
+        for ln in (blk["ln_1"], blk["ln_2"]):
+            ln["scale"].add_(0.1 * torch.randn(w, generator=gen))
+            ln["bias"].add_(0.1 * torch.randn(w, generator=gen))
+        for lin in (blk["attn"]["in_proj"], blk["attn"]["out_proj"], blk["mlp"]["c_fc"],
+                    blk["mlp"]["c_proj"]):
+            lin["b"].add_(0.02 * torch.randn(lin["b"].shape, generator=gen))
+    return [to_device(b, dev) for b in clip_vit.prepare_int8_params(params)["blocks"]]
+
+
+def check_variant_kernels(rows: list) -> dict:
+    """The encoder's alternative kernels against their plain versions at the
+    flagship shapes (320 frames x 197 tokens, width 768): the bf16 whole
+    block, the int8 encoder attention in both modes, and the 12-layer tower
+    (keep 6-11) in bf16 and int8 with each int8 attention mode. Returns the
+    towers' errors from their plain versions (PERF.md reads them)."""
+    import torch
+
+    from dfd_clip_tpu_torch.models import clip_vit
+    from dfd_clip_tpu_torch.ops import _cuda
+    from dfd_clip_tpu_torch.ops import attention as att
+    from dfd_clip_tpu_torch.ops import encoder_block as eb
+    from dfd_clip_tpu_torch.ops import tower
+
+    cfg = clip_vit.VIT_B16
+    n, t, w, hh, d = CLIPS * FRAMES, cfg.num_tokens, cfg.width, cfg.heads, cfg.head_dim
+    m_rows, t_out, nsel, bf = n * t, 200, len(KEEP), torch.bfloat16
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(7)
+    blk = random_block(gen, dev)
+    h = torch.randn(n, t, w, generator=gen).to(dev, bf)
+    attn_ops = 4.0 * n * hh * t * t * d
+
+    # -- the bf16 whole block with the stacked export ----------------------------
+    def bufs():
+        return (torch.empty(nsel, n, t_out, w, dtype=bf, device=dev),
+                torch.empty(nsel, n, t_out, w, dtype=bf, device=dev))
+
+    kb, vb = bufs()
+    kp, vp = bufs()
+    args = (h, blk["ln_1"], blk["attn"], blk["ln_2"], blk["mlp"], hh, d)
+    kw = dict(export=True, drop_cls=True, kv_pad=4, int8_gemm=False)
+    got = eb.fused_encoder_block(*args, export_into=(kb, vb, 2, nsel), **kw)
+    want = eb.fused_encoder_block_plain(*args, export_into=(kp, vp, 2, nsel), **kw)
+    err = compare("fused_encoder_block bf16 h", got[0], want[0], TOL_ENCODER)
+    err = max(err, compare("fused_encoder_block bf16 k", kb[2], kp[2], TOL_ENCODER))
+    err = max(err, compare("fused_encoder_block bf16 v", vb[2], vp[2], TOL_ENCODER))
+    if kb[2, :, 196:].abs().max().item() != 0 or vb[2, :, 196:].abs().max().item() != 0:
+        raise SystemExit("FAIL fused_encoder_block bf16: export pad rows are not zero")
+    del got, want
+    flops = 24.0 * m_rows * w * w + attn_ops
+    nbytes = 4.0 * m_rows * w + 24.0 * w * w + 4.0 * 9 * w + 4.0 * n * t_out * w
+    row = functools.partial(kernel_row, rows)
+    row("fused_encoder_block bf16", "dfd_clip_tpu/ops/pallas_attention.py:1212",
+        "dfd_clip_tpu_torch/ops/encoder_block.py",
+        time_ms(lambda: eb.fused_encoder_block(*args, export_into=(kb, vb, 2, nsel), **kw),
+                iters=10),
+        time_ms(lambda: eb.fused_encoder_block_plain(*args, export_into=(kp, vp, 2, nsel), **kw),
+                iters=3, warmup=1),
+        None, flops, nbytes, PEAK_BF16_TC, err, counter="fused_encoder_block",
+        paths=("full_bf16",))
+    del kb, vb, kp, vp
+
+    # -- the int8 encoder attention at (320, 197, 12 x 64), both modes ----------------
+    qkv = torch.randn(m_rows, 3 * w, generator=gen).to(dev, bf)
+    for mode, qk in (("1", False), ("qk", True)):
+        name = "encoder_attention_int8" + (" qk" if qk else "")
+        got = att.encoder_attention_int8(qkv, n, t, hh, d, qk_only=qk)
+        err = compare(name, got, att.attn_int8_cols_plain(qkv, n, t, hh, d, qk_only=qk),
+                      TOL_ENCODER)
+        # operations: QK^T on int8; PV on int8, or bf16 in the qk mode
+        ops_t = attn_ops / 2 / PEAK_INT8_TC + attn_ops / 2 / (PEAK_BF16_TC if qk else PEAK_INT8_TC)
+        nb = 2.0 * m_rows * 3 * w + 4.0 * m_rows * w
+        row(name, "dfd_clip_tpu/ops/pallas_attention.py:214",
+            "dfd_clip_tpu_torch/csrc/encoder_attention_s8.cu",
+            time_ms(lambda: att.encoder_attention_int8(qkv, n, t, hh, d, qk_only=qk)),
+            time_ms(lambda: att.attn_int8_cols_plain(qkv, n, t, hh, d, qk_only=qk), iters=3,
+                    warmup=1),
+            None, 0, 0, 0, err, counter="encoder_attention_int8",
+            paths=("int8_qk",) if qk else ("int8_attn",),
+            bound=(max(ops_t, nb / HBM) * 1e3, "operations" if ops_t >= nb / HBM else "bytes"))
+        del got
+    del qkv, h, blk
+
+    # -- the tower: 12 layers over the flagship batch, keep 6-11 -------------------------
+    blocks = tower_params(torch.Generator().manual_seed(8), dev)
+    h = torch.randn(n, t, w, generator=gen).to(dev, bf)
+    errs = {}
+    for label, int8, mode in (("bf16", False, "0"), ("int8", True, "0"),
+                              ("int8 attn", True, "1"), ("int8 qk", True, "qk")):
+        name = f"fused_encoder_tower {label}"
+        kw = dict(keep=KEEP, drop_cls=True, int8_gemm=int8, int8_attn=mode)
+        k, v = tower.fused_encoder_tower(h, blocks, hh, d, **kw)
+        # the per-layer kernel chain (the same block bodies, one launch each)
+        kc = torch.empty_like(k)
+        vc = torch.empty_like(v)
+        x = h
+        for i in range(KEEP[-1]):
+            into = (kc, vc, i - KEEP[0], nsel) if i >= KEEP[0] else None
+            b = blocks[i]
+            out = eb.fused_encoder_block(x, b["ln_1"], b["attn"], b["ln_2"], b["mlp"], hh, d,
+                                         export=into is not None, drop_cls=True,
+                                         export_into=into, int8_gemm=int8, int8_attn=mode)
+            x = out[0] if into is not None else out
+        eb.fused_encoder_attn_block(x, blocks[-1]["ln_1"], blocks[-1]["attn"], hh, d,
+                                    drop_cls=True, last_only=True,
+                                    export_into=(kc, vc, nsel - 1, nsel), int8_gemm=int8)
+        del x
+        same = min((k == kc).float().mean().item(), (v == vc).float().mean().item())
+        chain_err = max(rel_err(k, kc), rel_err(v, vc))
+        print(f"  {name} vs the per-layer kernel chain: rel_err {chain_err:.3e}, "
+              f"equal share {same:.6f}", flush=True)
+        if chain_err > TOL_ENCODER:
+            fail(f"FAIL {name}: {chain_err:.3e} from the per-layer kernels", True)
+        del kc, vc
+        kp, vp = tower.fused_encoder_tower_plain(h, blocks, hh, d, **kw)
+        err = compare(f"{name} k", k, kp, TOL_TOWER, defer=True)
+        err = max(err, compare(f"{name} v", v, vp, TOL_TOWER, defer=True))
+        errs[label] = err
+        del kp, vp, k, v
+        # operations: 11 whole blocks and the K/V columns of layer 11 (the
+        # attention's two products on int8 or bf16 as the mode has them);
+        # bytes: h in, every weight, bias, scale and LayerNorm read once, the
+        # six layers' K/V out
+        peak = PEAK_INT8_TC if int8 else PEAK_BF16_TC
+        attn_t = (attn_ops / PEAK_BF16_TC if mode == "0" else attn_ops / 2 / PEAK_INT8_TC
+                  + attn_ops / 2 / (PEAK_BF16_TC if mode == "qk" else PEAK_INT8_TC))
+        ops_t = (11 * 24.0 + 4.0) * m_rows * w * w / peak + 11 * attn_t
+        wb = 1 if int8 else 2
+        layer_bytes = 12.0 * w * w * wb + 4.0 * 13 * w + (4.0 * 9 * w if int8 else 0)
+        nb = (2.0 * m_rows * w + 11 * layer_bytes + 2.0 * w * w * wb + 4.0 * 6 * w
+              + 2 * 2.0 * nsel * n * (t - 1) * w)
+        row(name, "dfd_clip_tpu/ops/pallas_tower.py:425", "dfd_clip_tpu_torch/csrc/encoder_tower.cu",
+            time_ms(lambda: tower.fused_encoder_tower(h, blocks, hh, d, **kw), iters=5),
+            time_ms(lambda: tower.fused_encoder_tower_plain(h, blocks, hh, d, **kw), iters=1,
+                    warmup=1),
+            None, 0, 0, 0, err, counter="fused_encoder_tower",
+            paths=("tower_" + label.replace(" ", "_"),),
+            bound=(max(ops_t, nb / HBM) * 1e3, "operations" if ops_t >= nb / HBM else "bytes"))
+    print(f"  tower grid {_cuda.tower_grid(t, False, '0')} blocks (bf16), "
+          f"{_cuda.tower_grid(t, True, '1')} (int8 attention) on "
+          f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs; chunk "
+          f"{_cuda.tower_chunk(n, t, w)} frames", flush=True)
+    return errs
+
+
+VARIANTS = {  # path: (EncoderKernels arguments, compute_int8, encoder launches a predict)
+    "full_bf16": ({"block": "full"}, False,
+                  {"fused_encoder_block": 11, "fused_encoder_attn_block": 1,
+                   "fused_encoder_mlp_block": 0, "fused_encoder_tower": 0,
+                   "encoder_attention": 11, "encoder_attention_int8": 0}),
+    "int8_attn": ({"int8_attn": "1"}, True,
+                  {"fused_encoder_block": 11, "fused_encoder_attn_block": 1,
+                   "fused_encoder_mlp_block": 0, "fused_encoder_tower": 0,
+                   "encoder_attention": 0, "encoder_attention_int8": 11}),
+    "tower_bf16": ({"tower": True}, False, {}),
+    "tower_int8": ({"tower": True}, True, {}),
+    "tower_int8_attn": ({"tower": True, "int8_attn": "1"}, True, {}),
+    "tower_int8_qk": ({"tower": True, "int8_attn": "qk"}, True, {}),
+}
+TOWER_COUNTS = {"fused_encoder_tower": 1, "fused_encoder_block": 0,
+                "fused_encoder_attn_block": 0, "fused_encoder_mlp_block": 0, "gemm_s8": 0,
+                "gemm": DECODER_GEMMS, "encoder_attention": 0, "encoder_attention_int8": 0}
+
+
+def variant_serve_paths(card: str) -> dict:
+    """The six paths of VARIANTS through a Scorer over the flagship Detector
+    on the four requests, then the per-layer int8_attn "qk" form as one
+    counted device-resident predict. Returns the launch counts of each."""
+    import torch
+    import torch.nn.functional as F
+
+    from dfd_clip_tpu_torch.ops import _cuda
+    from dfd_clip_tpu_torch.serve import Scorer
+
+    requests = make_requests()
+    x, m = last_batch(requests)
+    xd, md = torch.as_tensor(x, device="cuda"), torch.as_tensor(m, device="cuda")
+    raw = detector().init_params(torch.Generator().manual_seed(0))
+    decoder = {"fused_decoder_attention": 6, "decoder_boundary": 7}
+    counts, ref = {}, None
+    for path, (kernels, int8, encoder) in VARIANTS.items():
+        op_mode = {"temporal_position": 1, "compute_int8": int(int8)}
+        print(f"[variant serve path {path}] EncoderKernels({kernels}), compute_int8 {int(int8)}",
+              flush=True)
+        det = detector(kernels, op_mode=op_mode)
+        scorer = Scorer(det, raw, batch_size=CLIPS)
+        counts[path] = answer(scorer, requests, card, path)
+        expected = {**(encoder or TOWER_COUNTS), **decoder}
+        used = ("fused_encoder_tower",) if kernels.get("tower") else (
+            ("gemm_s8", "quant_rows", "layer_norm_quant") if int8
+            else ("gemm", "layer_norm_rows", "encoder_attention"))
+        check_counts(path, counts[path], expected, len(requests), used=used)
+        got = hold_against_plain(path, lambda x_, m_: scorer.predict(scorer.params, x_, m_), x, m,
+                                 defer=True)
+        if ref is None:
+            ref = got.float()        # the bf16 whole block's logits (the first path)
+        elif int8:
+            cos = F.cosine_similarity(got.float().flatten(), ref.flatten(), dim=0).item()
+            gated = kernels.get("int8_attn", "0") == "0"
+            print(f"  {path} vs bf16 logits, same params: cosine {cos:.6f}"
+                  + (f" (tol {TOL_COSINE:g})" if gated else " (recorded; int8 attention is "
+                     "gated by AUROC in the JAX package)"), flush=True)
+            if gated and not cos >= TOL_COSINE:
+                fail(f"FAIL {path}: cosine to bf16 {cos:.6f} < {TOL_COSINE:g}", True)
+        ms = time_ms(lambda: scorer.predict(scorer.params, xd, md), iters=5, warmup=1)
+        print(f"  device-resident {path} predict: {ms:.2f} ms per {CLIPS}-clip batch "
+              f"({CLIPS * 1e3 / ms:.2f} clips/s) on {card}", flush=True)
+        profile_device(f"{path} predict", lambda: scorer.predict(scorer.params, xd, md))
+        del scorer, det
+        torch.cuda.empty_cache()
+
+    print("[variant predict int8_qk] compute_int8, EncoderKernels(int8_attn='qk'), "
+          "device-resident batch", flush=True)
+    det = detector({"int8_attn": "qk"}, op_mode={"temporal_position": 1, "compute_int8": 1})
+    params = det.prepare_params(raw)
+
+    def predict(x_, m_):
+        return det.predict(params, x_, m_)[0][0]
+
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    got = predict(xd, md)
+    torch.cuda.synchronize()
+    counts["int8_qk"] = _cuda.launches()
+    check_counts("int8_qk", counts["int8_qk"],
+                 {**VARIANTS["int8_attn"][2], **decoder}, 1,
+                 used=("gemm_s8", "quant_rows", "encoder_attention_int8"))
+    hold_against_plain("int8_qk", predict, xd, md, defer=True)
+    cos = F.cosine_similarity(got.float().flatten(), ref.flatten(), dim=0).item()
+    print(f"  int8_qk vs bf16 logits, same params: cosine {cos:.6f} (recorded)", flush=True)
+    ms = time_ms(lambda: predict(xd, md), iters=5, warmup=1)
+    print(f"  device-resident int8_qk predict: {ms:.2f} ms per {CLIPS}-clip batch "
+          f"({CLIPS * 1e3 / ms:.2f} clips/s) on {card}", flush=True)
     return counts
 
 
@@ -1568,6 +1862,12 @@ def main() -> int:
     print("[dinov2 serve path] Scorer over DINOv2 ViT-B/14, 20 frames, keep 6-11, bf16, "
           "batch 16", flush=True)
     counts["dinov2_serve"] = dinov2_serve_path(card, args.pfake_seeds)
+    print("[kernels variants] flagship shapes: bf16 whole block, int8 attention, tower",
+          flush=True)
+    check_variant_kernels(rows)
+    print("[variant serve paths] Scorers over ViT-B/16, 20 frames, keep 6-11, batch 16, "
+          "through the encoder's alternative kernels", flush=True)
+    counts.update(variant_serve_paths(card))
 
     if DEFERRED:
         raise SystemExit("\n".join(DEFERRED))

@@ -45,3 +45,35 @@ union Pack8 {
   uint4 u;
   bf16 h[8];
 };
+
+// Eight consecutive f32 or bf16 values of a 16-byte aligned row, widened
+// to f32.
+__device__ __forceinline__ void load8(const float* p, float* v) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  const float4 b = *reinterpret_cast<const float4*>(p + 4);
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+}
+
+__device__ __forceinline__ void load8(const bf16* p, float* v) {
+  Pack8 pk;
+  pk.u = *reinterpret_cast<const uint4*>(p);
+#pragma unroll
+  for (int e = 0; e < 8; ++e) v[e] = __bfloat162float(pk.h[e]);
+}
+
+// int8 x int8 -> int32 tensor-core product of one m16n8k32 tile (a: 4, b: 2
+// registers of 4 int8 each, the PTX fragment layout).
+__device__ __forceinline__ void mma_s8(int* c, const unsigned* a, const unsigned* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// The _quant_rows rounding of one f32 value: clip(round(v * mul), -127, 127)
+// with round half to even (rintf) and no fused multiply-add.
+__device__ __forceinline__ int8_t quant8(float v, float mul) {
+  return static_cast<int8_t>(fminf(fmaxf(rintf(__fmul_rn(v, mul)), -127.0f), 127.0f));
+}

@@ -3,7 +3,8 @@
 //
 // Replaces: the in-kernel GEMMs of dfd_clip_tpu/ops/pallas_attention.py
 // (_make_attn_block_kernel: qkv projection + K/V export + out-projection;
-// _make_mlp_block_kernel: c_fc + QuickGELU, c_proj + residual) and of
+// _make_mlp_block_kernel: c_fc + QuickGELU, c_proj + residual;
+// _make_full_block_kernel without int8_gemm: its four GEMMs) and of
 // dfd_clip_tpu/ops/pallas_decoder_stack.py (_boundary_kernel's linear_bf16).
 //
 // Bound on an H100: at encoder shapes (M = 320 frames x 197 tokens, K = 768
@@ -23,174 +24,35 @@
 // export of the qkv projection: K and V columns of every non-CLS token row go
 // straight into slot `slot` of the stacked (Lsel, N, T', W) buffers, and the
 // row of each frame's last token also writes that frame's zero pad rows, so
-// the buffers need no zeroing pass. A wgmma/TMA pipeline is later work.
-#include <mma.h>
-
-#include "common.cuh"
-
-using namespace nvcuda;
+// the buffers need no zeroing pass. The bf16 whole block
+// (_make_full_block_kernel without int8_gemm) keeps its residual stream
+// between the halves in f32: its out-projection writes f32 with the bf16 h
+// added in f32, and its c_proj adds that f32 stream before the one bf16
+// rounding. Those two forms are a separate instantiation (WIDE) of the same
+// body (csrc/gemm_tile.cuh, shared with csrc/encoder_tower.cu), so the other
+// epilogues compile as before. A wgmma/TMA pipeline is later work.
+#include "gemm_tile.cuh"
 
 namespace {
 
-constexpr int BM = 128, BN = 128, BK = 32;
-constexpr int LDA_S = BK + 8;   // shared-memory row pitch (bf16) of the A tile
-constexpr int LDB_S = BN + 8;   // shared-memory row pitch (bf16) of the B tile
-constexpr int THREADS = 256;
-constexpr int STAGES = 3;
-constexpr int A_STAGE = BM * LDA_S;   // bf16 elements per stage
-constexpr int B_STAGE = BK * LDB_S;
-constexpr int SMEM_BYTES = STAGES * (A_STAGE + B_STAGE) * 2;
+using namespace bf16_gemm;
 
-enum : int {
-  kBiasF32 = 1,    // v = acc + b                       (f32)
-  kBiasBf16 = 2,   // v = bf16(bf16(acc) + bf16(b))     (layers.linear)
-  kGelu = 4,       // v = v * sigmoid(1.702 v)          (f32)
-  kResid = 8,      // out = bf16(res + bf16(v))
-  kStore = 16,     // write C
-  kExport = 32,    // write K/V columns into the stacked export buffers
-};
-
-struct Export {
-  bf16* k;          // slot base of the K buffer (N, T', W)
-  bf16* v;          // slot base of the V buffer
-  int tokens;       // T: token rows per frame in A
-  int t_out;        // T': exported rows per frame (T - lo + pad)
-  int lo;           // 1 drops the CLS row
-  int width;        // W
-  int col_off;      // column of C's first column in the packed [q|k|v] space
-};
-
-__device__ __forceinline__ float epilogue_value(float acc, const float* bias, int col, int flags) {
-  float v = acc;
-  if (flags & kBiasF32) v += bias[col];
-  if (flags & kBiasBf16) v = bf16r(bf16r(v) + bf16r(bias[col]));
-  if (flags & kGelu) v = v * (1.0f / (1.0f + expf(-1.702f * v)));
-  return v;
-}
-
+template <bool WIDE>
 __global__ void __launch_bounds__(THREADS, 2)
 gemm_kernel(const bf16* __restrict__ A, int lda, const bf16* __restrict__ B, int ldb,
-            bf16* __restrict__ C, int ldc, int M, int N, int K,
-            const float* __restrict__ bias, const bf16* __restrict__ res, int ldr,
-            int flags, Export ex) {
+            void* __restrict__ C, int ldc, int M, int N, int K, const float* __restrict__ bias,
+            const void* __restrict__ res, int ldr, int flags, Export ex) {
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* As = reinterpret_cast<bf16*>(smem);
-  bf16* Bs = As + STAGES * A_STAGE;
-
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const int wm = warp / 2, wn = warp % 2;   // 4 x 2 warps, 32 x 64 each
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-
-  auto load_tile = [&](int buf, int k0) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {   // A: 128 rows x 4 chunks of 8
-      int c = tid + i * THREADS;
-      int r = c / 4, cc = (c % 4) * 8;
-      bool ok = m0 + r < M;
-      const bf16* src = ok ? A + (size_t)(m0 + r) * lda + k0 + cc : A;
-      cp_async16(&As[buf * A_STAGE + r * LDA_S + cc], src, ok);
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {   // B: 32 rows x 16 chunks of 8
-      int c = tid + i * THREADS;
-      int r = c / 16, cc = (c % 16) * 8;
-      bool ok = n0 + cc < N;
-      const bf16* src = ok ? B + (size_t)(k0 + r) * ldb + n0 + cc : B;
-      cp_async16(&Bs[buf * B_STAGE + r * LDB_S + cc], src, ok);
-    }
-  };
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-  const int ktiles = K / BK;
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < ktiles) load_tile(s, s * BK);
-    cp_async_commit();   // empty groups keep the wait count uniform
-  }
-  for (int kt = 0; kt < ktiles; ++kt) {
-    cp_async_wait<STAGES - 2>();   // tile kt has landed
-    __syncthreads();               // ... and every warp is done with kt - 1
-    const int nk = kt + STAGES - 1;
-    if (nk < ktiles) load_tile(nk % STAGES, nk * BK);
-    cp_async_commit();
-    const bf16* at = As + (kt % STAGES) * A_STAGE;
-    const bf16* bt = Bs + (kt % STAGES) * B_STAGE;
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> af[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bfr[4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(af[i], at + (wm * 32 + i * 16) * LDA_S + kk, LDA_S);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        wmma::load_matrix_sync(bfr[j], bt + kk * LDB_S + wn * 64 + j * 16, LDB_S);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) wmma::mma_sync(acc[i][j], af[i], bfr[j], acc[i][j]);
-    }
-  }
-  cp_async_wait<0>();
-  __syncthreads();   // the ring is drained: reuse it for the epilogue
-
-  // Epilogue: each lane owns 8 contiguous columns of one row of a 16x16 tile.
-  float* st = reinterpret_cast<float*>(smem) + warp * 16 * 16;
-  const int er = lane / 2, ec = (lane % 2) * 8;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      wmma::store_matrix_sync(st, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      const int row = m0 + wm * 32 + i * 16 + er;
-      const int col = n0 + wn * 64 + j * 16 + ec;
-      if (row < M && col < N) {
-        Pack8 out;
-        Pack8 rp;
-        if (flags & kResid) rp.u = *reinterpret_cast<const uint4*>(res + (size_t)row * ldr + col);
-#pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          float v = epilogue_value(st[er * 16 + ec + e], bias, col + e, flags);
-          if (flags & kResid) v = __bfloat162float(rp.h[e]) + bf16r(v);
-          out.h[e] = __float2bfloat16(v);
-        }
-        if (flags & kStore) *reinterpret_cast<uint4*>(C + (size_t)row * ldc + col) = out.u;
-        if (flags & kExport) {
-          const int colq = col + ex.col_off;
-          if (colq >= ex.width) {
-            const int which = (colq - ex.width) / ex.width;
-            const int cc = (colq - ex.width) % ex.width;
-            bf16* dst = which == 0 ? ex.k : ex.v;
-            const int frame = row / ex.tokens, tok = row % ex.tokens;
-            const int d = tok - ex.lo;
-            const size_t base = (size_t)frame * ex.t_out;
-            if (d >= 0)
-              *reinterpret_cast<uint4*>(dst + (base + d) * ex.width + cc) = out.u;
-            if (tok == ex.tokens - 1) {
-              const uint4 zero = make_uint4(0, 0, 0, 0);
-              for (int p = ex.tokens - ex.lo; p < ex.t_out; ++p)
-                *reinterpret_cast<uint4*>(dst + (base + p) * ex.width + cc) = zero;
-            }
-          }
-        }
-      }
-      __syncwarp();
-    }
-  }
+  tile<WIDE>(A, lda, B, ldb, C, ldc, M, N, K, bias, res, ldr, flags, ex, blockIdx.y * BM,
+             blockIdx.x * BN, smem);
 }
 
 }  // namespace
 
-// C = epilogue(A[M,K] @ B[K,N]); A, B, C, res row-major bf16 with the given
-// leading dimensions. K % 32 == 0, N % 8 == 0 and every leading dimension
-// a multiple of 8 (16-byte rows); the wrapper checks. Returns the launch's
+// C = epilogue(A[M,K] @ B[K,N]); A, B row-major bf16, C bf16 (f32 with
+// kOutF32), res bf16 (f32 with kResIsF32), with the given leading
+// dimensions. K % 32 == 0, N % 8 == 0 and every leading dimension a multiple
+// of 8 (16-byte rows); the wrapper checks. Returns the launch's
 // cudaGetLastError().
 extern "C" int dfd_gemm(const void* A, int lda, const void* B, int ldb, void* C, int ldc,
                         int M, int N, int K, const float* bias, const void* res, int ldr,
@@ -198,16 +60,18 @@ extern "C" int dfd_gemm(const void* A, int lda, const void* B, int ldb, void* C,
                         int width, int col_off, void* stream) {
   Export ex{static_cast<bf16*>(k_out), static_cast<bf16*>(v_out), tokens, t_out, lo, width,
             col_off};
-  static bool configured = false;
-  if (!configured) {
-    cudaError_t err = cudaFuncSetAttribute(gemm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  const bool wide = flags & (kOutF32 | kResAddF32);
+  auto kernel = wide ? gemm_kernel<true> : gemm_kernel<false>;
+  static bool configured[2] = {false, false};
+  if (!configured[wide]) {
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            SMEM_BYTES);
     if (err != cudaSuccess) return static_cast<int>(err);
-    configured = true;
+    configured[wide] = true;
   }
   dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  gemm_kernel<<<grid, THREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(A), lda, static_cast<const bf16*>(B), ldb, static_cast<bf16*>(C),
-      ldc, M, N, K, bias, static_cast<const bf16*>(res), ldr, flags, ex);
+  kernel<<<grid, THREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(A), lda, static_cast<const bf16*>(B), ldb, C, ldc, M, N, K, bias,
+      res, ldr, flags, ex);
   return static_cast<int>(cudaGetLastError());
 }

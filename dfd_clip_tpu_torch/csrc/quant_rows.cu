@@ -23,52 +23,13 @@
 // even as jnp.round does. The K/V form maps input row r (frame r / T, token
 // r % T) to output row frame * T' + token - lo, drops tokens < lo, and the
 // frame's last token also writes the T' - (T - lo) zero pad rows and scales,
-// so a stacked export slot needs no zeroing pass.
-#include "common.cuh"
+// so a stacked export slot needs no zeroing pass. The row bodies live in
+// csrc/rows.cuh, shared with csrc/encoder_tower.cu.
+#include "rows.cuh"
 
 namespace {
 
 constexpr int WARPS = 8;
-constexpr int LN_CHUNKS = 4;   // 8-element chunks per lane: W <= 4 * 256
-
-__device__ __forceinline__ void load8(const float* p, float* v) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  const float4 b = *reinterpret_cast<const float4*>(p + 4);
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-}
-
-__device__ __forceinline__ void load8(const bf16* p, float* v) {
-  Pack8 pk;
-  pk.u = *reinterpret_cast<const uint4*>(p);
-#pragma unroll
-  for (int e = 0; e < 8; ++e) v[e] = __bfloat162float(pk.h[e]);
-}
-
-union Int8x8 {
-  uint2 u;
-  int8_t q[8];
-};
-
-__device__ __forceinline__ void store_q8(int8_t* dst, const float* v, float inv) {
-  Int8x8 o;
-#pragma unroll
-  for (int e = 0; e < 8; ++e) {
-    const float q = fminf(fmaxf(rintf(__fmul_rn(v[e], inv)), -127.0f), 127.0f);
-    o.q[e] = static_cast<int8_t>(q);
-  }
-  *reinterpret_cast<uint2*>(dst) = o.u;
-}
-
-// (scale, multiplier) of the two quantisers for a row maximum `amax`.
-__device__ __forceinline__ float2 quant_consts(float amax, bool kv) {
-  if (kv) {
-    const float s = __fadd_rn(__fmul_rn(amax, 1.0f / 127.0f), 1e-30f);
-    return make_float2(s, 1.0f / s);
-  }
-  const float s = __fadd_rn(amax, 1e-8f);
-  return make_float2(s, 127.0f / s);
-}
 
 template <typename T>
 __global__ void __launch_bounds__(WARPS * 32)
@@ -76,34 +37,8 @@ quant_rows_kernel(const T* __restrict__ x, int ldx, int rows, int cols, bool kv,
                   int8_t* __restrict__ q, int ldq, float* __restrict__ s, int tokens, int t_out,
                   int lo) {
   const int r = blockIdx.x * WARPS + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
   if (r >= rows) return;
-  const int frame = r / tokens, tok = r % tokens;
-  const size_t base = (size_t)frame * t_out;
-  if (tok == tokens - 1) {   // the frame's zero pad rows
-    for (int p = tokens - lo; p < t_out; ++p) {
-      for (int c = lane * 8; c < cols; c += 256)
-        *reinterpret_cast<uint2*>(q + (base + p) * ldq + c) = make_uint2(0, 0);
-      if (lane == 0) s[base + p] = 0.0f;
-    }
-  }
-  if (tok < lo) return;
-  const T* xr = x + (size_t)r * ldx;
-  float amax = 0.0f;
-  for (int c = lane * 8; c < cols; c += 256) {
-    float v[8];
-    load8(xr + c, v);
-#pragma unroll
-    for (int e = 0; e < 8; ++e) amax = fmaxf(amax, fabsf(v[e]));
-  }
-  const float2 sc = quant_consts(warp_max(amax), kv);
-  const size_t out = base + tok - lo;
-  for (int c = lane * 8; c < cols; c += 256) {
-    float v[8];
-    load8(xr + c, v);
-    store_q8(q + out * ldq + c, v, sc.y);
-  }
-  if (lane == 0) s[out] = sc.x;
+  row_ops::quant_row(x, ldx, r, cols, kv, q, ldq, s, tokens, t_out, lo, threadIdx.x % 32);
 }
 
 template <typename T>
@@ -112,54 +47,8 @@ layer_norm_quant_kernel(const T* __restrict__ x, int ldx, const float* __restric
                         const float* __restrict__ shift, int rows, int width, float eps,
                         int8_t* __restrict__ q, float* __restrict__ s) {
   const int r = blockIdx.x * WARPS + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
   if (r >= rows) return;
-  const T* xr = x + (size_t)r * ldx;
-  float v[LN_CHUNKS][8];
-  float sum = 0.0f;
-#pragma unroll
-  for (int i = 0; i < LN_CHUNKS; ++i) {
-    const int c = lane * 8 + i * 256;
-    if (c < width) {
-      load8(xr + c, v[i]);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) sum += v[i][e];
-    }
-  }
-  const float mean = warp_sum(sum) / width;
-  float sq = 0.0f;
-#pragma unroll
-  for (int i = 0; i < LN_CHUNKS; ++i) {
-    if (lane * 8 + i * 256 < width) {
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        const float d = v[i][e] - mean;
-        sq = __fadd_rn(sq, __fmul_rn(d, d));
-      }
-    }
-  }
-  const float rstd = 1.0f / sqrtf(warp_sum(sq) / width + eps);
-  float amax = 0.0f;
-#pragma unroll
-  for (int i = 0; i < LN_CHUNKS; ++i) {
-    const int c = lane * 8 + i * 256;
-    if (c < width) {
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        const float y = __fadd_rn(__fmul_rn(__fmul_rn(v[i][e] - mean, rstd), scale[c + e]),
-                                  shift[c + e]);
-        v[i][e] = y;
-        amax = fmaxf(amax, fabsf(y));
-      }
-    }
-  }
-  const float2 sc = quant_consts(warp_max(amax), false);
-#pragma unroll
-  for (int i = 0; i < LN_CHUNKS; ++i) {
-    const int c = lane * 8 + i * 256;
-    if (c < width) store_q8(q + (size_t)r * width + c, v[i], sc.y);
-  }
-  if (lane == 0) s[r] = sc.x;
+  row_ops::layer_norm_quant(x, ldx, r, scale, shift, width, eps, q, s, threadIdx.x % 32);
 }
 
 }  // namespace

@@ -7,16 +7,27 @@ package's HWIO, layer-stacked form). The kept layers write their CLS-dropped
 K/V straight into one (Lsel, N, T', W) buffer per K and V, blocks after the
 last kept layer are skipped, and the last kept layer runs LN1 + the K/V
 projection only. The JAX package's gate picks the block form
-(clip_vit.py:288-314):
+(clip_vit.py:288-342); where it reads the environment (DFD_FUSED_BLOCK,
+DFD_MEGAKERNEL, DFD_INT8_ATTN), the port takes explicit arguments
+(``block``, ``tower``, ``int8_attn``):
 
 * width <= 768 (ViT-B): the fused blocks of ops/encoder_block.py, the split
   attention/MLP pair in bf16, one whole ``fused_encoder_block`` a layer with
-  ``compute_int8`` (W8A8);
-* width 1024 (ViT-L) with ``compute_int8``: the split pair in its int8 forms;
+  ``compute_int8`` (W8A8); ``block="full"`` or ``"split"`` forces either
+  form in bf16 or int8;
+* width 1024 (ViT-L) with ``compute_int8``: the split pair in its int8
+  forms, the whole int8 block with ``block="full"``;
 * wider bf16 towers (ViT-L): the XLA composition (clip_vit.py:438-497) in
   torch ops, with ``linear`` on bf16 operands, LayerNorm through the row
   kernel and the attention through ``encoder_self_attention_qkv``
-  (csrc/encoder_attention.cu, packed entry).
+  (csrc/encoder_attention.cu, packed entry);
+* ``tower=True`` where JAX runs its megakernel (fused blocks, no int8_rows
+  export, a contiguous keep range): ``fused_encoder_tower``
+  (ops/tower.py), one launch for the whole encoder, with an unpadded
+  export (T' = T - drop_cls even under ``pad_tokens``); elsewhere the
+  per-layer forms above run, as in JAX;
+* ``int8_attn`` "1" or "qk" runs the int8 whole block's or the tower's
+  attention on int8 (``compute_int8`` only; the split pair has none).
 
 With ``kv_int8_rows`` the export is int8 with per-row scales.
 """
@@ -32,12 +43,14 @@ import torch.nn.functional as F
 from . import layers
 from ..ops.attention import encoder_self_attention, encoder_self_attention_qkv
 from ..ops.encoder_block import (
+    check_int8_attn,
     export_kv,
     fused_encoder_attn_block,
     fused_encoder_block,
     fused_encoder_mlp_block,
 )
 from ..ops.int8 import quantize_weight
+from ..ops.tower import fused_encoder_tower
 
 Params = Dict[str, Any]
 
@@ -185,34 +198,52 @@ def _layer_scale(bp: Params, key: str, y: torch.Tensor) -> torch.Tensor:
     return bp[key].to(y.dtype) * y if key in bp else y
 
 
+BLOCK_FORMS = ("auto", "full", "split")
+
+
 def clip_vision_kv(
     params: Params, x: torch.Tensor, cfg: ViTConfig,
     compute_dtype: torch.dtype = torch.bfloat16,
     keep_layers: Optional[tuple] = None, kv_int8: bool = False, drop_cls: bool = False,
     compute_int8: bool = False, kv_int8_rows: bool = False, pad_tokens: bool = False,
+    block: str = "auto", tower: bool = False, int8_attn: str = "0",
 ) -> Dict[str, torch.Tensor]:
     """Run the frozen tower, exporting the kept layers' head-split K and V.
 
     Returns {"k", "v"}: (Lsel, N, T', H, D), T' = T - drop_cls, zero-padded
-    up to a multiple of 8 rows with ``pad_tokens`` (196 -> 200 for CLIP-B).
-    ``compute_int8``: the W8A8 tower (the block GEMMs on int8 weights, see
-    prepare_int8_params). ``kv_int8_rows``: K/V int8, quantised per row at
-    the export, plus {"k_scale", "v_scale"}: (Lsel, N, T', 1) f32, dequant
-    q * s, pad rows 0."""
+    up to a multiple of 8 rows with ``pad_tokens`` (196 -> 200 for CLIP-B)
+    except on the tower. ``compute_int8``: the W8A8 tower (the block GEMMs
+    on int8 weights, see prepare_int8_params). ``kv_int8_rows``: K/V int8,
+    quantised per row at the export, plus {"k_scale", "v_scale"}: (Lsel, N,
+    T', 1) f32, dequant q * s, pad rows 0. ``block``, ``tower`` and
+    ``int8_attn`` choose the encoder's kernels as DFD_FUSED_BLOCK,
+    DFD_MEGAKERNEL and DFD_INT8_ATTN do in the JAX package (module note)."""
     if kv_int8:
         raise NotImplementedError("kv_dtype 'int8' (per-(layer, head) scales) is not ported yet")
+    if block not in BLOCK_FORMS:
+        raise ValueError(f"block must be one of {BLOCK_FORMS}, got {block!r}")
+    check_int8_attn(int8_attn)
     fused = cfg.width <= 768 or (compute_int8 and cfg.width <= 1024)
     if compute_int8 and not fused:
         raise NotImplementedError("W8A8 towers wider than 1024 (the XLA linear_w8a8 "
                                   "composition) are not ported yet")
-    whole_block = compute_int8 and cfg.width <= 768
+    if block == "auto":
+        block = "full" if compute_int8 and cfg.width <= 768 else "split"
+    whole_block = fused and block == "full"
+    int8_attn = int8_attn if compute_int8 else "0"
     h = embed_patches(params, x, cfg, compute_dtype)
     n, t = h.shape[:2]
     w = cfg.width
     t_real = t - 1 if drop_cls else t
-    kv_pad = (-t_real) % 8 if pad_tokens else 0
     keep = tuple(range(cfg.layers)) if keep_layers is None else tuple(keep_layers)
     last = max(keep)
+    if tower and fused and not kv_int8_rows and keep == tuple(range(keep[0], last + 1)):
+        k, v = fused_encoder_tower(h, params["blocks"], cfg.heads, cfg.head_dim, keep=keep,
+                                   drop_cls=drop_cls, int8_gemm=compute_int8,
+                                   int8_attn=int8_attn)
+        shape = (len(keep), n, t_real, cfg.heads, cfg.head_dim)
+        return {"k": k.view(shape), "v": v.view(shape)}
+    kv_pad = (-t_real) % 8 if pad_tokens else 0
     slot_of = {layer: s for s, layer in enumerate(keep)}
     nsel, t_out = len(keep), t_real + kv_pad
     kv_dt = torch.int8 if kv_int8_rows else h.dtype
@@ -237,7 +268,8 @@ def clip_vision_kv(
             out = fused_encoder_block(h, bp["ln_1"], bp["attn"], bp["ln_2"], bp["mlp"],
                                       cfg.heads, cfg.head_dim, export=i in keep,
                                       drop_cls=drop_cls, export_into=into,
-                                      kv_rows8=kv_int8_rows, kv_pad=kv_pad)
+                                      int8_gemm=compute_int8, kv_rows8=kv_int8_rows,
+                                      kv_pad=kv_pad, int8_attn=int8_attn)
         elif i in keep:
             out = fused_encoder_attn_block(h, bp["ln_1"], bp["attn"], cfg.heads, cfg.head_dim,
                                            export=True, drop_cls=drop_cls, export_into=into,

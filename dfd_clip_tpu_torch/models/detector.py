@@ -12,7 +12,11 @@ under ``torch.no_grad``; with ``train=True`` the decoder runs under autograd
 export must not be an inference-mode tensor). ``op_mode.compute_int8`` runs
 the W8A8 tower on weights that ``prepare_params`` pre-quantises, and
 ``op_mode.kv_dtype = "int8_rows"`` keeps the K/V export int8 with per-row
-scales into the decoder; both are inference-only here. The adapter,
+scales into the decoder; both are inference-only here. ``encoder_kernels``
+(``EncoderKernels``) chooses the CLIP encoder's kernel paths, as the JAX
+package's DFD_FUSED_BLOCK, DFD_MEGAKERNEL and DFD_INT8_ATTN do (the tower's
+export is unpadded); DINOv2 ignores it, as JAX's DINOv2 tower ignores them.
+The adapter,
 patch-index gathering, ``kv_dtype = "int8"``, the compression and temporal
 losses, ``ema_frame`` and ``patch_mask`` are not ported yet and raise.
 """
@@ -92,6 +96,17 @@ def resolve_layer_indices(config, n_layers: int) -> Tuple[int, ...]:
 
 
 @dataclasses.dataclass(frozen=True)
+class EncoderKernels:
+    """The CLIP encoder's kernel paths (models/clip_vit.py clip_vision_kv),
+    with the JAX package's defaults: ``block`` "auto" | "full" | "split"
+    (DFD_FUSED_BLOCK), ``tower`` the whole-encoder tower (DFD_MEGAKERNEL=1),
+    ``int8_attn`` "0" | "1" | "qk" (DFD_INT8_ATTN, compute_int8 only)."""
+    block: str = "auto"
+    tower: bool = False
+    int8_attn: str = "0"
+
+
+@dataclasses.dataclass(frozen=True)
 class TransformSpec:
     size: int
     mean: Tuple[float, float, float]
@@ -134,10 +149,11 @@ class Detector:
         return C
 
     def __init__(self, config, num_frames: int, compute_dtype=torch.bfloat16,
-                 device="cuda"):
+                 device="cuda", encoder_kernels: EncoderKernels = EncoderKernels()):
         if config.decode_mode not in ("stride", "index"):
             raise ValueError(f"Unknown decode mode: {config.decode_mode}")
         self.device = resolve_device(device)
+        self.encoder_kernels = encoder_kernels
         self.config = config
         self.num_frames = num_frames
         self.compute_dtype = compute_dtype
@@ -237,8 +253,8 @@ class Detector:
                   pad_tokens: bool = False) -> Dict[str, torch.Tensor]:
         """(B, T, 3, H, W) -> {"k", "v"}: (Lsel, B, T, P, H, D); with
         ``pad_tokens`` a CLIP tower's P is zero-padded to a multiple of 8 (the
-        DINOv2 export is never padded). With int8_rows also {"k_scale",
-        "v_scale"}: (Lsel, B, T, P, 1) f32."""
+        DINOv2 export and the whole-encoder tower's are never padded). With
+        int8_rows also {"k_scale", "v_scale"}: (Lsel, B, T, P, 1) f32."""
         b, t = x.shape[:2]
         frames = x.reshape((b * t,) + tuple(x.shape[2:]))
         if self._dinov2():
@@ -249,7 +265,8 @@ class Detector:
             kvs = clip_vit.clip_vision_kv(
                 params["encoder"], frames, self.vit_cfg, self.compute_dtype,
                 keep_layers=self.layer_indices, drop_cls=True, pad_tokens=pad_tokens,
-                compute_int8=self.compute_int8, kv_int8_rows=self._kv_rows8())
+                compute_int8=self.compute_int8, kv_int8_rows=self._kv_rows8(),
+                **dataclasses.asdict(self.encoder_kernels))
         return {s: f.reshape((f.shape[0], b, t) + tuple(f.shape[2:])) for s, f in kvs.items()}
 
     def predict(self, params: Params, x, m, *, train: bool = False,
@@ -269,8 +286,8 @@ class Detector:
                             device=self.device).bool()
         with torch.no_grad():
             x = self.preprocess(x)
-            # the export's patch axis is 8-aligned (196 -> 200); the decoder
-            # masks the pad rows as keys through patch_valid
+            # the export's patch axis is 8-aligned (196 -> 200, not on the
+            # tower); the decoder masks the pad rows as keys through patch_valid
             kvs = self.encode_kv(params, x, pad_tokens=True)
         with contextlib.nullcontext() if train else torch.no_grad():
             task_logits, video = decoder_lib.apply_decoder(

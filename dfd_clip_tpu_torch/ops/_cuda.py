@@ -13,13 +13,14 @@ its path went through the kernels (``reset_launches`` / ``launches``).
 
 ``gemm`` and ``layer_norm_rows`` are the shared building blocks of the fused
 encoder and decoder blocks, ``gemm_s8``, ``quant_rows`` and
-``layer_norm_quant`` those of the int8 (W8A8) encoder blocks, and
+``layer_norm_quant`` those of the int8 (W8A8) encoder blocks,
 ``encoder_attention_packed`` / ``encoder_attention_separate`` the two
-entries of the encoder attention kernel. They take CUDA tensors only; the
-two attention entries count nothing themselves, their callers count them
-under their own names (the plain versions live beside the functions that
-use them, the int8 ones in ops/int8.py, the attention in
-ops/attention.py).
+entries of the encoder attention kernel, ``encoder_attention_s8`` the int8
+encoder attention and ``encoder_tower`` the whole-encoder tower. They take
+CUDA tensors only; the attention entries and the tower count nothing
+themselves, their callers count them under their own names (the plain
+versions live beside the functions that use them, the int8 ones in
+ops/int8.py, the attention in ops/attention.py, the tower in ops/tower.py).
 """
 
 from __future__ import annotations
@@ -43,13 +44,20 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 LAUNCHES: Counter = Counter()
 
-# gemm epilogue flags (csrc/gemm.cu)
+# gemm epilogue flags (csrc/gemm_tile.cuh)
 BIAS_F32, BIAS_BF16, GELU, RESID, STORE, EXPORT = 1, 2, 4, 8, 16, 32
+OUT_F32, RES_ADD_F32, RES_IS_F32 = 64, 128, 256
 # gemm_s8 epilogue flags (csrc/gemm_s8.cu)
 S8_GELU, S8_RES_F32, S8_RES_BF16, S8_OUT_F32, S8_STORE, S8_EXPORT = 1, 2, 4, 8, 16, 32
 S8_RES_AFTER_CAST = 64
-# largest token count of csrc/encoder_attention.cu (MAX_TOKENS)
+# largest token count of csrc/encoder_attention.cu and encoder_attention_s8.cu
+# (MAX_TOKENS)
 ATTENTION_MAX_TOKENS = 320
+# the tower's chunk rule (csrc/encoder_tower.cu): a chunk's h and qkv (8 bytes
+# x T x W a frame) take at most half of the card's 50 MB L2
+TOWER_L2_BYTES = 50 * 2 ** 20
+# int8 attention modes of the tower (csrc/encoder_tower.cu TowerArgs.attn)
+TOWER_ATTN = {"0": 0, "1": 1, "qk": 2}
 
 
 def reset_launches() -> None:
@@ -122,13 +130,17 @@ _P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlo
 _SIGNATURES = {
     "dfd_gemm": [_P, _I, _P, _I, _P, _I, _I, _I, _I, _P, _P, _I, _I,
                  _P, _P, _I, _I, _I, _I, _I, _P],
-    "dfd_layer_norm": [_P, _I, _P, _P, _P, _I, _I, _I, _F, _P],
+    "dfd_layer_norm": [_P, _I, _I, _P, _P, _P, _I, _I, _I, _F, _P],
     "dfd_gemm_s8": [_P, _I, _P, _P, _I, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I,
                     _P, _P, _I, _I, _I, _I, _I, _P],
     "dfd_quant_rows": [_P, _I, _I, _I, _I, _I, _P, _I, _P, _I, _I, _I, _P],
     "dfd_layer_norm_quant": [_P, _I, _I, _P, _P, _I, _I, _F, _P, _P, _P],
     "dfd_encoder_attention": [_P, _P, _P, _LL, _P, _I, _I, _I, _F, _I, _P],
     "dfd_encoder_attention_packed": [_P, _P, _I, _I, _I, _F, _I, _P],
+    "dfd_encoder_attention_s8": [_P, _P, _I, _I, _I, _F, _I, _P],
+    "dfd_encoder_tower_grid": [_I, _I, _I, ctypes.POINTER(ctypes.c_int)],
+    "dfd_encoder_tower": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F,
+                          _F, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P],
     "dfd_decoder_attention": [_P, _P, _LL, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
     "dfd_decoder_attention_partials": [_P, _P, _LL, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
     "dfd_decoder_attention_bwd": [_P, _P, _LL, _P, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -202,17 +214,21 @@ def _export_args(name: str, export: tuple, m: int, n: int, col_off: int) -> tupl
 
 def gemm(a: torch.Tensor, b: torch.Tensor, bias: torch.Tensor, *,
          bias_after_cast: bool = False, gelu: bool = False,
-         residual: Optional[torch.Tensor] = None, store: bool = True,
+         residual: Optional[torch.Tensor] = None, residual_before_cast: bool = False,
+         out_dtype: torch.dtype = torch.bfloat16, store: bool = True,
          export: Optional[tuple] = None, col_off: int = 0) -> Optional[torch.Tensor]:
     """bf16 ``a (M, K) @ b (K, N)`` with f32 accumulate and a fused epilogue.
 
     ``bias`` (N,) f32 is added in f32 before the bf16 cast, or with
     ``bias_after_cast`` rounded to bf16 and added after it (layers.linear).
-    ``gelu`` applies QuickGELU in f32; ``residual`` (M, N) bf16 is added in
-    bf16. ``export = (k_slot, v_slot, tokens, t_out, lo, width)`` writes the
-    K/V columns (packed column ``col + col_off`` >= width) of each row into
-    the (frames, t_out, width) slot views, dropping ``lo`` leading rows per
-    frame and zeroing the pad rows. Returns C (M, N) when ``store``."""
+    ``gelu`` applies QuickGELU in f32. ``residual`` (M, N) bf16 is added in
+    bf16 to the rounded value, or with ``residual_before_cast`` in f32 before
+    the one rounding; an f32 residual is always added so (the bf16 whole
+    block's hmid). C is ``out_dtype``, bf16 or f32. ``export = (k_slot,
+    v_slot, tokens, t_out, lo, width)`` (bf16 C only) writes the K/V columns
+    (packed column ``col + col_off`` >= width) of each row into the (frames,
+    t_out, width) slot views, dropping ``lo`` leading rows per frame and
+    zeroing the pad rows. Returns C (M, N) when ``store``."""
     require_cuda("gemm", a, b)
     require_cuda("gemm", bias, dtype=torch.float32)
     m, k = a.shape
@@ -221,18 +237,31 @@ def gemm(a: torch.Tensor, b: torch.Tensor, bias: torch.Tensor, *,
         raise ValueError(f"gemm: shapes {tuple(a.shape)} @ {tuple(b.shape)}, bias {tuple(bias.shape)}")
     if k % 32 or n % 8:
         raise ValueError(f"gemm: needs K % 32 == 0 and N % 8 == 0, got K={k}, N={n}")
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"gemm: output {out_dtype} is neither f32 nor bf16")
     flags = (BIAS_BF16 if bias_after_cast else BIAS_F32) | (GELU if gelu else 0)
+    if out_dtype == torch.float32:
+        flags |= OUT_F32
     c = None
     if store:
-        c = torch.empty((m, n), dtype=a.dtype, device=a.device)
+        c = torch.empty((m, n), dtype=out_dtype, device=a.device)
         flags |= STORE
     if residual is not None:
-        require_cuda("gemm", residual)
-        if residual.shape != (m, n):
-            raise ValueError("gemm: residual shape")
-        flags |= RESID
+        require_cuda("gemm", residual, dtype=residual.dtype)
+        if residual.shape != (m, n) or residual.dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError("gemm: residual must be (M, N) f32 or bf16")
+        if residual.dtype == torch.float32:
+            flags |= RES_ADD_F32 | RES_IS_F32
+        elif residual_before_cast:
+            flags |= RES_ADD_F32
+        else:
+            flags |= RESID
+    if out_dtype == torch.float32 and flags & RESID:
+        raise ValueError("gemm: an f32 output takes its residual before the cast")
     kv = (None, None, 1, 1, 0, 1)
     if export is not None:
+        if flags & (OUT_F32 | RES_ADD_F32):
+            raise ValueError("gemm: the K/V export writes the bf16 epilogue's values")
         kv = _export_args("gemm", export, m, n, col_off)
         flags |= EXPORT
     err = library().dfd_gemm(
@@ -248,16 +277,19 @@ def gemm(a: torch.Tensor, b: torch.Tensor, bias: torch.Tensor, *,
 
 def layer_norm_rows(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
                     eps: float = 1e-5) -> torch.Tensor:
-    """LayerNorm of bf16 rows x (R, W) with f32 statistics -> bf16 (R, W)."""
-    require_cuda("layer_norm_rows", x)
+    """LayerNorm of bf16 or f32 rows x (R, W) with f32 statistics -> bf16
+    (R, W)."""
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"layer_norm_rows: takes f32 or bf16, got {x.dtype}")
+    require_cuda("layer_norm_rows", x, dtype=x.dtype)
     require_cuda("layer_norm_rows", scale, shift, dtype=torch.float32)
     rows, width = x.shape
     if width % 8 or scale.shape != (width,) or shift.shape != (width,):
         raise ValueError("layer_norm_rows: width must be a multiple of 8 and match scale/shift")
-    y = torch.empty((rows, width), dtype=x.dtype, device=x.device)
-    err = library().dfd_layer_norm(x.data_ptr(), x.stride(0), scale.data_ptr(),
-                                   shift.data_ptr(), y.data_ptr(), width, rows, width,
-                                   eps, stream())
+    y = torch.empty((rows, width), dtype=torch.bfloat16, device=x.device)
+    err = library().dfd_layer_norm(x.data_ptr(), x.stride(0), int(x.dtype == torch.float32),
+                                   scale.data_ptr(), shift.data_ptr(), y.data_ptr(), width, rows,
+                                   width, eps, stream())
     check_launch("layer_norm_rows", err)
     LAUNCHES["layer_norm_rows"] += 1
     return y
@@ -448,3 +480,116 @@ def encoder_attention_separate(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     return _launch_attention(name, library().dfd_encoder_attention,
                              (q.data_ptr(), k.data_ptr(), v.data_ptr(), pitch),
                              n, t, h, d, out_dtype, q.device)
+
+
+def encoder_attention_s8(qkv: torch.Tensor, frames: int, tokens: int, heads: int, head_dim: int,
+                         qk_only: bool = False) -> torch.Tensor:
+    """_attn_int8_cols over contiguous packed bf16 rows qkv (frames * tokens,
+    3W) -> f32 (frames * tokens, W): both products on the int8 tensor cores,
+    or with ``qk_only`` the logits only (PV in bf16)."""
+    name = "encoder_attention_s8"
+    require_cuda(name, qkv)
+    _attention_args(name, frames, tokens, heads, head_dim, torch.float32)
+    if qkv.shape != (frames * tokens, 3 * heads * head_dim) or not qkv.is_contiguous():
+        raise ValueError(f"{name}: takes contiguous (frames*tokens, 3W) rows, got "
+                         f"{tuple(qkv.shape)}")
+    out = torch.empty((frames * tokens, heads * head_dim), dtype=torch.float32, device=qkv.device)
+    err = library().dfd_encoder_attention_s8(qkv.data_ptr(), out.data_ptr(), frames, tokens,
+                                             heads, head_dim ** -0.5 / (127.0 * 127.0),
+                                             int(qk_only), stream())
+    check_launch(name, err)
+    return out
+
+
+def tower_chunk(frames: int, tokens: int, width: int) -> int:
+    """Frames per chunk of the tower: its h and qkv (2 + 6 bytes x tokens x
+    width a frame) within half of the L2, floor(25 MiB / (8 T W)); 21 at
+    ViT-B/16 (8 x 197 x 768 = 1.21 MB a frame), 12 at ViT-L/14."""
+    return max(1, min(frames, TOWER_L2_BYTES // 2 // (8 * tokens * width)))
+
+
+def tower_grid(tokens: int, int8: bool, attn: str) -> int:
+    """The largest co-resident grid of the tower kernel for this geometry
+    (0: it cannot run cooperatively on this card)."""
+    grid = ctypes.c_int(0)
+    check_launch("encoder_tower", library().dfd_encoder_tower_grid(
+        tokens, int(int8), TOWER_ATTN[attn], ctypes.byref(grid)))
+    return grid.value
+
+
+def encoder_tower(h: torch.Tensor, layers: list, heads: int, *, first: int, lo: int,
+                  int8: bool, attn: str = "0", grid: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The whole-encoder tower (csrc/encoder_tower.cu) over h (N, T, W) bf16,
+    head_dim 64: layers 0..len(layers) - 1, the last of them K/V only,
+    exporting layers ``first``.. with ``lo`` leading rows of each frame
+    dropped. ``layers``: one (weights, scales, biases, norms) tuple of four
+    tensors each a layer: the qkv, out-proj, c_fc and c_proj weights, bf16
+    (K, N) or with ``int8`` int8 (N, K) beside their (N,) f32 scales (None
+    in bf16), their (N,) f32 biases, and the LayerNorms' f32 (W,) ln_1
+    scale, ln_1 shift, ln_2 scale, ln_2 shift. ``attn``: "0", "1" or "qk"
+    (int8 only). One cooperative launch of ``grid`` blocks (0: as many as
+    are co-resident); a grid that cannot be co-resident raises and nothing
+    runs. Returns (k, v), (len(layers) - first, N, T - lo, W) bf16."""
+    name = "encoder_tower"
+    require_cuda(name, h)
+    if h.dim() != 3 or not h.is_contiguous():
+        raise ValueError(f"{name}: takes a contiguous (N, T, W) residual stream")
+    n, t, w = h.shape
+    last = len(layers) - 1
+    if w != heads * 64 or not 0 <= first <= last or lo not in (0, 1):
+        raise ValueError(f"{name}: width {w} with {heads} heads of 64, layers {first}..{last}")
+    if not 1 <= t <= ATTENTION_MAX_TOKENS:
+        raise ValueError(f"{name}: takes 1 to {ATTENTION_MAX_TOKENS} tokens, got {t}")
+    if attn not in TOWER_ATTN or (attn != "0" and not int8):
+        raise ValueError(f"{name}: int8 attention {attn!r} needs the int8 tower")
+    wdt = torch.int8 if int8 else torch.bfloat16
+    hidden = layers[0][0][2].shape[0 if int8 else 1]
+    if hidden % 64:
+        raise ValueError(f"{name}: the MLP width {hidden} is not a multiple of 64")
+    shapes = [(w, 3 * w), (w, w), (w, hidden), (hidden, w)]
+    ptrs = []
+    for weights, scales, biases, norms in layers:
+        for i, (wt, (kin, nout)) in enumerate(zip(weights, shapes)):
+            require_cuda(name, wt, dtype=wdt)
+            require_cuda(name, biases[i], dtype=torch.float32)
+            if tuple(wt.shape) != ((nout, kin) if int8 else (kin, nout)) or not wt.is_contiguous() \
+                    or biases[i].shape != (nout,) or not biases[i].is_contiguous():
+                raise ValueError(f"{name}: weight {i} {tuple(wt.shape)} / bias "
+                                 f"{tuple(biases[i].shape)} for ({kin}, {nout})")
+            if int8:
+                require_cuda(name, scales[i], dtype=torch.float32)
+                if scales[i].numel() != nout or not scales[i].is_contiguous():
+                    raise ValueError(f"{name}: scale {i} {tuple(scales[i].shape)}")
+        for x in norms:
+            require_cuda(name, x, dtype=torch.float32)
+            if x.shape != (w,) or not x.is_contiguous():
+                raise ValueError(f"{name}: LayerNorm parameter {tuple(x.shape)}")
+        ptrs += [x.data_ptr() for x in weights]
+        ptrs += [x.data_ptr() if int8 else 0 for x in scales]
+        ptrs += [x.data_ptr() for x in (*biases, *norms)]
+    table = torch.tensor(ptrs, dtype=torch.int64).to(h.device)   # LayerW[last + 1]
+    t_out, nsel = t - lo, last + 1 - first
+    k = torch.empty((nsel, n, t_out, w), dtype=torch.bfloat16, device=h.device)
+    v = torch.empty_like(k)
+    rows = tower_chunk(n, t, w) * t
+
+    def scratch(cols, dtype):
+        return torch.empty((rows, cols), dtype=dtype, device=h.device)
+
+    act = torch.float32 if int8 else torch.bfloat16
+    buf = [scratch(w, torch.bfloat16), scratch(3 * w, torch.bfloat16), scratch(w, act),
+           scratch(w, torch.float32), scratch(hidden, act)]
+    buf += ([None, scratch(hidden, torch.int8), scratch(1, torch.float32)] if int8
+            else [scratch(w, torch.bfloat16), None, None])
+    err = library().dfd_encoder_tower(
+        h.data_ptr(), table.data_ptr(), k.data_ptr(), v.data_ptr(), n, t, w, heads, hidden, first,
+        last, lo, t_out, rows // t, int(int8), TOWER_ATTN[attn], 64 ** -0.5,
+        64 ** -0.5 / (127.0 * 127.0), *(b.data_ptr() if b is not None else None for b in buf),
+        grid, stream())
+    if err == -1:
+        raise RuntimeError(f"{name}: a grid of {grid or 'the co-resident'} blocks cannot be "
+                           f"co-resident on this card at {t} tokens (at most "
+                           f"{tower_grid(t, int8, attn)}); the tower launches cooperatively "
+                           f"or not at all")
+    check_launch(name, err)
+    return k, v

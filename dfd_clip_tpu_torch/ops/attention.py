@@ -1,6 +1,6 @@
 """Encoder self-attention (counterpart of dfd_clip_tpu/ops/attention.py and of
-``fused_encoder_attention`` / ``fused_encoder_attention_qkv`` in
-dfd_clip_tpu/ops/pallas_attention.py).
+``fused_encoder_attention`` / ``fused_encoder_attention_qkv`` /
+``_attn_int8_cols`` in dfd_clip_tpu/ops/pallas_attention.py).
 
 The two kernel wrappers launch csrc/encoder_attention.cu on a CUDA tensor
 (its separate and its packed entry, head_dim 64 and at most 320 tokens) and
@@ -8,7 +8,9 @@ take their plain versions, ``plain_attention`` and ``plain_attention_qkv``,
 for a CPU tensor. The dispatchers ``encoder_self_attention`` and
 ``encoder_self_attention_qkv`` are the entries the towers call, named as in
 the JAX module; the port has no backend switch, so each is its kernel
-wrapper.
+wrapper. ``encoder_attention_int8`` launches csrc/encoder_attention_s8.cu,
+the int8 attention of the int8 whole block and tower (DFD_INT8_ATTN in the
+JAX package), with ``attn_int8_cols_plain`` as its plain version.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from typing import Optional
 import torch
 
 from . import _cuda
+from .int8 import _over, _quotient
 
 
 def plain_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -74,3 +77,53 @@ def encoder_self_attention_qkv(qkv: torch.Tensor, heads: int, head_dim: int) -> 
     """Self-attention over the packed qkv projection (N, T, 3HD) -> (N, T, HD)
     (the wide CLIP towers' composition)."""
     return fused_encoder_attention_qkv(qkv, heads, head_dim)
+
+
+def _quant_rows_last(a: torch.Tensor, dim: int = -1):
+    """_attn_int8_cols' qrows over ``dim``: s = max|a| + 1e-8, q =
+    clip(round(a * (127 / s))), the quotient an IEEE division; q is left as
+    exact integer values in f32."""
+    s = a.abs().amax(dim, keepdim=True) + 1e-8
+    return torch.clamp(torch.round(a * _quotient(127.0, s)), -127, 127), s
+
+
+def attn_int8_cols_plain(qkv: torch.Tensor, frames: int, tokens: int, heads: int, head_dim: int,
+                         qk_only: bool = False) -> torch.Tensor:
+    """_attn_int8_cols over packed rows qkv (frames * tokens, 3W) -> f32
+    (frames * tokens, W), with csrc/encoder_attention_s8.cu's softmax: the row
+    maximum subtracted before the exp (the TPU kernel clamps the logits at 60
+    instead). Q and K quantised per (row, head), the logits
+    acc * (sq * d^-1/2 / 127^2) * sk; with ``qk_only`` PV = p rounded to
+    qkv's dtype times V, times 1 / sum p; else P quantised per row and V per
+    channel over the frame's tokens, PV = acc * (sp * (1 / sum p) / 127^2) *
+    sv. The integer products are summed in float64, exact like the kernel's
+    int32 sums."""
+    w = heads * head_dim
+    x = qkv.float().reshape(frames, tokens, 3, heads, head_dim).permute(2, 0, 3, 1, 4)
+    q, k, v = x[0], x[1], x[2]                                # (N, H, T, D)
+    qi, sq = _quant_rows_last(q)
+    ki, sk = _quant_rows_last(k)
+    acc = (qi.double() @ ki.double().transpose(-1, -2)).float()
+    logits = acc * (sq * (head_dim ** -0.5 / (127.0 * 127.0))) * sk.transpose(-1, -2)
+    p = torch.exp(logits - logits.amax(-1, keepdim=True))
+    rsum = _quotient(1.0, p.sum(-1, keepdim=True))
+    if qk_only:
+        out = (p.to(qkv.dtype).float() @ v) * rsum
+    else:
+        pi, sp = _quant_rows_last(p)
+        vi, sv = _quant_rows_last(v, dim=-2)
+        pv = (pi.double() @ vi.double()).float()
+        out = pv * _over(sp * rsum, 127.0 * 127.0) * sv
+    return out.permute(0, 2, 1, 3).reshape(frames * tokens, w)
+
+
+def encoder_attention_int8(qkv: torch.Tensor, frames: int, tokens: int, heads: int,
+                           head_dim: int, qk_only: bool = False) -> torch.Tensor:
+    """Kernel: _attn_int8_cols over packed rows qkv (frames * tokens, 3W),
+    bf16 on the card -> f32 (frames * tokens, W); ``qk_only`` is the "qk"
+    mode (PV in bf16)."""
+    if _cuda.on_cpu("encoder_attention_int8", qkv):
+        return attn_int8_cols_plain(qkv, frames, tokens, heads, head_dim, qk_only)
+    out = _cuda.encoder_attention_s8(qkv, frames, tokens, heads, head_dim, qk_only)
+    _cuda.LAUNCHES["encoder_attention_int8"] += 1
+    return out

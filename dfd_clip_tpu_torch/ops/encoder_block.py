@@ -15,10 +15,16 @@ On a CUDA tensor each function is a short chain of this package's kernels:
                   -> quant_rows -> gemm_s8 (c_proj, rounded to bf16, + h)
   whole int8 block (W8A8, the compute_int8 path at width <= 768):
                   layer_norm_quant -> gemm_s8 (qkv -> bf16, + K/V export)
-                  -> encoder_attention (f32) -> quant_rows
+                  -> encoder_attention (f32), or with int8_attn
+                     encoder_attention_int8 (f32) -> quant_rows
                   -> gemm_s8 (out-proj, + h -> f32 hmid)
                   -> layer_norm_quant -> gemm_s8 (c_fc, QuickGELU -> f32)
                   -> quant_rows -> gemm_s8 (c_proj, + f32 hmid -> bf16)
+  whole bf16 block (DFD_FUSED_BLOCK=full on a bf16 tower):
+                  layer_norm_rows -> gemm (qkv, + K/V export)
+                  -> encoder_attention -> gemm (out-proj, + h in f32 -> f32 hmid)
+                  -> layer_norm_rows (f32 rows) -> gemm (c_fc, + QuickGELU)
+                  -> gemm (c_proj, + f32 hmid -> bf16)
   int8 last_only: layer_norm_quant -> gemm_s8 (K/V columns, + export)
 
 With ``kv_rows8`` (kv_dtype "int8_rows") the K/V export is quantised per
@@ -48,7 +54,7 @@ import torch.nn.functional as F
 
 from ..models.layers import layer_norm, linear_f32_bias
 from . import _cuda
-from .attention import plain_attention_qkv
+from .attention import attn_int8_cols_plain, encoder_attention_int8, plain_attention_qkv
 from .int8 import export_kv_rows8, layer_norm_f32, quant_rows_plain, w8a8_dot_plain, weight_q
 
 
@@ -245,46 +251,77 @@ def fused_encoder_mlp_block_plain(h: torch.Tensor, ln: dict, mlp: dict,
     return h + linear_f32_bias(mid, mlp["c_proj"]["w"], mlp["c_proj"]["b"])
 
 
+INT8_ATTN = ("0", "1", "qk")
+
+
+def check_int8_attn(int8_attn: str) -> None:
+    """Raise unless ``int8_attn`` is one of INT8_ATTN."""
+    if int8_attn not in INT8_ATTN:
+        raise ValueError(f"int8_attn must be one of {INT8_ATTN}, got {int8_attn!r}")
+
+
 def fused_encoder_block(
     h: torch.Tensor, ln1: dict, attn: dict, ln2: dict, mlp: dict, heads: int, head_dim: int,
     *, export: bool = False, drop_cls: bool = False, export_into: Optional[Tuple] = None,
-    int8_gemm: bool = True, kv_rows8: bool = False, kv_pad: int = 0,
+    int8_gemm: bool = True, kv_rows8: bool = False, kv_pad: int = 0, int8_attn: str = "0",
 ):
-    """The whole encoder block on h (N, T, W) as W8A8 (int8_gemm), with the
-    TPU kernel's contract: ``h_out``, or with ``export`` ``(h_out, k, v)``
-    (K/V as in fused_encoder_attn_block, ``export_into`` and ``kv_pad``
-    alike), plus ``(k_scale, v_scale)`` with ``kv_rows8``. The four GEMMs
-    (qkv, out-proj, c_fc, c_proj) take the int8 weights of weight_q; the
-    residual stream between the halves stays f32 (``hmid32``)."""
-    if not int8_gemm:
-        raise NotImplementedError("the bf16 whole-block form (DFD_FUSED_BLOCK=full) is not "
-                                  "ported yet; bf16 towers run the split pair")
+    """The whole encoder block on h (N, T, W) with the TPU kernel's
+    contract: ``h_out``, or with ``export`` ``(h_out, k, v)`` (K/V as in
+    fused_encoder_attn_block, ``export_into`` and ``kv_pad`` alike), plus
+    ``(k_scale, v_scale)`` with ``kv_rows8``. ``int8_gemm``: the four GEMMs
+    (qkv, out-proj, c_fc, c_proj) W8A8 on the int8 weights of weight_q;
+    otherwise bf16. The residual stream between the halves stays f32
+    (``hmid32``). ``int8_attn`` "1" or "qk" (int8 only, ignored in bf16 as
+    in the JAX kernel): the attention is encoder_attention_int8."""
+    check_int8_attn(int8_attn)
     if _cuda.on_cpu("fused_encoder_block", h):
         return fused_encoder_block_plain(h, ln1, attn, ln2, mlp, heads, head_dim,
                                          export=export, drop_cls=drop_cls,
-                                         export_into=export_into, kv_rows8=kv_rows8,
-                                         kv_pad=kv_pad)
+                                         export_into=export_into, int8_gemm=int8_gemm,
+                                         kv_rows8=kv_rows8, kv_pad=kv_pad, int8_attn=int8_attn)
     n, t, w = h.shape
     if w != heads * head_dim:
         raise ValueError("fused_encoder_block: width != heads * head_dim")
     lo = 1 if drop_cls else 0
     t_out = t - lo + kv_pad
+    dt = h.dtype
     h2 = h.reshape(n * t, w)
-    (wqkv, sqkv), (wo, so), (wfc, sfc), (wpr, spr) = (
-        weight_q(p) for p in (attn["in_proj"], attn["out_proj"], mlp["c_fc"], mlp["c_proj"]))
     k_slot = v_slot = None
     if export:
-        k_slot, v_slot = _kv_slots(n, t_out, w, torch.int8 if kv_rows8 else h.dtype, h.device,
+        k_slot, v_slot = _kv_slots(n, t_out, w, torch.int8 if kv_rows8 else dt, h.device,
                                    export_into)
-    yq, ys = _cuda.layer_norm_quant(h2, ln1["scale"].float(), ln1["bias"].float())
-    xf = _cuda.gemm_s8(yq, ys, wqkv, sqkv, attn["in_proj"]["b"].float(),
-                       export=(k_slot, v_slot, t, t_out, lo, w) if export and not kv_rows8
-                       else None)
+    bf16_export = (k_slot, v_slot, t, t_out, lo, w) if export and not kv_rows8 else None
     scales = ()
+    if not int8_gemm:
+        y = _cuda.layer_norm_rows(h2, ln1["scale"].float(), ln1["bias"].float())
+        xf = _cuda.gemm(y, attn["in_proj"]["w"].to(dt), attn["in_proj"]["b"].float(),
+                        export=bf16_export)
+        if export and kv_rows8:
+            scales = export_kv_rows8(xf[:, w: 2 * w], xf[:, 2 * w:], n, t, lo, kv_pad,
+                                     (k_slot, v_slot))[2:]
+        att = encoder_attention(xf, n, t, heads, head_dim)
+        hmid = _cuda.gemm(att, attn["out_proj"]["w"].to(dt), attn["out_proj"]["b"].float(),
+                          residual=h2, residual_before_cast=True, out_dtype=torch.float32)
+        y2 = _cuda.layer_norm_rows(hmid, ln2["scale"].float(), ln2["bias"].float())
+        mid = _cuda.gemm(y2, mlp["c_fc"]["w"].to(dt), mlp["c_fc"]["b"].float(), gelu=True)
+        h_out = _cuda.gemm(mid, mlp["c_proj"]["w"].to(dt), mlp["c_proj"]["b"].float(),
+                           residual=hmid).reshape(n, t, w)
+        _cuda.LAUNCHES["fused_encoder_block"] += 1
+        if export:
+            return (h_out, *_kv_result(k_slot, v_slot, n, t_out, heads, head_dim, export_into),
+                    *scales)
+        return h_out
+    (wqkv, sqkv), (wo, so), (wfc, sfc), (wpr, spr) = (
+        weight_q(p) for p in (attn["in_proj"], attn["out_proj"], mlp["c_fc"], mlp["c_proj"]))
+    yq, ys = _cuda.layer_norm_quant(h2, ln1["scale"].float(), ln1["bias"].float())
+    xf = _cuda.gemm_s8(yq, ys, wqkv, sqkv, attn["in_proj"]["b"].float(), export=bf16_export)
     if export and kv_rows8:
         scales = export_kv_rows8(xf[:, w: 2 * w], xf[:, 2 * w:], n, t, lo, kv_pad,
                                  (k_slot, v_slot))[2:]
-    att = encoder_attention(xf, n, t, heads, head_dim, out_dtype=torch.float32)
+    if int8_attn == "0":
+        att = encoder_attention(xf, n, t, heads, head_dim, out_dtype=torch.float32)
+    else:
+        att = encoder_attention_int8(xf, n, t, heads, head_dim, qk_only=int8_attn == "qk")
     aq, a_s = _cuda.quant_rows(att)
     hmid = _cuda.gemm_s8(aq, a_s, wo, so, attn["out_proj"]["b"].float(), residual=h2,
                          out_dtype=torch.float32)
@@ -293,7 +330,7 @@ def fused_encoder_block(
                         out_dtype=torch.float32)
     mq, m_s = _cuda.quant_rows(mid)
     h_out = _cuda.gemm_s8(mq, m_s, wpr, spr, mlp["c_proj"]["b"].float(), residual=hmid,
-                          out_dtype=h.dtype).reshape(n, t, w)
+                          out_dtype=dt).reshape(n, t, w)
     _cuda.LAUNCHES["fused_encoder_block"] += 1
     if export:
         return (h_out, *_kv_result(k_slot, v_slot, n, t_out, heads, head_dim, export_into),
@@ -304,30 +341,47 @@ def fused_encoder_block(
 def fused_encoder_block_plain(
     h: torch.Tensor, ln1: dict, attn: dict, ln2: dict, mlp: dict, heads: int, head_dim: int,
     *, export: bool = False, drop_cls: bool = False, export_into: Optional[Tuple] = None,
-    int8_gemm: bool = True, kv_rows8: bool = False, kv_pad: int = 0,
+    int8_gemm: bool = True, kv_rows8: bool = False, kv_pad: int = 0, int8_attn: str = "0",
 ):
     """Plain version of fused_encoder_block (same contract), the arithmetic
-    of _make_full_block_kernel: LN1 in f32 -> _quant_rows -> W8A8 qkv + bias
-    -> bf16 xf (and its export) -> attention with an f32 output ->
-    _quant_rows -> W8A8 out-proj + bias + h in f32 -> LN2 in f32 ->
-    _quant_rows -> W8A8 c_fc + bias -> QuickGELU in f32 -> _quant_rows ->
-    W8A8 c_proj + bias + hmid in f32 -> h's dtype."""
-    if not int8_gemm:
-        raise NotImplementedError("the bf16 whole-block form (DFD_FUSED_BLOCK=full) is not "
-                                  "ported yet; bf16 towers run the split pair")
+    of _make_full_block_kernel. int8: LN1 in f32 -> _quant_rows -> W8A8 qkv
+    + bias -> bf16 xf (and its export) -> attention with an f32 output (or
+    _attn_int8_cols) -> _quant_rows -> W8A8 out-proj + bias + h in f32 ->
+    LN2 in f32 -> _quant_rows -> W8A8 c_fc + bias -> QuickGELU in f32 ->
+    _quant_rows -> W8A8 c_proj + bias + hmid in f32 -> h's dtype. bf16: LN1
+    -> qkv + bias in f32 -> xf -> attention -> out-proj + bias + h in f32 ->
+    LN2 of the f32 hmid, rounded -> c_fc + bias, QuickGELU in f32, rounded ->
+    c_proj + bias + hmid in f32 -> h's dtype."""
+    check_int8_attn(int8_attn)
     n, t, w = h.shape
     lo = 1 if drop_cls else 0
     t_out = t - lo + kv_pad
     dt = h.dtype
     h2 = h.reshape(n * t, w)
-    w8a8 = _w8a8_plain
-    xf = w8a8(layer_norm_f32(ln1, h2), attn["in_proj"]).to(dt)
+    if int8_gemm:
+        xf = _w8a8_plain(layer_norm_f32(ln1, h2), attn["in_proj"]).to(dt)
+    else:
+        xf = linear_f32_bias(layer_norm(ln1, h2), attn["in_proj"]["w"], attn["in_proj"]["b"])
     result = ()
     if export:
         k, v, scales = export_kv(xf, n, t, w, lo, kv_pad, kv_rows8, export_into)
         result = (*_kv_result(k, v, n, t_out, heads, head_dim, export_into), *scales)
-    att = plain_attention_qkv(xf.reshape(n, t, 3 * w), heads, head_dim,
-                              out_dtype=torch.float32).reshape(n * t, w)
+    if not int8_gemm:
+        att = plain_attention_qkv(xf.reshape(n, t, 3 * w), heads, head_dim).reshape(n * t, w)
+        hmid = h2.float() + (att.float() @ attn["out_proj"]["w"].to(dt).float()
+                             + attn["out_proj"]["b"].float())
+        y2 = layer_norm(ln2, hmid).to(dt)
+        mid = y2.float() @ mlp["c_fc"]["w"].to(dt).float() + mlp["c_fc"]["b"].float()
+        mid = (mid * torch.sigmoid(1.702 * mid)).to(dt)
+        h_out = (hmid + (mid.float() @ mlp["c_proj"]["w"].to(dt).float()
+                         + mlp["c_proj"]["b"].float())).to(dt).reshape(n, t, w)
+        return (h_out, *result) if export else h_out
+    w8a8 = _w8a8_plain
+    if int8_attn == "0":
+        att = plain_attention_qkv(xf.reshape(n, t, 3 * w), heads, head_dim,
+                                  out_dtype=torch.float32).reshape(n * t, w)
+    else:
+        att = attn_int8_cols_plain(xf, n, t, heads, head_dim, qk_only=int8_attn == "qk")
     hmid = h2.float() + w8a8(att, attn["out_proj"])
     mid = w8a8(layer_norm_f32(ln2, hmid), mlp["c_fc"])
     mid = mid * torch.sigmoid(1.702 * mid)

@@ -2,7 +2,10 @@
 
 A ``Scorer`` holds a detector's params on the card, serialises device use
 with a lock and answers ``score_frames`` requests on decoded frames. The
-HTTP handler and video decoding are not ported yet.
+encoder's kernel paths are the detector's (``Detector(...,
+encoder_kernels=EncoderKernels(...))``, the JAX serve path's DFD_FUSED_BLOCK,
+DFD_MEGAKERNEL and DFD_INT8_ATTN). The HTTP handler and video decoding are
+not ported yet.
 """
 
 from __future__ import annotations

@@ -9,7 +9,14 @@ the int8 K/V decoder attention at a ragged L, and a whole int8 block; and
 the 257-token towers: both encoder-attention entries at 17 to 320 tokens
 with 12 and 16 heads (the separate entry on strided views of one packed
 buffer and on contiguous tensors), the token limit, the int8 split pair at
-width 1024, and tiny DINOv2 and ViT-L-class detectors.
+width 1024, and tiny DINOv2 and ViT-L-class detectors; and the encoder's
+alternative paths: the int8 encoder attention at 17, 197 and 257 tokens in
+both modes, gemm's f32 forms and layer_norm_rows on f32 rows, the bf16 whole
+block, the whole-encoder tower (3 layers at ViT-B/16 width, bf16 and int8
+with each int8 attention mode, 25 frames: a chunk of 21 and a short one;
+and int8 at ViT-L/14 width, 257 tokens) against the per-layer kernel chain
+and the plain version, and a tower grid that cannot be co-resident, which
+raises.
 
 Marked ``cuda``; every test skips without a card. Run on a machine with one:
 
@@ -17,8 +24,11 @@ Marked ``cuda``; every test skips without a card. Run on a machine with one:
 
 Tolerance: max|kernel - plain| <= 2e-2 x max|plain| in bf16 (a few bf16
 ulps of rounding-order difference), 5e-2 for a whole bf16 predict against
-the f32 plain path (1e-1 for parameter updates after a bf16 forward), and
-exact zeros where the contract says zero. The int8 kernels repeat their
+the f32 plain path (1e-1 for parameter updates after a bf16 forward) and for
+a 3-layer tower against its plain version (three layers of rounding-order
+difference), and exact zeros where the contract says zero. The tower runs
+the per-layer kernels' own block bodies, so against their chain it is held
+at 1e-3 with at least 99 % of the values equal. The int8 kernels repeat their
 plain versions' f32 operations in order: gemm_s8's f32 outputs within 1e-5
 of the maximum; int8 values within 1 on at most 1e-3 of the elements (a
 LayerNorm sum taken in another order can move a value across a rounding
@@ -635,3 +645,187 @@ def test_tiny_wide_tower_predict_on_card(dev, tower):
     assert {k: counts.get(k, 0) for k in launches} == launches
     want = cpu.predict(cpu.prepare_params(params), x, m)[0][0]
     assert rel_err(got.cpu(), want) <= 5e-2
+
+
+# -- the encoder's alternative paths --------------------------------------------------
+
+@pytest.mark.parametrize("mode", ["1", "qk"])
+@pytest.mark.parametrize("tokens", [17, 197, 257])
+def test_encoder_attention_int8_on_card(dev, tokens, mode):
+    """csrc/encoder_attention_s8.cu against attn_int8_cols_plain on the same
+    card inputs, 3 frames of 12 heads, counted under its own name. The plain
+    version repeats the f32 operations; a P value on a rounding boundary may
+    still quantise one step apart (sums in another order), so besides the
+    2e-2 bound at most 2 % of the rows may differ by more than 1e-4."""
+    from dfd_clip_tpu_torch.ops import _cuda
+    from dfd_clip_tpu_torch.ops import attention as att
+
+    gen = torch.Generator().manual_seed(tokens)
+    frames, heads = 3, 12
+    qkv = randn(gen, frames * tokens, 3 * heads * 64).to(dev, torch.bfloat16)
+    _cuda.reset_launches()
+    got = att.encoder_attention_int8(qkv, frames, tokens, heads, 64, qk_only=mode == "qk")
+    assert _cuda.launches() == {"encoder_attention_int8": 1}
+    want = att.attn_int8_cols_plain(qkv, frames, tokens, heads, 64, qk_only=mode == "qk")
+    assert got.dtype == torch.float32 and got.shape == (frames * tokens, heads * 64)
+    assert rel_err(got, want) <= REL
+    rows = ((got - want).abs().amax(-1) / want.abs().max()).cpu()
+    assert (rows > 1e-4).float().mean().item() <= 2e-2
+
+
+@pytest.mark.parametrize("form", ["f32_out_bf16_residual", "f32_residual"])
+def test_gemm_wide_forms_ragged(dev, form):
+    """The bf16 whole block's two products: an f32 output with the bf16 h
+    added in f32 (out-projection), and the f32 hmid added before the one
+    bf16 rounding (c_proj); M = 200, N = 136."""
+    from dfd_clip_tpu_torch.ops import _cuda
+
+    gen = torch.Generator().manual_seed(30)
+    m, k, n = 200, 96, 136
+    a = randn(gen, m, k).to(dev, torch.bfloat16)
+    b = randn(gen, k, n, scale=k ** -0.5).to(dev, torch.bfloat16)
+    bias = randn(gen, n, scale=0.1).to(dev)
+    acc = a.float() @ b.float() + bias
+    if form == "f32_out_bf16_residual":
+        res = randn(gen, m, n).to(dev, torch.bfloat16)
+        got = _cuda.gemm(a, b, bias, residual=res, residual_before_cast=True,
+                         out_dtype=torch.float32)
+        assert got.dtype == torch.float32
+        want = res.float() + acc
+    else:
+        res = randn(gen, m, n).to(dev)
+        got = _cuda.gemm(a, b, bias, residual=res)
+        assert got.dtype == torch.bfloat16
+        want = (res + acc).to(torch.bfloat16)
+    assert rel_err(got, want) <= (1e-5 if got.dtype == torch.float32 else REL)
+
+
+def test_layer_norm_rows_f32_rows(dev):
+    from dfd_clip_tpu_torch.models.layers import layer_norm
+    from dfd_clip_tpu_torch.ops import _cuda
+
+    gen = torch.Generator().manual_seed(31)
+    x = randn(gen, 37, 200, scale=3.0).to(dev)
+    ln = {"scale": randn(gen, 200).to(dev), "bias": randn(gen, 200).to(dev)}
+    got = _cuda.layer_norm_rows(x, ln["scale"], ln["bias"])
+    assert got.dtype == torch.bfloat16
+    assert rel_err(got, layer_norm(ln, x).to(torch.bfloat16)) <= REL
+
+
+def _flagship_blocks(gen, dev, layers, int8, width=768):
+    """``layers`` ViT-B/16-width blocks (12 heads of 64) with LayerNorms and
+    biases off their init values, on the card (bf16 weights, and the int8
+    ones with ``int8``)."""
+    from dfd_clip_tpu_torch.models import clip_vit
+
+    cfg = dataclasses.replace(clip_vit.VIT_B16, width=width, heads=width // 64, layers=layers)
+    params = clip_vit.init_clip_vision(gen, cfg)
+    for blk in params["blocks"]:
+        for ln in (blk["ln_1"], blk["ln_2"]):
+            ln["scale"].add_(randn(gen, width, scale=0.1))
+            ln["bias"].add_(randn(gen, width, scale=0.1))
+        for lin in (blk["attn"]["in_proj"], blk["attn"]["out_proj"], blk["mlp"]["c_fc"],
+                    blk["mlp"]["c_proj"]):
+            lin["b"].add_(randn(gen, *lin["b"].shape, scale=0.02))
+    if int8:
+        params = clip_vit.prepare_int8_params(params)
+    return [_to(b, dev, torch.bfloat16) for b in params["blocks"]]
+
+
+def test_fused_encoder_block_bf16_on_card(dev):
+    """The bf16 whole block (width 256, 4 heads, 17 tokens, 5 frames) with
+    the stacked export and 7 pad rows, against its plain version."""
+    from dfd_clip_tpu_torch.ops import _cuda
+    from dfd_clip_tpu_torch.ops import encoder_block as eb
+
+    gen = torch.Generator().manual_seed(32)
+    (blk,) = _flagship_blocks(gen, dev, 1, False, width=256)
+    frames, tokens, w = 5, 17, 256
+    h = randn(gen, frames, tokens, w).to(dev, torch.bfloat16)
+    outs = []
+    _cuda.reset_launches()
+    for fn in (eb.fused_encoder_block, eb.fused_encoder_block_plain):
+        into = (torch.full((2, frames, 23, w), float("nan"), dtype=torch.bfloat16, device=dev),
+                torch.full((2, frames, 23, w), float("nan"), dtype=torch.bfloat16, device=dev),
+                1, 2)
+        outs.append(fn(h, blk["ln_1"], blk["attn"], blk["ln_2"], blk["mlp"], 4, 64, export=True,
+                       drop_cls=True, export_into=into, int8_gemm=False, kv_pad=7))
+    counts = _cuda.launches()
+    assert counts["fused_encoder_block"] == 1 and counts["gemm"] == 4
+    got, want = outs
+    assert rel_err(got[0], want[0]) <= REL
+    for i in (1, 2):
+        assert rel_err(got[i][1], want[i][1]) <= REL
+        assert torch.isnan(got[i][0].float()).all()
+        assert torch.equal(got[i][1, :, tokens - 1:], torch.zeros_like(got[i][1, :, tokens - 1:]))
+
+
+TOWER_MODES = {  # name: (int8_gemm, int8_attn, width, tokens, frames, chunk)
+    "bf16": (False, "0", 768, 197, 25, 21),
+    "int8": (True, "0", 768, 197, 25, 21),
+    "int8_attn1": (True, "1", 768, 197, 25, 21),
+    "int8_qk": (True, "qk", 768, 197, 25, 21),
+    "vit_l_int8_attn1": (True, "1", 1024, 257, 14, 12),   # JAX's gate takes int8 ViT-L too
+}
+
+
+@pytest.mark.parametrize("mode", list(TOWER_MODES))
+def test_tower_on_card(dev, mode):
+    """A 3-layer tower, keep (1, 2), at ViT-B/16 width (12 heads, 197
+    tokens, 25 frames: one chunk of 21 and a short one of 4) and at ViT-L/14
+    width (16 heads, 257 tokens, 14 frames: 12 and 2). One launch, against
+    the per-layer kernel chain (whole blocks and last_only: the same block
+    bodies) and against its plain version."""
+    from dfd_clip_tpu_torch.ops import _cuda
+    from dfd_clip_tpu_torch.ops import encoder_block as eb
+    from dfd_clip_tpu_torch.ops import tower
+
+    int8, attn, w, tokens, frames, chunk = TOWER_MODES[mode]
+    heads = w // 64
+    gen = torch.Generator().manual_seed(33)
+    blocks = _flagship_blocks(gen, dev, 3, int8, width=w)
+    assert _cuda.tower_chunk(frames, tokens, w) == chunk
+    h = randn(gen, frames, tokens, w).to(dev, torch.bfloat16)
+    _cuda.reset_launches()
+    k, v = tower.fused_encoder_tower(h, blocks, heads, 64, keep=(1, 2), drop_cls=True,
+                                     int8_gemm=int8, int8_attn=attn)
+    assert _cuda.launches() == {"fused_encoder_tower": 1}
+    assert k.shape == v.shape == (2, frames, tokens - 1, w)
+    # the per-layer kernels
+    kc = torch.empty_like(k)
+    vc = torch.empty_like(v)
+    h1 = eb.fused_encoder_block(h, blocks[0]["ln_1"], blocks[0]["attn"], blocks[0]["ln_2"],
+                                blocks[0]["mlp"], heads, 64, int8_gemm=int8, int8_attn=attn)
+    h2, _, _ = eb.fused_encoder_block(h1, blocks[1]["ln_1"], blocks[1]["attn"],
+                                      blocks[1]["ln_2"], blocks[1]["mlp"], heads, 64,
+                                      export=True, drop_cls=True, export_into=(kc, vc, 0, 2),
+                                      int8_gemm=int8, int8_attn=attn)
+    eb.fused_encoder_attn_block(h2, blocks[2]["ln_1"], blocks[2]["attn"], heads, 64,
+                                drop_cls=True, last_only=True, export_into=(kc, vc, 1, 2),
+                                int8_gemm=int8)
+    for got, chain in ((k, kc), (v, vc)):
+        assert rel_err(got, chain) <= 1e-3
+        assert (got == chain).float().mean().item() >= 0.99
+    kp, vp = tower.fused_encoder_tower_plain(h, blocks, heads, 64, keep=(1, 2), drop_cls=True,
+                                             int8_gemm=int8, int8_attn=attn)
+    assert rel_err(k, kp) <= 5e-2 and rel_err(v, vp) <= 5e-2
+
+
+def test_tower_grid_that_cannot_be_co_resident_raises(dev):
+    """A grid larger than the co-resident one is refused before launch: no
+    fallback, nothing runs, nothing is counted."""
+    from dfd_clip_tpu_torch.ops import _cuda, tower
+
+    gen = torch.Generator().manual_seed(34)
+    blocks = _flagship_blocks(gen, dev, 2, False, width=256)
+    h = randn(gen, 2, 17, 256).to(dev, torch.bfloat16)
+    co_resident = _cuda.tower_grid(17, False, "0")
+    assert co_resident >= torch.cuda.get_device_properties(dev).multi_processor_count
+    layers = [tower._layer(b, torch.bfloat16, False) for b in blocks]
+    _cuda.reset_launches()
+    with pytest.raises(RuntimeError, match="co-resident"):
+        _cuda.encoder_tower(h, layers, 4, first=0, lo=1, int8=False, grid=co_resident + 1)
+    torch.cuda.synchronize()
+    assert _cuda.launches() == {}
+    k, _ = _cuda.encoder_tower(h, layers, 4, first=0, lo=1, int8=False, grid=co_resident)
+    assert torch.isfinite(k.float()).all()

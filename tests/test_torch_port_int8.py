@@ -263,7 +263,9 @@ def test_fused_encoder_block_int8_bf16_close_to_pallas(block):
 def test_int8_split_forms_raise(block):
     """The int8 split pair is ported (tests/test_torch_port_wide.py holds it
     against its Pallas kernels): on the CPU both halves run their plain
-    versions. The bf16 whole-block form still raises."""
+    versions. So does the bf16 whole-block form (ported since;
+    tests/test_torch_port_variants.py holds it), and an unknown int8
+    attention mode raises."""
     t = th(block)
     got = eb.fused_encoder_attn_block(t["h"], t["ln1"], t["attn"], HEADS, D, int8_gemm=True)
     assert torch.equal(got, eb.fused_encoder_attn_block_plain(t["h"], t["ln1"], t["attn"], HEADS,
@@ -271,9 +273,11 @@ def test_int8_split_forms_raise(block):
     got = eb.fused_encoder_mlp_block(t["h"], t["ln2"], t["mlp"], int8_gemm=True)
     assert torch.equal(got, eb.fused_encoder_mlp_block_plain(t["h"], t["ln2"], t["mlp"],
                                                              int8_gemm=True))
-    with pytest.raises(NotImplementedError):
-        eb.fused_encoder_block(t["h"], t["ln1"], t["attn"], t["ln2"], t["mlp"], HEADS, D,
-                               int8_gemm=False)
+    args = (t["h"], t["ln1"], t["attn"], t["ln2"], t["mlp"], HEADS, D)
+    assert torch.equal(eb.fused_encoder_block(*args, int8_gemm=False),
+                       eb.fused_encoder_block_plain(*args, int8_gemm=False))
+    with pytest.raises(ValueError):
+        eb.fused_encoder_block(*args, int8_attn="int8")
 
 
 # -- the int8 K/V decoder attention ---------------------------------------------------

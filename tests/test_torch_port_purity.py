@@ -1,8 +1,10 @@
 """The PyTorch port stands alone: no module of dfd_clip_tpu_torch, and not
-chip_smoke.py, imports jax, optax or the JAX package; importing the port
-(its training engine and both towers included) pulls in neither jax, optax
-nor yaml; its entry points default to the card and raise without one; the
-options it has not ported raise."""
+chip_smoke.py, imports jax, optax or the JAX package, or reads the
+environment (the JAX package's kernel switches are explicit arguments
+here); importing the port (its training engine, both towers and the
+whole-encoder tower included) pulls in neither jax, optax nor yaml; its
+entry points default to the card and raise without one; the options it has
+not ported raise."""
 
 import ast
 import subprocess
@@ -31,6 +33,18 @@ def test_port_imports_no_jax(path):
         assert top not in ("jax", "jaxlib", "optax", "dfd_clip_tpu"), f"{path.name} imports {mod}"
 
 
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_reads_no_environment(path):
+    """No os.environ / os.getenv / os.putenv: a kernel path is chosen by an
+    argument (EncoderKernels, clip_vision_kv's block / tower / int8_attn),
+    never by a process-wide switch."""
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Attribute):
+            assert node.attr not in ("environ", "getenv", "putenv", "environb"), \
+                f"{path.name}:{node.lineno} reads the environment"
+    assert "getenv" not in path.read_text()
+
+
 @pytest.mark.parametrize("modules", [
     "dfd_clip_tpu_torch, dfd_clip_tpu_torch.serve, dfd_clip_tpu_torch.config, "
     "dfd_clip_tpu_torch.ops._cuda, dfd_clip_tpu_torch.models.weights, "
@@ -38,7 +52,8 @@ def test_port_imports_no_jax(path):
     "dfd_clip_tpu_torch.engine.trainer, dfd_clip_tpu_torch.engine.optim, "
     "dfd_clip_tpu_torch.ops.decoder_attention_vjp",
     "dfd_clip_tpu_torch.models.dinov2_vit, dfd_clip_tpu_torch.ops.attention, "
-    "dfd_clip_tpu_torch.ops.encoder_block, dfd_clip_tpu_torch.models.detector",
+    "dfd_clip_tpu_torch.ops.encoder_block, dfd_clip_tpu_torch.models.detector, "
+    "dfd_clip_tpu_torch.ops.tower",
 ], ids=["serve", "train", "towers"])
 def test_importing_the_port_loads_no_jax_or_yaml(modules):
     code = ("import sys\n"
