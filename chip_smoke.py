@@ -74,7 +74,25 @@
    paths' logits are compared with the bf16 whole block's by cosine (gated at
    0.99 without int8 attention, recorded with it), and a device-resident
    predict is timed and traced;
-12. prints the kernel table as one JSON line, the card line, and last
+12. checks the 577-token kernels at CLIP ViT-L/14@336px's shapes
+   (`[kernels 577]`): the streamed encoder attention at (320, 577, 16 x 64)
+   through both entries, bf16 and f32 out, each against its plain version
+   with a scaled_dot_product_attention yardstick, the int8 split pair at
+   (320, 577, 1024), and the decoder attention over L = 20 x 576 keys;
+13. drives ViT-L/14@336px serving (`[vit-l@336 serve path]`, keep 0, 4, ...,
+   20) as in 8, on one parameter seed: the four requests in bf16 and in
+   compute_int8, every encoder attention launch the streamed kernel's
+   (encoder_attention_stream, 20 a predict), logits and P(fake) held
+   against the f32 plain route, int8 against bf16 by cosine, a
+   device-resident predict timed, its peak memory read and traced;
+14. checks the tools' kernels (`[kernels study]`): every numerics mode of
+   the study attention at (320, 197, 12 x 64) through the port tool's
+   variants, each against the tool's own check and its plain version, and
+   the megakernel probe's two entries at (63040, 768) x 12 layers,
+   bit-equal to each other and held to the plain chain; then runs both
+   ported tools as a user does (`[tool_attention]`, `[tool_probe]`),
+   counters zeroed before and read after each;
+15. prints the kernel table as one JSON line, the card line, and last
    {"ok": true, "device": {...}}.
 
 Any failed phase raises and the script exits nonzero without the last line.
@@ -139,6 +157,19 @@ DECODER_GEMMS = 24        # gemm launches of the 7 decoder boundaries a predict 
 # tokens, kept layers 0, 4, ..., 20; DINOv2 ViT-B/14 (configs/deepfake/dino/
 # deepfake.yaml:17-27): 257 tokens, kept layers 6-11
 WIDE_TOKENS, VITL_KEEP = 257, (0, 4, 8, 12, 16, 20)
+# ViT-L/14@336px (OpenAI CLIP's public release, models/clip_vit.py
+# ARCHITECTURES) with the same decode_stride 4: 577 tokens, a 576-row export,
+# the encoder attention through the streamed kernel; held on one parameter
+# seed (two batches) to keep the run's time down
+L336_TOKENS, L336_SEEDS = 577, 1
+VITL336_PATHS = ("vitl336_serve", "vitl336_int8_serve")
+# the port's tools (dfd_clip_tpu_torch/tools) run as a user runs them
+TOOL_PATHS = ("tool_attention", "tool_probe")
+# the tools/bench_attention.py variants held and timed on the card, one a
+# kernel body and packed site: (variant, pallas_call line, numerics mode)
+STUDY_ROWS = (("pallas_frames2", 102, "f32"), ("pallas_bf16_f1", 102, "bf16"),
+              ("pallas_diet_max_f1", 102, "diet"), ("pallas_diet_nomax_f1", 102, "diet_nomax"),
+              ("pallas_pair_packed", 252, "f32"), ("pallas_full_packed", 323, "bf16"))
 DEFERRED: list = []       # failed holds of a phase that ran to its end
 
 
@@ -347,7 +378,7 @@ def check_kernels(rows: list) -> None:
 
     flops = 2.0 * m_rows * w * 4 * w + 4.0 * n * hh * t * t * d
     nbytes = 4.0 * m_rows * w + 8.0 * w * w + 4.0 * n * t_out * w + 32.0 * w
-    row("fused_encoder_attn_block", "dfd_clip_tpu/ops/pallas_attention.py:412",
+    row("fused_encoder_attn_block", "dfd_clip_tpu/ops/pallas_attention.py:532",
         "dfd_clip_tpu_torch/ops/encoder_block.py", time_ms(attn_full), time_ms(attn_plain),
         None, flops, nbytes, PEAK_BF16_TC, err, paths=("serve", "train", "full_bf16"))
     last_ms = time_ms(lambda: eb.fused_encoder_attn_block(
@@ -363,7 +394,7 @@ def check_kernels(rows: list) -> None:
     got = eb.fused_encoder_mlp_block(h, blk["ln_2"], blk["mlp"])
     err = compare("fused_encoder_mlp_block", got,
                   eb.fused_encoder_mlp_block_plain(h, blk["ln_2"], blk["mlp"]), TOL_ENCODER)
-    row("fused_encoder_mlp_block", "dfd_clip_tpu/ops/pallas_attention.py:1275",
+    row("fused_encoder_mlp_block", "dfd_clip_tpu/ops/pallas_attention.py:1326",
         "dfd_clip_tpu_torch/ops/encoder_block.py",
         time_ms(lambda: eb.fused_encoder_mlp_block(h, blk["ln_2"], blk["mlp"])),
         time_ms(lambda: eb.fused_encoder_mlp_block_plain(h, blk["ln_2"], blk["mlp"])),
@@ -439,7 +470,7 @@ def check_decoder_attention(rows: list, name: str, gen, dev, hh: int, p: int, va
     if got2[b - 1].abs().max().item() != 0:
         raise SystemExit(f"FAIL {name}: a fully masked sample is not 0")
     valid = mask.sum().item()
-    kernel_row(rows, name, "dfd_clip_tpu/ops/pallas_decoder_attention.py:505",
+    kernel_row(rows, name, "dfd_clip_tpu/ops/pallas_decoder_attention.py:633",
                "dfd_clip_tpu_torch/csrc/decoder_attention.cu",
                time_ms(lambda: fda.fused_decoder_attention(qs, qc, kall, vall, mask, pos,
                                                            layer=3)),
@@ -479,7 +510,7 @@ def check_decoder_boundary(rows: list, name: str, blk: dict, seed: int, paths: t
         for g_, w_, part in zip(got, want, ("x", "qrow")):
             if w_ is not None:
                 err = max(err, compare(f"{name} {form} {part}", g_, w_, TOL_DECODER))
-    kernel_row(rows, name, "dfd_clip_tpu/ops/pallas_decoder_stack.py:102",
+    kernel_row(rows, name, "dfd_clip_tpu/ops/pallas_decoder_stack.py:170",
                "dfd_clip_tpu_torch/ops/decoder_stack.py",
                time_ms(lambda: ds.decoder_boundary(x, o, tail, query), iters=100),
                time_ms(lambda: ds.decoder_boundary_plain(x, o, tail, query), iters=100),
@@ -522,7 +553,7 @@ def check_train_attention(row, gen, dev) -> None:
     if o_sc[b - 1].abs().max().item() != 0 or st[b - 1, 0].abs().max().item() != 0 \
             or (st[b - 1, 1] != -1e30).any().item():
         raise SystemExit("FAIL partials: a fully masked sample is not (0, 0, -1e30)")
-    row("fused_decoder_attention partials", "dfd_clip_tpu/ops/pallas_decoder_attention.py:505",
+    row("fused_decoder_attention partials", "dfd_clip_tpu/ops/pallas_decoder_attention.py:633",
         "dfd_clip_tpu_torch/csrc/decoder_attention.cu",
         time_ms(lambda: fda.fused_decoder_attention(*args, partials=True)),
         time_ms(lambda: fda.fused_decoder_attention_plain(*args, partials=True)),
@@ -541,7 +572,7 @@ def check_train_attention(row, gen, dev) -> None:
     if got[0][b - 1].abs().max().item() != 0 or got[1][b - 1].abs().max().item() != 0:
         raise SystemExit("FAIL fused_decoder_attention_bwd: a fully masked sample's dq is not 0")
     # bytes: valid K/V rows, pos, mask, queries, g0, stats; dq and dpos out
-    row("fused_decoder_attention_bwd", "dfd_clip_tpu/ops/pallas_decoder_attention.py:394",
+    row("fused_decoder_attention_bwd", "dfd_clip_tpu/ops/pallas_decoder_attention.py:477",
         "dfd_clip_tpu_torch/csrc/decoder_attention_bwd.cu",
         time_ms(lambda: fdb.fused_decoder_attention_bwd(*bargs)),
         time_ms(lambda: fdb.fused_decoder_attention_bwd_plain(*bargs)),
@@ -983,7 +1014,8 @@ def serve_path(card: str) -> dict:
     requests = make_requests()
     counts = answer(scorer, requests, card, "serve")
     check_counts("serve", counts, {"fused_encoder_attn_block": 12, "fused_encoder_mlp_block": 11,
-                                   "fused_decoder_attention": 6, "decoder_boundary": 7},
+                                   "fused_decoder_attention": 6, "decoder_boundary": 7,
+                                   "encoder_attention_stream": 0},
                  len(requests))
 
     # one batch's logits: kernels vs the same Detector through the plain versions
@@ -1018,7 +1050,8 @@ def int8_serve_path(card: str):
     check_counts("int8 serve", counts,
                  {"fused_encoder_block": 11, "fused_encoder_attn_block": 1,
                   "fused_encoder_mlp_block": 0, "fused_decoder_attention": 6,
-                  "fused_decoder_attention_int8": 0, "decoder_boundary": 7},
+                  "fused_decoder_attention_int8": 0, "decoder_boundary": 7,
+                  "encoder_attention_stream": 0},
                  len(requests), used=("gemm_s8", "quant_rows", "layer_norm_quant",
                                       "encoder_attention", "gemm", "layer_norm_rows"))
 
@@ -1178,19 +1211,20 @@ def train_path(card: str) -> dict:
 
 
 def attention_row(rows: list, name: str, replaces: str, fn, plain, qkv, n: int, t: int,
-                  hh: int, paths: tuple, counter=None) -> None:
+                  hh: int, paths: tuple, counter=None, out_bytes: int = 2,
+                  source: str = "dfd_clip_tpu_torch/csrc/encoder_attention.cu") -> None:
     """One encoder attention entry at a path shape against its plain
-    version, with the scaled_dot_product_attention yardstick."""
+    version, with the scaled_dot_product_attention yardstick; the output is
+    ``out_bytes`` a value (2 bf16, 4 f32)."""
     import torch.nn.functional as F
 
     w = hh * 64
     err = compare(name, fn(), plain(), TOL_ENCODER)
     q4, k4, v4 = (s.reshape(n, t, hh, 64).transpose(1, 2) for s in qkv.split(w, dim=-1))
-    kernel_row(rows, name, replaces, "dfd_clip_tpu_torch/csrc/encoder_attention.cu",
-               time_ms(fn), time_ms(plain, iters=5),
+    kernel_row(rows, name, replaces, source, time_ms(fn), time_ms(plain, iters=5),
                time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4)),
-               4.0 * n * hh * t * t * 64, 2.0 * (n * t * 3 * w + n * t * w), PEAK_BF16_TC, err,
-               counter=counter, paths=paths)
+               4.0 * n * hh * t * t * 64, 2.0 * n * t * 3 * w + out_bytes * n * t * w,
+               PEAK_BF16_TC, err, counter=counter, paths=paths)
 
 
 def check_wide_kernels(rows: list) -> None:
@@ -1201,7 +1235,8 @@ def check_wide_kernels(rows: list) -> None:
     forms and each kernel of its chain, layer_norm_rows on the towers'
     (82240, W) rows, and the decoder (attention over L = 20 x 256 rows,
     boundaries at width 1024). A row counts the launches of the paths that
-    run its kernel at its shape; the products inside the decoder boundaries
+    run its kernel at its shape (the width-1024 rows also those of the
+    577-token ViT-L/14@336px paths); the products inside the decoder boundaries
     count with their path's encoder-shape gemm row (ViT-L's with the
     out-projection row, DINOv2's, at width 768, with ViT-B's) and are held
     at their own shapes by the decoder_boundary rows."""
@@ -1241,7 +1276,7 @@ def check_wide_kernels(rows: list) -> None:
     del qkv, q, k, v, qc, kc, vc
 
     # -- layer_norm_rows on the towers' rows (ViT-L: 1024 wide, DINOv2: 768) -------
-    for w, paths in ((1024, VITL_PATHS), (768, ("dinov2_serve",))):
+    for w, paths in ((1024, VITL_PATHS + VITL336_PATHS), (768, ("dinov2_serve",))):
         ln = {"scale": (1.0 + 0.1 * torch.randn(w, generator=gen)).to(dev),
               "bias": (0.1 * torch.randn(w, generator=gen)).to(dev)}
         h2 = torch.randn(n * t, w, generator=gen).to(dev, bf)
@@ -1328,7 +1363,8 @@ def check_wide_kernels(rows: list) -> None:
                             t_out, t_out, VITL_PATHS)
     check_decoder_attention(rows, "fused_decoder_attention 12 heads, L 5120", gen, dev, 12,
                             t_out, t_out, ("dinov2_serve",))
-    check_decoder_boundary(rows, "decoder_boundary width 1024", blk, 5, VITL_PATHS)
+    check_decoder_boundary(rows, "decoder_boundary width 1024", blk, 5,
+                           VITL_PATHS + VITL336_PATHS)
 
 
 def check_split_chain(rows: list, h, blk: dict) -> None:
@@ -1346,7 +1382,7 @@ def check_split_chain(rows: list, h, blk: dict) -> None:
     m_rows, bf = n * t, torch.bfloat16
     h2 = h.reshape(m_rows, w)
     ln1, attn, mlp = blk["ln_1"], blk["attn"], blk["mlp"]
-    paths = ("vitl_int8_serve",)
+    paths = ("vitl_int8_serve", "vitl336_int8_serve")
     tag = f"{m_rows} x {w}"
 
     yq, ys = _cuda.layer_norm_quant(h2, ln1["scale"], ln1["bias"])
@@ -1419,7 +1455,7 @@ def check_split_chain(rows: list, h, blk: dict) -> None:
                time_ms(lambda: _cuda.gemm(att, wo, bo, residual=h2)), time_ms(out_plain),
                time_ms(lambda: torch.addmm(h2, att, wo)), 2.0 * m_rows * w * w,
                2.0 * (3 * m_rows * w + w * w) + 4.0 * w, PEAK_BF16_TC, err, counter="gemm",
-               paths=VITL_PATHS)
+               paths=VITL_PATHS + VITL336_PATHS)
 
 
 def wide_serve(card: str, label: str, det, raws: list, expected: dict, used: tuple):
@@ -1464,45 +1500,52 @@ def wide_serve(card: str, label: str, det, raws: list, expected: dict, used: tup
         if worst[1][k] > tol:
             fail(f"FAIL {label}: {name} of the kernels from the f32 plain route "
                  f"{worst[1][k]:.3e} > {tol:g}", True)
+    torch.cuda.reset_peak_memory_stats()
     ms = time_ms(lambda: scorer.predict(scorer.params, xd, md), iters=5, warmup=1)
     print(f"  device-resident {label} predict: {ms:.2f} ms per {CLIPS}-clip batch "
-          f"({CLIPS * 1e3 / ms:.2f} clips/s) on {card}", flush=True)
+          f"({CLIPS * 1e3 / ms:.2f} clips/s), peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB, on {card}", flush=True)
     profile_device(f"{label} predict", lambda: scorer.predict(scorer.params, xd, md))
     del scorer
     torch.cuda.empty_cache()
     return counts, ref
 
 
-def vitl_serve_path(card: str, seeds: int):
-    """ViT-L/14 Scorers, bf16 then compute_int8, on the same seeded params.
+def vitl_serve_path(card: str, seeds: int, arch: str = "ViT-L/14", label: str = "vit-l"):
+    """ViT-L/14 Scorers (``arch``: also "ViT-L/14@336px"), bf16 then
+    compute_int8, on the same seeded params. Above 320 tokens every encoder
+    attention launch is the streamed kernel's (encoder_attention_stream).
     Returns the launch counts of both."""
     import torch
     import torch.nn.functional as F
 
-    cfg = {"architecture": "ViT-L/14", "decode_mode": "stride", "decode_stride": 4}
+    cfg = {"architecture": arch, "decode_mode": "stride", "decode_stride": 4}
     bf16 = detector(**cfg)
+    tokens = bf16.vit_cfg.num_tokens
     if bf16.layer_indices != VITL_KEEP:
-        raise SystemExit(f"FAIL vit-l: kept layers {bf16.layer_indices}")
+        raise SystemExit(f"FAIL {label}: kept layers {bf16.layer_indices}")
     raws = [bf16.init_params(torch.Generator().manual_seed(s)) for s in range(seeds)]
+    stream = {"encoder_attention_stream": 20 if tokens > 320 else 0}
+    used = ("encoder_attention_stream",) if tokens > 320 else ()
     decoder = {"fused_decoder_attention": 6, "decoder_boundary": 7, "fused_encoder_block": 0}
     counts, ref = wide_serve(
-        card, "vit-l serve", bf16, raws,
+        card, f"{label} serve", bf16, raws,
         {"fused_encoder_attention_qkv": 20, "fused_encoder_attn_block": 0,
-         "fused_encoder_mlp_block": 0, "encoder_attention": 0, **decoder},
-        used=("fused_encoder_attention_qkv", "layer_norm_rows", "gemm"))
-    print("[vit-l int8 serve] the same params and requests, op_mode compute_int8", flush=True)
+         "fused_encoder_mlp_block": 0, "encoder_attention": 0, **stream, **decoder},
+        used=("fused_encoder_attention_qkv", "layer_norm_rows", "gemm") + used)
+    print(f"[{label} int8 serve] the same params and requests, op_mode compute_int8", flush=True)
     int8 = detector(**cfg, op_mode={"temporal_position": 1, "compute_int8": 1})
     counts8, got = wide_serve(
-        card, "vit-l int8 serve", int8, raws,
+        card, f"{label} int8 serve", int8, raws,
         {"fused_encoder_attn_block": 21, "fused_encoder_mlp_block": 20, "encoder_attention": 20,
-         "fused_encoder_attention_qkv": 0, **decoder},
-        used=("gemm_s8", "quant_rows", "layer_norm_quant", "encoder_attention", "gemm"))
+         "fused_encoder_attention_qkv": 0, **stream, **decoder},
+        used=("gemm_s8", "quant_rows", "layer_norm_quant", "encoder_attention", "gemm") + used)
     cos = F.cosine_similarity(got.float().flatten(), ref.float().flatten(), dim=0).item()
     per_clip = F.cosine_similarity(got.float(), ref.float(), dim=-1).min().item()
-    print(f"  vit-l int8 vs bf16 logits, same params: cosine {cos:.6f} (tol {TOL_COSINE:g}), "
-          f"lowest per clip {per_clip:.6f}", flush=True)
+    print(f"  {label} int8 vs bf16 logits, same params: cosine {cos:.6f} "
+          f"(tol {TOL_COSINE:g}), lowest per clip {per_clip:.6f}", flush=True)
     if not cos >= TOL_COSINE:
-        raise SystemExit(f"FAIL vit-l int8 predict: cosine to bf16 {cos:.6f} < {TOL_COSINE:g}")
+        raise SystemExit(f"FAIL {label} int8 predict: cosine to bf16 {cos:.6f} < {TOL_COSINE:g}")
     return counts, counts8
 
 
@@ -1516,7 +1559,7 @@ def dinov2_serve_path(card: str, seeds: int) -> dict:
         card, "dinov2 serve", det, raws,
         {"fused_encoder_attention": 11, "fused_encoder_attention_qkv": 0,
          "fused_encoder_attn_block": 0, "fused_encoder_mlp_block": 0,
-         "fused_decoder_attention": 6, "decoder_boundary": 7},
+         "encoder_attention_stream": 0, "fused_decoder_attention": 6, "decoder_boundary": 7},
         used=("fused_encoder_attention", "layer_norm_rows", "gemm"))
     return counts
 
@@ -1769,6 +1812,200 @@ def variant_serve_paths(card: str) -> dict:
     return counts
 
 
+def check_577_kernels(rows: list) -> None:
+    """The 577-token kernels at ViT-L/14@336px's shapes (320 frames x 577
+    tokens): the streamed encoder attention at (320, 577, 16 x 64) through
+    the packed entry and the separate one (strided views of one packed
+    buffer), bf16 and f32 out, each against its plain version (the
+    unnormalised-P rounding of ops/attention.py above 320 tokens) with the
+    SDPA yardstick; the int8 split pair at (320, 577, 1024), whose attention
+    is the streamed kernel; and the decoder attention over L = 20 x 576
+    keys at 16 heads."""
+    import torch
+
+    from dfd_clip_tpu_torch.models import clip_vit
+    from dfd_clip_tpu_torch.ops import _cuda
+    from dfd_clip_tpu_torch.ops import attention as att
+    from dfd_clip_tpu_torch.ops import encoder_block as eb
+
+    n, t, hh, bf, f32 = CLIPS * FRAMES, L336_TOKENS, 16, torch.bfloat16, torch.float32
+    w = hh * 64
+    dev = torch.device("cuda")
+    dgen = torch.Generator(device=dev).manual_seed(9)
+    qkv = torch.randn(n, t, 3 * w, generator=dgen, device=dev).to(bf)
+    qkv2 = qkv.reshape(n * t, 3 * w)
+    q, k, v = (s.reshape(n, t, hh, 64) for s in qkv.split(w, dim=-1))
+    src = "dfd_clip_tpu_torch/csrc/attention_stream_tile.cuh"
+    pa = "dfd_clip_tpu/ops/pallas_attention.py"
+    forms = (
+        ("encoder_attention_stream packed 577", f"{pa}:145",
+         lambda: att.fused_encoder_attention_qkv(qkv, hh, 64),
+         lambda: att.plain_attention_qkv(qkv, hh, 64), 2, VITL336_PATHS),
+        ("encoder_attention_stream packed f32 577", f"{pa}:1212",
+         lambda: eb.encoder_attention(qkv2, n, t, hh, 64, out_dtype=f32).reshape(n, t, w),
+         lambda: att.plain_attention_qkv(qkv, hh, 64, out_dtype=f32), 4, ()),
+        ("encoder_attention_stream separate 577", f"{pa}:1346",
+         lambda: att.fused_encoder_attention(q, k, v),
+         lambda: att.plain_attention(q, k, v), 2, ()),
+        ("encoder_attention_stream separate f32 577", f"{pa}:1346",
+         lambda: _cuda.encoder_attention_separate(q, k, v, f32).reshape(n, t, hh, 64),
+         lambda: att.plain_attention(q, k, v, out_dtype=f32), 4, ()),
+    )
+    for name, replaces, fn, plain, out_bytes, paths in forms:
+        attention_row(rows, name, replaces, fn, plain, qkv, n, t, hh, paths,
+                      counter="encoder_attention_stream", out_bytes=out_bytes, source=src)
+    del qkv, qkv2, q, k, v
+
+    # -- the int8 split pair at (320, 577, 1024), two export slots -------------------
+    gen = torch.Generator().manual_seed(10)
+    blk = random_block(gen, dev, int8=True, cfg=clip_vit.VIT_L14)
+    ln1, attn, ln2, mlp = blk["ln_1"], blk["attn"], blk["ln_2"], blk["mlp"]
+    h = torch.randn(n, t, w, generator=dgen, device=dev).to(bf)
+    m_rows, t_out = n * t, t - 1
+    bufs = [(torch.zeros(2, n, t_out, w, dtype=bf, device=dev),
+             torch.zeros(2, n, t_out, w, dtype=bf, device=dev)) for _ in range(2)]
+    kw = dict(export=True, drop_cls=True, int8_gemm=True)
+    outs = [fn(h, ln1, attn, hh, 64, export_into=(*b, 1, 2), **kw)
+            for fn, b in zip((eb.fused_encoder_attn_block, eb.fused_encoder_attn_block_plain),
+                             bufs)]
+    err = compare("int8 split attn block 577 h", outs[0][0], outs[1][0], TOL_ENCODER)
+    for i, part in ((1, "k"), (2, "v")):
+        err = max(err, compare(f"int8 split attn block 577 {part}", outs[0][i][1],
+                               outs[1][i][1], TOL_ENCODER))
+    del outs
+    ops_t = (2.0 * m_rows * w * 3 * w / PEAK_INT8_TC
+             + (2.0 * m_rows * w * w + 4.0 * n * hh * t * t * 64) / PEAK_BF16_TC)
+    nbytes = 4.0 * m_rows * w + 3.0 * w * w + 2.0 * w * w + 4.0 * n * t_out * w + 24.0 * w
+    kernel_row(rows, "fused_encoder_attn_block int8 split 577", f"{pa}:532",
+               "dfd_clip_tpu_torch/ops/encoder_block.py",
+               time_ms(lambda: eb.fused_encoder_attn_block(h, ln1, attn, hh, 64,
+                                                           export_into=(*bufs[0], 1, 2), **kw),
+                       iters=5),
+               time_ms(lambda: eb.fused_encoder_attn_block_plain(
+                   h, ln1, attn, hh, 64, export_into=(*bufs[1], 1, 2), **kw), iters=2, warmup=1),
+               None, 0, 0, 0, err, counter="fused_encoder_attn_block",
+               paths=("vitl336_int8_serve",),
+               bound=(max(ops_t, nbytes / HBM) * 1e3,
+                      "operations" if ops_t >= nbytes / HBM else "bytes"))
+    del bufs
+    err = compare("int8 split mlp block 577", eb.fused_encoder_mlp_block(h, ln2, mlp, int8_gemm=True),
+                  eb.fused_encoder_mlp_block_plain(h, ln2, mlp, int8_gemm=True), TOL_ENCODER)
+    kernel_row(rows, "fused_encoder_mlp_block int8 577", f"{pa}:1326",
+               "dfd_clip_tpu_torch/ops/encoder_block.py",
+               time_ms(lambda: eb.fused_encoder_mlp_block(h, ln2, mlp, int8_gemm=True), iters=5),
+               time_ms(lambda: eb.fused_encoder_mlp_block_plain(h, ln2, mlp, int8_gemm=True),
+                       iters=2, warmup=1),
+               None, 16.0 * m_rows * w * w, 4.0 * m_rows * w + 8.0 * w * w + 48.0 * w,
+               PEAK_INT8_TC, err, counter="fused_encoder_mlp_block", paths=("vitl336_int8_serve",))
+    del h, blk
+    torch.cuda.empty_cache()
+
+    # -- the decoder over the 576-row export (L = 11,520) --------------------------------
+    check_decoder_attention(rows, "fused_decoder_attention 16 heads, L 11520", gen, dev, 16,
+                            t_out, t_out, VITL336_PATHS)
+
+
+def check_study_kernels(rows: list) -> None:
+    """The tools' kernels at the tools' shapes. The study attention at
+    (320, 197, 12 x 64) bf16 (tools/bench_attention.py's inputs, seed 0)
+    through the port tool's VARIANTS, one variant a kernel body and packed
+    site (STUDY_ROWS): each held to the tool's own check (max abs error <
+    0.05 against xla_einsum on the first 4 frames) and to its plain version
+    (TOL_ENCODER of the max), with the SDPA yardstick. The probe's two
+    entries at (63040, 768) x 12 layers (its inputs): bit-equal to each
+    other, each within TOL_ENCODER of the plain chain, with 12 chained
+    torch.matmul as the yardstick."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from dfd_clip_tpu_torch.ops import gemm_chain as gc
+    from dfd_clip_tpu_torch.ops import study_attention as sa
+    from dfd_clip_tpu_torch.tools import bench_attention as tba
+    from dfd_clip_tpu_torch.tools import bench_megakernel_probe as tbm
+
+    dev = torch.device("cuda")
+    q, k, v = tba.make_inputs(device=dev)
+    n, t, hh, d = q.shape
+    ref4 = tba.VARIANTS["xla_einsum"](q[:4], k[:4], v[:4]).float()
+    q4, k4, v4 = (x.transpose(1, 2) for x in (q, k, v))
+    sdpa = time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4))
+    flops, nbytes = 4.0 * n * hh * t * t * d, 2.0 * 4 * n * t * hh * d
+    for variant, line, mode in STUDY_ROWS:
+        fn = tba.VARIANTS[variant]
+        name = f"study_attention {mode} ({variant})"
+        got = fn(q, k, v)
+        tool_err = (got[:4].float() - ref4).abs().max().item()
+        print(f"  {name}: the tool's check, max abs err {tool_err:.3e} from xla_einsum "
+              f"(tol 0.05)", flush=True)
+        if not tool_err < 0.05:
+            raise SystemExit(f"FAIL {name}: the tool's check, max err {tool_err}")
+        err = compare(name, got, sa.study_attention_plain(q, k, v, mode), TOL_ENCODER)
+        del got
+        kernel_row(rows, name, f"tools/bench_attention.py:{line}",
+                   "dfd_clip_tpu_torch/csrc/study_attention.cu", time_ms(lambda: fn(q, k, v)),
+                   time_ms(lambda: sa.study_attention_plain(q, k, v, mode), iters=3, warmup=1),
+                   sdpa, flops, nbytes, PEAK_F32 if mode == "f32" else PEAK_BF16_TC, err,
+                   counter="study_attention", paths=("tool_attention",))
+    del q, k, v, q4, k4, v4, ref4
+
+    ws = tbm.make_weights(dev)
+    h0 = tbm.bf16(np.random.default_rng(0).normal(size=(tbm.ROWS, tbm.W)) * 0.02, dev)
+    per_layer, mega = gc.gemm_chain_per_layer(h0, ws), gc.gemm_chain_megakernel(h0, ws)
+    same = torch.equal(per_layer, mega)
+    print(f"  gemm_chain per-layer vs one launch: bit-equal {same}", flush=True)
+    if not same:
+        raise SystemExit("FAIL gemm_chain: the two entries are not bit-equal")
+    plain = gc.gemm_chain_plain(h0, ws)
+    err = compare("gemm_chain", mega, plain, TOL_ENCODER)
+    del per_layer, mega, plain
+
+    def library():
+        x = h0
+        for w_ in ws:
+            x = torch.matmul(x, w_)
+        return x
+
+    rows_, width, layers = h0.shape[0], h0.shape[1], ws.shape[0]
+    lib = time_ms(library)
+    plain_ms = time_ms(lambda: gc.gemm_chain_plain(h0, ws), iters=3, warmup=1)
+    for name, line, fn, counter in (
+            ("gemm_chain per_layer_calls", 60, gc.gemm_chain_per_layer, "gemm_chain_per_layer"),
+            ("gemm_chain megakernel", 90, gc.gemm_chain_megakernel, "gemm_chain_megakernel")):
+        kernel_row(rows, name, f"tools/bench_megakernel_probe.py:{line}",
+                   "dfd_clip_tpu_torch/csrc/gemm_chain.cu", time_ms(lambda: fn(h0, ws)),
+                   plain_ms, lib, 2.0 * rows_ * width * width * layers,
+                   2.0 * 2 * rows_ * width + 2.0 * layers * width * width, PEAK_BF16_TC, err,
+                   counter=counter, paths=("tool_probe",))
+
+
+def tool_paths() -> dict:
+    """The port's tools as a user runs them (``python -m
+    dfd_clip_tpu_torch.tools.bench_attention``, ``... .bench_megakernel_probe``):
+    each main() with every launch counter zeroed just before and read just
+    after; each checks its own results and prints its times. Returns the
+    counts by path."""
+    import torch
+
+    from dfd_clip_tpu_torch.ops import _cuda
+    from dfd_clip_tpu_torch.tools import bench_attention as tba
+    from dfd_clip_tpu_torch.tools import bench_megakernel_probe as tbm
+
+    counts = {}
+    for path, main_fn, used in (("tool_attention", tba.main, ("study_attention",)),
+                                ("tool_probe", tbm.main,
+                                 ("gemm_chain_per_layer", "gemm_chain_megakernel"))):
+        print(f"[{path}]", flush=True)
+        torch.cuda.synchronize()
+        _cuda.reset_launches()
+        if main_fn([]) != 0:
+            raise SystemExit(f"FAIL {path}: the tool exited nonzero")
+        torch.cuda.synchronize()
+        counts[path] = _cuda.launches()
+        check_counts(path, counts[path], {}, 1, used=used)
+    return counts
+
+
 def device_us(event) -> float:
     """Self device time of a profiler row (the attribute's name varies
     across torch versions)."""
@@ -1868,6 +2105,17 @@ def main() -> int:
     print("[variant serve paths] Scorers over ViT-B/16, 20 frames, keep 6-11, batch 16, "
           "through the encoder's alternative kernels", flush=True)
     counts.update(variant_serve_paths(card))
+    print("[kernels 577] ViT-L/14@336px shapes: the streamed encoder attention, the int8 "
+          "split pair, the decoder over L = 11520", flush=True)
+    check_577_kernels(rows)
+    print("[vit-l@336 serve path] Scorer over ViT-L/14@336px, 20 frames, keep 0-20 stride 4, "
+          "bf16, batch 16", flush=True)
+    counts["vitl336_serve"], counts["vitl336_int8_serve"] = vitl_serve_path(
+        card, L336_SEEDS, arch="ViT-L/14@336px", label="vit-l@336")
+    print("[kernels study] the tools' shapes: the study attention modes at (320, 197, 12 x 64), "
+          "the megakernel probe's pair at (63040, 768) x 12 layers", flush=True)
+    check_study_kernels(rows)
+    counts.update(tool_paths())
 
     if DEFERRED:
         raise SystemExit("\n".join(DEFERRED))

@@ -1,5 +1,6 @@
-// Encoder self-attention, one block per (frame, head), on q, k and v given as
-// three base pointers with one shared row pitch.
+// Encoder self-attention on q, k and v given as three base pointers with one
+// shared row pitch: a staged kernel (one block per (frame, head)) up to 320
+// tokens and a streamed one (one block per 64 query rows) above.
 //
 // Replaces: dfd_clip_tpu/ops/pallas_attention.py fused_encoder_attention_qkv
 // (_make_encoder_qkv_kernel, packed [q | k | v] rows: the packed entry) and
@@ -26,15 +27,37 @@
 // tokens: 192 KB, one block per SM). Tokens are capped at MAX_TOKENS = 320
 // (tp 320, 6 warps, 224 KB); the softmax's per-lane registers are sized at
 // compile time, for 256 padded tokens (ViT-B's 197) or for 320, so the
-// narrow towers keep the smaller instantiation. ViT-L/14@336px's 577 tokens
-// need the K/V stream tiled, which this kernel does not do. The TPU
-// kernel's exp clamp at 60 and deferred normalisation are not carried over:
-// they differ from this softmax only where a logit exceeds 60. The output
+// narrow towers keep the smaller instantiation.
+//
+// Above 320 tokens (CLIP ViT-L/14@336px: 577) the launcher takes the
+// streamed kernel instead, a flash-attention schedule whose block body
+// lives in csrc/attention_stream_tile.cuh. One block is 64 query rows of a
+// (frame, head), 4 warps of 16 rows; K and V stream through shared memory
+// in blocks of 64 keys, double-buffered with cp.async (46 KB a block, four
+// blocks a SM). Each key block takes S = Q K^T on mma.sync m16n8k16 (bf16,
+// f32 accumulate, Q's fragments kept in registers), then an online softmax
+// in f32 registers: the logits times d^-1/2, a running maximum and sum, and
+// the O accumulators rescaled by exp(m_old - m_new). P = exp(l - m) is cast
+// to bf16 unnormalised and multiplied into V (the S fragments are the PV
+// A fragments as they are); O is multiplied by 1 / sum once, at the end:
+// the Pallas kernel's own rounding point (it rounds the unnormalised exp
+// and multiplies by 1 / sum after PV), with the maximum subtracted. At 577
+// tokens the problem is ~290 FLOP a byte read, near the tensor cores'
+// ~295: bytes and operations bound it alike (~0.45 ms at (320, 577, 16 x
+// 64)). Each query block reads its (frame, head)'s K and V once; the blocks
+// of one (frame, head) are neighbours in the grid, so the ceil(tokens / 64)
+// re-reads are meant to hit L2. The token count is capped only by the
+// grid, frames x heads x ceil(tokens / 64) blocks. At 320 tokens and below
+// the staged kernel runs, so the 197- and 257-token paths keep their
+// results. The staged kernel does not carry over the TPU kernel's exp clamp
+// at 60 or its deferred normalisation, the streamed one only the clamp:
+// they differ from the TPU softmax only where a logit exceeds 60. The output
 // is (frames x tokens, heads x 64), bf16, or f32 for the int8 whole block
 // (_make_full_block_kernel), whose out-projection quantises the f32
 // attention output per row; no block here sees a whole row, so that
 // quantisation is csrc/quant_rows.cu's. The block body lives in
 // csrc/attention_tile.cuh, shared with csrc/encoder_tower.cu.
+#include "attention_stream_tile.cuh"
 #include "attention_tile.cuh"
 
 namespace {
@@ -51,9 +74,37 @@ __global__ void encoder_attention_kernel(const bf16* __restrict__ q, const bf16*
                         blockIdx.x % heads, smem);
 }
 
+template <bool OUT_F32>
+__global__ void __launch_bounds__(attn_stream::THREADS)
+encoder_attention_stream_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                                const bf16* __restrict__ v, int ld, void* __restrict__ out,
+                                int tokens, int heads, float scale) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int groups = (tokens + attn_stream::BQ - 1) / attn_stream::BQ;
+  const int fh = blockIdx.x / groups;
+  attn_stream::tile<OUT_F32>(q, k, v, ld, out, tokens, heads, scale, fh / heads, fh % heads,
+                             (blockIdx.x % groups) * attn_stream::BQ, smem);
+}
+
+int launch_stream(const void* q, const void* k, const void* v, long long ld, void* out,
+                  int frames, int tokens, int heads, float scale, int out_f32, void* stream) {
+  const long long blocks =
+      (long long)frames * heads * ((tokens + attn_stream::BQ - 1) / attn_stream::BQ);
+  if (blocks < 1 || blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = out_f32 ? encoder_attention_stream_kernel<true>
+                        : encoder_attention_stream_kernel<false>;
+  kernel<<<static_cast<unsigned>(blocks), attn_stream::THREADS, attn_stream::SMEM_BYTES,
+           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<int>(ld), out, tokens, heads, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 int launch(const void* q, const void* k, const void* v, long long ld, void* out, int frames,
            int tokens, int heads, float scale, int out_f32, void* stream) {
-  if (tokens < 1 || tokens > MAX_TOKENS) return static_cast<int>(cudaErrorInvalidValue);
+  if (tokens > MAX_TOKENS)
+    return launch_stream(q, k, v, ld, out, frames, tokens, heads, scale, out_f32, stream);
+  if (tokens < 1) return static_cast<int>(cudaErrorInvalidValue);
   const Geometry g = geometry(tokens);
   auto kernel = g.tp <= 256
       ? (out_f32 ? encoder_attention_kernel<256, true> : encoder_attention_kernel<256, false>)
@@ -74,8 +125,8 @@ int launch(const void* q, const void* k, const void* v, long long ld, void* out,
 // else bf16) = attention over bf16 q, k and v whose row r of frame f starts
 // at x + (f * tokens + r) * ld, heads x 64 values each. The three may be
 // column blocks of one packed buffer (ld = 3 x heads x 64) or contiguous
-// tensors (ld = heads x 64). tokens <= 320, 16-byte aligned rows (the
-// wrapper checks).
+// tensors (ld = heads x 64). 16-byte aligned rows (the wrapper checks);
+// above 320 tokens the streamed kernel runs.
 extern "C" int dfd_encoder_attention(const void* q, const void* k, const void* v, long long ld,
                                      void* out, int frames, int tokens, int heads, float scale,
                                      int out_f32, void* stream) {

@@ -15,9 +15,13 @@ its path went through the kernels (``reset_launches`` / ``launches``).
 encoder and decoder blocks, ``gemm_s8``, ``quant_rows`` and
 ``layer_norm_quant`` those of the int8 (W8A8) encoder blocks,
 ``encoder_attention_packed`` / ``encoder_attention_separate`` the two
-entries of the encoder attention kernel, ``encoder_attention_s8`` the int8
-encoder attention and ``encoder_tower`` the whole-encoder tower. They take
-CUDA tensors only; the attention entries and the tower count nothing
+entries of the encoder attention (the staged kernel up to 320 tokens, the
+streamed one above, counted here as ``encoder_attention_stream``),
+``encoder_attention_s8`` the int8 encoder attention and ``encoder_tower``
+the whole-encoder tower, and ``study_attention`` / ``gemm_chain`` the
+kernels of the tools' studies (ops/study_attention.py, ops/gemm_chain.py).
+They take CUDA tensors only; apart from the
+streamed attention, the attention entries and the tower count nothing
 themselves, their callers count them under their own names (the plain
 versions live beside the functions that use them, the int8 ones in
 ops/int8.py, the attention in ops/attention.py, the tower in ops/tower.py).
@@ -50,9 +54,17 @@ OUT_F32, RES_ADD_F32, RES_IS_F32 = 64, 128, 256
 # gemm_s8 epilogue flags (csrc/gemm_s8.cu)
 S8_GELU, S8_RES_F32, S8_RES_BF16, S8_OUT_F32, S8_STORE, S8_EXPORT = 1, 2, 4, 8, 16, 32
 S8_RES_AFTER_CAST = 64
-# largest token count of csrc/encoder_attention.cu and encoder_attention_s8.cu
-# (MAX_TOKENS)
+# largest token count of the staged kernels of csrc/encoder_attention.cu,
+# encoder_attention_s8.cu and encoder_tower.cu (MAX_TOKENS); above it the
+# bf16 attention entries launch the streamed kernel (attention_stream_tile.cuh)
 ATTENTION_MAX_TOKENS = 320
+# query rows of a streamed attention block (attn_stream::BQ); the grid,
+# frames x heads x ceil(tokens / 64) blocks, is the streamed kernel's only cap
+STREAM_QUERY_ROWS = 64
+GRID_MAX = 2 ** 31 - 1
+# the 577-token forms still to port (ROADMAP queue 2)
+NOT_PORTED_577 = ("the 577-token int8 attention and whole-encoder tower are not ported yet "
+                  "(ROADMAP queue 2)")
 # the tower's chunk rule (csrc/encoder_tower.cu): a chunk's h and qkv (8 bytes
 # x T x W a frame) take at most half of the card's 50 MB L2
 TOWER_L2_BYTES = 50 * 2 ** 20
@@ -138,6 +150,8 @@ _SIGNATURES = {
     "dfd_encoder_attention": [_P, _P, _P, _LL, _P, _I, _I, _I, _F, _I, _P],
     "dfd_encoder_attention_packed": [_P, _P, _I, _I, _I, _F, _I, _P],
     "dfd_encoder_attention_s8": [_P, _P, _I, _I, _I, _F, _I, _P],
+    "dfd_study_attention": [_P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
+    "dfd_gemm_chain": [_P, _P, _P, _I, _I, _I, _P],
     "dfd_encoder_tower_grid": [_I, _I, _I, ctypes.POINTER(ctypes.c_int)],
     "dfd_encoder_tower": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F,
                           _F, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P],
@@ -417,10 +431,19 @@ def layer_norm_quant(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
 
 
 def _attention_args(name: str, frames: int, tokens: int, heads: int, head_dim: int,
-                    out_dtype: torch.dtype) -> None:
-    if head_dim != 64 or not 1 <= tokens <= ATTENTION_MAX_TOKENS:
-        raise ValueError(f"{name}: takes head_dim 64 and 1 to {ATTENTION_MAX_TOKENS} tokens, "
-                         f"got head_dim {head_dim}, {tokens} tokens")
+                    out_dtype: torch.dtype, max_tokens: Optional[int] = None) -> None:
+    """Raise unless the attention kernels take this geometry: head_dim 64,
+    at least one token, at most ``max_tokens`` (the staged-only kernels) or
+    a grid of at most GRID_MAX streamed blocks."""
+    if head_dim != 64 or tokens < 1:
+        raise ValueError(f"{name}: takes head_dim 64 and at least 1 token, got head_dim "
+                         f"{head_dim}, {tokens} tokens")
+    if max_tokens is not None and tokens > max_tokens:
+        raise ValueError(f"{name}: takes 1 to {max_tokens} tokens, got {tokens}: "
+                         + NOT_PORTED_577)
+    if frames * heads * -(-tokens // STREAM_QUERY_ROWS) > GRID_MAX:
+        raise ValueError(f"{name}: {frames} frames x {heads} heads x {tokens} tokens exceed "
+                         f"the streamed kernel's grid")
     if out_dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"{name}: output {out_dtype} is neither bf16 nor f32")
 
@@ -431,6 +454,8 @@ def _launch_attention(name: str, fn, args: tuple, frames: int, tokens: int, head
     err = fn(*args, out.data_ptr(), frames, tokens, heads, head_dim ** -0.5,
              int(out_dtype == torch.float32), stream())
     check_launch(name, err)
+    if tokens > ATTENTION_MAX_TOKENS:
+        LAUNCHES["encoder_attention_stream"] += 1
     return out
 
 
@@ -439,7 +464,8 @@ def encoder_attention_packed(qkv: torch.Tensor, frames: int, tokens: int, heads:
                              out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """Self-attention over contiguous packed bf16 rows qkv (frames * tokens,
     3W), [q | k | v], W = heads * head_dim -> (frames * tokens, W) in
-    ``out_dtype`` (bf16, or f32 for the int8 whole block)."""
+    ``out_dtype`` (bf16, or f32 for the int8 whole block). Above
+    ATTENTION_MAX_TOKENS the streamed kernel runs."""
     name = "encoder_attention_packed"
     require_cuda(name, qkv)
     _attention_args(name, frames, tokens, heads, head_dim, out_dtype)
@@ -465,7 +491,8 @@ def encoder_attention_separate(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     """Self-attention over bf16 q, k, v (N, T, H, D) -> (N * T, H * D) in
     ``out_dtype``. The three must share one row pitch: three contiguous
     tensors, or the [q | k | v] column blocks of one packed (N, T, 3HD)
-    buffer (no copy is made)."""
+    buffer (no copy is made). Above ATTENTION_MAX_TOKENS the streamed kernel
+    runs."""
     name = "encoder_attention_separate"
     require_cuda(name, q, k, v)
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
@@ -489,7 +516,8 @@ def encoder_attention_s8(qkv: torch.Tensor, frames: int, tokens: int, heads: int
     or with ``qk_only`` the logits only (PV in bf16)."""
     name = "encoder_attention_s8"
     require_cuda(name, qkv)
-    _attention_args(name, frames, tokens, heads, head_dim, torch.float32)
+    _attention_args(name, frames, tokens, heads, head_dim, torch.float32,
+                    max_tokens=ATTENTION_MAX_TOKENS)
     if qkv.shape != (frames * tokens, 3 * heads * head_dim) or not qkv.is_contiguous():
         raise ValueError(f"{name}: takes contiguous (frames*tokens, 3W) rows, got "
                          f"{tuple(qkv.shape)}")
@@ -497,6 +525,51 @@ def encoder_attention_s8(qkv: torch.Tensor, frames: int, tokens: int, heads: int
     err = library().dfd_encoder_attention_s8(qkv.data_ptr(), out.data_ptr(), frames, tokens,
                                              heads, head_dim ** -0.5 / (127.0 * 127.0),
                                              int(qk_only), stream())
+    check_launch(name, err)
+    return out
+
+
+# numerics modes of csrc/study_attention.cu and its largest token count
+STUDY_MODES = {"f32": 0, "bf16": 1, "diet": 2, "diet_nomax": 3}
+STUDY_MAX_TOKENS = 256
+
+
+def study_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mode: str) -> torch.Tensor:
+    """The attention study kernel over contiguous bf16 q, k, v (N, T, H, 64)
+    in numerics mode ``mode`` (STUDY_MODES) -> (N, T, H, 64) bf16."""
+    name = "study_attention"
+    require_cuda(name, q, k, v)
+    if mode not in STUDY_MODES:
+        raise ValueError(f"{name}: mode must be one of {tuple(STUDY_MODES)}, got {mode!r}")
+    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape \
+            or not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError(f"{name}: q, k, v must be contiguous (N, T, H, D) of one shape")
+    n, t, h, d = q.shape
+    if d != 64 or not 1 <= t <= STUDY_MAX_TOKENS:
+        raise ValueError(f"{name}: takes head_dim 64 and 1 to {STUDY_MAX_TOKENS} tokens, got "
+                         f"head_dim {d}, {t} tokens")
+    out = torch.empty_like(q)
+    err = library().dfd_study_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                                        n, t, h, d ** -0.5, STUDY_MODES[mode], stream())
+    check_launch(name, err)
+    return out
+
+
+def gemm_chain(h: torch.Tensor, ws: torch.Tensor) -> torch.Tensor:
+    """csrc/gemm_chain.cu: h (R, W) bf16 through len(ws) products h =
+    bf16(h @ ws[l]) in one launch, ws (L, W, W) contiguous bf16, W a
+    multiple of 128 and at most 768 -> (R, W) bf16."""
+    name = "gemm_chain"
+    require_cuda(name, h, ws)
+    if h.dim() != 2 or ws.dim() != 3 or not (h.is_contiguous() and ws.is_contiguous()):
+        raise ValueError(f"{name}: takes contiguous h (R, W) and ws (L, W, W)")
+    rows, w = h.shape
+    if ws.shape[1:] != (w, w) or ws.shape[0] < 1 or w % 128 or w > 768 or rows < 1:
+        raise ValueError(f"{name}: h {tuple(h.shape)}, ws {tuple(ws.shape)}: W must be a "
+                         f"multiple of 128, at most 768")
+    out = torch.empty_like(h)
+    err = library().dfd_gemm_chain(h.data_ptr(), out.data_ptr(), ws.data_ptr(), rows, w,
+                                   ws.shape[0], stream())
     check_launch(name, err)
     return out
 
@@ -535,11 +608,12 @@ def encoder_tower(h: torch.Tensor, layers: list, heads: int, *, first: int, lo: 
     if h.dim() != 3 or not h.is_contiguous():
         raise ValueError(f"{name}: takes a contiguous (N, T, W) residual stream")
     n, t, w = h.shape
+    if not 1 <= t <= ATTENTION_MAX_TOKENS:
+        raise ValueError(f"{name}: takes 1 to {ATTENTION_MAX_TOKENS} tokens, got {t}: "
+                         + NOT_PORTED_577)
     last = len(layers) - 1
     if w != heads * 64 or not 0 <= first <= last or lo not in (0, 1):
         raise ValueError(f"{name}: width {w} with {heads} heads of 64, layers {first}..{last}")
-    if not 1 <= t <= ATTENTION_MAX_TOKENS:
-        raise ValueError(f"{name}: takes 1 to {ATTENTION_MAX_TOKENS} tokens, got {t}")
     if attn not in TOWER_ATTN or (attn != "0" and not int8):
         raise ValueError(f"{name}: int8 attention {attn!r} needs the int8 tower")
     wdt = torch.int8 if int8 else torch.bfloat16

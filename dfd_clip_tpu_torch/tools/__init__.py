@@ -1,0 +1,24 @@
+"""The port of the study tools under tools/ that reach the kernels
+(bench_attention, bench_megakernel_probe)."""
+
+from __future__ import annotations
+
+import torch
+
+
+def time_op(fn, *args, iters: int) -> float:
+    """Median seconds per call of fn(*args) over 3 windows of ``iters``
+    calls (CUDA events, after one warm-up call)."""
+    fn(*args)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn(*args)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / 1e3 / iters)
+    return sorted(times)[1]

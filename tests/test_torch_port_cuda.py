@@ -16,7 +16,11 @@ block, the whole-encoder tower (3 layers at ViT-B/16 width, bf16 and int8
 with each int8 attention mode, 25 frames: a chunk of 21 and a short one;
 and int8 at ViT-L/14 width, 257 tokens) against the per-layer kernel chain
 and the plain version, and a tower grid that cannot be co-resident, which
-raises.
+raises; and the 577-token slice: both attention entries and outputs at 321,
+577 and 1025 tokens (the streamed kernel), the 577-token limits of the int8
+attention and the tower, and the decoder attention at L = 11,520; and the
+tools' kernels: the study attention in each numerics mode and the chained
+GEMM's two entries (bit-equal to each other).
 
 Marked ``cuda``; every test skips without a card. Run on a machine with one:
 
@@ -112,16 +116,31 @@ def test_layer_norm_rows_ragged(dev):
     assert rel_err(got, layer_norm(ln, x)) <= REL
 
 
-@pytest.mark.parametrize("tokens", [5, 17, 197])
-def test_encoder_attention_token_counts(dev, tokens):
+@pytest.mark.parametrize("out", ["bf16", "f32"])
+@pytest.mark.parametrize("entry", ["packed", "separate"])
+@pytest.mark.parametrize("tokens", [5, 17, 197, 321, 577, 1025])
+def test_encoder_attention_token_counts(dev, tokens, entry, out):
+    """Both entries and both outputs, 3 frames of 2 heads: the staged kernel
+    up to 320 tokens, the streamed one above (counted as
+    encoder_attention_stream), against plain_attention (which follows the
+    kernel the token count picks)."""
+    from dfd_clip_tpu_torch.ops import _cuda
     from dfd_clip_tpu_torch.ops.attention import plain_attention_qkv
-    from dfd_clip_tpu_torch.ops.encoder_block import encoder_attention
 
     gen = torch.Generator().manual_seed(2)
     frames, heads = 3, 2
-    qkv = randn(gen, frames * tokens, 3 * heads * 64).to(dev, torch.bfloat16)
-    got = encoder_attention(qkv, frames, tokens, heads, 64)
-    want = plain_attention_qkv(qkv.reshape(frames, tokens, -1), heads, 64)
+    w = heads * 64
+    qkv = randn(gen, frames * tokens, 3 * w).to(dev, torch.bfloat16)
+    odt = torch.float32 if out == "f32" else torch.bfloat16
+    _cuda.reset_launches()
+    if entry == "packed":
+        got = _cuda.encoder_attention_packed(qkv, frames, tokens, heads, 64, odt)
+    else:
+        q, k, v = (s.reshape(frames, tokens, heads, 64) for s in qkv.split(w, dim=-1))
+        got = _cuda.encoder_attention_separate(q, k, v, odt)
+    assert _cuda.launches() == ({"encoder_attention_stream": 1} if tokens > 320 else {})
+    want = plain_attention_qkv(qkv.reshape(frames, tokens, -1), heads, 64, out_dtype=odt)
+    assert got.dtype == odt
     assert rel_err(got, want.reshape(frames * tokens, -1)) <= REL
 
 
@@ -505,12 +524,13 @@ def test_bf16_attn_block_kv_rows8_on_card(dev, last_only):
 
 # -- the 257-token towers ----------------------------------------------------------------
 
-@pytest.mark.parametrize("tokens", [17, 197, 257, 320])
+@pytest.mark.parametrize("tokens", [17, 197, 257, 320, 577])
 @pytest.mark.parametrize("heads", [12, 16])
 @pytest.mark.parametrize("entry", ["packed", "separate_views", "separate_contiguous"])
 def test_encoder_attention_entries(dev, entry, heads, tokens):
     """Both entries of csrc/encoder_attention.cu against plain_attention,
-    2 frames, each counted under its own name."""
+    2 frames, each counted under its own name (and the streamed kernel at
+    577 tokens under encoder_attention_stream)."""
     from dfd_clip_tpu_torch.ops import _cuda
     from dfd_clip_tpu_torch.ops import attention as att
 
@@ -528,21 +548,27 @@ def test_encoder_attention_entries(dev, entry, heads, tokens):
             q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
         got = att.fused_encoder_attention(q, k, v)
         name = "fused_encoder_attention"
-    assert _cuda.launches() == {name: 1}
+    assert _cuda.launches() == {name: 1, **({"encoder_attention_stream": 1} if tokens > 320
+                                           else {})}
     assert got.dtype == torch.bfloat16
     assert rel_err(got, want) <= REL
 
 
 def test_encoder_attention_limits(dev):
-    """321 tokens, head_dim 32 and q/k/v of different row pitches raise."""
+    """head_dim 32 and q/k/v of different row pitches raise; 321 tokens take
+    the streamed kernel in the bf16 attention but raise in the int8
+    attention and the tower, whose 577-token forms are not ported yet."""
+    from dfd_clip_tpu_torch.ops import _cuda
     from dfd_clip_tpu_torch.ops import attention as att
     from dfd_clip_tpu_torch.ops.encoder_block import encoder_attention
 
     qkv = torch.zeros(2, 321, 3 * 128, device=dev, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="320 tokens"):
-        att.fused_encoder_attention_qkv(qkv, 2, 64)
-    with pytest.raises(ValueError, match="320 tokens"):
-        encoder_attention(qkv.reshape(642, -1), 2, 321, 2, 64)
+    assert att.fused_encoder_attention_qkv(qkv, 2, 64).shape == (2, 321, 128)
+    assert encoder_attention(qkv.reshape(642, -1), 2, 321, 2, 64).shape == (642, 128)
+    with pytest.raises(ValueError, match="not ported"):
+        att.encoder_attention_int8(qkv.reshape(642, -1), 2, 321, 2, 64)
+    with pytest.raises(ValueError, match="not ported"):
+        _cuda.encoder_tower(qkv[..., :128].contiguous(), [], 2, first=0, lo=1, int8=False)
     with pytest.raises(ValueError):
         att.fused_encoder_attention_qkv(qkv[:, :17], 4, 32)
     q = qkv[:, :17, :128].reshape(2, 17, 2, 64)
@@ -559,7 +585,8 @@ def _to(tree, dev, dtype=None):
 @pytest.mark.parametrize("form", ["export_stacked", "rows8_stacked", "plain", "mlp"])
 def test_int8_split_pair_width_1024(dev, form):
     """The int8 split pair at width 1024, 16 heads, 257 tokens, 2 frames,
-    against its plain versions on the same card inputs."""
+    against its plain versions on the same card inputs; the attention half
+    also at 321 tokens, through the streamed attention."""
     from dfd_clip_tpu_torch.models import clip_vit
     from dfd_clip_tpu_torch.ops import encoder_block as eb
 
@@ -597,9 +624,16 @@ def test_int8_split_pair_width_1024(dev, form):
             int8_close(got[i][1], want[i][1])
         else:
             assert rel_err(got[i][1], want[i][1]) <= REL
-    with pytest.raises(ValueError, match="320 tokens"):
-        eb.fused_encoder_attn_block(torch.zeros(1, 321, w, dtype=torch.bfloat16, device=dev),
-                                    blk["ln_1"], blk["attn"], 16, 64, int8_gemm=True)
+    # above the staged kernel's 320 tokens the attention stage is the streamed kernel
+    from dfd_clip_tpu_torch.ops import _cuda
+
+    h321 = randn(gen, 1, 321, w).to(dev, torch.bfloat16)
+    _cuda.reset_launches()
+    got = eb.fused_encoder_attn_block(h321, blk["ln_1"], blk["attn"], 16, 64, int8_gemm=True)
+    assert _cuda.launches().get("encoder_attention_stream") == 1
+    want = eb.fused_encoder_attn_block_plain(h321, blk["ln_1"], blk["attn"], 16, 64,
+                                             int8_gemm=True)
+    assert rel_err(got, want) <= REL
 
 
 TINY_TOWERS = {  # name: (foundation, width, heads, op_mode, launches)
@@ -829,3 +863,63 @@ def test_tower_grid_that_cannot_be_co_resident_raises(dev):
     assert _cuda.launches() == {}
     k, _ = _cuda.encoder_tower(h, layers, 4, first=0, lo=1, int8=False, grid=co_resident)
     assert torch.isfinite(k.float()).all()
+
+
+# -- the 577-token slice and the tools' kernels ---------------------------------------------
+
+def test_decoder_attention_at_vit_l14_336(dev):
+    """The serving decoder attention over ViT-L/14@336px's export: 16 heads,
+    L = 20 x 576 = 11,520 keys, slot 3 of a 6-layer stack, one sample partly
+    and one fully masked."""
+    from dfd_clip_tpu_torch.ops.fused_decoder_attention import (
+        fused_decoder_attention,
+        fused_decoder_attention_plain,
+    )
+
+    qs, qc, k, v, pos, mask = decoder_inputs(dev, torch.Generator().manual_seed(40), 4, 16,
+                                             11520, False)
+    k = torch.stack([k] * 6)
+    v = torch.stack([v] * 6)
+    got = fused_decoder_attention(qs, qc, k, v, mask, pos, layer=3)
+    want = fused_decoder_attention_plain(qs, qc, k, v, mask, pos, layer=3)
+    assert rel_err(got[:3], want[:3]) <= 1e-2
+    assert torch.equal(got[3], torch.zeros_like(got[3]))
+
+
+@pytest.mark.parametrize("tokens", [5, 197, 256])
+@pytest.mark.parametrize("mode", ["f32", "bf16", "diet", "diet_nomax"])
+def test_study_attention_modes(dev, mode, tokens):
+    """csrc/study_attention.cu in each numerics mode against its plain
+    version, 3 frames of 12 heads, counted."""
+    from dfd_clip_tpu_torch.ops import _cuda
+    from dfd_clip_tpu_torch.ops import study_attention as sa
+
+    gen = torch.Generator().manual_seed(41 + tokens)
+    q, k, v = (randn(gen, 3, tokens, 12, 64).to(dev, torch.bfloat16) for _ in range(3))
+    _cuda.reset_launches()
+    got = sa.study_attention(q, k, v, mode)
+    assert _cuda.launches() == {"study_attention": 1}
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    assert rel_err(got, sa.study_attention_plain(q, k, v, mode)) <= REL
+    with pytest.raises(ValueError):
+        sa.study_attention(q, k, v, "tf32")
+
+
+@pytest.mark.parametrize("rows,width,layers", [(1000, 768, 3), (64, 128, 1), (333, 256, 12)])
+def test_gemm_chain_entries(dev, rows, width, layers):
+    """The probe's two entries are bit-equal, and within REL of the plain
+    chain; ragged row counts (not multiples of 64)."""
+    from dfd_clip_tpu_torch.ops import _cuda
+    from dfd_clip_tpu_torch.ops import gemm_chain as gc
+
+    gen = torch.Generator().manual_seed(42 + rows)
+    h = randn(gen, rows, width).to(dev, torch.bfloat16)
+    ws = randn(gen, layers, width, width, scale=width ** -0.5).to(dev, torch.bfloat16)
+    _cuda.reset_launches()
+    a = gc.gemm_chain_per_layer(h, ws)
+    b = gc.gemm_chain_megakernel(h, ws)
+    assert _cuda.launches() == {"gemm_chain_per_layer": layers, "gemm_chain_megakernel": 1}
+    assert torch.equal(a, b)
+    assert rel_err(b, gc.gemm_chain_plain(h, ws)) <= REL
+    with pytest.raises(ValueError):
+        _cuda.gemm_chain(h[:, :96].contiguous(), ws[:, :96, :96].contiguous())

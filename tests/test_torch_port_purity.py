@@ -54,7 +54,9 @@ def test_port_reads_no_environment(path):
     "dfd_clip_tpu_torch.models.dinov2_vit, dfd_clip_tpu_torch.ops.attention, "
     "dfd_clip_tpu_torch.ops.encoder_block, dfd_clip_tpu_torch.models.detector, "
     "dfd_clip_tpu_torch.ops.tower",
-], ids=["serve", "train", "towers"])
+    "dfd_clip_tpu_torch.ops.study_attention, dfd_clip_tpu_torch.ops.gemm_chain, "
+    "dfd_clip_tpu_torch.tools.bench_attention, dfd_clip_tpu_torch.tools.bench_megakernel_probe",
+], ids=["serve", "train", "towers", "tools"])
 def test_importing_the_port_loads_no_jax_or_yaml(modules):
     code = ("import sys\n"
             f"import {modules}\n"

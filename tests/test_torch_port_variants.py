@@ -27,7 +27,9 @@ Tolerances, with their reasons:
   "1" its per-channel V scale also takes the pad rows, whose V is LN(0)'s
   projection, ln_1's shift through W_v plus b_v. The tower tests keep those
   two at zero so the pad rows are zero and JAX's scale is the unpadded one
-  the port computes (ROADMAP queue 3 records the difference).
+  the port computes (ROADMAP queue 3 records the difference). With them
+  nonzero the port's tower is held to JAX's per-layer int8 blocks, which
+  do not pad (test_int8_attention_tower_matches_jax_per_layer_blocks).
 """
 
 import dataclasses
@@ -388,3 +390,33 @@ def test_detector_predict_with_the_tower_matches_jax(monkeypatch, int8):
     got, _ = tdet.predict(tparams, x, m)
     assert len(got) == len(want) == 1
     assert np.abs(got[0].float().numpy() - np.asarray(want[0])).max() <= TOL_F32 * 5
+
+
+def test_int8_attention_tower_matches_jax_per_layer_blocks(monkeypatch):
+    """The port's tower with int8 attention "1" on blocks whose ln_1 shift
+    and V bias are nonzero (so the JAX tower's pad rows would carry V, see
+    the module note) against JAX's per-layer int8 whole block with
+    DFD_INT8_ATTN=1 and its int8 last_only layer, which do not pad: keep
+    (1, 2), 5 tokens, in f32 (the tie allowance of the module note)."""
+    monkeypatch.setenv("DFD_INT8_ATTN", "1")
+    rng = np.random.default_rng(27)
+    blocks = [block_params(rng, 256) for _ in range(3)]
+    for b in blocks:
+        assert np.abs(b["ln_1"]["bias"]).min() > 0
+        assert np.abs(b["attn"]["in_proj"]["b"][512:]).min() > 0
+    h = rng.standard_normal((FRAMES, TOKENS, 256)).astype(np.float32)
+    j = [jx(b) for b in blocks]
+    x = jpa.fused_encoder_block(jnp.asarray(h), j[0]["ln_1"], j[0]["attn"], j[0]["ln_2"],
+                                j[0]["mlp"], 4, 64, int8_gemm=True)
+    x, k1, v1 = jpa.fused_encoder_block(x, j[1]["ln_1"], j[1]["attn"], j[1]["ln_2"], j[1]["mlp"],
+                                        4, 64, export=True, drop_cls=True, int8_gemm=True)
+    k2, v2 = jpa.fused_encoder_attn_block(x, j[2]["ln_1"], j[2]["attn"], 4, 64, drop_cls=True,
+                                          last_only=True, int8_gemm=True)
+    shape = (FRAMES, TOKENS - 1, 256)
+    want = [np.stack([np.asarray(a).reshape(shape), np.asarray(b).reshape(shape)])
+            for a, b in ((k1, k2), (v1, v2))]
+    got = ttower.fused_encoder_tower(torch.from_numpy(h), [th(b) for b in blocks], 4, 64,
+                                     keep=(1, 2), drop_cls=True, int8_gemm=True, int8_attn="1")
+    for g, w_ in zip(got, want):
+        assert tuple(g.shape) == (2,) + shape
+        assert_close_ties(g, w_)
