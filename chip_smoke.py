@@ -85,14 +85,33 @@
    (encoder_attention_stream, 20 a predict), logits and P(fake) held
    against the f32 plain route, int8 against bf16 by cosine, a
    device-resident predict timed, its peak memory read and traced;
-14. checks the tools' kernels (`[kernels study]`): every numerics mode of
+14. checks the ViT-L int8 ladder's kernels at its shapes (`[kernels tower
+   wide]`, 320 frames, width 1024, 16 heads): the int8 attention's streamed
+   kernel at (320, 577, 16 x 64) in both modes and at 321 and 1025 tokens
+   against its frame-chunked plain version; the whole int8 block at 257 and
+   577 tokens with int8 attention "0" and "1"; the 24-layer int8 tower
+   (keep 18-23) at 257 and 577 tokens in each int8 attention mode, against
+   the per-layer kernel chain and the plain chain, printing its grid, chunk
+   and grid barriers and the kernel chain's drift from the plain chain
+   layer by layer;
+15. drives the JAX package's megaL ladder (`[vit-l ladder]`,
+   tools/bench_r3_ladder.py:330-393): on ViT-L/14 and ViT-L/14@336px (24
+   layers, keep 18-23, compute_int8, one parameter seed) each rung, the
+   split control, block "full" with int8 attention "0" and "1" and the
+   tower with "0", "1" and "qk", answers the four requests through a
+   Scorer, counters zeroed before and read after, its launches asserted;
+   the last request's batch is held against the plain route in f32, its
+   logits compared with the split control's by cosine (gated without int8
+   attention), each tower rung's K/V held to its per-layer kernel chain;
+   a device-resident predict is timed and traced;
+16. checks the tools' kernels (`[kernels study]`): every numerics mode of
    the study attention at (320, 197, 12 x 64) through the port tool's
    variants, each against the tool's own check and its plain version, and
    the megakernel probe's two entries at (63040, 768) x 12 layers,
    bit-equal to each other and held to the plain chain; then runs both
    ported tools as a user does (`[tool_attention]`, `[tool_probe]`),
    counters zeroed before and read after each;
-15. prints the kernel table as one JSON line, the card line, and last
+17. prints the kernel table as one JSON line, the card line, and last
    {"ok": true, "device": {...}}.
 
 Any failed phase raises and the script exits nonzero without the last line.
@@ -163,6 +182,21 @@ WIDE_TOKENS, VITL_KEEP = 257, (0, 4, 8, 12, 16, 20)
 # seed (two batches) to keep the run's time down
 L336_TOKENS, L336_SEEDS = 577, 1
 VITL336_PATHS = ("vitl336_serve", "vitl336_int8_serve")
+# the JAX package's megaL ladder (tools/bench_r3_ladder.py:330-393, BENCH_ARCH
+# ViT-L/14 or ViT-L/14@336px; bench.py:63-68 adds the qk rung): 24 layers,
+# the last 6 kept, compute_int8, through the encoder's kernel forms
+LADDER_KEEP = tuple(range(18, 24))
+LADDER_RUNGS = {  # rung: EncoderKernels arguments
+    "split": {},
+    "full": {"block": "full"},
+    "full_attn": {"block": "full", "int8_attn": "1"},
+    "tower": {"tower": True},
+    "tower_attn": {"tower": True, "int8_attn": "1"},
+    "tower_qk": {"tower": True, "int8_attn": "qk"},
+}
+LADDER_ARCHS = (("ViT-L/14", "vitl"), ("ViT-L/14@336px", "vitl336"))
+VITL_LADDER = tuple(f"vitl_{r}" for r in LADDER_RUNGS)
+VITL336_LADDER = tuple(f"vitl336_{r}" for r in LADDER_RUNGS)
 # the port's tools (dfd_clip_tpu_torch/tools) run as a user runs them
 TOOL_PATHS = ("tool_attention", "tool_probe")
 # the tools/bench_attention.py variants held and timed on the card, one a
@@ -590,6 +624,17 @@ def to_device(tree, dev):
         return {k: (v.to(dev, torch.bfloat16) if k == "w" else to_device(v, dev))
                 for k, v in tree.items()}
     return tree.to(dev) if tree.dtype == torch.int8 else tree.to(dev, torch.float32)
+
+
+def to_card(tree):
+    """A tree of dicts and lists of tensors moved to the card as they are
+    (raw f32 params, which Detector.prepare_params then places and
+    quantises there)."""
+    if isinstance(tree, dict):
+        return {k: to_card(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [to_card(v) for v in tree]
+    return tree.to("cuda")
 
 
 def random_block(gen, dev, int8: bool = False, cfg=None):
@@ -1262,7 +1307,7 @@ def check_wide_kernels(rows: list) -> None:
                   "dfd_clip_tpu/ops/pallas_attention.py:385",
                   lambda: eb.encoder_attention(qkv2, n, t, 16, 64),
                   lambda: att.plain_attention_qkv(qkv, 16, 64).reshape(n * t, 1024), qkv, n, t,
-                  16, ("vitl_int8_serve",), counter="encoder_attention")
+                  16, ("vitl_int8_serve", "vitl_split", "vitl_full"), counter="encoder_attention")
     del qkv2
     qkv = torch.randn(n, t, 3 * 768, generator=gen).to(dev, bf)
     q, k, v = (s.reshape(n, t, 12, 64) for s in qkv.split(768, dim=-1))
@@ -1338,7 +1383,7 @@ def check_wide_kernels(rows: list) -> None:
                    h, ln1, attn, hh, 64, export=True, drop_cls=True, export_into=into_p,
                    int8_gemm=True), iters=3, warmup=1),
                None, 0, 0, 0, err, counter="fused_encoder_attn_block",
-               paths=("vitl_int8_serve",),
+               paths=("vitl_int8_serve", "vitl_split"),
                bound=(max(ops_t, nbytes / HBM) * 1e3,
                       "operations" if ops_t >= nbytes / HBM else "bytes"))
     del into, into_p, main_bufs
@@ -1354,17 +1399,18 @@ def check_wide_kernels(rows: list) -> None:
                time_ms(lambda: eb.fused_encoder_mlp_block_plain(h, ln2, mlp, int8_gemm=True),
                        iters=3, warmup=1),
                None, 16.0 * m_rows * w * w, 4.0 * m_rows * w + 8.0 * w * w + 48.0 * w,
-               PEAK_INT8_TC, err, counter="fused_encoder_mlp_block", paths=("vitl_int8_serve",))
+               PEAK_INT8_TC, err, counter="fused_encoder_mlp_block",
+               paths=("vitl_int8_serve", "vitl_split"))
     check_split_chain(rows, h, blk)
     del h
 
     # -- the decoder over the 257-token towers' export (256 rows a frame) ----------
     check_decoder_attention(rows, "fused_decoder_attention 16 heads, L 5120", gen, dev, 16,
-                            t_out, t_out, VITL_PATHS)
+                            t_out, t_out, VITL_PATHS + VITL_LADDER)
     check_decoder_attention(rows, "fused_decoder_attention 12 heads, L 5120", gen, dev, 12,
                             t_out, t_out, ("dinov2_serve",))
     check_decoder_boundary(rows, "decoder_boundary width 1024", blk, 5,
-                           VITL_PATHS + VITL336_PATHS)
+                           VITL_PATHS + VITL336_PATHS + VITL_LADDER + VITL336_LADDER)
 
 
 def check_split_chain(rows: list, h, blk: dict) -> None:
@@ -1382,7 +1428,8 @@ def check_split_chain(rows: list, h, blk: dict) -> None:
     m_rows, bf = n * t, torch.bfloat16
     h2 = h.reshape(m_rows, w)
     ln1, attn, mlp = blk["ln_1"], blk["attn"], blk["mlp"]
-    paths = ("vitl_int8_serve", "vitl336_int8_serve")
+    paths = ("vitl_int8_serve", "vitl336_int8_serve") + tuple(
+        f"{a}_{r}" for a in ("vitl", "vitl336") for r in ("split", "full", "full_attn"))
     tag = f"{m_rows} x {w}"
 
     yq, ys = _cuda.layer_norm_quant(h2, ln1["scale"], ln1["bias"])
@@ -1455,7 +1502,7 @@ def check_split_chain(rows: list, h, blk: dict) -> None:
                time_ms(lambda: _cuda.gemm(att, wo, bo, residual=h2)), time_ms(out_plain),
                time_ms(lambda: torch.addmm(h2, att, wo)), 2.0 * m_rows * w * w,
                2.0 * (3 * m_rows * w + w * w) + 4.0 * w, PEAK_BF16_TC, err, counter="gemm",
-               paths=VITL_PATHS + VITL336_PATHS)
+               paths=VITL_PATHS + VITL336_PATHS + VITL_LADDER + VITL336_LADDER)
 
 
 def wide_serve(card: str, label: str, det, raws: list, expected: dict, used: tuple):
@@ -1564,15 +1611,15 @@ def dinov2_serve_path(card: str, seeds: int) -> dict:
     return counts
 
 
-def tower_params(gen, dev):
-    """A flagship ViT-B/16 tower's seeded blocks on the card, LayerNorms and
-    biases off their init values, with the pre-quantised int8 weights
-    beside the bf16 ones."""
+def tower_params(gen, dev, cfg=None):
+    """A tower's seeded blocks on the card (the flagship ViT-B/16's unless
+    ``cfg``), LayerNorms and biases off their init values, with the
+    pre-quantised int8 weights beside the bf16 ones."""
     import torch
 
     from dfd_clip_tpu_torch.models import clip_vit
 
-    cfg = clip_vit.VIT_B16
+    cfg = cfg or clip_vit.VIT_B16
     params = clip_vit.init_clip_vision(gen, cfg)
     w = cfg.width
     for blk in params["blocks"]:
@@ -1840,10 +1887,10 @@ def check_577_kernels(rows: list) -> None:
     forms = (
         ("encoder_attention_stream packed 577", f"{pa}:145",
          lambda: att.fused_encoder_attention_qkv(qkv, hh, 64),
-         lambda: att.plain_attention_qkv(qkv, hh, 64), 2, VITL336_PATHS),
+         lambda: att.plain_attention_qkv(qkv, hh, 64), 2, VITL336_PATHS + ("vitl336_split",)),
         ("encoder_attention_stream packed f32 577", f"{pa}:1212",
          lambda: eb.encoder_attention(qkv2, n, t, hh, 64, out_dtype=f32).reshape(n, t, w),
-         lambda: att.plain_attention_qkv(qkv, hh, 64, out_dtype=f32), 4, ()),
+         lambda: att.plain_attention_qkv(qkv, hh, 64, out_dtype=f32), 4, ("vitl336_full",)),
         ("encoder_attention_stream separate 577", f"{pa}:1346",
          lambda: att.fused_encoder_attention(q, k, v),
          lambda: att.plain_attention(q, k, v), 2, ()),
@@ -1884,7 +1931,7 @@ def check_577_kernels(rows: list) -> None:
                time_ms(lambda: eb.fused_encoder_attn_block_plain(
                    h, ln1, attn, hh, 64, export_into=(*bufs[1], 1, 2), **kw), iters=2, warmup=1),
                None, 0, 0, 0, err, counter="fused_encoder_attn_block",
-               paths=("vitl336_int8_serve",),
+               paths=("vitl336_int8_serve", "vitl336_split"),
                bound=(max(ops_t, nbytes / HBM) * 1e3,
                       "operations" if ops_t >= nbytes / HBM else "bytes"))
     del bufs
@@ -1896,13 +1943,327 @@ def check_577_kernels(rows: list) -> None:
                time_ms(lambda: eb.fused_encoder_mlp_block_plain(h, ln2, mlp, int8_gemm=True),
                        iters=2, warmup=1),
                None, 16.0 * m_rows * w * w, 4.0 * m_rows * w + 8.0 * w * w + 48.0 * w,
-               PEAK_INT8_TC, err, counter="fused_encoder_mlp_block", paths=("vitl336_int8_serve",))
+               PEAK_INT8_TC, err, counter="fused_encoder_mlp_block",
+               paths=("vitl336_int8_serve", "vitl336_split"))
     del h, blk
     torch.cuda.empty_cache()
 
     # -- the decoder over the 576-row export (L = 11,520) --------------------------------
     check_decoder_attention(rows, "fused_decoder_attention 16 heads, L 11520", gen, dev, 16,
-                            t_out, t_out, VITL336_PATHS)
+                            t_out, t_out, VITL336_PATHS + VITL336_LADDER)
+
+
+def tower_barriers(frames: int, tokens: int, width: int, last: int) -> int:
+    """Grid barriers of one int8 tower launch: 9 a layer below ``last``, 2
+    for it, per chunk of tower_chunk frames."""
+    from dfd_clip_tpu_torch.ops import _cuda
+
+    chunk = _cuda.tower_chunk(frames, tokens, width)
+    return -(-frames // chunk) * (9 * last + 2)
+
+
+def check_tower_wide_kernels(rows: list) -> None:
+    """The ViT-L int8 ladder's kernels at its shapes (320 frames, width 1024,
+    16 heads): the int8 attention's streamed kernel at (320, 577, 16 x 64)
+    in both modes and at 321 and 1025 tokens against its (frame-chunked)
+    plain version; the whole int8 block at 257 and 577 tokens with int8
+    attention "0" and "1"; and the 24-layer int8 tower (keep 18-23) at 257
+    and 577 tokens in each int8 attention mode, against the per-layer kernel
+    chain (the same block bodies) and the plain chain, with the plain
+    chain's drift from the kernel chain printed layer by layer."""
+    import torch
+
+    from dfd_clip_tpu_torch.models import clip_vit
+    from dfd_clip_tpu_torch.ops import _cuda
+    from dfd_clip_tpu_torch.ops import attention as att
+    from dfd_clip_tpu_torch.ops import encoder_block as eb
+    from dfd_clip_tpu_torch.ops import tower
+
+    n, w, hh, d, bf = CLIPS * FRAMES, 1024, 16, 64, torch.bfloat16
+    dev = torch.device("cuda")
+    dgen = torch.Generator(device=dev).manual_seed(12)
+    row = functools.partial(kernel_row, rows)
+    pa = "dfd_clip_tpu/ops/pallas_attention.py"
+
+    def attn_time(frames, t, int8_attn):
+        """(attention operations' time at peak, their count) of one layer."""
+        ops = 4.0 * frames * hh * t * t * d
+        if int8_attn == "0":
+            return ops / PEAK_BF16_TC, ops
+        return ops / 2 / PEAK_INT8_TC + ops / 2 / (
+            PEAK_BF16_TC if int8_attn == "qk" else PEAK_INT8_TC), ops
+
+    # -- the int8 attention above 320 tokens (attn_s8::stream_tile) ----------------------
+    for t, frames in ((L336_TOKENS, n), (321, 32), (1025, 32)):
+        qkv = torch.randn(frames * t, 3 * w, generator=dgen, device=dev).to(bf)
+        for mode in ("1", "qk"):
+            qk = mode == "qk"
+            name = f"encoder_attention_int8{' qk' if qk else ''} {t}"
+            got = att.encoder_attention_int8(qkv, frames, t, hh, d, qk_only=qk)
+            err = compare(name, got, att.attn_int8_cols_plain(qkv, frames, t, hh, d, qk_only=qk),
+                          TOL_ENCODER)
+            del got
+            if t != L336_TOKENS:
+                continue
+            ops_t = attn_time(frames, t, mode)[0]
+            nb = 2.0 * frames * t * 3 * w + 4.0 * frames * t * w
+            row(name, f"{pa}:214", "dfd_clip_tpu_torch/csrc/attention_s8_tile.cuh",
+                time_ms(lambda: att.encoder_attention_int8(qkv, frames, t, hh, d, qk_only=qk)),
+                time_ms(lambda: att.attn_int8_cols_plain(qkv, frames, t, hh, d, qk_only=qk),
+                        iters=2, warmup=1),
+                None, 0, 0, 0, err, counter="encoder_attention_int8_stream",
+                paths=() if qk else ("vitl336_full_attn",),
+                bound=(max(ops_t, nb / HBM) * 1e3, "operations" if ops_t >= nb / HBM else "bytes"))
+        del qkv
+    torch.cuda.empty_cache()
+
+    # -- the whole int8 block at width 1024 ------------------------------------------------
+    blk = random_block(torch.Generator().manual_seed(13), dev, int8=True, cfg=clip_vit.VIT_L14)
+    args = (blk["ln_1"], blk["attn"], blk["ln_2"], blk["mlp"], hh, d)
+    for t, arch in ((WIDE_TOKENS, "vitl"), (L336_TOKENS, "vitl336")):
+        h = torch.randn(n, t, w, generator=dgen, device=dev).to(bf)
+        m_rows, t_out = n * t, t - 1
+        bufs = [(torch.empty(2, n, t_out, w, dtype=bf, device=dev),
+                 torch.empty(2, n, t_out, w, dtype=bf, device=dev)) for _ in range(2)]
+        for mode in ("0", "1"):
+            name = f"fused_encoder_block int8{' attn' if mode == '1' else ''} {t} x {w}"
+            kw = dict(export=True, drop_cls=True, int8_gemm=True, int8_attn=mode)
+            got = eb.fused_encoder_block(h, *args, export_into=(*bufs[0], 1, 2), **kw)
+            want = eb.fused_encoder_block_plain(h, *args, export_into=(*bufs[1], 1, 2), **kw)
+            err = compare(f"{name} h", got[0], want[0], TOL_ENCODER)
+            for i, part in ((1, "k"), (2, "v")):
+                err = max(err, compare(f"{name} {part}", got[i][1], want[i][1], TOL_ENCODER))
+            del got, want
+            # operations: the four W8A8 products and the attention; bytes: h
+            # in and out, the int8 weights and their scales, biases and
+            # LayerNorms, the K/V export
+            ops_t = 24.0 * m_rows * w * w / PEAK_INT8_TC + attn_time(n, t, mode)[0]
+            nb = 4.0 * m_rows * w + 12.0 * w * w + 4.0 * 22 * w + 4.0 * n * t_out * w
+            row(name, f"{pa}:1212", "dfd_clip_tpu_torch/ops/encoder_block.py",
+                time_ms(lambda: eb.fused_encoder_block(h, *args, export_into=(*bufs[0], 1, 2),
+                                                       **kw), iters=5),
+                time_ms(lambda: eb.fused_encoder_block_plain(
+                    h, *args, export_into=(*bufs[1], 1, 2), **kw), iters=1, warmup=1),
+                None, 0, 0, 0, err, counter="fused_encoder_block",
+                paths=(f"{arch}_full_attn" if mode == "1" else f"{arch}_full",),
+                bound=(max(ops_t, nb / HBM) * 1e3, "operations" if ops_t >= nb / HBM else "bytes"))
+        del h, bufs
+    del blk
+    torch.cuda.empty_cache()
+
+    # -- the 24-layer int8 tower, keep 18-23 ---------------------------------------------------
+    blocks = tower_params(torch.Generator().manual_seed(14), dev, clip_vit.VIT_L14)
+    first, last = LADDER_KEEP[0], LADDER_KEEP[-1]
+    nsel = len(LADDER_KEEP)
+    for t, arch in ((WIDE_TOKENS, "vitl"), (L336_TOKENS, "vitl336")):
+        h = torch.randn(n, t, w, generator=dgen, device=dev).to(bf)
+        m_rows = n * t
+        print(f"  tower at {t} tokens: grid {[_cuda.tower_grid(t, True, a) for a in ('0', '1', 'qk')]}"
+              f" blocks (int8 attention 0, 1, qk) on "
+              f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs; chunk "
+              f"{_cuda.tower_chunk(n, t, w)} frames, {tower_barriers(n, t, w, last)} grid "
+              f"barriers a launch", flush=True)
+        for mode in ("0", "1", "qk"):
+            label = {"0": "", "1": " attn", "qk": " qk"}[mode]
+            name = f"fused_encoder_tower int8{label} 24 layers {t}"
+            kw = dict(keep=LADDER_KEEP, drop_cls=True, int8_gemm=True, int8_attn=mode)
+            k, v = tower.fused_encoder_tower(h, blocks, hh, d, **kw)
+            # the per-layer kernel chain (the same block bodies, one launch each),
+            # keeping h after every layer
+            kc, vc = torch.empty_like(k), torch.empty_like(v)
+            x, hs = h, []
+            for i in range(last):
+                into = (kc, vc, i - first, nsel) if i >= first else None
+                b = blocks[i]
+                out = eb.fused_encoder_block(x, b["ln_1"], b["attn"], b["ln_2"], b["mlp"], hh, d,
+                                             export=into is not None, drop_cls=True,
+                                             export_into=into, int8_gemm=True, int8_attn=mode)
+                x = out[0] if into is not None else out
+                hs.append(x)
+            eb.fused_encoder_attn_block(x, blocks[last]["ln_1"], blocks[last]["attn"], hh, d,
+                                        drop_cls=True, last_only=True,
+                                        export_into=(kc, vc, nsel - 1, nsel), int8_gemm=True)
+            same = min((k == kc).float().mean().item(), (v == vc).float().mean().item())
+            chain_err = max(rel_err(k, kc), rel_err(v, vc))
+            print(f"  {name} vs the per-layer kernel chain: rel_err {chain_err:.3e}, "
+                  f"equal share {same:.6f}, bit-equal {same == 1.0}", flush=True)
+            if chain_err > TOL_ENCODER:
+                fail(f"FAIL {name}: {chain_err:.3e} from the per-layer kernels", True)
+            del kc, vc, x
+            # the plain chain, layer by layer as fused_encoder_tower_plain runs it
+            # (timed, one run), and its drift from the kernel chain after each layer
+            kp, vp = torch.empty_like(k), torch.empty_like(v)
+            drift = []
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            start.record()
+            xp = h
+            for i in range(last):
+                into = (kp, vp, i - first, nsel) if i >= first else None
+                b = blocks[i]
+                out = eb.fused_encoder_block_plain(xp, b["ln_1"], b["attn"], b["ln_2"], b["mlp"],
+                                                   hh, d, export=into is not None, drop_cls=True,
+                                                   export_into=into, int8_gemm=True,
+                                                   int8_attn=mode)
+                xp = out[0] if into is not None else out
+                drift.append(rel_err(hs[i], xp))
+            eb.fused_encoder_attn_block_plain(xp, blocks[last]["ln_1"], blocks[last]["attn"], hh,
+                                              d, drop_cls=True, last_only=True,
+                                              export_into=(kp, vp, nsel - 1, nsel),
+                                              int8_gemm=True)
+            end.record()
+            torch.cuda.synchronize()
+            plain_ms = start.elapsed_time(end)
+            del hs, xp
+            print(f"  {name}: drift of the kernel chain from the plain chain, h after each "
+                  f"layer (rel of the max): " + " ".join(f"{e:.2e}" for e in drift), flush=True)
+            err = compare(f"{name} k", k, kp, TOL_TOWER, defer=True)
+            err = max(err, compare(f"{name} v", v, vp, TOL_TOWER, defer=True))
+            del kp, vp, k, v
+            # operations: 23 whole blocks and the K/V columns of layer 23;
+            # bytes: h in, every weight, scale, bias and LayerNorm read once,
+            # the six layers' K/V out
+            ops_t = (23 * 24.0 + 4.0) * m_rows * w * w / PEAK_INT8_TC + 23 * attn_time(n, t, mode)[0]
+            layer_bytes = 12.0 * w * w + 4.0 * 13 * w + 4.0 * 9 * w
+            nb = 2.0 * m_rows * w + 23 * layer_bytes + 2.0 * w * w + 4.0 * 6 * w \
+                + 2 * 2.0 * nsel * n * (t - 1) * w
+            row(name, "dfd_clip_tpu/ops/pallas_tower.py:425",
+                "dfd_clip_tpu_torch/csrc/encoder_tower.cu",
+                time_ms(lambda: tower.fused_encoder_tower(h, blocks, hh, d, **kw), iters=3,
+                        warmup=1),
+                plain_ms, None, 0, 0, 0, err, counter="fused_encoder_tower",
+                paths=(f"{arch}_tower{label.replace(' ', '_')}",),
+                bound=(max(ops_t, nb / HBM) * 1e3, "operations" if ops_t >= nb / HBM else "bytes"))
+        del h
+        torch.cuda.empty_cache()
+    del blocks
+    torch.cuda.empty_cache()
+
+
+def ladder_counts(rung: str, tokens: int) -> dict:
+    """A ladder rung's encoder and decoder launches a predict (24 layers: 23
+    blocks and the last kept layer's K/V columns)."""
+    stream = tokens > 320
+    decoder = {"fused_decoder_attention": 6, "decoder_boundary": 7}
+    if rung.startswith("tower"):
+        return {**TOWER_COUNTS, **decoder, "encoder_attention_stream": 0,
+                "encoder_attention_int8_stream": 0}
+    if rung == "split":
+        return {"fused_encoder_attn_block": 24, "fused_encoder_mlp_block": 23,
+                "fused_encoder_block": 0, "fused_encoder_tower": 0, "encoder_attention": 23,
+                "encoder_attention_stream": 23 if stream else 0, "encoder_attention_int8": 0,
+                **decoder}
+    int8_attn = rung == "full_attn"
+    return {"fused_encoder_block": 23, "fused_encoder_attn_block": 1,
+            "fused_encoder_mlp_block": 0, "fused_encoder_tower": 0,
+            "encoder_attention": 0 if int8_attn else 23,
+            "encoder_attention_int8": 23 if int8_attn else 0,
+            "encoder_attention_stream": 23 if stream and not int8_attn else 0,
+            "encoder_attention_int8_stream": 23 if stream and int8_attn else 0, **decoder}
+
+
+def ladder_paths(card: str) -> dict:
+    """The megaL ladder on ViT-L/14 and ViT-L/14@336px (24 layers, keep
+    18-23, compute_int8, one parameter seed each): each rung of LADDER_RUNGS
+    through a Scorer answers the four requests, counters zeroed before and
+    read after; on the last request's batch its logits and P(fake) are held
+    against the plain route in f32, compared with the split control's by
+    cosine (gated without int8 attention), the tower rungs' K/V held to
+    their per-layer kernel chain (block "full", the same int8 attention);
+    a device-resident predict is timed and traced. Returns the counts by
+    path."""
+    import torch
+    import torch.nn.functional as F
+
+    from dfd_clip_tpu_torch.models import clip_vit
+    from dfd_clip_tpu_torch.serve import Scorer
+
+    requests = make_requests()
+    x, m = last_batch(requests)
+    xd, md = torch.as_tensor(x, device="cuda"), torch.as_tensor(m, device="cuda")
+    counts = {}
+    int8_mode = {"temporal_position": 1, "compute_int8": 1}
+    enc = None
+    for arch, tag in LADDER_ARCHS:
+        cfg = {"architecture": arch, "decode_indices": list(LADDER_KEEP), "op_mode": int8_mode}
+        base = detector(**cfg)
+        tokens = base.vit_cfg.num_tokens
+        if base.layer_indices != LADDER_KEEP or base.vit_cfg.layers != 24:
+            raise SystemExit(f"FAIL {tag} ladder: kept layers {base.layer_indices}")
+        gen = torch.Generator().manual_seed(20)
+        if enc is None:   # ViT-L/14's tower; the 336-pixel one shares its blocks
+            enc = clip_vit.init_clip_vision(gen, base.vit_cfg)
+        else:
+            enc = {**enc, "positional_embedding": base.vit_cfg.width ** -0.5 * torch.randn(
+                tokens, base.vit_cfg.width, generator=gen)}
+        raw = to_card(base.init_params(gen, encoder_params=enc))
+        det32 = copy.copy(base)
+        det32.compute_dtype = torch.float32
+        params32 = det32.prepare_params(raw)
+        plain, ref = {}, None
+        for rung, kernels in LADDER_RUNGS.items():
+            path = f"{tag}_{rung}"
+            print(f"[{tag} ladder {rung}] {arch}, EncoderKernels({kernels}), compute_int8, keep "
+                  f"18-23", flush=True)
+            det = detector(kernels, **cfg)
+            scorer = Scorer(det, raw, batch_size=CLIPS)
+            counts[path] = answer(scorer, requests, card, path)
+            used = ("fused_encoder_tower",) if kernels.get("tower") else (
+                "gemm_s8", "quant_rows", "layer_norm_quant")
+            check_counts(path, counts[path], ladder_counts(rung, tokens), len(requests), used=used)
+            got = scorer.predict(scorer.params, xd, md)
+            # the plain route in f32: a tower rung's is its whole-block chain's
+            # (the same plain functions, and neither export has pad rows here)
+            key = (kernels.get("tower") or kernels.get("block") == "full",
+                   kernels.get("int8_attn", "0"))
+            if key not in plain:
+                det32.encoder_kernels = det.encoder_kernels
+                with plain_versions():
+                    plain[key] = det32.predict(params32, xd, md)[0][0]
+            want = plain[key]
+            logit_err, dp = rel_err(got, want), p_delta(got, want)
+            print(f"  {path} vs the f32 plain route: logits {logit_err:.3e} (tol "
+                  f"{TOL_LOGITS_F32:g}), |dP(fake)| {dp:.3e} (tol {TOL_PFAKE_F32:g})", flush=True)
+            if not torch.isfinite(got).all() or logit_err > TOL_LOGITS_F32 or dp > TOL_PFAKE_F32:
+                fail(f"FAIL {path}: logits {logit_err:.3e} / dP {dp:.3e} from the f32 plain "
+                     f"route", True)
+            if ref is None:
+                ref = got.float()   # the split control's logits
+            else:
+                cos = F.cosine_similarity(got.float().flatten(), ref.flatten(), dim=0).item()
+                gated = kernels.get("int8_attn", "0") == "0"
+                print(f"  {path} vs the split control, same params: cosine {cos:.6f}"
+                      + (f" (tol {TOL_COSINE:g})" if gated else " (recorded)"), flush=True)
+                if gated and not cos >= TOL_COSINE:
+                    fail(f"FAIL {path}: cosine to the split control {cos:.6f} < {TOL_COSINE:g}",
+                         True)
+            if kernels.get("tower"):
+                chain = detector({"block": "full", "int8_attn": kernels.get("int8_attn", "0")},
+                                 **cfg)
+                frames = det.preprocess(xd)
+                kv = det.encode_kv(scorer.params, frames)
+                kv_chain = chain.encode_kv(scorer.params, frames)
+                for s_ in ("k", "v"):
+                    err = rel_err(kv[s_], kv_chain[s_])
+                    same = (kv[s_] == kv_chain[s_]).float().mean().item()
+                    print(f"  {path} {s_} vs the per-layer kernel chain: rel_err {err:.3e} "
+                          f"(tol {TOL_ENCODER:g}), bit-equal {same == 1.0} (equal share "
+                          f"{same:.6f})", flush=True)
+                    if err > TOL_ENCODER:
+                        fail(f"FAIL {path}: {s_} {err:.3e} from the per-layer kernel chain", True)
+                del frames, kv, kv_chain
+            torch.cuda.reset_peak_memory_stats()
+            ms = time_ms(lambda: scorer.predict(scorer.params, xd, md), iters=3, warmup=1)
+            print(f"  device-resident {path} predict: {ms:.2f} ms per {CLIPS}-clip batch "
+                  f"({CLIPS * 1e3 / ms:.2f} clips/s), peak memory "
+                  f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB, on {card}", flush=True)
+            profile_device(f"{path} predict", lambda: scorer.predict(scorer.params, xd, md))
+            del scorer, det, got
+            torch.cuda.empty_cache()
+        del raw, params32, plain, ref
+        torch.cuda.empty_cache()
+    return counts
 
 
 def check_study_kernels(rows: list) -> None:
@@ -2112,6 +2473,13 @@ def main() -> int:
           "bf16, batch 16", flush=True)
     counts["vitl336_serve"], counts["vitl336_int8_serve"] = vitl_serve_path(
         card, L336_SEEDS, arch="ViT-L/14@336px", label="vit-l@336")
+    print("[kernels tower wide] the ViT-L int8 ladder's shapes: the int8 attention above 320 "
+          "tokens, the whole int8 block and the 24-layer tower at width 1024, 257 and 577 "
+          f"tokens; every time on {card}", flush=True)
+    check_tower_wide_kernels(rows)
+    print("[vit-l ladder] ViT-L/14 and ViT-L/14@336px, 20 frames, keep 18-23, compute_int8, "
+          "batch 16, through each encoder form", flush=True)
+    counts.update(ladder_paths(card))
     print("[kernels study] the tools' shapes: the study attention modes at (320, 197, 12 x 64), "
           "the megakernel probe's pair at (63040, 768) x 12 layers", flush=True)
     check_study_kernels(rows)

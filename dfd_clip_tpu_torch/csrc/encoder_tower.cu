@@ -32,10 +32,21 @@
 // h -> f32 hmid, LN2 (+ quantisation), c_fc + QuickGELU, (quantisation),
 // c_proj + hmid -> bf16 h. The stage bodies are the per-layer kernels' own
 // block bodies (csrc/gemm_tile.cuh, gemm_s8_tile.cuh, rows.cuh,
-// attention_tile.cuh, attention_s8_tile.cuh), so the tower rounds where the
-// per-layer chain rounds. The layer weights are read through a device array
-// of per-layer pointers (LayerW), built once per call by the wrapper from the
-// per-layer parameter dicts; nothing is copied or stacked.
+// attention_tile.cuh, attention_stream_tile.cuh, attention_s8_tile.cuh), so
+// the tower rounds where the per-layer chain rounds. Above 320 tokens
+// (ViT-L/14@336px: 577) the launcher takes a second instantiation of the
+// kernel (STREAM), whose attention stage takes the streamed bodies the
+// per-layer kernels take there (in one instantiation their register
+// footprint made the staged tower spill and run 3.5 % slower at ViT-B): in
+// mode "0" the bf16 flash body, whose 4 warps take 64 query rows, so each
+// half of a block runs its own item with its own 46 KB of shared memory
+// and its own named barrier (two items a block-iteration, no half idle
+// while items remain); in modes "1" and "qk" the int8 streamed body, 128
+// query rows on all 8 warps. Its shared memory (92 KB, 57 KB, 68 KB) stays
+// below the 197-token staged bodies', so the grid stays at one block a SM.
+// The layer weights are read through a device array of per-layer pointers
+// (LayerW), built once per call by the wrapper from the per-layer parameter
+// dicts; nothing is copied or stacked.
 //
 // Memory: the wrapper allocates one chunk's scratch (h bf16, qkv bf16, the
 // attention output, hmid f32, the MLP intermediate, the LayerNorm output or
@@ -44,13 +55,15 @@
 // within half of the 50 MB L2 (the other half for the layer's weights, 7 MB
 // int8 or 14 MB bf16 at W = 768, and the streamed intermediates): chunk =
 // floor(25 MiB / (8 T W)) frames, 21 at ViT-B/16 (8 x 197 x 768 = 1.21 MB a
-// frame), 12 at ViT-L/14. A fixed rule, computed by the wrapper
+// frame), 12 at ViT-L/14, 5 at ViT-L/14@336px (8 x 577 x 1024 = 4.7 MB). A
+// fixed rule, computed by the wrapper
 // (ops/_cuda.py tower_chunk); the last chunk may be shorter. Making the
 // stages fast (wgmma, TMA, warp specialisation, fusing the row stages into
 // the GEMMs) is later work.
 #include <cooperative_groups.h>
 
 #include "attention_s8_tile.cuh"
+#include "attention_stream_tile.cuh"
 #include "attention_tile.cuh"
 #include "gemm_s8_tile.cuh"
 #include "gemm_tile.cuh"
@@ -145,8 +158,45 @@ __device__ __noinline__ void s8_stage(const int8_t* A, int lda, const float* a_s
   }
 }
 
+// Above MAX_TOKENS the attention of fc frames' packed qkv rows into att
+// takes the streamed bodies: the bf16 body (4 warps, 64 query rows) runs two
+// items a block-iteration, one in each half of the block with its own
+// shared memory and named barrier, and the int8 body takes 128 query rows
+// with all 8 warps. Only the kernel's STREAM instantiation calls it.
+template <bool OUT_F32>
+__device__ __noinline__ void stream_attention_stage(const TowerArgs& a, int fc,
+                                                    unsigned char* smem) {
+  const int w = a.heads * attn_bf16::D;
+  if (a.attn == 0) {
+    const int groups = (a.tokens + attn_stream::BQ - 1) / attn_stream::BQ;
+    const int items = fc * a.heads * groups, half = attn_stream::group<true>();
+    unsigned char* hs = smem + half * attn_stream::SMEM_BYTES;
+    for (int t = 2 * blockIdx.x + half; t < items; t += 2 * gridDim.x) {
+      attn_stream::group_sync<true>();
+      const int fh = t / groups;
+      attn_stream::tile<OUT_F32, true>(a.qkv, a.qkv + w, a.qkv + 2 * w, 3 * w, a.att, a.tokens,
+                                       a.heads, a.scale, fh / a.heads, fh % a.heads,
+                                       (t % groups) * attn_stream::BQ, hs);
+    }
+  } else if constexpr (OUT_F32) {
+    float* out = static_cast<float*>(a.att);
+    const int chunks = (a.tokens + attn_s8::STREAM_ROWS - 1) / attn_s8::STREAM_ROWS;
+    for (int t = blockIdx.x; t < fc * a.heads * chunks; t += gridDim.x) {
+      __syncthreads();
+      const int fh = t / chunks;
+      if (a.attn == 2)
+        attn_s8::stream_tile<true>(a.qkv, 3 * w, out, a.tokens, a.heads, a.coef_qk,
+                                   fh / a.heads, fh % a.heads, t % chunks, smem);
+      else
+        attn_s8::stream_tile<false>(a.qkv, 3 * w, out, a.tokens, a.heads, a.coef_qk,
+                                    fh / a.heads, fh % a.heads, t % chunks, smem);
+    }
+  }
+}
+
 // The attention of fc frames' packed qkv rows into att (bf16, or f32 for
-// the int8 tower, whose attention may also run int8).
+// the int8 tower, whose attention may also run int8), up to MAX_TOKENS: one
+// (frame, head) a block-iteration.
 template <bool OUT_F32>
 __device__ __noinline__ void attention_stage(const TowerArgs& a, int fc, unsigned char* smem) {
   const int w = a.heads * attn_bf16::D, tiles = fc * a.heads;
@@ -180,7 +230,10 @@ __device__ __noinline__ void attention_stage(const TowerArgs& a, int fc, unsigne
   }
 }
 
-template <bool INT8>
+// STREAM: the attention stage's streamed bodies (above MAX_TOKENS), a
+// kernel of its own so that the staged kernel keeps its registers (the
+// streamed bodies' register footprint made the caller spill).
+template <bool INT8, bool STREAM>
 __global__ void __launch_bounds__(THREADS, 1) encoder_tower_kernel(TowerArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
   cg::grid_group grid = cg::this_grid();
@@ -219,7 +272,10 @@ __global__ void __launch_bounds__(THREADS, 1) encoder_tower_kernel(TowerArgs a) 
       }
       grid.sync();
       if (last) break;
-      attention_stage<INT8>(a, fc, smem);
+      if constexpr (STREAM)
+        stream_attention_stage<INT8>(a, fc, smem);
+      else
+        attention_stage<INT8>(a, fc, smem);
       grid.sync();
       if (INT8) {
         const s8_gemm::Export none{nullptr, nullptr, 1, 1, 0, 1, 0};
@@ -265,10 +321,21 @@ __global__ void __launch_bounds__(THREADS, 1) encoder_tower_kernel(TowerArgs a) 
   }
 }
 
+using TowerKernel = void (*)(TowerArgs);
+
+TowerKernel tower_kernel(int tokens, int int8) {
+  if (tokens > attn_bf16::MAX_TOKENS)
+    return int8 ? encoder_tower_kernel<true, true> : encoder_tower_kernel<false, true>;
+  return int8 ? encoder_tower_kernel<true, false> : encoder_tower_kernel<false, false>;
+}
+
 size_t tower_smem(int tokens, int int8, int attn) {
   size_t s = int8 ? s8_gemm::SMEM_BYTES : bf16_gemm::SMEM_BYTES;
-  const size_t at = int8 && attn != 0 ? attn_s8::geometry(tokens).smem
-                                      : attn_bf16::geometry(tokens).smem;
+  size_t at;
+  if (tokens > attn_bf16::MAX_TOKENS)
+    at = int8 && attn != 0 ? attn_s8::stream_smem(attn == 2) : 2 * attn_stream::SMEM_BYTES;
+  else
+    at = int8 && attn != 0 ? attn_s8::geometry(tokens).smem : attn_bf16::geometry(tokens).smem;
   return at > s ? at : s;
 }
 
@@ -279,9 +346,9 @@ size_t tower_smem(int tokens, int int8, int attn) {
 // or no cooperative launch on the device). Returns a CUDA error code.
 extern "C" int dfd_encoder_tower_grid(int tokens, int int8, int attn, int* grid) {
   *grid = 0;
-  auto kernel = int8 ? encoder_tower_kernel<true> : encoder_tower_kernel<false>;
+  auto kernel = tower_kernel(tokens, int8);
   const size_t smem = tower_smem(tokens, int8, attn);
-  if (tokens < 1 || tokens > attn_bf16::MAX_TOKENS || smem > attn_bf16::SMEM_LIMIT) return 0;
+  if (tokens < 1 || smem > attn_bf16::SMEM_LIMIT) return 0;
   int dev = 0, sms = 0, coop = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -320,7 +387,7 @@ extern "C" int dfd_encoder_tower(const void* h0, const void* layers, void* k, vo
               static_cast<bf16*>(qkv), att, static_cast<float*>(hmid), mid,
               static_cast<bf16*>(y), static_cast<int8_t*>(aq), static_cast<float*>(as)};
   void* params[] = {&a};
-  auto kernel = int8 ? encoder_tower_kernel<true> : encoder_tower_kernel<false>;
+  auto kernel = tower_kernel(tokens, int8);
   const cudaError_t launched = cudaLaunchCooperativeKernel(
       reinterpret_cast<const void*>(kernel), dim3(grid > 0 ? grid : max_grid), dim3(THREADS),
       params, tower_smem(tokens, int8, attn), static_cast<cudaStream_t>(stream));

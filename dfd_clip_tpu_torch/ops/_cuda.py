@@ -17,11 +17,14 @@ encoder and decoder blocks, ``gemm_s8``, ``quant_rows`` and
 ``encoder_attention_packed`` / ``encoder_attention_separate`` the two
 entries of the encoder attention (the staged kernel up to 320 tokens, the
 streamed one above, counted here as ``encoder_attention_stream``),
-``encoder_attention_s8`` the int8 encoder attention and ``encoder_tower``
-the whole-encoder tower, and ``study_attention`` / ``gemm_chain`` the
-kernels of the tools' studies (ops/study_attention.py, ops/gemm_chain.py).
+``encoder_attention_s8`` the int8 encoder attention (likewise staged or
+streamed, the streamed form counted here as
+``encoder_attention_int8_stream``) and ``encoder_tower`` the whole-encoder
+tower (its attention stage staged or streamed by the same rule), and
+``study_attention`` / ``gemm_chain`` the kernels of the tools' studies
+(ops/study_attention.py, ops/gemm_chain.py).
 They take CUDA tensors only; apart from the
-streamed attention, the attention entries and the tower count nothing
+streamed attentions, the attention entries and the tower count nothing
 themselves, their callers count them under their own names (the plain
 versions live beside the functions that use them, the int8 ones in
 ops/int8.py, the attention in ops/attention.py, the tower in ops/tower.py).
@@ -56,15 +59,14 @@ S8_GELU, S8_RES_F32, S8_RES_BF16, S8_OUT_F32, S8_STORE, S8_EXPORT = 1, 2, 4, 8, 
 S8_RES_AFTER_CAST = 64
 # largest token count of the staged kernels of csrc/encoder_attention.cu,
 # encoder_attention_s8.cu and encoder_tower.cu (MAX_TOKENS); above it the
-# bf16 attention entries launch the streamed kernel (attention_stream_tile.cuh)
+# attention entries and the tower's attention stage take the streamed bodies
+# (attention_stream_tile.cuh, attn_s8::stream_tile)
 ATTENTION_MAX_TOKENS = 320
 # query rows of a streamed attention block (attn_stream::BQ); the grid,
-# frames x heads x ceil(tokens / 64) blocks, is the streamed kernel's only cap
+# frames x heads x ceil(tokens / 64) blocks, is the streamed kernel's only
+# cap (the int8 one's blocks take 128 rows: a smaller grid)
 STREAM_QUERY_ROWS = 64
 GRID_MAX = 2 ** 31 - 1
-# the 577-token forms still to port (ROADMAP queue 2)
-NOT_PORTED_577 = ("the 577-token int8 attention and whole-encoder tower are not ported yet "
-                  "(ROADMAP queue 2)")
 # the tower's chunk rule (csrc/encoder_tower.cu): a chunk's h and qkv (8 bytes
 # x T x W a frame) take at most half of the card's 50 MB L2
 TOWER_L2_BYTES = 50 * 2 ** 20
@@ -431,16 +433,12 @@ def layer_norm_quant(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
 
 
 def _attention_args(name: str, frames: int, tokens: int, heads: int, head_dim: int,
-                    out_dtype: torch.dtype, max_tokens: Optional[int] = None) -> None:
+                    out_dtype: torch.dtype) -> None:
     """Raise unless the attention kernels take this geometry: head_dim 64,
-    at least one token, at most ``max_tokens`` (the staged-only kernels) or
-    a grid of at most GRID_MAX streamed blocks."""
+    at least one token and a grid of at most GRID_MAX streamed blocks."""
     if head_dim != 64 or tokens < 1:
         raise ValueError(f"{name}: takes head_dim 64 and at least 1 token, got head_dim "
                          f"{head_dim}, {tokens} tokens")
-    if max_tokens is not None and tokens > max_tokens:
-        raise ValueError(f"{name}: takes 1 to {max_tokens} tokens, got {tokens}: "
-                         + NOT_PORTED_577)
     if frames * heads * -(-tokens // STREAM_QUERY_ROWS) > GRID_MAX:
         raise ValueError(f"{name}: {frames} frames x {heads} heads x {tokens} tokens exceed "
                          f"the streamed kernel's grid")
@@ -513,11 +511,11 @@ def encoder_attention_s8(qkv: torch.Tensor, frames: int, tokens: int, heads: int
                          qk_only: bool = False) -> torch.Tensor:
     """_attn_int8_cols over contiguous packed bf16 rows qkv (frames * tokens,
     3W) -> f32 (frames * tokens, W): both products on the int8 tensor cores,
-    or with ``qk_only`` the logits only (PV in bf16)."""
+    or with ``qk_only`` the logits only (PV in bf16). Above
+    ATTENTION_MAX_TOKENS the streamed kernel runs."""
     name = "encoder_attention_s8"
     require_cuda(name, qkv)
-    _attention_args(name, frames, tokens, heads, head_dim, torch.float32,
-                    max_tokens=ATTENTION_MAX_TOKENS)
+    _attention_args(name, frames, tokens, heads, head_dim, torch.float32)
     if qkv.shape != (frames * tokens, 3 * heads * head_dim) or not qkv.is_contiguous():
         raise ValueError(f"{name}: takes contiguous (frames*tokens, 3W) rows, got "
                          f"{tuple(qkv.shape)}")
@@ -526,6 +524,8 @@ def encoder_attention_s8(qkv: torch.Tensor, frames: int, tokens: int, heads: int
                                              heads, head_dim ** -0.5 / (127.0 * 127.0),
                                              int(qk_only), stream())
     check_launch(name, err)
+    if tokens > ATTENTION_MAX_TOKENS:
+        LAUNCHES["encoder_attention_int8_stream"] += 1
     return out
 
 
@@ -577,7 +577,8 @@ def gemm_chain(h: torch.Tensor, ws: torch.Tensor) -> torch.Tensor:
 def tower_chunk(frames: int, tokens: int, width: int) -> int:
     """Frames per chunk of the tower: its h and qkv (2 + 6 bytes x tokens x
     width a frame) within half of the L2, floor(25 MiB / (8 T W)); 21 at
-    ViT-B/16 (8 x 197 x 768 = 1.21 MB a frame), 12 at ViT-L/14."""
+    ViT-B/16 (8 x 197 x 768 = 1.21 MB a frame), 12 at ViT-L/14, 5 at
+    ViT-L/14@336px."""
     return max(1, min(frames, TOWER_L2_BYTES // 2 // (8 * tokens * width)))
 
 
@@ -593,14 +594,15 @@ def tower_grid(tokens: int, int8: bool, attn: str) -> int:
 def encoder_tower(h: torch.Tensor, layers: list, heads: int, *, first: int, lo: int,
                   int8: bool, attn: str = "0", grid: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """The whole-encoder tower (csrc/encoder_tower.cu) over h (N, T, W) bf16,
-    head_dim 64: layers 0..len(layers) - 1, the last of them K/V only,
-    exporting layers ``first``.. with ``lo`` leading rows of each frame
-    dropped. ``layers``: one (weights, scales, biases, norms) tuple of four
-    tensors each a layer: the qkv, out-proj, c_fc and c_proj weights, bf16
-    (K, N) or with ``int8`` int8 (N, K) beside their (N,) f32 scales (None
-    in bf16), their (N,) f32 biases, and the LayerNorms' f32 (W,) ln_1
-    scale, ln_1 shift, ln_2 scale, ln_2 shift. ``attn``: "0", "1" or "qk"
-    (int8 only). One cooperative launch of ``grid`` blocks (0: as many as
+    head_dim 64, any token count (the attention stage staged up to
+    ATTENTION_MAX_TOKENS, streamed above): layers 0..len(layers) - 1, the
+    last of them K/V only, exporting layers ``first``.. with ``lo`` leading
+    rows of each frame dropped. ``layers``: one (weights, scales, biases,
+    norms) tuple of four tensors each a layer: the qkv, out-proj, c_fc and
+    c_proj weights, bf16 (K, N) or with ``int8`` int8 (N, K) beside their
+    (N,) f32 scales (None in bf16), their (N,) f32 biases, and the
+    LayerNorms' f32 (W,) ln_1 scale, ln_1 shift, ln_2 scale, ln_2 shift.
+    ``attn``: "0", "1" or "qk" (int8 only). One cooperative launch of ``grid`` blocks (0: as many as
     are co-resident); a grid that cannot be co-resident raises and nothing
     runs. Returns (k, v), (len(layers) - first, N, T - lo, W) bf16."""
     name = "encoder_tower"
@@ -608,11 +610,8 @@ def encoder_tower(h: torch.Tensor, layers: list, heads: int, *, first: int, lo: 
     if h.dim() != 3 or not h.is_contiguous():
         raise ValueError(f"{name}: takes a contiguous (N, T, W) residual stream")
     n, t, w = h.shape
-    if not 1 <= t <= ATTENTION_MAX_TOKENS:
-        raise ValueError(f"{name}: takes 1 to {ATTENTION_MAX_TOKENS} tokens, got {t}: "
-                         + NOT_PORTED_577)
     last = len(layers) - 1
-    if w != heads * 64 or not 0 <= first <= last or lo not in (0, 1):
+    if t < 1 or w != heads * 64 or not 0 <= first <= last or lo not in (0, 1):
         raise ValueError(f"{name}: width {w} with {heads} heads of 64, layers {first}..{last}")
     if attn not in TOWER_ATTN or (attn != "0" and not int8):
         raise ValueError(f"{name}: int8 attention {attn!r} needs the int8 tower")

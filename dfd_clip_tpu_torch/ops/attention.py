@@ -14,7 +14,9 @@ kernel. The dispatchers ``encoder_self_attention`` and
 the JAX module; the port has no backend switch, so each is its kernel
 wrapper. ``encoder_attention_int8`` launches csrc/encoder_attention_s8.cu,
 the int8 attention of the int8 whole block and tower (DFD_INT8_ATTN in the
-JAX package), with ``attn_int8_cols_plain`` as its plain version.
+JAX package; its staged kernel up to 320 tokens, the streamed one above),
+with ``attn_int8_cols_plain`` as its plain version. Both plain versions go
+in frame chunks of at most PLAIN_LOGITS_BYTES of f32 logits.
 """
 
 from __future__ import annotations
@@ -28,7 +30,8 @@ from .int8 import _over, _quotient
 
 
 # f32 logits a frame chunk of the plain versions may hold (the card's plain
-# route at (320, 577, 16 heads) would otherwise hold 6.8 GB of them at once)
+# route at (320, 577, 16 heads) would otherwise hold 6.8 GB of them at once,
+# and attn_int8_cols_plain twice that again in float64 integer sums)
 PLAIN_LOGITS_BYTES = 2 ** 30
 
 
@@ -120,7 +123,13 @@ def attn_int8_cols_plain(qkv: torch.Tensor, frames: int, tokens: int, heads: int
     qkv's dtype times V, times 1 / sum p; else P quantised per row and V per
     channel over the frame's tokens, PV = acc * (sp * (1 / sum p) / 127^2) *
     sv. The integer products are summed in float64, exact like the kernel's
-    int32 sums."""
+    int32 sums. Frames go in chunks of at most PLAIN_LOGITS_BYTES of
+    logits, which changes nothing computed."""
+    step = max(1, PLAIN_LOGITS_BYTES // (4 * heads * tokens * tokens))
+    if frames > step:
+        return torch.cat([attn_int8_cols_plain(qkv[i * tokens: (i + step) * tokens],
+                                               min(step, frames - i), tokens, heads, head_dim,
+                                               qk_only) for i in range(0, frames, step)])
     w = heads * head_dim
     x = qkv.float().reshape(frames, tokens, 3, heads, head_dim).permute(2, 0, 3, 1, 4)
     q, k, v = x[0], x[1], x[2]                                # (N, H, T, D)
@@ -144,7 +153,8 @@ def encoder_attention_int8(qkv: torch.Tensor, frames: int, tokens: int, heads: i
                            head_dim: int, qk_only: bool = False) -> torch.Tensor:
     """Kernel: _attn_int8_cols over packed rows qkv (frames * tokens, 3W),
     bf16 on the card -> f32 (frames * tokens, W); ``qk_only`` is the "qk"
-    mode (PV in bf16)."""
+    mode (PV in bf16). Above 320 tokens the streamed kernel runs (counted
+    also as encoder_attention_int8_stream)."""
     if _cuda.on_cpu("encoder_attention_int8", qkv):
         return attn_int8_cols_plain(qkv, frames, tokens, heads, head_dim, qk_only)
     out = _cuda.encoder_attention_s8(qkv, frames, tokens, heads, head_dim, qk_only)

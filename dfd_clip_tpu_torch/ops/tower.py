@@ -5,12 +5,14 @@ dfd_clip_tpu/ops/pallas_tower.py, with its ``_quantize_weight_stack`` and
 On a CUDA tensor ``fused_encoder_tower`` is one cooperative launch of
 csrc/encoder_tower.cu: layers 0..max(keep) over the whole batch, the
 residual stream and every intermediate kept in one chunk's scratch, the
-kept layers' K/V written into the stacked (Lsel, N, T', W) buffers. The JAX
-package stacks its weights per leaf ((L, ...) arrays) for the TPU kernel's
-per-layer windows; the port keeps per-layer lists (models/clip_vit.py) and
-stacks pointers instead: the wrapper packs 16 pointers a layer into one
-small device array per call (1.5 KB for 12 layers, one host-to-device copy
-before the launch); no weight is copied. The int8 tower reads the weights
+kept layers' K/V written into the stacked (Lsel, N, T', W) buffers. Its
+attention stage takes the staged block bodies up to 320 tokens and the
+streamed ones above (ViT-L/14@336px's 577), as the per-layer kernels do.
+The JAX package stacks its weights per leaf ((L, ...) arrays) for the TPU
+kernel's per-layer windows; the port keeps per-layer lists
+(models/clip_vit.py) and stacks pointers instead: the wrapper packs 16
+pointers a layer into one small device array per call (1.5 KB for 12
+layers, one host-to-device copy before the launch); no weight is copied. The int8 tower reads the weights
 ``prepare_int8_params`` quantised (weight_q quantises any that are missing,
 as _stack_q does). On a CPU tensor the plain version runs: the per-layer
 whole-block chain (``fused_encoder_block_plain`` below max(keep), then the

@@ -17,10 +17,13 @@ with each int8 attention mode, 25 frames: a chunk of 21 and a short one;
 and int8 at ViT-L/14 width, 257 tokens) against the per-layer kernel chain
 and the plain version, and a tower grid that cannot be co-resident, which
 raises; and the 577-token slice: both attention entries and outputs at 321,
-577 and 1025 tokens (the streamed kernel), the 577-token limits of the int8
-attention and the tower, and the decoder attention at L = 11,520; and the
-tools' kernels: the study attention in each numerics mode and the chained
-GEMM's two entries (bit-equal to each other).
+577 and 1025 tokens (the streamed kernel), the attention entries' limits,
+and the decoder attention at L = 11,520; and the tools' kernels: the study
+attention in each numerics mode and the chained GEMM's two entries
+(bit-equal to each other); and the ViT-L int8 ladder: the int8 attention's
+streamed kernel at 321, 577 and 1025 tokens in both modes, the tower at
+ViT-L/14@336px's width and 577 tokens in each int8 attention mode, and the
+co-residency refusal at 577 tokens.
 
 Marked ``cuda``; every test skips without a card. Run on a machine with one:
 
@@ -556,8 +559,8 @@ def test_encoder_attention_entries(dev, entry, heads, tokens):
 
 def test_encoder_attention_limits(dev):
     """head_dim 32 and q/k/v of different row pitches raise; 321 tokens take
-    the streamed kernel in the bf16 attention but raise in the int8
-    attention and the tower, whose 577-token forms are not ported yet."""
+    the streamed kernels in the bf16 and the int8 attention alike, and the
+    tower takes them too (a tower without layers raises for that alone)."""
     from dfd_clip_tpu_torch.ops import _cuda
     from dfd_clip_tpu_torch.ops import attention as att
     from dfd_clip_tpu_torch.ops.encoder_block import encoder_attention
@@ -565,9 +568,9 @@ def test_encoder_attention_limits(dev):
     qkv = torch.zeros(2, 321, 3 * 128, device=dev, dtype=torch.bfloat16)
     assert att.fused_encoder_attention_qkv(qkv, 2, 64).shape == (2, 321, 128)
     assert encoder_attention(qkv.reshape(642, -1), 2, 321, 2, 64).shape == (642, 128)
-    with pytest.raises(ValueError, match="not ported"):
-        att.encoder_attention_int8(qkv.reshape(642, -1), 2, 321, 2, 64)
-    with pytest.raises(ValueError, match="not ported"):
+    assert att.encoder_attention_int8(qkv.reshape(642, -1), 2, 321, 2, 64).shape == (642, 128)
+    assert _cuda.tower_grid(321, True, "1") > 0 and _cuda.tower_grid(321, False, "0") > 0
+    with pytest.raises(ValueError, match="layers"):
         _cuda.encoder_tower(qkv[..., :128].contiguous(), [], 2, first=0, lo=1, int8=False)
     with pytest.raises(ValueError):
         att.fused_encoder_attention_qkv(qkv[:, :17], 4, 32)
@@ -684,13 +687,15 @@ def test_tiny_wide_tower_predict_on_card(dev, tower):
 # -- the encoder's alternative paths --------------------------------------------------
 
 @pytest.mark.parametrize("mode", ["1", "qk"])
-@pytest.mark.parametrize("tokens", [17, 197, 257])
+@pytest.mark.parametrize("tokens", [17, 197, 257, 321, 577, 1025])
 def test_encoder_attention_int8_on_card(dev, tokens, mode):
     """csrc/encoder_attention_s8.cu against attn_int8_cols_plain on the same
-    card inputs, 3 frames of 12 heads, counted under its own name. The plain
-    version repeats the f32 operations; a P value on a rounding boundary may
-    still quantise one step apart (sums in another order), so besides the
-    2e-2 bound at most 2 % of the rows may differ by more than 1e-4."""
+    card inputs, 3 frames of 12 heads, counted under its own name (above 320
+    tokens the streamed kernel, also counted as
+    encoder_attention_int8_stream). The plain version repeats the f32
+    operations; a P value on a rounding boundary may still quantise one step
+    apart (sums in another order), so besides the 2e-2 bound at most 2 % of
+    the rows may differ by more than 1e-4."""
     from dfd_clip_tpu_torch.ops import _cuda
     from dfd_clip_tpu_torch.ops import attention as att
 
@@ -699,7 +704,8 @@ def test_encoder_attention_int8_on_card(dev, tokens, mode):
     qkv = randn(gen, frames * tokens, 3 * heads * 64).to(dev, torch.bfloat16)
     _cuda.reset_launches()
     got = att.encoder_attention_int8(qkv, frames, tokens, heads, 64, qk_only=mode == "qk")
-    assert _cuda.launches() == {"encoder_attention_int8": 1}
+    assert _cuda.launches() == {"encoder_attention_int8": 1,
+                                **({"encoder_attention_int8_stream": 1} if tokens > 320 else {})}
     want = att.attn_int8_cols_plain(qkv, frames, tokens, heads, 64, qk_only=mode == "qk")
     assert got.dtype == torch.float32 and got.shape == (frames * tokens, heads * 64)
     assert rel_err(got, want) <= REL
@@ -800,16 +806,21 @@ TOWER_MODES = {  # name: (int8_gemm, int8_attn, width, tokens, frames, chunk)
     "int8_attn1": (True, "1", 768, 197, 25, 21),
     "int8_qk": (True, "qk", 768, 197, 25, 21),
     "vit_l_int8_attn1": (True, "1", 1024, 257, 14, 12),   # JAX's gate takes int8 ViT-L too
+    # ViT-L/14@336px: the attention stage's streamed bodies, chunks of 5 and 2
+    "vit_l336_int8": (True, "0", 1024, 577, 7, 5),
+    "vit_l336_int8_attn1": (True, "1", 1024, 577, 7, 5),
+    "vit_l336_int8_qk": (True, "qk", 1024, 577, 7, 5),
 }
 
 
 @pytest.mark.parametrize("mode", list(TOWER_MODES))
 def test_tower_on_card(dev, mode):
     """A 3-layer tower, keep (1, 2), at ViT-B/16 width (12 heads, 197
-    tokens, 25 frames: one chunk of 21 and a short one of 4) and at ViT-L/14
-    width (16 heads, 257 tokens, 14 frames: 12 and 2). One launch, against
-    the per-layer kernel chain (whole blocks and last_only: the same block
-    bodies) and against its plain version."""
+    tokens, 25 frames: one chunk of 21 and a short one of 4), at ViT-L/14
+    width (16 heads, 257 tokens, 14 frames: 12 and 2) and at
+    ViT-L/14@336px's (577 tokens, 7 frames: 5 and 2, the streamed attention
+    bodies). One launch, against the per-layer kernel chain (whole blocks and
+    last_only: the same block bodies) and against its plain version."""
     from dfd_clip_tpu_torch.ops import _cuda
     from dfd_clip_tpu_torch.ops import encoder_block as eb
     from dfd_clip_tpu_torch.ops import tower
@@ -845,23 +856,28 @@ def test_tower_on_card(dev, mode):
     assert rel_err(k, kp) <= 5e-2 and rel_err(v, vp) <= 5e-2
 
 
-def test_tower_grid_that_cannot_be_co_resident_raises(dev):
+@pytest.mark.parametrize("tokens,int8,attn", [(17, False, "0"), (577, True, "0"),
+                                              (577, True, "1"), (577, True, "qk")])
+def test_tower_grid_that_cannot_be_co_resident_raises(dev, tokens, int8, attn):
     """A grid larger than the co-resident one is refused before launch: no
-    fallback, nothing runs, nothing is counted."""
+    fallback, nothing runs, nothing is counted; at 17 tokens in bf16 and at
+    577 (the streamed attention stages) in each int8 attention mode."""
     from dfd_clip_tpu_torch.ops import _cuda, tower
 
     gen = torch.Generator().manual_seed(34)
-    blocks = _flagship_blocks(gen, dev, 2, False, width=256)
-    h = randn(gen, 2, 17, 256).to(dev, torch.bfloat16)
-    co_resident = _cuda.tower_grid(17, False, "0")
+    blocks = _flagship_blocks(gen, dev, 2, int8, width=256)
+    h = randn(gen, 2, tokens, 256).to(dev, torch.bfloat16)
+    co_resident = _cuda.tower_grid(tokens, int8, attn)
     assert co_resident >= torch.cuda.get_device_properties(dev).multi_processor_count
-    layers = [tower._layer(b, torch.bfloat16, False) for b in blocks]
+    layers = [tower._layer(b, torch.bfloat16, int8) for b in blocks]
     _cuda.reset_launches()
     with pytest.raises(RuntimeError, match="co-resident"):
-        _cuda.encoder_tower(h, layers, 4, first=0, lo=1, int8=False, grid=co_resident + 1)
+        _cuda.encoder_tower(h, layers, 4, first=0, lo=1, int8=int8, attn=attn,
+                            grid=co_resident + 1)
     torch.cuda.synchronize()
     assert _cuda.launches() == {}
-    k, _ = _cuda.encoder_tower(h, layers, 4, first=0, lo=1, int8=False, grid=co_resident)
+    k, _ = _cuda.encoder_tower(h, layers, 4, first=0, lo=1, int8=int8, attn=attn,
+                               grid=co_resident)
     assert torch.isfinite(k.float()).all()
 
 
