@@ -456,8 +456,8 @@ __device__ __forceinline__ void stream_tile(const bf16* __restrict__ qkv, int ld
       }
     }
   }
-  mrow[0] = attn_stream::quad_max(mrow[0]);
-  mrow[1] = attn_stream::quad_max(mrow[1]);
+  mrow[0] = quad_max(mrow[0]);
+  mrow[1] = quad_max(mrow[1]);
 
   // pass 2: the same logits, p = exp(l - max) (0 past the tokens), its row
   // sums and PV. P's per-row scale is max p + 1e-8, and max p is exp(0) = 1
@@ -521,10 +521,10 @@ __device__ __forceinline__ void stream_tile(const bf16* __restrict__ qkv, int ld
         // bf16(p) V, f32 accumulate (the streamed bf16 attention's fragments)
 #pragma unroll
         for (int kc = 0; kc < 2; ++kc) {
-          const unsigned pa[4] = {attn_stream::pack_bf16(p[2 * kc][0], p[2 * kc][1]),
-                                  attn_stream::pack_bf16(p[2 * kc][2], p[2 * kc][3]),
-                                  attn_stream::pack_bf16(p[2 * kc + 1][0], p[2 * kc + 1][1]),
-                                  attn_stream::pack_bf16(p[2 * kc + 1][2], p[2 * kc + 1][3])};
+          const unsigned pa[4] = {pack_bf16(p[2 * kc][0], p[2 * kc][1]),
+                                  pack_bf16(p[2 * kc][2], p[2 * kc][3]),
+                                  pack_bf16(p[2 * kc + 1][0], p[2 * kc + 1][1]),
+                                  pack_bf16(p[2 * kc + 1][2], p[2 * kc + 1][3])};
 #pragma unroll
           for (int dn = 0; dn < D / 8; dn += 2) {
             unsigned b[4];
@@ -562,7 +562,7 @@ __device__ __forceinline__ void stream_tile(const bf16* __restrict__ qkv, int ld
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int r = q0 + gq + half * 8;
-    const float rsum = 1.0f / attn_stream::quad_sum(lsum[half]);
+    const float rsum = 1.0f / quad_sum(lsum[half]);
     if (r >= tokens) continue;
     const float cr = QK_ONLY ? rsum : __fdiv_rn(__fmul_rn(sp, rsum), 16129.0f);
     float* dst = out + ((size_t)frame * tokens + r) * width + head * D;

@@ -1,11 +1,19 @@
-// The streamed encoder attention's block body: softmax(q k^T d^-1/2) v for
-// 64 query rows of one (frame, head), with K and V streamed through shared
-// memory in blocks of 64 keys and an online softmax (csrc/encoder_attention.cu
-// launches it above the staged kernel's 320 tokens; its design is described
-// there). The body runs on a group of THREADS threads: a 128-thread block,
-// or with HALVES either half of the tower's 256-thread blocks
-// (csrc/encoder_tower.cu), each half with its own shared memory and its own
-// named barrier, so the two halves walk their work items independently.
+// The streamed bf16 attention body of the whole-encoder tower, its only user
+// (csrc/encoder_tower.cu, above the staged body's 320 tokens):
+// softmax(q k^T d^-1/2) v for 64 query rows of one (frame, head). 4 warps of
+// 16 rows; K and V stream through shared memory in blocks of 64 keys,
+// double-buffered with cp.async (46 KB). Each key block takes S = Q K^T on
+// mma.sync m16n8k16 (bf16, f32 accumulate, Q's fragments kept in
+// registers), then an online softmax in f32 registers (a running maximum
+// and sum, O rescaled by exp(m_old - m_new)); P = exp(l - m) is cast to
+// bf16 unnormalised and multiplied into V (the S fragments are the PV A
+// fragments as they are), and O is multiplied by 1 / sum once, at the end:
+// the TPU kernels' rounding point. The body runs on a group of THREADS
+// threads, either half of the tower's 256-thread blocks, each half with its
+// own shared memory and its own named barrier, so the two halves walk their
+// work items independently. Its helpers (ldmatrix, mma_bf16) serve
+// attention_s8_tile.cuh as well; pack_bf16 and the quad reductions are
+// common.cuh's.
 #pragma once
 
 #include "common.cuh"
@@ -46,49 +54,23 @@ __device__ __forceinline__ void mma_bf16(float* c, const unsigned* a, const unsi
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// The caller's group of THREADS threads (HALVES: one half of a 256-thread
-// block, else the whole block): its index in the block and the thread's
-// index within it.
-template <bool HALVES>
-__device__ __forceinline__ int group() { return HALVES ? threadIdx.x / THREADS : 0; }
-template <bool HALVES>
-__device__ __forceinline__ int group_tid() {
-  return HALVES ? threadIdx.x % THREADS : threadIdx.x;
-}
+// The caller's group of THREADS threads (one half of a 256-thread block):
+// its index in the block and the thread's index within it.
+__device__ __forceinline__ int group() { return threadIdx.x / THREADS; }
+__device__ __forceinline__ int group_tid() { return threadIdx.x % THREADS; }
 
-// Barrier of the caller's group only: with HALVES named barrier 1 + group
-// (0 is __syncthreads'), else __syncthreads().
-template <bool HALVES>
+// Barrier of the caller's group only: named barrier 1 + group (0 is
+// __syncthreads').
 __device__ __forceinline__ void group_sync() {
-  if constexpr (HALVES)
-    asm volatile("bar.sync %0, %1;\n" ::"r"(1 + group<true>()), "n"(THREADS) : "memory");
-  else
-    __syncthreads();
-}
-
-// Two floats as one bf16x2 register, the first in the low half.
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<unsigned*>(&v);
-}
-
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+  asm volatile("bar.sync %0, %1;\n" ::"r"(1 + group()), "n"(THREADS) : "memory");
 }
 
 // Rows r0 .. r0 + rows - 1 of x (pitch ld, head column h0) into shared rows
 // of LDS; rows at or past `valid` are zero-filled. All THREADS threads of
 // the group.
-template <bool HALVES>
 __device__ __forceinline__ void stage_rows(bf16* dst, const bf16* __restrict__ x, size_t row0,
                                            int rows, int valid, int ld, int h0) {
-  for (int c = group_tid<HALVES>(); c < rows * 8; c += THREADS) {
+  for (int c = group_tid(); c < rows * 8; c += THREADS) {
     const int r = c / 8, cc = (c % 8) * 8;
     const bool ok = r < valid;
     cp_async16(&dst[r * LDS + cc], x + (row0 + (ok ? r : 0)) * (size_t)ld + h0 + cc, ok);
@@ -99,14 +81,14 @@ __device__ __forceinline__ void stage_rows(bf16* dst, const bf16* __restrict__ x
 // lies at x + (f * tokens + r) * ld + h * 64; out is (frames * tokens,
 // heads * 64), f32 when OUT_F32, else bf16. smem holds SMEM_BYTES for the
 // group; the caller separates successive items with group_sync().
-template <bool OUT_F32, bool HALVES = false>
+template <bool OUT_F32>
 __device__ __forceinline__ void tile(const bf16* __restrict__ q, const bf16* __restrict__ k,
                                      const bf16* __restrict__ v, int ld, void* __restrict__ out,
                                      int tokens, int heads, float scale, int frame, int head,
                                      int q0, unsigned char* smem) {
   bf16* Qs = reinterpret_cast<bf16*>(smem);
   bf16* KVs = Qs + BQ * LDS;   // stage s: K at KVs + 2 s BKEYS LDS, V after it
-  const int warp = group_tid<HALVES>() / 32, lane = threadIdx.x % 32;
+  const int warp = group_tid() / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;   // fragment row group and column pair
   const size_t frame_row = (size_t)frame * tokens;
   const int h0 = head * D;
@@ -115,11 +97,11 @@ __device__ __forceinline__ void tile(const bf16* __restrict__ q, const bf16* __r
   auto load_kv = [&](int kb, int stage) {
     const int k0 = kb * BKEYS;
     bf16* Ks = KVs + stage * 2 * BKEYS * LDS;
-    stage_rows<HALVES>(Ks, k, frame_row + k0, BKEYS, tokens - k0, ld, h0);
-    stage_rows<HALVES>(Ks + BKEYS * LDS, v, frame_row + k0, BKEYS, tokens - k0, ld, h0);
+    stage_rows(Ks, k, frame_row + k0, BKEYS, tokens - k0, ld, h0);
+    stage_rows(Ks + BKEYS * LDS, v, frame_row + k0, BKEYS, tokens - k0, ld, h0);
   };
 
-  stage_rows<HALVES>(Qs, q, frame_row + q0, BQ, tokens - q0, ld, h0);
+  stage_rows(Qs, q, frame_row + q0, BQ, tokens - q0, ld, h0);
   load_kv(0, 0);
   cp_async_commit();
 
@@ -136,7 +118,7 @@ __device__ __forceinline__ void tile(const bf16* __restrict__ q, const bf16* __r
     if (kb + 1 < nkb) load_kv(kb + 1, (kb + 1) & 1);
     cp_async_commit();
     cp_async_wait<1>();   // block kb (and Q) have landed
-    group_sync<HALVES>();
+    group_sync();
     if (kb == 0) {
 #pragma unroll
       for (int kc = 0; kc < D / 16; ++kc)
@@ -212,7 +194,7 @@ __device__ __forceinline__ void tile(const bf16* __restrict__ q, const bf16* __r
         mma_bf16(o[dn + 1], pa, b + 2);
       }
     }
-    group_sync<HALVES>();   // every warp is done with this stage before it is refilled
+    group_sync();   // every warp is done with this stage before it is refilled
   }
   cp_async_wait<0>();
 

@@ -1,7 +1,19 @@
-// The encoder attention's block body: softmax(q k^T d^-1/2) v of one
-// (frame, head). csrc/encoder_attention.cu runs one (frame, head) per block;
-// csrc/encoder_tower.cu walks a stage's (frame, head) pairs in a loop. The
-// design is described in encoder_attention.cu.
+// The staged bf16 attention body of the whole-encoder tower, its only user
+// (csrc/encoder_tower.cu walks a stage's (frame, head) pairs in a loop, up
+// to MAX_TOKENS): softmax(q k^T d^-1/2) v of one (frame, head).
+//
+// K and V of the (frame, head) are staged once in shared memory (2 x tp x 72
+// bf16 with row padding, tp the tokens rounded up to 16). Each warp then
+// walks 16-query-row tiles: S = Q K^T via nvcuda::wmma into an f32 row
+// buffer (16 x tp), a softmax with the row maximum subtracted whose
+// unnormalised exp is rounded to bf16 over the rows of S already consumed,
+// O = P V with f32 accumulate, and O x (1 / sum of the f32 exps) at the
+// store: the rounding point of the TPU kernels and of csrc/encoder_attention.cu
+// (which sums in another order, so the two agree to the ulp). Keys past the
+// real rows are zero in shared memory and get probability 0. Up to 8 warps
+// share a block, fewer where their logits buffers would not fit the 227 KB
+// a block may use. The softmax's per-lane registers are sized at compile
+// time, for 256 padded tokens (ViT-B's 197) or for 320.
 #pragma once
 
 #include <mma.h>
@@ -106,6 +118,7 @@ __device__ __forceinline__ void tile(const bf16* __restrict__ q, const bf16* __r
     }
     __syncwarp();
 
+    float rinv = 0.f;   // 1 / sum of row lane / 2
     // Row softmax. P row r (bf16, pitch ldp <= 2 tp) lies inside the bytes
     // of S rows <= r, which this warp has already read into registers.
     for (int r = 0; r < 16; ++r) {
@@ -125,11 +138,12 @@ __device__ __forceinline__ void tile(const bf16* __restrict__ q, const bf16* __r
         s += x[i];
       }
       const float inv = 1.0f / warp_sum(s);
+      if (r == lane / 2) rinv = inv;   // the store below writes row lane / 2
       __syncwarp();
 #pragma unroll
       for (int i = 0; i < MAX_TP / 32; ++i) {
         const int c = lane + 32 * i;
-        if (i < per_lane && c < g.tp) P[r * g.ldp + c] = __float2bfloat16(x[i] * inv);
+        if (i < per_lane && c < g.tp) P[r * g.ldp + c] = __float2bfloat16(x[i]);
       }
     }
     __syncwarp();
@@ -159,16 +173,19 @@ __device__ __forceinline__ void tile(const bf16* __restrict__ q, const bf16* __r
       if (OUT_F32) {
         float* dst = static_cast<float*>(out) + at;
 #pragma unroll
-        for (int e = 0; e < 8; ++e)
+        for (int e = 0; e < 8; ++e) {
+          const float4 o = *reinterpret_cast<const float4*>(&O[r * D + c0 + e * 4]);
           *reinterpret_cast<float4*>(dst + e * 4) =
-              *reinterpret_cast<const float4*>(&O[r * D + c0 + e * 4]);
+              make_float4(o.x * rinv, o.y * rinv, o.z * rinv, o.w * rinv);
+        }
       } else {
         bf16* dst = static_cast<bf16*>(out) + at;
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           Pack8 p;
 #pragma unroll
-          for (int i = 0; i < 8; ++i) p.h[i] = __float2bfloat16(O[r * D + c0 + e * 8 + i]);
+          for (int i = 0; i < 8; ++i)
+            p.h[i] = __float2bfloat16(O[r * D + c0 + e * 8 + i] * rinv);
           *reinterpret_cast<uint4*>(dst + e * 8) = p.u;
         }
       }

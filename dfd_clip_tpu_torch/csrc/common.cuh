@@ -40,6 +40,25 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+// Two floats as one bf16x2 register, the first in the low half (a
+// tensor-core A or B fragment register).
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<unsigned*>(&v);
+}
+
+// Maximum and sum over the four lanes of a quad, which hold one row of an
+// mma / wgmma accumulator fragment.
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
 // Eight bf16 values moved as one 16-byte word.
 union Pack8 {
   uint4 u;

@@ -169,14 +169,14 @@ __device__ __noinline__ void stream_attention_stage(const TowerArgs& a, int fc,
   const int w = a.heads * attn_bf16::D;
   if (a.attn == 0) {
     const int groups = (a.tokens + attn_stream::BQ - 1) / attn_stream::BQ;
-    const int items = fc * a.heads * groups, half = attn_stream::group<true>();
+    const int items = fc * a.heads * groups, half = attn_stream::group();
     unsigned char* hs = smem + half * attn_stream::SMEM_BYTES;
     for (int t = 2 * blockIdx.x + half; t < items; t += 2 * gridDim.x) {
-      attn_stream::group_sync<true>();
+      attn_stream::group_sync();
       const int fh = t / groups;
-      attn_stream::tile<OUT_F32, true>(a.qkv, a.qkv + w, a.qkv + 2 * w, 3 * w, a.att, a.tokens,
-                                       a.heads, a.scale, fh / a.heads, fh % a.heads,
-                                       (t % groups) * attn_stream::BQ, hs);
+      attn_stream::tile<OUT_F32>(a.qkv, a.qkv + w, a.qkv + 2 * w, 3 * w, a.att, a.tokens,
+                                 a.heads, a.scale, fh / a.heads, fh % a.heads,
+                                 (t % groups) * attn_stream::BQ, hs);
     }
   } else if constexpr (OUT_F32) {
     float* out = static_cast<float*>(a.att);

@@ -27,7 +27,7 @@
 // kF32 runs its 38.1 GFLOP on the f32 units (67 TFLOP/s: 0.57 ms), since
 // the CPU's interpret mode computes them exactly in f32 and TF32 would not.
 //
-// Design: the staged schedule of csrc/encoder_attention.cu (one block per
+// Design: the staged schedule of csrc/attention_tile.cuh (one block per
 // (frame, head), K and V staged whole in shared memory, each warp a 16-row
 // query tile through an f32 logits buffer), with the mode a template
 // parameter. kF32 computes both products with FFMA: a lane owns 8 keys (S =

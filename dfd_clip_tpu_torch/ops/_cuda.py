@@ -15,16 +15,15 @@ its path went through the kernels (``reset_launches`` / ``launches``).
 encoder and decoder blocks, ``gemm_s8``, ``quant_rows`` and
 ``layer_norm_quant`` those of the int8 (W8A8) encoder blocks,
 ``encoder_attention_packed`` / ``encoder_attention_separate`` the two
-entries of the encoder attention (the staged kernel up to 320 tokens, the
-streamed one above, counted here as ``encoder_attention_stream``),
-``encoder_attention_s8`` the int8 encoder attention (likewise staged or
-streamed, the streamed form counted here as
-``encoder_attention_int8_stream``) and ``encoder_tower`` the whole-encoder
-tower (its attention stage staged or streamed by the same rule), and
-``study_attention`` / ``gemm_chain`` the kernels of the tools' studies
-(ops/study_attention.py, ops/gemm_chain.py).
+entries of the encoder attention (one TMA / wgmma kernel at every token
+count), ``encoder_attention_s8`` the int8 encoder attention (a staged
+kernel up to 320 tokens, a streamed one above, the streamed form counted
+here as ``encoder_attention_int8_stream``) and ``encoder_tower`` the
+whole-encoder tower (its attention stage staged or streamed by the same
+rule), and ``study_attention`` / ``gemm_chain`` the kernels of the tools'
+studies (ops/study_attention.py, ops/gemm_chain.py).
 They take CUDA tensors only; apart from the
-streamed attentions, the attention entries and the tower count nothing
+int8 streamed attention, the attention entries and the tower count nothing
 themselves, their callers count them under their own names (the plain
 versions live beside the functions that use them, the int8 ones in
 ops/int8.py, the attention in ops/attention.py, the tower in ops/tower.py).
@@ -57,15 +56,14 @@ OUT_F32, RES_ADD_F32, RES_IS_F32 = 64, 128, 256
 # gemm_s8 epilogue flags (csrc/gemm_s8.cu)
 S8_GELU, S8_RES_F32, S8_RES_BF16, S8_OUT_F32, S8_STORE, S8_EXPORT = 1, 2, 4, 8, 16, 32
 S8_RES_AFTER_CAST = 64
-# largest token count of the staged kernels of csrc/encoder_attention.cu,
-# encoder_attention_s8.cu and encoder_tower.cu (MAX_TOKENS); above it the
-# attention entries and the tower's attention stage take the streamed bodies
-# (attention_stream_tile.cuh, attn_s8::stream_tile)
+# largest token count of the staged kernels of csrc/encoder_attention_s8.cu
+# and encoder_tower.cu (MAX_TOKENS); above it the int8 attention and the
+# tower's attention stage take the streamed bodies (attention_stream_tile.cuh,
+# attn_s8::stream_tile). The bf16 encoder attention has no such limit.
 ATTENTION_MAX_TOKENS = 320
-# query rows of a streamed attention block (attn_stream::BQ); the grid,
-# frames x heads x ceil(tokens / 64) blocks, is the streamed kernel's only
-# cap (the int8 one's blocks take 128 rows: a smaller grid)
-STREAM_QUERY_ROWS = 64
+# query rows of a streamed int8 attention block (attn_s8::STREAM_ROWS); the
+# grid, frames x heads x ceil(tokens / 128) blocks, is its only cap
+S8_STREAM_QUERY_ROWS = 128
 GRID_MAX = 2 ** 31 - 1
 # the tower's chunk rule (csrc/encoder_tower.cu): a chunk's h and qkv (8 bytes
 # x T x W a frame) take at most half of the card's 50 MB L2
@@ -435,13 +433,15 @@ def layer_norm_quant(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
 def _attention_args(name: str, frames: int, tokens: int, heads: int, head_dim: int,
                     out_dtype: torch.dtype) -> None:
     """Raise unless the attention kernels take this geometry: head_dim 64,
-    at least one token and a grid of at most GRID_MAX streamed blocks."""
+    at least one token, and work items (frames x heads; the int8 streamed
+    kernel's blocks, frames x heads x ceil(tokens / 128)) that an int
+    counts."""
     if head_dim != 64 or tokens < 1:
         raise ValueError(f"{name}: takes head_dim 64 and at least 1 token, got head_dim "
                          f"{head_dim}, {tokens} tokens")
-    if frames * heads * -(-tokens // STREAM_QUERY_ROWS) > GRID_MAX:
+    if frames * heads * -(-tokens // S8_STREAM_QUERY_ROWS) > GRID_MAX:
         raise ValueError(f"{name}: {frames} frames x {heads} heads x {tokens} tokens exceed "
-                         f"the streamed kernel's grid")
+                         f"the kernels' work-item count")
     if out_dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"{name}: output {out_dtype} is neither bf16 nor f32")
 
@@ -452,8 +452,6 @@ def _launch_attention(name: str, fn, args: tuple, frames: int, tokens: int, head
     err = fn(*args, out.data_ptr(), frames, tokens, heads, head_dim ** -0.5,
              int(out_dtype == torch.float32), stream())
     check_launch(name, err)
-    if tokens > ATTENTION_MAX_TOKENS:
-        LAUNCHES["encoder_attention_stream"] += 1
     return out
 
 
@@ -462,8 +460,7 @@ def encoder_attention_packed(qkv: torch.Tensor, frames: int, tokens: int, heads:
                              out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """Self-attention over contiguous packed bf16 rows qkv (frames * tokens,
     3W), [q | k | v], W = heads * head_dim -> (frames * tokens, W) in
-    ``out_dtype`` (bf16, or f32 for the int8 whole block). Above
-    ATTENTION_MAX_TOKENS the streamed kernel runs."""
+    ``out_dtype`` (bf16, or f32 for the int8 whole block)."""
     name = "encoder_attention_packed"
     require_cuda(name, qkv)
     _attention_args(name, frames, tokens, heads, head_dim, out_dtype)
@@ -489,8 +486,7 @@ def encoder_attention_separate(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     """Self-attention over bf16 q, k, v (N, T, H, D) -> (N * T, H * D) in
     ``out_dtype``. The three must share one row pitch: three contiguous
     tensors, or the [q | k | v] column blocks of one packed (N, T, 3HD)
-    buffer (no copy is made). Above ATTENTION_MAX_TOKENS the streamed kernel
-    runs."""
+    buffer (no copy is made)."""
     name = "encoder_attention_separate"
     require_cuda(name, q, k, v)
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:

@@ -3,13 +3,12 @@
 ``_attn_int8_cols`` in dfd_clip_tpu/ops/pallas_attention.py).
 
 The two kernel wrappers launch csrc/encoder_attention.cu on a CUDA tensor
-(its separate and its packed entry, head_dim 64: the staged kernel up to 320
-tokens, the streamed one above, as for ViT-L/14@336px's 577) and take their
-plain versions, ``plain_attention`` and ``plain_attention_qkv``, for a CPU
-tensor. The plain versions follow the kernel that the token count picks:
-above 320 tokens the probabilities are rounded unnormalised and the output
-is divided by the row sum after PV, as in the streamed kernel and the TPU
-kernel. The dispatchers ``encoder_self_attention`` and
+(its separate and its packed entry, head_dim 64, one kernel at every token
+count) and take their plain versions, ``plain_attention`` and
+``plain_attention_qkv``, for a CPU tensor. Kernel and plain versions round
+where the TPU kernels round (_exp_probs): the unnormalised exp is rounded
+to bf16 before PV and the f32 output multiplied by 1 / sum after it, with
+the row maximum subtracted first. The dispatchers ``encoder_self_attention`` and
 ``encoder_self_attention_qkv`` are the entries the towers call, named as in
 the JAX module; the port has no backend switch, so each is its kernel
 wrapper. ``encoder_attention_int8`` launches csrc/encoder_attention_s8.cu,
@@ -37,13 +36,11 @@ PLAIN_LOGITS_BYTES = 2 ** 30
 
 def plain_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """(N, T, H, D) x3 -> (N, T, H, D): f32 logits and softmax (the row
-    maximum subtracted), f32 accumulate, output in ``out_dtype`` (default
-    v's dtype). Up to 320 tokens (the staged kernel) the normalised
-    probabilities are rounded to v's dtype before PV; above (the streamed
-    kernel) the unnormalised exp is rounded and the f32 output multiplied by
-    1 / sum. Frames go in chunks of at most PLAIN_LOGITS_BYTES of logits,
-    which changes nothing computed."""
+    """(N, T, H, D) x3 -> (N, T, H, D): f32 logits, p = exp(logits - row
+    max) rounded to v's dtype unnormalised, f32 accumulate of p V, times
+    1 / sum p (the f32 exps), output in ``out_dtype`` (default v's dtype).
+    Frames go in chunks of at most PLAIN_LOGITS_BYTES of logits, which
+    changes nothing computed."""
     n, t, h = q.shape[:3]
     step = max(1, PLAIN_LOGITS_BYTES // (4 * h * t * t))
     if n > step:
@@ -51,13 +48,9 @@ def plain_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                           out_dtype) for i in range(0, n, step)])
     scale = q.shape[-1] ** -0.5
     logits = torch.einsum("nqhd,nkhd->nhqk", q.float() * scale, k.float())
-    if t <= _cuda.ATTENTION_MAX_TOKENS:
-        probs = torch.softmax(logits, dim=-1).to(v.dtype)
-        out = torch.einsum("nhqk,nkhd->nqhd", probs.float(), v.float())
-    else:
-        p = torch.exp(logits - logits.amax(-1, keepdim=True))
-        rsum = (1.0 / p.sum(-1)).transpose(1, 2)[..., None]          # (N, T, H, 1)
-        out = torch.einsum("nhqk,nkhd->nqhd", p.to(v.dtype).float(), v.float()) * rsum
+    p = torch.exp(logits - logits.amax(-1, keepdim=True))
+    rsum = (1.0 / p.sum(-1)).transpose(1, 2)[..., None]              # (N, T, H, 1)
+    out = torch.einsum("nhqk,nkhd->nqhd", p.to(v.dtype).float(), v.float()) * rsum
     return out.to(out_dtype or v.dtype)
 
 

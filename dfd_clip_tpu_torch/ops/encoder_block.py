@@ -62,8 +62,7 @@ def encoder_attention(qkv: torch.Tensor, frames: int, tokens: int, heads: int,
                       head_dim: int, out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """Kernel: self-attention over packed bf16 qkv rows (frames * tokens, 3W)
     -> (frames * tokens, W) in ``out_dtype`` (bf16, or f32 for the int8
-    block's out-projection): the staged kernel up to 320 tokens, the
-    streamed one above (the split pair of ViT-L/14@336px, 577 tokens)."""
+    block's out-projection), at any token count."""
     out = _cuda.encoder_attention_packed(qkv, frames, tokens, heads, head_dim, out_dtype)
     _cuda.LAUNCHES["encoder_attention"] += 1
     return out

@@ -7,7 +7,9 @@ csrc/encoder_tower.cu: layers 0..max(keep) over the whole batch, the
 residual stream and every intermediate kept in one chunk's scratch, the
 kept layers' K/V written into the stacked (Lsel, N, T', W) buffers. Its
 attention stage takes the staged block bodies up to 320 tokens and the
-streamed ones above (ViT-L/14@336px's 577), as the per-layer kernels do.
+streamed ones above (ViT-L/14@336px's 577); its bf16 attention rounds where
+the per-layer kernel rounds but sums in another order (wmma and mma.sync
+against wgmma), so the two agree to the ulp, not to the bit.
 The JAX package stacks its weights per leaf ((L, ...) arrays) for the TPU
 kernel's per-layer windows; the port keeps per-layer lists
 (models/clip_vit.py) and stacks pointers instead: the wrapper packs 16

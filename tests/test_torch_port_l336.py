@@ -128,20 +128,27 @@ def test_plain_attention_frame_chunks_change_nothing(monkeypatch):
         monkeypatch.undo()
 
 
-def test_streamed_rounding_point_is_the_tpu_kernels(monkeypatch):
-    """In bf16 the plain version above 320 tokens rounds the unnormalised
-    probabilities (the TPU kernel's point): it sits closer to the Pallas
-    kernel interpreted than the normalised rounding of 320 tokens and below
-    does, on the same 577-token input."""
+@pytest.mark.parametrize("tokens,heads", [(197, 12), (257, 16), (577, 2)])
+def test_streamed_rounding_point_is_the_tpu_kernels(monkeypatch, tokens, heads):
+    """In bf16 the plain version rounds the unnormalised probabilities (the
+    TPU kernel's point, and the kernel's at every token count): it sits
+    closer, in mean |d|, to the Pallas kernel interpreted than the
+    normalised rounding (XLA's point, computed here) does, on the same
+    2-frame input at ViT-B/16's, ViT-L/14's and ViT-L/14@336px's token
+    counts."""
     monkeypatch.setenv("DFD_ATTENTION_BACKEND", "pallas")
-    qkv = np.random.default_rng(5).standard_normal((1, 577, 3 * 128)).astype(np.float32)
-    want = np.asarray(jattn.encoder_self_attention_qkv(jnp.asarray(qkv, jnp.bfloat16), 2, 64)
+    w = heads * 64
+    qkv = np.random.default_rng(5).standard_normal((2, tokens, 3 * w)).astype(np.float32)
+    want = np.asarray(jattn.encoder_self_attention_qkv(jnp.asarray(qkv, jnp.bfloat16), heads, 64)
                       .astype(jnp.float32))
     x = torch.from_numpy(qkv).bfloat16()
-    streamed = tattn.plain_attention_qkv(x, 2, 64).float().numpy()
-    monkeypatch.setattr(_cuda, "ATTENTION_MAX_TOKENS", 1024)     # the normalised form
-    normalised = tattn.plain_attention_qkv(x, 2, 64).float().numpy()
-    assert np.abs(streamed - want).mean() < np.abs(normalised - want).mean()
+    got = tattn.plain_attention_qkv(x, heads, 64).float().numpy()
+    q, k, v = (s_.reshape(2, tokens, heads, 64).float() for s_ in x.split(w, dim=-1))
+    logits = torch.einsum("nqhd,nkhd->nhqk", q * 64 ** -0.5, k)
+    probs = torch.softmax(logits, dim=-1).bfloat16().float()
+    normalised = torch.einsum("nhqk,nkhd->nqhd", probs, v).bfloat16().float()
+    normalised = normalised.reshape(2, tokens, w).numpy()
+    assert np.abs(got - want).mean() < np.abs(normalised - want).mean()
 
 
 # -- the towers ------------------------------------------------------------------------------
