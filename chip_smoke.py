@@ -510,6 +510,215 @@ def check_kernels(rows: list) -> None:
                            VITB_PATHS + ("dinov2_serve",) + VARIANT_PATHS)
 
 
+# The GEMMs' path shapes (csrc/gemm.cu, csrc/gemm_s8.cu), rows M of each
+# path: the ViT-B/16 serve batch (16 clips x 20 frames x 197 tokens), the
+# train batch (12 x 20 x 197), ViT-L/14 (320 x 257) and ViT-L/14@336px
+# (320 x 577) at width 1024, and the decoder boundary (16 rows).
+GEMM_ROWS = {"vit-b": CLIPS * FRAMES * 197, "train": TRAIN_CLIPS * FRAMES * 197,
+             "vit-l": CLIPS * FRAMES * 257, "vit-l@336": CLIPS * FRAMES * 577, "boundary": CLIPS}
+TOL_S8_GELU = 1e-5        # gemm_s8 with QuickGELU: expf against torch.sigmoid
+
+
+def wgmma_serialised(log: str, sources: tuple) -> list:
+    """The ptxas lines of these sources' sections of the build log that say
+    their wgmma products were serialised (C7510-C7520)."""
+    bad = []
+    for section in log.split("== ")[1:]:
+        name = section.split("\n", 1)[0].strip()
+        if name in sources:
+            bad += [f"{name}: {line.strip()}" for line in section.splitlines()
+                    if "C75" in line or "serializ" in line]
+    return bad
+
+
+def gemm_line(name: str, ms: float, plain: float, lib: float, flops: float, nbytes: float,
+              peak: float) -> None:
+    b, by = bound_ms(flops, nbytes, peak)
+    print(f"  {name}: {ms:.4f} ms (plain {plain:.4f}, library {lib:.4f}, ms / library "
+          f"{ms / lib:.3f}, bound {b:.4f} by {by}, bound / ms {b / ms:.3f})", flush=True)
+
+
+def check_gemm_kernels() -> None:
+    """gemm and gemm_s8 at every path shape against their plain versions,
+    with the one-call yardsticks torch.addmm (bf16) and torch._int_mm (int8,
+    no epilogue): bf16 within TOL_ENCODER, every W8A8 form without QuickGELU
+    bit for bit, QuickGELU within TOL_S8_GELU; the K/V export into a stacked
+    slot with its pad rows zero."""
+    import torch
+
+    from dfd_clip_tpu_torch.ops import _cuda
+    from dfd_clip_tpu_torch.ops.int8 import w8a8_dot_plain
+
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(9)
+
+    def randn(*shape, scale=1.0, dtype=bf):
+        return (scale * torch.randn(*shape, generator=gen, device=dev)).to(dtype)
+
+    def exported(m, w, tokens, drop_cls=1, pad=4):
+        t_out = tokens - drop_cls + pad
+        kb = torch.full((2, m // tokens, t_out, w), float("nan"), device=dev, dtype=bf)
+        return kb, torch.full_like(kb, float("nan")), t_out
+
+    def hold_export(name, kb, vb, want, tokens, w):
+        frames = kb.shape[1]
+        rows = want.reshape(frames, tokens, -1)[:, 1:]
+        if not (torch.equal(kb[1, :, tokens - 1:], torch.zeros_like(kb[1, :, tokens - 1:]))
+                and torch.equal(vb[1, :, tokens - 1:], torch.zeros_like(vb[1, :, tokens - 1:]))
+                and torch.isnan(kb[0]).all() and torch.isnan(vb[0]).all()):
+            raise SystemExit(f"FAIL {name}: export pad rows not zero or another slot written")
+        return rows[..., -2 * w: -w], rows[..., -w:]
+
+    # -- bf16 -------------------------------------------------------------------
+    def bf16_case(name, m, k, n, form, tokens=197):
+        a = randn(m, k)
+        wt = randn(k, n, scale=k ** -0.5)
+        bias = randn(n, scale=0.1, dtype=torch.float32)
+        res = None
+        kw = {}
+        if form == "export":
+            w = n // 3
+            kb, vb, t_out = exported(m, w, tokens)
+            kw = dict(export=(kb[1], vb[1], tokens, t_out, 1, w))
+        elif form in ("resid", "resid_bf16_bias"):
+            res = randn(m, n)
+            kw = dict(residual=res)
+        elif form == "wide_out":
+            res = randn(m, n)
+            kw = dict(residual=res, residual_before_cast=True, out_dtype=torch.float32)
+        elif form == "wide_res":
+            res = randn(m, n, dtype=torch.float32)
+            kw = dict(residual=res)
+        if form in ("gelu", "gelu_bf16_bias"):
+            kw["gelu"] = True
+        if form.endswith("bf16_bias"):
+            kw["bias_after_cast"] = True
+
+        def plain():
+            acc = a.float() @ wt.float()
+            if kw.get("bias_after_cast"):
+                v = (acc.to(bf) + bias.to(bf)).float()
+            else:
+                v = acc + bias
+            if kw.get("gelu"):
+                v = v * torch.sigmoid(1.702 * v)
+            if form in ("resid", "resid_bf16_bias"):
+                return res + v.to(bf)
+            if form == "wide_out":
+                return res.float() + v
+            if form == "wide_res":
+                return (res + v).to(bf)
+            return v.to(bf)
+
+        got = _cuda.gemm(a, wt, bias, **kw)
+        want = plain()
+        if form == "export":
+            k_want, v_want = hold_export(name, kb, vb, want, tokens, n // 3)
+            compare(f"{name} C", got, want, TOL_ENCODER)
+            compare(f"{name} K", kb[1, :, : tokens - 1], k_want, TOL_ENCODER)
+            compare(f"{name} V", vb[1, :, : tokens - 1], v_want, TOL_ENCODER)
+        else:
+            compare(name, got, want, TOL_ENCODER)
+        b16 = bias.to(bf)
+        out_bytes = (4 if form == "wide_out" else 2) * m * n
+        extra = 0 if res is None else res.element_size() * m * n
+        extra += 2 * 2 * kb[1].numel() if form == "export" else 0   # K and V slots, bf16
+        gemm_line(name, time_ms(lambda: _cuda.gemm(a, wt, bias, **kw)), time_ms(plain, 3, 1),
+                  time_ms(lambda: torch.addmm(b16, a, wt)), 2.0 * m * n * k,
+                  2.0 * (m * k + k * n) + out_bytes + extra + 4 * n, PEAK_BF16_TC)
+
+    for path in ("vit-b", "train"):
+        m = GEMM_ROWS[path]
+        bf16_case(f"gemm {path} qkv + export", m, 768, 2304, "export")
+        bf16_case(f"gemm {path} out-proj", m, 768, 768, "resid")
+        bf16_case(f"gemm {path} c_fc", m, 768, 3072, "gelu")
+        bf16_case(f"gemm {path} c_proj", m, 3072, 768, "resid")
+    m = GEMM_ROWS["vit-b"]
+    bf16_case("gemm vit-b whole block out-proj (f32 out)", m, 768, 768, "wide_out")
+    bf16_case("gemm vit-b whole block c_proj (f32 residual)", m, 3072, 768, "wide_res")
+    for path in ("vit-l", "vit-l@336"):
+        bf16_case(f"gemm {path} out-proj", GEMM_ROWS[path], 1024, 1024, "resid")
+    m = GEMM_ROWS["boundary"]
+    for w in (768, 1024):
+        bf16_case(f"gemm boundary {w} out-proj", m, w, w, "resid_bf16_bias")
+        bf16_case(f"gemm boundary {w} c_fc", m, w, 4 * w, "gelu_bf16_bias")
+        bf16_case(f"gemm boundary {w} c_proj", m, 4 * w, w, "resid_bf16_bias")
+        bf16_case(f"gemm boundary {w} query in-proj", m, w, 2 * w, "bf16_bias")
+
+    # -- W8A8 -------------------------------------------------------------------
+    def s8_case(name, m, k, n, form, tokens=197):
+        a = torch.randint(-127, 128, (m, k), generator=gen, device=dev, dtype=torch.int8)
+        wq = torch.randint(-127, 128, (n, k), generator=gen, device=dev, dtype=torch.int8)
+        a_s = torch.rand(m, generator=gen, device=dev) + 0.5
+        ws = (torch.rand(n, generator=gen, device=dev) + 0.5).reshape(1, n)
+        bias = randn(n, scale=0.1, dtype=torch.float32)
+        res, kw = None, {}
+        if form == "export":
+            w = n // 3
+            kb, vb, t_out = exported(m, w, tokens)
+            kw = dict(export=(kb[1], vb[1], tokens, t_out, 1, w))
+        elif form == "out_f32_res_bf16":
+            res = randn(m, n)
+            kw = dict(residual=res, out_dtype=torch.float32)
+        elif form == "gelu_f32":
+            kw = dict(gelu=True, out_dtype=torch.float32)
+        elif form == "res_f32":
+            res = randn(m, n, dtype=torch.float32)
+            kw = dict(residual=res)
+        elif form == "res_after_cast":
+            res = randn(m, n)
+            kw = dict(residual=res, residual_after_cast=True)
+
+        def plain():
+            v = w8a8_dot_plain(a, a_s[:, None], wq, ws) + bias
+            if form == "gelu_f32":
+                return v * torch.sigmoid(1.702 * v)
+            if form == "out_f32_res_bf16":
+                return res.float() + v
+            if form == "res_f32":
+                return (res + v).to(bf)
+            if form == "res_after_cast":
+                return (res.float() + v.to(bf).float()).to(bf)
+            return v.to(bf)
+
+        got = _cuda.gemm_s8(a, a_s, wq, ws, bias, **kw)
+        want = plain()
+        err = (got.float() - want.float()).abs().max().item()
+        if form == "gelu_f32":
+            compare(name, got, want, TOL_S8_GELU)
+        else:
+            equal = torch.equal(got, want)
+            if form == "export":
+                k_want, v_want = hold_export(name, kb, vb, want, tokens, n // 3)
+                equal = equal and torch.equal(kb[1, :, : tokens - 1], k_want) \
+                    and torch.equal(vb[1, :, : tokens - 1], v_want)
+            print(f"  {name}: bit-equal {equal} (max_abs_err {err:.3e})", flush=True)
+            if not equal:
+                raise SystemExit(f"FAIL {name}: not bit-equal to w8a8_dot_plain + its epilogue")
+        out_bytes = (4 if form in ("gelu_f32", "out_f32_res_bf16") else 2) * m * n
+        extra = 0 if res is None else res.element_size() * m * n
+        extra += 2 * 2 * kb[1].numel() if form == "export" else 0   # K and V slots, bf16
+        wt = wq.t()
+        gemm_line(name, time_ms(lambda: _cuda.gemm_s8(a, a_s, wq, ws, bias, **kw)),
+                  time_ms(plain, 3, 1), time_ms(lambda: torch._int_mm(a, wt)), 2.0 * m * n * k,
+                  1.0 * (m * k + k * n) + out_bytes + extra + 4.0 * (m + 2 * n), PEAK_INT8_TC)
+
+    m = GEMM_ROWS["vit-b"]
+    s8_case("gemm_s8 vit-b qkv + export", m, 768, 2304, "export")
+    s8_case("gemm_s8 vit-b out-proj (f32 out, + h)", m, 768, 768, "out_f32_res_bf16")
+    s8_case("gemm_s8 vit-b c_fc (QuickGELU, f32 out)", m, 768, 3072, "gelu_f32")
+    s8_case("gemm_s8 vit-b c_proj (+ f32 hmid)", m, 3072, 768, "res_f32")
+    for path, tokens in (("vit-l", 257), ("vit-l@336", 577)):
+        m = GEMM_ROWS[path]
+        s8_case(f"gemm_s8 {path} qkv + export", m, 1024, 3072, "export", tokens)
+        s8_case(f"gemm_s8 {path} out-proj (f32 out, + h)", m, 1024, 1024, "out_f32_res_bf16")
+        s8_case(f"gemm_s8 {path} c_fc (QuickGELU, f32 out)", m, 1024, 4096, "gelu_f32")
+        s8_case(f"gemm_s8 {path} c_proj (+ f32 hmid)", m, 4096, 1024, "res_f32")
+        s8_case(f"gemm_s8 {path} split c_proj (bf16 after the cast)", m, 4096, 1024,
+                "res_after_cast")
+        torch.cuda.empty_cache()
+
+
 def check_layer_norm(rows: list, name: str, h2, ln: dict, paths: tuple) -> None:
     """layer_norm_rows on the bf16 rows h2 (R, W) against layers.layer_norm,
     with the F.layer_norm yardstick."""
@@ -2606,6 +2815,9 @@ def main() -> int:
     for line in log.splitlines():
         if "Used" in line or "spill" in line and "0 bytes spill" not in line:
             print("  " + line.strip(), flush=True)
+    serialised = wgmma_serialised(log, ("gemm.cu", "gemm_s8.cu"))
+    if serialised:
+        raise SystemExit("FAIL the GEMMs' wgmma products were serialised:\n" + "\n".join(serialised))
 
     rows: list = []
     print("[kernels] flagship shapes, bf16", flush=True)
@@ -2615,6 +2827,9 @@ def main() -> int:
     check_attention_sweep()
     print("[kernels int8] flagship shapes, W8A8 and int8_rows K/V", flush=True)
     check_int8_kernels(rows)
+    print(f"[kernels gemm] gemm and gemm_s8 at every path shape; every time on {card}",
+          flush=True)
+    check_gemm_kernels()
     counts = {}
     print("[serve path] Scorer over ViT-B/16, 20 frames, keep 6-11, bf16, batch 16", flush=True)
     counts["serve"] = serve_path(card)

@@ -89,14 +89,16 @@
 // block a SM. The tensor maps are encoded on the host per launch
 // (cuTensorMapEncodeTiled through the runtime's driver entry point, so the
 // library links against nothing but the runtime) and passed as
-// __grid_constant__ parameters.
-#include <cuda.h>
-
+// __grid_constant__ parameters. The mbarrier, TMA, descriptor and wgmma
+// helpers live in csrc/hopper.cuh, shared with the GEMMs.
 #include <type_traits>
 
-#include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
+
+using namespace hopper;
+using hopper::fence_regs;   // beside the P-fragment overload below
 
 constexpr int D = 64;
 constexpr int BM = 64;                  // query rows of a consumer's tile
@@ -119,76 +121,7 @@ constexpr int BAR_OFF = Q_OFF + 2 * NCONS * TILE_BYTES;
 // kv_full, kv_empty (STAGES each), q_full, q_empty (NCONS consumers x 2 buffers)
 constexpr int NBARS = 2 * STAGES + 4 * NCONS;
 constexpr int SMEM_BYTES = BAR_OFF + NBARS * 8 + 1024;   // + 1024 for the base's alignment
-constexpr unsigned WATCHDOG = 1u << 26;
 constexpr float LOG2E = 1.4426950408889634f;
-
-// ---- mbarriers ---------------------------------------------------------------
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-// Wait until the phase of parity `parity` has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  for (unsigned n = 0;; ++n) {
-    uint32_t done;
-    asm volatile(
-        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (n == WATCHDOG) __trap();
-  }
-}
-
-// ---- TMA -----------------------------------------------------------------------
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                         int col, int row, int frame) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(row), "r"(frame)
-      : "memory");
-}
-
-// ---- wgmma ---------------------------------------------------------------------
-// Shared-memory matrix descriptor of a 1024-byte aligned tile of 128-byte
-// rows in the 128-byte swizzle: 8-row groups 1024 bytes apart (SBO); the
-// leading offset is unused when a row is one swizzle atom wide.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(1024 >> 4) << 32) |
-         (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-// Wait until at most N of this warpgroup's committed groups are pending.
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Keep the compiler from moving reads or writes of an accumulator across
-// the asynchronous products.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
 
 __device__ __forceinline__ void fence_regs(uint32_t (&a)[BK / 16][4]) {
 #pragma unroll
@@ -296,12 +229,6 @@ struct Smem {
     return base + BAR_OFF + 8u * (2 * STAGES + 2 * NCONS + 2 * c + b);
   }
 };
-
-// Lane 0 of each warp arrives once the whole warp is past its reads.
-__device__ __forceinline__ void warp_arrive(uint32_t bar) {
-  __syncwarp();
-  if (threadIdx.x % 32 == 0) mbar_arrive(bar);
-}
 
 // The online softmax of one key block's S in base 2, in place: x = s
 // d^-1/2 log2(e), keys past the frame's end (`last` block only) at -inf;
@@ -500,13 +427,13 @@ encoder_attention_kernel(const __grid_constant__ CUtensorMap map_q,
         mbar_init(sm.q_full(c, b), 1);
         mbar_init(sm.q_empty(c, b), 4);
       }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_fence_init();
   }
   __syncthreads();
 
   if (warp < 4) {
     // ---- producer warpgroup: warp 0 the K/V ring, warp 1 the Q tiles --------
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS) : "memory");
+    setmaxnreg_dec<PRODUCER_REGS>();
     if (warp == 0 && lane == 0) {
       int n = 0;   // K/V block loads so far
       for (int it = blockIdx.x; it < g.items; it += gridDim.x) {
@@ -534,7 +461,7 @@ encoder_attention_kernel(const __grid_constant__ CUtensorMap map_q,
     }
   } else {
     // ---- the consumer warpgroups, 64 query rows each -------------------------------
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS) : "memory");
+    setmaxnreg_inc<CONSUMER_REGS>();
     static_assert(NCONS == 3, "one consume<> instantiation a consumer");
     if (warp < 8)
       consume<0, OUT_F32, NARROW>(sm, g, coef, out);
@@ -543,26 +470,6 @@ encoder_attention_kernel(const __grid_constant__ CUtensorMap map_q,
     else
       consume<2, OUT_F32, NARROW>(sm, g, coef, out);
   }
-}
-
-typedef decltype(&cuTensorMapEncodeTiled) EncodeTiled;
-
-EncodeTiled encode_fn() {
-  static EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
-                                         &found) != cudaSuccess)
-      p = nullptr;
-#else
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) !=
-        cudaSuccess)
-      p = nullptr;
-#endif
-    return found == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(p) : nullptr;
-  }();
-  return fn;
 }
 
 // (heads x 64 columns, tokens, frames) bf16 at a row pitch of ld values,

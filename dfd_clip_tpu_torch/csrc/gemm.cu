@@ -1,5 +1,5 @@
-// Tiled bf16 GEMM on the tensor cores with the fused epilogues of the
-// encoder and decoder blocks.
+// bf16 GEMM with the fused epilogues of the encoder and decoder blocks: one
+// persistent, warp-specialised sm_90a kernel (TMA loads, wgmma products).
 //
 // Replaces: the in-kernel GEMMs of dfd_clip_tpu/ops/pallas_attention.py
 // (_make_attn_block_kernel: qkv projection + K/V export + out-projection;
@@ -7,71 +7,178 @@
 // _make_full_block_kernel without int8_gemm: its four GEMMs) and of
 // dfd_clip_tpu/ops/pallas_decoder_stack.py (_boundary_kernel's linear_bf16).
 //
-// Bound on an H100: at encoder shapes (M = 320 frames x 197 tokens, K = 768
-// or 3072) the product is bound by tensor-core operations (about 2*M*N*K
-// FLOP against 2*(M*K + K*N + M*N) bytes, far above the card's ~295 FLOP per
-// byte). At the decoder boundary (M = 16) it is bound by the weight bytes
-// and, in practice, by launch latency.
+// Bound on an H100: at encoder shapes (M = 320 frames x 197 tokens or more,
+// K = 768 to 4096) the product is bound by tensor-core operations (2 M N K
+// FLOP at 989 TFLOP/s against 2 (M K + K N + M N) bytes at 3.35 TB/s: about
+// 400 FLOP a byte at the ViT-B qkv shape, above the card's ~295), 0.2256 ms
+// at (63040, 768) x (768, 2304). At the decoder boundary (M = 16) it is
+// bound by the weight's bytes and, in practice, by launch latency.
 //
-// Design: 128x128 output tile per block, 8 warps each owning 32x64 through
-// nvcuda::wmma 16x16x16 bf16 fragments with f32 accumulate; K steps of 32
-// in a 3-stage cp.async ring in dynamic shared memory (57 KB), so two tiles
-// load while one multiplies, and registers capped at 128 a thread so two
-// blocks share an SM. The epilogue stages each 16x16 accumulator in a
-// per-warp slice of the drained ring and applies, in this order: bias (f32
-// before the bf16 cast, the encoder kernels' rule, or bf16 after it, layers.linear's
-// rule), QuickGELU in f32, the bf16 residual add, the store, and the K/V
-// export of the qkv projection: K and V columns of every non-CLS token row go
-// straight into slot `slot` of the stacked (Lsel, N, T', W) buffers, and the
-// row of each frame's last token also writes that frame's zero pad rows, so
-// the buffers need no zeroing pass. The bf16 whole block
-// (_make_full_block_kernel without int8_gemm) keeps its residual stream
-// between the halves in f32: its out-projection writes f32 with the bf16 h
-// added in f32, and its c_proj adds that f32 stream before the one bf16
-// rounding. Those two forms are a separate instantiation (WIDE) of the same
-// body (csrc/gemm_tile.cuh, shared with csrc/encoder_tower.cu), so the other
-// epilogues compile as before. A wgmma/TMA pipeline is later work.
-#include "gemm_tile.cuh"
+// Design (the frame in csrc/gemm_hopper.cuh, shared with gemm_s8.cu):
+// - A persistent grid walks 128 x 256 output tiles with a static stride, N
+//   fastest within a row panel of A, so the tiles in flight share a few A
+//   panels and the weight stays in L2. The CTAs run in clusters of two that
+//   take two row panels at one column tile: each loads half of the weight's
+//   tile into both (TMA multicast), which cuts the L2 reads a tile by a
+//   third; the grid is the co-resident cluster count. Where
+//   the wide tiles would leave SMs idle (the decoder's M = 16), the tiles are
+//   128 x 64 and unclustered (a template argument, the same body).
+// - One producer thread (its warpgroup set down to 56 registers) issues TMA loads
+//   through 2-D tensor maps encoded per launch: A (M, K) in boxes of 64
+//   columns (128 bytes) x 128 rows, the weight (K, N) in boxes of 64 columns
+//   x 64 rows, both in the 128-byte swizzle that the wgmma descriptors name.
+//   The maps' extents are M, N and K, so TMA zero-fills the ragged row,
+//   column and depth tiles (K % 64 == 32 included): the main loop has no
+//   masks. A ring of 3 stages of 48 KB (4 of 24 KB at 128 x 64), each with a
+//   full and an empty mbarrier; every wait traps after 2^26 polls.
+// - Two consumer warpgroups (setmaxnreg up to 224) take 64 rows each and
+//   run wgmma m64n256k16 f32.bf16.bf16: A K-major, the weight MN-major
+//   through the transpose bit (its 64-column boxes 8 KB apart, the
+//   descriptor's leading offset). A stage is released as soon as its
+//   product group is done (in a cluster, by the consumers of both CTAs); the
+//   two consumers' groups keep the tensor cores busy between.
+// - Epilogue, in the plain versions' order: the bias (f32 before the bf16
+//   cast, the encoder kernels' rule, or bf16 after it, layers.linear's
+//   rule), QuickGELU in f32, the bf16 residual after the cast, or the wide
+//   forms of the bf16 whole block (the bf16 h or f32 hmid added in f32
+//   before the one rounding, f32 or bf16 out). The consumers apply it on the
+//   accumulator's registers, with the tile's bias fetched into shared memory
+//   and a residual added before the rounding prefetched into L2 while the
+//   products run, and write a bf16 tile whole into a shared staging tile;
+//   the producer warpgroup's three idle warps store it (16 bytes a lane),
+//   adding the bf16 residual after the rounding, and write the K/V export of
+//   the qkv projection into the stacked (Lsel, N, T', W) slot views with
+//   each frame's zero pad rows, while the consumers run the next tile's
+//   products. An f32 tile is stored by the consumers through a per-warp
+//   staging slice. QuickGELU's reciprocal is rcp_rn (csrc/hopper.cuh): the
+//   round-to-nearest result without the division's branch, which kept the
+//   unrolled values from interleaving.
+// - Each epilogue form (QuickGELU, a residual, the export, an f32 output) is
+//   a kernel of its own: with one kernel for all, the unrolled epilogue's
+//   code outran the instruction cache and took about as long as the products.
+//   Kernels exist for the forms the wrappers produce (kForms in
+//   gemm_hopper.cuh: QuickGELU, a residual or the export, one at a time).
+// csrc/gemm_tile.cuh keeps the earlier mma.sync body for the tower
+// (csrc/encoder_tower.cu) alone.
+#include "gemm_hopper.cuh"
 
 namespace {
 
-using namespace bf16_gemm;
+using namespace hgemm;
 
-template <bool WIDE>
-__global__ void __launch_bounds__(THREADS, 2)
-gemm_kernel(const bf16* __restrict__ A, int lda, const bf16* __restrict__ B, int ldb,
-            void* __restrict__ C, int ldc, int M, int N, int K, const float* __restrict__ bias,
-            const void* __restrict__ res, int ldr, int flags, Export ex) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  tile<WIDE>(A, lda, B, ldb, C, ldc, M, N, K, bias, res, ldr, flags, ex, blockIdx.y * BM,
-             blockIdx.x * BN, smem);
-}
+enum : int {
+  kBiasF32 = 1,      // v = acc + b                       (f32)
+  kBiasBf16 = 2,     // v = bf16(bf16(acc) + bf16(b))     (layers.linear)
+  kGelu = 4,         // v = v * sigmoid(1.702 v)          (f32)
+  kResid = 8,        // out = bf16(res + bf16(v)), res bf16
+  kStore = 16,       // write C
+  kExport = 32,      // write K/V columns into the stacked export buffers
+  kOutF32 = 64,      // C is f32
+  kResAddF32 = 128,  // v = res + v in f32 before the output cast
+  kResIsF32 = 256,   // ... with an f32 residual (else bf16, widened)
+};
+
+struct BF16Op {
+  using Acc = float;
+  static constexpr int ELEM = 2;   // bytes of an operand value
+  struct Params {
+    Out out;
+    const float* bias;
+  };
+
+  // A stage: A's 128 rows x 64 columns from k0, the weight's 64 rows from k0
+  // x BN columns as BN / 64 boxes; in a cluster of two each CTA loads half
+  // of the boxes into both.
+  template <int BN, int CL>
+  static __device__ __forceinline__ void load(uint32_t a, uint32_t b, const CUtensorMap* ma,
+                                              const CUtensorMap* mb, uint32_t bar, int kt,
+                                              int m0, int n0, int rank) {
+    tma_load(a, ma, bar, kt * 64, m0);
+    constexpr int NB = BN / 64 / CL;
+#pragma unroll
+    for (int i = 0; i < NB; ++i) {
+      const int j = rank * NB + i;
+      if (CL > 1)
+        tma_load_multicast(b + j * 64 * KBYTES, mb, bar, n0 + 64 * j, kt * 64, (1 << CL) - 1);
+      else
+        tma_load(b + j * 64 * KBYTES, mb, bar, n0 + 64 * j, kt * 64);
+    }
+  }
+
+  // Four k16 steps: 32 bytes along A's swizzled rows, 16 weight rows (2 KB).
+  template <int BN>
+  static __device__ __forceinline__ void mma(float (&acc)[BN / 2], uint32_t a, uint32_t b,
+                                             int kt) {
+    const uint64_t da = sw128_desc(a), db = sw128_desc(b, 64 * KBYTES);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_bf16(acc, da + 2 * kk, db + kk * ((16 * 128) >> 4), kt | kk);
+  }
+
+  // The epilogue's per-column operand (the bias); no row scale.
+  static __device__ __forceinline__ const float* col_src(const Params& p, int i) {
+    return i == 0 ? p.bias : nullptr;
+  }
+  static __device__ __forceinline__ void prepare_col1(float*) {}
+  static __device__ __forceinline__ float row_scale(const Params&, int) { return 0.f; }
+
+  // N values of the epilogue, before the output's rounding: the plain
+  // versions' f32 operations in their order (each flag tested once for all
+  // N; b: the bias of each value's column, r: its residual).
+  template <int FORM, int N>
+  static __device__ __forceinline__ void apply(const Params& p, const float (&acc)[N],
+                                               const float (&b)[N], const float (&)[N],
+                                               const float (&)[N], const float (&r)[N],
+                                               float (&v)[N]) {
+    const int f = p.out.flags;
+#pragma unroll
+    for (int i = 0; i < N; ++i) v[i] = acc[i];
+    if (f & kBiasF32) {
+#pragma unroll
+      for (int i = 0; i < N; ++i) v[i] += b[i];
+    }
+    if (f & kBiasBf16) {
+#pragma unroll
+      for (int i = 0; i < N; ++i) v[i] = bf16r(bf16r(v[i]) + bf16r(b[i]));
+    }
+    if (FORM & kFormGelu) {
+#pragma unroll
+      for (int i = 0; i < N; ++i) v[i] = v[i] * rcp_rn(1.0f + expf(-1.702f * v[i]));
+    }
+    if ((FORM & kFormRes) && (f & kResAddF32)) {
+#pragma unroll
+      for (int i = 0; i < N; ++i) v[i] = r[i] + v[i];
+    }
+  }
+};
 
 }  // namespace
 
 // C = epilogue(A[M,K] @ B[K,N]); A, B row-major bf16, C bf16 (f32 with
 // kOutF32), res bf16 (f32 with kResIsF32), with the given leading
-// dimensions. K % 32 == 0, N % 8 == 0 and every leading dimension a multiple
-// of 8 (16-byte rows); the wrapper checks. Returns the launch's
-// cudaGetLastError().
+// dimensions. K % 32 == 0, N % 8 == 0, 16-byte aligned bases and every
+// leading dimension a multiple of 8 (16-byte rows, as TMA needs); the
+// wrapper checks. Returns the launch's cudaGetLastError().
 extern "C" int dfd_gemm(const void* A, int lda, const void* B, int ldb, void* C, int ldc,
                         int M, int N, int K, const float* bias, const void* res, int ldr,
                         int flags, void* k_out, void* v_out, int tokens, int t_out, int lo,
                         int width, int col_off, void* stream) {
-  Export ex{static_cast<bf16*>(k_out), static_cast<bf16*>(v_out), tokens, t_out, lo, width,
-            col_off};
-  const bool wide = flags & (kOutF32 | kResAddF32);
-  auto kernel = wide ? gemm_kernel<true> : gemm_kernel<false>;
-  static bool configured[2] = {false, false};
-  if (!configured[wide]) {
-    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           SMEM_BYTES);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    configured[wide] = true;
-  }
-  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  kernel<<<grid, THREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(A), lda, static_cast<const bf16*>(B), ldb, C, ldc, M, N, K, bias,
-      res, ldr, flags, ex);
-  return static_cast<int>(cudaGetLastError());
+  int bn = 0, sms = 0;
+  const int err = tile_n(M, N, &bn, &sms);
+  if (err != 0) return err;
+  alignas(64) CUtensorMap ma, mb;
+  if (!encode_2d(&ma, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, A, K, M, 2LL * lda, 64, BM) ||
+      !encode_2d(&mb, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, B, N, K, 2LL * ldb, 64, 64))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Out out{C, res, ldc, ldr, M, N, flags, (flags & kResIsF32) != 0,
+          (flags & kStore) != 0,
+          Export{static_cast<bf16*>(k_out), static_cast<bf16*>(v_out), tokens, t_out, lo, width,
+                 col_off}};
+  if (!(flags & (kResid | kResAddF32))) out.res = nullptr;
+  const BF16Op::Params p{out, bias};
+  const int form = (flags & kGelu ? kFormGelu : 0) | (flags & kResAddF32 ? kFormRes : 0) |
+                   (flags & kResid ? kFormResStore : 0) | (flags & kExport ? kFormExport : 0) |
+                   (flags & kOutF32 ? kFormOut32 : 0);
+  return bn == 256 ? launch<BF16Op, 256>(form, ma, mb, p, M, N, K, sms, stream)
+                   : launch<BF16Op, 64>(form, ma, mb, p, M, N, K, sms, stream);
 }

@@ -13,7 +13,13 @@ its path went through the kernels (``reset_launches`` / ``launches``).
 
 ``gemm`` and ``layer_norm_rows`` are the shared building blocks of the fused
 encoder and decoder blocks, ``gemm_s8``, ``quant_rows`` and
-``layer_norm_quant`` those of the int8 (W8A8) encoder blocks,
+``layer_norm_quant`` those of the int8 (W8A8) encoder blocks; the two GEMMs
+are one persistent TMA / ``wgmma`` kernel each (csrc/gemm.cu, csrc/gemm_s8.cu
+over the frame of csrc/gemm_hopper.cuh: clusters of two CTAs sharing the
+weight's tiles, a kernel per epilogue form: QuickGELU, a residual or the
+K/V export, one at a time), which read A and the weight through tensor
+maps, so every operand's start and row pitch is 16-byte aligned
+(``require_cuda``) and ragged tiles need no padding;
 ``encoder_attention_packed`` / ``encoder_attention_separate`` the two
 entries of the encoder attention (one TMA / wgmma kernel at every token
 count), ``encoder_attention_s8`` the int8 encoder attention (a staged
@@ -50,7 +56,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 LAUNCHES: Counter = Counter()
 
-# gemm epilogue flags (csrc/gemm_tile.cuh)
+# gemm epilogue flags (csrc/gemm.cu)
 BIAS_F32, BIAS_BF16, GELU, RESID, STORE, EXPORT = 1, 2, 4, 8, 16, 32
 OUT_F32, RES_ADD_F32, RES_IS_F32 = 64, 128, 256
 # gemm_s8 epilogue flags (csrc/gemm_s8.cu)
@@ -193,6 +199,14 @@ def check_launch(name: str, err: int) -> None:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
 
 
+def one_form(name: str, gelu: bool, residual, export) -> None:
+    """Raise unless at most one of QuickGELU, a residual and the K/V export
+    is asked for: the GEMMs' kernels exist for those forms alone
+    (csrc/gemm_hopper.cuh, kForms)."""
+    if bool(gelu) + (residual is not None) + (export is not None) > 1:
+        raise ValueError(f"{name}: QuickGELU, a residual and the K/V export go one at a time")
+
+
 def require_cuda(name: str, *tensors: torch.Tensor,
                  dtype: torch.dtype = torch.bfloat16) -> None:
     """Raise unless every tensor is on the card, of ``dtype``, with a
@@ -231,7 +245,12 @@ def gemm(a: torch.Tensor, b: torch.Tensor, bias: torch.Tensor, *,
          residual: Optional[torch.Tensor] = None, residual_before_cast: bool = False,
          out_dtype: torch.dtype = torch.bfloat16, store: bool = True,
          export: Optional[tuple] = None, col_off: int = 0) -> Optional[torch.Tensor]:
-    """bf16 ``a (M, K) @ b (K, N)`` with f32 accumulate and a fused epilogue.
+    """bf16 ``a (M, K) @ b (K, N)`` with f32 accumulate and a fused epilogue:
+    csrc/gemm.cu, a persistent TMA / ``wgmma`` kernel (128 x 256 tiles in
+    clusters of two, 128 x 64 where M is small). ``a`` and ``b`` may be
+    views with a row pitch larger than their width (``in_proj["w"][:,
+    col_off:]``), 16-byte aligned; K need only be a multiple of 32 (TMA
+    zero-fills the last depth tile).
 
     ``bias`` (N,) f32 is added in f32 before the bf16 cast, or with
     ``bias_after_cast`` rounded to bf16 and added after it (layers.linear).
@@ -242,7 +261,10 @@ def gemm(a: torch.Tensor, b: torch.Tensor, bias: torch.Tensor, *,
     v_slot, tokens, t_out, lo, width)`` (bf16 C only) writes the K/V columns
     (packed column ``col + col_off`` >= width) of each row into the (frames,
     t_out, width) slot views, dropping ``lo`` leading rows per frame and
-    zeroing the pad rows. Returns C (M, N) when ``store``."""
+    zeroing the pad rows. ``gelu``, ``residual`` and ``export`` are forms
+    of their own: a kernel exists for one of them at a time. Returns C
+    (M, N) when ``store``."""
+    one_form("gemm", gelu, residual, export)
     require_cuda("gemm", a, b)
     require_cuda("gemm", bias, dtype=torch.float32)
     m, k = a.shape
@@ -315,14 +337,18 @@ def gemm_s8(a: torch.Tensor, a_scale: torch.Tensor, b_t: torch.Tensor, w_scale: 
             store: bool = True, export: Optional[tuple] = None,
             col_off: int = 0) -> Optional[torch.Tensor]:
     """W8A8 product ``a (M, K) int8 @ b_t (N, K) int8 ^T`` with an exact int32
-    accumulate and the dequant epilogue of _w8a8_dot, in f32:
+    accumulate (csrc/gemm_s8.cu, a persistent TMA / ``wgmma`` kernel) and the
+    dequant epilogue of _w8a8_dot, in f32, bit for bit the plain version's
+    operations outside QuickGELU:
     ``acc * (a_scale / 127) * (w_scale / 127) + bias``, then QuickGELU with
     ``gelu``, then ``residual`` (M, N) f32 or bf16 added in f32, or with
     ``residual_after_cast`` (bf16 residual and output) added to the value
     rounded to bf16. ``a_scale`` (M,) and ``w_scale`` (N,) or (1, N),
     ``bias`` (N,) are f32. C is ``out_dtype`` (f32 or bf16). ``export``
-    (bf16 output only) is gemm's K/V export. Returns C (M, N) when
+    (bf16 output only) is gemm's K/V export; as in gemm, ``gelu``,
+    ``residual`` and ``export`` go one at a time. Returns C (M, N) when
     ``store``."""
+    one_form("gemm_s8", gelu, residual, export)
     require_cuda("gemm_s8", a, b_t, dtype=torch.int8)
     w_scale = w_scale.reshape(-1)
     require_cuda("gemm_s8", a_scale, w_scale, bias, dtype=torch.float32)

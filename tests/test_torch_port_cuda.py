@@ -28,7 +28,14 @@ TMA / wgmma kernel: both entries and both outputs at 1 to 1025 tokens
 (single and ragged key blocks, the narrow last block, an odd number of
 query tiles, the K/V ring resident and refilled) with 12 and 16 heads, on
 2 frames and on 24 (several work items to each persistent block), and
-the pitches and head widths it refuses.
+the pitches and head widths it refuses; and the two GEMMs' persistent
+TMA / wgmma kernels: every epilogue form at a ragged tile (M = 200, N =
+136, bf16 K % 64 == 32), at M = 40,000 on the clustered 128 x 256 tiles
+(several tiles to each block, an odd panel count), at the decoder's M = 16
+and with a row pitch larger than K, the K/V export through the qkv
+weight's column view into a stacked slot, gemm_s8 bit for bit against
+w8a8_dot_plain in every form without QuickGELU, QuickGELU where its
+exponential overflows, and the unaligned starts and pitches both refuse.
 
 Marked ``cuda``; every test skips without a card. Run on a machine with one:
 
@@ -79,15 +86,43 @@ def randn(gen, *shape, scale=1.0):
     return scale * torch.randn(*shape, generator=gen)
 
 
+# The GEMMs' geometries (csrc/gemm_hopper.cuh): (frames, tokens) of M rows,
+# K, the export width w (N = 3w with the export, else 136), and the extra
+# row pitch of A. "ragged": M = 200 (not a multiple of the 128-row tile),
+# N = 136 (a ragged column tile), K = 96 (K % 64 == 32: a zero-filled depth
+# tile); "multi": M = 40,000 (313 row panels, an odd count, so one cluster's
+# pair is half empty) at N = 768 on the 128 x 256 tiles in clusters, several
+# tiles to each persistent block; "m16": the decoder boundary's M = 16 on
+# the 128 x 64 tiles; "pitch": A a view whose rows are 8 values longer.
+GEMM_GEOMETRIES = {
+    "ragged": dict(frames=8, tokens=25, k=96, w=64, n=136, pad=0),
+    "multi": dict(frames=160, tokens=250, k=768, w=256, n=768, pad=0),
+    "m16": dict(frames=2, tokens=8, k=768, w=256, n=768, pad=0),
+    "pitch": dict(frames=8, tokens=25, k=96, w=64, n=136, pad=8),
+}
+
+
+def gemm_rows(gen, dev, m, k, pad, dtype=torch.bfloat16):
+    """A (m, k) bf16 operand, a view with ``pad`` more values a row when
+    pad > 0."""
+    full = randn(gen, m, k + pad).to(dev, dtype)
+    return full[:, :k] if pad else full
+
+
+@pytest.mark.parametrize("geo", list(GEMM_GEOMETRIES))
 @pytest.mark.parametrize("mode", ["bias_f32", "bias_bf16_gelu", "residual", "export"])
-def test_gemm_epilogues_ragged(dev, mode):
+def test_gemm_epilogues_ragged(dev, mode, geo):
+    """Each bf16 epilogue at each geometry of GEMM_GEOMETRIES; the export
+    through the qkv weight's K/V column view (row pitch 3w, col_off = w) into
+    slot 1 of stacked buffers: pad rows zero, slot 0 untouched."""
     from dfd_clip_tpu_torch.ops import _cuda
 
+    g = GEMM_GEOMETRIES[geo]
     gen = torch.Generator().manual_seed(0)
-    frames, tokens, w = 8, 25, 64
-    m, k = frames * tokens, 96                     # M = 200: not a multiple of 128
-    n = 3 * w if mode == "export" else 136         # N = 136: a ragged column tile
-    a = randn(gen, m, k).to(dev, torch.bfloat16)
+    frames, tokens, w, k = g["frames"], g["tokens"], g["w"], g["k"]
+    m = frames * tokens
+    n = 3 * w if mode == "export" else g["n"]
+    a = gemm_rows(gen, dev, m, k, g["pad"])
     b = randn(gen, k, n, scale=k ** -0.5).to(dev, torch.bfloat16)
     bias = randn(gen, n, scale=0.1).to(dev)
     acc = a.float() @ b.float()
@@ -110,11 +145,38 @@ def test_gemm_epilogues_ragged(dev, mode):
         rows = (acc + bias).to(torch.bfloat16).reshape(frames, tokens, n)[:, 1:]
         assert torch.equal(kbuf[1, :, tokens - 1:], torch.zeros_like(kbuf[1, :, tokens - 1:]))
         assert torch.equal(vbuf[1, :, tokens - 1:], torch.zeros_like(vbuf[1, :, tokens - 1:]))
-        assert torch.isnan(kbuf[0]).all()          # other slots untouched
+        assert torch.isnan(kbuf[0]).all() and torch.isnan(vbuf[0]).all()   # other slots untouched
         assert rel_err(kbuf[1, :, : tokens - 1], rows[..., w: 2 * w]) <= REL
         assert rel_err(vbuf[1, :, : tokens - 1], rows[..., 2 * w:]) <= REL
         return
     assert rel_err(got, want) <= REL
+
+
+def test_gemm_refuses_unaligned_operands(dev):
+    """The GEMMs read A and the weight through tensor maps, which need
+    16-byte aligned starts and row pitches: a bf16 A whose rows are 100
+    values apart (200 bytes), a bf16 A starting 2 bytes in, an int8 A whose
+    rows are 776 bytes apart and an int8 weight starting 1 byte in raise
+    before anything is launched."""
+    from dfd_clip_tpu_torch.ops import _cuda
+
+    bias = torch.zeros(64, device=dev)
+    b = torch.zeros(96, 64, device=dev, dtype=torch.bfloat16)
+    buf = torch.zeros(32, 100, device=dev, dtype=torch.bfloat16)
+    _cuda.reset_launches()
+    with pytest.raises(ValueError, match="16 bytes"):
+        _cuda.gemm(buf[:, :96], b, bias)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        _cuda.gemm(buf[:, 1:97], b, bias)
+    q = torch.zeros(32, 776, device=dev, dtype=torch.int8)
+    wq = torch.zeros(64, 769, device=dev, dtype=torch.int8)
+    scale = torch.ones(32, device=dev)
+    with pytest.raises(ValueError, match="16 bytes"):
+        _cuda.gemm_s8(q[:, :768], scale, wq[:, :768].contiguous(), torch.ones(64, device=dev), bias)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        _cuda.gemm_s8(q[:, :768].contiguous(), scale, wq.reshape(-1)[1: 1 + 64 * 768].view(64, 768),
+                      torch.ones(64, device=dev), bias)
+    assert _cuda.launches() == {}
 
 
 def test_layer_norm_rows_ragged(dev):
@@ -358,20 +420,43 @@ def quantised(gen, dev, m, k, n):
             randn(gen, n, scale=0.1).to(dev))
 
 
+# gemm_s8's geometries: as GEMM_GEOMETRIES, with K a multiple of 64 (768,
+# or 3072 for the GELU case) and the pitch case's int8 rows 16 bytes longer.
+S8_GEOMETRIES = {
+    "ragged": dict(frames=8, tokens=25, w=64, n=136, pad=0),
+    "multi": dict(frames=160, tokens=250, w=256, n=768, pad=0),
+    "m16": dict(frames=2, tokens=8, w=256, n=768, pad=0),
+    "pitch": dict(frames=8, tokens=25, w=64, n=136, pad=16),
+}
+
+
+def s8_rows(aq, pad):
+    """aq (M, K) int8 as a view whose rows are ``pad`` bytes longer."""
+    if not pad:
+        return aq
+    full = torch.zeros(aq.shape[0], aq.shape[1] + pad, device=aq.device, dtype=torch.int8)
+    full[:, : aq.shape[1]] = aq
+    return full[:, : aq.shape[1]]
+
+
+@pytest.mark.parametrize("geo", list(S8_GEOMETRIES))
 @pytest.mark.parametrize("case", ["k768_bf16", "k3072_f32_gelu", "res_f32_to_bf16",
                                   "res_bf16_to_f32", "export"])
-def test_gemm_s8_ragged(dev, case):
-    """M = 200 (not a multiple of 128), N = 136 (a ragged column tile) or
-    3 x 64 with the K/V export, K = 768 or 3072."""
+def test_gemm_s8_ragged(dev, case, geo):
+    """Each W8A8 epilogue at each geometry of S8_GEOMETRIES (N = 3 x w with
+    the K/V export through the weight's row view wq[w:], col_off = w, into
+    slot 1 of stacked buffers: pad rows zero, slot 0 untouched)."""
     from dfd_clip_tpu_torch.ops import _cuda
     from dfd_clip_tpu_torch.ops.int8 import w8a8_dot_plain
 
+    g = S8_GEOMETRIES[geo]
     gen = torch.Generator().manual_seed(10)
-    frames, tokens, w = 8, 25, 64
+    frames, tokens, w = g["frames"], g["tokens"], g["w"]
     m, k = frames * tokens, 3072 if case == "k3072_f32_gelu" else 768
-    n = 3 * w if case == "export" else 136
+    n = 3 * w if case == "export" else g["n"]
     aq, a_s, wq, ws, bias = quantised(gen, dev, m, k, n)
     v = w8a8_dot_plain(aq, a_s[:, None], wq, ws) + bias
+    aq = s8_rows(aq, g["pad"])
     if case == "k768_bf16":
         got, want = _cuda.gemm_s8(aq, a_s, wq, ws, bias), v.to(torch.bfloat16)
     elif case == "k3072_f32_gelu":
@@ -394,12 +479,73 @@ def test_gemm_s8_ragged(dev, case):
         rows = v.to(torch.bfloat16).reshape(frames, tokens, n)[:, 1:]
         assert torch.equal(kbuf[1, :, tokens - 1:], torch.zeros_like(kbuf[1, :, tokens - 1:]))
         assert torch.equal(vbuf[1, :, tokens - 1:], torch.zeros_like(vbuf[1, :, tokens - 1:]))
-        assert torch.isnan(kbuf[0]).all()          # other slots untouched
-        assert rel_err(kbuf[1, :, : tokens - 1], rows[..., w: 2 * w]) <= REL
-        assert rel_err(vbuf[1, :, : tokens - 1], rows[..., 2 * w:]) <= REL
+        assert torch.isnan(kbuf[0]).all() and torch.isnan(vbuf[0]).all()   # other slots untouched
+        assert torch.equal(kbuf[1, :, : tokens - 1], rows[..., w: 2 * w])
+        assert torch.equal(vbuf[1, :, : tokens - 1], rows[..., 2 * w:])
         return
     assert got.dtype == want.dtype
     assert rel_err(got, want) <= (1e-5 if got.dtype == torch.float32 else REL)
+
+
+def test_gemm_gelu_saturates(dev):
+    """QuickGELU's reciprocal takes no slow path: where 1 + exp(-1.702 v)
+    overflows (v down to about -1000 here) both GEMMs give v x 0, finite,
+    as the plain versions do."""
+    from dfd_clip_tpu_torch.ops import _cuda
+    from dfd_clip_tpu_torch.ops.int8 import w8a8_dot_plain
+
+    gen = torch.Generator().manual_seed(12)
+    m, k, n = 300, 768, 264
+    a = randn(gen, m, k, scale=30.0).to(dev, torch.bfloat16)
+    b = randn(gen, k, n, scale=k ** -0.5).to(dev, torch.bfloat16)
+    bias = randn(gen, n, scale=0.1).to(dev)
+    v = a.float() @ b.float() + bias
+    assert v.min().item() < -100
+    got = _cuda.gemm(a, b, bias, gelu=True)
+    assert rel_err(got, (v * torch.sigmoid(1.702 * v)).to(torch.bfloat16)) <= REL
+    aq = torch.randint(-127, 128, (m, k), generator=gen).to(torch.int8).to(dev)
+    wq = torch.randint(-127, 128, (n, k), generator=gen).to(torch.int8).to(dev)
+    a_s = (torch.rand(m, generator=gen) + 2.0).to(dev)
+    ws = (torch.rand(1, n, generator=gen) + 2.0).to(dev)
+    v = w8a8_dot_plain(aq, a_s[:, None], wq, ws) + bias
+    assert v.min().item() < -100
+    got = _cuda.gemm_s8(aq, a_s, wq, ws, bias, gelu=True, out_dtype=torch.float32)
+    assert rel_err(got, v * torch.sigmoid(1.702 * v)) <= 1e-5
+
+
+@pytest.mark.parametrize("geo", ["ragged", "multi", "m16"])
+@pytest.mark.parametrize("form", ["plain_bf16", "plain_f32", "res_f32_to_bf16", "res_f32_to_f32",
+                                  "res_bf16_to_bf16", "res_bf16_to_f32", "res_after_cast"])
+def test_gemm_s8_bit_equal(dev, form, geo):
+    """gemm_s8 repeats w8a8_dot_plain's operations (an exact product, then
+    acc * (a_s / 127) * (w_s / 127) + bias and the residual in the kernel's
+    order, none fused), so every form without QuickGELU equals the plain
+    version bit for bit, in bf16 and f32 outputs."""
+    from dfd_clip_tpu_torch.ops import _cuda
+    from dfd_clip_tpu_torch.ops.int8 import w8a8_dot_plain
+
+    g = S8_GEOMETRIES[geo]
+    gen = torch.Generator().manual_seed(11)
+    m, k, n = g["frames"] * g["tokens"], 768, g["n"]
+    aq, a_s, wq, ws, bias = quantised(gen, dev, m, k, n)
+    v = w8a8_dot_plain(aq, a_s[:, None], wq, ws) + bias
+    out = torch.float32 if form.endswith("f32") else torch.bfloat16
+    res = None
+    if form.startswith("res_f32"):
+        res = randn(gen, m, n).to(dev)
+    elif form.startswith("res_bf16") or form == "res_after_cast":
+        res = randn(gen, m, n).to(dev, torch.bfloat16)
+    after = form == "res_after_cast"
+    got = _cuda.gemm_s8(aq, a_s, wq, ws, bias, out_dtype=out, residual=res,
+                        residual_after_cast=after)
+    if res is None:
+        want = v.to(out)
+    elif after:
+        want = (res.float() + v.to(torch.bfloat16).float()).to(out)
+    else:
+        want = (res.float() + v).to(out)
+    assert got.dtype == out
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
@@ -757,16 +903,18 @@ def test_encoder_attention_int8_on_card(dev, tokens, mode):
     assert (rows > 1e-4).float().mean().item() <= 2e-2
 
 
+@pytest.mark.parametrize("geo", list(GEMM_GEOMETRIES))
 @pytest.mark.parametrize("form", ["f32_out_bf16_residual", "f32_residual"])
-def test_gemm_wide_forms_ragged(dev, form):
+def test_gemm_wide_forms_ragged(dev, form, geo):
     """The bf16 whole block's two products: an f32 output with the bf16 h
     added in f32 (out-projection), and the f32 hmid added before the one
-    bf16 rounding (c_proj); M = 200, N = 136."""
+    bf16 rounding (c_proj); at each geometry of GEMM_GEOMETRIES."""
     from dfd_clip_tpu_torch.ops import _cuda
 
+    g = GEMM_GEOMETRIES[geo]
     gen = torch.Generator().manual_seed(30)
-    m, k, n = 200, 96, 136
-    a = randn(gen, m, k).to(dev, torch.bfloat16)
+    m, k, n = g["frames"] * g["tokens"], g["k"], g["n"]
+    a = gemm_rows(gen, dev, m, k, g["pad"])
     b = randn(gen, k, n, scale=k ** -0.5).to(dev, torch.bfloat16)
     bias = randn(gen, n, scale=0.1).to(dev)
     acc = a.float() @ b.float() + bias

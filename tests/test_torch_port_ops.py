@@ -309,3 +309,25 @@ def test_kernel_wrappers_refuse_other_devices():
                    torch.zeros(32, 8, dtype=torch.bfloat16), torch.zeros(8))
     with pytest.raises(ValueError):
         _cuda.layer_norm_rows(torch.zeros(4, 64, dtype=torch.bfloat16), ln["scale"], ln["bias"])
+
+
+@pytest.mark.parametrize("forms", [("gelu", "residual"), ("gelu", "export"),
+                                   ("residual", "export")], ids="+".join)
+@pytest.mark.parametrize("wrapper", ["gemm", "gemm_s8"])
+def test_gemm_wrappers_take_one_epilogue_form(wrapper, forms):
+    """The GEMMs' kernels exist for QuickGELU, a residual or the K/V export
+    one at a time (csrc/gemm_hopper.cuh, kForms): a pair is refused by its
+    arguments, before any tensor is looked at."""
+    m, k, n = 4, 64, 24
+    kw = {"gelu": True, "residual": torch.zeros(m, n, dtype=torch.bfloat16),
+          "export": (torch.zeros(1, 8, 8, dtype=torch.bfloat16),
+                     torch.zeros(1, 8, 8, dtype=torch.bfloat16), 4, 8, 1, 8)}
+    kw = {f: kw[f] for f in forms}
+    bias = torch.zeros(n)
+    with pytest.raises(ValueError, match="one at a time"):
+        if wrapper == "gemm":
+            _cuda.gemm(torch.zeros(m, k, dtype=torch.bfloat16),
+                       torch.zeros(k, n, dtype=torch.bfloat16), bias, **kw)
+        else:
+            _cuda.gemm_s8(torch.zeros(m, k, dtype=torch.int8), torch.ones(m),
+                          torch.zeros(n, k, dtype=torch.int8), torch.ones(n), bias, **kw)

@@ -26,6 +26,7 @@ from dfd_clip_tpu_torch.ops import _cuda
 from dfd_clip_tpu_torch.ops import gemm_chain as gc
 from dfd_clip_tpu_torch.ops import study_attention as sa
 from dfd_clip_tpu_torch.tools import bench_attention as tba
+from dfd_clip_tpu_torch.tools import bench_decoder_boundary as tbd
 from dfd_clip_tpu_torch.tools import bench_megakernel_probe as tbm
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -163,3 +164,16 @@ def test_tools_default_to_the_card():
         tba.main(["xla_einsum"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tbm.main(["--check"])
+
+
+def test_boundary_tool_checks_on_cpu_and_defaults_to_the_card(capsys):
+    """bench_decoder_boundary's main(): with --device cpu its check at a
+    narrow width and no timing; without a device argument the card, which
+    this machine lacks."""
+    assert tbd.main(["--device", "cpu", "--widths", "64"]) == 0
+    out = capsys.readouterr().out
+    assert "width 64: correctness ok" in out and " ms" not in out
+    if torch.cuda.is_available():
+        return
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tbd.main(["--widths", "64"])
