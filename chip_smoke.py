@@ -56,18 +56,22 @@
    the kernels, the plain route and the plain route in f32 are compared and
    the kernels' logits and P(fake) held against the f32 route, int8 against
    bf16 by cosine, and a
-   device-resident predict of each is timed and traced;
+   device-resident predict of each is timed and traced; on the bf16 route
+   each block's two halves (attention, MLP) are fed the same input through
+   the kernels and the bf16 plain route and read layer by layer;
 9. drives DINOv2 ViT-B/14 serving (`[dinov2 serve path]`, keep 6-11) the
    same way in bf16;
 10. checks the encoder's alternative kernels at the flagship shapes
    (`[kernels variants]`): the bf16 whole block with its stacked export, the
    int8 encoder attention in both modes at (320, 197, 12 x 64), and the
    whole-encoder tower (12 layers, keep 6-11) in bf16 and int8 with int8
-   attention "0", "1" and "qk", each against its plain version (the tower
-   also against the per-layer kernel chain, which runs the same block
-   bodies but the bf16 attention's; with bf16 attention each layer's stage
-   is held to the per-layer kernels on the same input and the tower's
-   growth from the chain is printed layer by layer), timed with its bound;
+   attention "0", "1" and "qk", each against its plain version and against
+   the per-layer kernel chain, whose bodies its stages run (to 1e-3 of the
+   max with 99 % of the values equal; with bf16 attention each layer's
+   stage is also held on the same input and the tower's K/V printed layer
+   by layer), timed with its bound beside the chain's time on the same
+   input, its chunk, grid, grid barriers and the build's time, one launch's
+   stage clock, and (bf16, int8 attention "1") its time at each chunk rule;
 11. drives the six paths of those kernels (`[variant serve paths]`): a
    Scorer over the flagship Detector with EncoderKernels(block="full"), with
    compute_int8 and int8_attn "1", and with tower=True in bf16 and in
@@ -96,10 +100,11 @@
    against its frame-chunked plain version; the whole int8 block at 257 and
    577 tokens with int8 attention "0" and "1"; the 24-layer int8 tower
    (keep 18-23) at 257 and 577 tokens in each int8 attention mode, against
-   the per-layer kernel chain (with bf16 attention each layer's stage on
-   the same input too) and the plain chain, printing its grid, chunk
-   and grid barriers and the kernel chain's drift from the plain chain
-   layer by layer;
+   the per-layer kernel chain (bit-level, as in 10; with bf16 attention
+   each layer's stage on the same input too) and the plain chain, timed
+   beside the chain with its chunk, grid, grid barriers and stage clock
+   (mode "0": at each chunk rule too), printing the kernel chain's drift
+   from the plain chain layer by layer;
 15. drives the JAX package's megaL ladder (`[vit-l ladder]`,
    tools/bench_r3_ladder.py:330-393): on ViT-L/14 and ViT-L/14@336px (24
    layers, keep 18-23, compute_int8, one parameter seed) each rung, the
@@ -108,7 +113,8 @@
    Scorer, counters zeroed before and read after, its launches asserted;
    the last request's batch is held against the plain route in f32, its
    logits compared with the split control's by cosine (gated without int8
-   attention), each tower rung's K/V held to its per-layer kernel chain;
+   attention), each tower rung's K/V held to its per-layer kernel chain
+   (bit-level, as in 10);
    a device-resident predict is timed and traced;
 16. checks the tools' kernels (`[kernels study]`): every numerics mode of
    the study attention at (320, 197, 12 x 64) through the port tool's
@@ -156,23 +162,80 @@ TOL_COSINE = 0.99         # int8 vs bf16 logits on the same parameters
 # chain): the kernels' f32 sums run in another order, which moves int8
 # quantisers across a rounding step (1/127 of a row's maximum) and bf16 by an
 # ulp, and the next layers carry that on (on an H100 80GB HBM3 at 700 W: bf16
-# 8.9e-3, int8 2.6-2.8e-2 of the max). Each tower is also held to the
-# per-layer kernel chain (chain_tol): bit-equal with int8 attention, whose
-# block bodies the tower runs; with bf16 attention the tower's body (wmma or
-# mma.sync) and the per-layer TMA / wgmma kernel sum in another order, so
-# they agree to the ulp, not to the bit (the bf16 tower 9.4e-3 of the max).
+# 8.9e-3, int8 2.6-2.8e-2 of the max).
 TOL_TOWER = 5e-2
+# Each tower is also held to its per-layer kernel chain, whose bodies its
+# stages run (the GEMM frame with the same Op types and epilogue forms, the
+# encoder attention's body, the row and int8 attention bodies): within
+# TOL_CHAIN of the max with at least CHAIN_EQUAL of the values equal
+# (bit-equal in every mode on an H100 80GB HBM3 at 700 W, PERF.md).
+TOL_CHAIN, CHAIN_EQUAL = 1e-3, 0.99
 
 
-def chain_tol(int8: bool, attn: str) -> float:
-    """A deep tower's hold against its per-layer kernel chain: TOL_ENCODER,
-    but TOL_TOWER for an int8 tower with bf16 attention (mode "0"). There
-    the two attention bodies differ by ulps at every layer, which the int8
-    quantisers turn into steps of 1/127 and the next layers carry on, as
-    they do against the plain chain. Each of its stages is held at
-    TOL_ENCODER on the same input (tower_stage_holds); only the carried-on
-    sum of the layers takes TOL_TOWER."""
-    return TOL_TOWER if int8 and attn == "0" else TOL_ENCODER
+def hold_chain(name: str, pairs) -> tuple:
+    """A tower's outputs against its per-layer kernel chain's, ``pairs`` of
+    (tower, chain) tensors: max|d| / max|chain| within TOL_CHAIN and at least
+    CHAIN_EQUAL of the values equal, else the run fails after the phase.
+    Returns (rel_err, equal share)."""
+    err = max(rel_err(got, chain) for got, chain in pairs)
+    same = min((got == chain).float().mean().item() for got, chain in pairs)
+    print(f"  {name} vs the per-layer kernel chain: rel_err {err:.3e}, equal share {same:.6f}, "
+          f"bit-equal {same == 1.0} (tol {TOL_CHAIN:g}, equal >= {CHAIN_EQUAL:g})", flush=True)
+    if err > TOL_CHAIN or same < CHAIN_EQUAL:
+        fail(f"FAIL {name}: {err:.3e} from the per-layer kernel chain, {same:.6f} of the values "
+             f"equal", True)
+    return err, same
+
+
+def chunk_rules(frames: int, tokens: int, width: int, clusters: int) -> dict:
+    """The tower's chunk rules timed against each other (frames a chunk):
+    the earlier L2 rule, a chunk's h and qkv within half of the 50 MB L2
+    (floor(25 MiB / (8 T W))); the most frames whose W-wide products fill
+    the co-resident clusters 1 to 8 times; and ops/_cuda.py tower_chunk's,
+    the whole batch up to 2^16 rows."""
+    from dfd_clip_tpu_torch.ops import _cuda
+
+    rules = {"L2 (earlier)": max(1, min(frames, 25 * 2 ** 20 // (8 * tokens * width)))}
+    # a unit is two 128-row panels at one 256-column tile of the W-wide product
+    panels = 2 * (clusters // -(-width // 256))
+    for waves in (1, 2, 4, 8):
+        rules[f"{waves} wave{'s' if waves > 1 else ''}"] = max(
+            1, min(frames, waves * panels * 128 // tokens))
+    rules["tower_chunk (the whole batch, <= 2^16 rows)"] = _cuda.tower_chunk(frames, tokens)
+    return rules
+
+
+def tower_timings(name: str, h, blocks: list, hh: int, keep: tuple, int8: bool, mode: str,
+                  ms: float, chain_ms: float, rules: bool = False) -> None:
+    """Print the tower's time beside its per-layer kernel chain's on the same
+    input, its chunk, grid, grid barriers a launch and the build's time, then
+    one launch's stage clock (tools/bench_tower_stages.py) and, with
+    ``rules``, the tower timed at each rule of chunk_rules."""
+    from dfd_clip_tpu_torch.ops import _cuda, tower
+    from dfd_clip_tpu_torch.tools import bench_tower_stages as bts
+
+    n, t, w = h.shape
+    grid = _cuda.tower_grid(t, int8, mode)
+    clusters = grid // _cuda.TOWER_CLUSTER
+    chunk = _cuda.tower_chunk(n, t)
+    print(f"  {name}: tower {ms:.3f} ms, per-layer kernel chain {chain_ms:.3f} ms on the same "
+          f"input (tower / chain {ms / chain_ms:.3f}); chunk {chunk} frames, grid {grid} blocks "
+          f"({clusters} clusters of {_cuda.TOWER_CLUSTER}), "
+          f"{_cuda.tower_barriers(n, chunk, keep[-1] + 1, int8)} grid barriers a launch; build "
+          f"{BUILD_S:.2f} s", flush=True)
+    stages, total = bts.stage_times(h, blocks, hh, keep, int8, mode)
+    print(f"  {name} stage clock (one launch, {total:.3f} ms): " + ", ".join(
+        f"{k} {v[0]:.3f} ms ({1e3 * v[0] / v[1]:.1f} us x {v[1]})"
+        for k, v in sorted(stages.items(), key=lambda kv: -kv[1][0])), flush=True)
+    if not rules:
+        return
+    layers = [tower._layer(b, h.dtype, int8) for b in blocks[: keep[-1] + 1]]
+    times = []
+    for rule, frames in chunk_rules(n, t, w, clusters).items():
+        tm = time_ms(lambda: _cuda.encoder_tower(h, layers, hh, first=keep[0], lo=1, int8=int8,
+                                                 attn=mode, chunk=frames), iters=3, warmup=1)
+        times.append(f"{rule}: {frames} frames {tm:.3f} ms")
+    print(f"  {name} chunk rules: " + "; ".join(times), flush=True)
 
 
 def tower_stage_holds(name: str, blocks: list, inputs: list, hh: int, d: int, int8: bool,
@@ -268,6 +331,7 @@ STUDY_ROWS = (("pallas_frames2", 102, "f32"), ("pallas_bf16_f1", 102, "bf16"),
               ("pallas_diet_max_f1", 102, "diet"), ("pallas_diet_nomax_f1", 102, "diet_nomax"),
               ("pallas_pair_packed", 252, "f32"), ("pallas_full_packed", 323, "bf16"))
 DEFERRED: list = []       # failed holds of a phase that ran to its end
+BUILD_S = 0.0             # the kernels' build, seconds (main)
 
 
 def card_line() -> str:
@@ -1363,6 +1427,56 @@ def kv_drift(label: str, det, params, x) -> None:
         print(f"  {label} attention output a layer, kernels vs bf16 plain: " + " ".join(
             f"{rel_err(a, b):.3e}" for a, b in zip(*atts)), flush=True)
 
+def half_drift(label: str, det, params, x) -> list:
+    """Each block's two halves of the bf16 composition (models/clip_vit.py
+    composition_block) on one batch, the kernel route and the bf16 plain
+    route fed the same input: the attention half (LN1, qkv, attention,
+    out-projection, residual) from the kernel route's block input, the MLP
+    half (LN2, MLP, residual) from the kernel route's attention-half output;
+    printed layer by layer as max|d| / max|plain| of the half's output.
+    Returns the readings [(attention half, MLP half)] by layer."""
+    import torch
+
+    from dfd_clip_tpu_torch.models import clip_vit, dinov2_vit, layers
+
+    cfg, enc = det.vit_cfg, params["encoder"]
+    dinov2 = det._dinov2()
+    ffn = dinov2_vit.apply_ffn if dinov2 else clip_vit.clip_mlp
+
+    def attn_half(bp, h):
+        n, t, w = h.shape
+        qkv = layers.linear(bp["attn"]["in_proj"], layers.layer_norm_rows(bp["ln_1"], h))
+        if dinov2:
+            q, k, v = (s_.reshape(n, t, cfg.heads, cfg.head_dim) for s_ in qkv.split(w, dim=-1))
+            att = clip_vit.encoder_self_attention(q, k, v).reshape(n, t, w)
+        else:
+            att = clip_vit.encoder_self_attention_qkv(qkv, cfg.heads, cfg.head_dim)
+        return h + clip_vit._layer_scale(bp, "ls1", layers.linear(bp["attn"]["out_proj"], att))
+
+    def mlp_half(bp, h):
+        return h + clip_vit._layer_scale(bp, "ls2", ffn(bp["mlp"],
+                                                        layers.layer_norm_rows(bp["ln_2"], h)))
+
+    readings = []
+    with torch.no_grad():
+        frames = det.preprocess(torch.as_tensor(x, device="cuda"))
+        frames = frames.reshape((-1,) + tuple(frames.shape[2:]))
+        embed = dinov2_vit.embed if dinov2 else clip_vit.embed_patches
+        h = embed(enc, frames, cfg, det.compute_dtype)
+        for i in range(max(det.layer_indices)):
+            bp = enc["blocks"][i]
+            hmid = attn_half(bp, h)
+            out = mlp_half(bp, hmid)
+            with plain_versions():
+                readings.append((rel_err(hmid, attn_half(bp, h)), rel_err(out, mlp_half(bp, hmid))))
+            h = out
+    print(f"  {label} each block's halves on the same input, kernels vs bf16 plain (rel of "
+          f"the max, layers 0-{len(readings) - 1}): attention half " + " ".join(
+              f"{a:.2e}" for a, _ in readings) + "; MLP half " + " ".join(
+              f"{b:.2e}" for _, b in readings), flush=True)
+    return readings
+
+
 def with_video(det, params, x, m):
     """(logits, video features) of one predict."""
     logits, feats = det.predict(params, x, m, with_video_features=True)
@@ -1869,15 +1983,17 @@ def check_split_chain(rows: list, h, blk: dict) -> None:
                paths=VITL_PATHS + VITL336_PATHS + VITL_LADDER + VITL336_LADDER)
 
 
-def wide_serve(card: str, label: str, det, raws: list, expected: dict, used: tuple):
+def wide_serve(card: str, label: str, det, raws: list, expected: dict, used: tuple,
+               halves: bool = False):
     """A Scorer over ``det`` with params ``raws[0]`` answers the four
     requests (counted); then, on the params of every seed in ``raws`` and on
     the batches of the last two requests, the kernels, the bf16 plain route
     and the f32 plain route are compared (hold_wide), and the kernels' logits
     and per-clip |dP(fake)| must lie within TOL_LOGITS_F32 and TOL_PFAKE_F32
     of the f32 route on every batch (a miss fails the run after the phase);
-    a device-resident predict is timed and traced. Returns (counts, the
-    logits of seed 0 on the last request's batch)."""
+    a device-resident predict is timed and traced; with ``halves`` each
+    block's two halves are read on the same input (half_drift). Returns
+    (counts, the logits of seed 0 on the last request's batch)."""
     import torch
 
     from dfd_clip_tpu_torch.serve import Scorer
@@ -1890,6 +2006,8 @@ def wide_serve(card: str, label: str, det, raws: list, expected: dict, used: tup
     det32.compute_dtype = torch.float32
     readings = []
     kv_drift(label, det, scorer.params, last_batch(requests)[0])
+    if halves:
+        half_drift(label, det, scorer.params, last_batch(requests)[0])
     for seed, raw in enumerate(raws):
         params = scorer.params if seed == 0 else det.prepare_params(raw)
         params32 = det32.prepare_params(raw)
@@ -1941,7 +2059,8 @@ def vitl_serve_path(card: str, seeds: int, arch: str = "ViT-L/14", label: str = 
         card, f"{label} serve", bf16, raws,
         {"fused_encoder_attention_qkv": 20, "fused_encoder_attn_block": 0,
          "fused_encoder_mlp_block": 0, "encoder_attention": 0, **decoder},
-        used=("fused_encoder_attention_qkv", "layer_norm_rows", "gemm"))
+        used=("fused_encoder_attention_qkv", "layer_norm_rows", "gemm"),
+        halves=tokens == WIDE_TOKENS)
     print(f"[{label} int8 serve] the same params and requests, op_mode compute_int8", flush=True)
     int8 = detector(**cfg, op_mode={"temporal_position": 1, "compute_int8": 1})
     counts8, got = wide_serve(
@@ -1969,7 +2088,7 @@ def dinov2_serve_path(card: str, seeds: int) -> dict:
         {"fused_encoder_attention": 11, "fused_encoder_attention_qkv": 0,
          "fused_encoder_attn_block": 0, "fused_encoder_mlp_block": 0,
          "fused_decoder_attention": 6, "decoder_boundary": 7},
-        used=("fused_encoder_attention", "layer_norm_rows", "gemm"))
+        used=("fused_encoder_attention", "layer_norm_rows", "gemm"), halves=True)
     return counts
 
 
@@ -2003,10 +2122,10 @@ def check_variant_kernels(rows: list) -> dict:
     import torch
 
     from dfd_clip_tpu_torch.models import clip_vit
-    from dfd_clip_tpu_torch.ops import _cuda
     from dfd_clip_tpu_torch.ops import attention as att
     from dfd_clip_tpu_torch.ops import encoder_block as eb
     from dfd_clip_tpu_torch.ops import tower
+    from dfd_clip_tpu_torch.tools import bench_tower_stages as bts
 
     cfg = clip_vit.VIT_B16
     n, t, w, hh, d = CLIPS * FRAMES, cfg.num_tokens, cfg.width, cfg.heads, cfg.head_dim
@@ -2077,9 +2196,8 @@ def check_variant_kernels(rows: list) -> dict:
         name = f"fused_encoder_tower {label}"
         kw = dict(keep=KEEP, drop_cls=True, int8_gemm=int8, int8_attn=mode)
         k, v = tower.fused_encoder_tower(h, blocks, hh, d, **kw)
-        # the per-layer kernel chain (one launch each: the same block bodies but
-        # the bf16 attention's), exporting layers 1-11 and keeping each
-        # layer's input
+        # the per-layer kernel chain (one launch a kernel), exporting layers
+        # 1-11 and keeping each layer's input
         kc = torch.empty((KEEP[-1], *k.shape[1:]), dtype=k.dtype, device=dev)
         vc = torch.empty_like(kc)
         x, inputs = h, []
@@ -2096,15 +2214,10 @@ def check_variant_kernels(rows: list) -> dict:
                                     export_into=(kc, vc, KEEP[-1] - 1, KEEP[-1]), int8_gemm=int8)
         del x
         kept = slice(KEEP[0] - 1, KEEP[-1])
-        same = min((k == kc[kept]).float().mean().item(), (v == vc[kept]).float().mean().item())
-        chain_err = max(rel_err(k, kc[kept]), rel_err(v, vc[kept]))
-        print(f"  {name} vs the per-layer kernel chain: rel_err {chain_err:.3e}, "
-              f"equal share {same:.6f} (tol {chain_tol(int8, mode):g})", flush=True)
-        if chain_err > chain_tol(int8, mode):
-            fail(f"FAIL {name}: {chain_err:.3e} from the per-layer kernels", True)
+        hold_chain(name, ((k, kc[kept]), (v, vc[kept])))
         if mode == "0":
-            # the bf16 attention bodies differ: each stage on the same input,
-            # then the tower's growth from the chain over layers 1-11
+            # each stage on the same input, then the tower against the chain
+            # over layers 1-11
             tower_stage_holds(name, blocks, inputs, hh, d, int8, mode)
             ka, va = tower.fused_encoder_tower(h, blocks, hh, d,
                                                **{**kw, "keep": range(1, KEEP[-1] + 1)})
@@ -2117,7 +2230,7 @@ def check_variant_kernels(rows: list) -> dict:
         err = compare(f"{name} k", k, kp, TOL_TOWER, defer=True)
         err = max(err, compare(f"{name} v", v, vp, TOL_TOWER, defer=True))
         errs[label] = err
-        del kp, vp, k, v
+        del kp, vp
         # operations: 11 whole blocks and the K/V columns of layer 11 (the
         # attention's two products on int8 or bf16 as the mode has them);
         # bytes: h in, every weight, bias, scale and LayerNorm read once, the
@@ -2130,17 +2243,20 @@ def check_variant_kernels(rows: list) -> dict:
         layer_bytes = 12.0 * w * w * wb + 4.0 * 13 * w + (4.0 * 9 * w if int8 else 0)
         nb = (2.0 * m_rows * w + 11 * layer_bytes + 2.0 * w * w * wb + 4.0 * 6 * w
               + 2 * 2.0 * nsel * n * (t - 1) * w)
+        ms = time_ms(lambda: tower.fused_encoder_tower(h, blocks, hh, d, **kw), iters=5)
+        kc, vc = torch.empty_like(k), torch.empty_like(v)
+        chain_ms = time_ms(lambda: bts.kernel_chain(h, blocks, hh, KEEP, int8, mode, kc, vc),
+                           iters=5)
+        del k, v, kc, vc
         row(name, "dfd_clip_tpu/ops/pallas_tower.py:425", "dfd_clip_tpu_torch/csrc/encoder_tower.cu",
-            time_ms(lambda: tower.fused_encoder_tower(h, blocks, hh, d, **kw), iters=5),
+            ms,
             time_ms(lambda: tower.fused_encoder_tower_plain(h, blocks, hh, d, **kw), iters=1,
                     warmup=1),
             None, 0, 0, 0, err, counter="fused_encoder_tower",
             paths=("tower_" + label.replace(" ", "_"),),
             bound=(max(ops_t, nb / HBM) * 1e3, "operations" if ops_t >= nb / HBM else "bytes"))
-    print(f"  tower grid {_cuda.tower_grid(t, False, '0')} blocks (bf16), "
-          f"{_cuda.tower_grid(t, True, '1')} (int8 attention) on "
-          f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs; chunk "
-          f"{_cuda.tower_chunk(n, t, w)} frames", flush=True)
+        tower_timings(name, h, blocks, hh, KEEP, int8, mode, ms, chain_ms,
+                      rules=label in ("bf16", "int8 attn"))
     return errs
 
 
@@ -2329,15 +2445,6 @@ def check_577_kernels(rows: list) -> None:
                             t_out, t_out, VITL336_PATHS + VITL336_LADDER)
 
 
-def tower_barriers(frames: int, tokens: int, width: int, last: int) -> int:
-    """Grid barriers of one int8 tower launch: 9 a layer below ``last``, 2
-    for it, per chunk of tower_chunk frames."""
-    from dfd_clip_tpu_torch.ops import _cuda
-
-    chunk = _cuda.tower_chunk(frames, tokens, width)
-    return -(-frames // chunk) * (9 * last + 2)
-
-
 def check_tower_wide_kernels(rows: list) -> None:
     """The ViT-L int8 ladder's kernels at its shapes (320 frames, width 1024,
     16 heads): the int8 attention's streamed kernel at (320, 577, 16 x 64)
@@ -2355,6 +2462,7 @@ def check_tower_wide_kernels(rows: list) -> None:
     from dfd_clip_tpu_torch.ops import attention as att
     from dfd_clip_tpu_torch.ops import encoder_block as eb
     from dfd_clip_tpu_torch.ops import tower
+    from dfd_clip_tpu_torch.tools import bench_tower_stages as bts
 
     n, w, hh, d, bf = CLIPS * FRAMES, 1024, 16, 64, torch.bfloat16
     dev = torch.device("cuda")
@@ -2437,16 +2545,14 @@ def check_tower_wide_kernels(rows: list) -> None:
         m_rows = n * t
         print(f"  tower at {t} tokens: grid {[_cuda.tower_grid(t, True, a) for a in ('0', '1', 'qk')]}"
               f" blocks (int8 attention 0, 1, qk) on "
-              f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs; chunk "
-              f"{_cuda.tower_chunk(n, t, w)} frames, {tower_barriers(n, t, w, last)} grid "
-              f"barriers a launch", flush=True)
+              f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs", flush=True)
         for mode in ("0", "1", "qk"):
             label = {"0": "", "1": " attn", "qk": " qk"}[mode]
             name = f"fused_encoder_tower int8{label} 24 layers {t}"
             kw = dict(keep=LADDER_KEEP, drop_cls=True, int8_gemm=True, int8_attn=mode)
             k, v = tower.fused_encoder_tower(h, blocks, hh, d, **kw)
-            # the per-layer kernel chain (one launch each: the same block bodies
-            # but the bf16 attention's), keeping h after every layer
+            # the per-layer kernel chain (a launch a kernel: the bodies the
+            # tower's stages run), keeping h after every layer
             kc, vc = torch.empty_like(k), torch.empty_like(v)
             x, hs = h, []
             for i in range(last):
@@ -2460,17 +2566,14 @@ def check_tower_wide_kernels(rows: list) -> None:
             eb.fused_encoder_attn_block(x, blocks[last]["ln_1"], blocks[last]["attn"], hh, d,
                                         drop_cls=True, last_only=True,
                                         export_into=(kc, vc, nsel - 1, nsel), int8_gemm=True)
-            same = min((k == kc).float().mean().item(), (v == vc).float().mean().item())
-            chain_err = max(rel_err(k, kc), rel_err(v, vc))
-            print(f"  {name} vs the per-layer kernel chain: rel_err {chain_err:.3e}, "
-                  f"equal share {same:.6f}, bit-equal {same == 1.0} (tol "
-                  f"{chain_tol(True, mode):g}); layers {first}-{last}: "
+            hold_chain(name, ((k, kc), (v, vc)))
+            print(f"  {name} vs the per-layer kernel chain, layers {first}-{last}: "
                   + " ".join(f"{max(rel_err(k[j], kc[j]), rel_err(v[j], vc[j])):.2e}"
                              for j in range(nsel)), flush=True)
-            if chain_err > chain_tol(True, mode):
-                fail(f"FAIL {name}: {chain_err:.3e} from the per-layer kernels", True)
+            chain_ms = time_ms(lambda: bts.kernel_chain(h, blocks, hh, LADDER_KEEP, True, mode,
+                                                        kc, vc), iters=2, warmup=1)
             del kc, vc, x
-            if mode == "0":   # the bf16 attention bodies differ: each stage on the same input
+            if mode == "0":   # each stage on the same input as the per-layer kernels
                 tower_stage_holds(name, blocks, [h] + hs[:-1], hh, d, True, mode)
             # the plain chain, layer by layer as fused_encoder_tower_plain runs it
             # (timed, one run), and its drift from the kernel chain after each layer
@@ -2510,13 +2613,15 @@ def check_tower_wide_kernels(rows: list) -> None:
             layer_bytes = 12.0 * w * w + 4.0 * 13 * w + 4.0 * 9 * w
             nb = 2.0 * m_rows * w + 23 * layer_bytes + 2.0 * w * w + 4.0 * 6 * w \
                 + 2 * 2.0 * nsel * n * (t - 1) * w
+            ms = time_ms(lambda: tower.fused_encoder_tower(h, blocks, hh, d, **kw), iters=3,
+                         warmup=1)
             row(name, "dfd_clip_tpu/ops/pallas_tower.py:425",
-                "dfd_clip_tpu_torch/csrc/encoder_tower.cu",
-                time_ms(lambda: tower.fused_encoder_tower(h, blocks, hh, d, **kw), iters=3,
-                        warmup=1),
+                "dfd_clip_tpu_torch/csrc/encoder_tower.cu", ms,
                 plain_ms, None, 0, 0, 0, err, counter="fused_encoder_tower",
                 paths=(f"{arch}_tower{label.replace(' ', '_')}",),
                 bound=(max(ops_t, nb / HBM) * 1e3, "operations" if ops_t >= nb / HBM else "bytes"))
+            tower_timings(name, h, blocks, hh, LADDER_KEEP, True, mode, ms, chain_ms,
+                          rules=mode == "0")
         del h
         torch.cuda.empty_cache()
     del blocks
@@ -2623,15 +2728,7 @@ def ladder_paths(card: str) -> dict:
                 frames = det.preprocess(xd)
                 kv = det.encode_kv(scorer.params, frames)
                 kv_chain = chain.encode_kv(scorer.params, frames)
-                tol = chain_tol(True, kernels.get("int8_attn", "0"))
-                for s_ in ("k", "v"):
-                    err = rel_err(kv[s_], kv_chain[s_])
-                    same = (kv[s_] == kv_chain[s_]).float().mean().item()
-                    print(f"  {path} {s_} vs the per-layer kernel chain: rel_err {err:.3e} "
-                          f"(tol {tol:g}), bit-equal {same == 1.0} (equal share "
-                          f"{same:.6f})", flush=True)
-                    if err > tol:
-                        fail(f"FAIL {path}: {s_} {err:.3e} from the per-layer kernel chain", True)
+                hold_chain(f"{path} K/V", ((kv["k"], kv_chain["k"]), (kv["v"], kv_chain["v"])))
                 del frames, kv, kv_chain
             torch.cuda.reset_peak_memory_stats()
             ms = time_ms(lambda: scorer.predict(scorer.params, xd, md), iters=3, warmup=1)
@@ -2808,16 +2905,20 @@ def main() -> int:
           flush=True)
     print("[note] plain versions run with TF32 off (matmul and cudnn)", flush=True)
 
+    global BUILD_S
     t0 = time.perf_counter()
     lib_path, log = _cuda.build()
     _cuda.library()
-    print(f"[build] {time.perf_counter() - t0:.2f} s -> {lib_path.name}", flush=True)
+    BUILD_S = time.perf_counter() - t0
+    print(f"[build] {BUILD_S:.2f} s -> {lib_path.name}", flush=True)
     for line in log.splitlines():
         if "Used" in line or "spill" in line and "0 bytes spill" not in line:
             print("  " + line.strip(), flush=True)
     serialised = wgmma_serialised(log, ("gemm.cu", "gemm_s8.cu"))
     if serialised:
         raise SystemExit("FAIL the GEMMs' wgmma products were serialised:\n" + "\n".join(serialised))
+    for line in wgmma_serialised(log, tuple(p.name for p in _cuda.CSRC.glob("encoder_tower*.cu"))):
+        print(f"  [the tower's ptxas] {line[:200]}", flush=True)
 
     rows: list = []
     print("[kernels] flagship shapes, bf16", flush=True)

@@ -2,12 +2,15 @@
 // head) up to MAX_TOKENS (`tile`, staged), and for 128 query rows of one
 // (frame, head) above (`stream_tile`). csrc/encoder_attention_s8.cu runs one
 // work item per block; csrc/encoder_tower.cu walks a stage's items in a
-// loop. The designs are described in encoder_attention_s8.cu.
+// loop on its two consumer warpgroups. The bodies take the group of threads
+// that runs them as a type (Block: the whole block; the tower's: its
+// consumer warpgroups, with a named barrier), and each 16-row query tile's
+// arithmetic is the same in either. The designs are described in
+// encoder_attention_s8.cu.
 #pragma once
 
 #include <mma.h>
 
-#include "attention_stream_tile.cuh"
 #include "common.cuh"
 
 namespace attn_s8 {
@@ -17,6 +20,29 @@ constexpr int LDQ = D + 16;       // int8 pitch (bytes) of the quantised Q and K
 constexpr int LDV = D + 8;        // bf16 pitch of the staged V rows
 constexpr int MAX_TOKENS = 320;   // largest token count handled
 constexpr size_t SMEM_LIMIT = 232448;   // dynamic shared memory a block may use
+
+// The threads that run a body: their index, their count and their barrier.
+struct Block {
+  static __device__ __forceinline__ int tid() { return threadIdx.x; }
+  static __device__ __forceinline__ int size() { return blockDim.x; }
+  static __device__ __forceinline__ void sync() { __syncthreads(); }
+};
+
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned* r, const bf16* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
+// c (16x8 f32) += a (16x16 bf16, row) x b (16x8 bf16, col).
+__device__ __forceinline__ void mma_bf16(float* c, const unsigned* a, const unsigned* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
 
 struct Geometry {
   int tq;        // query rows rounded up to 16 (one warp tile)
@@ -30,7 +56,10 @@ struct Geometry {
   size_t smem;
 };
 
-__host__ __device__ inline Geometry geometry(int tokens) {
+// `limit`: the shared memory the caller can give (the tower keeps some for
+// its barriers); fewer warps take the tiles when it is short, which changes
+// no tile's values.
+__host__ __device__ inline Geometry geometry(int tokens, size_t limit = SMEM_LIMIT) {
   Geometry g;
   g.tq = (tokens + 15) / 16 * 16;
   g.tp = (tokens + 31) / 32 * 32;
@@ -45,7 +74,7 @@ __host__ __device__ inline Geometry geometry(int tokens) {
   const int tiles = g.tq / 16;
   const int per_warp = (tiles + 7) / 8;
   g.warps = (tiles + per_warp - 1) / per_warp;
-  while (g.warps > 1 && g.fixed + g.warps * g.per > SMEM_LIMIT) --g.warps;
+  while (g.warps > 1 && g.fixed + g.warps * g.per > limit) --g.warps;
   g.smem = g.fixed + g.warps * g.per;
   return g;
 }
@@ -85,17 +114,18 @@ __device__ __forceinline__ void quant_rows16(const bf16* __restrict__ src, int l
 
 // Frame f's packed rows [q | k | v] start at qkv + f * tokens * ld; head h's
 // 64 columns of each at + h * 64. out (frames * tokens, heads * 64) f32.
-// coef_qk = d^-1/2 / 127^2 in f32. The block computes (frame, head); warps
-// from g.warps on only help quantise K and V.
-template <int MAX_TP, bool QK_ONLY>
+// coef_qk = d^-1/2 / 127^2 in f32. The group G computes (frame, head);
+// warps from g.warps on only help quantise K and V. smem holds
+// geometry(tokens, limit).smem.
+template <int MAX_TP, bool QK_ONLY, class G = Block>
 __device__ __forceinline__ void tile(const bf16* __restrict__ qkv, int ld, float* __restrict__ out,
                                      int tokens, int heads, float coef_qk, int frame, int head,
-                                     unsigned char* smem) {
+                                     unsigned char* smem, size_t limit = SMEM_LIMIT) {
   using namespace nvcuda;
-  const Geometry g = geometry(tokens);
+  const Geometry g = geometry(tokens, limit);
   const int width = heads * D;
-  const int nthreads = blockDim.x, nwarps = blockDim.x / 32;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int nthreads = G::size(), nwarps = G::size() / 32;
+  const int warp = G::tid() / 32, lane = G::tid() % 32;
   const int gq = lane / 4, t4 = lane % 4;   // mma fragment group and thread
   const bf16* qb = qkv + (size_t)frame * tokens * ld + head * D;
   const bf16* kb = qb + width;
@@ -118,7 +148,7 @@ __device__ __forceinline__ void tile(const bf16* __restrict__ qkv, int ld, float
 
   // V rows (bf16) land in shared memory while the warps quantise K per row:
   // s = max|k| + 1e-8, q = clip(round(k * (127 / s))). Pad rows are zero.
-  for (int c = threadIdx.x; c < g.tp * 8; c += nthreads) {
+  for (int c = G::tid(); c < g.tp * 8; c += nthreads) {
     const int r = c / 8, cc = (c % 8) * 8;
     const bool ok = r < tokens;
     cp_async16(&Vs[r * LDV + cc], vb + (size_t)(ok ? r : 0) * ld + cc, ok);
@@ -137,23 +167,23 @@ __device__ __forceinline__ void tile(const bf16* __restrict__ qkv, int ld, float
     if (lane == 0) sk[r] = s;
   }
   cp_async_wait<0>();
-  __syncthreads();
+  G::sync();
   if (!QK_ONLY) {
     // V per channel over all tokens of the frame, stored transposed (V^T
     // rows are the PV product's k-contiguous B operand)
-    for (int d = threadIdx.x; d < D; d += nthreads) {
+    for (int d = G::tid(); d < D; d += nthreads) {
       float m = 0.f;
       for (int r = 0; r < tokens; ++r) m = fmaxf(m, fabsf(__bfloat162float(Vs[r * LDV + d])));
       const float s = __fadd_rn(m, 1e-8f);
       sv[d] = s;
       svm[d] = 127.0f / s;
     }
-    __syncthreads();
-    for (int i = threadIdx.x; i < D * g.tp; i += nthreads) {
+    G::sync();
+    for (int i = G::tid(); i < D * g.tp; i += nthreads) {
       const int d = i / g.tp, j = i % g.tp;
       Vt[d * g.ldt + j] = quant8(__bfloat162float(Vs[j * LDV + d]), svm[d]);
     }
-    __syncthreads();
+    G::sync();
   }
 
   const int tiles = g.tq / 16;
@@ -342,17 +372,17 @@ __device__ __forceinline__ unsigned pack_s8(int8_t a, int8_t b, int8_t c, int8_t
 }
 
 // Query rows chunk * 128 .. + 127 of (frame, head), layouts as in `tile`.
-// STREAM_THREADS threads, smem holds stream_smem(QK_ONLY); every thread of
-// the block calls it, also those of warps whose rows lie past the tokens
-// (they help with the segments). The caller separates successive items with
-// __syncthreads().
-template <bool QK_ONLY>
+// A group G of STREAM_THREADS threads, smem holds stream_smem(QK_ONLY);
+// every thread of the group calls it, also those of warps whose rows lie
+// past the tokens (they help with the segments). The caller separates
+// successive items with G::sync().
+template <bool QK_ONLY, class G = Block>
 __device__ __forceinline__ void stream_tile(const bf16* __restrict__ qkv, int ld,
                                             float* __restrict__ out, int tokens, int heads,
                                             float coef_qk, int frame, int head, int chunk,
                                             unsigned char* smem) {
   const int width = heads * D;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int tid = G::tid(), warp = tid / 32, lane = tid % 32;
   const int gq = lane / 4, t4 = lane % 4;   // mma fragment group and thread
   const int c8 = (tid % 8) * 8, rl = tid / 8;   // V: 8 channels a thread, 32 row lanes
   const bf16* qb = qkv + (size_t)frame * tokens * ld + head * D;
@@ -385,7 +415,7 @@ __device__ __forceinline__ void stream_tile(const bf16* __restrict__ qkv, int ld
     }
 #pragma unroll
     for (int e = 0; e < 8; ++e) part[rl * D + c8 + e] = m[e];
-    __syncthreads();
+    G::sync();
     if (tid < D) {
       float mx = 0.f;
       for (int i = 0; i < STREAM_THREADS / 8; ++i) mx = fmaxf(mx, part[i * D + tid]);
@@ -444,9 +474,9 @@ __device__ __forceinline__ void stream_tile(const bf16* __restrict__ qkv, int ld
   float mrow[2] = {-INFINITY, -INFINITY};
   for (int s0 = 0; s0 < tokens; s0 += SEG) {
     const int n = min(SEG, (tokens - s0 + 31) / 32 * 32);
-    __syncthreads();   // the previous segment is read
+    G::sync();   // the previous segment is read
     load_k(s0, n);
-    __syncthreads();
+    G::sync();
     if (active) {
       for (int n0 = 0; n0 < n; n0 += 8) {
         float l[4];
@@ -476,7 +506,7 @@ __device__ __forceinline__ void stream_tile(const bf16* __restrict__ qkv, int ld
     }
   for (int s0 = 0; s0 < tokens; s0 += SEG) {
     const int n = min(SEG, (tokens - s0 + 31) / 32 * 32);
-    __syncthreads();
+    G::sync();
     if (QK_ONLY) {
       for (int c = tid; c < n * 8; c += STREAM_THREADS) {
         const int r = c / 8, cc = (c % 8) * 8;
@@ -504,7 +534,7 @@ __device__ __forceinline__ void stream_tile(const bf16* __restrict__ qkv, int ld
         for (int e = 0; e < 8; ++e) Vt[(c8 + e) * LDT + at] = quant8(v[e], svm[c8 + e]);
       }
     }
-    __syncthreads();
+    G::sync();
     if (!active) continue;
     for (int k0 = 0; k0 < n; k0 += 32) {
       float p[4][4];
@@ -528,11 +558,11 @@ __device__ __forceinline__ void stream_tile(const bf16* __restrict__ qkv, int ld
 #pragma unroll
           for (int dn = 0; dn < D / 8; dn += 2) {
             unsigned b[4];
-            attn_stream::ldmatrix_x4_trans(
+            ldmatrix_x4_trans(
                 b, &Vs[(k0 + kc * 16 + lane % 8 + ((lane / 8) % 2) * 8) * LDV + dn * 8 +
                        (lane / 16) * 8]);
-            attn_stream::mma_bf16(o[dn], pa, b);
-            attn_stream::mma_bf16(o[dn + 1], pa, b + 2);
+            mma_bf16(o[dn], pa, b);
+            mma_bf16(o[dn + 1], pa, b + 2);
           }
         }
       } else {

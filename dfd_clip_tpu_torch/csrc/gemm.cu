@@ -58,101 +58,11 @@
 //   code outran the instruction cache and took about as long as the products.
 //   Kernels exist for the forms the wrappers produce (kForms in
 //   gemm_hopper.cuh: QuickGELU, a residual or the export, one at a time).
-// csrc/gemm_tile.cuh keeps the earlier mma.sync body for the tower
-// (csrc/encoder_tower.cu) alone.
-#include "gemm_hopper.cuh"
-
-namespace {
+// BF16Op (csrc/gemm_ops.cuh) holds the loads, products and epilogue; the
+// whole-encoder tower (csrc/encoder_tower.cu) runs the same frame and Op.
+#include "gemm_ops.cuh"
 
 using namespace hgemm;
-
-enum : int {
-  kBiasF32 = 1,      // v = acc + b                       (f32)
-  kBiasBf16 = 2,     // v = bf16(bf16(acc) + bf16(b))     (layers.linear)
-  kGelu = 4,         // v = v * sigmoid(1.702 v)          (f32)
-  kResid = 8,        // out = bf16(res + bf16(v)), res bf16
-  kStore = 16,       // write C
-  kExport = 32,      // write K/V columns into the stacked export buffers
-  kOutF32 = 64,      // C is f32
-  kResAddF32 = 128,  // v = res + v in f32 before the output cast
-  kResIsF32 = 256,   // ... with an f32 residual (else bf16, widened)
-};
-
-struct BF16Op {
-  using Acc = float;
-  static constexpr int ELEM = 2;   // bytes of an operand value
-  struct Params {
-    Out out;
-    const float* bias;
-  };
-
-  // A stage: A's 128 rows x 64 columns from k0, the weight's 64 rows from k0
-  // x BN columns as BN / 64 boxes; in a cluster of two each CTA loads half
-  // of the boxes into both.
-  template <int BN, int CL>
-  static __device__ __forceinline__ void load(uint32_t a, uint32_t b, const CUtensorMap* ma,
-                                              const CUtensorMap* mb, uint32_t bar, int kt,
-                                              int m0, int n0, int rank) {
-    tma_load(a, ma, bar, kt * 64, m0);
-    constexpr int NB = BN / 64 / CL;
-#pragma unroll
-    for (int i = 0; i < NB; ++i) {
-      const int j = rank * NB + i;
-      if (CL > 1)
-        tma_load_multicast(b + j * 64 * KBYTES, mb, bar, n0 + 64 * j, kt * 64, (1 << CL) - 1);
-      else
-        tma_load(b + j * 64 * KBYTES, mb, bar, n0 + 64 * j, kt * 64);
-    }
-  }
-
-  // Four k16 steps: 32 bytes along A's swizzled rows, 16 weight rows (2 KB).
-  template <int BN>
-  static __device__ __forceinline__ void mma(float (&acc)[BN / 2], uint32_t a, uint32_t b,
-                                             int kt) {
-    const uint64_t da = sw128_desc(a), db = sw128_desc(b, 64 * KBYTES);
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      wgmma_bf16(acc, da + 2 * kk, db + kk * ((16 * 128) >> 4), kt | kk);
-  }
-
-  // The epilogue's per-column operand (the bias); no row scale.
-  static __device__ __forceinline__ const float* col_src(const Params& p, int i) {
-    return i == 0 ? p.bias : nullptr;
-  }
-  static __device__ __forceinline__ void prepare_col1(float*) {}
-  static __device__ __forceinline__ float row_scale(const Params&, int) { return 0.f; }
-
-  // N values of the epilogue, before the output's rounding: the plain
-  // versions' f32 operations in their order (each flag tested once for all
-  // N; b: the bias of each value's column, r: its residual).
-  template <int FORM, int N>
-  static __device__ __forceinline__ void apply(const Params& p, const float (&acc)[N],
-                                               const float (&b)[N], const float (&)[N],
-                                               const float (&)[N], const float (&r)[N],
-                                               float (&v)[N]) {
-    const int f = p.out.flags;
-#pragma unroll
-    for (int i = 0; i < N; ++i) v[i] = acc[i];
-    if (f & kBiasF32) {
-#pragma unroll
-      for (int i = 0; i < N; ++i) v[i] += b[i];
-    }
-    if (f & kBiasBf16) {
-#pragma unroll
-      for (int i = 0; i < N; ++i) v[i] = bf16r(bf16r(v[i]) + bf16r(b[i]));
-    }
-    if (FORM & kFormGelu) {
-#pragma unroll
-      for (int i = 0; i < N; ++i) v[i] = v[i] * rcp_rn(1.0f + expf(-1.702f * v[i]));
-    }
-    if ((FORM & kFormRes) && (f & kResAddF32)) {
-#pragma unroll
-      for (int i = 0; i < N; ++i) v[i] = r[i] + v[i];
-    }
-  }
-};
-
-}  // namespace
 
 // C = epilogue(A[M,K] @ B[K,N]); A, B row-major bf16, C bf16 (f32 with
 // kOutF32), res bf16 (f32 with kResIsF32), with the given leading
@@ -163,6 +73,7 @@ extern "C" int dfd_gemm(const void* A, int lda, const void* B, int ldb, void* C,
                         int M, int N, int K, const float* bias, const void* res, int ldr,
                         int flags, void* k_out, void* v_out, int tokens, int t_out, int lo,
                         int width, int col_off, void* stream) {
+  using F = BF16Op;
   int bn = 0, sms = 0;
   const int err = tile_n(M, N, &bn, &sms);
   if (err != 0) return err;
@@ -170,15 +81,15 @@ extern "C" int dfd_gemm(const void* A, int lda, const void* B, int ldb, void* C,
   if (!encode_2d(&ma, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, A, K, M, 2LL * lda, 64, BM) ||
       !encode_2d(&mb, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, B, N, K, 2LL * ldb, 64, 64))
     return static_cast<int>(cudaErrorInvalidValue);
-  Out out{C, res, ldc, ldr, M, N, flags, (flags & kResIsF32) != 0,
-          (flags & kStore) != 0,
+  Out out{C, res, ldc, ldr, M, N, flags, (flags & F::kResIsF32) != 0,
+          (flags & F::kStore) != 0,
           Export{static_cast<bf16*>(k_out), static_cast<bf16*>(v_out), tokens, t_out, lo, width,
                  col_off}};
-  if (!(flags & (kResid | kResAddF32))) out.res = nullptr;
+  if (!(flags & (F::kResid | F::kResAddF32))) out.res = nullptr;
   const BF16Op::Params p{out, bias};
-  const int form = (flags & kGelu ? kFormGelu : 0) | (flags & kResAddF32 ? kFormRes : 0) |
-                   (flags & kResid ? kFormResStore : 0) | (flags & kExport ? kFormExport : 0) |
-                   (flags & kOutF32 ? kFormOut32 : 0);
+  const int form = (flags & F::kGelu ? kFormGelu : 0) | (flags & F::kResAddF32 ? kFormRes : 0) |
+                   (flags & F::kResid ? kFormResStore : 0) |
+                   (flags & F::kExport ? kFormExport : 0) | (flags & F::kOutF32 ? kFormOut32 : 0);
   return bn == 256 ? launch<BF16Op, 256>(form, ma, mb, p, M, N, K, sms, stream)
                    : launch<BF16Op, 64>(form, ma, mb, p, M, N, K, sms, stream);
 }

@@ -3,9 +3,14 @@
 // type and epilogue form, over a 128 x BN output tile at a time. The design
 // is described in gemm.cu; this header holds the tile walk, the TMA
 // producer, the consumers' wgmma main loop, the epilogue's operands and
-// staging, the store warps and the K/V export. An Op type (BF16Op in
-// gemm.cu, S8Op in gemm_s8.cu) supplies the operand loads of a stage, its
-// products and the f32 operations of the fused epilogue.
+// staging, the store warps and the K/V export. An Op type (BF16Op or S8Op,
+// csrc/gemm_ops.cuh) supplies the operand loads of a stage, its products and
+// the f32 operations of the fused epilogue. The three roles are device
+// functions (produce, store_tiles, consume, dispatched by walk_tiles) that
+// gemm_kernel runs once and the whole-encoder tower (csrc/encoder_tower.cu)
+// runs once a product stage: their ring and staging counters (Counts) carry
+// from one call to the next, so the mbarriers keep their phases across the
+// tower's stages and are initialised once a launch.
 #pragma once
 
 #include <utility>
@@ -58,9 +63,10 @@ struct Layout {
   static constexpr int COL_OFF = OUT_OFF + OUT_BYTES;
   static constexpr int COL_BYTES = 2 * BN * 4;
   static constexpr int BAR_OFF = COL_OFF + NCONS * 2 * COL_BYTES;
-  // full and empty barriers a stage and of the staging tile; + 1024 for the
-  // base's alignment
-  static constexpr int SMEM_BYTES = BAR_OFF + (2 * STAGES + 2) * 8 + 1024;
+  // full and empty barriers a stage and of the staging tile
+  static constexpr int BAR_BYTES = (2 * STAGES + 2) * 8;
+  // + 1024 for the base's alignment
+  static constexpr int SMEM_BYTES = BAR_OFF + BAR_BYTES + 1024;
   static_assert(SMEM_BYTES <= 232448, "more shared memory than a block may have");
 };
 
@@ -252,20 +258,26 @@ struct Walk {
   int tiles_n, units, ktiles;
 };
 
+// Progress of a CTA's roles through the ring and the staging tile, carried
+// from one walk_tiles call to the next (each thread keeps its own role's).
+struct Counts {
+  int loads = 0;    // ring stages filled (the producer) or consumed (a consumer)
+  int staged = 0;   // bf16 tiles through the staging tile
+};
+
 template <int BN>
 struct Smem {
-  uint32_t base;        // shared address, 1024-byte aligned
+  uint32_t base;        // shared address of the data, 1024-byte aligned
   unsigned char* ptr;   // the same, generic
   uint32_t peer;        // the other CTA of a cluster of two
+  uint32_t bars;        // shared address of the Layout<BN>::BAR_BYTES of barriers
   static constexpr int STAGES = Layout<BN>::STAGES;
   __device__ uint32_t a(int s) const { return base + s * Layout<BN>::STAGE_BYTES; }
   __device__ uint32_t b(int s) const { return a(s) + A_BYTES; }
-  __device__ uint32_t full(int s) const { return base + Layout<BN>::BAR_OFF + 8u * s; }
-  __device__ uint32_t empty(int s) const {
-    return base + Layout<BN>::BAR_OFF + 8u * (STAGES + s);
-  }
+  __device__ uint32_t full(int s) const { return bars + 8u * s; }
+  __device__ uint32_t empty(int s) const { return bars + 8u * (STAGES + s); }
   // the staging tile, full (the consumers wrote it) and empty (stored)
-  __device__ uint32_t out_full() const { return base + Layout<BN>::BAR_OFF + 8u * 2 * STAGES; }
+  __device__ uint32_t out_full() const { return bars + 8u * 2 * STAGES; }
   __device__ uint32_t out_empty() const { return out_full() + 8u; }
   __device__ unsigned char* out() const { return ptr + Layout<BN>::OUT_OFF; }
   // an f32 tile's per-warp slices (consumer c, its warp w)
@@ -284,6 +296,17 @@ struct Smem {
       mbar_arrive(empty(s));
       if (Layout<BN>::CLUSTER > 1) mbar_arrive_cluster(map_rank(empty(s), peer));
     }
+  }
+  // One thread, once a launch; the caller then syncs the block (the
+  // cluster, when CLUSTER > 1) before any role runs.
+  __device__ void init() const {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 4 * NCONS * Layout<BN>::CLUSTER);   // each consumer warp of the cluster
+    }
+    mbar_init(out_full(), 128 * NCONS);       // each consumer thread
+    mbar_init(out_empty(), 32 * STORE_WARPS);   // each store thread
+    mbar_fence_init();
   }
 };
 
@@ -313,7 +336,7 @@ __device__ __forceinline__ float2 load_res2(const Out& o, int row, int col) {
 template <class Op, int BN, int FORM>
 __device__ __forceinline__ void consume(const Smem<BN>& sm, const Walk& w,
                                         const typename Op::Params& p, int c, int rank,
-                                        int unit0, int step) {
+                                        int unit0, int step, Counts& cnt) {
   using Acc = typename Op::Acc;
   constexpr int CL = Layout<BN>::CLUSTER;
   constexpr int STAGES = Layout<BN>::STAGES;
@@ -327,7 +350,7 @@ __device__ __forceinline__ void consume(const Smem<BN>& sm, const Walk& w,
   unsigned char* stage = sm.out(c, wq);
   // the staging tile's rows of this lane (rows gr and gr + 8 of the warp)
   unsigned char* tile_row = sm.out() + (c * 64 + wq * 16 + gr) * Layout<BN>::OUT_PITCH;
-  int n = 0;                                     // stages consumed so far
+  int n = cnt.loads;                             // stages consumed so far
   for (int u = unit0, i = 0; u < w.units; u += step, ++i) {
     const int m0 = (u / w.tiles_n * CL + rank) * BM, n0 = u % w.tiles_n * BN;
     float* cols = sm.cols(c, i & 1);
@@ -374,7 +397,7 @@ __device__ __forceinline__ void consume(const Smem<BN>& sm, const Walk& w,
     for (int q = tid; q < 2 * BN / 4; q += 128)
       if (q >= BN / 4) Op::prepare_col1(cols + q * 4);   // this thread's own copy
     named_barrier(1 + c, 128);   // the tile's column operands are in
-    if constexpr (!(FORM & kFormOut32)) mbar_wait(sm.out_empty(), (i & 1) ^ 1);
+    if constexpr (!(FORM & kFormOut32)) mbar_wait(sm.out_empty(), (cnt.staged & 1) ^ 1);
 
     // The residual of a slice in the accumulator's layout (value i of
     // the slice: pair jj = i / 4, row h = i / 2 % 2, column e = i % 2),
@@ -451,8 +474,12 @@ __device__ __forceinline__ void consume(const Smem<BN>& sm, const Walk& w,
         }
       }
     }
-    if constexpr (!(FORM & kFormOut32)) mbar_arrive(sm.out_full());   // every thread's writes
+    if constexpr (!(FORM & kFormOut32)) {
+      mbar_arrive(sm.out_full());   // every thread's writes
+      ++cnt.staged;
+    }
   }
+  cnt.loads = n;
 }
 
 // The store warps: each bf16 tile from the staging tile to C, with the
@@ -463,7 +490,7 @@ __device__ __forceinline__ void consume(const Smem<BN>& sm, const Walk& w,
 // a row.
 template <class Op, int BN, int FORM>
 __device__ __forceinline__ void store_tiles(const Smem<BN>& sm, const Walk& w, const Out& o,
-                                            int rank, int unit0, int step) {
+                                            int rank, int unit0, int step, Counts& cnt) {
   constexpr int CL = Layout<BN>::CLUSTER;
   constexpr int CHUNKS = BN / 8;                 // 16-byte chunks of a row
   constexpr int PER = 32 / CHUNKS;               // rows a warp stores a step
@@ -472,7 +499,7 @@ __device__ __forceinline__ void store_tiles(const Smem<BN>& sm, const Walk& w, c
   const int sw = threadIdx.x / 32 - 1;           // warps 1 .. STORE_WARPS
   const int lane = threadIdx.x % 32;
   const int r0 = sw * PER + lane / CHUNKS, cc = lane % CHUNKS * 8;
-  for (int u = unit0, i = 0; u < w.units; u += step, ++i) {
+  for (int u = unit0; u < w.units; u += step, ++cnt.staged) {
     const int m0 = (u / w.tiles_n * CL + rank) * BM, n0 = u % w.tiles_n * BN;
     const int col = n0 + cc;
     int frame = 0, tok = 0;
@@ -480,7 +507,7 @@ __device__ __forceinline__ void store_tiles(const Smem<BN>& sm, const Walk& w, c
       frame = (m0 + r0) / o.ex.tokens;
       tok = (m0 + r0) % o.ex.tokens;
     }
-    mbar_wait(sm.out_full(), i & 1);
+    mbar_wait(sm.out_full(), cnt.staged & 1);
     for (int r = r0; r < BM; r += BATCH * STRIDE) {
       // BATCH rows' staged values and residuals loaded first, then stored
       Pack8 v[BATCH], res[BATCH];
@@ -524,59 +551,86 @@ __device__ __forceinline__ void store_tiles(const Smem<BN>& sm, const Walk& w, c
   }
 }
 
+// The TMA thread: the ring of A's and the weight's tiles, through the
+// tensor maps at ma and mb (kernel parameters, or a device array of them).
+// In a cluster the peer's consumers release this CTA's stages too: before
+// it returns it waits until the last of them has (the waits of the next
+// fills, without taking those stages), so that no arrival finds the CTA
+// gone, or, in the tower, the ring a product behind.
+template <class Op, int BN>
+__device__ __forceinline__ void produce(const Smem<BN>& sm, const Walk& w, const CUtensorMap* ma,
+                                        const CUtensorMap* mb, int rank, int unit0, int step,
+                                        Counts& cnt) {
+  constexpr int CL = Layout<BN>::CLUSTER;
+  constexpr int STAGES = Layout<BN>::STAGES;
+  int n = cnt.loads;   // stages loaded so far
+  for (int u = unit0; u < w.units; u += step) {
+    const int m0 = (u / w.tiles_n * CL + rank) * BM, n0 = u % w.tiles_n * BN;
+    for (int kt = 0; kt < w.ktiles; ++kt, ++n) {
+      const int s = n % STAGES;
+      mbar_wait(sm.empty(s), ((n / STAGES) & 1) ^ 1);
+      mbar_expect_tx(sm.full(s), Layout<BN>::STAGE_BYTES);
+      Op::template load<BN, CL>(sm.a(s), sm.b(s), ma, mb, sm.full(s), kt, m0, n0, rank);
+    }
+  }
+  if (CL > 1)
+    for (int i = 0; i < STAGES; ++i)
+      mbar_wait(sm.empty((n + i) % STAGES), (((n + i) / STAGES) & 1) ^ 1);
+  cnt.loads = n;
+}
+
+// The producer warpgroup's part of an M x N product: warp 0's first lane
+// fills the ring, warps 1-3 store bf16 tiles. The consumer warpgroups run
+// consume(warp / 4 - 1). The caller has set the warpgroups' registers
+// (setmaxnreg, in the branch that runs the role: a role's code after the
+// two branches join would get the smaller count) and initialised the
+// barriers; each thread passes its own role's counters.
+template <class Op, int BN, int FORM>
+__device__ __forceinline__ void produce_tiles(const Smem<BN>& sm, const Walk& w,
+                                              const CUtensorMap* ma, const CUtensorMap* mb,
+                                              const Out& o, int rank, int unit0, int step,
+                                              Counts& cnt) {
+  const int warp = threadIdx.x / 32;
+  if (threadIdx.x == 0)
+    produce<Op, BN>(sm, w, ma, mb, rank, unit0, step, cnt);
+  else if (!(FORM & kFormOut32) && warp >= 1 && warp <= STORE_WARPS)
+    store_tiles<Op, BN, FORM>(sm, w, o, rank, unit0, step, cnt);
+}
+
+// The walk of an M x N product, K deep, at tile width BN.
+template <class Op, int BN>
+__host__ __device__ inline Walk make_walk(int m, int n, int k) {
+  constexpr int CL = Layout<BN>::CLUSTER;
+  const int panels = ((m + BM - 1) / BM + CL - 1) / CL;
+  return Walk{(n + BN - 1) / BN, panels * ((n + BN - 1) / BN),
+              (k * Op::ELEM + KBYTES - 1) / KBYTES};
+}
+
 template <class Op, int BN, int FORM>
 __global__ void __launch_bounds__(THREADS, 1)
 gemm_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_b,
             const typename Op::Params p, const Walk w) {
   constexpr int CL = Layout<BN>::CLUSTER;
-  constexpr int STAGES = Layout<BN>::STAGES;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
   const uint32_t aligned = (raw + 1023u) & ~1023u;
   const int rank = CL > 1 ? static_cast<int>(cluster_rank()) : 0;
-  const Smem<BN> sm{aligned, smem_raw + (aligned - raw), static_cast<uint32_t>(rank ^ 1)};
+  const Smem<BN> sm{aligned, smem_raw + (aligned - raw), static_cast<uint32_t>(rank ^ 1),
+                    aligned + Layout<BN>::BAR_OFF};
   const int unit0 = CL > 1 ? cluster_id() : static_cast<int>(blockIdx.x);
   const int step = CL > 1 ? cluster_count() : static_cast<int>(gridDim.x);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < Smem<BN>::STAGES; ++s) {
-      mbar_init(sm.full(s), 1);
-      mbar_init(sm.empty(s), 4 * NCONS * CL);   // each consumer warp of the cluster
-    }
-    mbar_init(sm.out_full(), 128 * NCONS);       // each consumer thread
-    mbar_init(sm.out_empty(), 32 * STORE_WARPS);   // each store thread
-    mbar_fence_init();
-  }
+  if (threadIdx.x == 0) sm.init();
   if (CL > 1) cluster_sync();   // the peer's barriers exist before it is written to
   else __syncthreads();
-
-  if (warp < 4) {
-    // ---- producer warpgroup: one thread keeps the ring full ------------------
+  Counts cnt;
+  if (threadIdx.x < 128) {
+    // ---- producer warpgroup: the ring and the store warps ----------------------
     setmaxnreg_dec<PRODUCER_REGS>();
-    if (warp == 0 && lane == 0) {
-      int n = 0;   // stages loaded so far
-      for (int u = unit0; u < w.units; u += step) {
-        const int m0 = (u / w.tiles_n * CL + rank) * BM, n0 = u % w.tiles_n * BN;
-        for (int kt = 0; kt < w.ktiles; ++kt, ++n) {
-          const int s = n % STAGES;
-          mbar_wait(sm.empty(s), ((n / STAGES) & 1) ^ 1);
-          mbar_expect_tx(sm.full(s), Layout<BN>::STAGE_BYTES);
-          Op::template load<BN, CL>(sm.a(s), sm.b(s), &map_a, &map_b, sm.full(s), kt, m0, n0,
-                                    rank);
-        }
-      }
-      // In a cluster the peer's consumers release this CTA's stages: stay
-      // until the last of them has, so that no arrival finds it gone.
-      if (CL > 1)
-        for (int i = 0; i < STAGES; ++i, ++n)
-          mbar_wait(sm.empty(n % STAGES), ((n / STAGES) & 1) ^ 1);
-    } else if (!(FORM & kFormOut32) && warp >= 1 && warp <= STORE_WARPS) {
-      store_tiles<Op, BN, FORM>(sm, w, p.out, rank, unit0, step);
-    }
+    produce_tiles<Op, BN, FORM>(sm, w, &map_a, &map_b, p.out, rank, unit0, step, cnt);
   } else {
     // ---- the consumer warpgroups, 64 rows of the tile each ---------------------
     setmaxnreg_inc<CONSUMER_REGS>();
-    consume<Op, BN, FORM>(sm, w, p, warp / 4 - 1, rank, unit0, step);
+    consume<Op, BN, FORM>(sm, w, p, threadIdx.x / 128 - 1, rank, unit0, step, cnt);
   }
 }
 
@@ -608,7 +662,7 @@ int launch_form(const CUtensorMap& map_a, const CUtensorMap& map_b, const typena
   const long long units = panels * ((n + BN - 1) / BN);
   if (m < 1 || n < 1 || k < 1 || units > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
-  const Walk w{(n + BN - 1) / BN, static_cast<int>(units), (k * Op::ELEM + KBYTES - 1) / KBYTES};
+  const Walk w = make_walk<Op, BN>(m, n, k);
   auto kernel = gemm_kernel<Op, BN, FORM>;
   cudaLaunchConfig_t cfg = {};
   cudaLaunchAttribute attr[1];

@@ -38,95 +38,12 @@
 // of them into an FMA, and QuickGELU's 1 / (1 + exp) is rcp_rn, the same
 // round-to-nearest quotient as the division: the
 // kernel equals its plain version bit for bit in every form without
-// QuickGELU. csrc/gemm_s8_tile.cuh keeps the earlier mma.sync body for the
-// tower (csrc/encoder_tower.cu) alone.
-#include "gemm_hopper.cuh"
-
-namespace {
+// QuickGELU. S8Op (csrc/gemm_ops.cuh) holds the loads, products and
+// epilogue; the whole-encoder tower (csrc/encoder_tower.cu) runs the same
+// frame and Op.
+#include "gemm_ops.cuh"
 
 using namespace hgemm;
-
-enum : int {
-  kGelu = 1,       // v = v * sigmoid(1.702 v)         (f32)
-  kResF32 = 2,     // v = res + v, res f32              (f32)
-  kResBf16 = 4,    // v = res + v, res bf16 widened     (f32)
-  kOutF32 = 8,     // C is f32 (else bf16)
-  kStore = 16,     // write C
-  kExport = 32,    // write the K/V columns into the stacked export buffers
-  kResAfterCast = 64,   // v = res + bf16(v), res bf16    (bf16 output)
-};
-
-struct S8Op {
-  using Acc = int;
-  static constexpr int ELEM = 1;   // bytes of an operand value
-  struct Params {
-    Out out;
-    const float* a_scale;
-    const float* w_scale;
-    const float* bias;
-  };
-
-  // A stage: A's 128 rows and the weight's BN rows, 128 bytes of K from k0;
-  // in a cluster of two each CTA loads half of the weight's rows into both.
-  template <int BN, int CL>
-  static __device__ __forceinline__ void load(uint32_t a, uint32_t b, const CUtensorMap* ma,
-                                              const CUtensorMap* mb, uint32_t bar, int kt,
-                                              int m0, int n0, int rank) {
-    tma_load(a, ma, bar, kt * KBYTES, m0);
-    if (CL > 1)
-      tma_load_multicast(b + rank * (BN / CL) * KBYTES, mb, bar, kt * KBYTES,
-                         n0 + rank * (BN / CL), (1 << CL) - 1);
-    else
-      tma_load(b, mb, bar, kt * KBYTES, n0);
-  }
-
-  // Four k32 steps, 32 bytes along both operands' swizzled rows.
-  template <int BN>
-  static __device__ __forceinline__ void mma(int (&acc)[BN / 2], uint32_t a, uint32_t b, int kt) {
-    const uint64_t da = sw128_desc(a), db = sw128_desc(b);
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_s8(acc, da + 2 * kk, db + 2 * kk, kt | kk);
-  }
-
-  // The epilogue's per-column operands (the bias, w_scale / 127, divided
-  // once a tile in shared memory) and its row scale (a_scale / 127).
-  static __device__ __forceinline__ const float* col_src(const Params& p, int i) {
-    return i == 0 ? p.bias : p.w_scale;
-  }
-  static __device__ __forceinline__ void prepare_col1(float* w) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) w[e] = w[e] / 127.0f;
-  }
-  static __device__ __forceinline__ float row_scale(const Params& p, int row) {
-    return p.a_scale[row] / 127.0f;
-  }
-
-  // N values of the epilogue, before the output's rounding: the TPU
-  // kernel's f32 operations in their order, none fused (each flag tested
-  // once for all N; b, wc: the bias and w_scale / 127 of each value's
-  // column, ar: a_scale / 127 of its row, r: its residual).
-  template <int FORM, int N>
-  static __device__ __forceinline__ void apply(const Params& p, const int (&acc)[N],
-                                               const float (&b)[N], const float (&wc)[N],
-                                               const float (&ar)[N], const float (&r)[N],
-                                               float (&v)[N]) {
-    const int f = p.out.flags;
-#pragma unroll
-    for (int i = 0; i < N; ++i)
-      v[i] = __fadd_rn(__fmul_rn(__fmul_rn(static_cast<float>(acc[i]), ar[i]), wc[i]), b[i]);
-    if (FORM & kFormGelu) {
-#pragma unroll
-      for (int i = 0; i < N; ++i)
-        v[i] = __fmul_rn(v[i], rcp_rn(1.0f + expf(-1.702f * v[i])));
-    }
-    if ((FORM & kFormRes) && (f & (kResF32 | kResBf16))) {
-#pragma unroll
-      for (int i = 0; i < N; ++i) v[i] = __fadd_rn(r[i], v[i]);
-    }
-  }
-};
-
-}  // namespace
 
 // C = epilogue(A[M,K] int8 @ B[N,K]^T int8) with a_scale (M,), w_scale (N,)
 // and bias (N,) f32; res (f32 or bf16, leading dimension ldr) and C (f32 or
@@ -138,6 +55,7 @@ extern "C" int dfd_gemm_s8(const void* A, int lda, const float* a_scale, const v
                            void* C, int ldc, int M, int N, int K, int flags, void* k_out,
                            void* v_out, int tokens, int t_out, int lo, int width, int col_off,
                            void* stream) {
+  using F = S8Op;
   int bn = 0, sms = 0;
   const int err = tile_n(M, N, &bn, &sms);
   if (err != 0) return err;
@@ -146,15 +64,16 @@ extern "C" int dfd_gemm_s8(const void* A, int lda, const float* a_scale, const v
       !encode_2d(&mb, CU_TENSOR_MAP_DATA_TYPE_UINT8, B, K, N, ldb, KBYTES,
                  bn == 256 ? bn / Layout<256>::CLUSTER : bn))
     return static_cast<int>(cudaErrorInvalidValue);
-  Out out{C, res, ldc, ldr, M, N, flags, (flags & kResF32) != 0,
-          (flags & kStore) != 0,
+  Out out{C, res, ldc, ldr, M, N, flags, (flags & F::kResF32) != 0,
+          (flags & F::kStore) != 0,
           Export{static_cast<bf16*>(k_out), static_cast<bf16*>(v_out), tokens, t_out, lo, width,
                  col_off}};
-  if (!(flags & (kResF32 | kResBf16 | kResAfterCast))) out.res = nullptr;
+  if (!(flags & (F::kResF32 | F::kResBf16 | F::kResAfterCast))) out.res = nullptr;
   const S8Op::Params p{out, a_scale, w_scale, bias};
-  const int form = (flags & kGelu ? kFormGelu : 0) | (flags & (kResF32 | kResBf16) ? kFormRes : 0) |
-                   (flags & kResAfterCast ? kFormResStore : 0) |
-                   (flags & kExport ? kFormExport : 0) | (flags & kOutF32 ? kFormOut32 : 0);
+  const int form = (flags & F::kGelu ? kFormGelu : 0) |
+                   (flags & (F::kResF32 | F::kResBf16) ? kFormRes : 0) |
+                   (flags & F::kResAfterCast ? kFormResStore : 0) |
+                   (flags & F::kExport ? kFormExport : 0) | (flags & F::kOutF32 ? kFormOut32 : 0);
   return bn == 256 ? launch<S8Op, 256>(form, ma, mb, p, M, N, K, sms, stream)
                    : launch<S8Op, 64>(form, ma, mb, p, M, N, K, sms, stream);
 }

@@ -1,8 +1,8 @@
 // Row bodies, one warp per row: LayerNorm (csrc/layer_norm.cu), the per-row
 // int8 quantisers and LayerNorm fused with the quantisation
-// (csrc/quant_rows.cu). Each kernel runs one row per warp; csrc/
-// encoder_tower.cu walks a stage's rows over every warp of its grid. The
-// designs are described in those two files.
+// (csrc/quant_rows.cu). Each kernel runs one row per warp; the whole-encoder
+// tower (csrc/encoder_tower.cuh) walks a stage's rows over every warp of its
+// grid. The designs are described in those two files.
 #pragma once
 
 #include "common.cuh"

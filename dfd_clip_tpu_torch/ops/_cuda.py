@@ -25,9 +25,10 @@ entries of the encoder attention (one TMA / wgmma kernel at every token
 count), ``encoder_attention_s8`` the int8 encoder attention (a staged
 kernel up to 320 tokens, a streamed one above, the streamed form counted
 here as ``encoder_attention_int8_stream``) and ``encoder_tower`` the
-whole-encoder tower (its attention stage staged or streamed by the same
-rule), and ``study_attention`` / ``gemm_chain`` the kernels of the tools'
-studies (ops/study_attention.py, ops/gemm_chain.py).
+whole-encoder tower (one cooperative launch whose stages run the GEMMs',
+the encoder attention's and the int8 attention's bodies), and
+``study_attention`` / ``gemm_chain`` the kernels of the tools' studies
+(ops/study_attention.py, ops/gemm_chain.py).
 They take CUDA tensors only; apart from the
 int8 streamed attention, the attention entries and the tower count nothing
 themselves, their callers count them under their own names (the plain
@@ -62,20 +63,22 @@ OUT_F32, RES_ADD_F32, RES_IS_F32 = 64, 128, 256
 # gemm_s8 epilogue flags (csrc/gemm_s8.cu)
 S8_GELU, S8_RES_F32, S8_RES_BF16, S8_OUT_F32, S8_STORE, S8_EXPORT = 1, 2, 4, 8, 16, 32
 S8_RES_AFTER_CAST = 64
-# largest token count of the staged kernels of csrc/encoder_attention_s8.cu
-# and encoder_tower.cu (MAX_TOKENS); above it the int8 attention and the
-# tower's attention stage take the streamed bodies (attention_stream_tile.cuh,
-# attn_s8::stream_tile). The bf16 encoder attention has no such limit.
+# largest token count of the staged int8 attention body of
+# csrc/attention_s8_tile.cuh (MAX_TOKENS); above it the int8 attention, and
+# the tower's int8 attention stage, take the streamed body
+# (attn_s8::stream_tile). The bf16 encoder attention has no such limit.
 ATTENTION_MAX_TOKENS = 320
 # query rows of a streamed int8 attention block (attn_s8::STREAM_ROWS); the
 # grid, frames x heads x ceil(tokens / 128) blocks, is its only cap
 S8_STREAM_QUERY_ROWS = 128
 GRID_MAX = 2 ** 31 - 1
-# the tower's chunk rule (csrc/encoder_tower.cu): a chunk's h and qkv (8 bytes
-# x T x W a frame) take at most half of the card's 50 MB L2
-TOWER_L2_BYTES = 50 * 2 ** 20
+# CTAs a cluster of the tower's launch (csrc/encoder_tower.cuh)
+TOWER_CLUSTER = 2
+# the most rows a tower chunk holds (tower_chunk): its scratch's bound
+TOWER_MAX_ROWS = 2 ** 16
 # int8 attention modes of the tower (csrc/encoder_tower.cu TowerArgs.attn)
 TOWER_ATTN = {"0": 0, "1": 1, "qk": 2}
+TOWER_MAP_BYTES, TOWER_LAYER_POINTERS = 128, 16   # a CUtensorMap; a LayerW record
 
 
 def reset_launches() -> None:
@@ -159,8 +162,9 @@ _SIGNATURES = {
     "dfd_study_attention": [_P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
     "dfd_gemm_chain": [_P, _P, _P, _I, _I, _I, _P],
     "dfd_encoder_tower_grid": [_I, _I, _I, ctypes.POINTER(ctypes.c_int)],
+    "dfd_encoder_tower_table": [_P, _I, _I, _I, _I],
     "dfd_encoder_tower": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F,
-                          _F, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P],
+                          _F, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P],
     "dfd_decoder_attention": [_P, _P, _LL, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
     "dfd_decoder_attention_partials": [_P, _P, _LL, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
     "dfd_decoder_attention_bwd": [_P, _P, _LL, _P, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -596,12 +600,33 @@ def gemm_chain(h: torch.Tensor, ws: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def tower_chunk(frames: int, tokens: int, width: int) -> int:
-    """Frames per chunk of the tower: its h and qkv (2 + 6 bytes x tokens x
-    width a frame) within half of the L2, floor(25 MiB / (8 T W)); 21 at
-    ViT-B/16 (8 x 197 x 768 = 1.21 MB a frame), 12 at ViT-L/14, 5 at
-    ViT-L/14@336px."""
-    return max(1, min(frames, TOWER_L2_BYTES // 2 // (8 * tokens * width)))
+def tower_chunk(frames: int, tokens: int) -> int:
+    """Frames per chunk of the tower: the whole batch, up to TOWER_MAX_ROWS
+    rows (the scratch then stays within about 2.4 GB at width 1024 in
+    int8, as the per-layer chain's own intermediates would). Fewer frames a
+    chunk only added stages, and each stage's fill, drain and grid barrier:
+    on an H100 the batch of 320 frames ran fastest whole, against chunks
+    that fill the card's 66 clusters 1 to 8 times and against the earlier
+    L2 rule (PERF.md section 6). 320 frames (one chunk) at ViT-B/16, 255
+    at ViT-L/14, 113 at ViT-L/14@336px."""
+    return max(1, min(frames, TOWER_MAX_ROWS // tokens))
+
+
+# the stages of one tower layer, in launch order, each ending in a grid
+# barrier (csrc/encoder_tower.cuh walk): below the last layer, and the last
+TOWER_STAGES = {
+    False: ("ln1", "qkv", "attention", "out_proj", "ln2", "c_fc", "c_proj"),
+    True: ("ln1_quant", "qkv", "attention", "quant_att", "out_proj", "ln2_quant", "c_fc",
+           "quant_mid", "c_proj"),
+}
+TOWER_LAST_STAGES = ("ln1", "qkv_kv")
+
+
+def tower_barriers(frames: int, chunk: int, layers: int, int8: bool) -> int:
+    """Grid barriers of one tower launch over ``layers`` layers (the last
+    K/V only): a stage of TOWER_STAGES each below the last, 2 for it, per
+    chunk of ``chunk`` frames."""
+    return -(-frames // chunk) * (len(TOWER_STAGES[int8]) * (layers - 1) + len(TOWER_LAST_STAGES))
 
 
 def tower_grid(tokens: int, int8: bool, attn: str) -> int:
@@ -613,28 +638,54 @@ def tower_grid(tokens: int, int8: bool, attn: str) -> int:
     return grid.value
 
 
+def tower_table(layers: list, width: int, hidden: int, int8: bool,
+                device) -> torch.Tensor:
+    """The tower's per-call device table: the weights' tensor maps (4 a
+    layer, encoded by dfd_encoder_tower_table), the LayerW records (16
+    pointers a layer: weights, scales, biases, LayerNorms) and a zeroed word
+    for the grid barrier's counter, in one host buffer copied once."""
+    ptrs = []
+    for weights, scales, biases, norms in layers:
+        ptrs += [x.data_ptr() for x in weights]
+        ptrs += [x.data_ptr() if int8 else 0 for x in scales]
+        ptrs += [x.data_ptr() for x in (*biases, *norms)]
+    maps = 4 * len(layers) * TOWER_MAP_BYTES
+    table = torch.zeros(maps + 8 * len(ptrs) + 16, dtype=torch.uint8)
+    table[maps: maps + 8 * len(ptrs)].view(torch.int64).copy_(torch.tensor(ptrs, dtype=torch.int64))
+    check_launch("encoder_tower", library().dfd_encoder_tower_table(
+        table.data_ptr(), len(layers), width, hidden, int(int8)))
+    return table.to(device)
+
+
 def encoder_tower(h: torch.Tensor, layers: list, heads: int, *, first: int, lo: int,
-                  int8: bool, attn: str = "0", grid: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+                  int8: bool, attn: str = "0", grid: int = 0, chunk: Optional[int] = None,
+                  stage_clock: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """The whole-encoder tower (csrc/encoder_tower.cu) over h (N, T, W) bf16,
-    head_dim 64, any token count (the attention stage staged up to
-    ATTENTION_MAX_TOKENS, streamed above): layers 0..len(layers) - 1, the
-    last of them K/V only, exporting layers ``first``.. with ``lo`` leading
-    rows of each frame dropped. ``layers``: one (weights, scales, biases,
+    head_dim 64, any token count: layers 0..len(layers) - 1, the last of
+    them K/V only, exporting layers ``first``.. with ``lo`` leading rows of
+    each frame dropped. ``layers``: one (weights, scales, biases,
     norms) tuple of four tensors each a layer: the qkv, out-proj, c_fc and
     c_proj weights, bf16 (K, N) or with ``int8`` int8 (N, K) beside their
     (N,) f32 scales (None in bf16), their (N,) f32 biases, and the
     LayerNorms' f32 (W,) ln_1 scale, ln_1 shift, ln_2 scale, ln_2 shift.
-    ``attn``: "0", "1" or "qk" (int8 only). One cooperative launch of ``grid`` blocks (0: as many as
-    are co-resident); a grid that cannot be co-resident raises and nothing
-    runs. Returns (k, v), (len(layers) - first, N, T - lo, W) bf16."""
+    ``attn``: "0", "1" or "qk" (int8 only). One cooperative launch of
+    ``grid`` blocks, whole clusters of two (0: as many as are co-resident);
+    a grid that cannot be co-resident raises and nothing runs. ``chunk``:
+    frames a chunk, tower_chunk's rule unless given (the chip check times
+    other rules through it). ``stage_clock``: a zeroed int64
+    tensor on the card of 2 + tower_barriers(...) entries, or None: the
+    launch writes its reading count, then %globaltimer (ns) at its start and
+    as each grid barrier completes (tools/bench_tower_stages.py reads it).
+    Returns (k, v), (len(layers) - first, N, T - lo, W) bf16."""
     name = "encoder_tower"
     require_cuda(name, h)
     if h.dim() != 3 or not h.is_contiguous():
         raise ValueError(f"{name}: takes a contiguous (N, T, W) residual stream")
     n, t, w = h.shape
     last = len(layers) - 1
-    if t < 1 or w != heads * 64 or not 0 <= first <= last or lo not in (0, 1):
-        raise ValueError(f"{name}: width {w} with {heads} heads of 64, layers {first}..{last}")
+    if t < 1 or w != heads * 64 or w > 1024 or not 0 <= first <= last or lo not in (0, 1):
+        raise ValueError(f"{name}: width {w} (at most 1024) with {heads} heads of 64, layers "
+                         f"{first}..{last}")
     if attn not in TOWER_ATTN or (attn != "0" and not int8):
         raise ValueError(f"{name}: int8 attention {attn!r} needs the int8 tower")
     wdt = torch.int8 if int8 else torch.bfloat16
@@ -642,7 +693,6 @@ def encoder_tower(h: torch.Tensor, layers: list, heads: int, *, first: int, lo: 
     if hidden % 64:
         raise ValueError(f"{name}: the MLP width {hidden} is not a multiple of 64")
     shapes = [(w, 3 * w), (w, w), (w, hidden), (hidden, w)]
-    ptrs = []
     for weights, scales, biases, norms in layers:
         for i, (wt, (kin, nout)) in enumerate(zip(weights, shapes)):
             require_cuda(name, wt, dtype=wdt)
@@ -659,14 +709,20 @@ def encoder_tower(h: torch.Tensor, layers: list, heads: int, *, first: int, lo: 
             require_cuda(name, x, dtype=torch.float32)
             if x.shape != (w,) or not x.is_contiguous():
                 raise ValueError(f"{name}: LayerNorm parameter {tuple(x.shape)}")
-        ptrs += [x.data_ptr() for x in weights]
-        ptrs += [x.data_ptr() if int8 else 0 for x in scales]
-        ptrs += [x.data_ptr() for x in (*biases, *norms)]
-    table = torch.tensor(ptrs, dtype=torch.int64).to(h.device)   # LayerW[last + 1]
+    if chunk is None:
+        chunk = tower_chunk(n, t)
+    if not 1 <= chunk <= n:
+        raise ValueError(f"{name}: a chunk of {chunk} frames for {n} frames")
+    if stage_clock is not None:
+        require_cuda(name, stage_clock, dtype=torch.int64)
+        if stage_clock.numel() < 2 + tower_barriers(n, chunk, len(layers), int8):
+            raise ValueError(f"{name}: the stage clock needs 2 + "
+                             f"{tower_barriers(n, chunk, len(layers), int8)} entries")
+    table = tower_table(layers, w, hidden, int8, h.device)
     t_out, nsel = t - lo, last + 1 - first
     k = torch.empty((nsel, n, t_out, w), dtype=torch.bfloat16, device=h.device)
     v = torch.empty_like(k)
-    rows = tower_chunk(n, t, w) * t
+    rows = chunk * t
 
     def scratch(cols, dtype):
         return torch.empty((rows, cols), dtype=dtype, device=h.device)
@@ -680,7 +736,7 @@ def encoder_tower(h: torch.Tensor, layers: list, heads: int, *, first: int, lo: 
         h.data_ptr(), table.data_ptr(), k.data_ptr(), v.data_ptr(), n, t, w, heads, hidden, first,
         last, lo, t_out, rows // t, int(int8), TOWER_ATTN[attn], 64 ** -0.5,
         64 ** -0.5 / (127.0 * 127.0), *(b.data_ptr() if b is not None else None for b in buf),
-        grid, stream())
+        grid, stage_clock.data_ptr() if stage_clock is not None else None, stream())
     if err == -1:
         raise RuntimeError(f"{name}: a grid of {grid or 'the co-resident'} blocks cannot be "
                            f"co-resident on this card at {t} tokens (at most "

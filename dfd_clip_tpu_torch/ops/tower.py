@@ -3,23 +3,24 @@ dfd_clip_tpu/ops/pallas_tower.py, with its ``_quantize_weight_stack`` and
 ``_stack_q``).
 
 On a CUDA tensor ``fused_encoder_tower`` is one cooperative launch of
-csrc/encoder_tower.cu: layers 0..max(keep) over the whole batch, the
-residual stream and every intermediate kept in one chunk's scratch, the
-kept layers' K/V written into the stacked (Lsel, N, T', W) buffers. Its
-attention stage takes the staged block bodies up to 320 tokens and the
-streamed ones above (ViT-L/14@336px's 577); its bf16 attention rounds where
-the per-layer kernel rounds but sums in another order (wmma and mma.sync
-against wgmma), so the two agree to the ulp, not to the bit.
-The JAX package stacks its weights per leaf ((L, ...) arrays) for the TPU
-kernel's per-layer windows; the port keeps per-layer lists
-(models/clip_vit.py) and stacks pointers instead: the wrapper packs 16
-pointers a layer into one small device array per call (1.5 KB for 12
-layers, one host-to-device copy before the launch); no weight is copied. The int8 tower reads the weights
-``prepare_int8_params`` quantised (weight_q quantises any that are missing,
-as _stack_q does). On a CPU tensor the plain version runs: the per-layer
-whole-block chain (``fused_encoder_block_plain`` below max(keep), then the
-export-only ``fused_encoder_attn_block_plain(last_only=True)``), which is
-what the tower computes. The export is unpadded, T' = T - drop_cls.
+csrc/encoder_tower.cu: layers 0..max(keep) over the whole batch (in chunks
+of at most 2^16 rows), the residual stream and every intermediate kept in
+one chunk's scratch, the kept layers' K/V written into the stacked (Lsel,
+N, T', W) buffers. Its stages run the per-layer kernels' bodies (the GEMM frame with
+the same Op types and epilogue forms, the encoder attention's TMA / wgmma
+body, the row and int8 attention bodies), so it equals the per-layer
+kernel chain bit for bit. The JAX package stacks its weights per leaf
+((L, ...) arrays) for the TPU kernel's per-layer windows; the port keeps
+per-layer lists (models/clip_vit.py) and stacks pointers and tensor maps
+instead: the wrapper packs 16 pointers and 4 weight tensor maps a layer
+into one small device table per call (7.7 KB for 12 layers, one
+host-to-device copy before the launch); no weight is copied. The int8
+tower reads the weights ``prepare_int8_params`` quantised (weight_q
+quantises any that are missing, as _stack_q does). On a CPU tensor the
+plain version runs: the per-layer whole-block chain
+(``fused_encoder_block_plain`` below max(keep), then the export-only
+``fused_encoder_attn_block_plain(last_only=True)``), which is what the
+tower computes. The export is unpadded, T' = T - drop_cls.
 """
 
 from __future__ import annotations

@@ -55,7 +55,8 @@ def test_port_reads_no_environment(path):
     "dfd_clip_tpu_torch.ops.encoder_block, dfd_clip_tpu_torch.models.detector, "
     "dfd_clip_tpu_torch.ops.tower",
     "dfd_clip_tpu_torch.ops.study_attention, dfd_clip_tpu_torch.ops.gemm_chain, "
-    "dfd_clip_tpu_torch.tools.bench_attention, dfd_clip_tpu_torch.tools.bench_megakernel_probe",
+    "dfd_clip_tpu_torch.tools.bench_attention, dfd_clip_tpu_torch.tools.bench_megakernel_probe, "
+    "dfd_clip_tpu_torch.tools.bench_tower_stages",
 ], ids=["serve", "train", "towers", "tools"])
 def test_importing_the_port_loads_no_jax_or_yaml(modules):
     code = ("import sys\n"

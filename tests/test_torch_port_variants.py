@@ -295,6 +295,27 @@ def test_tower_needs_a_contiguous_keep(tower_io):
                                    keep=(0, 2))
 
 
+# the tower's chunk at the three geometries of the tower paths, 320 frames:
+# (tokens, frames a chunk)
+TOWER_CHUNKS = {"vit_b16": (197, 320), "vit_l14": (257, 255), "vit_l14_336": (577, 113)}
+
+
+@pytest.mark.parametrize("geometry", list(TOWER_CHUNKS))
+def test_tower_chunk_is_the_batch_up_to_its_row_bound(geometry):
+    """ops/_cuda.py tower_chunk: the whole batch, up to TOWER_MAX_ROWS rows a
+    chunk; the grid barriers a launch follow from it (TOWER_STAGES a layer
+    below the last, TOWER_LAST_STAGES for it, per chunk)."""
+    tokens, chunk = TOWER_CHUNKS[geometry]
+    assert _cuda.tower_chunk(320, tokens) == chunk
+    assert chunk == 320 or chunk * tokens <= _cuda.TOWER_MAX_ROWS < (chunk + 1) * tokens
+    assert _cuda.tower_chunk(chunk - 1, tokens) == chunk - 1
+    layers = 12
+    for int8 in (False, True):
+        per_layer = len(_cuda.TOWER_STAGES[int8])
+        assert _cuda.tower_barriers(320, chunk, layers, int8) == -(-320 // chunk) * (
+            per_layer * (layers - 1) + len(_cuda.TOWER_LAST_STAGES))
+
+
 # -- the gate of clip_vision_kv -------------------------------------------------------
 
 GATE_CASES = [(int8, block, tower, attn, (1, 2))
