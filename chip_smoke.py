@@ -29,7 +29,13 @@
    plain route and compared with the bf16 Detector on the same parameters;
    a device-resident predict is timed and traced; then a compute_int8 +
    kv_dtype "int8_rows" Detector runs one device-resident predict, counted,
-   held against its plain route, timed and traced;
+   held against its plain route, timed and traced; before the int8 serve
+   path, the int8 encoder attention is swept over 1 to 1025 tokens in both
+   modes on 24 frames of 12 heads (more than two work items to each
+   persistent block) against its plain version, and timed at the paths'
+   shapes, (320, 197, 12 x 64), (320, 257, 16 x 64) and (320, 577, 16 x 64),
+   beside the bf16 encoder attention's f32 output and its bound (`[kernels
+   int8 sweep]`);
 6. drives the training path: a flagship Trainer (batch 12, dropout 0.5,
    SGD + OneCycle) takes four steps on seeded synthetic uint8 batches, with
    every launch counter zeroed just before and read just after; one step's
@@ -54,8 +60,9 @@
    pair) answers them again, counters zeroed before and read after each;
    on the params of `--pfake-seeds` seeds (default 3) and two batches each
    the kernels, the plain route and the plain route in f32 are compared and
-   the kernels' logits and P(fake) held against the f32 route, int8 against
-   bf16 by cosine, and a
+   the kernels' logits and P(fake) held against the f32 route, their P(fake)
+   against the bf16 plain route (|dP| <= 1e-2), int8 against bf16 by
+   cosine, and a
    device-resident predict of each is timed and traced; on the bf16 route
    each block's two halves (attention, MLP) are fed the same input through
    the kernels and the bf16 plain route and read layer by layer;
@@ -87,7 +94,8 @@
    (`[kernels 577]`): the encoder attention at (320, 577, 16 x 64)
    through both entries, bf16 and f32 out, each against its plain version
    with a scaled_dot_product_attention yardstick, the int8 split pair at
-   (320, 577, 1024), and the decoder attention over L = 20 x 576 keys;
+   (320, 577, 1024), quant_rows on its (184640, 4096) and (184640, 1024)
+   rows, and the decoder attention over L = 20 x 576 keys;
 13. drives ViT-L/14@336px serving (`[vit-l@336 serve path]`, keep 0, 4, ...,
    20) as in 8, on one parameter seed: the four requests in bf16 and in
    compute_int8 (20 encoder attention launches a predict), logits and
@@ -95,9 +103,7 @@
    against the f32 plain route, int8 against bf16 by cosine, a
    device-resident predict timed, its peak memory read and traced;
 14. checks the ViT-L int8 ladder's kernels at its shapes (`[kernels tower
-   wide]`, 320 frames, width 1024, 16 heads): the int8 attention's streamed
-   kernel at (320, 577, 16 x 64) in both modes and at 321 and 1025 tokens
-   against its frame-chunked plain version; the whole int8 block at 257 and
+   wide]`, 320 frames, width 1024, 16 heads): the whole int8 block at 257 and
    577 tokens with int8 attention "0" and "1"; the 24-layer int8 tower
    (keep 18-23) at 257 and 577 tokens in each int8 attention mode, against
    the per-layer kernel chain (bit-level, as in 10; with bf16 attention
@@ -1750,6 +1756,83 @@ def check_attention_sweep() -> None:
               f"{worst:.3e} (tol {TOL_ENCODER:g})", flush=True)
 
 
+def check_int8_attention_sweep(rows: list) -> None:
+    """The int8 encoder attention (csrc/encoder_attention_s8.cu, one kernel
+    for both modes and every token count) at SWEEP_TOKENS on SWEEP_FRAMES
+    frames of 12 heads, more than two work items to each persistent block,
+    both modes, against attn_int8_cols_plain at TOL_ENCODER, with the share
+    of rows off by more than 1e-4 printed (a P value on a rounding boundary
+    may quantise one step apart). Then at the paths' shapes, 320 frames of
+    197 tokens x 12 heads (ViT-B/16), 257 x 16 (ViT-L/14) and 577 x 16
+    (ViT-L/14@336px), each mode timed beside the bf16 encoder attention's f32
+    output and the bound; the 257- and 577-token rows join the kernel table
+    (the 197-token rows come from `[kernels variants]`)."""
+    import torch
+
+    from dfd_clip_tpu_torch.ops import _cuda
+    from dfd_clip_tpu_torch.ops import attention as att
+
+    dev, n, bf = torch.device("cuda"), SWEEP_FRAMES, torch.bfloat16
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    if n * 12 <= 2 * sms:
+        raise SystemExit(f"FAIL int8 attention sweep: {n} frames of 12 heads are not more than "
+                         f"two work items to each of {sms} blocks")
+    gen = torch.Generator(device=dev).manual_seed(15)
+    for t in SWEEP_TOKENS:
+        qkv = torch.randn(n * t, 3 * 12 * 64, generator=gen, device=dev).to(bf)
+        line = []
+        for mode, qk in (("1", False), ("qk", True)):
+            got = att.encoder_attention_int8(qkv, n, t, 12, 64, qk_only=qk)
+            want = att.attn_int8_cols_plain(qkv, n, t, 12, 64, qk_only=qk)
+            if got.shape != want.shape or not torch.isfinite(got).all():
+                raise SystemExit(f"FAIL int8 attention sweep {t} tokens, mode {mode}: shape "
+                                 f"{tuple(got.shape)} or not finite")
+            err = rel_err(got, want)
+            off = ((got - want).abs().amax(-1) / want.abs().max() > 1e-4).float().mean().item()
+            line.append(f"'{mode}' rel_err {err:.3e}, rows off by > 1e-4 {off:.2e}")
+            if err > TOL_ENCODER:
+                raise SystemExit(f"FAIL int8 attention sweep {t} tokens, mode {mode}: rel_err "
+                                 f"{err:.3e} > {TOL_ENCODER:g}")
+            del got, want
+        print(f"  {t} tokens, {n} frames x 12 heads: " + "; ".join(line)
+              + f" (tol {TOL_ENCODER:g})", flush=True)
+        del qkv
+    torch.cuda.empty_cache()
+
+    n = CLIPS * FRAMES
+    pa = "dfd_clip_tpu/ops/pallas_attention.py"
+    for t, hh, path in ((197, 12, None), (WIDE_TOKENS, 16, "vitl_full_attn"),
+                        (L336_TOKENS, 16, "vitl336_full_attn")):
+        w = hh * 64
+        qkv = torch.randn(n * t, 3 * w, generator=gen, device=dev).to(bf)
+        bf16_ms = time_ms(lambda: _cuda.encoder_attention_packed(qkv, n, t, hh, 64,
+                                                                 torch.float32))
+        ops, nb = 4.0 * n * hh * t * t * 64, 2.0 * n * t * 3 * w + 4.0 * n * t * w
+        for mode, qk in (("1", False), ("qk", True)):
+            # operations: QK^T on int8; PV on int8, or bf16 in the qk mode
+            ops_t = ops / 2 / PEAK_INT8_TC + ops / 2 / (PEAK_BF16_TC if qk else PEAK_INT8_TC)
+            bound = max(ops_t, nb / HBM) * 1e3
+            ms = time_ms(lambda: att.encoder_attention_int8(qkv, n, t, hh, 64, qk_only=qk))
+            print(f"  int8 attention '{mode}' at ({n}, {t}, {hh} x 64): {ms:.4f} ms; bf16 "
+                  f"attention, f32 out, {bf16_ms:.4f} ms (int8 / bf16 {ms / bf16_ms:.3f}); bound "
+                  f"{bound:.4f} ms by {'operations' if ops_t >= nb / HBM else 'bytes'} "
+                  f"(ms / bound {ms / bound:.3f})", flush=True)
+            if path is None:
+                continue
+            name = f"encoder_attention_int8{' qk' if qk else ''} {t}"
+            err = compare(name, att.encoder_attention_int8(qkv, n, t, hh, 64, qk_only=qk),
+                          att.attn_int8_cols_plain(qkv, n, t, hh, 64, qk_only=qk), TOL_ENCODER)
+            kernel_row(rows, name, f"{pa}:214", "dfd_clip_tpu_torch/csrc/encoder_attention_s8.cu",
+                       ms, time_ms(lambda: att.attn_int8_cols_plain(qkv, n, t, hh, 64,
+                                                                    qk_only=qk),
+                                   iters=2, warmup=1),
+                       None, 0, 0, 0, err, counter="encoder_attention_int8",
+                       paths=() if qk else (path,),
+                       bound=(bound, "operations" if ops_t >= nb / HBM else "bytes"))
+        del qkv
+        torch.cuda.empty_cache()
+
+
 def check_wide_kernels(rows: list) -> None:
     """The kernels of the 257-token paths at their shapes (320 frames x 257
     tokens): the packed attention at ViT-L/14's 16 heads, the separate one
@@ -1984,16 +2067,18 @@ def check_split_chain(rows: list, h, blk: dict) -> None:
 
 
 def wide_serve(card: str, label: str, det, raws: list, expected: dict, used: tuple,
-               halves: bool = False):
+               halves: bool = False, hold_bf16: bool = False):
     """A Scorer over ``det`` with params ``raws[0]`` answers the four
     requests (counted); then, on the params of every seed in ``raws`` and on
     the batches of the last two requests, the kernels, the bf16 plain route
     and the f32 plain route are compared (hold_wide), and the kernels' logits
     and per-clip |dP(fake)| must lie within TOL_LOGITS_F32 and TOL_PFAKE_F32
     of the f32 route on every batch (a miss fails the run after the phase);
-    a device-resident predict is timed and traced; with ``halves`` each
-    block's two halves are read on the same input (half_drift). Returns
-    (counts, the logits of seed 0 on the last request's batch)."""
+    with ``hold_bf16`` their |dP(fake)| must also lie within TOL_PFAKE of the
+    bf16 plain route on every batch; a device-resident predict is timed and
+    traced; with ``halves`` each block's two halves are read on the same
+    input (half_drift). Returns (counts, the logits of seed 0 on the last
+    request's batch)."""
     import torch
 
     from dfd_clip_tpu_torch.serve import Scorer
@@ -2030,6 +2115,9 @@ def wide_serve(card: str, label: str, det, raws: list, expected: dict, used: tup
         if worst[1][k] > tol:
             fail(f"FAIL {label}: {name} of the kernels from the f32 plain route "
                  f"{worst[1][k]:.3e} > {tol:g}", True)
+    if hold_bf16 and worst[0][2] > TOL_PFAKE:
+        fail(f"FAIL {label}: |dP(fake)| of the kernels from the bf16 plain route "
+             f"{worst[0][2]:.3e} > {TOL_PFAKE:g}", True)
     torch.cuda.reset_peak_memory_stats()
     ms = time_ms(lambda: scorer.predict(scorer.params, xd, md), iters=5, warmup=1)
     print(f"  device-resident {label} predict: {ms:.2f} ms per {CLIPS}-clip batch "
@@ -2044,7 +2132,9 @@ def wide_serve(card: str, label: str, det, raws: list, expected: dict, used: tup
 def vitl_serve_path(card: str, seeds: int, arch: str = "ViT-L/14", label: str = "vit-l"):
     """ViT-L/14 Scorers (``arch``: also "ViT-L/14@336px"), bf16 then
     compute_int8, on the same seeded params (one encoder attention kernel at
-    257 and 577 tokens alike). Returns the launch counts of both."""
+    257 and 577 tokens alike). At 257 tokens both are also held against the
+    bf16 plain route at TOL_PFAKE (ViT-L/14@336px stays on the f32 route's
+    limits). Returns the launch counts of both."""
     import torch
     import torch.nn.functional as F
 
@@ -2060,14 +2150,15 @@ def vitl_serve_path(card: str, seeds: int, arch: str = "ViT-L/14", label: str = 
         {"fused_encoder_attention_qkv": 20, "fused_encoder_attn_block": 0,
          "fused_encoder_mlp_block": 0, "encoder_attention": 0, **decoder},
         used=("fused_encoder_attention_qkv", "layer_norm_rows", "gemm"),
-        halves=tokens == WIDE_TOKENS)
+        halves=tokens == WIDE_TOKENS, hold_bf16=tokens == WIDE_TOKENS)
     print(f"[{label} int8 serve] the same params and requests, op_mode compute_int8", flush=True)
     int8 = detector(**cfg, op_mode={"temporal_position": 1, "compute_int8": 1})
     counts8, got = wide_serve(
         card, f"{label} int8 serve", int8, raws,
         {"fused_encoder_attn_block": 21, "fused_encoder_mlp_block": 20, "encoder_attention": 20,
          "fused_encoder_attention_qkv": 0, **decoder},
-        used=("gemm_s8", "quant_rows", "layer_norm_quant", "encoder_attention", "gemm"))
+        used=("gemm_s8", "quant_rows", "layer_norm_quant", "encoder_attention", "gemm"),
+        hold_bf16=tokens == WIDE_TOKENS)
     cos = F.cosine_similarity(got.float().flatten(), ref.float().flatten(), dim=0).item()
     per_clip = F.cosine_similarity(got.float(), ref.float(), dim=-1).min().item()
     print(f"  {label} int8 vs bf16 logits, same params: cosine {cos:.6f} "
@@ -2356,12 +2447,13 @@ def check_577_kernels(rows: list) -> None:
     tokens): the encoder attention at (320, 577, 16 x 64) through the packed
     entry and the separate one (strided views of one packed buffer), bf16
     and f32 out, each against its plain version with the SDPA yardstick; the
-    int8 split pair at (320, 577, 1024); and the decoder attention over
-    L = 20 x 576 keys at 16 heads."""
+    int8 split pair at (320, 577, 1024); quant_rows on the (184640, 4096)
+    MLP intermediate and the (184640, 1024) attention output; and the
+    decoder attention over L = 20 x 576 keys at 16 heads."""
     import torch
 
     from dfd_clip_tpu_torch.models import clip_vit
-    from dfd_clip_tpu_torch.ops import _cuda
+    from dfd_clip_tpu_torch.ops import _cuda, int8
     from dfd_clip_tpu_torch.ops import attention as att
     from dfd_clip_tpu_torch.ops import encoder_block as eb
 
@@ -2440,6 +2532,22 @@ def check_577_kernels(rows: list) -> None:
     del h, blk
     torch.cuda.empty_cache()
 
+    # -- quant_rows at these paths' shapes: the f32 MLP intermediate (every int8
+    # rung) and the f32 attention output (the whole int8 block's rungs) -------------
+    for cols, paths in ((4 * w, ("vitl336_int8_serve", "vitl336_split", "vitl336_full",
+                                 "vitl336_full_attn")),
+                        (w, ("vitl336_full", "vitl336_full_attn"))):
+        x = torch.randn(m_rows, cols, generator=dgen, device=dev)
+        name = f"quant_rows {m_rows} x {cols}"
+        err = compare_int8(name, *_cuda.quant_rows(x), *int8.quant_rows_plain(x), TOL_FLIPS_QUANT)
+        kernel_row(rows, name, f"{pa}:158", "dfd_clip_tpu_torch/csrc/quant_rows.cu",
+                   time_ms(lambda: _cuda.quant_rows(x)),
+                   time_ms(lambda: int8.quant_rows_plain(x), iters=3, warmup=1), None,
+                   4.0 * m_rows * cols, 5.0 * m_rows * cols + 4.0 * m_rows, PEAK_F32, err,
+                   counter="quant_rows", paths=paths)
+        del x
+        torch.cuda.empty_cache()
+
     # -- the decoder over the 576-row export (L = 11,520) --------------------------------
     check_decoder_attention(rows, "fused_decoder_attention 16 heads, L 11520", gen, dev, 16,
                             t_out, t_out, VITL336_PATHS + VITL336_LADDER)
@@ -2447,19 +2555,17 @@ def check_577_kernels(rows: list) -> None:
 
 def check_tower_wide_kernels(rows: list) -> None:
     """The ViT-L int8 ladder's kernels at its shapes (320 frames, width 1024,
-    16 heads): the int8 attention's streamed kernel at (320, 577, 16 x 64)
-    in both modes and at 321 and 1025 tokens against its (frame-chunked)
-    plain version; the whole int8 block at 257 and 577 tokens with int8
+    16 heads): the whole int8 block at 257 and 577 tokens with int8
     attention "0" and "1"; and the 24-layer int8 tower (keep 18-23) at 257
     and 577 tokens in each int8 attention mode, against the per-layer kernel
-    chain (the same block bodies but the bf16 attention's; with bf16
-    attention each layer's stage on the same input as well) and the plain
-    chain, with the plain chain's drift from the kernel chain printed layer by layer."""
+    chain (the same block bodies; with bf16 attention each layer's stage on
+    the same input as well) and the plain chain, with the plain chain's
+    drift from the kernel chain printed layer by layer. (The int8 attention
+    at these shapes is held and timed in `[kernels int8 sweep]`.)"""
     import torch
 
     from dfd_clip_tpu_torch.models import clip_vit
     from dfd_clip_tpu_torch.ops import _cuda
-    from dfd_clip_tpu_torch.ops import attention as att
     from dfd_clip_tpu_torch.ops import encoder_block as eb
     from dfd_clip_tpu_torch.ops import tower
     from dfd_clip_tpu_torch.tools import bench_tower_stages as bts
@@ -2477,30 +2583,6 @@ def check_tower_wide_kernels(rows: list) -> None:
             return ops / PEAK_BF16_TC, ops
         return ops / 2 / PEAK_INT8_TC + ops / 2 / (
             PEAK_BF16_TC if int8_attn == "qk" else PEAK_INT8_TC), ops
-
-    # -- the int8 attention above 320 tokens (attn_s8::stream_tile) ----------------------
-    for t, frames in ((L336_TOKENS, n), (321, 32), (1025, 32)):
-        qkv = torch.randn(frames * t, 3 * w, generator=dgen, device=dev).to(bf)
-        for mode in ("1", "qk"):
-            qk = mode == "qk"
-            name = f"encoder_attention_int8{' qk' if qk else ''} {t}"
-            got = att.encoder_attention_int8(qkv, frames, t, hh, d, qk_only=qk)
-            err = compare(name, got, att.attn_int8_cols_plain(qkv, frames, t, hh, d, qk_only=qk),
-                          TOL_ENCODER)
-            del got
-            if t != L336_TOKENS:
-                continue
-            ops_t = attn_time(frames, t, mode)[0]
-            nb = 2.0 * frames * t * 3 * w + 4.0 * frames * t * w
-            row(name, f"{pa}:214", "dfd_clip_tpu_torch/csrc/attention_s8_tile.cuh",
-                time_ms(lambda: att.encoder_attention_int8(qkv, frames, t, hh, d, qk_only=qk)),
-                time_ms(lambda: att.attn_int8_cols_plain(qkv, frames, t, hh, d, qk_only=qk),
-                        iters=2, warmup=1),
-                None, 0, 0, 0, err, counter="encoder_attention_int8_stream",
-                paths=() if qk else ("vitl336_full_attn",),
-                bound=(max(ops_t, nb / HBM) * 1e3, "operations" if ops_t >= nb / HBM else "bytes"))
-        del qkv
-    torch.cuda.empty_cache()
 
     # -- the whole int8 block at width 1024 ------------------------------------------------
     blk = random_block(torch.Generator().manual_seed(13), dev, int8=True, cfg=clip_vit.VIT_L14)
@@ -2628,13 +2710,12 @@ def check_tower_wide_kernels(rows: list) -> None:
     torch.cuda.empty_cache()
 
 
-def ladder_counts(rung: str, tokens: int) -> dict:
+def ladder_counts(rung: str) -> dict:
     """A ladder rung's encoder and decoder launches a predict (24 layers: 23
     blocks and the last kept layer's K/V columns)."""
-    stream = tokens > 320
     decoder = {"fused_decoder_attention": 6, "decoder_boundary": 7}
     if rung.startswith("tower"):
-        return {**TOWER_COUNTS, **decoder, "encoder_attention_int8_stream": 0}
+        return {**TOWER_COUNTS, **decoder}
     if rung == "split":
         return {"fused_encoder_attn_block": 24, "fused_encoder_mlp_block": 23,
                 "fused_encoder_block": 0, "fused_encoder_tower": 0, "encoder_attention": 23,
@@ -2643,8 +2724,7 @@ def ladder_counts(rung: str, tokens: int) -> dict:
     return {"fused_encoder_block": 23, "fused_encoder_attn_block": 1,
             "fused_encoder_mlp_block": 0, "fused_encoder_tower": 0,
             "encoder_attention": 0 if int8_attn else 23,
-            "encoder_attention_int8": 23 if int8_attn else 0,
-            "encoder_attention_int8_stream": 23 if stream and int8_attn else 0, **decoder}
+            "encoder_attention_int8": 23 if int8_attn else 0, **decoder}
 
 
 def ladder_paths(card: str) -> dict:
@@ -2695,7 +2775,7 @@ def ladder_paths(card: str) -> dict:
             counts[path] = answer(scorer, requests, card, path)
             used = ("fused_encoder_tower",) if kernels.get("tower") else (
                 "gemm_s8", "quant_rows", "layer_norm_quant")
-            check_counts(path, counts[path], ladder_counts(rung, tokens), len(requests), used=used)
+            check_counts(path, counts[path], ladder_counts(rung), len(requests), used=used)
             got = scorer.predict(scorer.params, xd, md)
             # the plain route in f32: a tower rung's is its whole-block chain's
             # (the same plain functions, and neither export has pad rows here)
@@ -2914,9 +2994,10 @@ def main() -> int:
     for line in log.splitlines():
         if "Used" in line or "spill" in line and "0 bytes spill" not in line:
             print("  " + line.strip(), flush=True)
-    serialised = wgmma_serialised(log, ("gemm.cu", "gemm_s8.cu"))
+    serialised = wgmma_serialised(log, ("gemm.cu", "gemm_s8.cu", "encoder_attention_s8.cu"))
     if serialised:
-        raise SystemExit("FAIL the GEMMs' wgmma products were serialised:\n" + "\n".join(serialised))
+        raise SystemExit("FAIL the GEMMs' or the int8 attention's wgmma products were "
+                         "serialised:\n" + "\n".join(serialised))
     for line in wgmma_serialised(log, tuple(p.name for p in _cuda.CSRC.glob("encoder_tower*.cu"))):
         print(f"  [the tower's ptxas] {line[:200]}", flush=True)
 
@@ -2928,6 +3009,10 @@ def main() -> int:
     check_attention_sweep()
     print("[kernels int8] flagship shapes, W8A8 and int8_rows K/V", flush=True)
     check_int8_kernels(rows)
+    print("[kernels int8 sweep] the int8 encoder attention at 1 to 1025 tokens in both modes, "
+          f"then at the paths' shapes beside the bf16 attention; every time on {card}",
+          flush=True)
+    check_int8_attention_sweep(rows)
     print(f"[kernels gemm] gemm and gemm_s8 at every path shape; every time on {card}",
           flush=True)
     check_gemm_kernels()

@@ -81,16 +81,6 @@ __device__ __forceinline__ void load8(const bf16* p, float* v) {
   for (int e = 0; e < 8; ++e) v[e] = __bfloat162float(pk.h[e]);
 }
 
-// int8 x int8 -> int32 tensor-core product of one m16n8k32 tile (a: 4, b: 2
-// registers of 4 int8 each, the PTX fragment layout).
-__device__ __forceinline__ void mma_s8(int* c, const unsigned* a, const unsigned* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
 // The _quant_rows rounding of one f32 value: clip(round(v * mul), -127, 127)
 // with round half to even (rintf) and no fused multiply-add.
 __device__ __forceinline__ int8_t quant8(float v, float mul) {

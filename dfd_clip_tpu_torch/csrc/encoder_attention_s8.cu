@@ -1,6 +1,6 @@
 // Encoder self-attention with both attention products on the int8 tensor
-// cores over packed bf16 qkv rows: one block per (frame, head) up to 320
-// tokens, one per 128 query rows of a (frame, head) above.
+// cores over packed bf16 qkv rows: one warp-specialised Hopper kernel (TMA
+// loads, int8 wgmma) for every token count and both modes.
 //
 // Replaces: dfd_clip_tpu/ops/pallas_attention.py _attn_int8_cols (the
 // DFD_INT8_ATTN stage of _make_full_block_kernel_phased and of
@@ -11,7 +11,16 @@
 // all tokens of the frame; the output is (Pi Vi) * (sp / sum p / 127^2) * sv,
 // f32 (frames x tokens, heads x 64), which the int8 block's out-projection
 // quantises per row. Mode "qk" (qk_only) keeps PV in bf16: bf16(p) V with f32
-// accumulate, times 1 / sum p.
+// accumulate, times 1 / sum p. The softmax subtracts the row maximum (as
+// csrc/encoder_attention.cu: the TPU kernel instead clamps logits at 60,
+// pallas_attention.py:48-64; P's per-row quantisation is invariant to that
+// factor except through the 1e-8 of its scale, so the two agree except where
+// a logit exceeds 60 or a row's largest exp is below about 1e-6). The f32
+// operations follow the JAX formula's order with __fmul_rn / IEEE division
+// and expf, none fused into an FMA, so the plain version
+// (ops/attention.py attn_int8_cols_plain) repeats them; only sum p is taken
+// in another order (each thread two partial sums over its keys, by key group
+// parity, block by block, then the four threads of a row).
 //
 // Bound on an H100: bytes. At ViT-B/16's (320 frames, 197 tokens, 12 x 64)
 // the products are 2 x 197^2 x 64 x 2 operations per (frame, head) against
@@ -19,126 +28,153 @@
 // about 100 int8 operations per byte, far below the card's ~590. At
 // ViT-L/14@336px's (320, 577, 16 x 64) the same count gives ~290 a byte:
 // 0.5644 ms of bytes (1.134 GB read, 0.756 GB written), 0.2205 ms of
-// operations.
+// operations. What the card spends beyond that is the f32 work on each
+// logit, twice (the row maximum, then exp, sum and P's quantisation), on the
+// CUDA cores: about 20 instructions a logit, where the bf16 attention takes
+// about 6.
 //
-// Design: the block stages V (bf16) in shared memory with cp.async while
-// its warps quantise K row by row (int8, 80-byte pitch as in gemm_s8, so the
-// 32 lanes of a fragment load hit 32 banks); in mode "1" it then takes V's
-// per-channel maxima and stores V quantised and transposed (each channel's
-// tokens contiguous: the k-contiguous B operand of the PV product). Each warp
-// walks 16-query-row tiles: Q quantised per row in registers, the logits by
-// mma.sync m16n8k32 s8 -> s32 (exact int32 sums) into an f32 row buffer, a
-// softmax with the row maximum subtracted (as csrc/encoder_attention.cu: the
-// TPU kernel instead clamps logits at 60, pallas_attention.py:48-64; P's
-// per-row quantisation is invariant to that factor except through the
-// 1e-8 of its scale, so the two agree except where a logit exceeds 60 or a
-// row's largest exp is below about 1e-6), P written back over the consumed
-// logits (int8, or bf16 in mode "qk"), then PV by m16n8k32 s8 (or wmma bf16
-// in mode "qk") and the dequant straight from the accumulator registers.
-// Keys are padded to 32 with zero K rows, -inf logits, zero P and zero V.
-// The TPU tower pads tokens to a multiple of 8 and masks the pad keys
-// (kv_len); the port does not pad, so it needs no mask. The f32 operations
-// follow the JAX formula's order and use __fmul_rn / __fadd_rn / IEEE
-// division, so none is fused into an FMA and the plain version
-// (ops/attention.py attn_int8_cols_plain) repeats them. The block body lives
-// in csrc/attention_s8_tile.cuh, shared with csrc/encoder_tower.cu.
+// Design: the frame of csrc/encoder_attention.cu (csrc/attention_hopper.cuh),
+// whose header describes the schedule. A persistent grid of one block a SM
+// walks the work items, one (frame, head) each; warpgroup 0 produces
+// (setmaxnreg down to 96 registers), two consumer warpgroups (up to 200)
+// take a 64-row query tile each, across item boundaries. (Three consumers,
+// as the bf16 attention has, ran slower on an H100: at 128 registers a
+// thread the consumers' f32 work loses its parallelism and the quantisers
+// spill.)
+// - Loads: the bf16 attention's producers as they are: warp 0 keeps a ring
+//   of STAGES = 10 key blocks of 64 (raw K and V, bf16, TMA boxes in the
+//   128-byte swizzle) full, warp 1 the consumers' raw Q tiles (two buffers
+//   each). Up to 640 tokens an item's whole K/V stays resident while its
+//   query tiles walk it; above, the ring refills for each group of two
+//   tiles, twice (one load a key block a pass).
+// - Quantise once per (frame, head): producer warps 2 and 3 take V's
+//   per-channel maxima over all the frame's tokens from device memory
+//   first (16-byte loads, the maxima of the bf16 magnitudes' bits), then
+//   quantise each key block as it lands, in place: K's row into bytes
+//   0 .. 63 of its own 128-byte row (the int8 K-major B operand of S =
+//   Q K^T) with its scale, then k_ready; V's channels (mode "1") into
+//   bytes 64 .. 127 of the rows (V^T: each channel's keys contiguous, the
+//   K-major B operand of PV) with the keys permuted to match P's register
+//   fragment (kpos), then v_ready. The first pass needs only k_ready, and
+//   an item's V^T does not wait for its last block.
+// - A consumer quantises its Q tile in place (two threads a row, the warp
+//   that holds the rows' A fragments), then two passes over the keys on
+//   wgmma m64n32k32 s8 -> s32 (exact int32 sums), a key block in halves of
+//   32 keys, A and B K-major from shared memory (32-byte steps inside the
+//   swizzled rows), one half's product in flight while the other's f32
+//   work runs:
+//     pass 1 takes each row's maximum of the f32 logits;
+//     pass 2 takes the same logits, p = exp(l - max), the row sums and P's
+//     int8 values; max p is exp(0) = 1, so P's scale, 1 + 1e-8 (= 1 in f32),
+//     is known before the row is complete. P goes from registers into the
+//     PV product's A operand (wgmma m64n64k32 s8 with A from registers, a
+//     k32 step a half). Mode "qk": bf16(p) through the bf16 attention's
+//     wgmma_rs (m64n64k16, V's raw bf16 tile transposed by the
+//     instruction).
+//   Key groups of 8 wholly past the frame's end (the last block) skip the
+//   f32 work; keys past it within a group are masked. Why two passes:
+//   P's int8 values depend on the final row maximum, so an online softmax
+//   with rescaling would give other values (and other bf16(p) in "qk").
+// - The f32 work of a logit runs on the FMA pipes: P's rounding to int8
+//   is an add of 1.5 x 2^23, whose low byte is the rounded value, where
+//   the f32 -> int conversion (a quarter of the FMA rate on an H100) was
+//   the largest cost after the exp.
+// - Epilogue from the accumulator registers: (acc * cr) * sv or o * (1 /
+//   sum p), f32, rows past the frame's end skipped; the tile's last key
+//   block stays held until then, since its stage carries V's scales.
+// Every mbarrier wait traps after ~2^26 polls, so a lost arrival ends the
+// launch with an error instead of hanging the card.
 //
-// Above 320 tokens (CLIP ViT-L/14@336px: 577) the launcher takes the
-// streamed body (attn_s8::stream_tile) instead; up to 320 the staged kernel
-// runs as before, bit for bit. A whole (frame, head) no longer fits one
-// block: at 608 padded keys V (bf16), V^T and K (int8) alone take ~179 KB,
-// which leaves room for one warp's logits row. Neither scale lets the
-// attention stream as an online softmax does: V's per-channel scale is a
-// maximum over all the frame's tokens, and P is quantised per row after
-// the row maximum is subtracted, so a running maximum would give other
-// int8 values. The streamed body instead takes a work item of 128 query
-// rows of a (frame, head), 8 warps of 16 rows (grid: frames x heads x
-// ceil(tokens / 128) blocks of 256 threads), and two passes over K:
-//   - mode "1" first takes V's per-channel maxima over all tokens from
-//     device memory (8 channels a thread, 16-byte loads, 32 row lanes);
-//   - the keys then stream through shared memory in segments of 256: each
-//     segment's K is quantised per row (int8, the staged body's arithmetic)
-//     by the whole block; pass 1 takes the logits of every segment on the
-//     int8 tensor cores (m16n8k32, exact int32 sums, scaled in f32 as the
-//     staged body scales them) and keeps each row's maximum in registers;
-//   - pass 2 takes the same logits again, p = exp(l - max), the row sums,
-//     and P's int8 values. max p is exp(0) = 1, so P's per-row scale,
-//     max p + 1e-8, is known before the row is complete. P goes from the
-//     logits' accumulator registers straight into the PV product's A
-//     fragments: a thread holds keys 2t, 2t + 1, 8 + 2t, 9 + 2t of each
-//     16, the fragment wants k = 4t .. 4t + 3, so each segment's V^T
-//     (quantised with the scales of the first step) is stored with its keys in that
-//     permutation, which the exact int32 sum does not see. Mode "qk" stages
-//     the segment's V rows (bf16) instead and multiplies bf16(p) into them
-//     with mma.sync m16n8k16 (the streamed bf16 attention's fragments).
-// Shared memory is 57 KB ("1") or 68 KB ("qk") at any token count, so the
-// token count is capped only by the grid; three blocks fit a SM. Each block
-// re-reads its (frame, head)'s K and V (L2 hits: the item's blocks are
-// neighbours in the grid). The f32 operations are the staged body's; only
-// the row sums are added in another order.
-#include "attention_s8_tile.cuh"
+// Shared memory: the bf16 attention's 10 x 16 KB ring and 2 x 2 x 8 KB Q
+// buffers, 10 x 512 B of scales, 4 KB of the quantisers' partial maxima and
+// the barriers, ~202 KB: one block a SM. The tensor maps are the bf16
+// attention's (hattn::encode), passed as __grid_constant__ parameters. The
+// body lives in csrc/attention_s8_hopper.cuh, which the whole-encoder tower
+// (csrc/encoder_tower.cuh) runs with its two consumer warpgroups as its
+// int8 attention stage: a query tile's values do not depend on the
+// consumer count or on residency, so the two agree bit for bit.
+#include "attention_s8_hopper.cuh"
 
 namespace {
 
 using namespace attn_s8;
 
-template <int MAX_TP, bool QK_ONLY>
-__global__ void encoder_attention_s8_kernel(const bf16* __restrict__ qkv, float* __restrict__ out,
-                                            int tokens, int heads, float coef_qk) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  tile<MAX_TP, QK_ONLY>(qkv, 3 * heads * D, out, tokens, heads, coef_qk, blockIdx.x / heads,
-                        blockIdx.x % heads, smem);
-}
+constexpr int NCONS = 2;                     // consumer warpgroups, 64 query rows each
+constexpr int THREADS = 128 * (NCONS + 1);   // and the producer warpgroup
+// setmaxnreg: the producer gives registers to the consumers. A block starts
+// with LAUNCH_REGS a thread (65,536 a SM); an increase that the decrease
+// does not pay for never returns, so the two must balance.
+constexpr int LAUNCH_REGS = 65536 / THREADS / 8 * 8;
+constexpr int PRODUCER_REGS = 96;            // the TMA threads and the quantisers
+constexpr int CONSUMER_REGS = 200;
+static_assert(LAUNCH_REGS - PRODUCER_REGS >= NCONS * (CONSUMER_REGS - LAUNCH_REGS),
+              "setmaxnreg would wait for registers that are never freed");
+constexpr int SMEM_BYTES = Layout<NCONS>::DATA_BYTES + Layout<NCONS>::BAR_BYTES + 1024;
+static_assert(SMEM_BYTES <= 232448, "more shared memory than a block may have");
 
-template <bool QK_ONLY>
-__global__ void __launch_bounds__(STREAM_THREADS)
-encoder_attention_s8_stream_kernel(const bf16* __restrict__ qkv, float* __restrict__ out,
-                                   int tokens, int heads, float coef_qk) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int chunks = (tokens + STREAM_ROWS - 1) / STREAM_ROWS;
-  const int fh = blockIdx.x / chunks;
-  stream_tile<QK_ONLY>(qkv, 3 * heads * D, out, tokens, heads, coef_qk, fh / heads, fh % heads,
-                       blockIdx.x % chunks, smem);
-}
-
-int launch_stream(const void* qkv, void* out, int frames, int tokens, int heads, float coef_qk,
-                  int qk_only, void* stream) {
-  const long long blocks =
-      (long long)frames * heads * ((tokens + STREAM_ROWS - 1) / STREAM_ROWS);
-  if (blocks < 1 || blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = qk_only ? encoder_attention_s8_stream_kernel<true>
-                        : encoder_attention_s8_stream_kernel<false>;
-  const size_t smem = stream_smem(qk_only);
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<static_cast<unsigned>(blocks), STREAM_THREADS, smem,
-           static_cast<cudaStream_t>(stream)>>>(static_cast<const bf16*>(qkv),
-                                                 static_cast<float*>(out), tokens, heads, coef_qk);
-  return static_cast<int>(cudaGetLastError());
+template <bool QK>
+__global__ void __launch_bounds__(THREADS, 1)
+encoder_attention_s8_kernel(const __grid_constant__ CUtensorMap map_q,
+                            const __grid_constant__ CUtensorMap map_k,
+                            const __grid_constant__ CUtensorMap map_v,
+                            const bf16* __restrict__ qkv, float* __restrict__ out,
+                            const Geometry g, float coef_qk) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t bars = base + Layout<NCONS>::DATA_BYTES;
+  const Smem<NCONS> sm{{base, bars}, bars + hattn::Layout<NCONS>::BAR_BYTES,
+                       smem_raw + (base - raw)};
+  if (threadIdx.x == 0) {
+    sm.a.init(g);
+    sm.init_ready();
+  }
+  __syncthreads();
+  const Counts<NCONS> cnt{};
+  if (threadIdx.x < 128) {
+    // ---- producer warpgroup: the K/V ring, the Q tiles, the quantisers ----------
+    setmaxnreg_dec<PRODUCER_REGS>();
+    produce<NCONS, QK>(sm, g, &map_q, &map_k, &map_v, qkv, 3LL * g.heads * D, cnt);
+  } else {
+    // ---- the consumer warpgroups, 64 query rows each -------------------------------
+    setmaxnreg_inc<CONSUMER_REGS>();
+    consume_as<NCONS, QK, false>(threadIdx.x / 128 - 1, sm, g, coef_qk, out, cnt);
+  }
 }
 
 }  // namespace
 
 // out[frames * tokens, heads * 64] f32 = _attn_int8_cols over the packed
 // bf16 rows qkv[frames * tokens, 3 * heads * 64], [q | k | v]; coef_qk =
-// d^-1/2 / 127^2 rounded to f32; qk_only: PV in bf16. Up to 320 tokens the
-// staged kernel runs, above it the streamed one. Returns the launch's
+// d^-1/2 / 127^2 rounded to f32; qk_only: PV in bf16. 16-byte aligned base
+// (the wrapper checks; TMA needs it). Returns the launch's
 // cudaGetLastError().
 extern "C" int dfd_encoder_attention_s8(const void* qkv, void* out, int frames, int tokens,
                                         int heads, float coef_qk, int qk_only, void* stream) {
-  if (tokens > MAX_TOKENS)
-    return launch_stream(qkv, out, frames, tokens, heads, coef_qk, qk_only, stream);
-  if (tokens < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const Geometry g = geometry(tokens);
-  auto kernel = g.tp <= 256
-      ? (qk_only ? encoder_attention_s8_kernel<256, true> : encoder_attention_s8_kernel<256, false>)
-      : (qk_only ? encoder_attention_s8_kernel<MAX_TOKENS, true>
-                 : encoder_attention_s8_kernel<MAX_TOKENS, false>);
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(g.smem));
+  const long long items = (long long)frames * heads;
+  if (tokens < 1 || frames < 1 || heads < 1 || items > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long width = (long long)heads * D;
+  const bf16* x = static_cast<const bf16*>(qkv);
+  alignas(64) CUtensorMap mq, mk, mv;
+  if (!hattn::encode(&mq, x, 3 * width, frames, tokens, heads) ||
+      !hattn::encode(&mk, x + width, 3 * width, frames, tokens, heads) ||
+      !hattn::encode(&mv, x + 2 * width, 3 * width, frames, tokens, heads))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Geometry g = geometry<NCONS>(frames, tokens, heads);
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<frames * heads, g.warps * 32, g.smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(qkv), static_cast<float*>(out), tokens, heads, coef_qk);
+  // a block's load and slot counters are ints
+  const long long per_block = (items + sms - 1) / sms;
+  if (per_block * g.per_item > 0x7fffffffLL || per_block * g.slots > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = qk_only ? encoder_attention_s8_kernel<true> : encoder_attention_s8_kernel<false>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int grid = static_cast<int>(items < sms ? items : sms);
+  kernel<<<grid, THREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
+      mq, mk, mv, x, static_cast<float*>(out), g, coef_qk);
   return static_cast<int>(cudaGetLastError());
 }

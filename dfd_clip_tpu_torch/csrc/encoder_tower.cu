@@ -43,9 +43,10 @@
 //   intermediate: csrc/rows.cuh, a row a warp) on every warp, a LayerNorm's
 //   scale and shift staged in shared memory (the L1 that the stages' shared
 //   memory leaves is too small to keep them beside the streaming rows);
-// - the int8 attention bodies (csrc/attention_s8_tile.cuh: mma.sync, 8
-//   warps) on the two consumer warpgroups, with a named barrier of their
-//   own; the producer warpgroup waits at the grid barrier meanwhile.
+// - the int8 attention on the body of csrc/encoder_attention_s8.cu
+//   (csrc/attention_s8_hopper.cuh) with the same block: its producers on
+//   warps 0 and 1, its quantisers on warps 2 and 3, the two consumer
+//   warpgroups; a query tile's values do not depend on the consumer count.
 // The warpgroups keep one role for the whole launch: setmaxnreg moves the
 // producer's registers to the consumers once, in the branch that runs each
 // role (a role's code after a join would get the smaller count), and each
@@ -96,8 +97,8 @@ using namespace tower;
 extern "C" int dfd_encoder_tower_grid(int tokens, int int8, int attn, int* grid) {
   *grid = 0;
   auto kernel = tower_kernel(tokens, int8);
-  const size_t smem = tower_smem(tokens, int8, attn);
-  if (tokens < 1 || smem > attn_s8::SMEM_LIMIT) return 0;
+  const size_t smem = tower_smem(int8, attn);
+  if (tokens < 1 || smem > SMEM_LIMIT) return 0;
   int dev = 0, sms = 0, coop = 0, clusters = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -106,7 +107,7 @@ extern "C" int dfd_encoder_tower_grid(int tokens, int int8, int attn, int* grid)
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
   cudaLaunchAttribute attr[2];
-  cudaLaunchConfig_t cfg = launch_config(tokens, int8, attn, sms / CL * CL, nullptr, attr);
+  cudaLaunchConfig_t cfg = launch_config(int8, attn, sms / CL * CL, nullptr, attr);
   cfg.numAttrs = 1;   // the occupancy query takes the cluster shape alone
   if (err == cudaSuccess) err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -222,7 +223,7 @@ extern "C" int dfd_encoder_tower(const void* h0, const void* table, void* k, voi
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   cudaLaunchAttribute attr[2];
   const cudaLaunchConfig_t cfg =
-      launch_config(tokens, int8, attn, grid > 0 ? grid : max_grid, stream, attr);
+      launch_config(int8, attn, grid > 0 ? grid : max_grid, stream, attr);
   const cudaError_t launched = cudaLaunchKernelEx(&cfg, tower_kernel(tokens, int8), a);
   if (launched != cudaSuccess) return static_cast<int>(launched);
   return static_cast<int>(cudaGetLastError());

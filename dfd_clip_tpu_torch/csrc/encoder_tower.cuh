@@ -6,7 +6,7 @@
 #pragma once
 
 #include "attention_hopper.cuh"
-#include "attention_s8_tile.cuh"
+#include "attention_s8_hopper.cuh"
 #include "gemm_ops.cuh"
 #include "rows.cuh"
 
@@ -24,19 +24,21 @@ constexpr int WARPS = THREADS / 32;
 constexpr float LN_EPS = 1e-5f;
 static_assert(hgemm::THREADS == 128 * (NCONS + 1), "one block shape for every stage");
 
-// Shared memory: the barriers (the GEMM frame's, then the attention's) and
-// the current product's parameters (PARAMS_OFF) in BAR_BYTES below the
-// data, which starts 1024-byte aligned; the data is the largest of the
-// stages' (the GEMM ring, staging tile and column operands; the attention's
-// K/V ring and Q buffers; the int8 attention bodies').
+// Shared memory: the barriers (the GEMM frame's, then the attention's, then
+// the int8 attention's ready barriers) and the current product's parameters
+// (PARAMS_OFF) in BAR_BYTES below the data, which starts 1024-byte aligned;
+// the data is the largest of the stages' (the GEMM ring, staging tile and
+// column operands; the attention's K/V ring and Q buffers, with the int8
+// attention's scales).
 constexpr int BAR_BYTES = 1024;
 constexpr int GEMM_BARS = hgemm::Layout<BN>::BAR_BYTES;
 constexpr int PARAMS_OFF = 512;
-static_assert(GEMM_BARS + hattn::Layout<NCONS>::BAR_BYTES <= PARAMS_OFF, "barriers");
+static_assert(GEMM_BARS + attn_s8::Layout<NCONS>::BAR_BYTES <= PARAMS_OFF, "barriers");
 constexpr int GEMM_DATA = hgemm::Layout<BN>::BAR_OFF;
 constexpr int ATTN_DATA = hattn::Layout<NCONS>::DATA_BYTES;
+constexpr int S8_DATA = attn_s8::Layout<NCONS>::DATA_BYTES;
 constexpr int SLACK = BAR_BYTES + 1024;
-constexpr size_t S8_LIMIT = attn_s8::SMEM_LIMIT - SLACK;   // the int8 staged body's room
+constexpr size_t SMEM_LIMIT = 232448;   // dynamic shared memory a block may use
 
 // One layer's parameters (models/clip_vit.py's per-layer dicts).
 struct LayerW {
@@ -77,13 +79,6 @@ struct TowerArgs {
   bf16* y;                // (rows, W): the LayerNorm output (bf16 tower)
   int8_t* aq;             // (rows, hidden): int8 activations (int8 tower)
   float* as;              // (rows,): their scales
-};
-
-// The int8 attention bodies' threads: the two consumer warpgroups.
-struct Consumers {
-  static __device__ __forceinline__ int tid() { return threadIdx.x - 128; }
-  static __device__ __forceinline__ int size() { return 128 * NCONS; }
-  static __device__ __forceinline__ void sync() { hopper::named_barrier(3, 128 * NCONS); }
 };
 
 // The stage clock: block 0's thread 0 appends a %globaltimer reading.
@@ -141,6 +136,10 @@ __device__ __forceinline__ hgemm::Smem<BN> gemm_smem() {
 }
 __device__ __forceinline__ hattn::Smem<NCONS> attn_smem() {
   return {smem_data(), smem_bars() + GEMM_BARS};
+}
+__device__ __forceinline__ attn_s8::Smem<NCONS> s8_smem() {
+  return {attn_smem(), smem_bars() + GEMM_BARS + hattn::Layout<NCONS>::BAR_BYTES,
+          smem_ptr(smem_data())};
 }
 
 // The state a role carries from one stage to the next: the chunk and layer
@@ -202,13 +201,25 @@ __device__ __forceinline__ void gemm_stage(volatile Carry& c, const CUtensorMap*
 
 // The bf16 attention stage of the role over fc frames: the K/V and Q
 // producers on warps 0 and 1, the two consumer warpgroups.
+// The attention counters a stage starts from, and the carry after it.
+__device__ __forceinline__ hattn::Counts<NCONS> attn_counts(const volatile Carry& c) {
+  hattn::Counts<NCONS> cnt;
+  cnt.kv = c.kv;
+  for (int i = 0; i < NCONS; ++i) cnt.q[i] = c.q[i];
+  return cnt;
+}
+__device__ __forceinline__ void carry_attn(volatile Carry& c, hattn::Counts<NCONS> cnt,
+                                           const hattn::Geometry& g) {
+  cnt.advance(g);
+  c.kv = cnt.kv;
+  for (int i = 0; i < NCONS; ++i) c.q[i] = cnt.q[i];
+}
+
 template <bool OUT_F32, bool NARROW, bool PRODUCER>
 __device__ __forceinline__ void attention_stage(volatile Carry& c, const TowerArgs& a, int fc) {
   const hattn::Geometry g = hattn::geometry<NCONS>(fc, a.tokens, a.heads);
   const hattn::Smem<NCONS> sm = attn_smem();
-  hattn::Counts<NCONS> cnt;
-  cnt.kv = c.kv;
-  for (int i = 0; i < NCONS; ++i) cnt.q[i] = c.q[i];
+  const hattn::Counts<NCONS> cnt = attn_counts(c);
   if constexpr (PRODUCER) {
     const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
     if (warp == 0 && lane == 0)
@@ -218,9 +229,7 @@ __device__ __forceinline__ void attention_stage(volatile Carry& c, const TowerAr
   } else {
     hattn::consume_as<NCONS, OUT_F32, NARROW>(threadIdx.x / 128 - 1, sm, g, a.coef, a.att, cnt);
   }
-  cnt.advance(g);
-  c.kv = cnt.kv;
-  for (int i = 0; i < NCONS; ++i) c.q[i] = cnt.q[i];
+  carry_attn(c, cnt, g);
 }
 
 // A row stage: fn(row, lane) for rows 0 .. rows - 1, a warp a row over
@@ -248,47 +257,32 @@ __device__ __forceinline__ const float* stage_norm(const float* scale, const flo
   return ss;
 }
 
-// The int8 attention of fc frames' packed qkv rows into the f32 att, on the
-// consumers: up to MAX_TOKENS one (frame, head) an item (the staged body),
-// above it 128 query rows of one (the streamed body).
-__device__ __forceinline__ void s8_attention_stage(const TowerArgs& a, int fc) {
-  const int w3 = 3 * a.width, T = a.tokens;
-  float* out = static_cast<float*>(a.att);
-  unsigned char* data = smem_ptr(smem_data());
+// The int8 attention stage of the role over fc frames' packed qkv rows into
+// the f32 att: the per-layer kernel's body (csrc/attention_s8_hopper.cuh),
+// its producers and quantisers on the producer warpgroup, the two consumer
+// warpgroups; its counters carry on as the bf16 attention stage's do.
+template <bool PRODUCER>
+__device__ __forceinline__ void s8_attention_stage(volatile Carry& c, const TowerArgs& a, int fc) {
+  const hattn::Geometry g = attn_s8::geometry<NCONS>(fc, a.tokens, a.heads);
+  const attn_s8::Smem<NCONS> sm = s8_smem();
+  const hattn::Counts<NCONS> cnt = attn_counts(c);
   const bool qk = a.attn == 2;
-  if (T > attn_s8::MAX_TOKENS) {
-    const int chunks = (T + attn_s8::STREAM_ROWS - 1) / attn_s8::STREAM_ROWS;
-    for (int t = blockIdx.x; t < fc * a.heads * chunks; t += gridDim.x) {
-      Consumers::sync();   // the previous item is done with the shared memory
-      const int fh = t / chunks, f = fh / a.heads, hd = fh % a.heads;
-      if (qk)
-        attn_s8::stream_tile<true, Consumers>(a.qkv, w3, out, T, a.heads, a.coef_qk, f, hd,
-                                              t % chunks, data);
-      else
-        attn_s8::stream_tile<false, Consumers>(a.qkv, w3, out, T, a.heads, a.coef_qk, f, hd,
-                                               t % chunks, data);
-    }
-    return;
+  if constexpr (PRODUCER) {
+    if (qk)
+      attn_s8::produce<NCONS, true>(sm, g, &a.map_q, &a.map_k, &a.map_v, a.qkv, 3LL * a.width,
+                                    cnt);
+    else
+      attn_s8::produce<NCONS, false>(sm, g, &a.map_q, &a.map_k, &a.map_v, a.qkv, 3LL * a.width,
+                                     cnt);
+  } else {
+    float* out = static_cast<float*>(a.att);
+    if (qk)
+      attn_s8::consume_as<NCONS, true, true>(threadIdx.x / 128 - 1, sm, g, a.coef_qk, out, cnt);
+    else
+      attn_s8::consume_as<NCONS, false, true>(threadIdx.x / 128 - 1, sm, g, a.coef_qk, out,
+                                              cnt);
   }
-  const bool narrow = attn_s8::geometry(T, S8_LIMIT).tp <= 256;
-  for (int t = blockIdx.x; t < fc * a.heads; t += gridDim.x) {
-    Consumers::sync();
-    const int f = t / a.heads, hd = t % a.heads;
-    if (qk) {
-      if (narrow)
-        attn_s8::tile<256, true, Consumers>(a.qkv, w3, out, T, a.heads, a.coef_qk, f, hd, data,
-                                            S8_LIMIT);
-      else
-        attn_s8::tile<attn_s8::MAX_TOKENS, true, Consumers>(a.qkv, w3, out, T, a.heads,
-                                                            a.coef_qk, f, hd, data, S8_LIMIT);
-    } else if (narrow) {
-      attn_s8::tile<256, false, Consumers>(a.qkv, w3, out, T, a.heads, a.coef_qk, f, hd, data,
-                                           S8_LIMIT);
-    } else {
-      attn_s8::tile<attn_s8::MAX_TOKENS, false, Consumers>(a.qkv, w3, out, T, a.heads, a.coef_qk,
-                                                           f, hd, data, S8_LIMIT);
-    }
-  }
+  carry_attn(c, cnt, g);
 }
 
 // One role's walk over the chunks, layers and stages (the same sequence of
@@ -366,8 +360,8 @@ __device__ __forceinline__ void walk(const TowerArgs& a) {
       // the attention
       if (!INT8 || a.attn == 0)
         attention_stage<INT8, NARROW, PRODUCER>(c, a, fc());
-      else if constexpr (INT8 && !PRODUCER)
-        s8_attention_stage(a, fc());
+      else if constexpr (INT8)
+        s8_attention_stage<PRODUCER>(c, a, fc());
       grid_sync(a);
 
       if constexpr (INT8) {
@@ -487,6 +481,7 @@ encoder_tower_kernel(const __grid_constant__ TowerArgs a) {
   if (threadIdx.x == 0) {
     gemm_smem().init();
     attn_smem().init(hattn::geometry<NCONS>(1, a.tokens, a.heads));
+    s8_smem().init_ready();
   }
   hopper::cluster_sync();   // the peer's barriers exist before it is written to
   clock_reading(a.clock);
@@ -516,17 +511,13 @@ inline TowerKernel tower_kernel(int tokens, int int8) {
   return int8 ? kernel_s8() : kernel_bf16();
 }
 
-inline size_t tower_smem(int tokens, int int8, int attn) {
+inline size_t tower_smem(int int8, int attn) {
   size_t data = GEMM_DATA > ATTN_DATA ? GEMM_DATA : ATTN_DATA;
-  if (int8 && attn != 0) {
-    const size_t s8 = tokens > attn_s8::MAX_TOKENS ? attn_s8::stream_smem(attn == 2)
-                                                   : attn_s8::geometry(tokens, S8_LIMIT).smem;
-    if (s8 > data) data = s8;
-  }
+  if (int8 && attn != 0 && S8_DATA > data) data = S8_DATA;
   return SLACK + data;
 }
 
-inline cudaLaunchConfig_t launch_config(int tokens, int int8, int attn, int grid, void* stream,
+inline cudaLaunchConfig_t launch_config(int int8, int attn, int grid, void* stream,
                                         cudaLaunchAttribute (&attr)[2]) {
   cudaLaunchConfig_t cfg = {};
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -537,7 +528,7 @@ inline cudaLaunchConfig_t launch_config(int tokens, int int8, int attn, int grid
   attr[1].val.cooperative = 1;
   cfg.gridDim = dim3(grid);
   cfg.blockDim = dim3(THREADS);
-  cfg.dynamicSmemBytes = tower_smem(tokens, int8, attn);
+  cfg.dynamicSmemBytes = tower_smem(int8, attn);
   cfg.stream = static_cast<cudaStream_t>(stream);
   cfg.attrs = attr;
   cfg.numAttrs = 2;

@@ -11,38 +11,125 @@
 // bf16 round trip.
 //
 // Bound on an H100: bytes. Each row is read once (f32 or bf16) and written
-// once as int8 plus one f32 scale; a handful of operations per element.
+// once as int8 plus one f32 scale; a handful of operations per element. At
+// the int8 paths' shapes: 0.2891 ms for the ViT-B c_fc intermediate (63,040
+// x 3072 f32), 0.5029 ms at 82,240 x 4096.
 //
-// Design: one warp per row. quant_rows reads the row twice (the absmax, then
-// the quantisation; the second read hits L1 or L2), with 16-byte loads of 8
-// elements a lane and 8-byte int8 stores. layer_norm_quant keeps the row
-// (W <= 1024) in registers: mean, centred variance (the two-pass form jnp.var
-// uses), normalise, absmax, quantise. The scale and the quotient 127 / s are
-// IEEE divisions (the build has no fast-math flag), the products and sums use
-// __fmul_rn / __fadd_rn so none is fused into an FMA, and rintf rounds half to
-// even as jnp.round does. The K/V form maps input row r (frame r / T, token
-// r % T) to output row frame * T' + token - lo, drops tokens < lo, and the
-// frame's last token also writes the T' - (T - lo) zero pad rows and scales,
-// so a stacked export slot needs no zeroing pass. The row bodies live in
-// csrc/rows.cuh, shared with csrc/encoder_tower.cu.
+// Design: quant_rows reads each row once. TPR threads take a row (32, 64,
+// 128 or 256: the fewest that hold it in at most UNITS 16-byte loads of 8
+// values a thread, 8192 values a row at most), 256-thread blocks of 256 /
+// TPR rows; every thread issues all its loads first, so a block has its
+// rows' bytes in flight at once. The row's maximum is taken by warp shuffles
+// and, above 32 threads a row, one step through shared memory; the values
+// are then quantised from the registers with 8-byte int8 stores. Wider rows
+// take the warp-a-row body of csrc/rows.cuh, which reads the row twice.
+// layer_norm_quant keeps the row (W <= 1024) in registers, one warp a row:
+// mean, centred variance (the two-pass form jnp.var uses), normalise,
+// absmax, quantise. The scale and the quotient 127 / s are IEEE divisions
+// (the build has no fast-math flag), the products and sums use __fmul_rn /
+// __fadd_rn so none is fused into an FMA, and rintf rounds half to even as
+// jnp.round does: the maximum is exact and each value's rounding its own,
+// so every form gives the same bits. The K/V form maps input row r (frame
+// r / T, token r % T) to output row frame * T' + token - lo, drops tokens <
+// lo, and the frame's last token also writes the T' - (T - lo) zero pad
+// rows and scales, so a stacked export slot needs no zeroing pass. The row
+// bodies of the tower (csrc/encoder_tower.cuh) live in csrc/rows.cuh.
 #include "rows.cuh"
 
 namespace {
 
 constexpr int WARPS = 8;
+constexpr int THREADS = 32 * WARPS;
+constexpr int UNITS = 4;   // 8-value loads a thread holds
 
-template <typename T>
-__global__ void __launch_bounds__(WARPS * 32)
+template <typename T, int TPR>
+__global__ void __launch_bounds__(THREADS)
 quant_rows_kernel(const T* __restrict__ x, int ldx, int rows, int cols, bool kv,
                   int8_t* __restrict__ q, int ldq, float* __restrict__ s, int tokens, int t_out,
                   int lo) {
+  constexpr int WPR = TPR / 32;   // warps a row
+  __shared__ float part[WARPS];
+  const int lt = threadIdx.x % TPR, warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int r = blockIdx.x * (THREADS / TPR) + threadIdx.x / TPR;
+  const int frame = r / tokens, tok = r % tokens;
+  const bool live = r < rows, read = live && tok >= lo;
+  const T* xr = x + (size_t)r * ldx;
+  float v[UNITS][8];
+  float amax = 0.0f;
+#pragma unroll
+  for (int u = 0; u < UNITS; ++u) {
+    const int c = 8 * (lt + u * TPR);
+    if (read && c < cols) load8(xr + c, v[u]);
+  }
+#pragma unroll
+  for (int u = 0; u < UNITS; ++u) {
+    if (read && 8 * (lt + u * TPR) < cols) {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) amax = fmaxf(amax, fabsf(v[u][e]));
+    }
+  }
+  amax = warp_max(amax);
+  if constexpr (WPR > 1) {
+    if (lane == 0) part[warp] = amax;
+    __syncthreads();
+    const int w0 = warp / WPR * WPR;
+#pragma unroll
+    for (int w = 0; w < WPR; ++w) amax = fmaxf(amax, part[w0 + w]);
+  }
+  if (!live) return;
+  const size_t base = (size_t)frame * t_out;
+  if (tok == tokens - 1) {   // the frame's zero pad rows
+    for (int p = tokens - lo; p < t_out; ++p) {
+      for (int c = 8 * lt; c < cols; c += 8 * TPR)
+        *reinterpret_cast<uint2*>(q + (base + p) * ldq + c) = make_uint2(0, 0);
+      if (lt == 0) s[base + p] = 0.0f;
+    }
+  }
+  if (!read) return;
+  const float2 sc = row_ops::quant_consts(amax, kv);
+  const size_t out = base + tok - lo;
+#pragma unroll
+  for (int u = 0; u < UNITS; ++u) {
+    const int c = 8 * (lt + u * TPR);
+    if (c < cols) row_ops::store_q8(q + out * ldq + c, v[u], sc.y);
+  }
+  if (lt == 0) s[out] = sc.x;
+}
+
+// Wider rows: a warp a row, read twice.
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+quant_rows_wide_kernel(const T* __restrict__ x, int ldx, int rows, int cols, bool kv,
+                       int8_t* __restrict__ q, int ldq, float* __restrict__ s, int tokens,
+                       int t_out, int lo) {
   const int r = blockIdx.x * WARPS + threadIdx.x / 32;
   if (r >= rows) return;
   row_ops::quant_row(x, ldx, r, cols, kv, q, ldq, s, tokens, t_out, lo, threadIdx.x % 32);
 }
 
 template <typename T>
-__global__ void __launch_bounds__(WARPS * 32)
+int launch_quant_rows(const T* x, int ldx, int rows, int cols, bool kv, int8_t* q, int ldq,
+                      float* s, int tokens, int t_out, int lo, cudaStream_t st) {
+  const int units = cols / 8;
+  int tpr = 32;
+  while (tpr < THREADS && units > UNITS * tpr) tpr *= 2;
+  if (units > UNITS * tpr) {
+    quant_rows_wide_kernel<T><<<(rows + WARPS - 1) / WARPS, THREADS, 0, st>>>(
+        x, ldx, rows, cols, kv, q, ldq, s, tokens, t_out, lo);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const int per_block = THREADS / tpr;
+  const dim3 grid((rows + per_block - 1) / per_block);
+  auto kernel = tpr == 32    ? quant_rows_kernel<T, 32>
+                : tpr == 64  ? quant_rows_kernel<T, 64>
+                : tpr == 128 ? quant_rows_kernel<T, 128>
+                             : quant_rows_kernel<T, 256>;
+  kernel<<<grid, THREADS, 0, st>>>(x, ldx, rows, cols, kv, q, ldq, s, tokens, t_out, lo);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
 layer_norm_quant_kernel(const T* __restrict__ x, int ldx, const float* __restrict__ scale,
                         const float* __restrict__ shift, int rows, int width, float eps,
                         int8_t* __restrict__ q, float* __restrict__ s) {
@@ -62,17 +149,13 @@ layer_norm_quant_kernel(const T* __restrict__ x, int ldx, const float* __restric
 extern "C" int dfd_quant_rows(const void* x, int ldx, int x_f32, int rows, int cols, int kv,
                               void* q, int ldq, float* s, int tokens, int t_out, int lo,
                               void* stream) {
-  const int blocks = (rows + WARPS - 1) / WARPS;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int8_t* qq = static_cast<int8_t*>(q);
   if (x_f32)
-    quant_rows_kernel<float><<<blocks, WARPS * 32, 0, st>>>(
-        static_cast<const float*>(x), ldx, rows, cols, kv != 0, static_cast<int8_t*>(q), ldq, s,
-        tokens, t_out, lo);
-  else
-    quant_rows_kernel<bf16><<<blocks, WARPS * 32, 0, st>>>(
-        static_cast<const bf16*>(x), ldx, rows, cols, kv != 0, static_cast<int8_t*>(q), ldq, s,
-        tokens, t_out, lo);
-  return static_cast<int>(cudaGetLastError());
+    return launch_quant_rows(static_cast<const float*>(x), ldx, rows, cols, kv != 0, qq, ldq, s,
+                             tokens, t_out, lo, st);
+  return launch_quant_rows(static_cast<const bf16*>(x), ldx, rows, cols, kv != 0, qq, ldq, s,
+                           tokens, t_out, lo, st);
 }
 
 // q[rows, width] int8, s[rows] f32 = _quant_rows(LN(x)) with f32 statistics

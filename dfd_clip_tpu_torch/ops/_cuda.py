@@ -22,16 +22,14 @@ maps, so every operand's start and row pitch is 16-byte aligned
 (``require_cuda``) and ragged tiles need no padding;
 ``encoder_attention_packed`` / ``encoder_attention_separate`` the two
 entries of the encoder attention (one TMA / wgmma kernel at every token
-count), ``encoder_attention_s8`` the int8 encoder attention (a staged
-kernel up to 320 tokens, a streamed one above, the streamed form counted
-here as ``encoder_attention_int8_stream``) and ``encoder_tower`` the
-whole-encoder tower (one cooperative launch whose stages run the GEMMs',
-the encoder attention's and the int8 attention's bodies), and
-``study_attention`` / ``gemm_chain`` the kernels of the tools' studies
-(ops/study_attention.py, ops/gemm_chain.py).
-They take CUDA tensors only; apart from the
-int8 streamed attention, the attention entries and the tower count nothing
-themselves, their callers count them under their own names (the plain
+count), ``encoder_attention_s8`` the int8 encoder attention (one TMA / int8
+``wgmma`` kernel at every token count, on the encoder attention's frame)
+and ``encoder_tower`` the whole-encoder tower (one cooperative launch whose
+stages run the GEMMs', the encoder attention's and the int8 attention's
+bodies), and ``study_attention`` / ``gemm_chain`` the kernels of the
+tools' studies (ops/study_attention.py, ops/gemm_chain.py).
+They take CUDA tensors only; the attention entries and the tower count
+nothing themselves, their callers count them under their own names (the plain
 versions live beside the functions that use them, the int8 ones in
 ops/int8.py, the attention in ops/attention.py, the tower in ops/tower.py).
 """
@@ -63,15 +61,15 @@ OUT_F32, RES_ADD_F32, RES_IS_F32 = 64, 128, 256
 # gemm_s8 epilogue flags (csrc/gemm_s8.cu)
 S8_GELU, S8_RES_F32, S8_RES_BF16, S8_OUT_F32, S8_STORE, S8_EXPORT = 1, 2, 4, 8, 16, 32
 S8_RES_AFTER_CAST = 64
-# largest token count of the staged int8 attention body of
-# csrc/attention_s8_tile.cuh (MAX_TOKENS); above it the int8 attention, and
-# the tower's int8 attention stage, take the streamed body
-# (attn_s8::stream_tile). The bf16 encoder attention has no such limit.
-ATTENTION_MAX_TOKENS = 320
-# query rows of a streamed int8 attention block (attn_s8::STREAM_ROWS); the
-# grid, frames x heads x ceil(tokens / 128) blocks, is its only cap
-S8_STREAM_QUERY_ROWS = 128
 GRID_MAX = 2 ** 31 - 1
+# the encoder attention's frame (csrc/attention_hopper.cuh), which the int8
+# attention (csrc/attention_s8_hopper.cuh) shares: key blocks and query
+# tiles of 64, a ring of 10 stages of 16 KB (raw K and V), two 8 KB Q
+# buffers a consumer warpgroup, and the int8 attention's scales (512 B a
+# stage) and ready barriers
+ATTN_BLOCK, ATTN_STAGES = 64, 10
+S8_CONSUMERS = 2   # the int8 attention's consumer warpgroups (csrc/encoder_attention_s8.cu)
+SMEM_LIMIT = 232448   # dynamic shared memory a block may use
 # CTAs a cluster of the tower's launch (csrc/encoder_tower.cuh)
 TOWER_CLUSTER = 2
 # the most rows a tower chunk holds (tower_chunk): its scratch's bound
@@ -460,18 +458,39 @@ def layer_norm_quant(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
     return q, s
 
 
+def s8_attention_geometry(tokens: int, consumers: int) -> Dict[str, int]:
+    """The int8 attention's schedule for one work item, a (frame, head), on a
+    block of ``consumers`` consumer warpgroups (S8_CONSUMERS = 2 in the
+    per-layer kernel and in the tower), as csrc/attention_s8_hopper.cuh
+    computes it: its key blocks, whether they stay resident in the ring
+    while all its query tiles walk them (up to 640 tokens), its ring loads
+    (above the ring, each group of ``consumers`` tiles walks the keys twice)
+    and query slots, and the per-layer launch's dynamic shared memory (ring,
+    Q buffers, scales, the quantisers' partial maxima, barriers and 1024
+    bytes of alignment), the same at every token count."""
+    blocks = -(-tokens // ATTN_BLOCK)
+    resident = blocks <= ATTN_STAGES
+    groups = -(-blocks // consumers)
+    data = ATTN_STAGES * 2 * ATTN_BLOCK * 128 + 2 * consumers * ATTN_BLOCK * 128 \
+        + ATTN_STAGES * 2 * ATTN_BLOCK * 4 + 2 * 8 * ATTN_BLOCK * 4
+    bars = 8 * (2 * ATTN_STAGES + 4 * consumers) + 8 * 2 * ATTN_STAGES
+    return {"key_blocks": blocks, "resident": int(resident),
+            "loads": blocks if resident else 2 * groups * blocks,
+            "slots": blocks if resident else groups * consumers,
+            "smem": data + bars + 1024}
+
+
 def _attention_args(name: str, frames: int, tokens: int, heads: int, head_dim: int,
                     out_dtype: torch.dtype) -> None:
     """Raise unless the attention kernels take this geometry: head_dim 64,
-    at least one token, and work items (frames x heads; the int8 streamed
-    kernel's blocks, frames x heads x ceil(tokens / 128)) that an int
+    at least one token, and work items (frames x heads) that an int
     counts."""
     if head_dim != 64 or tokens < 1:
         raise ValueError(f"{name}: takes head_dim 64 and at least 1 token, got head_dim "
                          f"{head_dim}, {tokens} tokens")
-    if frames * heads * -(-tokens // S8_STREAM_QUERY_ROWS) > GRID_MAX:
-        raise ValueError(f"{name}: {frames} frames x {heads} heads x {tokens} tokens exceed "
-                         f"the kernels' work-item count")
+    if frames * heads > GRID_MAX:
+        raise ValueError(f"{name}: {frames} frames x {heads} heads exceed the kernels' "
+                         f"work-item count")
     if out_dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"{name}: output {out_dtype} is neither bf16 nor f32")
 
@@ -537,21 +556,25 @@ def encoder_attention_s8(qkv: torch.Tensor, frames: int, tokens: int, heads: int
                          qk_only: bool = False) -> torch.Tensor:
     """_attn_int8_cols over contiguous packed bf16 rows qkv (frames * tokens,
     3W) -> f32 (frames * tokens, W): both products on the int8 tensor cores,
-    or with ``qk_only`` the logits only (PV in bf16). Above
-    ATTENTION_MAX_TOKENS the streamed kernel runs."""
+    or with ``qk_only`` the logits only (PV in bf16). One persistent kernel
+    (a block a SM, two consumer warpgroups) at every token count; a
+    block's ring loads and query slots are counted in ints."""
     name = "encoder_attention_s8"
     require_cuda(name, qkv)
     _attention_args(name, frames, tokens, heads, head_dim, torch.float32)
     if qkv.shape != (frames * tokens, 3 * heads * head_dim) or not qkv.is_contiguous():
         raise ValueError(f"{name}: takes contiguous (frames*tokens, 3W) rows, got "
                          f"{tuple(qkv.shape)}")
+    geo = s8_attention_geometry(tokens, S8_CONSUMERS)
+    sms = torch.cuda.get_device_properties(qkv.device).multi_processor_count
+    if -(-frames * heads // sms) * max(geo["loads"], geo["slots"]) > GRID_MAX:
+        raise ValueError(f"{name}: {frames} frames x {heads} heads at {tokens} tokens exceed "
+                         f"a block's load count")
     out = torch.empty((frames * tokens, heads * head_dim), dtype=torch.float32, device=qkv.device)
     err = library().dfd_encoder_attention_s8(qkv.data_ptr(), out.data_ptr(), frames, tokens,
                                              heads, head_dim ** -0.5 / (127.0 * 127.0),
                                              int(qk_only), stream())
     check_launch(name, err)
-    if tokens > ATTENTION_MAX_TOKENS:
-        LAUNCHES["encoder_attention_int8_stream"] += 1
     return out
 
 

@@ -13,7 +13,7 @@ the row maximum subtracted first. The dispatchers ``encoder_self_attention`` and
 the JAX module; the port has no backend switch, so each is its kernel
 wrapper. ``encoder_attention_int8`` launches csrc/encoder_attention_s8.cu,
 the int8 attention of the int8 whole block and tower (DFD_INT8_ATTN in the
-JAX package; its staged kernel up to 320 tokens, the streamed one above),
+JAX package; one TMA / int8 wgmma kernel at every token count),
 with ``attn_int8_cols_plain`` as its plain version. Both plain versions go
 in frame chunks of at most PLAIN_LOGITS_BYTES of f32 logits.
 """
@@ -146,8 +146,8 @@ def encoder_attention_int8(qkv: torch.Tensor, frames: int, tokens: int, heads: i
                            head_dim: int, qk_only: bool = False) -> torch.Tensor:
     """Kernel: _attn_int8_cols over packed rows qkv (frames * tokens, 3W),
     bf16 on the card -> f32 (frames * tokens, W); ``qk_only`` is the "qk"
-    mode (PV in bf16). Above 320 tokens the streamed kernel runs (counted
-    also as encoder_attention_int8_stream)."""
+    mode (PV in bf16). One kernel at every token count
+    (csrc/encoder_attention_s8.cu)."""
     if _cuda.on_cpu("encoder_attention_int8", qkv):
         return attn_int8_cols_plain(qkv, frames, tokens, heads, head_dim, qk_only)
     out = _cuda.encoder_attention_s8(qkv, frames, tokens, heads, head_dim, qk_only)

@@ -20,10 +20,14 @@ raises; and the 577-token slice: both attention entries and outputs at 321,
 577 and 1025 tokens, the attention entries' limits, and the decoder
 attention at L = 11,520; and the tools' kernels: the study
 attention in each numerics mode and the chained GEMM's two entries
-(bit-equal to each other); and the ViT-L int8 ladder: the int8 attention's
-streamed kernel at 321, 577 and 1025 tokens in both modes, the tower at
-ViT-L/14@336px's width and 577 tokens in each int8 attention mode, and the
-co-residency refusal at 577 tokens; and the encoder attention's one
+(bit-equal to each other); and the ViT-L int8 ladder: the int8 attention at
+321, 577 and 1025 tokens in both modes, the tower at ViT-L/14@336px's width
+and 577 tokens in each int8 attention mode, and the co-residency refusal at
+577 tokens; and the int8 attention's one TMA / int8 wgmma kernel at
+ViT-L/14's 16 heads and on 24 frames (more than two work items to each
+persistent block, resident and re-staged key blocks), and quant_rows at
+the paths' widths, 768 to 4096, and past a block's row (8200); and the
+encoder attention's one
 TMA / wgmma kernel: both entries and both outputs at 1 to 1025 tokens
 (single and ragged key blocks, the narrow last block, an odd number of
 query tiles, the K/V ring resident and refilled) with 12 and 16 heads, on
@@ -562,6 +566,24 @@ def test_quant_rows_strided(dev, dtype):
     assert rel_err(s, s_p.reshape(-1)) <= 1e-5
 
 
+@pytest.mark.parametrize("width", [768, 1024, 3072, 4096, 8192, 8200])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_quant_rows_widths(dev, dtype, width):
+    """quant_rows at the paths' widths (the attention output 768 / 1024, the
+    MLP intermediate 3072 / 4096: a block of threads a row, the row read
+    once), at the widest row a block holds (8192) and past it (8200: a warp
+    a row, read twice), 301 rows of a view with 8 more values a row."""
+    from dfd_clip_tpu_torch.ops import _cuda
+    from dfd_clip_tpu_torch.ops.int8 import quant_rows_plain
+
+    x = randn(torch.Generator().manual_seed(width), 301, width + 8, scale=3.0).to(dev, dtype)
+    view = x[:, :width]
+    q, s = _cuda.quant_rows(view)
+    q_p, s_p = quant_rows_plain(view)
+    int8_close(q, q_p)
+    assert rel_err(s, s_p.reshape(-1)) <= 1e-5
+
+
 def test_quant_rows_kv_export_pad_rows(dev):
     """The int8_rows export of 4 frames x 5 tokens (CLS dropped, 4 pad rows)
     into slot 1 of a stacked buffer, from strided bf16 K/V column views."""
@@ -880,27 +902,43 @@ def test_tiny_wide_tower_predict_on_card(dev, tower):
 @pytest.mark.parametrize("tokens", [17, 197, 257, 321, 577, 1025])
 def test_encoder_attention_int8_on_card(dev, tokens, mode):
     """csrc/encoder_attention_s8.cu against attn_int8_cols_plain on the same
-    card inputs, 3 frames of 12 heads, counted under its own name (above 320
-    tokens the streamed kernel, also counted as
-    encoder_attention_int8_stream). The plain version repeats the f32
+    card inputs, 3 frames of 12 heads, counted under its own name (one
+    kernel at every token count: the item's key blocks resident up to 640
+    tokens, re-staged above). The plain version repeats the f32
     operations; a P value on a rounding boundary may still quantise one step
     apart (sums in another order), so besides the 2e-2 bound at most 2 % of
     the rows may differ by more than 1e-4."""
+    _int8_attention_case(dev, tokens, 12, 3, mode)
+
+
+def _int8_attention_case(dev, tokens, heads, frames, mode):
     from dfd_clip_tpu_torch.ops import _cuda
     from dfd_clip_tpu_torch.ops import attention as att
 
     gen = torch.Generator().manual_seed(tokens)
-    frames, heads = 3, 12
     qkv = randn(gen, frames * tokens, 3 * heads * 64).to(dev, torch.bfloat16)
     _cuda.reset_launches()
     got = att.encoder_attention_int8(qkv, frames, tokens, heads, 64, qk_only=mode == "qk")
-    assert _cuda.launches() == {"encoder_attention_int8": 1,
-                                **({"encoder_attention_int8_stream": 1} if tokens > 320 else {})}
+    assert _cuda.launches() == {"encoder_attention_int8": 1}
     want = att.attn_int8_cols_plain(qkv, frames, tokens, heads, 64, qk_only=mode == "qk")
     assert got.dtype == torch.float32 and got.shape == (frames * tokens, heads * 64)
     assert rel_err(got, want) <= REL
     rows = ((got - want).abs().amax(-1) / want.abs().max()).cpu()
     assert (rows > 1e-4).float().mean().item() <= 2e-2
+
+
+@pytest.mark.parametrize("mode", ["1", "qk"])
+@pytest.mark.parametrize("tokens,heads,frames", [(257, 16, 3), (197, 12, 24), (577, 16, 24),
+                                                 (1025, 12, 24)])
+def test_encoder_attention_int8_items_on_card(dev, tokens, heads, frames, mode):
+    """The int8 attention at ViT-L/14's 16 heads, and on 24 frames: more than
+    two work items, (frame, head) pairs, to each persistent block (one a SM),
+    so that query tiles are dealt across items and the ring refills item
+    after item, resident (197, 577 tokens) and re-staged (1025). Held as
+    above."""
+    if frames > 3:
+        assert frames * heads > 2 * torch.cuda.get_device_properties(dev).multi_processor_count
+    _int8_attention_case(dev, tokens, heads, frames, mode)
 
 
 @pytest.mark.parametrize("geo", list(GEMM_GEOMETRIES))

@@ -133,6 +133,37 @@ def test_quant_rows_matches_jax():
     assert worst <= 1 and share <= 1e-5, (worst, share)
 
 
+@pytest.mark.parametrize("width", [3072, 4096])
+def test_quant_rows_matches_jax_wide(width):
+    """_quant_rows at the MLP intermediate's widths (ViT-B/16 and ViT-L/14):
+    scales equal, int8 values within 1 on at most 1e-5 of the elements."""
+    y = (3 * np.random.default_rng(width).standard_normal((600, width))).astype(np.float32)
+    jq, js = jpa._quant_rows(jnp.asarray(y))
+    tq, ts = ti.quant_rows_plain(torch.from_numpy(y))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+    worst, share = int8_flips(tq.numpy(), jq)
+    assert worst <= 1 and share <= 1e-5, (worst, share)
+
+
+def test_export_kv_rows8_matches_jax_with_pad_rows():
+    """The int8_rows K/V export (export_kv_rows8's plain route: 5 frames of 9
+    tokens, CLS dropped, 3 pad rows) against _quant_kv_rows of each frame's
+    kept rows, the pad rows and pad scales zero as _write_kv_export writes
+    them: values and scales equal."""
+    frames, tokens, w, pad = 5, 9, 256, 3
+    x = jnp.asarray(3 * np.random.default_rng(4).standard_normal((frames * tokens, 3 * w)),
+                    jnp.bfloat16)
+    xt = torch.from_numpy(np.array(x.astype(jnp.float32))).bfloat16()
+    kq, vq, ks, vs = ti.export_kv_rows8(xt[:, w: 2 * w], xt[:, 2 * w:], frames, tokens, 1, pad)
+    for got_q, got_s, cols in ((kq, ks, slice(w, 2 * w)), (vq, vs, slice(2 * w, 3 * w))):
+        rows = x[:, cols].reshape(frames, tokens, w)[:, 1:]
+        jq, js = jpa._quant_kv_rows(rows)
+        np.testing.assert_array_equal(got_q[:, : tokens - 1].numpy(), np.asarray(jq))
+        np.testing.assert_array_equal(got_s[:, : tokens - 1].numpy(), np.asarray(js))
+        assert got_q.shape == (frames, tokens - 1 + pad, w)
+        assert not got_q[:, tokens - 1:].any() and not got_s[:, tokens - 1:].any()
+
+
 @pytest.mark.parametrize("k", [768, 3072])
 def test_w8a8_dot_matches_jax(k):
     """K = 3072 sums past 2^24, where an f32 accumulate would not be exact."""

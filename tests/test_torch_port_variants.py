@@ -111,10 +111,12 @@ def block_params(rng, w, pad_safe=False):
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 @pytest.mark.parametrize("mode", ["1", "qk"])
-def test_attn_int8_cols_plain_matches_jax(mode, dtype):
+@pytest.mark.parametrize("tokens", [17, 197, 257])
+def test_attn_int8_cols_plain_matches_jax(tokens, mode, dtype):
     """attn_int8_cols_plain against _attn_int8_cols (a plain jnp function)
-    on the same arrays, 3 frames of 17 tokens, 4 heads of 64."""
-    frames, tokens, heads, d = 3, 17, 4, 64
+    on the same arrays, 3 frames of 17, 197 (ViT-B/16) and 257 (ViT-L/14)
+    tokens, 4 heads of 64."""
+    frames, heads, d = 3, 4, 64
     w = heads * d
     x = np.random.default_rng(21).standard_normal((frames, tokens, 3 * w)).astype(np.float32)
     jdt, tdt = (jnp.float32, torch.float32) if dtype == "f32" else (jnp.bfloat16, torch.bfloat16)
@@ -129,6 +131,33 @@ def test_attn_int8_cols_plain_matches_jax(mode, dtype):
         assert rel_err(got, want) <= TOL_BF16
     else:
         assert_close_ties(got, want)
+
+
+@pytest.mark.parametrize("consumers", [2, 3])
+def test_s8_attention_geometry(consumers):
+    """The int8 attention's schedule (_cuda.s8_attention_geometry, the
+    mirror of csrc/attention_s8_hopper.cuh's): at 1 to 2049 tokens the
+    launch's shared memory fits a block (232,448 bytes) and is the same at
+    every token count; an item's key blocks stay resident up to 640 tokens
+    (one load a block, a slot a query tile) and are walked twice by each
+    group of ``consumers`` tiles above (two loads a block a group)."""
+    smem = set()
+    for tokens in range(1, 2050):
+        g = _cuda.s8_attention_geometry(tokens, consumers)
+        blocks = -(-tokens // 64)
+        assert g["key_blocks"] == blocks
+        smem.add(g["smem"])
+        if tokens <= 640:
+            assert g["resident"] and g["loads"] == blocks and g["slots"] == blocks
+        else:
+            groups = -(-blocks // consumers)
+            assert not g["resident"]
+            assert g["loads"] == 2 * groups * blocks and g["slots"] == groups * consumers
+    assert len(smem) == 1 and smem.pop() <= _cuda.SMEM_LIMIT
+    # the ring's 160 KB, 2 x 8 KB Q buffers a consumer, 5 KB of scales, the
+    # 4 KB of partial maxima, the barriers and 1 KB of alignment
+    assert _cuda.s8_attention_geometry(577, 3)["smem"] == 223648
+    assert _cuda.s8_attention_geometry(577, _cuda.S8_CONSUMERS)["smem"] == 207232
 
 
 def test_encoder_attention_int8_on_cpu_is_its_plain_version():
