@@ -20,10 +20,15 @@
    run through the plain versions; then a device-resident predict is timed
    and one predict and one request are traced with torch.profiler (device
    busy time and the kernels that take it);
-5. checks the int8 kernels (W8A8 GEMM, the row quantisers, the f32
-   encoder attention, the whole int8 block, the int8 last_only layer and the
-   int8 K/V decoder attention) against their plain versions at the flagship
-   shapes, and drives int8 serving: a Scorer over the flagship Detector with
+5. checks the int8 kernels (W8A8 GEMM, the row quantisers, the MLP's c_fc
+   with its rows quantised on chip (gemm_s8_quant), the f32 encoder
+   attention, the whole int8 block, the int8 last_only layer and the int8
+   K/V decoder attention) against their plain versions at the flagship
+   shapes; after the int8 sweep below, gemm and gemm_s8 at every path shape
+   and gemm_s8_quant at the ViT-B, ViT-L and ViT-L@336 c_fc shapes, bit for
+   bit against gemm_s8's f32 QuickGELU form + quant_rows and timed beside
+   that pair (`[kernels gemm]`); and drives int8 serving: a Scorer over the
+   flagship Detector with
    op_mode compute_int8 answers the same four requests, launch counters
    zeroed before and read after; one batch's logits are held against its
    plain route and compared with the bf16 Detector on the same parameters;
@@ -94,10 +99,11 @@
    (`[kernels 577]`): the encoder attention at (320, 577, 16 x 64)
    through both entries, bf16 and f32 out, each against its plain version
    with a scaled_dot_product_attention yardstick, the int8 split pair at
-   (320, 577, 1024), quant_rows on its (184640, 4096) and (184640, 1024)
-   rows, and the decoder attention over L = 20 x 576 keys;
+   (320, 577, 1024), quant_rows on the whole int8 block's (184640, 1024)
+   attention output, and the decoder attention over L = 20 x 576 keys;
 13. drives ViT-L/14@336px serving (`[vit-l@336 serve path]`, keep 0, 4, ...,
-   20) as in 8, on one parameter seed: the four requests in bf16 and in
+   20) as in 8, on one parameter seed (`--pfake-seeds` N other than the
+   default reads N here too): the four requests in bf16 and in
    compute_int8 (20 encoder attention launches a predict), logits and
    P(fake) held
    against the f32 plain route, int8 against bf16 by cosine, a
@@ -587,6 +593,11 @@ def check_kernels(rows: list) -> None:
 GEMM_ROWS = {"vit-b": CLIPS * FRAMES * 197, "train": TRAIN_CLIPS * FRAMES * 197,
              "vit-l": CLIPS * FRAMES * 257, "vit-l@336": CLIPS * FRAMES * 577, "boundary": CLIPS}
 TOL_S8_GELU = 1e-5        # gemm_s8 with QuickGELU: expf against torch.sigmoid
+# gemm_s8_quant against its plain version: the quantiser's f32 input differs
+# by an ulp where expf and torch.sigmoid round apart (TOL_S8_GELU), which can
+# move a value across a rounding step as a LayerNorm sum's order does; against
+# gemm_s8's QuickGELU form + quant_rows it is bit for bit
+TOL_FLIPS_GELU = 1e-4
 
 
 def wgmma_serialised(log: str, sources: tuple) -> list:
@@ -613,11 +624,14 @@ def check_gemm_kernels() -> None:
     with the one-call yardsticks torch.addmm (bf16) and torch._int_mm (int8,
     no epilogue): bf16 within TOL_ENCODER, every W8A8 form without QuickGELU
     bit for bit, QuickGELU within TOL_S8_GELU; the K/V export into a stacked
-    slot with its pad rows zero."""
+    slot with its pad rows zero. Then gemm_s8_quant at the three c_fc shapes:
+    bit for bit gemm_s8's QuickGELU form + quant_rows (q and s), against its
+    plain version within TOL_FLIPS_GELU, timed beside that pair (and each of
+    its two launches), torch._int_mm and its bound."""
     import torch
 
     from dfd_clip_tpu_torch.ops import _cuda
-    from dfd_clip_tpu_torch.ops.int8 import w8a8_dot_plain
+    from dfd_clip_tpu_torch.ops.int8 import w8a8_dot_plain, w8a8_gelu_quant_plain
 
     dev, bf = torch.device("cuda"), torch.bfloat16
     gen = torch.Generator(device=dev).manual_seed(9)
@@ -786,6 +800,54 @@ def check_gemm_kernels() -> None:
         s8_case(f"gemm_s8 {path} c_proj (+ f32 hmid)", m, 4096, 1024, "res_f32")
         s8_case(f"gemm_s8 {path} split c_proj (bf16 after the cast)", m, 4096, 1024,
                 "res_after_cast")
+        torch.cuda.empty_cache()
+
+    # -- the int8 MLP's c_fc with its rows quantised on chip -----------------------
+    for path, k in (("vit-b", 768), ("vit-l", 1024), ("vit-l@336", 1024)):
+        m, n = GEMM_ROWS[path], 4 * k
+        a = torch.randint(-127, 128, (m, k), generator=gen, device=dev, dtype=torch.int8)
+        wq = torch.randint(-127, 128, (n, k), generator=gen, device=dev, dtype=torch.int8)
+        a_s = torch.rand(m, generator=gen, device=dev) + 0.5
+        ws = (torch.rand(n, generator=gen, device=dev) + 0.5).reshape(1, n)
+        bias = randn(n, scale=0.1, dtype=torch.float32)
+        name = f"gemm_s8_quant {path} c_fc ({m} x {k} -> {n})"
+
+        def fused():
+            return _cuda.gemm_s8_quant(a, a_s, wq, ws, bias)
+
+        def c_fc_f32():
+            return _cuda.gemm_s8(a, a_s, wq, ws, bias, gelu=True, out_dtype=torch.float32)
+
+        q, s = fused()
+        mid = c_fc_f32()
+        q2, s2 = _cuda.quant_rows(mid)
+        equal = torch.equal(q, q2) and torch.equal(s, s2)
+        differ = (q != q2).float().mean().item()
+        print(f"  {name}: bit-equal to gemm_s8 (f32, QuickGELU) + quant_rows {equal} (values "
+              f"differing {differ:.3e}, scales equal {torch.equal(s, s2)})", flush=True)
+        if not equal:
+            raise SystemExit(f"FAIL {name}: not bit-equal to gemm_s8 (f32, QuickGELU) + "
+                             f"quant_rows")
+        del q2, s2
+        compare_int8(f"{name} vs its plain version", q, s,
+                     *w8a8_gelu_quant_plain(a, a_s[:, None], wq, ws, bias), TOL_FLIPS_GELU)
+        del q, s
+        fused_ms = time_ms(fused)
+        c_fc_ms = time_ms(c_fc_f32)
+        rows_ms = time_ms(lambda: _cuda.quant_rows(mid))
+        del mid
+        pair_ms = time_ms(lambda: _cuda.quant_rows(c_fc_f32()))
+        plain_ms = time_ms(lambda: w8a8_gelu_quant_plain(a, a_s[:, None], wq, ws, bias), 3, 1)
+        wt = wq.t()
+        lib_ms = time_ms(lambda: torch._int_mm(a, wt))
+        b, by = bound_ms(2.0 * m * n * k, 1.0 * (m * k + n * k + m * n) + 8.0 * (m + n),
+                         PEAK_INT8_TC)
+        print(f"  {name}: {fused_ms:.4f} ms; the pair {pair_ms:.4f} (gemm_s8 f32 QuickGELU "
+              f"{c_fc_ms:.4f} + quant_rows {rows_ms:.4f}), fused / pair "
+              f"{fused_ms / pair_ms:.3f}; plain {plain_ms:.4f}, library {lib_ms:.4f}, "
+              f"ms / library {fused_ms / lib_ms:.3f}, bound {b:.4f} by {by}, bound / ms "
+              f"{b / fused_ms:.3f}", flush=True)
+        del a, wq, wt
         torch.cuda.empty_cache()
 
 
@@ -1102,15 +1164,32 @@ def check_int8_kernels(rows: list) -> None:
         counter="encoder_attention", paths=("int8_serve", "int8_rows"))
     del att, q4, k4, v4, xf, yq, ys
 
-    # -- quant_rows (the f32 MLP intermediate, 3072 wide) and gemm_s8 at c_proj -----
-    mid = torch.randn(m_rows, 4 * w, generator=gen).to(dev)
-    mq, ms = _cuda.quant_rows(mid)
-    err = compare_int8("quant_rows", mq, ms, *int8.quant_rows_plain(mid), TOL_FLIPS_QUANT)
+    # -- quant_rows on the f32 attention output (768 wide; the K/V form is above) --
+    att = torch.randn(m_rows, w, generator=gen).to(dev)
+    aq, a_s = _cuda.quant_rows(att)
+    err = compare_int8("quant_rows", aq, a_s, *int8.quant_rows_plain(att), TOL_FLIPS_QUANT)
     row("quant_rows", "dfd_clip_tpu/ops/pallas_attention.py:158",
-        "dfd_clip_tpu_torch/csrc/quant_rows.cu", time_ms(lambda: _cuda.quant_rows(mid)),
-        time_ms(lambda: int8.quant_rows_plain(mid)), None, 4.0 * m_rows * 4 * w,
-        5.0 * m_rows * 4 * w + 4.0 * m_rows, PEAK_F32, err)
-    del mid
+        "dfd_clip_tpu_torch/csrc/quant_rows.cu", time_ms(lambda: _cuda.quant_rows(att)),
+        time_ms(lambda: int8.quant_rows_plain(att)), None, 4.0 * m_rows * w,
+        5.0 * m_rows * w + 4.0 * m_rows, PEAK_F32, err)
+    del att, aq, a_s
+
+    # -- gemm_s8_quant: c_fc (768 -> 3072) with QuickGELU, its rows quantised -------
+    y2q, y2s = _cuda.layer_norm_quant(h2, blk["ln_2"]["scale"], blk["ln_2"]["bias"])
+    fc = mlp["c_fc"]
+    k4w = 4 * w
+    mq, ms = _cuda.gemm_s8_quant(y2q, y2s, fc["wq"], fc["ws"], fc["b"])
+    err = compare_int8("gemm_s8_quant c_fc", mq, ms,
+                       *int8.w8a8_gelu_quant_plain(y2q, y2s[:, None], fc["wq"], fc["ws"],
+                                                   fc["b"]), TOL_FLIPS_GELU)
+    row("gemm_s8_quant", "dfd_clip_tpu/ops/pallas_attention.py:1062",
+        "dfd_clip_tpu_torch/csrc/gemm_s8_quant.cu",
+        time_ms(lambda: _cuda.gemm_s8_quant(y2q, y2s, fc["wq"], fc["ws"], fc["b"])),
+        time_ms(lambda: int8.w8a8_gelu_quant_plain(y2q, y2s[:, None], fc["wq"], fc["ws"],
+                                                   fc["b"])),
+        time_ms(lambda: torch._int_mm(y2q, fc["wq"].t())), 2.0 * m_rows * k4w * w,
+        m_rows * w + k4w * w + 1.0 * m_rows * k4w + 8.0 * (m_rows + k4w), PEAK_INT8_TC, err)
+    del y2q, y2s
     wp, wps, bp = mlp["c_proj"]["wq"], mlp["c_proj"]["ws"], mlp["c_proj"]["b"]
     hmid = torch.randn(m_rows, w, generator=gen).to(dev)
 
@@ -1119,7 +1198,6 @@ def check_int8_kernels(rows: list) -> None:
 
     err = compare("gemm_s8 c_proj", _cuda.gemm_s8(mq, ms, wp, wps, bp, residual=hmid),
                   c_proj_plain(), TOL_ENCODER)
-    k4w = 4 * w
     row("gemm_s8 c_proj", "dfd_clip_tpu/ops/pallas_attention.py:1063",
         "dfd_clip_tpu_torch/csrc/gemm_s8.cu",
         time_ms(lambda: _cuda.gemm_s8(mq, ms, wp, wps, bp, residual=hmid)),
@@ -1536,9 +1614,11 @@ def int8_serve_path(card: str):
     check_counts("int8 serve", counts,
                  {"fused_encoder_block": 11, "fused_encoder_attn_block": 1,
                   "fused_encoder_mlp_block": 0, "fused_decoder_attention": 6,
-                  "fused_decoder_attention_int8": 0, "decoder_boundary": 7},
-                 len(requests), used=("gemm_s8", "quant_rows", "layer_norm_quant",
-                                      "encoder_attention", "gemm", "layer_norm_rows"))
+                  "fused_decoder_attention_int8": 0, "decoder_boundary": 7,
+                  "gemm_s8_quant": 11, "quant_rows": 11},
+                 len(requests), used=("gemm_s8", "gemm_s8_quant", "quant_rows",
+                                      "layer_norm_quant", "encoder_attention", "gemm",
+                                      "layer_norm_rows"))
 
     x, m = last_batch(requests)
     got = hold_against_plain("int8 predict",
@@ -1574,11 +1654,13 @@ def int8_serve_path(card: str):
     predict(xd, md)
     torch.cuda.synchronize()
     rows_counts = _cuda.launches()
+    # quant_rows: the 11 attention outputs and the 6 kept layers' K and V rows
     check_counts("int8_rows", rows_counts,
                  {"fused_encoder_block": 11, "fused_encoder_attn_block": 1,
                   "fused_decoder_attention": 0, "fused_decoder_attention_int8": 6,
-                  "decoder_boundary": 7}, 1,
-                 used=("gemm_s8", "quant_rows", "layer_norm_quant", "encoder_attention"))
+                  "decoder_boundary": 7, "gemm_s8_quant": 11, "quant_rows": 11 + 12}, 1,
+                 used=("gemm_s8", "gemm_s8_quant", "quant_rows", "layer_norm_quant",
+                       "encoder_attention"))
     hold_against_plain("int8_rows predict", predict, xd, md)
     ms = time_ms(lambda: predict(xd, md), iters=5, warmup=1)
     print(f"  device-resident int8_rows predict: {ms:.2f} ms per {CLIPS}-clip batch "
@@ -1976,10 +2058,10 @@ def check_wide_kernels(rows: list) -> None:
 
 def check_split_chain(rows: list, h, blk: dict) -> None:
     """Each kernel of the int8 split pair's chain on its own at (320 x 257,
-    1024), against its plain version: layer_norm_quant, gemm_s8 at qkv, c_fc
-    (QuickGELU, f32 out) and c_proj (rounded to bf16, then + h), quant_rows
-    on the f32 (82240, 4096) intermediate, and the bf16 out-projection gemm
-    with the residual. (The attention between them is held above.)"""
+    1024), against its plain version: layer_norm_quant, gemm_s8 at qkv and
+    c_proj (rounded to bf16, then + h), gemm_s8_quant at c_fc (QuickGELU,
+    its (82240, 4096) rows quantised), and the bf16 out-projection gemm with
+    the residual. (The attention between them is held above.)"""
     import torch
 
     from dfd_clip_tpu_torch.models import layers
@@ -2022,23 +2104,21 @@ def check_split_chain(rows: list, h, blk: dict) -> None:
     del yq, ys
     yq, ys = _cuda.layer_norm_quant(h2, blk["ln_2"]["scale"], blk["ln_2"]["bias"])
     fc = mlp["c_fc"]
+    k4w = 4 * w
 
     def c_fc_plain():
-        mid = int8.w8a8_dot_plain(yq, ys[:, None], fc["wq"], fc["ws"]) + fc["b"]
-        return mid * torch.sigmoid(1.702 * mid)
+        return int8.w8a8_gelu_quant_plain(yq, ys[:, None], fc["wq"], fc["ws"], fc["b"])
 
-    mid = s8_row(f"gemm_s8 c_fc {tag}", yq, ys, fc, c_fc_plain, w, 4 * w, 4.0, gelu=True,
-                 out_dtype=torch.float32)
+    mq, ms = _cuda.gemm_s8_quant(yq, ys, fc["wq"], fc["ws"], fc["b"])
+    err = compare_int8(f"gemm_s8_quant c_fc {tag}", mq, ms, *c_fc_plain(), TOL_FLIPS_GELU)
+    kernel_row(rows, f"gemm_s8_quant c_fc {tag}", "dfd_clip_tpu/ops/pallas_attention.py:1262",
+               "dfd_clip_tpu_torch/csrc/gemm_s8_quant.cu",
+               time_ms(lambda: _cuda.gemm_s8_quant(yq, ys, fc["wq"], fc["ws"], fc["b"])),
+               time_ms(c_fc_plain), time_ms(lambda: torch._int_mm(yq, fc["wq"].t())),
+               2.0 * m_rows * k4w * w,
+               m_rows * w + k4w * w + 1.0 * m_rows * k4w + 8.0 * (m_rows + k4w), PEAK_INT8_TC,
+               err, counter="gemm_s8_quant", paths=paths)
     del yq, ys
-    mq, ms = _cuda.quant_rows(mid)
-    err = compare_int8(f"quant_rows {m_rows} x {4 * w}", mq, ms, *int8.quant_rows_plain(mid),
-                       TOL_FLIPS_QUANT)
-    kernel_row(rows, f"quant_rows {m_rows} x {4 * w}", "dfd_clip_tpu/ops/pallas_attention.py:158",
-               "dfd_clip_tpu_torch/csrc/quant_rows.cu", time_ms(lambda: _cuda.quant_rows(mid)),
-               time_ms(lambda: int8.quant_rows_plain(mid)), None, 4.0 * m_rows * 4 * w,
-               5.0 * m_rows * 4 * w + 4.0 * m_rows, PEAK_F32, err, counter="quant_rows",
-               paths=paths)
-    del mid
     pr = mlp["c_proj"]
     s8_row(f"gemm_s8 c_proj {tag}", mq, ms, pr,
            lambda: h2 + (int8.w8a8_dot_plain(mq, ms[:, None], pr["wq"], pr["ws"])
@@ -2156,8 +2236,8 @@ def vitl_serve_path(card: str, seeds: int, arch: str = "ViT-L/14", label: str = 
     counts8, got = wide_serve(
         card, f"{label} int8 serve", int8, raws,
         {"fused_encoder_attn_block": 21, "fused_encoder_mlp_block": 20, "encoder_attention": 20,
-         "fused_encoder_attention_qkv": 0, **decoder},
-        used=("gemm_s8", "quant_rows", "layer_norm_quant", "encoder_attention", "gemm"),
+         "fused_encoder_attention_qkv": 0, "gemm_s8_quant": 20, "quant_rows": 0, **decoder},
+        used=("gemm_s8", "gemm_s8_quant", "layer_norm_quant", "encoder_attention", "gemm"),
         hold_bf16=tokens == WIDE_TOKENS)
     cos = F.cosine_similarity(got.float().flatten(), ref.float().flatten(), dim=0).item()
     per_clip = F.cosine_similarity(got.float(), ref.float(), dim=-1).min().item()
@@ -2359,7 +2439,8 @@ VARIANTS = {  # path: (EncoderKernels arguments, compute_int8, encoder launches 
     "int8_attn": ({"int8_attn": "1"}, True,
                   {"fused_encoder_block": 11, "fused_encoder_attn_block": 1,
                    "fused_encoder_mlp_block": 0, "fused_encoder_tower": 0,
-                   "encoder_attention": 0, "encoder_attention_int8": 11}),
+                   "encoder_attention": 0, "encoder_attention_int8": 11,
+                   "gemm_s8_quant": 11, "quant_rows": 11}),
     "tower_bf16": ({"tower": True}, False, {}),
     "tower_int8": ({"tower": True}, True, {}),
     "tower_int8_attn": ({"tower": True, "int8_attn": "1"}, True, {}),
@@ -2367,7 +2448,8 @@ VARIANTS = {  # path: (EncoderKernels arguments, compute_int8, encoder launches 
 }
 TOWER_COUNTS = {"fused_encoder_tower": 1, "fused_encoder_block": 0,
                 "fused_encoder_attn_block": 0, "fused_encoder_mlp_block": 0, "gemm_s8": 0,
-                "gemm": DECODER_GEMMS, "encoder_attention": 0, "encoder_attention_int8": 0}
+                "gemm_s8_quant": 0, "quant_rows": 0, "gemm": DECODER_GEMMS,
+                "encoder_attention": 0, "encoder_attention_int8": 0}
 
 
 def variant_serve_paths(card: str) -> dict:
@@ -2395,7 +2477,7 @@ def variant_serve_paths(card: str) -> dict:
         counts[path] = answer(scorer, requests, card, path)
         expected = {**(encoder or TOWER_COUNTS), **decoder}
         used = ("fused_encoder_tower",) if kernels.get("tower") else (
-            ("gemm_s8", "quant_rows", "layer_norm_quant") if int8
+            ("gemm_s8", "gemm_s8_quant", "quant_rows", "layer_norm_quant") if int8
             else ("gemm", "layer_norm_rows", "encoder_attention"))
         check_counts(path, counts[path], expected, len(requests), used=used)
         got = hold_against_plain(path, lambda x_, m_: scorer.predict(scorer.params, x_, m_), x, m,
@@ -2432,7 +2514,7 @@ def variant_serve_paths(card: str) -> dict:
     counts["int8_qk"] = _cuda.launches()
     check_counts("int8_qk", counts["int8_qk"],
                  {**VARIANTS["int8_attn"][2], **decoder}, 1,
-                 used=("gemm_s8", "quant_rows", "encoder_attention_int8"))
+                 used=("gemm_s8", "gemm_s8_quant", "quant_rows", "encoder_attention_int8"))
     hold_against_plain("int8_qk", predict, xd, md, defer=True)
     cos = F.cosine_similarity(got.float().flatten(), ref.flatten(), dim=0).item()
     print(f"  int8_qk vs bf16 logits, same params: cosine {cos:.6f} (recorded)", flush=True)
@@ -2447,9 +2529,10 @@ def check_577_kernels(rows: list) -> None:
     tokens): the encoder attention at (320, 577, 16 x 64) through the packed
     entry and the separate one (strided views of one packed buffer), bf16
     and f32 out, each against its plain version with the SDPA yardstick; the
-    int8 split pair at (320, 577, 1024); quant_rows on the (184640, 4096)
-    MLP intermediate and the (184640, 1024) attention output; and the
-    decoder attention over L = 20 x 576 keys at 16 heads."""
+    int8 split pair at (320, 577, 1024); quant_rows on the (184640, 1024)
+    attention output of the whole int8 block (the MLP's intermediate is
+    quantised inside gemm_s8_quant, held in [kernels gemm]); and the decoder
+    attention over L = 20 x 576 keys at 16 heads."""
     import torch
 
     from dfd_clip_tpu_torch.models import clip_vit
@@ -2532,21 +2615,18 @@ def check_577_kernels(rows: list) -> None:
     del h, blk
     torch.cuda.empty_cache()
 
-    # -- quant_rows at these paths' shapes: the f32 MLP intermediate (every int8
-    # rung) and the f32 attention output (the whole int8 block's rungs) -------------
-    for cols, paths in ((4 * w, ("vitl336_int8_serve", "vitl336_split", "vitl336_full",
-                                 "vitl336_full_attn")),
-                        (w, ("vitl336_full", "vitl336_full_attn"))):
-        x = torch.randn(m_rows, cols, generator=dgen, device=dev)
-        name = f"quant_rows {m_rows} x {cols}"
-        err = compare_int8(name, *_cuda.quant_rows(x), *int8.quant_rows_plain(x), TOL_FLIPS_QUANT)
-        kernel_row(rows, name, f"{pa}:158", "dfd_clip_tpu_torch/csrc/quant_rows.cu",
-                   time_ms(lambda: _cuda.quant_rows(x)),
-                   time_ms(lambda: int8.quant_rows_plain(x), iters=3, warmup=1), None,
-                   4.0 * m_rows * cols, 5.0 * m_rows * cols + 4.0 * m_rows, PEAK_F32, err,
-                   counter="quant_rows", paths=paths)
-        del x
-        torch.cuda.empty_cache()
+    # -- quant_rows at these paths' shape: the f32 attention output of the whole
+    # int8 block's rungs ----------------------------------------------------------------
+    x = torch.randn(m_rows, w, generator=dgen, device=dev)
+    name = f"quant_rows {m_rows} x {w}"
+    err = compare_int8(name, *_cuda.quant_rows(x), *int8.quant_rows_plain(x), TOL_FLIPS_QUANT)
+    kernel_row(rows, name, f"{pa}:158", "dfd_clip_tpu_torch/csrc/quant_rows.cu",
+               time_ms(lambda: _cuda.quant_rows(x)),
+               time_ms(lambda: int8.quant_rows_plain(x), iters=3, warmup=1), None,
+               4.0 * m_rows * w, 5.0 * m_rows * w + 4.0 * m_rows, PEAK_F32, err,
+               counter="quant_rows", paths=("vitl336_full", "vitl336_full_attn"))
+    del x
+    torch.cuda.empty_cache()
 
     # -- the decoder over the 576-row export (L = 11,520) --------------------------------
     check_decoder_attention(rows, "fused_decoder_attention 16 heads, L 11520", gen, dev, 16,
@@ -2716,15 +2796,16 @@ def ladder_counts(rung: str) -> dict:
     decoder = {"fused_decoder_attention": 6, "decoder_boundary": 7}
     if rung.startswith("tower"):
         return {**TOWER_COUNTS, **decoder}
-    if rung == "split":
+    if rung == "split":   # the MLP's rows quantised in c_fc: no quant_rows
         return {"fused_encoder_attn_block": 24, "fused_encoder_mlp_block": 23,
                 "fused_encoder_block": 0, "fused_encoder_tower": 0, "encoder_attention": 23,
-                "encoder_attention_int8": 0, **decoder}
+                "encoder_attention_int8": 0, "gemm_s8_quant": 23, "quant_rows": 0, **decoder}
     int8_attn = rung == "full_attn"
     return {"fused_encoder_block": 23, "fused_encoder_attn_block": 1,
             "fused_encoder_mlp_block": 0, "fused_encoder_tower": 0,
             "encoder_attention": 0 if int8_attn else 23,
-            "encoder_attention_int8": 23 if int8_attn else 0, **decoder}
+            "encoder_attention_int8": 23 if int8_attn else 0, "gemm_s8_quant": 23,
+            "quant_rows": 23, **decoder}
 
 
 def ladder_paths(card: str) -> dict:
@@ -2774,7 +2855,7 @@ def ladder_paths(card: str) -> dict:
             scorer = Scorer(det, raw, batch_size=CLIPS)
             counts[path] = answer(scorer, requests, card, path)
             used = ("fused_encoder_tower",) if kernels.get("tower") else (
-                "gemm_s8", "quant_rows", "layer_norm_quant")
+                "gemm_s8", "gemm_s8_quant", "layer_norm_quant")
             check_counts(path, counts[path], ladder_counts(rung), len(requests), used=used)
             got = scorer.predict(scorer.params, xd, md)
             # the plain route in f32: a tower rung's is its whole-block chain's
@@ -2964,7 +3045,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--pfake-seeds", type=int, default=PFAKE_SEEDS,
                     help="parameter seeds each 257-token path is held on (default "
-                         f"{PFAKE_SEEDS}); more widen the P(fake) noise readings")
+                         f"{PFAKE_SEEDS}; ViT-L/14@336px {L336_SEEDS} unless another N is "
+                         "given); more widen the P(fake) noise readings")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2994,7 +3076,8 @@ def main() -> int:
     for line in log.splitlines():
         if "Used" in line or "spill" in line and "0 bytes spill" not in line:
             print("  " + line.strip(), flush=True)
-    serialised = wgmma_serialised(log, ("gemm.cu", "gemm_s8.cu", "encoder_attention_s8.cu"))
+    serialised = wgmma_serialised(log, ("gemm.cu", "gemm_s8.cu", "gemm_s8_quant.cu",
+                                        "encoder_attention_s8.cu"))
     if serialised:
         raise SystemExit("FAIL the GEMMs' or the int8 attention's wgmma products were "
                          "serialised:\n" + "\n".join(serialised))
@@ -3046,8 +3129,9 @@ def main() -> int:
     check_577_kernels(rows)
     print("[vit-l@336 serve path] Scorer over ViT-L/14@336px, 20 frames, keep 0-20 stride 4, "
           "bf16, batch 16", flush=True)
+    seeds336 = L336_SEEDS if args.pfake_seeds == PFAKE_SEEDS else args.pfake_seeds
     counts["vitl336_serve"], counts["vitl336_int8_serve"] = vitl_serve_path(
-        card, L336_SEEDS, arch="ViT-L/14@336px", label="vit-l@336")
+        card, seeds336, arch="ViT-L/14@336px", label="vit-l@336")
     print("[kernels tower wide] the ViT-L int8 ladder's shapes: the int8 attention above 320 "
           "tokens, the whole int8 block and the 24-layer tower at width 1024, 257 and 577 "
           f"tokens; every time on {card}", flush=True)

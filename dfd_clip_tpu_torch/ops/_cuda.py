@@ -12,8 +12,11 @@ in ``LAUNCHES`` where it launches, and nowhere else, so a run can show that
 its path went through the kernels (``reset_launches`` / ``launches``).
 
 ``gemm`` and ``layer_norm_rows`` are the shared building blocks of the fused
-encoder and decoder blocks, ``gemm_s8``, ``quant_rows`` and
-``layer_norm_quant`` those of the int8 (W8A8) encoder blocks; the two GEMMs
+encoder and decoder blocks, ``gemm_s8``, ``gemm_s8_quant``, ``quant_rows``
+and ``layer_norm_quant`` those of the int8 (W8A8) encoder blocks
+(``gemm_s8_quant``: the int8 MLP's c_fc with QuickGELU and its rows
+quantised in the epilogue, a cluster of CTAs a row panel,
+csrc/gemm_s8_quant.cu); the two GEMMs
 are one persistent TMA / ``wgmma`` kernel each (csrc/gemm.cu, csrc/gemm_s8.cu
 over the frame of csrc/gemm_hopper.cuh: clusters of two CTAs sharing the
 weight's tiles, a kernel per epilogue form: QuickGELU, a residual or the
@@ -62,6 +65,10 @@ OUT_F32, RES_ADD_F32, RES_IS_F32 = 64, 128, 256
 S8_GELU, S8_RES_F32, S8_RES_BF16, S8_OUT_F32, S8_STORE, S8_EXPORT = 1, 2, 4, 8, 16, 32
 S8_RES_AFTER_CAST = 64
 GRID_MAX = 2 ** 31 - 1
+# gemm_s8_quant (csrc/gemm_s8_quant.cu): the columns a CTA may take (two
+# consumer warpgroups of 256 or 192), and the most CTAs a cluster (a
+# portable cluster), which together cover a whole row
+QUANT_TILES, QUANT_MAX_CLUSTER = (512, 384), 8
 # the encoder attention's frame (csrc/attention_hopper.cuh), which the int8
 # attention (csrc/attention_s8_hopper.cuh) shares: key blocks and query
 # tiles of 64, a ring of 10 stages of 16 KB (raw K and V), two 8 KB Q
@@ -152,6 +159,7 @@ _SIGNATURES = {
     "dfd_layer_norm": [_P, _I, _I, _P, _P, _P, _I, _I, _I, _F, _P],
     "dfd_gemm_s8": [_P, _I, _P, _P, _I, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I,
                     _P, _P, _I, _I, _I, _I, _I, _P],
+    "dfd_gemm_s8_quant": [_P, _I, _P, _P, _I, _P, _P, _P, _I, _P, _I, _I, _I, _I, _P],
     "dfd_quant_rows": [_P, _I, _I, _I, _I, _I, _P, _I, _P, _I, _I, _I, _P],
     "dfd_layer_norm_quant": [_P, _I, _I, _P, _P, _I, _I, _F, _P, _P, _P],
     "dfd_encoder_attention": [_P, _P, _P, _LL, _P, _I, _I, _I, _F, _I, _P],
@@ -394,6 +402,60 @@ def gemm_s8(a: torch.Tensor, a_scale: torch.Tensor, b_t: torch.Tensor, w_scale: 
     check_launch("gemm_s8", err)
     LAUNCHES["gemm_s8"] += 1
     return c
+
+
+def quant_geometry(n: int) -> Tuple[int, int]:
+    """gemm_s8_quant's (cluster size, columns a CTA) for an output of N
+    columns: a row's scale needs all N columns, so a cluster of N / tile
+    CTAs covers whole rows, at most 8. Of the tiles that fit, the first in
+    QUANT_TILES that gives a power-of-two cluster (more of those are
+    co-resident on an H100: 8 CTAs of 384 at ViT-B/16's 3072, 8 of 512 at
+    ViT-L/14's 4096), else the first. A width no tile fits raises."""
+    fits = [(n // tile, tile) for tile in QUANT_TILES
+            if n > 0 and n % tile == 0 and n // tile <= QUANT_MAX_CLUSTER]
+    for cluster, tile in fits:
+        if cluster & (cluster - 1) == 0:
+            return cluster, tile
+    if not fits:
+        raise ValueError(f"gemm_s8_quant: cannot tile an output of {n} columns: it takes a "
+                         f"multiple of {' or '.join(map(str, QUANT_TILES))} of at most "
+                         f"{QUANT_MAX_CLUSTER} tiles (a cluster of CTAs covers a row)")
+    return fits[0]
+
+
+def gemm_s8_quant(a: torch.Tensor, a_scale: torch.Tensor, b_t: torch.Tensor,
+                  w_scale: torch.Tensor, bias: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The int8 MLP's c_fc with its output rows quantised on chip
+    (csrc/gemm_s8_quant.cu): ``mid = QuickGELU(a (M, K) int8 @ b_t (N, K)
+    int8 ^T dequantised with a_scale (M,) and w_scale (N,) or (1, N), +
+    bias (N,))`` in f32, gemm_s8's QuickGELU form's own operations, then
+    quant_rows' ``s = max|mid| + 1e-8, q = clip(rint(mid * (127 / s)))``
+    per row, bit for bit that pair's values and scales. N as quant_geometry
+    takes it; K % 64 == 0. Returns (q (M, N) int8, s (M,) f32)."""
+    name = "gemm_s8_quant"
+    require_cuda(name, a, b_t, dtype=torch.int8)
+    w_scale = w_scale.reshape(-1)
+    require_cuda(name, a_scale, w_scale, bias, dtype=torch.float32)
+    m, k = a.shape
+    n, k2 = b_t.shape
+    if k != k2 or a_scale.shape != (m,) or w_scale.shape != (n,) or bias.shape != (n,) \
+            or not (a_scale.is_contiguous() and w_scale.is_contiguous() and bias.is_contiguous()):
+        raise ValueError(f"{name}: shapes {tuple(a.shape)} @ {tuple(b_t.shape)}^T, scales "
+                         f"{tuple(a_scale.shape)} {tuple(w_scale.shape)}, bias {tuple(bias.shape)}")
+    if k % 64:
+        raise ValueError(f"{name}: needs K % 64 == 0, got K={k}")
+    cluster, tile = quant_geometry(n)
+    q = torch.empty((m, n), dtype=torch.int8, device=a.device)
+    s = torch.empty((m,), dtype=torch.float32, device=a.device)
+    err = library().dfd_gemm_s8_quant(
+        a.data_ptr(), a.stride(0), a_scale.data_ptr(), b_t.data_ptr(), b_t.stride(0),
+        w_scale.data_ptr(), bias.data_ptr(), q.data_ptr(), n, s.data_ptr(), m, n, k, tile,
+        stream())
+    if err == -1:
+        raise RuntimeError(f"{name}: no cluster of {cluster} CTAs can be resident on this card")
+    check_launch(name, err)
+    LAUNCHES[name] += 1
+    return q, s
 
 
 def quant_rows(x: torch.Tensor, *, kv: bool = False,

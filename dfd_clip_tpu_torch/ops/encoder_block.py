@@ -11,15 +11,15 @@ On a CUDA tensor each function is a short chain of this package's kernels:
   int8 split pair (W8A8, the compute_int8 path at width 1024, ViT-L):
     attention:    layer_norm_quant -> gemm_s8 (qkv -> bf16, + K/V export)
                   -> encoder_attention -> gemm (bf16 out-proj, + residual)
-    MLP:          layer_norm_quant -> gemm_s8 (c_fc, QuickGELU -> f32)
-                  -> quant_rows -> gemm_s8 (c_proj, rounded to bf16, + h)
+    MLP:          layer_norm_quant -> gemm_s8_quant (c_fc, QuickGELU, its
+                  rows quantised) -> gemm_s8 (c_proj, rounded to bf16, + h)
   whole int8 block (W8A8, the compute_int8 path at width <= 768):
                   layer_norm_quant -> gemm_s8 (qkv -> bf16, + K/V export)
                   -> encoder_attention (f32), or with int8_attn
                      encoder_attention_int8 (f32) -> quant_rows
                   -> gemm_s8 (out-proj, + h -> f32 hmid)
-                  -> layer_norm_quant -> gemm_s8 (c_fc, QuickGELU -> f32)
-                  -> quant_rows -> gemm_s8 (c_proj, + f32 hmid -> bf16)
+                  -> layer_norm_quant -> gemm_s8_quant (c_fc, QuickGELU,
+                  its rows quantised) -> gemm_s8 (c_proj, + f32 hmid -> bf16)
   whole bf16 block (DFD_FUSED_BLOCK=full on a bf16 tower):
                   layer_norm_rows -> gemm (qkv, + K/V export)
                   -> encoder_attention -> gemm (out-proj, + h in f32 -> f32 hmid)
@@ -31,10 +31,13 @@ With ``kv_rows8`` (kv_dtype "int8_rows") the K/V export is quantised per
 row (quant_rows, the _quant_kv_rows constants) from the bf16 K/V columns into
 int8 slots, with (N, T', 1) f32 scales.
 
-Unlike the TPU kernels, which keep the packed qkv stream, the attention
-output and the (T, 4W) MLP intermediate on chip, this first decomposition
-writes them to device memory and reads them back (PERF.md counts the bytes);
-fusing them away is later work. On a CPU tensor the plain versions below run
+The int8 MLP's (T, 4W) intermediate stays on chip as in the TPU kernels:
+gemm_s8_quant quantises c_fc's QuickGELU rows in its epilogue (a cluster
+of CTAs holds a whole row; the row's maximum crosses the cluster), so no
+f32 intermediate is written and read back. The packed qkv stream, the
+attention output and the bf16 MLP intermediate still go through device
+memory (PERF.md counts the bytes); fusing them away is later work. On a
+CPU tensor the plain versions below run
 instead; they keep the kernels' rounding points (LayerNorm in f32, biases
 added in f32 before the bf16 cast, QuickGELU in f32, the residual added in
 the activation dtype; on the int8 block the f32 residual stream between the
@@ -215,7 +218,8 @@ def fused_encoder_mlp_block(h: torch.Tensor, ln: dict, mlp: dict,
                             int8_gemm: bool = False) -> torch.Tensor:
     """LN2 -> c_fc -> QuickGELU (f32) -> c_proj -> +residual on h (N, T, W).
     ``int8_gemm``: both GEMMs W8A8 (LN2 and the GELU output quantised per row
-    in f32), the c_proj output rounded to h's dtype before h is added."""
+    in f32, the latter in c_fc's epilogue on the card), the c_proj output
+    rounded to h's dtype before h is added."""
     if _cuda.on_cpu("fused_encoder_mlp_block", h):
         return fused_encoder_mlp_block_plain(h, ln, mlp, int8_gemm=int8_gemm)
     n, t, w = h.shape
@@ -224,9 +228,7 @@ def fused_encoder_mlp_block(h: torch.Tensor, ln: dict, mlp: dict,
     if int8_gemm:
         (wfc, sfc), (wpr, spr) = weight_q(mlp["c_fc"]), weight_q(mlp["c_proj"])
         yq, ys = _cuda.layer_norm_quant(h2, ln["scale"].float(), ln["bias"].float())
-        mid = _cuda.gemm_s8(yq, ys, wfc, sfc, mlp["c_fc"]["b"].float(), gelu=True,
-                            out_dtype=torch.float32)
-        mq, m_s = _cuda.quant_rows(mid)
+        mq, m_s = _cuda.gemm_s8_quant(yq, ys, wfc, sfc, mlp["c_fc"]["b"].float())
         out = _cuda.gemm_s8(mq, m_s, wpr, spr, mlp["c_proj"]["b"].float(), residual=h2,
                             residual_after_cast=True, out_dtype=dt)
     else:
@@ -326,9 +328,7 @@ def fused_encoder_block(
     hmid = _cuda.gemm_s8(aq, a_s, wo, so, attn["out_proj"]["b"].float(), residual=h2,
                          out_dtype=torch.float32)
     y2q, y2s = _cuda.layer_norm_quant(hmid, ln2["scale"].float(), ln2["bias"].float())
-    mid = _cuda.gemm_s8(y2q, y2s, wfc, sfc, mlp["c_fc"]["b"].float(), gelu=True,
-                        out_dtype=torch.float32)
-    mq, m_s = _cuda.quant_rows(mid)
+    mq, m_s = _cuda.gemm_s8_quant(y2q, y2s, wfc, sfc, mlp["c_fc"]["b"].float())
     h_out = _cuda.gemm_s8(mq, m_s, wpr, spr, mlp["c_proj"]["b"].float(), residual=hmid,
                           out_dtype=dt).reshape(n, t, w)
     _cuda.LAUNCHES["fused_encoder_block"] += 1

@@ -3,10 +3,11 @@ dfd_clip_tpu/ops/pallas_attention.py's _quant_rows, _w8a8_dot,
 quantize_weight / weight_q and _quant_kv_rows, and of the f32 LayerNorm that
 feeds _quant_rows inside _make_full_block_kernel).
 
-The kernels (csrc/quant_rows.cu, csrc/gemm_s8.cu) are launched through
-ops/_cuda.py; these are their plain versions, and export_kv_rows8 takes
-either route by the device of its input. The plain versions keep each JAX
-formula's own form, because the forms round differently:
+The kernels (csrc/quant_rows.cu, csrc/gemm_s8.cu, csrc/gemm_s8_quant.cu)
+are launched through ops/_cuda.py; these are their plain versions, and
+export_kv_rows8 takes either route by the device of its input. The plain
+versions keep each JAX formula's own form, because the forms round
+differently:
 
 * _quant_rows: ``s = max|y| + 1e-8; q = clip(round(y * (127 / s)))``;
 * _quant_kv_rows: ``s = max|r| * (1/127) + 1e-30; q = clip(round(r * (1 / s)))``;
@@ -82,6 +83,17 @@ def w8a8_dot_plain(yq: torch.Tensor, y_s: torch.Tensor, wq: torch.Tensor,
     per-row (M, 1) and per-channel (1, N) dequant."""
     acc = (yq.double() @ wq.double().t()).float()
     return acc * _over(y_s, 127.0) * _over(ws.reshape(1, -1), 127.0)
+
+
+def w8a8_gelu_quant_plain(yq: torch.Tensor, y_s: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor,
+                          bias: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The int8 MLP's c_fc with its rows quantised (the TPU kernels'
+    ``mid = _w8a8_dot(...) + b; mid = QuickGELU(mid); _quant_rows(mid)``;
+    the kernel is _cuda.gemm_s8_quant): int8 (M, K) with (M, 1) scales x
+    int8 wq (N, K) with (1, N) scales, + bias (N,), QuickGELU in f32 ->
+    (int8 (M, N), f32 (M, 1) scales)."""
+    mid = w8a8_dot_plain(yq, y_s, wq, ws) + bias.float()
+    return quant_rows_plain(mid * torch.sigmoid(1.702 * mid))
 
 
 def layer_norm_f32(params: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:

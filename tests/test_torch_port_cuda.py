@@ -39,7 +39,12 @@ TMA / wgmma kernels: every epilogue form at a ragged tile (M = 200, N =
 and with a row pitch larger than K, the K/V export through the qkv
 weight's column view into a stacked slot, gemm_s8 bit for bit against
 w8a8_dot_plain in every form without QuickGELU, QuickGELU where its
-exponential overflows, and the unaligned starts and pitches both refuse.
+exponential overflows, and the unaligned starts and pitches both refuse;
+and the int8 MLP's c_fc with its rows quantised on chip (gemm_s8_quant):
+bit for bit gemm_s8's QuickGELU form followed by quant_rows, at a ragged M
+with a longer row pitch, at ViT-L/14's c_fc with several row panels to each
+cluster, and at clusters of 2 and 1 CTAs, with CTAs of 512 and 384
+columns.
 
 Marked ``cuda``; every test skips without a card. Run on a machine with one:
 
@@ -489,6 +494,46 @@ def test_gemm_s8_ragged(dev, case, geo):
         return
     assert got.dtype == want.dtype
     assert rel_err(got, want) <= (1e-5 if got.dtype == torch.float32 else REL)
+
+
+# gemm_s8_quant's geometries: (M, K, N, extra bytes of A's row pitch).
+# "ragged": M = 200 (not a multiple of the 64-row panel) at ViT-B/16's c_fc
+# (N = 3072: 8 CTAs of 384 columns), A a view with longer rows; "vit_l":
+# ViT-L/14's c_fc (N = 4096: 8 CTAs of 512) at M = 40,000 (625 panels,
+# several to each cluster); "narrow": the width-256 int8 block's c_fc (2
+# CTAs of 512); "lone": N = 384, one CTA of 384, K = 192 (a zero-filled
+# depth tile).
+QUANT_GEOMETRIES = {
+    "ragged": (200, 768, 3072, 16),
+    "vit_l": (40000, 1024, 4096, 0),
+    "narrow": (68, 256, 1024, 0),
+    "lone": (130, 192, 384, 0),
+}
+
+
+@pytest.mark.parametrize("geo", list(QUANT_GEOMETRIES))
+def test_gemm_s8_quant_bit_equal(dev, geo):
+    """gemm_s8_quant runs gemm_s8's QuickGELU epilogue and quant_rows'
+    quantiser, the row maximum taken across the cluster: its values and
+    scales equal that pair's bit for bit; against its plain version
+    (torch.sigmoid for expf) at the quantisers' hold."""
+    from dfd_clip_tpu_torch.ops import _cuda
+    from dfd_clip_tpu_torch.ops.int8 import w8a8_gelu_quant_plain
+
+    m, k, n, pad = QUANT_GEOMETRIES[geo]
+    gen = torch.Generator().manual_seed(18)
+    aq, a_s, wq, ws, bias = quantised(gen, dev, m, k, n)
+    aq = s8_rows(aq, pad)
+    _cuda.reset_launches()
+    q, s = _cuda.gemm_s8_quant(aq, a_s, wq, ws, bias)
+    assert _cuda.launches() == {"gemm_s8_quant": 1}
+    assert q.shape == (m, n) and q.dtype == torch.int8 and s.shape == (m,)
+    q2, s2 = _cuda.quant_rows(_cuda.gemm_s8(aq, a_s, wq, ws, bias, gelu=True,
+                                            out_dtype=torch.float32))
+    assert torch.equal(q, q2) and torch.equal(s, s2)
+    qp, sp = w8a8_gelu_quant_plain(aq, a_s[:, None], wq, ws, bias)
+    int8_close(q, qp)
+    assert rel_err(s, sp.reshape(-1)) <= 1e-5
 
 
 def test_gemm_gelu_saturates(dev):
