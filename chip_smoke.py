@@ -874,11 +874,13 @@ def check_layer_norm(rows: list, name: str, h2, ln: dict, paths: tuple) -> None:
 
 
 def check_decoder_attention(rows: list, name: str, gen, dev, hh: int, p: int, valid_p: int,
-                            paths: tuple) -> None:
+                            paths: tuple, forms: bool = False) -> None:
     """The serving decoder attention on slot 3 of a (6, CLIPS, FRAMES * p,
     hh, 64) bf16 K/V stack with pos (``p`` export rows a frame, the first
     ``valid_p`` of them real), all frames valid, then one sample partly and
-    one fully masked."""
+    one fully masked. With ``forms`` also its partials form and its int8 K/V
+    form (slot 3 quantised per row) on the same inputs, timed beside their
+    bounds (no path runs them at this shape: no launches)."""
     import torch
 
     from dfd_clip_tpu_torch.models.decoder import token_mask
@@ -918,6 +920,73 @@ def check_decoder_attention(rows: list, name: str, gen, dev, hh: int, p: int, va
                                                                  layer=3)),
                None, 16.0 * valid * w, 4.0 * valid * w + 2.0 * l * w + b * l + 6.0 * b * w,
                PEAK_F32, err, counter="fused_decoder_attention", paths=paths)
+    if not forms:
+        return
+    from dfd_clip_tpu_torch.ops import int8
+
+    args = (qs, qc, kall, vall, mask2, pos, 3)
+    valid2 = mask2.sum().item()
+    (o_sc, st), (o_p, st_p) = (fda.fused_decoder_attention(*args, partials=True),
+                               fda.fused_decoder_attention_plain(*args, partials=True))
+    err = compare(f"{name} partials numerator|coda", o_sc, o_p, TOL_DECODER)
+    err = max(err, compare(f"{name} partials denominator", st[: b - 1, 0], st_p[: b - 1, 0],
+                           TOL_DECODER))
+    err = max(err, compare(f"{name} partials maximum", st[: b - 1, 1], st_p[: b - 1, 1],
+                           TOL_DECODER))
+    if o_sc[b - 1].abs().max().item() != 0 or st[b - 1, 0].abs().max().item() != 0 \
+            or (st[b - 1, 1] != -1e30).any().item():
+        raise SystemExit(f"FAIL {name} partials: a fully masked sample is not (0, 0, -1e30)")
+    kernel_row(rows, f"{name} partials", "dfd_clip_tpu/ops/pallas_decoder_attention.py:633",
+               "dfd_clip_tpu_torch/csrc/decoder_attention.cu",
+               time_ms(lambda: fda.fused_decoder_attention(*args, partials=True)),
+               time_ms(lambda: fda.fused_decoder_attention_plain(*args, partials=True)),
+               None, 16.0 * valid2 * w,
+               4.0 * valid2 * w + 2.0 * l * w + b * l + 4.0 * b * w + 8.0 * b * w + 8.0 * b * hh,
+               PEAK_F32, err, counter="fused_decoder_attention", paths=())
+    del o_sc, st, o_p, st_p
+    (kq, ks), (vq, vs) = (int8.quant_kv_rows_plain(t[3].reshape(1, b, l, w)) for t in (kall, vall))
+    del kall, vall
+    args = (qs, qc, kq.reshape(1, b, l, hh, d), vq.reshape(1, b, l, hh, d), mask2, pos, 0)
+    scales = dict(k_scale=ks, v_scale=vs)
+    got = fda.fused_decoder_attention(*args, **scales)
+    err = compare(f"{name} int8", got, fda.fused_decoder_attention_plain(*args, **scales),
+                  TOL_DECODER)
+    if got[b - 1].abs().max().item() != 0:
+        raise SystemExit(f"FAIL {name} int8: a fully masked sample is not 0")
+    kernel_row(rows, f"{name} int8", "dfd_clip_tpu/ops/pallas_decoder_attention.py:633",
+               "dfd_clip_tpu_torch/csrc/decoder_attention.cu",
+               time_ms(lambda: fda.fused_decoder_attention(*args, **scales)),
+               time_ms(lambda: fda.fused_decoder_attention_plain(*args, **scales)),
+               None, 16.0 * valid2 * w,
+               2.0 * valid2 * w + 8.0 * valid2 + 2.0 * l * w + b * l + 6.0 * b * w,
+               PEAK_F32, err, counter="fused_decoder_attention_int8", paths=())
+
+
+def check_layer_norm_quant(rows: list, x, ln: dict, paths: tuple = ()) -> None:
+    """layer_norm_quant on rows x (R, W), bf16 (LN1 on the residual stream,
+    3 bytes a value) or f32 (LN2 on hmid, 5 bytes a value), against its
+    plain route, timed beside its byte bound. One counter serves both forms
+    and every shape, so only the first row of a path set carries its
+    launches (``paths``); the others are measurements."""
+    import torch
+
+    from dfd_clip_tpu_torch.ops import _cuda, int8
+
+    m_rows, w = x.shape
+    form = "f32" if x.dtype == torch.float32 else "bf16"
+    name = f"layer_norm_quant {form} {m_rows} x {w}"
+    yq, ys = _cuda.layer_norm_quant(x, ln["scale"], ln["bias"])
+    err = compare_int8(name, yq, ys, *int8.quant_rows_plain(int8.layer_norm_f32(ln, x)),
+                       TOL_FLIPS_LN)
+    del yq, ys
+    kernel_row(rows, name, "dfd_clip_tpu/ops/pallas_attention.py:"
+               + ("1008" if form == "bf16" else "1050"), "dfd_clip_tpu_torch/csrc/quant_rows.cu",
+               time_ms(lambda: _cuda.layer_norm_quant(x, ln["scale"], ln["bias"])),
+               time_ms(lambda: int8.quant_rows_plain(int8.layer_norm_f32(ln, x)), iters=3,
+                       warmup=1),
+               None, 12.0 * m_rows * w,
+               (x.element_size() + 1.0) * m_rows * w + 4.0 * m_rows + 8.0 * w, PEAK_F32, err,
+               counter="layer_norm_quant", paths=paths)
 
 
 def check_decoder_boundary(rows: list, name: str, blk: dict, seed: int, paths: tuple) -> None:
@@ -1121,6 +1190,9 @@ def check_int8_kernels(rows: list) -> None:
         time_ms(lambda: _cuda.layer_norm_quant(h2, ln1["scale"], ln1["bias"])),
         time_ms(lambda: int8.quant_rows_plain(int8.layer_norm_f32(ln1, h2))),
         None, 12.0 * m_rows * w, 3.0 * m_rows * w + 4.0 * m_rows + 8.0 * w, PEAK_F32, err)
+    # the LN2 form on the f32 hmid rows (its launches are on the row above)
+    check_layer_norm_quant(rows, torch.randn(m_rows, w, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(13)), blk["ln_2"])
 
     # -- gemm_s8 at the qkv shape (768 -> 2304, bf16 out) -------------------------
     wq, ws, bq = attn["in_proj"]["wq"], attn["in_proj"]["ws"], attn["in_proj"]["b"]
@@ -2084,6 +2156,8 @@ def check_split_chain(rows: list, h, blk: dict) -> None:
                time_ms(lambda: int8.quant_rows_plain(int8.layer_norm_f32(ln1, h2))),
                None, 12.0 * m_rows * w, 3.0 * m_rows * w + 4.0 * m_rows + 8.0 * w, PEAK_F32, err,
                counter="layer_norm_quant", paths=paths)
+    check_layer_norm_quant(rows, torch.randn(m_rows, w, device=h.device, generator=torch.Generator(
+        device=h.device).manual_seed(14)), blk["ln_2"])
 
     def s8_row(name, a, a_s, p, plain, k, nn, out_bytes, extra_bytes=0.0, **kw):
         wq, ws, b = p["wq"], p["ws"], p["b"]
@@ -2625,12 +2699,17 @@ def check_577_kernels(rows: list) -> None:
                time_ms(lambda: int8.quant_rows_plain(x), iters=3, warmup=1), None,
                4.0 * m_rows * w, 5.0 * m_rows * w + 4.0 * m_rows, PEAK_F32, err,
                counter="quant_rows", paths=("vitl336_full", "vitl336_full_attn"))
+    # -- layer_norm_quant at these paths' shape, LN1 (bf16 h) and LN2 (f32 hmid) ---------
+    ln = {"scale": 1 + 0.3 * torch.randn(w, generator=dgen, device=dev),
+          "bias": 0.1 * torch.randn(w, generator=dgen, device=dev)}
+    check_layer_norm_quant(rows, x.to(bf), ln)
+    check_layer_norm_quant(rows, x, ln)
     del x
     torch.cuda.empty_cache()
 
-    # -- the decoder over the 576-row export (L = 11,520) --------------------------------
+    # -- the decoder over the 576-row export (L = 11,520), in its three forms ------------
     check_decoder_attention(rows, "fused_decoder_attention 16 heads, L 11520", gen, dev, 16,
-                            t_out, t_out, VITL336_PATHS + VITL336_LADDER)
+                            t_out, t_out, VITL336_PATHS + VITL336_LADDER, forms=True)
 
 
 def check_tower_wide_kernels(rows: list) -> None:

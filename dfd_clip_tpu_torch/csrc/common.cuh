@@ -81,8 +81,13 @@ __device__ __forceinline__ void load8(const bf16* p, float* v) {
   for (int e = 0; e < 8; ++e) v[e] = __bfloat162float(pk.h[e]);
 }
 
-// The _quant_rows rounding of one f32 value: clip(round(v * mul), -127, 127)
-// with round half to even (rintf) and no fused multiply-add.
-__device__ __forceinline__ int8_t quant8(float v, float mul) {
-  return static_cast<int8_t>(fminf(fmaxf(rintf(__fmul_rn(v, mul)), -127.0f), 127.0f));
+// The _quant_rows rounding of one f32 value, clip(round(v * mul), -127,
+// 127) with round half to even and no fused multiply-add, as the low byte of
+// the result: the clip first, then an add of 1.5 x 2^23, which rounds half
+// to even as rintf does (the sum's unit is 1 and 1.5 x 2^23 is even), so no
+// conversion instruction is needed. Clipping before or after rounding to an
+// integer gives the same integer, and a NaN clips to -127 either way.
+__device__ __forceinline__ uint32_t q8_bits(float v, float mul) {
+  return __float_as_uint(
+      __fadd_rn(fminf(fmaxf(__fmul_rn(v, mul), -127.0f), 127.0f), 12582912.0f));
 }

@@ -13,32 +13,35 @@
 //   dq_smax = s sum_l dls kp,  dq_coda = s sum_l dlc kp + sum_l du sign(qc - kp)
 //   dpos[l] = sum_b dls qs s + dlc qc s - du sign(qc - kp) + 0.5 (a_s + t g) g0
 // S removes the global softmax coupling term, so a single pass suffices.
-// The logits are recomputed with the forward kernel's own arithmetic
-// (csrc/decoder_attention.cu: k + pos in f32 from bf16 values, the same lane
-// layout and warp-shuffle order), so exp(ls - max) with the saved max is
-// the forward's value and stays <= 1. Masked and out-of-range tokens
-// contribute exactly 0: a fully masked sample (denominator 0) gives dq = 0
-// and adds nothing to dpos.
+// The logits are recomputed by the forward kernel's own function
+// (csrc/decoder_logits.cuh: k + pos in f32 from bf16 values, 8 lanes a
+// token in the same lane layout and shuffle order), so exp(ls - max) with
+// the saved max is the forward's value and stays <= 1. Masked and
+// out-of-range tokens contribute exactly 0: a fully masked sample
+// (denominator 0) gives dq = 0 and adds nothing to dpos.
 //
 // Bound on an H100: bytes. At the flagship train shape (12 samples, 12 heads,
 // 4000 tokens, head_dim 64) a call reads ~147 MB of K/V for ~1 GFLOP.
 //
 // Design: dq is a sum over L per (sample, head) and dpos a sum over samples
 // per (token, head), so the two reductions run in opposite directions. One
-// block per (64-token tile, head), 8 warps of 8 tokens each: a lane owns 2 of
-// the 64 dims, keeps its tokens' pos and dpos in registers and loops over the
-// samples, so dpos needs no atomics and no second pass. Per sample, the 8
-// warps merge their dq partial sums through shared memory and write them to
-// a (tiles, B, 2, H, 64) f32 buffer that a second launch sums over tiles in
-// a fixed order. Results do not vary from run to run.
-#include "common.cuh"
+// block per (64-token tile, head), 8 warps of 8 tokens each, 4 at a time on
+// the forward's lane layout (a lane owns 8 of a token's 64 dims): a lane
+// keeps its two tokens' pos and dpos in registers and loops over the
+// samples, so dpos needs no atomics and no second pass. Per sample, each
+// warp adds its 4 token groups' dq partial sums by shuffles, the 8 warps
+// merge them through shared memory and write them to a (tiles, B, 2, H,
+// 64) f32 buffer that a second launch sums over tiles in a fixed order.
+// Results do not vary from run to run.
+#include "decoder_logits.cuh"
 
 namespace {
 
-constexpr int D = 64;
+using namespace dec;
+
 constexpr int WARPS = 8;
-constexpr int TOK = 8;                 // tokens per warp
-constexpr int TILE = WARPS * TOK;      // tokens per block
+constexpr int STEPS = 2;                  // steps of 4 tokens a warp
+constexpr int TILE = WARPS * STEPS * TOKENS;   // tokens per block
 
 __device__ __forceinline__ float sgn(float x) { return (float)((x > 0.f) - (x < 0.f)); }
 
@@ -53,88 +56,93 @@ decoder_attention_bwd_kernel(const bf16* __restrict__ qs, const bf16* __restrict
 
   const int tile = blockIdx.x, h = blockIdx.y;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int d0 = lane * 2;
+  const int g = lane / GROUP, j = lane % GROUP;
   const size_t tok_stride = (size_t)heads * D;
-  const int l_base = tile * TILE + warp * TOK;
+  const size_t col = (size_t)h * D + j * DL;   // the lane's 8 dims of the head
+  const int l_base = tile * TILE + warp * STEPS * TOKENS + g;   // + st * TOKENS
 
-  float p0[TOK], p1[TOK], dp0[TOK], dp1[TOK];
+  float p[STEPS][DL], dp[STEPS][DL];
 #pragma unroll
-  for (int u = 0; u < TOK; ++u) {
-    const int l = l_base + u;
-    p0[u] = p1[u] = dp0[u] = dp1[u] = 0.f;
-    if (pos != nullptr && l < L) {
-      const __nv_bfloat162 pp =
-          *reinterpret_cast<const __nv_bfloat162*>(pos + l * tok_stride + h * D + d0);
-      p0[u] = __low2float(pp);
-      p1[u] = __high2float(pp);
-    }
+  for (int st = 0; st < STEPS; ++st) {
+    const int l = l_base + st * TOKENS;
+#pragma unroll
+    for (int e = 0; e < DL; ++e) p[st][e] = dp[st][e] = 0.f;
+    if (pos != nullptr && l < L)
+      unpack8(*reinterpret_cast<const uint4*>(pos + l * tok_stride + col), p[st]);
   }
 
   for (int b = 0; b < batch; ++b) {
-    const __nv_bfloat162 qs2 =
-        *reinterpret_cast<const __nv_bfloat162*>(qs + b * q_stride + h * D + d0);
-    const __nv_bfloat162 qc2 =
-        *reinterpret_cast<const __nv_bfloat162*>(qc + b * q_stride + h * D + d0);
-    const float qs0 = __low2float(qs2), qs1 = __high2float(qs2);
-    const float qc0 = __low2float(qc2), qc1 = __high2float(qc2);
-    const float2 g = *reinterpret_cast<const float2*>(g0 + b * tok_stride + h * D + d0);
+    float q_s[DL], q_c[DL], gg[DL];
+    unpack8(*reinterpret_cast<const uint4*>(qs + b * q_stride + col), q_s);
+    unpack8(*reinterpret_cast<const uint4*>(qc + b * q_stride + col), q_c);
+    const float4 ga = *reinterpret_cast<const float4*>(g0 + b * tok_stride + col);
+    const float4 gb = *reinterpret_cast<const float4*>(g0 + b * tok_stride + col + 4);
+    gg[0] = ga.x, gg[1] = ga.y, gg[2] = ga.z, gg[3] = ga.w;
+    gg[4] = gb.x, gg[5] = gb.y, gg[6] = gb.z, gg[7] = gb.w;
     const float mx = stats[((size_t)b * 3 + 0) * heads + h];
     const float inv_den = 1.0f / fmaxf(stats[((size_t)b * 3 + 1) * heads + h], 1e-30f);
     const float S = stats[((size_t)b * 3 + 2) * heads + h];
 
-    const bf16* kb = k + (size_t)b * L * tok_stride + h * D + d0;
-    const bf16* vb = v + (size_t)b * L * tok_stride + h * D + d0;
+    const bf16* kb = k + (size_t)b * L * tok_stride + col;
+    const bf16* vb = v + (size_t)b * L * tok_stride + col;
     const unsigned char* mb = mask + (size_t)b * L;
 
-    float aqs0 = 0.f, aqs1 = 0.f, aqc0 = 0.f, aqc1 = 0.f;
+    float aqs[DL], aqc[DL];
 #pragma unroll
-    for (int u = 0; u < TOK; ++u) {
-      const int l = l_base + u;
+    for (int e = 0; e < DL; ++e) aqs[e] = aqc[e] = 0.f;
+#pragma unroll
+    for (int st = 0; st < STEPS; ++st) {
+      const int l = l_base + st * TOKENS;
       const bool ok = l < L && mb[l] != 0;
-      float k0 = 0.f, k1 = 0.f, v0 = 0.f, v1 = 0.f;
+      float kk[DL], vv[DL];
+#pragma unroll
+      for (int e = 0; e < DL; ++e) kk[e] = vv[e] = 0.f;
       if (ok) {
-        const __nv_bfloat162 kk = *reinterpret_cast<const __nv_bfloat162*>(kb + l * tok_stride);
-        const __nv_bfloat162 vv = *reinterpret_cast<const __nv_bfloat162*>(vb + l * tok_stride);
-        k0 = __low2float(kk);
-        k1 = __high2float(kk);
-        v0 = __low2float(vv);
-        v1 = __high2float(vv);
-        if (pos != nullptr) {
-          k0 += p0[u];
-          k1 += p1[u];
-          v0 += p0[u];
-          v1 += p1[u];
-        }
+        unpack8(*reinterpret_cast<const uint4*>(kb + l * tok_stride), kk);
+        unpack8(*reinterpret_cast<const uint4*>(vb + l * tok_stride), vv);
       }
-      const float ls = warp_sum(qs0 * k0 + qs1 * k1) * scale;
-      const float lc = warp_sum(qc0 * k0 + qc1 * k1) * scale;
-      const float l1 = warp_sum(fabsf(qc0 - k0) + fabsf(qc1 - k1));
-      const float w = warp_sum(g.x * v0 + g.y * v1);
+      const Logits lg = token_logits(q_s, q_c, kk, p[st], scale);   // kk is now k + pos
+      float w = 0.f;
+#pragma unroll
+      for (int e = 0; e < DL; ++e) {
+        vv[e] = __fadd_rn(vv[e], p[st][e]);
+        w += gg[e] * vv[e];
+      }
+      w = group_sum(w);
       if (ok) {
-        const float a_s = expf(ls - mx) * inv_den;
-        const float t = tanhf(lc);
-        const float gate = 2.0f / (1.0f + expf(l1 * scale));
+        const float a_s = expf(lg.ls - mx) * inv_den;
+        const float t = tanhf(lg.lc);
+        const float gate = 2.0f / (1.0f + expf(lg.l1 * scale));
         const float da = 0.5f * w;
         const float dls = a_s * (da - S);
         const float dlc = da * gate * (1.0f - t * t);
         const float du = -scale * (da * t) * gate * (1.0f - 0.5f * gate);
-        const float s0 = sgn(qc0 - k0), s1 = sgn(qc1 - k1);
-        aqs0 += dls * k0;
-        aqs1 += dls * k1;
-        aqc0 += scale * dlc * k0 + du * s0;
-        aqc1 += scale * dlc * k1 + du * s1;
-        if (pos != nullptr) {
-          const float av = 0.5f * (a_s + t * gate);
-          dp0[u] += dls * (qs0 * scale) + dlc * (qc0 * scale) - du * s0 + av * g.x;
-          dp1[u] += dls * (qs1 * scale) + dlc * (qc1 * scale) - du * s1 + av * g.y;
+        const float av = 0.5f * (a_s + t * gate);
+#pragma unroll
+        for (int e = 0; e < DL; ++e) {
+          const float sg = sgn(q_c[e] - kk[e]);
+          aqs[e] += dls * kk[e];
+          aqc[e] += scale * dlc * kk[e] + du * sg;
+          if (pos != nullptr)
+            dp[st][e] += dls * (q_s[e] * scale) + dlc * (q_c[e] * scale) - du * sg + av * gg[e];
         }
       }
     }
-
-    sm[warp][0][d0] = aqs0;
-    sm[warp][0][d0 + 1] = aqs1;
-    sm[warp][1][d0] = aqc0;
-    sm[warp][1][d0 + 1] = aqc1;
+    // the warp's 4 token groups, then its 8 warps
+#pragma unroll
+    for (int e = 0; e < DL; ++e) {
+      aqs[e] += __shfl_xor_sync(0xffffffffu, aqs[e], 8);
+      aqs[e] += __shfl_xor_sync(0xffffffffu, aqs[e], 16);
+      aqc[e] += __shfl_xor_sync(0xffffffffu, aqc[e], 8);
+      aqc[e] += __shfl_xor_sync(0xffffffffu, aqc[e], 16);
+    }
+    if (lane < GROUP) {
+#pragma unroll
+      for (int e = 0; e < DL; ++e) {
+        sm[warp][0][j * DL + e] = aqs[e];
+        sm[warp][1][j * DL + e] = aqc[e];
+      }
+    }
     __syncthreads();
     if (threadIdx.x < 2 * D) {
       const int r = threadIdx.x / D, d = threadIdx.x % D;
@@ -149,10 +157,13 @@ decoder_attention_bwd_kernel(const bf16* __restrict__ qs, const bf16* __restrict
 
   if (dpos != nullptr) {
 #pragma unroll
-    for (int u = 0; u < TOK; ++u) {
-      const int l = l_base + u;
-      if (l < L)
-        *reinterpret_cast<float2*>(dpos + l * tok_stride + h * D + d0) = make_float2(dp0[u], dp1[u]);
+    for (int st = 0; st < STEPS; ++st) {
+      const int l = l_base + st * TOKENS;
+      if (l < L) {
+        float4* o = reinterpret_cast<float4*>(dpos + l * tok_stride + col);
+        o[0] = make_float4(dp[st][0], dp[st][1], dp[st][2], dp[st][3]);
+        o[1] = make_float4(dp[st][4], dp[st][5], dp[st][6], dp[st][7]);
+      }
     }
   }
 }

@@ -49,7 +49,8 @@
 // - The quantiser is csrc/quant_rows.cu's: s = max|mid| + 1e-8 and 127 / s
 //   (row_ops::quant_consts, IEEE divisions), then the product, the clip and
 //   round half to even, here as an add of 1.5 x 2^23 whose low byte is the
-//   value (q8_bits: the same integer as quant8's rintf and cast). The int
+//   value (q8_bits, csrc/common.cuh: the same integer as rintf and a cast,
+//   which the row quantisers of csrc/rows.cuh also use). The int
 //   <-> float conversions share one pipe with the exponential and the
 //   reciprocal at an eighth of the FMA rate, and five of them a value bound
 //   this epilogue; the add leaves three. So the values and scales equal
@@ -222,16 +223,6 @@ __device__ __forceinline__ uint2 quad_transpose(uint32_t x0, uint32_t x1, int t)
     second = __byte_perm(second, 0, 0x1032);
   }
   return make_uint2(first, second);
-}
-
-// quant8 (csrc/common.cuh) without its two conversions: the clip first,
-// then an add of 1.5 x 2^23, which rounds half to even as rintf does (the
-// sum's unit is 1 and 1.5 x 2^23 is even); the low byte of the sum's bits is
-// the int8 value. Clipping before or after rounding to an integer gives the
-// same integer, and a NaN clips to -127 either way.
-__device__ __forceinline__ uint32_t q8_bits(float v, float mul) {
-  return __float_as_uint(
-      __fadd_rn(fminf(fmaxf(__fmul_rn(v, mul), -127.0f), 127.0f), 12582912.0f));
 }
 
 // The int8 values of accumulators at and at + 1 (two neighbouring columns of

@@ -12,8 +12,10 @@
 //
 // Bound on an H100: bytes. Each row is read once (f32 or bf16) and written
 // once as int8 plus one f32 scale; a handful of operations per element. At
-// the int8 paths' shapes: 0.2891 ms for the ViT-B c_fc intermediate (63,040
-// x 3072 f32), 0.5029 ms at 82,240 x 4096.
+// the int8 paths' shapes: quant_rows 0.0723 ms for the attention output
+// (63,040 x 768 f32); layer_norm_quant (3 bytes a value from bf16, 5 from
+// f32) 0.0434 / 0.0723 ms at 63,040 x 768, 0.0755 / 0.1257 at 82,240 x 1024,
+// 0.1693 / 0.2822 at 184,640 x 1024.
 //
 // Design: quant_rows reads each row once. TPR threads take a row (32, 64,
 // 128 or 256: the fewest that hold it in at most UNITS 16-byte loads of 8
@@ -25,11 +27,19 @@
 // take the warp-a-row body of csrc/rows.cuh, which reads the row twice.
 // layer_norm_quant keeps the row (W <= 1024) in registers, one warp a row:
 // mean, centred variance (the two-pass form jnp.var uses), normalise,
-// absmax, quantise. The scale and the quotient 127 / s are IEEE divisions
-// (the build has no fast-math flag), the products and sums use __fmul_rn /
-// __fadd_rn so none is fused into an FMA, and rintf rounds half to even as
-// jnp.round does: the maximum is exact and each value's rounding its own,
-// so every form gives the same bits. The K/V form maps input row r (frame
+// absmax, quantise. Its grid is persistent (as many 4-warp blocks as are
+// resident at once), each warp walking rows grid-stride: the warp loads its
+// lanes' slices of scale and shift once, as 16-byte vectors, into registers
+// (a lane's 8 values a 256-wide chunk, the chunks templated on the width),
+// and issues the next row's loads before the current row's three
+// reductions, so a row's bytes are always in flight. The scale and the
+// quotient 127 / s are IEEE divisions (the build has no fast-math flag), the
+// products and sums use __fmul_rn / __fadd_rn so none is fused into an FMA,
+// and the rounding is half to even as jnp.round's (q8_bits, without a
+// conversion instruction): the maximum is exact and each value's rounding
+// its own, so every form, the tower's row stage (the same arithmetic,
+// row_ops::ln_quant_values, with scale and shift read at each use)
+// included, gives the same bits. The K/V form maps input row r (frame
 // r / T, token r % T) to output row frame * T' + token - lo, drops tokens <
 // lo, and the frame's last token also writes the T' - (T - lo) zero pad
 // rows and scales, so a stacked export slot needs no zeroing pass. The row
@@ -128,14 +138,105 @@ int launch_quant_rows(const T* x, int ldx, int rows, int cols, bool kv, int8_t* 
   return static_cast<int>(cudaGetLastError());
 }
 
+constexpr int LNQ_WARPS = 4;   // warps a layer_norm_quant block
+
+// One row's raw values at chunk granularity: a 16-byte word of 8 bf16, or
+// two of 4 f32.
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
+struct Raw8;
+
+template <>
+struct Raw8<bf16> {
+  uint4 u;
+  __device__ __forceinline__ void load(const bf16* p) { u = *reinterpret_cast<const uint4*>(p); }
+  __device__ __forceinline__ void widen(float (&v)[8]) const {
+    Pack8 pk;
+    pk.u = u;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) v[e] = __bfloat162float(pk.h[e]);
+  }
+};
+
+template <>
+struct Raw8<float> {
+  float4 a, b;
+  __device__ __forceinline__ void load(const float* p) {
+    a = *reinterpret_cast<const float4*>(p);
+    b = *reinterpret_cast<const float4*>(p + 4);
+  }
+  __device__ __forceinline__ void widen(float (&v)[8]) const {
+    v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
+    v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
+  }
+};
+
+template <typename T, int CH>
+__global__ void __launch_bounds__(LNQ_WARPS * 32)
 layer_norm_quant_kernel(const T* __restrict__ x, int ldx, const float* __restrict__ scale,
                         const float* __restrict__ shift, int rows, int width, float eps,
                         int8_t* __restrict__ q, float* __restrict__ s) {
-  const int r = blockIdx.x * WARPS + threadIdx.x / 32;
-  if (r >= rows) return;
-  row_ops::layer_norm_quant(x, ldx, r, scale, shift, width, eps, q, s, threadIdx.x % 32);
+  const int lane = threadIdx.x % 32;
+  const int stride = gridDim.x * LNQ_WARPS;
+  int r = blockIdx.x * LNQ_WARPS + threadIdx.x / 32;
+  row_ops::AffineRegs<CH> aff;
+  Raw8<T> cur[CH], nxt[CH];
+#pragma unroll
+  for (int i = 0; i < CH; ++i) {
+    const int c = lane * 8 + i * 256;
+    if (c < width) {
+      load8(scale + c, aff.sc[i]);
+      load8(shift + c, aff.sh[i]);
+      if (r < rows) cur[i].load(x + (size_t)r * ldx + c);
+    }
+  }
+  for (; r < rows; r += stride) {
+    const int rn = r + stride;
+#pragma unroll
+    for (int i = 0; i < CH; ++i) {   // the next row in flight during this one
+      const int c = lane * 8 + i * 256;
+      if (rn < rows && c < width) nxt[i].load(x + (size_t)rn * ldx + c);
+    }
+    float v[CH][8];
+#pragma unroll
+    for (int i = 0; i < CH; ++i) cur[i].widen(v[i]);
+    row_ops::ln_quant_values(v, aff, width, eps, q, s, r, lane);
+#pragma unroll
+    for (int i = 0; i < CH; ++i) cur[i] = nxt[i];
+  }
+}
+
+template <typename T, int CH>
+int launch_layer_norm_quant(const T* x, int ldx, const float* scale, const float* shift, int rows,
+                            int width, float eps, int8_t* q, float* s, cudaStream_t st) {
+  auto kernel = layer_norm_quant_kernel<T, CH>;
+  static int per_sm = 0;   // resident blocks an SM, once per instantiation
+  cudaError_t err = cudaSuccess;
+  if (per_sm == 0)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, LNQ_WARPS * 32, 0);
+  int dev = 0, sms = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long need = ((long long)rows + LNQ_WARPS - 1) / LNQ_WARPS;
+  const long long resident = (long long)(per_sm > 0 ? per_sm : 1) * sms;
+  const int grid = static_cast<int>(need < resident ? need : resident);
+  kernel<<<grid, LNQ_WARPS * 32, 0, st>>>(x, ldx, scale, shift, rows, width, eps, q, s);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int layer_norm_quant(const T* x, int ldx, const float* scale, const float* shift, int rows,
+                     int width, float eps, int8_t* q, float* s, cudaStream_t st) {
+  switch ((width + 255) / 256) {   // 256-wide chunks a row
+    case 1:
+      return launch_layer_norm_quant<T, 1>(x, ldx, scale, shift, rows, width, eps, q, s, st);
+    case 2:
+      return launch_layer_norm_quant<T, 2>(x, ldx, scale, shift, rows, width, eps, q, s, st);
+    case 3:
+      return launch_layer_norm_quant<T, 3>(x, ldx, scale, shift, rows, width, eps, q, s, st);
+    default:
+      return launch_layer_norm_quant<T, 4>(x, ldx, scale, shift, rows, width, eps, q, s, st);
+  }
 }
 
 }  // namespace
@@ -164,15 +265,14 @@ extern "C" int dfd_quant_rows(const void* x, int ldx, int x_f32, int rows, int c
 extern "C" int dfd_layer_norm_quant(const void* x, int ldx, int x_f32, const float* scale,
                                     const float* shift, int rows, int width, float eps, void* q,
                                     float* s, void* stream) {
-  const int blocks = (rows + WARPS - 1) / WARPS;
+  if (rows < 0 || width < 8 || width > row_ops::LN_CHUNKS * 256 || width % 8)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (rows == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int8_t* qq = static_cast<int8_t*>(q);
   if (x_f32)
-    layer_norm_quant_kernel<float><<<blocks, WARPS * 32, 0, st>>>(
-        static_cast<const float*>(x), ldx, scale, shift, rows, width, eps,
-        static_cast<int8_t*>(q), s);
-  else
-    layer_norm_quant_kernel<bf16><<<blocks, WARPS * 32, 0, st>>>(
-        static_cast<const bf16*>(x), ldx, scale, shift, rows, width, eps,
-        static_cast<int8_t*>(q), s);
-  return static_cast<int>(cudaGetLastError());
+    return layer_norm_quant(static_cast<const float*>(x), ldx, scale, shift, rows, width, eps,
+                            qq, s, st);
+  return layer_norm_quant(static_cast<const bf16*>(x), ldx, scale, shift, rows, width, eps, qq,
+                          s, st);
 }

@@ -47,16 +47,17 @@ __device__ __forceinline__ void layer_norm(const T* __restrict__ xr,
   }
 }
 
-union Int8x8 {
-  uint2 u;
-  int8_t q[8];
-};
-
+// Eight values quantised (q8_bits) into one 8-byte store.
 __device__ __forceinline__ void store_q8(int8_t* dst, const float* v, float inv) {
-  Int8x8 o;
+  uint32_t w[2];
 #pragma unroll
-  for (int e = 0; e < 8; ++e) o.q[e] = quant8(v[e], inv);
-  *reinterpret_cast<uint2*>(dst) = o.u;
+  for (int h = 0; h < 2; ++h) {
+    const uint32_t lo = __byte_perm(q8_bits(v[4 * h], inv), q8_bits(v[4 * h + 1], inv), 0x0040);
+    const uint32_t hi =
+        __byte_perm(q8_bits(v[4 * h + 2], inv), q8_bits(v[4 * h + 3], inv), 0x0040);
+    w[h] = __byte_perm(lo, hi, 0x5410);
+  }
+  *reinterpret_cast<uint2*>(dst) = make_uint2(w[0], w[1]);
 }
 
 // (scale, multiplier) of the two quantisers for a row maximum `amax`.
@@ -106,22 +107,34 @@ __device__ __forceinline__ void quant_row(const T* __restrict__ x, int ldx, int 
   if (lane == 0) s[out] = sc.x;
 }
 
-// q row r, s[r] = _quant_rows(LN(x row r)) with f32 statistics, the row
-// (W <= 1024) held in registers.
-template <typename T>
-__device__ __forceinline__ void layer_norm_quant(const T* __restrict__ x, int ldx, int r,
-                                                 const float* __restrict__ scale,
-                                                 const float* __restrict__ shift, int width,
-                                                 float eps, int8_t* __restrict__ q,
-                                                 float* __restrict__ s, int lane) {
-  const T* xr = x + (size_t)r * ldx;
-  float v[LN_CHUNKS][8];
+// The affine parameters of layer_norm_quant: read at each use (the tower's
+// row stage), or a lane's slices held in registers (csrc/quant_rows.cu).
+struct AffinePtr {
+  const float* scale;
+  const float* shift;
+  __device__ __forceinline__ float mul(int, int e, int c) const { return scale[c + e]; }
+  __device__ __forceinline__ float add(int, int e, int c) const { return shift[c + e]; }
+};
+
+template <int CH>
+struct AffineRegs {
+  float sc[CH][8], sh[CH][8];
+  __device__ __forceinline__ float mul(int i, int e, int) const { return sc[i][e]; }
+  __device__ __forceinline__ float add(int i, int e, int) const { return sh[i][e]; }
+};
+
+// q row r, s[r] = _quant_rows(LN(row)) with f32 statistics, the row (W <= CH
+// x 256) in registers: chunk i of v holds values lane * 8 + i * 256 on.
+// Every form (the tower's stage, csrc/quant_rows.cu) runs this arithmetic,
+// so they agree bit for bit.
+template <int CH, typename Affine>
+__device__ __forceinline__ void ln_quant_values(float (&v)[CH][8], const Affine& aff, int width,
+                                                float eps, int8_t* __restrict__ q,
+                                                float* __restrict__ s, int r, int lane) {
   float sum = 0.0f;
 #pragma unroll
-  for (int i = 0; i < LN_CHUNKS; ++i) {
-    const int c = lane * 8 + i * 256;
-    if (c < width) {
-      load8(xr + c, v[i]);
+  for (int i = 0; i < CH; ++i) {
+    if (lane * 8 + i * 256 < width) {
 #pragma unroll
       for (int e = 0; e < 8; ++e) sum += v[i][e];
     }
@@ -129,7 +142,7 @@ __device__ __forceinline__ void layer_norm_quant(const T* __restrict__ x, int ld
   const float mean = warp_sum(sum) / width;
   float sq = 0.0f;
 #pragma unroll
-  for (int i = 0; i < LN_CHUNKS; ++i) {
+  for (int i = 0; i < CH; ++i) {
     if (lane * 8 + i * 256 < width) {
 #pragma unroll
       for (int e = 0; e < 8; ++e) {
@@ -141,13 +154,13 @@ __device__ __forceinline__ void layer_norm_quant(const T* __restrict__ x, int ld
   const float rstd = 1.0f / sqrtf(warp_sum(sq) / width + eps);
   float amax = 0.0f;
 #pragma unroll
-  for (int i = 0; i < LN_CHUNKS; ++i) {
+  for (int i = 0; i < CH; ++i) {
     const int c = lane * 8 + i * 256;
     if (c < width) {
 #pragma unroll
       for (int e = 0; e < 8; ++e) {
-        const float y = __fadd_rn(__fmul_rn(__fmul_rn(v[i][e] - mean, rstd), scale[c + e]),
-                                  shift[c + e]);
+        const float y = __fadd_rn(__fmul_rn(__fmul_rn(v[i][e] - mean, rstd), aff.mul(i, e, c)),
+                                  aff.add(i, e, c));
         v[i][e] = y;
         amax = fmaxf(amax, fabsf(y));
       }
@@ -155,11 +168,29 @@ __device__ __forceinline__ void layer_norm_quant(const T* __restrict__ x, int ld
   }
   const float2 sc = quant_consts(warp_max(amax), false);
 #pragma unroll
-  for (int i = 0; i < LN_CHUNKS; ++i) {
+  for (int i = 0; i < CH; ++i) {
     const int c = lane * 8 + i * 256;
     if (c < width) store_q8(q + (size_t)r * width + c, v[i], sc.y);
   }
   if (lane == 0) s[r] = sc.x;
+}
+
+// The same on row r of x (row stride ldx), read here, with scale / shift
+// read at each use: the tower's row stage.
+template <typename T>
+__device__ __forceinline__ void layer_norm_quant(const T* __restrict__ x, int ldx, int r,
+                                                 const float* __restrict__ scale,
+                                                 const float* __restrict__ shift, int width,
+                                                 float eps, int8_t* __restrict__ q,
+                                                 float* __restrict__ s, int lane) {
+  const T* xr = x + (size_t)r * ldx;
+  float v[LN_CHUNKS][8];
+#pragma unroll
+  for (int i = 0; i < LN_CHUNKS; ++i) {
+    const int c = lane * 8 + i * 256;
+    if (c < width) load8(xr + c, v[i]);
+  }
+  ln_quant_values(v, AffinePtr{scale, shift}, width, eps, q, s, r, lane);
 }
 
 }  // namespace row_ops

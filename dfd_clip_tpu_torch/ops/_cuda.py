@@ -84,6 +84,10 @@ TOWER_MAX_ROWS = 2 ** 16
 # int8 attention modes of the tower (csrc/encoder_tower.cu TowerArgs.attn)
 TOWER_ATTN = {"0": 0, "1": 1, "qk": 2}
 TOWER_MAP_BYTES, TOWER_LAYER_POINTERS = 128, 16   # a CUtensorMap; a LayerW record
+# the decoder attention (csrc/decoder_attention.cu): tokens a chunk (a block
+# takes one (chunk, head) over every sample), and the f32 workspace a
+# (sample, head, chunk): numerator 64, CoDA sum 64, denominator, maximum, pad
+DECODER_CHUNK, DECODER_WS = 64, 132
 
 
 def reset_launches() -> None:
@@ -171,8 +175,8 @@ _SIGNATURES = {
     "dfd_encoder_tower_table": [_P, _I, _I, _I, _I],
     "dfd_encoder_tower": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F,
                           _F, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P],
-    "dfd_decoder_attention": [_P, _P, _LL, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
-    "dfd_decoder_attention_partials": [_P, _P, _LL, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
+    "dfd_decoder_attention": [_P, _P, _LL, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P,
+                              _I, _I, _I, _F, _P],
     "dfd_decoder_attention_bwd": [_P, _P, _LL, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                   _I, _I, _I, _F, _P],
 }
@@ -518,6 +522,16 @@ def layer_norm_quant(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
     check_launch("layer_norm_quant", err)
     LAUNCHES["layer_norm_quant"] += 1
     return q, s
+
+
+def decoder_split(tokens: int, heads: int) -> Dict[str, int]:
+    """The decoder attention's grid over L = ``tokens`` keys of ``heads``
+    heads: chunks of DECODER_CHUNK tokens (the last one ragged), a block a
+    (chunk, head), each walking every sample."""
+    if tokens < 1 or heads < 1:
+        raise ValueError(f"decoder_split: needs tokens and heads >= 1, got {tokens}, {heads}")
+    chunks = -(-tokens // DECODER_CHUNK)
+    return {"chunk": DECODER_CHUNK, "chunks": chunks, "blocks": chunks * heads}
 
 
 def s8_attention_geometry(tokens: int, consumers: int) -> Dict[str, int]:

@@ -1,7 +1,8 @@
 """Plain dual-activation (softmax + CoDA) decoder attention (counterpart of
 dfd_clip_tpu/ops/decoder_attention.py:dual_activation_attention for a single
-query and no factorised ``attn_mode``), and the plain ``partials`` form of
-the fused kernel. With int8_rows K/V (``k_scale``/``v_scale``) the plain
+query and no factorised ``attn_mode``), the plain ``partials`` form of
+the fused kernel, and the merge of partials over chunks of L (counterpart of
+the combine in dfd_clip_tpu/ops/spmd.py, the fused kernel's second launch). With int8_rows K/V (``k_scale``/``v_scale``) the plain
 version dequantises each token's row in f32, as the port's kernel does (the
 JAX XLA path rounds it to the query dtype, its kernel to bf16).
 
@@ -110,3 +111,28 @@ def decoder_attention_partials_plain(
     o_c = torch.einsum("blh,blhd->bhd", wc, vp)
     o_sc = torch.stack([num.reshape(b, h * d), o_c.reshape(b, h * d)], dim=1)
     return o_sc, torch.stack([p.sum(1), mx], dim=1)
+
+
+def merge_decoder_partials_plain(
+    parts: Sequence[Tuple[torch.Tensor, torch.Tensor]], normalise: bool = False,
+):
+    """Merge the softmax states of consecutive chunks of L, each ``(o_sc,
+    st)`` as decoder_attention_partials_plain returns it, in chunk order,
+    with JAX's combine: r = exp(max_c - max), numerator and denominator
+    sum_c x_c r, CoDA sum_c x_c. Returns the merged ``(o_sc, st)``
+    (relative to the merged maximum), or with ``normalise`` the f32
+    (B, 1, H, D) output 0.5 * (numerator / max(denominator, 1e-30) + CoDA);
+    a fully masked sample gives (0, 0, -1e30), normalised 0."""
+    mx = parts[0][1][:, 1]
+    for _, st in parts[1:]:
+        mx = torch.maximum(mx, st[:, 1])                         # (B, H)
+    b, h = mx.shape
+    num = o_c = den = 0.0
+    for o_sc, st in parts:
+        r = torch.exp(st[:, 1] - mx)                             # <= 1
+        num = num + o_sc[:, 0].reshape(b, h, -1) * r[..., None]
+        o_c = o_c + o_sc[:, 1].reshape(b, h, -1)
+        den = den + st[:, 0] * r
+    if normalise:
+        return (0.5 * (num / den.clamp_min(1e-30)[..., None] + o_c))[:, None]
+    return torch.stack([num.reshape(b, -1), o_c.reshape(b, -1)], dim=1), torch.stack([den, mx], 1)

@@ -4,10 +4,12 @@ forward, with and without ``partials``, and with int8_rows K/V and their
 ``k_scale``/``v_scale`` in the normalised form).
 
 On a CUDA tensor this launches csrc/decoder_attention.cu: one pass over slot
-``layer`` of the stacked K/V export (and of the stacked scales), the temporal
-positional embedding added to K and V in-kernel, exact online softmax plus
-CoDA, fully masked rows 0. On a CPU tensor it runs the plain versions in
-ops/decoder_attention.py.
+``layer`` of the stacked K/V export (and of the stacked scales), split over
+chunks of L (``_cuda.decoder_split``), the temporal positional embedding
+added to K and V in-kernel, exact softmax plus CoDA a chunk, then the
+chunks' softmax states merged in chunk order (a second launch; its plain
+version is ``merge_decoder_partials_plain``), fully masked rows 0. On a CPU
+tensor it runs the plain versions in ops/decoder_attention.py.
 """
 
 from __future__ import annotations
@@ -40,6 +42,9 @@ def check_inputs(name: str, q_smax, q_coda, k, v, mask, temporal_pos, layer,
     if mask.shape != (b, l) or mask.dtype != torch.bool or not mask.is_contiguous():
         raise ValueError(f"{name}: mask must be contiguous bool (B, L)")
     _cuda.require_cuda(name, kl, vl, dtype=torch.bfloat16 if k_scale is None else torch.int8)
+    # a lane reads 8 dims of a query as one 16-byte word
+    if q_smax.data_ptr() % 16 or q_coda.data_ptr() % 16 or (q_smax.stride(0) * 2) % 16:
+        raise ValueError(f"{name}: queries need 16-byte aligned starts and sample stride")
     for t in (q_smax, q_coda, mask):
         if t.device != kl.device:
             raise ValueError(f"{name}: queries and mask must be on K/V's card")
@@ -86,21 +91,21 @@ def fused_decoder_attention(
     kl, vl, b, l, h, d, *scales = check_inputs("fused_decoder_attention", q_smax, q_coda, k,
                                                v, mask, temporal_pos, layer, k_scale, v_scale)
     pos = temporal_pos.data_ptr() if temporal_pos is not None else None
+    chunks = _cuda.decoder_split(l, h)["chunks"]
+    ws = torch.empty((b, h, chunks, _cuda.DECODER_WS), dtype=torch.float32, device=kl.device)
+    out = o_sc = st = None
     if partials:
         o_sc = torch.empty((b, 2, h * d), dtype=torch.float32, device=kl.device)
         st = torch.empty((b, 2, h), dtype=torch.float32, device=kl.device)
-        err = _cuda.library().dfd_decoder_attention_partials(
-            q_smax.data_ptr(), q_coda.data_ptr(), q_smax.stride(0), kl.data_ptr(),
-            vl.data_ptr(), mask.data_ptr(), pos, o_sc.data_ptr(), st.data_ptr(), b, l, h,
-            d ** -0.5, _cuda.stream())
         result = (o_sc, st)
     else:
-        result = torch.empty((b, 1, h, d), dtype=torch.bfloat16, device=kl.device)
-        ks, vs = (s.data_ptr() for s in scales) if scales else (None, None)
-        err = _cuda.library().dfd_decoder_attention(
-            q_smax.data_ptr(), q_coda.data_ptr(), q_smax.stride(0), kl.data_ptr(),
-            vl.data_ptr(), ks, vs, mask.data_ptr(), pos, result.data_ptr(), b, l, h,
-            d ** -0.5, _cuda.stream())
+        out = result = torch.empty((b, 1, h, d), dtype=torch.bfloat16, device=kl.device)
+    ks, vs = (s.data_ptr() for s in scales) if scales else (None, None)
+    err = _cuda.library().dfd_decoder_attention(
+        q_smax.data_ptr(), q_coda.data_ptr(), q_smax.stride(0), kl.data_ptr(), vl.data_ptr(),
+        ks, vs, mask.data_ptr(), pos, ws.data_ptr(), chunks,
+        *(t.data_ptr() if t is not None else None for t in (out, o_sc, st)), b, l, h,
+        d ** -0.5, _cuda.stream())
     _cuda.check_launch("fused_decoder_attention", err)
     # the int8 K/V form is its own kernel (csrc/decoder_attention.cu, KV = int8_t)
     _cuda.LAUNCHES["fused_decoder_attention_int8" if scales else "fused_decoder_attention"] += 1

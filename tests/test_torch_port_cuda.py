@@ -44,7 +44,12 @@ and the int8 MLP's c_fc with its rows quantised on chip (gemm_s8_quant):
 bit for bit gemm_s8's QuickGELU form followed by quant_rows, at a ragged M
 with a longer row pitch, at ViT-L/14's c_fc with several row panels to each
 cluster, and at clusters of 2 and 1 CTAs, with CTAs of 512 and 384
-columns.
+columns; and the decoder attention split over chunks of L in all three
+forms (normalised bf16, partials, int8 K/V with per-token scales) at L = 1,
+one past a chunk, 4,000 and 11,520 with 12 and 16 heads, a fully masked
+sample and a fully masked chunk, two calls bit-equal; and the persistent
+layer_norm_quant in both input types at 1, 7, 8 and 9 rows and widths 64
+to 1024 on strided rows.
 
 Marked ``cuda``; every test skips without a card. Run on a machine with one:
 
@@ -1215,3 +1220,80 @@ def test_gemm_chain_entries(dev, rows, width, layers):
     assert rel_err(b, gc.gemm_chain_plain(h, ws)) <= REL
     with pytest.raises(ValueError):
         _cuda.gemm_chain(h[:, :96].contiguous(), ws[:, :96, :96].contiguous())
+
+
+# -- the decoder attention split over chunks of L; the persistent layer_norm_quant --------
+
+@pytest.mark.parametrize("heads", [12, 16])
+@pytest.mark.parametrize("l", [1, 65, 4000, 11520])
+@pytest.mark.parametrize("form", ["bf16", "partials", "int8"])
+def test_decoder_attention_split(dev, form, l, heads):
+    """csrc/decoder_attention.cu (chunks of 64 tokens, then their merge in
+    chunk order) against its plain version at slot 1 of a stack: L = 1
+    (one ragged chunk), 65 (one past a chunk), ViT-B's 4,000 and ViT-L@336's
+    11,520; sample 1 partly masked, the second chunk masked in every sample
+    where L has one, the last sample fully masked (exact 0; partials 0, 0,
+    -1e30); int8 K/V with scales that differ across tokens. Two calls are
+    bit-equal (the merge order is fixed)."""
+    from dfd_clip_tpu_torch.ops import _cuda
+    from dfd_clip_tpu_torch.ops.fused_decoder_attention import (
+        fused_decoder_attention,
+        fused_decoder_attention_plain,
+    )
+    from dfd_clip_tpu_torch.ops.int8 import quant_kv_rows_plain
+
+    b = 3
+    gen = torch.Generator().manual_seed(50 + l + heads)
+    qs, qc, k, v, pos, mask = decoder_inputs(dev, gen, b, heads, l, True)
+    chunk = _cuda.decoder_split(l, heads)["chunk"]
+    mask[:, chunk: 2 * chunk] = False
+    kw = dict(partials=form == "partials")
+    if form == "int8":
+        rows = [t * (1 + randn(gen, 2, b, l, 1, 1, scale=0.5).abs().to(dev)) for t in (k, v)]
+        (kq, ks), (vq, vs) = (quant_kv_rows_plain(t.reshape(2, b, l, heads * 64).float())
+                              for t in rows)
+        k, v = kq.reshape(k.shape), vq.reshape(v.shape)
+        kw = dict(k_scale=ks, v_scale=vs)
+        assert l == 1 or ks[1, 0].std().item() > 0
+    _cuda.reset_launches()
+    got = fused_decoder_attention(qs, qc, k, v, mask, pos, 1, **kw)
+    again = fused_decoder_attention(qs, qc, k, v, mask, pos, 1, **kw)
+    assert _cuda.launches() == {("fused_decoder_attention_int8" if form == "int8"
+                                 else "fused_decoder_attention"): 2}
+    want = fused_decoder_attention_plain(qs, qc, k, v, mask, pos, 1, **kw)
+    if form == "partials":
+        (o_sc, st), (o_p, st_p) = got, want
+        assert torch.equal(o_sc, again[0]) and torch.equal(st, again[1])
+        assert rel_err(o_sc[: b - 1], o_p[: b - 1]) <= 1e-2
+        assert rel_err(st[: b - 1], st_p[: b - 1]) <= 1e-2
+        assert torch.equal(o_sc[b - 1], torch.zeros_like(o_sc[b - 1]))
+        assert torch.equal(st[b - 1, 0], torch.zeros_like(st[b - 1, 0]))
+        assert torch.equal(st[b - 1, 1], torch.full_like(st[b - 1, 1], -1e30))
+    else:
+        assert got.dtype == torch.bfloat16 and torch.equal(got, again)
+        assert rel_err(got[: b - 1], want[: b - 1]) <= 1e-2
+        assert torch.equal(got[b - 1], torch.zeros_like(got[b - 1]))
+
+
+@pytest.mark.parametrize("width", [64, 256, 768, 1024])
+@pytest.mark.parametrize("rows", [1, 7, 8, 9])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_layer_norm_quant_rows(dev, dtype, rows, width):
+    """The persistent layer_norm_quant (one warp a row, scale and shift in
+    registers, the next row in flight) on rows of a view 8 values wider than
+    the row, f32 (LN2's hmid) and bf16 (LN1's h), against its plain route:
+    fewer rows than a block's warps, one more, and widths of 1 to 4
+    256-wide chunks."""
+    from dfd_clip_tpu_torch.ops import _cuda
+    from dfd_clip_tpu_torch.ops.int8 import layer_norm_f32, quant_rows_plain
+
+    gen = torch.Generator().manual_seed(60 + rows + width)
+    x = randn(gen, rows, width + 8, scale=2.0).to(dev, dtype)[:, :width]
+    ln = {"scale": (1 + randn(gen, width, scale=0.3)).to(dev),
+          "bias": randn(gen, width, scale=0.1).to(dev)}
+    _cuda.reset_launches()
+    q, s = _cuda.layer_norm_quant(x, ln["scale"], ln["bias"])
+    assert _cuda.launches() == {"layer_norm_quant": 1}
+    q_p, s_p = quant_rows_plain(layer_norm_f32(ln, x))
+    int8_close(q, q_p)
+    assert rel_err(s, s_p.reshape(-1)) <= 1e-5
