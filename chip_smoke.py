@@ -9,7 +9,13 @@
    and 12 clips x 20 frames for training, kept layers 6-11, bf16) runs every
    kernel against its plain PyTorch version on the same inputs, with stated
    tolerances, and times kernel, plain version, a one-call PyTorch yardstick
-   where one exists, and the card's bound; then sweeps the encoder
+   where one exists, and the card's bound (layer_norm_rows also on f32
+   rows, and each bf16 row's f32 form timed beside it; the decoder
+   boundary's one launch in its three forms, one launch a call, held
+   against its plain version and, link by link on its own intermediates,
+   against the six-launch chain of gemm and layer_norm_rows it replaced,
+   timed by CUDA events, device time and host issue time beside that chain,
+   with one launch's stage clock); then sweeps the encoder
    attention's two entries and outputs over 1 to 1025 tokens against its
    plain version, with several work items to each of the kernel's
    persistent blocks (`[kernels sweep]`);
@@ -100,7 +106,8 @@
    through both entries, bf16 and f32 out, each against its plain version
    with a scaled_dot_product_attention yardstick, the int8 split pair at
    (320, 577, 1024), quant_rows on the whole int8 block's (184640, 1024)
-   attention output, and the decoder attention over L = 20 x 576 keys;
+   attention output, layer_norm_rows on (184640, 1024) rows, and the
+   decoder attention over L = 20 x 576 keys;
 13. drives ViT-L/14@336px serving (`[vit-l@336 serve path]`, keep 0, 4, ...,
    20) as in 8, on one parameter seed (`--pfake-seeds` N other than the
    default reads N here too): the four requests in bf16 and in
@@ -309,7 +316,12 @@ VITL_PATHS = ("vitl_serve", "vitl_int8_serve")
 VARIANT_PATHS = ("full_bf16", "int8_attn", "int8_qk", "tower_bf16", "tower_int8",
                  "tower_int8_attn", "tower_int8_qk")
 INT8_VARIANTS = ("int8_attn", "int8_qk")      # the per-layer int8 whole block
-DECODER_GEMMS = 24        # gemm launches of the 7 decoder boundaries a predict (1 + 5 x 4 + 3)
+# the paths on which neither shared row kernel runs now that the decoder
+# boundary is one launch (csrc/decoder_boundary.cu): the int8 encoder blocks
+# and the towers launch neither gemm nor layer_norm_rows (the int8 split
+# pair's bf16 out-projection still launches gemm; the ViT-L and DINOv2 bf16
+# compositions' products are torch's, so they launch no gemm either)
+NO_BF16_ROWS = {"gemm": 0, "layer_norm_rows": 0}
 # ViT-L/14 @ 224 with decode_stride 4 (tests/test_models.py:433-440): 257
 # tokens, kept layers 0, 4, ..., 20; DINOv2 ViT-B/14 (configs/deepfake/dino/
 # deepfake.yaml:17-27): 257 tokens, kept layers 6-11
@@ -481,6 +493,11 @@ def check_kernels(rows: list) -> None:
     h2 = h.reshape(m_rows, w)
     ln1 = blk["ln_1"]
     check_layer_norm(rows, "layer_norm_rows", h2, ln1, VITB_PATHS + VARIANT_PATHS)
+    # f32 rows: the bf16 whole block's LN2 of its f32 residual stream hmid
+    check_layer_norm(rows, f"layer_norm_rows f32 {m_rows} x {w}",
+                     3.0 * torch.randn(m_rows, w, device=dev,
+                                       generator=torch.Generator(device=dev).manual_seed(14)),
+                     blk["ln_2"], ("full_bf16",))
 
     # -- gemm (the qkv projection shape) -----------------------------------------
     y = layers.layer_norm(ln1, h2)
@@ -589,7 +606,8 @@ def check_kernels(rows: list) -> None:
 # The GEMMs' path shapes (csrc/gemm.cu, csrc/gemm_s8.cu), rows M of each
 # path: the ViT-B/16 serve batch (16 clips x 20 frames x 197 tokens), the
 # train batch (12 x 20 x 197), ViT-L/14 (320 x 257) and ViT-L/14@336px
-# (320 x 577) at width 1024, and the decoder boundary (16 rows).
+# (320 x 577) at width 1024, and the decoder's 16 rows (the links of the
+# six-launch chain that the decoder boundary's one launch is held against).
 GEMM_ROWS = {"vit-b": CLIPS * FRAMES * 197, "train": TRAIN_CLIPS * FRAMES * 197,
              "vit-l": CLIPS * FRAMES * 257, "vit-l@336": CLIPS * FRAMES * 577, "boundary": CLIPS}
 TOL_S8_GELU = 1e-5        # gemm_s8 with QuickGELU: expf against torch.sigmoid
@@ -852,8 +870,10 @@ def check_gemm_kernels() -> None:
 
 
 def check_layer_norm(rows: list, name: str, h2, ln: dict, paths: tuple) -> None:
-    """layer_norm_rows on the bf16 rows h2 (R, W) against layers.layer_norm,
-    with the F.layer_norm yardstick."""
+    """layer_norm_rows on the bf16 or f32 rows h2 (R, W) against
+    layers.layer_norm (rounded to bf16), with the F.layer_norm yardstick (in
+    the rows' own type); the bound counts the rows read once and written
+    once as bf16."""
     import torch
     import torch.nn.functional as F
 
@@ -861,16 +881,23 @@ def check_layer_norm(rows: list, name: str, h2, ln: dict, paths: tuple) -> None:
     from dfd_clip_tpu_torch.ops import _cuda
 
     m_rows, w = h2.shape
-    bf = torch.bfloat16
+    dt = h2.dtype
     got = _cuda.layer_norm_rows(h2, ln["scale"], ln["bias"])
-    err = compare(name, got, layers.layer_norm(ln, h2), TOL_ENCODER)
+    err = compare(name, got, layers.layer_norm(ln, h2).to(torch.bfloat16), TOL_ENCODER)
     kernel_row(rows, name, "dfd_clip_tpu/ops/pallas_attention.py:360",
                "dfd_clip_tpu_torch/csrc/layer_norm.cu",
                time_ms(lambda: _cuda.layer_norm_rows(h2, ln["scale"], ln["bias"])),
                time_ms(lambda: layers.layer_norm(ln, h2)),
-               time_ms(lambda: F.layer_norm(h2, (w,), ln["scale"].to(bf), ln["bias"].to(bf))),
-               8.0 * m_rows * w, 4.0 * m_rows * w + 8.0 * w, PEAK_F32, err,
+               time_ms(lambda: F.layer_norm(h2, (w,), ln["scale"].to(dt), ln["bias"].to(dt))),
+               8.0 * m_rows * w, (h2.element_size() + 2.0) * m_rows * w + 8.0 * w, PEAK_F32, err,
                counter="layer_norm_rows", paths=paths)
+    if dt == torch.bfloat16:   # the same rows as f32 input (the bf16 whole block's LN2 form)
+        h32 = h2.float()
+        ms = time_ms(lambda: _cuda.layer_norm_rows(h32, ln["scale"], ln["bias"]))
+        b, _ = bound_ms(8.0 * m_rows * w, 6.0 * m_rows * w + 8.0 * w, PEAK_F32)
+        print(f"  {name} (f32 in): {ms:.4f} ms (bound {b:.4f} by bytes; bound / ms "
+              f"{b / ms:.3f})", flush=True)
+        del h32
 
 
 def check_decoder_attention(rows: list, name: str, gen, dev, hh: int, p: int, valid_p: int,
@@ -989,13 +1016,41 @@ def check_layer_norm_quant(rows: list, x, ln: dict, paths: tuple = ()) -> None:
                counter="layer_norm_quant", paths=paths)
 
 
+def device_ms(fn, calls: int = 20) -> float:
+    """Device time of one call of fn: the profiler's device rows (kernels,
+    copies) over ``calls`` calls, summed and divided."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(device_us(e) for e in prof.key_averages()
+               if e.self_cpu_time_total == 0 and device_us(e) > 0) / 1e3 / calls
+
+
 def check_decoder_boundary(rows: list, name: str, blk: dict, seed: int, paths: tuple) -> None:
-    """decoder_boundary in its first, middle and last forms on CLIPS rows at
-    the width of the encoder block ``blk`` (its LayerNorms and MLP), the
-    query in-proj and out-proj drawn from ``seed``."""
+    """decoder_boundary (one cooperative launch of csrc/decoder_boundary.cu)
+    in its first, middle and last forms on CLIPS rows at the width of the
+    encoder block ``blk`` (its LayerNorms and MLP), the query in-proj and
+    out-proj drawn from ``seed``: one launch a call, each form held against
+    its plain version at TOL_DECODER and, link by link, against the
+    six-launch chain of gemm and layer_norm_rows it replaced, each link fed
+    the kernel's own intermediates (at least CHAIN_EQUAL of the values
+    bit-equal, the rest within one bf16 ulp of their row's largest
+    magnitude, two after QuickGELU; the end-to-end share of bit-equal values
+    printed); each form timed by CUDA events over 100 calls, by the
+    profiler's device time and by the host's issue time, beside the chain
+    (a yardstick the port never calls: no one PyTorch call computes the
+    boundary) and the plain version, and one launch's stage clock printed."""
     import torch
 
+    from dfd_clip_tpu_torch.ops import _cuda
     from dfd_clip_tpu_torch.ops import decoder_stack as ds
+    from dfd_clip_tpu_torch.tools import bench_decoder_boundary as tbd
 
     b, w, bf = CLIPS, blk["ln_1"]["scale"].shape[0], torch.bfloat16
     dev = blk["ln_1"]["scale"].device
@@ -1011,20 +1066,43 @@ def check_decoder_boundary(rows: list, name: str, blk: dict, seed: int, paths: t
     o = torch.randn(b, w, generator=dgen).to(dev, bf)
     tail = {"attn_out_proj": dblk["out_proj"], "ln_2": dblk["ln_2"], "mlp": dblk["mlp"]}
     query = {"ln_1": dblk["ln_1"], "in_proj": dblk["in_proj"]}
-    err = 0.0
-    for form, args in (("first", (x, None, None, query)), ("middle", (x, o, tail, query)),
-                       ("last", (x, o, tail, None))):
+    err, times = 0.0, {}
+    for form in tbd.FORMS:
+        args = tbd.form_args(form, x, o, tail, query)
+        before = _cuda.launches().get("decoder_boundary", 0)
         got = ds.decoder_boundary(*args)
+        if _cuda.launches().get("decoder_boundary", 0) != before + 1:
+            raise SystemExit(f"FAIL {name} {form}: not one launch a call")
+        try:
+            differ, total = tbd.hold_links(got, args)
+        except AssertionError as e:
+            raise SystemExit(f"FAIL {name} {form} against the six-launch chain: {e}")
+        if differ > (1 - CHAIN_EQUAL) * total:
+            raise SystemExit(f"FAIL {name} {form}: {differ} of {total} values differ from the "
+                             f"six-launch chain's links")
+        chain = tbd.six_launch_chain(*args)
         want = ds.decoder_boundary_plain(*args)
+        same = sum(int((g == c).sum()) for g, c in zip(got, chain) if g is not None)
+        count = sum(g.numel() for g in got if g is not None)
         for g_, w_, part in zip(got, want, ("x", "qrow")):
             if w_ is not None:
                 err = max(err, compare(f"{name} {form} {part}", g_, w_, TOL_DECODER))
+        print(f"  {name} {form}: links {total - differ} of {total} values bit-equal to the "
+              f"chain's; end to end {same} of {count} ({same / count:.4f})", flush=True)
+        for label, fn in (("kernel", ds.decoder_boundary), ("chain", tbd.six_launch_chain),
+                          ("plain", ds.decoder_boundary_plain)):
+            times[form, label] = time_ms(lambda: fn(*args), iters=100)
+            print(f"    {label}: {times[form, label]:.4f} ms (device "
+                  f"{device_ms(lambda: fn(*args)):.4f} ms, host {tbd.host_ms(fn, *args):.4f} ms "
+                  f"a call)", flush=True)
+        print("    stage clock (us): " + ", ".join(f"{k} {v:.2f}"
+                                                   for k, v in tbd.stage_clock(args).items()),
+              flush=True)
     kernel_row(rows, name, "dfd_clip_tpu/ops/pallas_decoder_stack.py:170",
-               "dfd_clip_tpu_torch/ops/decoder_stack.py",
-               time_ms(lambda: ds.decoder_boundary(x, o, tail, query), iters=100),
-               time_ms(lambda: ds.decoder_boundary_plain(x, o, tail, query), iters=100),
-               None, 2.0 * b * 11 * w * w, 22.0 * w * w + 4.0 * 12 * w + 2.0 * 6 * b * w,
-               PEAK_BF16_TC, err, counter="decoder_boundary", paths=paths)
+               "dfd_clip_tpu_torch/csrc/decoder_boundary.cu", times["middle", "kernel"],
+               times["middle", "plain"], None, 2.0 * b * 11 * w * w,
+               22.0 * w * w + 4.0 * 12 * w + 2.0 * 5 * b * w, PEAK_BF16_TC, err,
+               counter="decoder_boundary", paths=paths)
 
 
 def check_train_attention(row, gen, dev) -> None:
@@ -1687,10 +1765,9 @@ def int8_serve_path(card: str):
                  {"fused_encoder_block": 11, "fused_encoder_attn_block": 1,
                   "fused_encoder_mlp_block": 0, "fused_decoder_attention": 6,
                   "fused_decoder_attention_int8": 0, "decoder_boundary": 7,
-                  "gemm_s8_quant": 11, "quant_rows": 11},
+                  "gemm_s8_quant": 11, "quant_rows": 11, **NO_BF16_ROWS},
                  len(requests), used=("gemm_s8", "gemm_s8_quant", "quant_rows",
-                                      "layer_norm_quant", "encoder_attention", "gemm",
-                                      "layer_norm_rows"))
+                                      "layer_norm_quant", "encoder_attention"))
 
     x, m = last_batch(requests)
     got = hold_against_plain("int8 predict",
@@ -1730,7 +1807,8 @@ def int8_serve_path(card: str):
     check_counts("int8_rows", rows_counts,
                  {"fused_encoder_block": 11, "fused_encoder_attn_block": 1,
                   "fused_decoder_attention": 0, "fused_decoder_attention_int8": 6,
-                  "decoder_boundary": 7, "gemm_s8_quant": 11, "quant_rows": 11 + 12}, 1,
+                  "decoder_boundary": 7, "gemm_s8_quant": 11, "quant_rows": 11 + 12,
+                  **NO_BF16_ROWS}, 1,
                  used=("gemm_s8", "gemm_s8_quant", "quant_rows", "layer_norm_quant",
                        "encoder_attention"))
     hold_against_plain("int8_rows predict", predict, xd, md)
@@ -2036,7 +2114,7 @@ def check_wide_kernels(rows: list) -> None:
     del qkv, q, k, v, qc, kc, vc
 
     # -- layer_norm_rows on the towers' rows (ViT-L: 1024 wide, DINOv2: 768) -------
-    for w, paths in ((1024, VITL_PATHS + VITL336_PATHS), (768, ("dinov2_serve",))):
+    for w, paths in ((1024, VITL_PATHS), (768, ("dinov2_serve",))):
         ln = {"scale": (1.0 + 0.1 * torch.randn(w, generator=gen)).to(dev),
               "bias": (0.1 * torch.randn(w, generator=gen)).to(dev)}
         h2 = torch.randn(n * t, w, generator=gen).to(dev, bf)
@@ -2302,15 +2380,16 @@ def vitl_serve_path(card: str, seeds: int, arch: str = "ViT-L/14", label: str = 
     counts, ref = wide_serve(
         card, f"{label} serve", bf16, raws,
         {"fused_encoder_attention_qkv": 20, "fused_encoder_attn_block": 0,
-         "fused_encoder_mlp_block": 0, "encoder_attention": 0, **decoder},
-        used=("fused_encoder_attention_qkv", "layer_norm_rows", "gemm"),
+         "fused_encoder_mlp_block": 0, "encoder_attention": 0, "gemm": 0, **decoder},
+        used=("fused_encoder_attention_qkv", "layer_norm_rows"),
         halves=tokens == WIDE_TOKENS, hold_bf16=tokens == WIDE_TOKENS)
     print(f"[{label} int8 serve] the same params and requests, op_mode compute_int8", flush=True)
     int8 = detector(**cfg, op_mode={"temporal_position": 1, "compute_int8": 1})
     counts8, got = wide_serve(
         card, f"{label} int8 serve", int8, raws,
         {"fused_encoder_attn_block": 21, "fused_encoder_mlp_block": 20, "encoder_attention": 20,
-         "fused_encoder_attention_qkv": 0, "gemm_s8_quant": 20, "quant_rows": 0, **decoder},
+         "fused_encoder_attention_qkv": 0, "gemm_s8_quant": 20, "quant_rows": 0,
+         "layer_norm_rows": 0, **decoder},
         used=("gemm_s8", "gemm_s8_quant", "layer_norm_quant", "encoder_attention", "gemm"),
         hold_bf16=tokens == WIDE_TOKENS)
     cos = F.cosine_similarity(got.float().flatten(), ref.float().flatten(), dim=0).item()
@@ -2332,8 +2411,8 @@ def dinov2_serve_path(card: str, seeds: int) -> dict:
         card, "dinov2 serve", det, raws,
         {"fused_encoder_attention": 11, "fused_encoder_attention_qkv": 0,
          "fused_encoder_attn_block": 0, "fused_encoder_mlp_block": 0,
-         "fused_decoder_attention": 6, "decoder_boundary": 7},
-        used=("fused_encoder_attention", "layer_norm_rows", "gemm"), halves=True)
+         "fused_decoder_attention": 6, "decoder_boundary": 7, "gemm": 0},
+        used=("fused_encoder_attention", "layer_norm_rows"), halves=True)
     return counts
 
 
@@ -2514,7 +2593,7 @@ VARIANTS = {  # path: (EncoderKernels arguments, compute_int8, encoder launches 
                   {"fused_encoder_block": 11, "fused_encoder_attn_block": 1,
                    "fused_encoder_mlp_block": 0, "fused_encoder_tower": 0,
                    "encoder_attention": 0, "encoder_attention_int8": 11,
-                   "gemm_s8_quant": 11, "quant_rows": 11}),
+                   "gemm_s8_quant": 11, "quant_rows": 11, **NO_BF16_ROWS}),
     "tower_bf16": ({"tower": True}, False, {}),
     "tower_int8": ({"tower": True}, True, {}),
     "tower_int8_attn": ({"tower": True, "int8_attn": "1"}, True, {}),
@@ -2522,8 +2601,8 @@ VARIANTS = {  # path: (EncoderKernels arguments, compute_int8, encoder launches 
 }
 TOWER_COUNTS = {"fused_encoder_tower": 1, "fused_encoder_block": 0,
                 "fused_encoder_attn_block": 0, "fused_encoder_mlp_block": 0, "gemm_s8": 0,
-                "gemm_s8_quant": 0, "quant_rows": 0, "gemm": DECODER_GEMMS,
-                "encoder_attention": 0, "encoder_attention_int8": 0}
+                "gemm_s8_quant": 0, "quant_rows": 0, "encoder_attention": 0,
+                "encoder_attention_int8": 0, **NO_BF16_ROWS}
 
 
 def variant_serve_paths(card: str) -> dict:
@@ -2704,6 +2783,8 @@ def check_577_kernels(rows: list) -> None:
           "bias": 0.1 * torch.randn(w, generator=dgen, device=dev)}
     check_layer_norm_quant(rows, x.to(bf), ln)
     check_layer_norm_quant(rows, x, ln)
+    # -- layer_norm_rows at these paths' shape (the bf16 towers' LN1 / LN2) ------------
+    check_layer_norm(rows, f"layer_norm_rows {m_rows} x {w}", x.to(bf), ln, VITL336_PATHS)
     del x
     torch.cuda.empty_cache()
 
@@ -2878,13 +2959,14 @@ def ladder_counts(rung: str) -> dict:
     if rung == "split":   # the MLP's rows quantised in c_fc: no quant_rows
         return {"fused_encoder_attn_block": 24, "fused_encoder_mlp_block": 23,
                 "fused_encoder_block": 0, "fused_encoder_tower": 0, "encoder_attention": 23,
-                "encoder_attention_int8": 0, "gemm_s8_quant": 23, "quant_rows": 0, **decoder}
+                "encoder_attention_int8": 0, "gemm_s8_quant": 23, "quant_rows": 0,
+                "layer_norm_rows": 0, **decoder}
     int8_attn = rung == "full_attn"
     return {"fused_encoder_block": 23, "fused_encoder_attn_block": 1,
             "fused_encoder_mlp_block": 0, "fused_encoder_tower": 0,
             "encoder_attention": 0 if int8_attn else 23,
             "encoder_attention_int8": 23 if int8_attn else 0, "gemm_s8_quant": 23,
-            "quant_rows": 23, **decoder}
+            "quant_rows": 23, **NO_BF16_ROWS, **decoder}
 
 
 def ladder_paths(card: str) -> dict:

@@ -91,28 +91,10 @@ __device__ __forceinline__ void clock_reading(unsigned long long* clock) {
   clock[0] = i + 1;
 }
 
-// Every thread of the grid: the stage's generic writes made visible to the
-// next stage's TMA reads, then the blocks meet (thread 0 of each arrives on
-// a counter whose top bit flips when all have; block 0 adds what completes
-// the flip). Traps after WATCHDOG polls.
+// The grid barrier between stages (hopper::grid_sync), with a stage-clock
+// reading once the grid has met.
 __device__ __forceinline__ void grid_sync(const TowerArgs& a) {
-  asm volatile("fence.proxy.async;\n" ::: "memory");
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    unsigned* bar = a.barrier;
-    const unsigned inc = blockIdx.x == 0 ? 0x80000000u - (gridDim.x - 1) : 1u;
-    __threadfence();
-    const unsigned old = atomicAdd(bar, inc);
-    for (unsigned n = 0;; ++n) {
-      unsigned cur;
-      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n" : "=r"(cur) : "l"(bar) : "memory");
-      if ((old ^ cur) & 0x80000000u) break;
-      if (n == WATCHDOG) __trap();
-    }
-    __threadfence();
-    clock_reading(a.clock);
-  }
-  __syncthreads();
+  hopper::grid_sync(a.barrier, [&] { clock_reading(a.clock); });
 }
 
 // The launch's dynamic shared memory (every extern __shared__ array names

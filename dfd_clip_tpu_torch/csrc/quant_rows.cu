@@ -140,36 +140,6 @@ int launch_quant_rows(const T* x, int ldx, int rows, int cols, bool kv, int8_t* 
 
 constexpr int LNQ_WARPS = 4;   // warps a layer_norm_quant block
 
-// One row's raw values at chunk granularity: a 16-byte word of 8 bf16, or
-// two of 4 f32.
-template <typename T>
-struct Raw8;
-
-template <>
-struct Raw8<bf16> {
-  uint4 u;
-  __device__ __forceinline__ void load(const bf16* p) { u = *reinterpret_cast<const uint4*>(p); }
-  __device__ __forceinline__ void widen(float (&v)[8]) const {
-    Pack8 pk;
-    pk.u = u;
-#pragma unroll
-    for (int e = 0; e < 8; ++e) v[e] = __bfloat162float(pk.h[e]);
-  }
-};
-
-template <>
-struct Raw8<float> {
-  float4 a, b;
-  __device__ __forceinline__ void load(const float* p) {
-    a = *reinterpret_cast<const float4*>(p);
-    b = *reinterpret_cast<const float4*>(p + 4);
-  }
-  __device__ __forceinline__ void widen(float (&v)[8]) const {
-    v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
-    v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
-  }
-};
-
 template <typename T, int CH>
 __global__ void __launch_bounds__(LNQ_WARPS * 32)
 layer_norm_quant_kernel(const T* __restrict__ x, int ldx, const float* __restrict__ scale,
@@ -179,15 +149,12 @@ layer_norm_quant_kernel(const T* __restrict__ x, int ldx, const float* __restric
   const int stride = gridDim.x * LNQ_WARPS;
   int r = blockIdx.x * LNQ_WARPS + threadIdx.x / 32;
   row_ops::AffineRegs<CH> aff;
-  Raw8<T> cur[CH], nxt[CH];
+  aff.load(scale, shift, width, lane);
+  row_ops::Raw8<T> cur[CH], nxt[CH];
 #pragma unroll
   for (int i = 0; i < CH; ++i) {
     const int c = lane * 8 + i * 256;
-    if (c < width) {
-      load8(scale + c, aff.sc[i]);
-      load8(shift + c, aff.sh[i]);
-      if (r < rows) cur[i].load(x + (size_t)r * ldx + c);
-    }
+    if (r < rows && c < width) cur[i].load(x + (size_t)r * ldx + c);
   }
   for (; r < rows; r += stride) {
     const int rn = r + stride;
@@ -208,19 +175,12 @@ layer_norm_quant_kernel(const T* __restrict__ x, int ldx, const float* __restric
 template <typename T, int CH>
 int launch_layer_norm_quant(const T* x, int ldx, const float* scale, const float* shift, int rows,
                             int width, float eps, int8_t* q, float* s, cudaStream_t st) {
-  auto kernel = layer_norm_quant_kernel<T, CH>;
-  static int per_sm = 0;   // resident blocks an SM, once per instantiation
-  cudaError_t err = cudaSuccess;
-  if (per_sm == 0)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, LNQ_WARPS * 32, 0);
-  int dev = 0, sms = 0;
-  if (err == cudaSuccess) err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaError_t err;
+  const int grid =
+      row_ops::persistent_grid<layer_norm_quant_kernel<T, CH>>(LNQ_WARPS, rows, &err);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long need = ((long long)rows + LNQ_WARPS - 1) / LNQ_WARPS;
-  const long long resident = (long long)(per_sm > 0 ? per_sm : 1) * sms;
-  const int grid = static_cast<int>(need < resident ? need : resident);
-  kernel<<<grid, LNQ_WARPS * 32, 0, st>>>(x, ldx, scale, shift, rows, width, eps, q, s);
+  layer_norm_quant_kernel<T, CH>
+      <<<grid, LNQ_WARPS * 32, 0, st>>>(x, ldx, scale, shift, rows, width, eps, q, s);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,50 +1,169 @@
 // Row bodies, one warp per row: LayerNorm (csrc/layer_norm.cu), the per-row
 // int8 quantisers and LayerNorm fused with the quantisation
-// (csrc/quant_rows.cu). Each kernel runs one row per warp; the whole-encoder
-// tower (csrc/encoder_tower.cuh) walks a stage's rows over every warp of its
-// grid. The designs are described in those two files.
+// (csrc/quant_rows.cu). The persistent kernels walk rows grid-stride, a warp
+// at a time; the whole-encoder tower (csrc/encoder_tower.cuh) walks a
+// stage's rows over every warp of its grid, and the decoder boundary
+// (csrc/decoder_boundary.cu) normalises its 16-row tiles with the same
+// body. The designs are described in layer_norm.cu and quant_rows.cu.
 #pragma once
 
 #include "common.cuh"
 
 namespace row_ops {
 
-constexpr int LN_CHUNKS = 4;   // 8-element chunks per lane of layer_norm_quant: W <= 4 * 256
+constexpr int LN_CHUNKS = 4;   // 8-element chunks a lane of the row forms: W <= 4 * 256
 
-// y = LN(x) of one row with f32 statistics (x bf16 or f32), bf16 out.
+// One row's raw values at chunk granularity: a 16-byte word of 8 bf16, or
+// two of 4 f32, loaded a row ahead and widened when the row's turn comes.
 template <typename T>
-__device__ __forceinline__ void layer_norm(const T* __restrict__ xr,
-                                           const float* __restrict__ scale,
-                                           const float* __restrict__ shift, bf16* __restrict__ yr,
-                                           int width, float eps, int lane) {
-  float s = 0.f;
-  for (int c = lane * 8; c < width; c += 256) {
-    float v[8];
-    load8(xr + c, v);
+struct Raw8;
+
+template <>
+struct Raw8<bf16> {
+  uint4 u;
+  __device__ __forceinline__ void load(const bf16* p) { u = *reinterpret_cast<const uint4*>(p); }
+  __device__ __forceinline__ void widen(float (&v)[8]) const {
+    Pack8 pk;
+    pk.u = u;
 #pragma unroll
-    for (int e = 0; e < 8; ++e) s += v[e];
+    for (int e = 0; e < 8; ++e) v[e] = __bfloat162float(pk.h[e]);
+  }
+};
+
+template <>
+struct Raw8<float> {
+  float4 a, b;
+  __device__ __forceinline__ void load(const float* p) {
+    a = *reinterpret_cast<const float4*>(p);
+    b = *reinterpret_cast<const float4*>(p + 4);
+  }
+  __device__ __forceinline__ void widen(float (&v)[8]) const {
+    v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
+    v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
+  }
+};
+
+// The affine parameters of a LayerNorm: read at each use (the tower's row
+// stages, the persistent kernel above 1024 values a row), or a lane's
+// slices held in registers (the persistent kernels, the decoder boundary's
+// tile).
+struct AffinePtr {
+  const float* scale;
+  const float* shift;
+  __device__ __forceinline__ float mul(int, int e, int c) const { return scale[c + e]; }
+  __device__ __forceinline__ float add(int, int e, int c) const { return shift[c + e]; }
+};
+
+template <int CH>
+struct AffineRegs {
+  float sc[CH][8], sh[CH][8];
+  __device__ __forceinline__ void load(const float* scale, const float* shift, int width,
+                                       int lane) {
+#pragma unroll
+    for (int i = 0; i < CH; ++i) {
+      const int c = lane * 8 + i * 256;
+      if (c < width) {
+        load8(scale + c, sc[i]);
+        load8(shift + c, sh[i]);
+      }
+    }
+  }
+  __device__ __forceinline__ float mul(int i, int e, int) const { return sc[i][e]; }
+  __device__ __forceinline__ float add(int i, int e, int) const { return sh[i][e]; }
+};
+
+// LN(row) with f32 statistics, in place on the row's values in registers
+// (W <= CH x 256; chunk i of v holds values lane * 8 + i * 256 on, chunks
+// past the width unread): the lane's sum in chunk order, then the warp's;
+// the mean; the centred squares in the same order (the two-pass form
+// jnp.var uses); rstd = rsqrtf(q / W + eps); then (v - mean) * rstd * scale
+// + shift with its one fused multiply-add. Every LayerNorm of the port that
+// writes bf16 (layer_norm_rows, the tower's stages, the decoder boundary)
+// runs this arithmetic, so they agree bit for bit at any CH.
+template <int CH, typename Affine>
+__device__ __forceinline__ void ln_values(float (&v)[CH][8], const Affine& aff, int width,
+                                          float eps, int lane) {
+  float s = 0.f;
+#pragma unroll
+  for (int i = 0; i < CH; ++i) {
+    if (lane * 8 + i * 256 < width) {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) s += v[i][e];
+    }
   }
   const float mean = warp_sum(s) / width;
   float q = 0.f;
-  for (int c = lane * 8; c < width; c += 256) {
-    float v[8];
-    load8(xr + c, v);
 #pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      float d = v[e] - mean;
-      q += d * d;
+  for (int i = 0; i < CH; ++i) {
+    if (lane * 8 + i * 256 < width) {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const float d = v[i][e] - mean;
+        q = __fmaf_rn(d, d, q);
+      }
     }
   }
   const float rstd = rsqrtf(warp_sum(q) / width + eps);
-  for (int c = lane * 8; c < width; c += 256) {
-    float v[8];
-    Pack8 o;
-    load8(xr + c, v);
 #pragma unroll
-    for (int e = 0; e < 8; ++e)
-      o.h[e] = __float2bfloat16((v[e] - mean) * rstd * scale[c + e] + shift[c + e]);
-    *reinterpret_cast<uint4*>(yr + c) = o.u;
+  for (int i = 0; i < CH; ++i) {
+    const int c = lane * 8 + i * 256;
+    if (c < width) {
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        v[i][e] = __fmaf_rn((v[i][e] - mean) * rstd, aff.mul(i, e, c), aff.add(i, e, c));
+    }
   }
+}
+
+// The normalised row rounded to bf16, 16 bytes a chunk.
+template <int CH>
+__device__ __forceinline__ void store_ln_row(const float (&v)[CH][8], bf16* yr, int width,
+                                             int lane) {
+#pragma unroll
+  for (int i = 0; i < CH; ++i) {
+    const int c = lane * 8 + i * 256;
+    if (c < width) {
+      Pack8 o;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) o.h[e] = __float2bfloat16(v[i][e]);
+      *reinterpret_cast<uint4*>(yr + c) = o.u;
+    }
+  }
+}
+
+// y = LN(x) of one row (x bf16 or f32, W <= LN_CHUNKS x 256), bf16 out, the
+// row read once into registers and scale / shift read at each use: the
+// tower's LayerNorm stages and the decoder boundary's.
+template <typename T>
+__device__ __forceinline__ void layer_norm(const T* xr, const float* scale, const float* shift,
+                                           bf16* yr, int width, float eps, int lane) {
+  float v[LN_CHUNKS][8];
+#pragma unroll
+  for (int i = 0; i < LN_CHUNKS; ++i) {
+    const int c = lane * 8 + i * 256;
+    if (c < width) load8(xr + c, v[i]);
+  }
+  ln_values(v, AffinePtr{scale, shift}, width, eps, lane);
+  store_ln_row(v, yr, width, lane);
+}
+
+// The grid of the persistent row kernel KERNEL of `warps` warps a block: as
+// many blocks as are resident at once (its occupancy, read once per
+// kernel), fewer where the rows do not fill them. 0 on an error, with *err
+// set.
+template <auto KERNEL>
+inline int persistent_grid(int warps, int rows, cudaError_t* err) {
+  static int per_sm = 0;   // resident blocks an SM
+  *err = cudaSuccess;
+  if (per_sm == 0)
+    *err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, KERNEL, warps * 32, 0);
+  int dev = 0, sms = 0;
+  if (*err == cudaSuccess) *err = cudaGetDevice(&dev);
+  if (*err == cudaSuccess) *err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (*err != cudaSuccess) return 0;
+  const long long need = ((long long)rows + warps - 1) / warps;
+  const long long resident = (long long)(per_sm > 0 ? per_sm : 1) * sms;
+  return static_cast<int>(need < resident ? need : resident);
 }
 
 // Eight values quantised (q8_bits) into one 8-byte store.
@@ -106,22 +225,6 @@ __device__ __forceinline__ void quant_row(const T* __restrict__ x, int ldx, int 
   }
   if (lane == 0) s[out] = sc.x;
 }
-
-// The affine parameters of layer_norm_quant: read at each use (the tower's
-// row stage), or a lane's slices held in registers (csrc/quant_rows.cu).
-struct AffinePtr {
-  const float* scale;
-  const float* shift;
-  __device__ __forceinline__ float mul(int, int e, int c) const { return scale[c + e]; }
-  __device__ __forceinline__ float add(int, int e, int c) const { return shift[c + e]; }
-};
-
-template <int CH>
-struct AffineRegs {
-  float sc[CH][8], sh[CH][8];
-  __device__ __forceinline__ float mul(int i, int e, int) const { return sc[i][e]; }
-  __device__ __forceinline__ float add(int i, int e, int) const { return sh[i][e]; }
-};
 
 // q row r, s[r] = _quant_rows(LN(row)) with f32 statistics, the row (W <= CH
 // x 256) in registers: chunk i of v holds values lane * 8 + i * 256 on.

@@ -12,8 +12,11 @@ in ``LAUNCHES`` where it launches, and nowhere else, so a run can show that
 its path went through the kernels (``reset_launches`` / ``launches``).
 
 ``gemm`` and ``layer_norm_rows`` are the shared building blocks of the fused
-encoder and decoder blocks, ``gemm_s8``, ``gemm_s8_quant``, ``quant_rows``
-and ``layer_norm_quant`` those of the int8 (W8A8) encoder blocks
+encoder blocks (``layer_norm_rows``: a persistent kernel, the row in
+registers, csrc/layer_norm.cu), ``decoder_boundary`` the decoder's block
+boundary in one cooperative launch (csrc/decoder_boundary.cu), ``gemm_s8``,
+``gemm_s8_quant``, ``quant_rows`` and ``layer_norm_quant`` those of the int8
+(W8A8) encoder blocks
 (``gemm_s8_quant``: the int8 MLP's c_fc with QuickGELU and its rows
 quantised in the epilogue, a cluster of CTAs a row panel,
 csrc/gemm_s8_quant.cu); the two GEMMs
@@ -84,6 +87,25 @@ TOWER_MAX_ROWS = 2 ** 16
 # int8 attention modes of the tower (csrc/encoder_tower.cu TowerArgs.attn)
 TOWER_ATTN = {"0": 0, "1": 1, "qk": 2}
 TOWER_MAP_BYTES, TOWER_LAYER_POINTERS = 128, 16   # a CUtensorMap; a LayerW record
+# layer_norm_rows (csrc/layer_norm.cu): values a lane holds of a 256-wide
+# chunk, and the most chunks a row
+LN_CHUNK, LN_MAX_CHUNKS = 256, 8
+# the decoder boundary (csrc/decoder_boundary.cu): rows a tile, columns a
+# unit, K a lane's A load, the most units a block takes in a stage, warps a
+# block, bf16 pad of a LayerNorm row in the tile, the widest row (its
+# LayerNorm's registers), the shared memory's alignment slack and the bytes
+# below the weight slices (the stages' mbarriers)
+BOUNDARY_TILE, BOUNDARY_UNIT, BOUNDARY_KSTEP, BOUNDARY_MAX_UNITS = 16, 8, 32, 6
+BOUNDARY_WARPS, BOUNDARY_PAD, BOUNDARY_MAX_WIDTH = 8, 32, 1024
+BOUNDARY_ALIGN, BOUNDARY_BARS = 128, 128
+# the boundary's stage clock: readings a block (csrc/decoder_boundary.cu),
+# the launch's start, its loads issued, each stage's slices in and end, each
+# grid barrier met, the LayerNorms' parameters in and their tiles done, and
+# each stage's products done
+BOUNDARY_CLOCK = ("start", "issued", "out_proj in", "c_fc in", "c_proj in", "in_proj in",
+                  "out_proj", "c_fc", "c_proj", "in_proj", "barrier 1", "barrier 2", "barrier 3",
+                  "ln_2 in", "ln_1 in", "ln_2 done", "ln_1 done", "out_proj products",
+                  "c_fc products", "c_proj products", "in_proj products")
 # the decoder attention (csrc/decoder_attention.cu): tokens a chunk (a block
 # takes one (chunk, head) over every sample), and the f32 workspace a
 # (sample, head, chunk): numerator 64, CoDA sum 64, denominator, maximum, pad
@@ -177,6 +199,10 @@ _SIGNATURES = {
                           _F, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P],
     "dfd_decoder_attention": [_P, _P, _LL, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P,
                               _I, _I, _I, _F, _P],
+    "dfd_decoder_boundary_plan_bytes": [],
+    "dfd_decoder_boundary_plan": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                  ctypes.POINTER(ctypes.c_int), _I, _I, _I, _I],
+    "dfd_decoder_boundary": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "dfd_decoder_attention_bwd": [_P, _P, _LL, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                   _I, _I, _I, _F, _P],
 }
@@ -325,17 +351,30 @@ def gemm(a: torch.Tensor, b: torch.Tensor, bias: torch.Tensor, *,
     return c
 
 
+def ln_chunks(width: int) -> int:
+    """The 256-wide chunks of a row that layer_norm_rows's kernel is built
+    for (its template argument, 8 values a lane each): ceil(W / 256) for a
+    width W that is a multiple of 8 and at most 2048; others raise."""
+    if width < 8 or width % 8 or width > LN_CHUNK * LN_MAX_CHUNKS:
+        raise ValueError(f"layer_norm_rows: width {width} must be a multiple of 8 and at most "
+                         f"{LN_CHUNK * LN_MAX_CHUNKS} (a row lives in a warp's registers)")
+    return -(-width // LN_CHUNK)
+
+
 def layer_norm_rows(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
                     eps: float = 1e-5) -> torch.Tensor:
     """LayerNorm of bf16 or f32 rows x (R, W) with f32 statistics -> bf16
-    (R, W)."""
+    (R, W): csrc/layer_norm.cu, a persistent grid of warps that each hold a
+    row in registers (W as ln_chunks takes it)."""
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"layer_norm_rows: takes f32 or bf16, got {x.dtype}")
     require_cuda("layer_norm_rows", x, dtype=x.dtype)
     require_cuda("layer_norm_rows", scale, shift, dtype=torch.float32)
     rows, width = x.shape
-    if width % 8 or scale.shape != (width,) or shift.shape != (width,):
-        raise ValueError("layer_norm_rows: width must be a multiple of 8 and match scale/shift")
+    ln_chunks(width)
+    if scale.shape != (width,) or shift.shape != (width,):
+        raise ValueError(f"layer_norm_rows: scale / shift {tuple(scale.shape)} / "
+                         f"{tuple(shift.shape)} for width {width}")
     y = torch.empty((rows, width), dtype=torch.bfloat16, device=x.device)
     err = library().dfd_layer_norm(x.data_ptr(), x.stride(0), int(x.dtype == torch.float32),
                                    scale.data_ptr(), shift.data_ptr(), y.data_ptr(), width, rows,
@@ -343,6 +382,219 @@ def layer_norm_rows(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
     check_launch("layer_norm_rows", err)
     LAUNCHES["layer_norm_rows"] += 1
     return y
+
+
+def boundary_geometry(width: int, hidden: int, rows: int, sms: int) -> dict:
+    """The decoder boundary's launch (csrc/decoder_boundary.cu) at width W,
+    MLP width ``hidden`` and ``rows`` rows on a card of ``sms`` SMs: a
+    cooperative grid of one block a SM (no more blocks than the widest
+    stage has units of 8 columns); each stage's (K, N) -- out-proj (W, W),
+    c_fc (W, hidden), c_proj (hidden, W), in-proj (W, 2W) -- with its units
+    dealt to block c as [c U / grid, (c + 1) U / grid) (``slices``) and the
+    byte offset of its slices in shared memory (room for the most units a
+    block takes, 8 transposed rows of K values each); the two LayerNorms'
+    scale and shift (16 W bytes) and the LayerNorm tile / the warps' partial
+    sums above them; the launch's shared memory; and the
+    16-row tiles of ``rows``. W and hidden must be multiples of 32, W at most
+    1024; a layout above a block's shared memory, or above 6 units a block in
+    a stage, raises."""
+    if rows < 1 or sms < 1:
+        raise ValueError(f"decoder_boundary: {rows} rows on {sms} SMs")
+    if width < BOUNDARY_KSTEP or width % BOUNDARY_KSTEP or width > BOUNDARY_MAX_WIDTH \
+            or hidden < BOUNDARY_KSTEP or hidden % BOUNDARY_KSTEP:
+        raise ValueError(f"decoder_boundary: takes widths that are multiples of "
+                         f"{BOUNDARY_KSTEP} up to {BOUNDARY_MAX_WIDTH} (an MLP width a multiple "
+                         f"of {BOUNDARY_KSTEP}), got width {width}, MLP width {hidden}")
+    shapes = ((width, width), (width, hidden), (hidden, width), (width, 2 * width))
+    grid = min(sms, max(n // BOUNDARY_UNIT for _, n in shapes))
+    stages, off, most = [], BOUNDARY_BARS, 0
+    for name, (k, n) in zip(("out_proj", "c_fc", "c_proj", "in_proj"), shapes):
+        units = n // BOUNDARY_UNIT
+        slices = [(c * units // grid, (c + 1) * units // grid - c * units // grid)
+                  for c in range(grid)]
+        per_block = max(cnt for _, cnt in slices)
+        if per_block > BOUNDARY_MAX_UNITS:
+            raise ValueError(f"decoder_boundary: {name} deals {units} units of "
+                             f"{BOUNDARY_UNIT} columns to {grid} blocks, more than "
+                             f"{BOUNDARY_MAX_UNITS} a block")
+        stages.append({"name": name, "k": k, "n": n, "units": units, "max_units": per_block,
+                       "w_off": off, "slices": slices})
+        off += per_block * k * 2 * BOUNDARY_UNIT
+        most = max(most, per_block)
+    tile = BOUNDARY_TILE * (width + BOUNDARY_PAD) * 2
+    partials = BOUNDARY_WARPS * most * 32 * 16
+    ln_off = off
+    a_off = -(-(ln_off + 16 * width) // BOUNDARY_ALIGN) * BOUNDARY_ALIGN
+    smem = BOUNDARY_ALIGN + a_off + max(tile, partials)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"decoder_boundary: width {width} (MLP {hidden}) on {grid} blocks "
+                         f"needs {smem} bytes of shared memory a block, more than {SMEM_LIMIT}")
+    return {"grid": grid, "tiles": -(-rows // BOUNDARY_TILE), "stages": stages,
+            "ln_off": ln_off, "a_off": a_off, "smem": smem}
+
+
+@functools.cache
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.cache
+def _boundary_layout(width: int, hidden: int, sms: int) -> tuple:
+    """boundary_geometry's numbers that the launch takes, once a shape."""
+    geo = boundary_geometry(width, hidden, 1, sms)
+    return ([s["w_off"] for s in geo["stages"]], geo["ln_off"], geo["a_off"], geo["smem"],
+            geo["grid"])
+
+
+# prepared decoder boundaries by their parameter tensors (BoundaryPlan), and
+# the grid barrier's counter and the intermediates' scratch of each (device,
+# stream): launches on one stream run in order, so they share both
+_BOUNDARY_PLANS: Dict[tuple, "BoundaryPlan"] = {}
+_BOUNDARY_STREAMS: Dict[tuple, list] = {}
+_BOUNDARY_MAX_PLANS = 64
+
+
+class BoundaryPlan:
+    """A parameter set's decoder boundary, checked and prepared once: its
+    weights transposed to (N, K) (a block's column slice is then one
+    contiguous run, csrc/decoder_boundary.cu) and the C plan (their
+    addresses, the biases' and LayerNorms', the launch's layout). It keeps
+    the parameter tensors it was made from, so that the ids in its key
+    stay theirs; the key holds the weights' versions, so an in-place update
+    of a weight makes a new plan."""
+
+    def __init__(self, weights: tuple, biases: tuple, norms: tuple, width: int, hidden: int,
+                 index: int):
+        name = "decoder_boundary"
+        shapes = ((width, width), (width, hidden), (hidden, width), (width, 2 * width))
+        for w, b, (k, n) in zip(weights, biases, shapes):
+            if w is None:
+                continue
+            require_cuda(name, w)
+            require_cuda(name, b, dtype=torch.float32)
+            if w.shape != (k, n) or b.shape != (n,) or not b.is_contiguous():
+                raise ValueError(f"{name}: weight {tuple(w.shape)} / bias {tuple(b.shape)} for "
+                                 f"({k}, {n})")
+        for t in norms:
+            if t is not None:
+                require_cuda(name, t, dtype=torch.float32)
+                if t.shape != (width,) or not t.is_contiguous():
+                    raise ValueError(f"{name}: LayerNorm parameter {tuple(t.shape)} for width "
+                                     f"{width}")
+        self.params = (weights, biases, norms)
+        self.width, self.hidden = width, hidden
+        self.weights_t = tuple(None if w is None else w.t().contiguous() for w in weights)
+        w_off, ln_off, a_off, smem, self.grid = _boundary_layout(width, hidden, _sms(index))
+        lib = library()
+        self.c_plan = ctypes.create_string_buffer(lib.dfd_decoder_boundary_plan_bytes())
+        ptr = [None if t is None else t.data_ptr() for t in (*self.weights_t, *biases, *norms)]
+        check_launch(name, lib.dfd_decoder_boundary_plan(
+            self.c_plan, *ptr, width, hidden, (ctypes.c_int * 4)(*w_off), ln_off, a_off, smem,
+            self.grid))
+
+
+def boundary_stream(index: int, stream_handle: int, rows: int, width: int, hidden: int) -> list:
+    """The (device, stream)'s boundary state: [the grid barrier's counter (a
+    zeroed int32 on the card), scratch for the intermediates of ``rows``
+    rows, [x1 (rows, width) | mid (rows, hidden)] bf16, grown as needed],
+    and their addresses."""
+    state = _BOUNDARY_STREAMS.get((index, stream_handle))
+    need = rows * (width + hidden)
+    if state is None or state[1].numel() < need:
+        device = torch.device("cuda", index)
+        bar = state[0] if state is not None else torch.zeros(1, dtype=torch.int32, device=device)
+        scratch = torch.empty(need, dtype=torch.bfloat16, device=device)
+        state = _BOUNDARY_STREAMS[(index, stream_handle)] = [bar, scratch, bar.data_ptr(),
+                                                             scratch.data_ptr()]
+    return state
+
+
+def boundary_intermediates(x: torch.Tensor, hidden: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The last boundary's intermediates on x's device and current stream, for
+    x (B, W) its input: (x1 (B, W), the residual stream after the
+    out-projection, and mid (B, hidden), the MLP's), which the card test
+    holds link by link against the kernels they replaced."""
+    b, w = x.shape
+    index = x.get_device()
+    scratch = boundary_stream(index, torch._C._cuda_getCurrentRawStream(index), b, w, hidden)[1]
+    return scratch[: b * w].view(b, w), scratch[b * w: b * (w + hidden)].view(b, hidden)
+
+
+def decoder_boundary(x: torch.Tensor, attn_out: Optional[torch.Tensor],
+                     tail: Optional[dict], query: Optional[dict],
+                     stage_clock: Optional[torch.Tensor] = None):
+    """One decoder block boundary (ops/decoder_stack.py's contract) in one
+    cooperative launch of csrc/decoder_boundary.cu: x (B, W) and attn_out
+    (B, W) contiguous bf16 on the card; tail {"attn_out_proj", "ln_2",
+    "mlp"} and query {"ln_1", "in_proj"} with bf16 weights (K, N) and
+    contiguous f32 biases and LayerNorms. The parameters are checked and
+    their plan prepared at their first call (BoundaryPlan); W as
+    boundary_geometry takes it. Returns (x_out (B, W), qrow (B, 2W)) with
+    the absent halves None; the intermediates stay in the stream's scratch
+    (boundary_intermediates) until the next call. ``stage_clock``: None, or
+    a zeroed int64 tensor on the card of grid x len(BOUNDARY_CLOCK) entries
+    (boundary_geometry's grid), into which each block writes %globaltimer
+    (ns) at each of BOUNDARY_CLOCK's points that the form reaches
+    (tools/bench_decoder_boundary.py reads it)."""
+    name = "decoder_boundary"
+    none3 = (None, None, None)
+    if tail is not None:
+        mlp = tail["mlp"]
+        lin, ln2 = (tail["attn_out_proj"], mlp["c_fc"], mlp["c_proj"]), tail["ln_2"]
+        weights, biases = tuple(p["w"] for p in lin), tuple(p["b"] for p in lin)
+        norms = (ln2["scale"], ln2["bias"])
+    else:
+        weights, biases, norms = none3, none3, (None, None)
+    if query is not None:
+        lin_in, ln1 = query["in_proj"], query["ln_1"]
+        weights, biases = weights + (lin_in["w"],), biases + (lin_in["b"],)
+        norms += (ln1["scale"], ln1["bias"])
+    else:
+        weights, biases, norms = weights + (None,), biases + (None,), norms + (None, None)
+    # the weights' versions too: the plan holds their transposed copies (the
+    # biases and LayerNorms are read in place)
+    key = (*map(id, weights), *map(id, biases), *map(id, norms),
+           *(t._version for t in weights if t is not None))
+    plan = _BOUNDARY_PLANS.get(key)
+    if x.dtype != torch.bfloat16 or not x.is_cuda or x.dim() != 2 or not x.is_contiguous():
+        raise ValueError(f"{name}: takes contiguous (B, W) bf16 rows on the card, got "
+                         f"{tuple(x.shape)} {x.dtype} on {x.device}")
+    b, w = x.shape
+    index = x.get_device()
+    if plan is None:
+        if tail is None and query is None:
+            raise ValueError(f"{name}: needs a tail or a query half")
+        hidden = weights[1].shape[1] if tail is not None else 4 * w
+        if len(_BOUNDARY_PLANS) >= _BOUNDARY_MAX_PLANS:
+            _BOUNDARY_PLANS.clear()
+        plan = _BOUNDARY_PLANS[key] = BoundaryPlan(weights, biases, norms, w, hidden, index)
+    if w != plan.width:
+        raise ValueError(f"{name}: rows of width {w} for parameters of width {plan.width}")
+    if tail is not None and (attn_out is None or attn_out.dtype != torch.bfloat16
+                             or attn_out.shape != x.shape or not attn_out.is_contiguous()
+                             or attn_out.get_device() != index):
+        raise ValueError(f"{name}: the tail takes a contiguous (B, W) bf16 attention output")
+    if stage_clock is not None and (stage_clock.dtype != torch.int64 or not stage_clock.is_cuda
+                                    or stage_clock.numel() < plan.grid * len(BOUNDARY_CLOCK)):
+        raise ValueError(f"{name}: the stage clock takes {plan.grid} x {len(BOUNDARY_CLOCK)} "
+                         f"int64 entries on the card")
+    st = torch._C._cuda_getCurrentRawStream(index)
+    _, _, bar, scratch = boundary_stream(index, st, b, w, plan.hidden)
+    bf, dev = torch.bfloat16, x.device
+    x_out = torch.empty((b, w), dtype=bf, device=dev) if tail is not None else None
+    qrow = torch.empty((b, 2 * w), dtype=bf, device=dev) if query is not None else None
+    err = library().dfd_decoder_boundary(
+        plan.c_plan, x.data_ptr(), attn_out.data_ptr() if tail is not None else None,
+        x_out.data_ptr() if x_out is not None else None,
+        qrow.data_ptr() if qrow is not None else None, scratch, bar,
+        stage_clock.data_ptr() if stage_clock is not None else None, b, int(tail is not None),
+        int(query is not None), st)
+    if err == -1:
+        raise RuntimeError(f"{name}: a grid of {plan.grid} blocks cannot be co-resident on this "
+                           f"card; the boundary launches cooperatively or not at all")
+    check_launch(name, err)
+    LAUNCHES[name] += 1
+    return x_out, qrow
 
 
 def gemm_s8(a: torch.Tensor, a_scale: torch.Tensor, b_t: torch.Tensor, w_scale: torch.Tensor,

@@ -8,11 +8,12 @@ query-only, the last tail-only. Numerics follow models/layers.py: LayerNorm
 in f32 cast back, products rounded to bf16 before the bias is added in bf16,
 QuickGELU in f32.
 
-On a CUDA tensor the boundary runs as up to six launches of the shared
-layer_norm_rows and gemm kernels at M = B rows, each keeping one of those
-rounding points in its epilogue. At B = 16 the work is launch latency, not
-bytes or FLOPs (PERF.md); capturing the decoder in a CUDA graph is later
-work. On a CPU tensor the plain version runs.
+On a CUDA tensor the boundary is one cooperative launch
+(csrc/decoder_boundary.cu, _cuda.decoder_boundary) in all three forms: the
+weights stream into shared memory by TMA while the stages run, a grid
+barrier between the stages, gemm's epilogues and layer_norm_rows's
+arithmetic at each of those rounding points. On a CPU tensor the plain
+version runs.
 """
 
 from __future__ import annotations
@@ -34,24 +35,7 @@ def decoder_boundary(x: torch.Tensor, attn_out: Optional[torch.Tensor],
         raise ValueError("decoder_boundary: needs a tail or a query half")
     if _cuda.on_cpu("decoder_boundary", x):
         return decoder_boundary_plain(x, attn_out, tail_params, query_params)
-    dt = x.dtype
-
-    def lin(y, p, **kw):
-        return _cuda.gemm(y, p["w"].to(dt), p["b"].float(), bias_after_cast=True, **kw)
-
-    def ln(y, p):
-        return _cuda.layer_norm_rows(y, p["scale"].float(), p["bias"].float())
-
-    x_out = qrow = None
-    if tail_params is not None:
-        mlp = tail_params["mlp"]
-        x1 = lin(attn_out.to(dt), tail_params["attn_out_proj"], residual=x)
-        mid = lin(ln(x1, tail_params["ln_2"]), mlp["c_fc"], gelu=True)
-        x = x_out = lin(mid, mlp["c_proj"], residual=x1)
-    if query_params is not None:
-        qrow = lin(ln(x, query_params["ln_1"]), query_params["in_proj"])
-    _cuda.LAUNCHES["decoder_boundary"] += 1
-    return x_out, qrow
+    return _cuda.decoder_boundary(x, attn_out, tail_params, query_params)
 
 
 def decoder_boundary_plain(x, attn_out, tail_params, query_params):

@@ -1,6 +1,7 @@
 """The port of the study tools under tools/ that reach the kernels
 (bench_attention, bench_megakernel_probe), and the port's own timing of the
-decoder boundary and its GEMM launches (bench_decoder_boundary)."""
+decoder boundary beside the six-launch chain it replaced
+(bench_decoder_boundary)."""
 
 from __future__ import annotations
 

@@ -1297,3 +1297,84 @@ def test_layer_norm_quant_rows(dev, dtype, rows, width):
     q_p, s_p = quant_rows_plain(layer_norm_f32(ln, x))
     int8_close(q, q_p)
     assert rel_err(s, s_p.reshape(-1)) <= 1e-5
+
+
+TOL_DECODER = 1e-2   # chip_smoke.py's hold of the decoder against its plain version
+
+
+@pytest.mark.parametrize("rows", [1, 12, 16, 17])
+@pytest.mark.parametrize("width", [64, 256, 768, 1024])
+@pytest.mark.parametrize("form", ["first", "middle", "last"])
+def test_decoder_boundary_one_launch(dev, form, width, rows):
+    """decoder_boundary on the card: one launch of csrc/decoder_boundary.cu a
+    call in each form, at the test configurations' and the models' decoder
+    widths and at 1, 12, 16 and 17 rows (a partial 16-row tile, one tile, one
+    past it); held against decoder_boundary_plain at TOL_DECODER and, link
+    by link, against the six-launch chain of gemm and layer_norm_rows that it
+    replaced, each link fed the kernel's own input: the two keep the same
+    rounding points and differ only in the f32 order of a product's sums, so
+    at least 99 % of the values are bit-equal (all but one below 200
+    values) and the rest within one bf16 ulp of their row's largest
+    magnitude (two after QuickGELU: tools/bench_decoder_boundary.py's
+    chain_links). (End to end, a value that an early link rounds the other way
+    moves its row's LayerNorm and so a few per cent of that row's later
+    values by an ulp: chip_smoke.py prints that share.) Two calls give the
+    same bits."""
+    from dfd_clip_tpu_torch.ops import _cuda
+    from dfd_clip_tpu_torch.ops import decoder_stack as ds
+    from dfd_clip_tpu_torch.tools.bench_decoder_boundary import form_args, hold_links
+
+    gen = torch.Generator().manual_seed(70 + width + rows)
+    bf = torch.bfloat16
+
+    def lin(k, n):
+        return {"w": randn(gen, k, n, scale=k ** -0.5).to(dev, bf),
+                "b": randn(gen, n, scale=0.05).to(dev)}
+
+    def ln():
+        return {"scale": (1 + randn(gen, width, scale=0.3)).to(dev),
+                "bias": randn(gen, width, scale=0.1).to(dev)}
+
+    tail = {"attn_out_proj": lin(width, width), "ln_2": ln(),
+            "mlp": {"c_fc": lin(width, 4 * width), "c_proj": lin(4 * width, width)}}
+    query = {"ln_1": ln(), "in_proj": lin(width, 2 * width)}
+    x = randn(gen, rows, width).to(dev, bf)
+    o = randn(gen, rows, width).to(dev, bf)
+    args = form_args(form, x, o, tail, query)
+    _cuda.reset_launches()
+    got = ds.decoder_boundary(*args)
+    assert _cuda.launches() == {"decoder_boundary": 1}
+    again = ds.decoder_boundary(*args)
+    want = ds.decoder_boundary_plain(*args)
+    for g, a, p in zip(got, again, want):
+        if p is None:   # the absent half
+            assert g is None and a is None
+            continue
+        assert g.dtype == bf and g.shape == p.shape and torch.equal(g, a)
+        assert rel_err(g, p) <= TOL_DECODER
+    differ, total = hold_links(got, args)
+    assert differ <= max(1, total // 100), f"{differ} of {total} values differ"
+
+
+@pytest.mark.parametrize("width", [32, 64, 384, 768, 1024, 1536])
+@pytest.mark.parametrize("rows", [1, 7, 8, 9, 63040])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_layer_norm_rows_persistent(dev, dtype, rows, width):
+    """The persistent layer_norm_rows (a warp a row, the row and, up to 1024
+    values, scale and shift in registers, the next row in flight) on rows of
+    a view 8 values wider than the row, f32 (the bf16 whole block's hmid) and
+    bf16: fewer rows than a block's warps, one more, ViT-B/16's 63,040 rows,
+    and widths of 1 to 6 256-wide chunks with a masked last chunk (32, 64,
+    384, 1536), against layers.layer_norm."""
+    from dfd_clip_tpu_torch.models.layers import layer_norm
+    from dfd_clip_tpu_torch.ops import _cuda
+
+    gen = torch.Generator().manual_seed(80 + rows % 97 + width)
+    x = randn(gen, rows, width + 8, scale=2.0).to(dev, dtype)[:, :width]
+    ln = {"scale": (1 + randn(gen, width, scale=0.3)).to(dev),
+          "bias": randn(gen, width, scale=0.1).to(dev)}
+    _cuda.reset_launches()
+    got = _cuda.layer_norm_rows(x, ln["scale"], ln["bias"])
+    assert _cuda.launches() == {"layer_norm_rows": 1}
+    assert got.dtype == torch.bfloat16 and got.shape == (rows, width)
+    assert rel_err(got, layer_norm(ln, x).to(torch.bfloat16)) <= REL

@@ -257,10 +257,14 @@ def test_fused_decoder_attention_matches_jax(rng, reference, case):
 
 # -- decoder boundary -------------------------------------------------------------
 
+# the row counts the card's kernel tiles (16-row tiles: one row, a partial
+# tile, the serve batch's whole tile, one past it) at a narrow and a wider
+# width; (3, 64) is the case held before the kernel took the boundary
+@pytest.mark.parametrize("w", [64, 256])
+@pytest.mark.parametrize("b", [1, 3, 16, 17])
 @pytest.mark.parametrize("reference", ["xla", "pallas"])
 @pytest.mark.parametrize("form", ["first", "middle", "last"])
-def test_decoder_boundary_matches_jax(rng, reference, form):
-    b, w = 3, 64
+def test_decoder_boundary_matches_jax(rng, reference, form, b, w):
     x = rng.standard_normal((b, w)).astype(np.float32)
     o = rng.standard_normal((b, w)).astype(np.float32)
     tail = {"attn_out_proj": lin_params(rng, w, w), "ln_2": ln_params(rng, w),
