@@ -15,7 +15,11 @@
    against its plain version and, link by link on its own intermediates,
    against the six-launch chain of gemm and layer_norm_rows it replaced,
    timed by CUDA events, device time and host issue time beside that chain,
-   with one launch's stage clock); then sweeps the encoder
+   with one launch's stage clock; the decoder attention's backward, one
+   launch a call, held against its plain version, a fully masked sample's
+   dq exactly 0, two calls bit-equal, timed by CUDA events, device time
+   and host issue time, at the train shape and at 16 heads over 5,120 and
+   11,520 keys); then sweeps the encoder
    attention's two entries and outputs over 1 to 1025 tokens against its
    plain version, with several work items to each of the kernel's
    persistent blocks (`[kernels sweep]`);
@@ -1108,28 +1112,16 @@ def check_decoder_boundary(rows: list, name: str, blk: dict, seed: int, paths: t
 def check_train_attention(row, gen, dev) -> None:
     """The training forward (partials) and the backward of the decoder
     attention at the flagship train shapes: slot 3 of a (6, 12, 4000, 12,
-    64) bf16 stack with pos, one sample partly and one fully masked."""
+    64) bf16 stack with pos, one sample partly and one fully masked; the
+    backward also at 16 heads over 5,120 and 11,520 keys."""
     import torch
 
-    from dfd_clip_tpu_torch.models.decoder import token_mask
     from dfd_clip_tpu_torch.ops import fused_decoder_attention as fda
-    from dfd_clip_tpu_torch.ops import fused_decoder_attention_bwd as fdb
 
-    b, p, nsel, hh, d = TRAIN_CLIPS, 200, len(KEEP), 12, 64
-    l, w, bf = FRAMES * p, hh * d, torch.bfloat16
-    kv_shape = (nsel, b, l, hh, d)
-    kall = (0.5 * torch.randn(kv_shape, generator=gen)).to(dev, bf)
-    vall = torch.randn(kv_shape, generator=gen).to(dev, bf)
-    kall.view(nsel, b, FRAMES, p, hh, d)[:, :, :, 196:] = 0
-    vall.view(nsel, b, FRAMES, p, hh, d)[:, :, :, 196:] = 0
-    pos = (0.04 * torch.randn(l, hh, d, generator=gen)).to(dev, bf)
-    qrow = torch.randn(b, 2 * w, generator=gen).to(dev, bf)
-    qs, qc = qrow[:, :w].reshape(b, 1, hh, d), qrow[:, w:].reshape(b, 1, hh, d)
-    frames_ok = torch.ones(b, FRAMES, dtype=torch.bool, device=dev)
-    frames_ok[b - 2, FRAMES // 2:] = False
-    frames_ok[b - 1] = False
-    mask = token_mask(frames_ok, p, 196)
-    args = (qs, qc, kall, vall, mask, pos, 3)
+    b, hh, d = TRAIN_CLIPS, 12, 64
+    bargs = decoder_bwd_inputs(gen, dev, b, 200, 196, hh)
+    args, mask = bargs[:7], bargs[4]
+    l, w = mask.shape[1], hh * d
     valid = mask.sum().item()
 
     (o_sc, st), (o_p, st_p) = (fda.fused_decoder_attention(*args, partials=True),
@@ -1148,24 +1140,125 @@ def check_train_attention(row, gen, dev) -> None:
         4.0 * valid * w + 2.0 * l * w + b * l + 4.0 * b * w + 8.0 * b * w + 8.0 * b * hh,
         PEAK_F32, err, counter="fused_decoder_attention", paths=("train",))
 
+    del o_sc, st, o_p, st_p
+    check_decoder_bwd(row, "fused_decoder_attention_bwd", bargs, ("train",))
+    del bargs, args
+    # the forward's wide rows: 16 heads over the 257-token towers' 5,120 and
+    # ViT-L@336's 11,520 keys, at the train batch (no path trains there: no
+    # launches)
+    for p_, name in ((256, "fused_decoder_attention_bwd 16 heads, L 5120"),
+                     (576, "fused_decoder_attention_bwd 16 heads, L 11520")):
+        bargs = decoder_bwd_inputs(gen, dev, b, p_, p_, 16)
+        check_decoder_bwd(row, name, bargs, ())
+        del bargs
+        torch.cuda.empty_cache()
+
+
+def decoder_bwd_inputs(gen, dev, b: int, p: int, valid_p: int, hh: int) -> tuple:
+    """The backward's arguments on slot 3 of a (6, b, FRAMES * p, hh, 64)
+    bf16 stack with pos (``p`` export rows a frame, the first ``valid_p`` of
+    them real), sample b - 2 half and b - 1 fully masked, its stats from
+    the plain partials and a random cotangent."""
+    import torch
+
+    from dfd_clip_tpu_torch.models.decoder import token_mask
+    from dfd_clip_tpu_torch.ops import fused_decoder_attention as fda
+
+    d, bf = 64, torch.bfloat16
+    l, w = FRAMES * p, hh * d
+    kv_shape = (len(KEEP), b, l, hh, d)
+    kall = (0.5 * torch.randn(kv_shape, generator=gen)).to(dev, bf)
+    vall = torch.randn(kv_shape, generator=gen).to(dev, bf)
+    kall.view(-1, b, FRAMES, p, hh, d)[:, :, :, valid_p:] = 0
+    vall.view(-1, b, FRAMES, p, hh, d)[:, :, :, valid_p:] = 0
+    pos = (0.04 * torch.randn(l, hh, d, generator=gen)).to(dev, bf)
+    qrow = torch.randn(b, 2 * w, generator=gen).to(dev, bf)
+    qs, qc = qrow[:, :w].reshape(b, 1, hh, d), qrow[:, w:].reshape(b, 1, hh, d)
+    frames_ok = torch.ones(b, FRAMES, dtype=torch.bool, device=dev)
+    frames_ok[b - 2, FRAMES // 2:] = False
+    frames_ok[b - 1] = False
+    mask = token_mask(frames_ok, p, valid_p)
+    args = (qs, qc, kall, vall, mask, pos, 3)
+    o_sc, st = fda.fused_decoder_attention_plain(*args, partials=True)
     denom, mx = st[:, 0], st[:, 1]
     o_s = o_sc[:, 0].reshape(b, hh, d) / denom.clamp_min(1e-30)[..., None]
     ct = (0.1 * torch.randn(b, 1, hh, d, generator=gen)).to(dev, bf)
-    bargs = args + (denom, mx, o_s, ct)
-    got, want = fdb.fused_decoder_attention_bwd(*bargs), fdb.fused_decoder_attention_bwd_plain(*bargs)
+    return args + (denom, mx, o_s, ct)
+
+
+def check_decoder_bwd(row, name: str, bargs: tuple, paths: tuple) -> None:
+    """fused_decoder_attention_bwd (one launch of csrc/decoder_attention_bwd.cu)
+    on ``bargs`` (decoder_bwd_inputs' form): dq_smax, dq_coda and dpos held
+    against the plain version at TOL_DECODER, the fully masked last sample's
+    dq exactly 0, two calls bit-equal, one launch a call (the CUDA runtime's
+    launch calls in the profiler's trace, its device rows printed beside),
+    its time by CUDA events, by the profiler's device time and by the host's
+    issue of a call, beside its bound."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from dfd_clip_tpu_torch.ops import _cuda
+    from dfd_clip_tpu_torch.ops import fused_decoder_attention_bwd as fdb
+
+    qs, mask = bargs[0], bargs[4]
+    b, _, hh, d = qs.shape
+    l, w = mask.shape[1], hh * d
+    valid = mask.sum().item()
+    got = fdb.fused_decoder_attention_bwd(*bargs)
+    again = fdb.fused_decoder_attention_bwd(*bargs)
+    want = fdb.fused_decoder_attention_bwd_plain(*bargs)
     err = 0.0
     for g_, w_, part in zip(got, want, ("dq_smax", "dq_coda", "dpos")):
-        err = max(err, compare(f"fused_decoder_attention_bwd {part}", g_, w_, TOL_DECODER))
+        err = max(err, compare(f"{name} {part}", g_, w_, TOL_DECODER))
     if got[0][b - 1].abs().max().item() != 0 or got[1][b - 1].abs().max().item() != 0:
-        raise SystemExit("FAIL fused_decoder_attention_bwd: a fully masked sample's dq is not 0")
-    # bytes: valid K/V rows, pos, mask, queries, g0, stats; dq and dpos out
-    row("fused_decoder_attention_bwd", "dfd_clip_tpu/ops/pallas_decoder_attention.py:477",
-        "dfd_clip_tpu_torch/csrc/decoder_attention_bwd.cu",
-        time_ms(lambda: fdb.fused_decoder_attention_bwd(*bargs)),
-        time_ms(lambda: fdb.fused_decoder_attention_bwd_plain(*bargs)),
+        raise SystemExit(f"FAIL {name}: a fully masked sample's dq is not 0")
+    if not all(torch.equal(x, y) for x, y in zip(got, again)):
+        raise SystemExit(f"FAIL {name}: two calls differ")
+    del got, again, want
+    # launches a call: the CUDA runtime's launch calls over CALLS calls in
+    # the profiler's host trace (every kernel, memset or copy the call
+    # issues, its own or torch's); the device rows, which the profiler has
+    # dropped at times on the longest of these calls, are printed beside
+    calls = 3
+    for _ in range(3):   # a trace with no launch call at all is taken again
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fdb.fused_decoder_attention_bwd(*bargs)
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        issued = sum(e.count for e in events if e.key.startswith("cudaLaunchKernel")
+                     or e.key.startswith("cudaMemsetAsync")
+                     or e.key.startswith("cudaMemcpyAsync"))
+        if issued:
+            break
+    rows = [e for e in events if e.self_cpu_time_total == 0 and device_us(e) > 0]
+    geo = _cuda.bwd_geometry(b, l, hh, torch.cuda.get_device_properties(0).multi_processor_count)
+    print(f"  {name}: {issued} launches in {calls} calls (device rows: "
+          f"{', '.join(f'{e.count}x {e.key[:40]}' for e in rows) or 'none'}); tiles "
+          f"{geo['tiles']}, chunks of {geo['chunk_tiles']} tiles, {geo['items']} items on "
+          f"{geo['grid']} blocks, {geo['passes']} pass(es) of {geo['group']} samples, "
+          f"{geo['smem']} B shared memory", flush=True)
+    if issued != calls:
+        fail(f"FAIL {name}: {issued} launches in {calls} calls, not one a call", True)
+    ms = time_ms(lambda: fdb.fused_decoder_attention_bwd(*bargs), iters=50)
+    dev_ms = device_ms(lambda: fdb.fused_decoder_attention_bwd(*bargs))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(50):
+        fdb.fused_decoder_attention_bwd(*bargs)
+    host = (time.perf_counter() - t0) * 1e3 / 50
+    torch.cuda.synchronize()
+    print(f"  {name}: {ms:.4f} ms by events, device {dev_ms:.4f} ms, host {host:.4f} ms a "
+          f"call", flush=True)
+    # bytes: valid K/V rows, pos, mask, queries, ct, o_s, stats; dq and dpos out
+    row(name, "dfd_clip_tpu/ops/pallas_decoder_attention.py:477",
+        "dfd_clip_tpu_torch/csrc/decoder_attention_bwd.cu", ms,
+        time_ms(lambda: fdb.fused_decoder_attention_bwd_plain(*bargs), iters=3, warmup=1),
         None, 27.0 * valid * w,
-        4.0 * valid * w + 2.0 * l * w + b * l + 4.0 * b * w + 4.0 * b * w + 12.0 * b * hh
-        + 8.0 * b * w + 4.0 * l * w, PEAK_F32, err, paths=("train",))
+        4.0 * valid * w + 2.0 * l * w + b * l + 4.0 * b * w + 2.0 * b * w + 4.0 * b * w
+        + 8.0 * b * hh + 8.0 * b * w + 4.0 * l * w, PEAK_F32, err,
+        counter="fused_decoder_attention_bwd", paths=paths)
 
 
 def to_device(tree, dev):
@@ -3238,10 +3331,10 @@ def main() -> int:
         if "Used" in line or "spill" in line and "0 bytes spill" not in line:
             print("  " + line.strip(), flush=True)
     serialised = wgmma_serialised(log, ("gemm.cu", "gemm_s8.cu", "gemm_s8_quant.cu",
-                                        "encoder_attention_s8.cu"))
+                                        "encoder_attention_s8.cu", "study_attention.cu"))
     if serialised:
-        raise SystemExit("FAIL the GEMMs' or the int8 attention's wgmma products were "
-                         "serialised:\n" + "\n".join(serialised))
+        raise SystemExit("FAIL the GEMMs', the int8 attention's or the study attention's wgmma "
+                         "products were serialised:\n" + "\n".join(serialised))
     for line in wgmma_serialised(log, tuple(p.name for p in _cuda.CSRC.glob("encoder_tower*.cu"))):
         print(f"  [the tower's ptxas] {line[:200]}", flush=True)
 

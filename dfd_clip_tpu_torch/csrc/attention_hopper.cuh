@@ -1,6 +1,8 @@
 // The bf16 encoder attention's body: the K/V and Q producers and the wgmma
 // consumers of csrc/encoder_attention.cu, whose header describes the design,
-// as device functions over NCONS consumer warpgroups. The per-layer kernel
+// as device functions over NCONS consumer warpgroups, and the attention
+// study's consumer (consume_rows, its P rounding point a template
+// parameter: csrc/study_attention.cu). The per-layer kernel
 // (encoder_attention.cu) runs them once with three consumers; the
 // whole-encoder tower (csrc/encoder_tower.cu) runs them once an attention
 // stage with two, its GEMM stages' block shape. A query tile's keys are
@@ -422,6 +424,201 @@ __device__ __forceinline__ void consume_as(int c, const Smem<NCONS>& sm, const G
       consume<NCONS, C, OUT_F32, NARROW>(sm, g, coef, out, cnt);
     else
       consume_as<NCONS, OUT_F32, NARROW, C + 1>(c, sm, g, coef, out, cnt);
+  }
+}
+
+// ---- the attention study's consumer -----------------------------------------------
+// Where a consumer rounds P to bf16 before P V. kOnline is consume()'s (the
+// encoder attention's): exp(s - the running maximum) unnormalised, the
+// output rescaled as the maximum moves and multiplied by 1 / sum after PV.
+// The attention study's modes (csrc/study_attention.cu) round at points
+// that need the whole row's maximum (and sum) first, which consume_rows()
+// takes as its ROUND: kNormP ("bf16"): exp(s - max) / sum rounded, the
+// output not divided; kDiet: exp(s - max) rounded, the output divided by the
+// f32 sum of the unrounded exps; kDietNoMax: exp(s) rounded, divided
+// likewise.
+enum Round : int { kOnline = 0, kNormP = 1, kDiet = 2, kDietNoMax = 3 };
+
+// The study's consumer C, for items of NKB <= 4 key blocks (at most 256
+// tokens: resident in the ring). A query tile's S for every key block is
+// one group of products into registers, so the rows' maxima and sums are
+// exact over the whole row before any P (no online rescaling moves the
+// rounding point); P at ROUND's point is packed to bf16 where it lies (the
+// k16 A fragments of the accumulators) and one group of products gives O.
+// With NARROW the last block holds at most 16 real keys: its S is one
+// m64n16 product per k16 step and its P V one k16 step (208 keys of work
+// at 197 tokens instead of 256), in registers of its own, a compile-time
+// choice so that no branch chooses between products. Keys past the frame's
+// end (zero-filled by TMA) are masked. out: (frames x tokens, heads x 64)
+// bf16.
+template <int NCONS, int C, int ROUND, int NKB, bool NARROW>
+__device__ __forceinline__ void consume_rows(const Smem<NCONS>& sm, const Geometry& g,
+                                             float coef, bf16* __restrict__ out,
+                                             const Counts<NCONS>& cnt) {
+  static_assert(ROUND != kOnline && NKB >= 1 && NKB <= 4 && (!NARROW || NKB >= 2),
+                "the study's rounding, <= 256 keys");
+  constexpr int WIDE = NARROW ? NKB - 1 : NKB;   // blocks of 64 keys in s
+  const int wq = (threadIdx.x / 32) % 4;
+  const int lane = threadIdx.x % 32;
+  const int gr = lane / 4, t = lane % 4;
+  const int total = items_of_block(g) * g.slots;
+  for (int f = C, n = cnt.q[C]; f < total; f += NCONS, ++n) {
+    const Slot sl = slot_of<NCONS>(g, f);
+    const int it = blockIdx.x + sl.item * gridDim.x;
+    const int frame = it / g.heads, head = it % g.heads;
+    const int b = n & 1, q0 = sl.tile * BM, first = cnt.kv + sl.first;
+    mbar_wait(sm.q_full(C, b), (n >> 1) & 1);
+    const uint64_t dq = sw128_desc(sm.q_tile(C, b));
+
+    // S = Q K^T over every key block
+    float s[WIDE][32], st[8];
+#pragma unroll
+    for (int j = 0; j < NKB; ++j)
+      mbar_wait(sm.kv_full((first + j) % STAGES), ((first + j) / STAGES) & 1);
+#pragma unroll
+    for (int j = 0; j < WIDE; ++j) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) s[j][i] = 0.f;
+      fence_regs(s[j]);
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) st[i] = 0.f;
+    fence_regs(st);
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < WIDE; ++j) {
+      const uint64_t dk = sw128_desc(sm.kv_tile((first + j) % STAGES, 0));
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) wgmma_ss(s[j], dq + 2 * kk, dk + 2 * kk, kk);
+    }
+    if constexpr (NARROW) {
+      const uint64_t dk = sw128_desc(sm.kv_tile((first + NKB - 1) % STAGES, 0));
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) wgmma_ss16(st, dq + 2 * kk, dk + 2 * kk, kk);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int j = 0; j < WIDE; ++j) fence_regs(s[j]);
+    fence_regs(st);
+    warp_arrive(sm.q_empty(C, b));   // Q is no longer read
+
+    // P at the mode's point: rows gr and gr + 8 of the warp's 16 (r = i / 2 % 2)
+    const int key_last = (NKB - 1) * BK + 2 * t;
+    if constexpr (NARROW) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        if (key_last + (i / 4) * 8 + (i & 1) >= g.tokens) st[i] = -INFINITY;
+    } else {
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        if (key_last + (i / 4) * 8 + (i & 1) >= g.tokens) s[NKB - 1][i] = -INFINITY;
+    }
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+    if constexpr (ROUND != kDietNoMax) {
+#pragma unroll
+      for (int j = 0; j < WIDE; ++j)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) m[(i >> 1) & 1] = fmaxf(m[(i >> 1) & 1], s[j][i]);
+      if constexpr (NARROW) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) m[(i >> 1) & 1] = fmaxf(m[(i >> 1) & 1], st[i]);
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) m[r] = -quad_max(m[r]) * coef;
+    }
+    auto prob = [&](float x, int r) {
+      return ROUND == kDietNoMax ? ex2(x * coef) : ex2(fmaf(x, coef, m[r]));
+    };
+#pragma unroll
+    for (int j = 0; j < WIDE; ++j)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        s[j][i] = prob(s[j][i], (i >> 1) & 1);
+        l[(i >> 1) & 1] += s[j][i];
+      }
+    if constexpr (NARROW) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        st[i] = prob(st[i], (i >> 1) & 1);
+        l[(i >> 1) & 1] += st[i];
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = quad_sum(l[r]);
+    if constexpr (ROUND == kNormP) {
+      const float inv[2] = {1.0f / l[0], 1.0f / l[1]};
+#pragma unroll
+      for (int j = 0; j < WIDE; ++j)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) s[j][i] *= inv[(i >> 1) & 1];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) st[i] *= inv[(i >> 1) & 1];
+    }
+    uint32_t pc[WIDE][BK / 16][4], pt[4];
+#pragma unroll
+    for (int j = 0; j < WIDE; ++j)
+#pragma unroll
+      for (int kc = 0; kc < BK / 16; ++kc)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          pc[j][kc][e] = pack_bf16(s[j][8 * kc + 2 * e], s[j][8 * kc + 2 * e + 1]);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) pt[e] = NARROW ? pack_bf16(st[2 * e], st[2 * e + 1]) : 0u;
+
+    // O = bf16(P) V over every key block (V's rows 2048 bytes apart a k16 step)
+    float o[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[i] = 0.f;
+    fence_regs(o);
+#pragma unroll
+    for (int j = 0; j < WIDE; ++j) fence_regs(pc[j]);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(pt[e])::"memory");
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < WIDE; ++j) {
+      const uint64_t dv = sw128_desc(sm.kv_tile((first + j) % STAGES, 1));
+#pragma unroll
+      for (int kc = 0; kc < BK / 16; ++kc) wgmma_rs(o, pc[j][kc], dv + kc * ((16 * 128) >> 4));
+    }
+    if constexpr (NARROW) wgmma_rs(o, pt, sw128_desc(sm.kv_tile((first + NKB - 1) % STAGES, 1)));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(o);
+#pragma unroll
+    for (int j = 0; j < WIDE; ++j) fence_regs(pc[j]);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(pt[e])::"memory");
+#pragma unroll
+    for (int j = 0; j < NKB; ++j) warp_arrive(sm.kv_empty((first + j) % STAGES));
+
+    // "bf16" normalised P before PV; the diet modes divide O by the sum
+    const int width = g.heads * D;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float fac = ROUND == kNormP ? 1.0f : 1.0f / l[r];
+      const int row = q0 + wq * 16 + gr + 8 * r;
+      if (row >= g.tokens) continue;
+      const size_t at = ((size_t)frame * g.tokens + row) * width + head * D + 2 * t;
+#pragma unroll
+      for (int jj = 0; jj < D / 8; ++jj)
+        *reinterpret_cast<__nv_bfloat162*>(out + at + jj * 8) =
+            __floats2bfloat162_rn(o[4 * jj + 2 * r] * fac, o[4 * jj + 2 * r + 1] * fac);
+    }
+  }
+}
+
+// Consumer c of the study's block, as the compile-time consumer C.
+template <int NCONS, int ROUND, int NKB, bool NARROW, int C = 0>
+__device__ __forceinline__ void consume_rows_as(int c, const Smem<NCONS>& sm, const Geometry& g,
+                                                float coef, bf16* __restrict__ out,
+                                                const Counts<NCONS>& cnt) {
+  if constexpr (C < NCONS) {
+    if (c == C)
+      consume_rows<NCONS, C, ROUND, NKB, NARROW>(sm, g, coef, out, cnt);
+    else
+      consume_rows_as<NCONS, ROUND, NKB, NARROW, C + 1>(c, sm, g, coef, out, cnt);
   }
 }
 

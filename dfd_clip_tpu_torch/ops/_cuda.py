@@ -110,6 +110,18 @@ BOUNDARY_CLOCK = ("start", "issued", "out_proj in", "c_fc in", "c_proj in", "in_
 # takes one (chunk, head) over every sample), and the f32 workspace a
 # (sample, head, chunk): numerator 64, CoDA sum 64, denominator, maximum, pad
 DECODER_CHUNK, DECODER_WS = 64, 132
+# the decoder attention's backward (csrc/decoder_attention_bwd.cu): tokens a
+# tile (12 consumer warps of 8 tokens), ring stages (a K and a V tile each),
+# a stage header, the 128-byte alignment of the layout, and a sample's
+# shared memory (its values: the queries, g0 and three scalars, 196 f32;
+# and each consumer warp's dq partials, 128 f32)
+BWD_TILE, BWD_STAGES, BWD_WARPS, BWD_HEADER, BWD_ALIGN = 96, 4, 12, 32, 128
+BWD_SAMPLE = 4 * (3 * 64 + 4) + BWD_WARPS * 4 * 128
+# the backward's stage clock: readings a block, of its first item: the
+# launch's start, the per-sample values in, the first stage in, the last load
+# issued, the last stage consumed (dpos stored), the chunk's dq written, the
+# item done (the head's last block: the chunks added)
+BWD_CLOCK = ("start", "table", "first stage", "issued", "streamed", "merged", "done")
 
 
 def reset_launches() -> None:
@@ -191,7 +203,7 @@ _SIGNATURES = {
     "dfd_encoder_attention": [_P, _P, _P, _LL, _P, _I, _I, _I, _F, _I, _P],
     "dfd_encoder_attention_packed": [_P, _P, _I, _I, _I, _F, _I, _P],
     "dfd_encoder_attention_s8": [_P, _P, _I, _I, _I, _F, _I, _P],
-    "dfd_study_attention": [_P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
+    "dfd_study_attention": [_P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _I, _I, _P],
     "dfd_gemm_chain": [_P, _P, _P, _I, _I, _I, _P],
     "dfd_encoder_tower_grid": [_I, _I, _I, ctypes.POINTER(ctypes.c_int)],
     "dfd_encoder_tower_table": [_P, _I, _I, _I, _I],
@@ -203,8 +215,9 @@ _SIGNATURES = {
     "dfd_decoder_boundary_plan": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                   ctypes.POINTER(ctypes.c_int), _I, _I, _I, _I],
     "dfd_decoder_boundary": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
-    "dfd_decoder_attention_bwd": [_P, _P, _LL, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                  _I, _I, _I, _F, _P],
+    "dfd_decoder_attention_bwd": [_P, _P, _LL, _P, _I, _P, _P, _P, _LL, _P, _P, _P, _P, _P,
+                                  _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F,
+                                  _P, _P],
 }
 
 
@@ -786,6 +799,51 @@ def decoder_split(tokens: int, heads: int) -> Dict[str, int]:
     return {"chunk": DECODER_CHUNK, "chunks": chunks, "blocks": chunks * heads}
 
 
+@functools.lru_cache(maxsize=256)
+def bwd_geometry(batch: int, tokens: int, heads: int, sms: int) -> Dict[str, int]:
+    """The decoder attention backward's launch (csrc/decoder_attention_bwd.cu)
+    for ``batch`` samples of L = ``tokens`` keys and ``heads`` heads on a card
+    of ``sms`` SMs: L in tiles of BWD_TILE tokens, the tiles in chunks so
+    that heads x chunks work items fill the SMs in about one wave (each head
+    takes sms // heads chunks, at least one), a persistent grid of one block
+    a SM over the items; the samples in passes of ``group`` (as many as the
+    shared memory holds beside the ring, the two pos tiles, the stage
+    headers, the barriers and the ticket flag) and the launch's dynamic
+    shared memory. Cached by its arguments: callers only read the dict."""
+    if batch < 1 or tokens < 1 or heads < 1 or sms < 1:
+        raise ValueError(f"bwd_geometry: needs batch, tokens, heads and SMs >= 1, got {batch}, "
+                         f"{tokens}, {heads}, {sms}")
+    if batch * tokens > GRID_MAX:
+        raise ValueError(f"bwd_geometry: {batch} samples x {tokens} tokens exceed the mask's "
+                         f"int index")
+    tiles = -(-tokens // BWD_TILE)
+    per_head = min(tiles, max(1, sms // heads))
+    chunk_tiles = -(-tiles // per_head)
+    chunks = -(-tiles // chunk_tiles)
+    tile_bytes = BWD_TILE * 64 * 2
+    fixed = BWD_STAGES * 2 * tile_bytes + 2 * tile_bytes + BWD_STAGES * BWD_HEADER \
+        + 8 * (2 * BWD_STAGES + 4) + 16
+    fixed = -(-fixed // BWD_ALIGN) * BWD_ALIGN
+    group = min(batch, (SMEM_LIMIT - BWD_ALIGN - fixed) // BWD_SAMPLE)
+    return {"tiles": tiles, "chunk_tiles": chunk_tiles, "chunks": chunks,
+            "items": heads * chunks, "grid": min(heads * chunks, sms), "group": group,
+            "passes": -(-batch // group), "smem": BWD_ALIGN + fixed + group * BWD_SAMPLE}
+
+
+# the backward's per-head tickets of each (device, stream): zeroed int32 on
+# the card, which every launch leaves zeroed, grown as heads grow
+_BWD_TICKETS: Dict[tuple, torch.Tensor] = {}
+
+
+def bwd_ticket(index: int, stream_handle: int, heads: int) -> torch.Tensor:
+    """The (device, stream)'s zeroed ticket counters, at least ``heads``."""
+    t = _BWD_TICKETS.get((index, stream_handle))
+    if t is None or t.numel() < heads:
+        t = _BWD_TICKETS[(index, stream_handle)] = torch.zeros(
+            max(heads, 64), dtype=torch.int32, device=torch.device("cuda", index))
+    return t
+
+
 def s8_attention_geometry(tokens: int, consumers: int) -> Dict[str, int]:
     """The int8 attention's schedule for one work item, a (frame, head), on a
     block of ``consumers`` consumer warpgroups (S8_CONSUMERS = 2 in the
@@ -906,9 +964,46 @@ def encoder_attention_s8(qkv: torch.Tensor, frames: int, tokens: int, heads: int
     return out
 
 
-# numerics modes of csrc/study_attention.cu and its largest token count
+# numerics modes of csrc/study_attention.cu and its largest token count;
+# the f32 mode's query rows a warp (a band) and keys a tile, V's row pitch
+# in floats, and the shared memory a block may take so that two fit on a SM
+# (228 KB less 1 KB reserved a block, halved)
 STUDY_MODES = {"f32": 0, "bf16": 1, "diet": 2, "diet_nomax": 3}
-STUDY_MAX_TOKENS = 256
+STUDY_MAX_TOKENS, STUDY_BAND, STUDY_KTILE, STUDY_V_PITCH = 256, 32, 32, 68
+STUDY_SMEM_TWO = (228 * 1024 - 2 * 1024) // 2
+
+
+def study_geometry(tokens: int, mode: str) -> Dict[str, int]:
+    """The study attention's launch at ``tokens`` tokens in ``mode``
+    (csrc/study_attention.cu). The bf16 modes run the encoder attention's
+    TMA / wgmma frame: key blocks of ATTN_BLOCK, all resident in its ring
+    (the kernel is a template on their count and on the N = 16 tail, where
+    the last block holds at most 16 keys). "f32" runs one warp a band of
+    STUDY_BAND query rows with Q^T in f32 at a pitch of the tokens rounded
+    up to 4, and the keys in chunks: the widest multiple of STUDY_KTILE (at
+    most the tokens rounded up to it) whose K^T [64][chunk] and V
+    [chunk][STUDY_V_PITCH] in f32 fit beside Q^T (each of Q^T and K^T with
+    32 floats of slack) in STUDY_SMEM_TWO, so two blocks share a SM; its
+    dynamic shared memory in bytes. Refuses unknown modes and token counts
+    outside 1 to STUDY_MAX_TOKENS."""
+    if mode not in STUDY_MODES:
+        raise ValueError(f"study_attention: mode must be one of {tuple(STUDY_MODES)}, "
+                         f"got {mode!r}")
+    if not 1 <= tokens <= STUDY_MAX_TOKENS:
+        raise ValueError(f"study_attention: takes 1 to {STUDY_MAX_TOKENS} tokens, got {tokens}")
+    if mode != "f32":
+        blocks = -(-tokens // ATTN_BLOCK)
+        return {"route": "wgmma", "key_blocks": blocks,
+                "narrow": int(blocks >= 2 and tokens - (blocks - 1) * ATTN_BLOCK <= 16),
+                "pitch": 0, "chunk": 0, "smem": 0}
+    pitch = -(-tokens // 4) * 4
+    floats = lambda chunk: 64 * pitch + STUDY_BAND + 64 * chunk + STUDY_BAND \
+        + chunk * STUDY_V_PITCH
+    chunk = -(-tokens // STUDY_KTILE) * STUDY_KTILE
+    while chunk > STUDY_KTILE and 4 * floats(chunk) > STUDY_SMEM_TWO:
+        chunk -= STUDY_KTILE
+    return {"route": "ffma", "bands": -(-tokens // STUDY_BAND), "pitch": pitch,
+            "chunk": chunk, "chunks": -(-tokens // chunk), "smem": 4 * floats(chunk)}
 
 
 def study_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mode: str) -> torch.Tensor:
@@ -916,18 +1011,19 @@ def study_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mode: str
     in numerics mode ``mode`` (STUDY_MODES) -> (N, T, H, 64) bf16."""
     name = "study_attention"
     require_cuda(name, q, k, v)
-    if mode not in STUDY_MODES:
-        raise ValueError(f"{name}: mode must be one of {tuple(STUDY_MODES)}, got {mode!r}")
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape \
             or not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError(f"{name}: q, k, v must be contiguous (N, T, H, D) of one shape")
     n, t, h, d = q.shape
-    if d != 64 or not 1 <= t <= STUDY_MAX_TOKENS:
-        raise ValueError(f"{name}: takes head_dim 64 and 1 to {STUDY_MAX_TOKENS} tokens, got "
-                         f"head_dim {d}, {t} tokens")
+    if d != 64:
+        raise ValueError(f"{name}: takes head_dim 64, got {d}")
+    geo = study_geometry(t, mode)
+    if n * h > GRID_MAX:
+        raise ValueError(f"{name}: {n} frames x {h} heads exceed the work-item count")
     out = torch.empty_like(q)
     err = library().dfd_study_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                                        n, t, h, d ** -0.5, STUDY_MODES[mode], stream())
+                                        n, t, h, d ** -0.5, STUDY_MODES[mode], geo["pitch"],
+                                        geo["chunk"], geo["smem"], stream())
     check_launch(name, err)
     return out
 

@@ -7,8 +7,9 @@ A ``torch.autograd.Function`` around the two decoder-attention kernels:
   (ops/fused_decoder_attention.py), then the small epilogue
   out = 0.5 (o_s / max(denom, 1e-30) + o_c) in the K/V dtype; the
   normalised softmax output o_s joins the saved tensors;
-* backward: the backward kernel (ops/fused_decoder_attention_bwd.py) for
-  dq_smax, dq_coda and the temporal embedding's dpos. dK/dV come from the
+* backward: the backward kernel (ops/fused_decoder_attention_bwd.py), one
+  launch, for dq_smax and dq_coda (written in the queries' dtype) and the
+  temporal embedding's dpos (f32). dK/dV come from the
   plain einsums (``_bwd_math``), and only when K or V requires a gradient:
   never on the frozen-encoder path, where K/V come from under no_grad.
 
@@ -62,14 +63,14 @@ class _TrainableAttention(torch.autograd.Function):
         q_smax, q_coda, k, v, mask, pos, denom, mx, o_s = ctx.saved_tensors
         layer = ctx.layer
         dqs, dqc, dpos = fused_decoder_attention_bwd(q_smax, q_coda, k, v, mask, pos, layer,
-                                                     denom, mx, o_s, ct)
+                                                     denom, mx, o_s, ct, q_smax.dtype)
         dk = dv = None
         if ctx.needs_input_grad[2] or ctx.needs_input_grad[3]:
             *_, dk, dv = _bwd_math(layer, q_smax, q_coda, k, v, mask, pos, denom, mx, ct)
             dk, dv = _scatter_slot(dk, dv, k, v, layer)
         if dpos is not None:
             dpos = dpos.to(ctx.pos_dtype)
-        return dqs.to(q_smax.dtype), dqc.to(q_coda.dtype), dk, dv, None, dpos, None
+        return dqs, dqc, dk, dv, None, dpos, None
 
 
 def fused_decoder_attention_trainable(

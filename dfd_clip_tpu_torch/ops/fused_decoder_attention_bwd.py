@@ -3,10 +3,11 @@
 fused_decoder_attention_bwd, and of _bwd_math in
 dfd_clip_tpu/ops/decoder_attention_vjp.py, its plain version).
 
-On a CUDA tensor this launches csrc/decoder_attention_bwd.cu: dq_smax,
-dq_coda and dpos in one pass over slot ``layer`` of the stacked K/V export,
-from the forward's saved softmax state. The wrapper computes the softmax
-coupling term S = 0.5 sum_d g0 o_s before the launch. On a CPU tensor the
+On a CUDA tensor this launches csrc/decoder_attention_bwd.cu once: dq_smax,
+dq_coda and dpos over slot ``layer`` of the stacked K/V export, from the
+forward's saved softmax state, with the softmax coupling term S = 0.5 sum_d
+g0 o_s and g0's f32 values computed inside the kernel, so the wrapper does no
+arithmetic (its launch geometry is _cuda.bwd_geometry). On a CPU tensor the
 plain version (``_bwd_math``, which also gives dK/dV) runs instead.
 """
 
@@ -18,9 +19,6 @@ import torch
 
 from . import _cuda
 from .fused_decoder_attention import check_inputs
-
-TILE = 64   # tokens per block of the kernel (csrc/decoder_attention_bwd.cu)
-
 
 def _bwd_math(layer, q_smax, q_coda, k, v, mask, temporal_pos, denom, mx, ct):
     """Cotangents (dq_smax, dq_coda, dpos, dk, dv) from the saved softmax
@@ -83,50 +81,86 @@ def _bwd_math(layer, q_smax, q_coda, k, v, mask, temporal_pos, denom, mx, ct):
     return dqs[:, None], dqc[:, None], dpos, dkp.to(kl.dtype), dvp.to(vl.dtype)
 
 
+def _f32_rows(name, t, shape):
+    """t as the kernel reads it: f32 with a contiguous last axis (a copy only
+    where it is not)."""
+    if t.shape != shape:
+        raise ValueError(f"{name}: expected {shape}, got {tuple(t.shape)}")
+    return t if t.dtype == torch.float32 and t.stride(-1) == 1 else t.float().contiguous()
+
+
 def fused_decoder_attention_bwd(
     q_smax: torch.Tensor, q_coda: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     mask: torch.Tensor, temporal_pos: Optional[torch.Tensor], layer: Optional[int],
     denom: torch.Tensor, mx: torch.Tensor, o_s: torch.Tensor, ct: torch.Tensor,
+    dq_dtype: torch.dtype = torch.float32, stage_clock: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
     """The forward's inputs, its saved denominator and maximum (B, H) f32,
     its normalised softmax output o_s (B, H, D) f32 and the output
-    cotangent ct (B, 1, H, D) -> (dq_smax (B,1,H,D) f32, dq_coda (B,1,H,D)
-    f32, dpos (L,H,D) f32 or None when temporal_pos is None)."""
-    if _cuda.on_cpu("fused_decoder_attention_bwd", k):
-        return fused_decoder_attention_bwd_plain(q_smax, q_coda, k, v, mask, temporal_pos,
-                                                 layer, denom, mx, o_s, ct)
-    kl, vl, b, l, h, d = check_inputs("fused_decoder_attention_bwd", q_smax, q_coda, k, v,
-                                      mask, temporal_pos, layer)
+    cotangent ct (B, 1, H, D) -> (dq_smax (B,1,H,D), dq_coda (B,1,H,D) in
+    ``dq_dtype`` (f32 or bf16: the kernel writes the query leaves' dtype
+    itself), dpos (L,H,D) f32 or None when temporal_pos is None).
+    ``stage_clock``: None, or an int64 tensor on the card of
+    _cuda.bwd_geometry's grid x len(_cuda.BWD_CLOCK) entries, into which
+    each block writes %globaltimer (ns) at the BWD_CLOCK points of its first
+    item (tools/bench_decoder_bwd.py reads it)."""
+    name = "fused_decoder_attention_bwd"
+    if dq_dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name}: dq_dtype {dq_dtype} is neither f32 nor bf16")
+    if _cuda.on_cpu(name, k):
+        dqs, dqc, dpos = fused_decoder_attention_bwd_plain(q_smax, q_coda, k, v, mask,
+                                                           temporal_pos, layer, denom, mx, o_s,
+                                                           ct)
+        return dqs.to(dq_dtype), dqc.to(dq_dtype), dpos
+    kl, vl, b, l, h, d = check_inputs(name, q_smax, q_coda, k, v, mask, temporal_pos, layer)
     if denom.shape != (b, h) or mx.shape != (b, h) or o_s.shape != (b, h, d) \
             or ct.shape != (b, 1, h, d):
-        raise ValueError("fused_decoder_attention_bwd: stats must be (B, H), o_s (B, H, D) "
-                         "and ct (B, 1, H, D)")
+        raise ValueError(f"{name}: stats must be (B, H), o_s (B, H, D) and ct (B, 1, H, D)")
     for t in (denom, mx, o_s, ct):
         if t.device != kl.device:
-            raise ValueError("fused_decoder_attention_bwd: stats and ct must be on K/V's card")
+            raise ValueError(f"{name}: stats and ct must be on K/V's card")
     f32 = torch.float32
-    g0 = ct[:, 0].to(f32).contiguous()                                  # (B, H, D)
-    s_term = 0.5 * torch.einsum("bhd,bhd->bh", g0, o_s.to(f32))
-    stats = torch.stack([mx.to(f32), denom.to(f32), s_term], dim=1).contiguous()   # (B, 3, H)
-    dq_part = torch.empty((-(-l // TILE), b, 2, h * d), dtype=f32, device=kl.device)
-    dq = torch.empty((b, 2, h * d), dtype=f32, device=kl.device)
-    dpos = (torch.empty((l, h, d), dtype=f32, device=kl.device)
-            if temporal_pos is not None else None)
+    g0 = ct.reshape(b, h, d)
+    if g0.dtype not in (f32, torch.bfloat16) or not g0.is_contiguous():
+        g0 = g0.float().contiguous()
+    o_s = o_s if o_s.dtype == f32 and o_s.is_contiguous() else o_s.float().contiguous()
+    denom, mx = _f32_rows(name, denom, (b, h)), _f32_rows(name, mx, (b, h))
+    if denom.stride(0) != mx.stride(0):
+        denom, mx = denom.contiguous(), mx.contiguous()
+    index = kl.get_device()
+    geo = _cuda.bwd_geometry(b, l, h, _cuda._sms(index))
+    # one f32 allocation: dpos, then the chunks' dq partials (scratch)
+    n_pos = l * h * d if temporal_pos is not None else 0
+    scratch = torch.empty(n_pos + geo["chunks"] * b * 2 * h * d, dtype=f32, device=kl.device)
+    dpos = scratch[:n_pos].view(l, h, d) if temporal_pos is not None else None
+    dq = torch.empty((b, 2, h * d), dtype=dq_dtype, device=kl.device)
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    ticket = _cuda.bwd_ticket(index, stream, h)
+    if stage_clock is not None:
+        _cuda.require_cuda(name, stage_clock, dtype=torch.int64)
+        if stage_clock.numel() < geo["grid"] * len(_cuda.BWD_CLOCK) \
+                or not stage_clock.is_contiguous():
+            raise ValueError(f"{name}: stage_clock needs {geo['grid']} x "
+                             f"{len(_cuda.BWD_CLOCK)} contiguous int64")
     err = _cuda.library().dfd_decoder_attention_bwd(
         q_smax.data_ptr(), q_coda.data_ptr(), q_smax.stride(0), g0.data_ptr(),
-        stats.data_ptr(), kl.data_ptr(), vl.data_ptr(), mask.data_ptr(),
+        int(g0.dtype == f32), o_s.data_ptr(), denom.data_ptr(), mx.data_ptr(), denom.stride(0),
+        kl.data_ptr(), vl.data_ptr(), mask.data_ptr(),
         temporal_pos.data_ptr() if temporal_pos is not None else None,
-        dq_part.data_ptr(), dq.data_ptr(), dpos.data_ptr() if dpos is not None else None,
-        b, l, h, d ** -0.5, _cuda.stream())
-    _cuda.check_launch("fused_decoder_attention_bwd", err)
-    _cuda.LAUNCHES["fused_decoder_attention_bwd"] += 1
+        scratch.data_ptr() + 4 * n_pos, dq.data_ptr(), int(dq_dtype == f32),
+        dpos.data_ptr() if dpos is not None else None, ticket.data_ptr(),
+        b, l, h, geo["tiles"], geo["chunk_tiles"], geo["chunks"], geo["group"], geo["grid"],
+        geo["smem"], d ** -0.5, stage_clock.data_ptr() if stage_clock is not None else None,
+        stream)
+    _cuda.check_launch(name, err)
+    _cuda.LAUNCHES[name] += 1
     return dq[:, 0].reshape(b, 1, h, d), dq[:, 1].reshape(b, 1, h, d), dpos
 
 
 def fused_decoder_attention_bwd_plain(q_smax, q_coda, k, v, mask, temporal_pos, layer,
-                                      denom, mx, o_s, ct):
+                                      denom, mx, o_s, ct, dq_dtype=torch.float32):
     """Plain version of fused_decoder_attention_bwd (same contract; the
     coupling term comes from the affinities, so o_s is not read)."""
     dqs, dqc, dpos, _, _ = _bwd_math(layer, q_smax, q_coda, k, v, mask, temporal_pos,
                                      denom, mx, ct)
-    return dqs, dqc, dpos
+    return dqs.to(dq_dtype), dqc.to(dq_dtype), dpos

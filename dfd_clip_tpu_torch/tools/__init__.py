@@ -1,7 +1,8 @@
 """The port of the study tools under tools/ that reach the kernels
 (bench_attention, bench_megakernel_probe), and the port's own timing of the
 decoder boundary beside the six-launch chain it replaced
-(bench_decoder_boundary)."""
+(bench_decoder_boundary) and of the decoder attention's backward with its
+stage clock (bench_decoder_bwd)."""
 
 from __future__ import annotations
 

@@ -328,37 +328,156 @@ def test_decoder_attention_partials_ragged(dev, geo):
     assert torch.equal(got[1][2, 1], torch.full_like(got[1][2, 1], -1e30))
 
 
-@pytest.mark.parametrize("geo", DEC_GEOMETRIES, ids=["h2-l77-stacked", "h4-l200", "h12-nopos"])
-def test_decoder_attention_bwd_ragged(dev, geo):
-    """dq_smax, dq_coda and dpos against _bwd_math on the same stats (from
-    the plain partials): L not a multiple of the 64-token tile, 2 to 12
-    heads, with and without pos, stacked slot and plain K/V; the fully
-    masked sample's dq is exactly 0."""
+# the backward's geometries: (heads, L, stacked, with pos); L around one
+# 96-token tile (_cuda.BWD_TILE) and at the train shape's 4,000
+BWD_GEOMETRIES = DEC_GEOMETRIES + [(h, l, True, True) for h in (2, 12, 16)
+                                   for l in (1, 63, 64, 65, 95, 96, 97, 4000)]
+
+
+def decoder_bwd_args(dev, gen, b, h, l, stacked, with_pos):
+    """decoder_inputs with the forward's stats from the plain partials and a
+    random cotangent: the backward's arguments."""
     from dfd_clip_tpu_torch.ops.fused_decoder_attention import fused_decoder_attention_plain
+
+    qs, qc, k, v, pos, mask = decoder_inputs(dev, gen, b, h, l, stacked)
+    pos = pos if with_pos else None
+    layer = 1 if stacked else None
+    o_sc, st = fused_decoder_attention_plain(qs, qc, k, v, mask, pos, layer, partials=True)
+    denom, mx = st[:, 0], st[:, 1]
+    o_s = o_sc[:, 0].reshape(b, h, 64) / denom.clamp_min(1e-30)[..., None]
+    ct = randn(gen, b, 1, h, 64).to(dev, torch.bfloat16)
+    return (qs, qc, k, v, mask, pos, layer, denom, mx, o_s, ct)
+
+
+def check_bwd(args, dead=()):
+    """The kernel against its plain version (each leaf within REL of its
+    max; a leaf that is identically 0 in the plain version, dq_smax over a
+    single token, whose softmax has no gradient, within 1e-6), dq exactly 0
+    for the samples in ``dead``, two calls bit-equal."""
     from dfd_clip_tpu_torch.ops.fused_decoder_attention_bwd import (
         fused_decoder_attention_bwd,
         fused_decoder_attention_bwd_plain,
     )
 
-    h, l, stacked, with_pos = geo
-    gen = torch.Generator().manual_seed(6)
-    qs, qc, k, v, pos, mask = decoder_inputs(dev, gen, 3, h, l, stacked)
-    pos = pos if with_pos else None
-    layer = 1 if stacked else None
-    o_sc, st = fused_decoder_attention_plain(qs, qc, k, v, mask, pos, layer, partials=True)
-    denom, mx = st[:, 0], st[:, 1]
-    o_s = o_sc[:, 0].reshape(3, h, 64) / denom.clamp_min(1e-30)[..., None]
-    ct = randn(gen, 3, 1, h, 64).to(dev, torch.bfloat16)
-    args = (qs, qc, k, v, mask, pos, layer, denom, mx, o_s, ct)
     got = fused_decoder_attention_bwd(*args)
+    again = fused_decoder_attention_bwd(*args)
     want = fused_decoder_attention_bwd_plain(*args)
-    assert (got[2] is None) == (pos is None)
-    for g, w in zip(got, want):
+    assert (got[2] is None) == (args[5] is None)
+    for g, a, w in zip(got, again, want):
         if w is not None:
             assert g.dtype == torch.float32
-            assert rel_err(g, w) <= REL
-    assert torch.equal(got[0][2], torch.zeros_like(got[0][2]))
-    assert torch.equal(got[1][2], torch.zeros_like(got[1][2]))
+            if w.abs().max().item() == 0:
+                assert g.abs().max().item() <= 1e-6
+            else:
+                assert rel_err(g, w) <= REL
+            assert torch.equal(g, a)
+    for b in dead:
+        assert torch.equal(got[0][b], torch.zeros_like(got[0][b]))
+        assert torch.equal(got[1][b], torch.zeros_like(got[1][b]))
+    return got
+
+
+@pytest.mark.parametrize("geo", BWD_GEOMETRIES,
+                         ids=["h2-l77-stacked", "h4-l200", "h12-nopos"]
+                         + [f"h{h}-l{l}" for h, l, _, _ in BWD_GEOMETRIES[3:]])
+def test_decoder_attention_bwd_ragged(dev, geo):
+    """dq_smax, dq_coda and dpos against _bwd_math on the same stats (from
+    the plain partials): L of one token, around the 96-token tile and at
+    4,000, 2 to 16 heads, with and without pos, stacked slot and plain K/V;
+    the fully masked sample's dq is exactly 0; two calls are bit-equal."""
+    h, l, stacked, with_pos = geo
+    check_bwd(decoder_bwd_args(dev, torch.Generator().manual_seed(6), 3, h, l, stacked,
+                               with_pos), dead=(2,))
+
+
+@pytest.mark.parametrize("l", [200, 4000])
+def test_decoder_attention_bwd_masked_tiles(dev, l):
+    """A sample masked over whole tiles but not all of them (tiles 1 and 2
+    of sample 0, every tile of sample 1 past the first, a ragged run in
+    sample 2): the producer skips those (sample, tile) pairs, and the
+    result still holds; dpos of tokens masked in every sample is 0."""
+    from dfd_clip_tpu_torch.ops import _cuda
+
+    gen = torch.Generator().manual_seed(7)
+    args = decoder_bwd_args(dev, gen, 4, 12, l, True, True)
+    mask, tile = args[4], _cuda.BWD_TILE
+    mask[:] = True
+    mask[0, tile: 3 * tile] = False
+    mask[1, tile:] = False
+    mask[2, 5: 2 * tile + 7] = False
+    mask[3] = False
+    args = decoder_bwd_args_from(args)
+    got = check_bwd(args, dead=(3,))
+    dead_tok = ~mask.any(0)
+    if dead_tok.any():
+        assert torch.equal(got[2][dead_tok], torch.zeros_like(got[2][dead_tok]))
+
+
+def decoder_bwd_args_from(args):
+    """args with the stats recomputed for their (edited) mask."""
+    from dfd_clip_tpu_torch.ops.fused_decoder_attention import fused_decoder_attention_plain
+
+    qs, qc, k, v, mask, pos, layer, _, _, _, ct = args
+    b, _, h, _ = qs.shape
+    o_sc, st = fused_decoder_attention_plain(qs, qc, k, v, mask, pos, layer, partials=True)
+    denom, mx = st[:, 0], st[:, 1]
+    o_s = o_sc[:, 0].reshape(b, h, 64) / denom.clamp_min(1e-30)[..., None]
+    return (qs, qc, k, v, mask, pos, layer, denom, mx, o_s, ct)
+
+
+@pytest.mark.parametrize("gain", [4.0, 8.0])
+def test_decoder_attention_bwd_saturated_coda(dev, gain):
+    """CoDA logits far into tanh's saturation (the CoDA query scaled by
+    ``gain``): 1 - tanh^2 cancels there, so an approximate tanh moves
+    dq_coda and dpos well past the hold; the kernel keeps them within REL."""
+    gen = torch.Generator().manual_seed(10)
+    args = decoder_bwd_args(dev, gen, 3, 12, 4000, True, True)
+    qs, qc = args[0], args[1]
+    qc.copy_((gain * qc.float()).bfloat16())
+    lc = torch.einsum("bhd,blhd->blh", qc[:, 0].float() * 0.125, args[2][1].float()
+                      + args[5].float()[None])
+    assert (lc.abs() > 3).float().mean().item() > 0.1
+    check_bwd(decoder_bwd_args_from(args), dead=(2,))
+
+
+@pytest.mark.parametrize("b", [2, 16, 40])
+def test_decoder_attention_bwd_batches(dev, b):
+    """Batches of two samples, of 16 and of 40 (more than a pass holds:
+    _cuda.bwd_geometry's group, so the later passes add to dpos), at L =
+    300 and 12 heads."""
+    from dfd_clip_tpu_torch.ops import _cuda
+
+    geo = _cuda.bwd_geometry(b, 300, 12, torch.cuda.get_device_properties(0).multi_processor_count)
+    assert geo["passes"] == -(-b // geo["group"])
+    args = decoder_bwd_args(dev, torch.Generator().manual_seed(8), b, 12, 300, True, True)
+    check_bwd(args, dead=(b - 1,) if b > 2 else ())
+
+
+def test_decoder_attention_bwd_one_kernel(dev):
+    """One CUDA kernel a call (torch.profiler's device rows), counted once;
+    dq written in the queries' bf16 when asked, equal to the f32 result
+    rounded; the ticket counters are left zeroed."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from dfd_clip_tpu_torch.ops import _cuda
+    from dfd_clip_tpu_torch.ops.fused_decoder_attention_bwd import fused_decoder_attention_bwd
+
+    args = decoder_bwd_args(dev, torch.Generator().manual_seed(9), 12, 12, 4000, True, True)
+    want = fused_decoder_attention_bwd(*args)
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        got = fused_decoder_attention_bwd(*args, dq_dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages() if e.self_cpu_time_total == 0
+            and (getattr(e, "self_device_time_total", 0) or e.self_cuda_time_total) > 0]
+    assert sum(e.count for e in rows) == 1
+    assert _cuda.launches() == {"fused_decoder_attention_bwd": 1}
+    for g, w in zip(got[:2], want[:2]):
+        assert g.dtype == torch.bfloat16 and torch.equal(g, w.bfloat16())
+    assert torch.equal(got[2], want[2])
+    ticket = _cuda.bwd_ticket(0, torch._C._cuda_getCurrentRawStream(0), 12)
+    assert int(ticket.abs().sum()) == 0
 
 
 def test_tiny_wide_trainer_on_card(dev):
@@ -1183,16 +1302,20 @@ def test_decoder_attention_at_vit_l14_336(dev):
     assert torch.equal(got[3], torch.zeros_like(got[3]))
 
 
-@pytest.mark.parametrize("tokens", [5, 197, 256])
+@pytest.mark.parametrize("frames", [1, 3, 133])
+@pytest.mark.parametrize("tokens", [1, 5, 16, 17, 64, 65, 197, 256])
 @pytest.mark.parametrize("mode", ["f32", "bf16", "diet", "diet_nomax"])
-def test_study_attention_modes(dev, mode, tokens):
+def test_study_attention_modes(dev, mode, tokens, frames):
     """csrc/study_attention.cu in each numerics mode against its plain
-    version, 3 frames of 12 heads, counted."""
+    version, 12 heads: one key block or several, the N = 16 tail (17, 65,
+    197), whole blocks (16, 64, 256), the f32 mode's ragged bands; 133
+    frames is more work items than SMs, so each persistent block takes
+    several; counted."""
     from dfd_clip_tpu_torch.ops import _cuda
     from dfd_clip_tpu_torch.ops import study_attention as sa
 
-    gen = torch.Generator().manual_seed(41 + tokens)
-    q, k, v = (randn(gen, 3, tokens, 12, 64).to(dev, torch.bfloat16) for _ in range(3))
+    gen = torch.Generator().manual_seed(41 + tokens + frames)
+    q, k, v = (randn(gen, frames, tokens, 12, 64).to(dev, torch.bfloat16) for _ in range(3))
     _cuda.reset_launches()
     got = sa.study_attention(q, k, v, mode)
     assert _cuda.launches() == {"study_attention": 1}
