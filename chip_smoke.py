@@ -143,7 +143,9 @@
    the study attention at (320, 197, 12 x 64) through the port tool's
    variants, each against the tool's own check and its plain version, and
    the megakernel probe's two entries at (63040, 768) x 12 layers,
-   bit-equal to each other and held to the plain chain; then runs both
+   bit-equal to each other and held to the plain chain, each timed by CUDA
+   events and by its device time in a trace, with its share of the
+   operations bound beside 12 chained torch.matmul; then runs both
    ported tools as a user does (`[tool_attention]`, `[tool_probe]`),
    counters zeroed before and read after each;
 17. prints the kernel table as one JSON line, the card line, and last
@@ -1020,20 +1022,39 @@ def check_layer_norm_quant(rows: list, x, ln: dict, paths: tuple = ()) -> None:
                counter="layer_norm_quant", paths=paths)
 
 
-def device_ms(fn, calls: int = 20) -> float:
-    """Device time of one call of fn: the profiler's device rows (kernels,
-    copies) over ``calls`` calls, summed and divided."""
+def device_rows(fn, calls: int) -> tuple:
+    """The profiler's device rows (kernels, copies) over ``calls`` calls of
+    fn, after one untraced call, every cycle's events kept: their summed
+    time in ms, and their count."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    return sum(device_us(e) for e in prof.key_averages()
-               if e.self_cpu_time_total == 0 and device_us(e) > 0) / 1e3 / calls
+    rows = [e for e in prof.key_averages() if e.self_cpu_time_total == 0 and device_us(e) > 0]
+    return sum(device_us(e) for e in rows) / 1e3, sum(e.count for e in rows)
+
+
+def device_ms(fn, calls: int = 20) -> float:
+    """Device time of one call of fn: its device rows over ``calls`` calls,
+    summed and divided."""
+    return device_rows(fn, calls)[0] / calls
+
+
+def launches_ms(fn, launches: int | None = None, calls: int = 10) -> tuple:
+    """Device time of one call of fn that issues ``launches`` launches (by
+    default the device rows of a trace of one call): the trace's sum over
+    ``calls`` calls, divided, where the trace holds every launch, else None
+    (not measured). Returns (ms or None, rows traced, launches issued)."""
+    if launches is None:
+        launches = device_rows(fn, 1)[1]
+    total, count = device_rows(fn, calls)
+    whole = count > 0 and count == calls * launches
+    return (total / calls if whole else None), count, calls * launches
 
 
 def check_decoder_boundary(rows: list, name: str, blk: dict, seed: int, paths: tuple) -> None:
@@ -3166,12 +3187,16 @@ def check_study_kernels(rows: list) -> None:
     0.05 against xla_einsum on the first 4 frames) and to its plain version
     (TOL_ENCODER of the max), with the SDPA yardstick. The probe's two
     entries at (63040, 768) x 12 layers (its inputs): bit-equal to each
-    other, each within TOL_ENCODER of the plain chain, with 12 chained
-    torch.matmul as the yardstick."""
+    other, each within TOL_ENCODER of the plain chain, each timed by CUDA
+    events and by the profiler's device time, with its share of the
+    operations bound, beside 12 chained torch.matmul (the yardstick) timed
+    in the same run; the launches' geometry and the card's co-resident
+    clusters printed."""
     import numpy as np
     import torch
     import torch.nn.functional as F
 
+    from dfd_clip_tpu_torch.ops import _cuda
     from dfd_clip_tpu_torch.ops import gemm_chain as gc
     from dfd_clip_tpu_torch.ops import study_attention as sa
     from dfd_clip_tpu_torch.tools import bench_attention as tba
@@ -3214,22 +3239,99 @@ def check_study_kernels(rows: list) -> None:
     del per_layer, mega, plain
 
     def library():
-        x = h0
-        for w_ in ws:
-            x = torch.matmul(x, w_)
-        return x
+        return chained_matmul(h0, ws)
 
     rows_, width, layers = h0.shape[0], h0.shape[1], ws.shape[0]
-    lib = time_ms(library)
+    geo = _cuda.chain_geometry(rows_, width, layers)
+    print(f"  gemm_chain megakernel geometry: {geo['panels']} panels of 128 rows, {geo['tiles']} "
+          f"column tiles of 256 a layer, {geo['units']} units of two panels on {geo['grid']} "
+          f"CTAs ({geo['clusters']} co-resident clusters of two), {geo['smem']} B shared memory",
+          flush=True)
+    flops = 2.0 * rows_ * width * width * layers
+    nbytes = 2.0 * 2 * rows_ * width + 2.0 * layers * width * width
+    bound, _ = bound_ms(flops, nbytes, PEAK_BF16_TC)
     plain_ms = time_ms(lambda: gc.gemm_chain_plain(h0, ws), iters=3, warmup=1)
-    for name, line, fn, counter in (
-            ("gemm_chain per_layer_calls", 60, gc.gemm_chain_per_layer, "gemm_chain_per_layer"),
-            ("gemm_chain megakernel", 90, gc.gemm_chain_megakernel, "gemm_chain_megakernel")):
+    entries = (("gemm_chain per_layer_calls", 60, gc.gemm_chain_per_layer, "gemm_chain_per_layer",
+                layers),
+               ("gemm_chain megakernel", 90, gc.gemm_chain_megakernel, "gemm_chain_megakernel", 1))
+    # the two entries and the yardstick in turns, each timed twice
+    times = {name: [] for name, *_ in entries}
+    lib = []
+    for _ in range(2):
+        lib.append(time_ms(library))
+        for name, _, fn, _, _ in entries:
+            times[name].append(time_ms(lambda: fn(h0, ws)))
+    lib_ms = min(lib)
+    def on_device(dev, traced, issued):
+        # a trace that lost a launch's row measured nothing
+        return (f"{dev:.4f} ms on the device ({traced} of {issued} launches traced)"
+                if dev is not None else
+                f"device time not measured ({traced} of {issued} launches traced)")
+
+    traces = probe_traces_child()
+    lib_dev = traces["library"]
+    print(f"  12 x torch.matmul: {' / '.join(f'{t:.4f}' for t in lib)} ms by events, "
+          f"{on_device(*lib_dev)}", flush=True)
+    for name, line, fn, counter, launches in entries:
+        ms = min(times[name])
+        dev = traces[counter]
+        shares = f"{bound / ms:.3f} of it by events"
+        if dev[0] is not None:
+            shares += f", {bound / dev[0]:.3f} on the device"
+        ratio = f"{ms / lib_ms:.3f} x 12 torch.matmul by events ({lib_ms:.4f} ms)"
+        if dev[0] is not None and lib_dev[0] is not None:
+            ratio += f", {dev[0] / lib_dev[0]:.3f} on the device"
+        print(f"  {name}: {' / '.join(f'{t:.4f}' for t in times[name])} ms by events, "
+              f"{on_device(*dev)}; bound {bound:.4f} ms (operations): {shares}; {ratio}",
+              flush=True)
         kernel_row(rows, name, f"tools/bench_megakernel_probe.py:{line}",
-                   "dfd_clip_tpu_torch/csrc/gemm_chain.cu", time_ms(lambda: fn(h0, ws)),
-                   plain_ms, lib, 2.0 * rows_ * width * width * layers,
-                   2.0 * 2 * rows_ * width + 2.0 * layers * width * width, PEAK_BF16_TC, err,
-                   counter=counter, paths=("tool_probe",))
+                   "dfd_clip_tpu_torch/csrc/gemm_chain.cu", ms, plain_ms, lib_ms, flops, nbytes,
+                   PEAK_BF16_TC, err, counter=counter, paths=("tool_probe",))
+
+
+def chained_matmul(h, ws):
+    """The probe's yardstick: len(ws) chained torch.matmul calls."""
+    import torch
+
+    for w_ in ws:
+        h = torch.matmul(h, w_)
+    return h
+
+
+def probe_traces() -> None:
+    """The device times of the probe's calls at (63040, 768) x 12 on its
+    inputs (12 x torch.matmul, gemm_chain_per_layer, gemm_chain_megakernel),
+    each from launches_ms, printed as one JSON line {name: [ms or null,
+    rows traced, launches issued]}. Run in a process of its own by
+    probe_traces_child."""
+    import numpy as np
+    import torch
+
+    from dfd_clip_tpu_torch.ops import _cuda
+    from dfd_clip_tpu_torch.ops import gemm_chain as gc
+    from dfd_clip_tpu_torch.tools import bench_megakernel_probe as tbm
+
+    _cuda.library()
+    dev = torch.device("cuda")
+    ws = tbm.make_weights(dev)
+    h0 = tbm.bf16(np.random.default_rng(0).normal(size=(tbm.ROWS, tbm.W)) * 0.02, dev)
+    print(json.dumps({
+        "library": launches_ms(lambda: chained_matmul(h0, ws)),
+        "gemm_chain_per_layer": launches_ms(lambda: gc.gemm_chain_per_layer(h0, ws), len(ws)),
+        "gemm_chain_megakernel": launches_ms(lambda: gc.gemm_chain_megakernel(h0, ws), 1)}))
+
+
+def probe_traces_child() -> dict:
+    """probe_traces in a new process (the kernels already built), waited
+    for: late in this script's run the profiler lost device rows of these
+    traces (a whole one was rare), while the traces of a process that has
+    taken none before held every launch."""
+    here = Path(__file__).resolve().parent
+    res = subprocess.run([sys.executable, "-c", "import chip_smoke; chip_smoke.probe_traces()"],
+                         cwd=here, capture_output=True, text=True, timeout=600)
+    if res.returncode != 0:
+        raise SystemExit(f"FAIL the probe's traces (exit {res.returncode}):\n{res.stderr[-3000:]}")
+    return json.loads(res.stdout.strip().splitlines()[-1])
 
 
 def tool_paths() -> dict:
@@ -3331,10 +3433,12 @@ def main() -> int:
         if "Used" in line or "spill" in line and "0 bytes spill" not in line:
             print("  " + line.strip(), flush=True)
     serialised = wgmma_serialised(log, ("gemm.cu", "gemm_s8.cu", "gemm_s8_quant.cu",
-                                        "encoder_attention_s8.cu", "study_attention.cu"))
+                                        "encoder_attention_s8.cu", "study_attention.cu",
+                                        "gemm_chain.cu"))
     if serialised:
-        raise SystemExit("FAIL the GEMMs', the int8 attention's or the study attention's wgmma "
-                         "products were serialised:\n" + "\n".join(serialised))
+        raise SystemExit("FAIL the GEMMs', the int8 attention's, the study attention's or the "
+                         "chained GEMM's wgmma products were serialised:\n"
+                         + "\n".join(serialised))
     for line in wgmma_serialised(log, tuple(p.name for p in _cuda.CSRC.glob("encoder_tower*.cu"))):
         print(f"  [the tower's ptxas] {line[:200]}", flush=True)
 

@@ -90,8 +90,18 @@ struct Export {
 // kernel's epilogue stays small in the instruction cache. kFormRes: a
 // residual added before the output's rounding, by the consumers;
 // kFormResStore: a bf16 residual added to the rounded bf16 value, by the
-// store warps (16-byte loads off the consumers' path).
-enum : int { kFormGelu = 1, kFormRes = 2, kFormExport = 4, kFormOut32 = 8, kFormResStore = 16 };
+// store warps (16-byte loads off the consumers' path); kFormChain: the
+// store warps keep C in L2 (plain stores) and mark each stored tile for a
+// TMA load of it later in the launch (csrc/gemm_chain.cu, whose next layer
+// reads it as A).
+enum : int {
+  kFormGelu = 1,
+  kFormRes = 2,
+  kFormExport = 4,
+  kFormOut32 = 8,
+  kFormResStore = 16,
+  kFormChain = 32
+};
 
 // The forms a kernel exists for, those the wrappers produce (ops/_cuda.py
 // takes QuickGELU, a residual or the export, one at a time): a bf16 output
@@ -487,10 +497,13 @@ __device__ __forceinline__ void consume(const Smem<BN>& sm, const Walk& w,
 // projection, into the K/V export, while the consumers run the next tile's
 // products. A warp takes whole rows (16 bytes a lane, 32 / (BN / 8) rows a
 // step) and follows their (frame, token) by increments, without a division
-// a row.
+// a row. With kFormChain each thread then makes its stores visible to the
+// async proxy and arrives on the mbarrier at `stored` + 8 x the tile's
+// column index (32 x STORE_WARPS arrivals a tile).
 template <class Op, int BN, int FORM>
 __device__ __forceinline__ void store_tiles(const Smem<BN>& sm, const Walk& w, const Out& o,
-                                            int rank, int unit0, int step, Counts& cnt) {
+                                            int rank, int unit0, int step, Counts& cnt,
+                                            uint32_t stored = 0) {
   constexpr int CL = Layout<BN>::CLUSTER;
   constexpr int CHUNKS = BN / 8;                 // 16-byte chunks of a row
   constexpr int PER = 32 / CHUNKS;               // rows a warp stores a step
@@ -533,7 +546,10 @@ __device__ __forceinline__ void store_tiles(const Smem<BN>& sm, const Walk& w, c
               v[q].h[e] =
                   __float2bfloat16(__bfloat162float(res[q].h[e]) + __bfloat162float(v[q].h[e]));
           }
-          if (o.store)
+          if (FORM & kFormChain)
+            *reinterpret_cast<uint4*>(static_cast<bf16*>(o.c) + (size_t)row * o.ldc + col) =
+                v[q].u;
+          else if (o.store)
             __stcs(reinterpret_cast<uint4*>(static_cast<bf16*>(o.c) + (size_t)row * o.ldc + col),
                    v[q].u);
           if (FORM & kFormExport) {
@@ -546,6 +562,10 @@ __device__ __forceinline__ void store_tiles(const Smem<BN>& sm, const Walk& w, c
           for (tok += STRIDE; tok >= o.ex.tokens; tok -= o.ex.tokens) ++frame;
         }
       }
+    }
+    if constexpr ((FORM & kFormChain) != 0) {
+      asm volatile("fence.proxy.async.global;\n" ::: "memory");
+      mbar_arrive(stored + 8u * (u % w.tiles_n));
     }
     mbar_arrive(sm.out_empty());   // every thread is past its reads
   }

@@ -32,8 +32,9 @@ count), ``encoder_attention_s8`` the int8 encoder attention (one TMA / int8
 ``wgmma`` kernel at every token count, on the encoder attention's frame)
 and ``encoder_tower`` the whole-encoder tower (one cooperative launch whose
 stages run the GEMMs', the encoder attention's and the int8 attention's
-bodies), and ``study_attention`` / ``gemm_chain`` the kernels of the
-tools' studies (ops/study_attention.py, ops/gemm_chain.py).
+bodies), and ``study_attention`` / ``gemm_chain`` (with
+``gemm_chain_layer``, its per-layer entry on the GEMM's frame) the kernels
+of the tools' studies (ops/study_attention.py, ops/gemm_chain.py).
 They take CUDA tensors only; the attention entries and the tower count
 nothing themselves, their callers count them under their own names (the plain
 versions live beside the functions that use them, the int8 ones in
@@ -122,6 +123,8 @@ BWD_SAMPLE = 4 * (3 * 64 + 4) + BWD_WARPS * 4 * 128
 # issued, the last stage consumed (dpos stored), the chunk's dq written, the
 # item done (the head's last block: the chunks added)
 BWD_CLOCK = ("start", "table", "first stage", "issued", "streamed", "merged", "done")
+# the widest row the chained product takes (csrc/gemm_chain.cu MAX_W)
+CHAIN_MAX_WIDTH = 768
 
 
 def reset_launches() -> None:
@@ -204,7 +207,9 @@ _SIGNATURES = {
     "dfd_encoder_attention_packed": [_P, _P, _I, _I, _I, _F, _I, _P],
     "dfd_encoder_attention_s8": [_P, _P, _I, _I, _I, _F, _I, _P],
     "dfd_study_attention": [_P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _I, _I, _P],
-    "dfd_gemm_chain": [_P, _P, _P, _I, _I, _I, _P],
+    "dfd_gemm_chain": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "dfd_gemm_chain_layer": [_P, _P, _P, _I, _I, _P],
+    "dfd_gemm_chain_geometry": [_I, _I, _I, ctypes.POINTER(ctypes.c_int)],
     "dfd_encoder_tower_grid": [_I, _I, _I, ctypes.POINTER(ctypes.c_int)],
     "dfd_encoder_tower_table": [_P, _I, _I, _I, _I],
     "dfd_encoder_tower": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F,
@@ -1028,21 +1033,71 @@ def study_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mode: str
     return out
 
 
-def gemm_chain(h: torch.Tensor, ws: torch.Tensor) -> torch.Tensor:
-    """csrc/gemm_chain.cu: h (R, W) bf16 through len(ws) products h =
-    bf16(h @ ws[l]) in one launch, ws (L, W, W) contiguous bf16, W a
-    multiple of 128 and at most 768 -> (R, W) bf16."""
-    name = "gemm_chain"
+def chain_shape(rows: int, width: int, layers: int) -> None:
+    """Raises unless the chained product takes h (``rows``, ``width``)
+    through ``layers`` weights: rows, layers >= 1, width a multiple of 128
+    up to CHAIN_MAX_WIDTH, the stacked weights' rows within an int."""
+    if rows < 1 or layers < 1:
+        raise ValueError(f"gemm_chain: needs rows, layers >= 1, got {rows}, {layers}")
+    if width % 128 or not 128 <= width <= CHAIN_MAX_WIDTH:
+        raise ValueError(f"gemm_chain: width {width} must be a multiple of 128, at most "
+                         f"{CHAIN_MAX_WIDTH}")
+    if layers * width > GRID_MAX:
+        raise ValueError(f"gemm_chain: {layers} layers of width {width} exceed the weights' "
+                         f"int rows")
+
+
+def chain_geometry(rows: int, width: int, layers: int) -> Dict[str, int]:
+    """The megakernel's launch on the current card as csrc/gemm_chain.cu
+    sets it: row ``panels`` of 128, ``units`` (a cluster's two panels, each
+    through every layer), column ``tiles`` of 256 a layer, the card's
+    co-resident ``clusters`` of two, the ``grid`` in CTAs and the dynamic
+    shared memory ``smem`` in bytes."""
+    chain_shape(rows, width, layers)
+    out = (ctypes.c_int * 6)()
+    check_launch("gemm_chain", library().dfd_gemm_chain_geometry(rows, width, layers, out))
+    return dict(zip(("panels", "units", "tiles", "clusters", "grid", "smem"), out))
+
+
+def _chain_args(name: str, h: torch.Tensor, ws: torch.Tensor) -> None:
     require_cuda(name, h, ws)
     if h.dim() != 2 or ws.dim() != 3 or not (h.is_contiguous() and ws.is_contiguous()):
         raise ValueError(f"{name}: takes contiguous h (R, W) and ws (L, W, W)")
     rows, w = h.shape
-    if ws.shape[1:] != (w, w) or ws.shape[0] < 1 or w % 128 or w > 768 or rows < 1:
-        raise ValueError(f"{name}: h {tuple(h.shape)}, ws {tuple(ws.shape)}: W must be a "
-                         f"multiple of 128, at most 768")
+    if ws.shape[1:] != (w, w):
+        raise ValueError(f"{name}: h {tuple(h.shape)} and ws {tuple(ws.shape)} differ in W")
+    chain_shape(rows, w, ws.shape[0])
+
+
+def gemm_chain(h: torch.Tensor, ws: torch.Tensor) -> torch.Tensor:
+    """csrc/gemm_chain.cu's megakernel: h (R, W) bf16 through len(ws)
+    products h = bf16(h @ ws[l]) in one launch, each cluster's pair of
+    128-row panels through every layer, a layer's output read back from L2
+    as the next one's A; ws (L, W, W) contiguous bf16, W a multiple of 128
+    and at most 768 -> (R, W) bf16. An (R, W) scratch takes the layers whose
+    output is not the result's buffer (none when L is 1)."""
+    name = "gemm_chain"
+    _chain_args(name, h, ws)
+    rows, w = h.shape
     out = torch.empty_like(h)
-    err = library().dfd_gemm_chain(h.data_ptr(), out.data_ptr(), ws.data_ptr(), rows, w,
-                                   ws.shape[0], stream())
+    other = torch.empty_like(h) if ws.shape[0] > 1 else out
+    err = library().dfd_gemm_chain(h.data_ptr(), out.data_ptr(), other.data_ptr(),
+                                   ws.data_ptr(), rows, w, ws.shape[0], stream())
+    check_launch(name, err)
+    return out
+
+
+def gemm_chain_layer(h: torch.Tensor, w_l: torch.Tensor) -> torch.Tensor:
+    """One layer of the chain, bf16(h @ w_l) with f32 accumulate and no bias:
+    the bf16 GEMM's frame (csrc/gemm_hopper.cuh) in its plain form, always at
+    128 x 256 tiles (the megakernel's instruction), csrc/gemm_chain.cu;
+    h (R, W), w_l (W, W) contiguous bf16 -> (R, W) bf16."""
+    name = "gemm_chain_layer"
+    _chain_args(name, h, w_l.unsqueeze(0))
+    rows, w = h.shape
+    out = torch.empty_like(h)
+    err = library().dfd_gemm_chain_layer(h.data_ptr(), out.data_ptr(), w_l.data_ptr(), rows, w,
+                                         stream())
     check_launch(name, err)
     return out
 

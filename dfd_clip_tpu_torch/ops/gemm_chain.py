@@ -3,13 +3,17 @@ tools/bench_megakernel_probe.py's ``per_layer_calls`` and ``megakernel``).
 
 Both entries compute len(ws) chained products h = bf16(h @ W_l) over h (R,
 W) bf16 with f32 accumulation and no bias, through csrc/gemm_chain.cu on
-CUDA tensors: ``gemm_chain_per_layer`` launches it once a layer (h through
-device memory between the launches), ``gemm_chain_megakernel`` once, with
-the layer sweep inside the kernel and each block's rows carried in shared
-memory. The kernel runs one block body in one k-order for both, so their
-results are bit-equal. On CPU tensors both take ``gemm_chain_plain``.
-``ws`` is a contiguous (L, W, W) bf16 tensor (the probe stacks its weights
-once, outside the timed calls).
+CUDA tensors, on the bf16 GEMM's persistent TMA / ``wgmma`` frame
+(csrc/gemm_hopper.cuh: 128 x 256 tiles in clusters of two CTAs sharing the
+weight's tile). ``gemm_chain_per_layer`` launches the frame's plain kernel
+once a layer, h through device memory between the launches.
+``gemm_chain_megakernel`` launches once: each cluster takes its pair of
+128-row panels through every layer, a layer's output read back from L2 as
+the next one's A, waiting only on its own panels' previous layer. Both run
+the frame's consumers (wgmma m64n256k16, K in steps of 16 from 0, one bf16
+rounding), so their results are bit-equal. On CPU tensors both take
+``gemm_chain_plain``. ``ws`` is a contiguous (L, W, W) bf16 tensor (the
+probe stacks its weights once, outside the timed calls).
 """
 
 from __future__ import annotations
@@ -31,7 +35,7 @@ def gemm_chain_per_layer(h: torch.Tensor, ws: torch.Tensor) -> torch.Tensor:
     if _cuda.on_cpu("gemm_chain_per_layer", h):
         return gemm_chain_plain(h, ws)
     for i in range(ws.shape[0]):
-        h = _cuda.gemm_chain(h, ws[i: i + 1])
+        h = _cuda.gemm_chain_layer(h, ws[i])
         _cuda.LAUNCHES["gemm_chain_per_layer"] += 1
     return h
 

@@ -1,7 +1,7 @@
 """Time the megakernel probe of tools/bench_megakernel_probe.py on the card:
 12 launches of one chained product (h through device memory between the
-layers) against one launch that carries each block's rows in shared memory
-across the layer sweep.
+layers) against one launch that takes each pair of row panels through
+every layer, a layer's output read back from L2 as the next one's input.
 
     python -m dfd_clip_tpu_torch.tools.bench_megakernel_probe [--check] [--device cuda|cpu]
 
@@ -67,7 +67,7 @@ def main(argv=None) -> int:
     t_split = time_op(gemm_chain_per_layer, h0, ws, iters=ITERS)
     print(f"{'12 per-layer launches (h via HBM)':36s} {t_split * 1e3:7.3f} ms", flush=True)
     t_mega = time_op(gemm_chain_megakernel, h0, ws, iters=ITERS)
-    print(f"{'one launch, h in shared memory':36s} {t_mega * 1e3:7.3f} ms", flush=True)
+    print(f"{'one launch, h through L2':36s} {t_mega * 1e3:7.3f} ms", flush=True)
     print(f"delta {1e3 * (t_split - t_mega):+.3f} ms")
     return 0
 

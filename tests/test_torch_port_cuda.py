@@ -1325,13 +1325,32 @@ def test_study_attention_modes(dev, mode, tokens, frames):
         sa.study_attention(q, k, v, "tf32")
 
 
-@pytest.mark.parametrize("rows,width,layers", [(1000, 768, 3), (64, 128, 1), (333, 256, 12)])
+@pytest.mark.parametrize("rows,width,layers", [
+    (1000, 768, 3), (64, 128, 1), (333, 256, 12),
+    (127, 768, 2), (128, 768, 2), (129, 768, 2),   # a 128-row panel's and a cluster's edges
+    (320, 384, 3),      # 3 panels: the second cluster of two holds one
+    (129, 640, 2),      # a half-empty third column tile
+    # more units than co-resident clusters: a CTA's next unit starts while its
+    # last layer is being stored (narrow widths: one or two tiles a layer)
+    (20000, 128, 2), (40000, 128, 5), (40000, 256, 3), (40000, 384, 2),
+    (63040, 768, 12),   # the probe's shape
+])
 def test_gemm_chain_entries(dev, rows, width, layers):
     """The probe's two entries are bit-equal, and within REL of the plain
-    chain; ragged row counts (not multiples of 64)."""
+    chain; ragged row counts (not multiples of 128), panels and clusters cut
+    at their edges, widths whose last 256-column tile is half empty, CTAs
+    that walk several units at narrow widths, the probe's full shape;
+    counted. The megakernel's launch geometry (read from the kernel's
+    source through chain_geometry) covers the rows."""
     from dfd_clip_tpu_torch.ops import _cuda
     from dfd_clip_tpu_torch.ops import gemm_chain as gc
 
+    geo = _cuda.chain_geometry(rows, width, layers)
+    assert geo["panels"] == -(-rows // 128) and geo["units"] == -(-geo["panels"] // 2)
+    assert geo["tiles"] == -(-width // 256)
+    assert geo["grid"] == 2 * min(geo["units"], geo["clusters"])
+    assert geo["smem"] <= _cuda.SMEM_LIMIT
+    assert (geo["units"] > geo["clusters"]) == (rows >= 20000)
     gen = torch.Generator().manual_seed(42 + rows)
     h = randn(gen, rows, width).to(dev, torch.bfloat16)
     ws = randn(gen, layers, width, width, scale=width ** -0.5).to(dev, torch.bfloat16)
@@ -1343,6 +1362,8 @@ def test_gemm_chain_entries(dev, rows, width, layers):
     assert rel_err(b, gc.gemm_chain_plain(h, ws)) <= REL
     with pytest.raises(ValueError):
         _cuda.gemm_chain(h[:, :96].contiguous(), ws[:, :96, :96].contiguous())
+    with pytest.raises(ValueError):
+        _cuda.gemm_chain_layer(h[:, :96].contiguous(), ws[0, :96, :96].contiguous())
 
 
 # -- the decoder attention split over chunks of L; the persistent layer_norm_quant --------
