@@ -29,7 +29,21 @@
    read just after; one batch's logits are held against the same Detector
    run through the plain versions; then a device-resident predict is timed
    and one predict and one request are traced with torch.profiler (device
-   busy time and the kernels that take it);
+   busy time and the kernels that take it); then the HTTP entry as a user
+   runs it (`[serve http]`, which needs cv2 and yaml): a run directory
+   written by the port's save_params from seeded params with a setting.yaml
+   for the flagship preset, Scorer.from_run_dir (setting.yaml read, then
+   from_preset), a ThreadingHTTPServer on 127.0.0.1 answering /healthz, 404
+   for an unknown path, four synthetic:// videos through /score_path (40-80
+   frames, one at 320 pixels) and a cv2-written mp4v video's bytes through
+   /score, each counted (12 / 11 / 6 / 7 launches) and equal to an
+   independent Scorer's score_frames on the same frames, HTTP and Scorer
+   times printed, and 400 for a missing video; then inference.main
+   (`python -m dfd_clip_tpu_torch.inference`'s entry) on the same run over
+   a Celeb-DF tree of four cv2-written videos, counted and each video's
+   P(fake) equal to that Scorer's on the clips the dataset packs; then one
+   predict with patch_indices (98 of 196 patches a kept layer) held against
+   the plain versions;
 5. checks the int8 kernels (W8A8 GEMM, the row quantisers, the MLP's c_fc
    with its rows quantised on chip (gemm_s8_quant), the f32 encoder
    attention, the whole int8 block, the int8 last_only layer and the int8
@@ -315,7 +329,7 @@ SWEEP_TOKENS = (1, 17, 64, 65, 197, 257, 320, 321, 577, 1025)
 # H100 SXM), so that tiles are dealt across items and the ring refills
 # item after item
 SWEEP_FRAMES = 24
-VITB_PATHS = ("serve", "train", "int8_serve", "int8_rows")
+VITB_PATHS = ("serve", "serve_http", "train", "int8_serve", "int8_rows")
 VITL_PATHS = ("vitl_serve", "vitl_int8_serve")
 # the encoder's alternative kernel paths (EncoderKernels): block="full" in
 # bf16, compute_int8 with int8_attn "1" and "qk", and the tower
@@ -533,7 +547,7 @@ def check_kernels(rows: list) -> None:
         time_ms(lambda: plain_attention_qkv(qkv.reshape(n, t, 3 * w), hh, d)),
         time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4)),
         4.0 * n * hh * t * t * d, 2.0 * (m_rows * 3 * w + m_rows * w), PEAK_BF16_TC, err,
-        paths=("serve", "train", "full_bf16"))
+        paths=("serve", "serve_http", "train", "full_bf16"))
     del qkv, q4, k4, v4, att, y, got
 
     # -- fused_encoder_attn_block: full + stacked export, and last_only -----------
@@ -578,7 +592,8 @@ def check_kernels(rows: list) -> None:
     nbytes = 4.0 * m_rows * w + 8.0 * w * w + 4.0 * n * t_out * w + 32.0 * w
     row("fused_encoder_attn_block", "dfd_clip_tpu/ops/pallas_attention.py:532",
         "dfd_clip_tpu_torch/ops/encoder_block.py", time_ms(attn_full), time_ms(attn_plain),
-        None, flops, nbytes, PEAK_BF16_TC, err, paths=("serve", "train", "full_bf16"))
+        None, flops, nbytes, PEAK_BF16_TC, err,
+        paths=("serve", "serve_http", "train", "full_bf16"))
     last_ms = time_ms(lambda: eb.fused_encoder_attn_block(
         h, ln1, blk["attn"], hh, d, drop_cls=True, last_only=True,
         export_into=(kl, vl, 5, nsel), kv_pad=4))
@@ -597,13 +612,13 @@ def check_kernels(rows: list) -> None:
         time_ms(lambda: eb.fused_encoder_mlp_block(h, blk["ln_2"], blk["mlp"])),
         time_ms(lambda: eb.fused_encoder_mlp_block_plain(h, blk["ln_2"], blk["mlp"])),
         None, 16.0 * m_rows * w * w, 4.0 * m_rows * w + 16.0 * w * w + 28.0 * w,
-        PEAK_BF16_TC, err)
+        PEAK_BF16_TC, err, paths=("serve", "serve_http", "train"))
     del got, h
 
     # -- fused_decoder_attention and decoder_boundary (the ViT-B export: 200
     # rows a frame, 196 of them valid); DINOv2's boundaries run at this width
     check_decoder_attention(rows, "fused_decoder_attention", gen, dev, hh, t_out, 196,
-                            ("serve", "int8_serve") + VARIANT_PATHS)
+                            ("serve", "serve_http", "int8_serve") + VARIANT_PATHS)
     check_train_attention(row, gen, dev)
     check_decoder_boundary(rows, "decoder_boundary", blk, 2,
                            VITB_PATHS + ("dinov2_serve",) + VARIANT_PATHS)
@@ -1842,9 +1857,7 @@ def serve_path(card: str) -> dict:
     scorer = Scorer(det, det.init_params(torch.Generator().manual_seed(0)), batch_size=CLIPS)
     requests = make_requests()
     counts = answer(scorer, requests, card, "serve")
-    check_counts("serve", counts, {"fused_encoder_attn_block": 12, "fused_encoder_mlp_block": 11,
-                                   "fused_decoder_attention": 6, "decoder_boundary": 7},
-                 len(requests))
+    check_counts("serve", counts, FLAGSHIP_COUNTS, len(requests))
 
     # one batch's logits: kernels vs the same Detector through the plain versions
     x, m = last_batch(requests)
@@ -1857,6 +1870,268 @@ def serve_path(card: str) -> dict:
     profile_device("predict", lambda: scorer.predict(scorer.params, xd, md))
     profile_device("request", lambda: scorer.score_frames(requests[-1]))
     return counts
+
+
+# the HTTP phase's videos: (seconds at 25 fps, frame size); 40, 60, 80 and 80
+# frames, as make_requests's, one at 320 pixels (resize and crop)
+HTTP_VIDEOS = ((8, 224), (12, 224), (16, 320), (16, 224))
+CLIP_SECONDS = 4.0        # data.clip_duration (configs/deepfake/deepfake.yaml)
+TOL_HTTP = 1e-6           # an answer against the Scorer's score_frames, same frames
+FLAGSHIP_COUNTS = {"fused_encoder_attn_block": 12, "fused_encoder_mlp_block": 11,
+                   "fused_decoder_attention": 6, "decoder_boundary": 7}
+# the video file sent to /score as raw bytes: (seconds at 25 fps, frame size)
+SCORE_VIDEO = (12, 320)
+# inference.main's Celeb-DF tree: (label, seconds at 25 fps) of each video,
+# 224-pixel MJPG .avi files as the preprocessing pipeline writes them
+EVAL_VIDEOS = (("REAL", 8), ("REAL", 12), ("FAKE", 12), ("FAKE", 8))
+
+
+def http_call(port: int, endpoint: str, body=None) -> tuple:
+    """(status, JSON payload) of one request to the local server; an error
+    status is returned, not raised."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{endpoint}", data=body)
+    try:
+        with urllib.request.urlopen(req, timeout=300) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def write_video(file: str, seconds: float, size: int, fourcc: str, seed: int) -> None:
+    """A 25 fps video of a seeded image drifting in brightness (cv2)."""
+    import cv2
+    import numpy as np
+
+    Path(file).parent.mkdir(parents=True, exist_ok=True)
+    writer = cv2.VideoWriter(file, cv2.VideoWriter_fourcc(*fourcc), 25.0, (size, size))
+    if not writer.isOpened():
+        raise SystemExit(f"FAIL serve_http: cv2 cannot write {file} ({fourcc})")
+    base = np.random.default_rng(seed).integers(0, 200, (size, size, 3), np.uint8)
+    for i in range(int(seconds * 25)):
+        writer.write(np.clip(base.astype(np.int32) + i % 50, 0, 255).astype(np.uint8))
+    writer.release()
+
+
+def sampled_frames(backend, file: str):
+    """The frames score_video reads: every CLIP_SECONDS / FRAMES seconds that
+    the video holds."""
+    import numpy as np
+
+    from dfd_clip_tpu_torch.data.video import _time_to_frame_index
+
+    meta = backend.probe(file)
+    times = [t for t in np.arange(0, meta.duration, CLIP_SECONDS / FRAMES)
+             if _time_to_frame_index(t, meta.fps) < meta.frames]
+    return backend.read_frames(file, times)
+
+
+def dataset_frames(backend, file: str):
+    """A test video's clips as the datasets pack them (data/datasets.py,
+    get_dict): clip k at int(k * clip_duration) seconds, FRAMES frames
+    (fps * clip_duration - 1) / (FRAMES - 1) frame intervals apart, every
+    whole clip the video holds; the clips' frames one after another."""
+    import numpy as np
+
+    meta = backend.probe(file)
+    stride = ((int(meta.fps * CLIP_SECONDS) - 1) / (FRAMES - 1)) / meta.fps
+    clips = [backend.read_frames(file, [int(k * CLIP_SECONDS) + i * stride
+                                        for i in range(FRAMES)])
+             for k in range(int(meta.duration // CLIP_SECONDS))]
+    return np.concatenate(clips)
+
+
+def timed_score(reference, frames) -> tuple:
+    """(P(fake), ms) of the reference Scorer's score_frames."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = reference.score_frames(frames)
+    torch.cuda.synchronize()
+    return want, (time.perf_counter() - t0) * 1e3
+
+
+def serve_http_path(card: str) -> dict:
+    """The serving entries as a user runs them: a run directory written with
+    the port's save_params (a framework-native encoder.pt and
+    best_weights.pt from seeded params) and a setting.yaml for the flagship
+    preset; Scorer.from_run_dir (which reads it and calls from_preset) behind
+    a ThreadingHTTPServer on a thread; /healthz, an unknown path, four
+    synthetic:// videos through /score_path and a cv2-written video's raw
+    bytes through /score, each counted and held to an independent Scorer's
+    score_frames on the same frames, and a video that cannot be read; then
+    inference.main over a Celeb-DF tree of cv2-written videos, counted and
+    held video by video to that Scorer on the clips the dataset packs; then
+    one predict with patch_indices held against the plain versions. Returns
+    the launch counts of the requests and of inference.main."""
+    import collections
+    import os
+    import pickle
+    import tempfile
+    import threading
+    from http.server import ThreadingHTTPServer
+
+    import cv2
+    import numpy as np
+    import torch
+    import yaml
+
+    from dfd_clip_tpu_torch import inference
+    from dfd_clip_tpu_torch.data.video import OpenCVBackend, SyntheticBackend
+    from dfd_clip_tpu_torch.models.weights import save_params
+    from dfd_clip_tpu_torch.ops import _cuda
+    from dfd_clip_tpu_torch.serve import Scorer, make_handler
+
+    print(f"  cv2 {cv2.__version__}, yaml {yaml.__version__}", flush=True)
+    det = detector()
+    params = det.init_params(torch.Generator().manual_seed(0))
+    reference = Scorer(det, params, batch_size=CLIPS)
+    counts: collections.Counter = collections.Counter()
+    with tempfile.TemporaryDirectory() as work:
+        run_dir, cdf = str(Path(work) / "run"), str(Path(work) / "cdf")
+        encoder = str(Path(run_dir) / "encoder.pt")
+        Path(run_dir).mkdir()
+        save_params(encoder, {"backbone": params["encoder"]})
+        save_params(str(Path(run_dir) / "best_weights.pt"),
+                    {"trainable": {"decoder": params["decoder"]}, "steps": 0})
+        setting = {"model": {**det.config.to_dict(), "pretrained": encoder},
+                   "data": {"num_frames": FRAMES, "clip_duration": CLIP_SECONDS,
+                            "eval": [{"name": "CDF", "category": "Deepfake",
+                                      "root_dir": cdf}]}}
+        (Path(run_dir) / "setting.yaml").write_text(yaml.safe_dump(setting))
+        t0 = time.perf_counter()
+        scorer = Scorer.from_run_dir(run_dir, batch_size=CLIPS)
+        print(f"  Scorer.from_run_dir: {time.perf_counter() - t0:.2f} s (setting.yaml read, "
+              f"from_preset, params on the card)", flush=True)
+        server = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(scorer))
+        port = server.server_address[1]
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        try:
+            status, payload = http_call(port, "/healthz")
+            print(f"  GET /healthz -> {status} {payload}", flush=True)
+            if (status, payload) != (200, {"ok": True}):
+                raise SystemExit(f"FAIL serve_http: /healthz answered {status} {payload}")
+            status, payload = http_call(port, "/nope")
+            print(f"  GET /nope -> {status} {payload}", flush=True)
+            if status != 404:
+                raise SystemExit(f"FAIL serve_http: /nope answered {status}, expected 404")
+            video = str(Path(work) / "upload.mp4")
+            write_video(video, *SCORE_VIDEO, "mp4v", seed=5)
+            requests = [(f"/score_path {url}", "/score_path",
+                         json.dumps({"path": url}).encode(), SyntheticBackend(), url)
+                        for url in (f"synthetic://{i}?fps=25&duration={sec}&size={size}"
+                                    for i, (sec, size) in enumerate(HTTP_VIDEOS))]
+            requests.append((f"/score {Path(video).stat().st_size} bytes of mp4v "
+                             f"{SCORE_VIDEO[1]}x{SCORE_VIDEO[1]}", "/score",
+                             Path(video).read_bytes(), OpenCVBackend(), video))
+            for i, (label, endpoint, body, backend, source) in enumerate(requests):
+                torch.cuda.synchronize()
+                _cuda.reset_launches()
+                t0 = time.perf_counter()
+                status, payload = http_call(port, endpoint, body)
+                http_ms = (time.perf_counter() - t0) * 1e3
+                request_counts = _cuda.launches()
+                counts.update(request_counts)
+                if status != 200:
+                    raise SystemExit(f"FAIL serve_http request {i}: {status} {payload}")
+                frames = sampled_frames(backend, source)
+                want, scorer_ms = timed_score(reference, frames)
+                delta = abs(payload["p_fake"] - want)
+                print(f"  POST {label}: {len(frames)} frames -> {len(frames) // FRAMES} "
+                      f"clips, P(fake) {payload['p_fake']:.9f}, Scorer score_frames "
+                      f"{want:.9f}, |d| {delta:.3e} (tol {TOL_HTTP:g}); HTTP {http_ms:.2f} "
+                      f"ms, score_frames {scorer_ms:.2f} ms, on {card}", flush=True)
+                check_counts(f"serve_http request {i}", request_counts, FLAGSHIP_COUNTS, 1)
+                if not delta <= TOL_HTTP:
+                    raise SystemExit(f"FAIL serve_http request {i}: P(fake) "
+                                     f"{payload['p_fake']} vs score_frames {want}")
+            status, payload = http_call(port, "/score_path",
+                                        json.dumps({"path": "/nonexistent.avi"}).encode())
+            print(f"  POST /score_path /nonexistent.avi -> {status} {payload}", flush=True)
+            if status != 400 or not isinstance(payload.get("error"), str):
+                raise SystemExit(f"FAIL serve_http: a missing video answered {status} {payload}")
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join(timeout=30)
+
+        # inference.main over a Celeb-DF tree: one predict a video (each
+        # video's clips fit one batch of CLIPS)
+        names = {"REAL": [], "FAKE": []}
+        for i, (label, seconds) in enumerate(EVAL_VIDEOS):
+            name = f"{label.lower()}{i}"
+            write_video(f"{cdf}/{label}/videos/{name}.avi", seconds, 224, "MJPG", seed=10 + i)
+            names[label].append(name)
+        Path(cdf, "csv_files").mkdir()
+        for label, rows in names.items():
+            Path(cdf, "csv_files", f"test_{label.lower()}.csv").write_text(
+                "\n".join(f"{n}.avi {int(label == 'FAKE')}" for n in rows))
+        print(f"[serve http inference] inference.main over {len(EVAL_VIDEOS)} Celeb-DF "
+              f"videos ({', '.join(f'{s} s' for _, s in EVAL_VIDEOS)}), --modality video, "
+              f"batch {CLIPS}", flush=True)
+        previous = os.getcwd()
+        os.chdir(work)   # the datasets' video-table cache goes under the working directory
+        try:
+            torch.cuda.synchronize()
+            _cuda.reset_launches()
+            t0 = time.perf_counter()
+            report = inference.main(inference.parse_args(
+                [run_dir, "--batch_size", str(CLIPS), "--num_workers", "2",
+                 "--video_backend", "opencv"]))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            run_counts = _cuda.launches()
+        finally:
+            os.chdir(previous)
+        counts.update(run_counts)
+        (stats_file,) = Path(run_dir).glob("stats_*_best_video.pickle")
+        (report_file,) = Path(run_dir).glob("report_*_best_video.json")
+        stats = pickle.loads(stats_file.read_bytes())
+        print(f"  inference.main: {wall:.2f} s, report {report}", flush=True)
+        check_counts("serve_http inference.main", run_counts, FLAGSHIP_COUNTS,
+                     len(EVAL_VIDEOS))
+        if json.loads(report_file.read_text()) != report or sorted(report) != ["CDF"]:
+            raise SystemExit(f"FAIL serve_http inference.main: report {report}")
+        labels = [int(label == "FAKE") for label, _ in EVAL_VIDEOS]
+        if sorted(stats) != ["CDF"] or sorted(stats["CDF"]["label"]) != sorted(labels):
+            raise SystemExit(f"FAIL serve_http inference.main: stats {stats}")
+        order = [(label, f"{label.lower()}{i}") for i, (label, _) in enumerate(EVAL_VIDEOS)]
+        order = [o for lab in ("REAL", "FAKE") for o in order if o[0] == lab]
+        opencv = OpenCVBackend()
+        for (label, name), got, got_label in zip(order, stats["CDF"]["prob"],
+                                                 stats["CDF"]["label"]):
+            frames = dataset_frames(opencv, f"{cdf}/{label}/videos/{name}.avi")
+            want, _ = timed_score(reference, frames)
+            delta = abs(got - want)
+            print(f"  {label}/{name}: {len(frames) // FRAMES} clips, P(fake) {got:.9f}, "
+                  f"Scorer score_frames {want:.9f}, |d| {delta:.3e} (tol {TOL_HTTP:g})",
+                  flush=True)
+            if got_label != int(label == "FAKE") or not delta <= TOL_HTTP:
+                raise SystemExit(f"FAIL serve_http inference.main {name}: label {got_label}, "
+                                 f"P(fake) {got} vs score_frames {want}")
+    del reference
+
+    # patch_indices: half of the 196 patches, drawn per kept layer
+    rng = np.random.default_rng(7)
+    idx = np.stack([rng.choice(196, 98, replace=False) for _ in KEEP])
+    x, m = last_batch(make_requests())
+
+    def predict(x_, m_):
+        return scorer.model.predict(scorer.params, x_, m_, patch_indices=idx)[0][0]
+
+    print(f"[serve http patch_indices] 98 of 196 patches a kept layer, L = {FRAMES} x 98",
+          flush=True)
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    predict(x, m)
+    torch.cuda.synchronize()
+    check_counts("serve_http patch_indices", _cuda.launches(), FLAGSHIP_COUNTS, 1)
+    hold_against_plain("patch_indices predict", predict, x, m)
+    return dict(counts)
 
 
 def int8_serve_path(card: str):
@@ -3460,6 +3735,10 @@ def main() -> int:
     counts = {}
     print("[serve path] Scorer over ViT-B/16, 20 frames, keep 6-11, bf16, batch 16", flush=True)
     counts["serve"] = serve_path(card)
+    print("[serve http] Scorer.from_run_dir on a run directory (ViT-B/16, 20 frames, keep "
+          "6-11, bf16, batch 16), HTTP on 127.0.0.1, four synthetic:// videos and a video "
+          "file's bytes; inference.main on the same run", flush=True)
+    counts["serve_http"] = serve_http_path(card)
     print("[int8 serve path] Scorer over ViT-B/16, 20 frames, keep 6-11, compute_int8, "
           "batch 16", flush=True)
     counts["int8_serve"], counts["int8_rows"] = int8_serve_path(card)

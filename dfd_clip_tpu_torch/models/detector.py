@@ -16,9 +16,10 @@ scales into the decoder; both are inference-only here. ``encoder_kernels``
 (``EncoderKernels``) chooses the CLIP encoder's kernel paths, as the JAX
 package's DFD_FUSED_BLOCK, DFD_MEGAKERNEL and DFD_INT8_ATTN do (the tower's
 export is unpadded); DINOv2 ignores it, as JAX's DINOv2 tower ignores them.
-The adapter,
-patch-index gathering, ``kv_dtype = "int8"``, the compression and temporal
-losses, ``ema_frame`` and ``patch_mask`` are not ported yet and raise.
+``predict(patch_indices=...)`` gathers each kept layer's patches
+before the decoder (bf16 and int8_rows K/V alike). The adapter,
+``kv_dtype = "int8"``, the compression and temporal losses, ``ema_frame``
+and ``patch_mask`` are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -275,9 +276,10 @@ class Detector:
         """Logits for a clip batch: x (B, T, 3, H, W) uint8 or float, m (B, T)
         bool, as arrays or tensors. Returns (task logits list, features).
         ``train`` runs the decoder's differentiable composition (dropout
-        drawn from ``gen``, a generator on the detector's device)."""
-        if patch_indices is not None:
-            raise NotImplementedError("patch_indices is not ported yet")
+        drawn from ``gen``, a generator on the detector's device).
+        ``patch_indices`` (Lsel, num_select) keeps, of each kept layer's
+        export, the patches it lists (src/models.py:511-544); the gathered
+        rows are all real patches, so no pad row is masked."""
         if train and (self.compute_int8 or self._kv_rows8()):
             raise NotImplementedError("training with compute_int8 or int8_rows K/V is not "
                                       "ported yet")
@@ -289,10 +291,17 @@ class Detector:
             # the export's patch axis is 8-aligned (196 -> 200, not on the
             # tower); the decoder masks the pad rows as keys through patch_valid
             kvs = self.encode_kv(params, x, pad_tokens=True)
+            patch_valid = self.vit_cfg.num_patches
+            if patch_indices is not None:
+                # per layer on the patch axis; int8_rows scales (Lsel, B, T, P, 1) alike
+                idx = torch.as_tensor(patch_indices, device=self.device).long()
+                kvs = {s: torch.stack([f[i].index_select(2, idx[i]) for i in range(len(f))])
+                       for s, f in kvs.items()}
+                patch_valid = None
         with contextlib.nullcontext() if train else torch.no_grad():
             task_logits, video = decoder_lib.apply_decoder(
                 params["decoder"], kvs, m, self.decoder_cfg, train=train, gen=gen,
-                patch_valid=self.vit_cfg.num_patches)
+                patch_valid=patch_valid)
             task_logits = [5.0 * t / (torch.linalg.vector_norm(t, dim=-1, keepdim=True) + 1e-10)
                            for t in task_logits]
         features = {"video": video} if with_video_features else {}

@@ -3,6 +3,8 @@
 uint8 frames go to the card as they are; the card does the bicubic resize of
 the shorter side (torch/torchvision-matched interpolation matrices applied as
 two products), the center crop and the channel normalisation.
+``yuv420_to_rgb`` converts planar YUV420 frames to RGB on the tensor's device
+(the JAX package runs it in XLA, outside any Pallas kernel).
 """
 
 from __future__ import annotations
@@ -66,6 +68,27 @@ def center_crop(x: torch.Tensor, size: int) -> torch.Tensor:
     h, w = x.shape[-2], x.shape[-1]
     top, left = (h - size) // 2, (w - size) // 2
     return x[..., top: top + size, left: left + size]
+
+
+def yuv420_to_rgb(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
+                  full_range: bool = True) -> torch.Tensor:
+    """Planar YUV420 uint8 (..., H, W) luma and (..., H/2, W/2) chroma -> RGB
+    uint8 (..., 3, H, W): chroma upsampled 2x nearest, BT.601 coefficients,
+    ``full_range`` the JPEG/full-range matrix, else limited range (16-235)."""
+    def up(c):
+        return c.repeat_interleave(2, dim=-2).repeat_interleave(2, dim=-1).float() - 128.0
+
+    yf, uu, vv = y.float(), up(u), up(v)
+    if full_range:
+        r = yf + 1.402 * vv
+        g = yf - 0.344136 * uu - 0.714136 * vv
+        b = yf + 1.772 * uu
+    else:
+        yy = (yf - 16.0) * (255.0 / 219.0)
+        r = yy + 1.596027 * vv
+        g = yy - 0.391762 * uu - 0.812968 * vv
+        b = yy + 2.017232 * uu
+    return torch.stack([r, g, b], dim=-3).round().clamp(0, 255).to(torch.uint8)
 
 
 def resize_crop_normalize(x: torch.Tensor, size: int, mean: Sequence[float],

@@ -1,9 +1,9 @@
-"""Per-video scoring on decoded frames (counterpart of
-dfd_clip_tpu/scoring.py): sliding windows -> batched predict -> mean softmax
-P(fake).
+"""Per-video scoring (counterpart of dfd_clip_tpu/scoring.py): frames
+sampled every clip_duration / num_frames seconds -> consecutive windows ->
+batched predict -> mean softmax P(fake).
 
-``score_frames`` is the part of ``score_video`` after its ``read_frames``
-call; decoding a video file into frames is not ported yet.
+``score_video`` decodes a video through its backend (data/video.py) and
+hands the frames to ``score_frames``, which scores decoded frames.
 """
 
 from __future__ import annotations
@@ -23,6 +23,34 @@ def resolve_deepfake_task(preset) -> int:
         return cats.index("Deepfake")
     except (AttributeError, KeyError, ValueError):
         return 0
+
+
+def score_video(
+    video_path: str,
+    predict_fn: Callable,
+    params,
+    *,
+    num_frames: int,
+    clip_duration: float,
+    batch_size: int = 16,
+    depth: int = 3,
+    lock: Optional[threading.Lock] = None,
+    video_backend: str = "auto",
+) -> float:
+    """Every frame at t = 0, s, 2s, ... (s = clip_duration / num_frames) that
+    the video holds -> ``score_frames``. The seek times are kept by the
+    backend's own time-to-index mapping, not by a duration comparison: a
+    time in the last frame interval whose index equals the frame count
+    (NTSC-style rates, where the container's duration exceeds frames / fps)
+    is dropped instead of seeking past the end."""
+    from .data.video import _time_to_frame_index, backend_for_path
+
+    backend = backend_for_path(video_path, video_backend)
+    meta = backend.probe(video_path)
+    times = [t for t in np.arange(0, meta.duration, clip_duration / num_frames)
+             if _time_to_frame_index(t, meta.fps) < meta.frames]
+    return score_frames(backend.read_frames(video_path, times), predict_fn, params,
+                        num_frames=num_frames, batch_size=batch_size, depth=depth, lock=lock)
 
 
 def score_frames(

@@ -2,7 +2,8 @@
 and ragged shapes the flagship run of chip_smoke.py does not reach (rows and
 columns that are not tile multiples, short token counts, a short decoder
 stream, the decoder attention's partials form and backward at token counts
-that are not tile multiples, a whole tiny detector and a tiny trainer), and
+that are not tile multiples, a whole tiny detector, the same detector with
+patch_indices (L = 9 gathered keys, bf16 and int8 K/V) and a tiny trainer), and
 the int8 kernels: gemm_s8 at ragged M and N with each epilogue, quant_rows
 and layer_norm_quant on strided views, the int8 K/V export with pad rows,
 the int8 K/V decoder attention at a ragged L, and a whole int8 block; and
@@ -284,6 +285,43 @@ def test_tiny_wide_detector_predict_on_card(dev):
     got = card.predict(card.prepare_params(params), x, m)[0][0]
     assert _cuda.launches().get("fused_decoder_attention") == 2
     want = cpu.predict(cpu.prepare_params(params), x, m)[0][0]
+    assert rel_err(got.cpu(), want) <= 5e-2     # bf16 through 3 layers vs f32
+
+
+@pytest.mark.parametrize("kv_dtype", ["auto", "int8_rows"])
+def test_tiny_wide_detector_patch_indices_on_card(dev, kv_dtype):
+    """Detector.predict with patch_indices on the card: 3 frames x 3 of
+    ViT-Test-Wide's 4 patches a kept layer, L = 9 keys (not a multiple of
+    8) into the decoder attention kernel (its int8 K/V form with int8_rows),
+    against the same gather through the plain versions in f32 on the CPU."""
+    from dfd_clip_tpu_torch.models import clip_vit
+    from dfd_clip_tpu_torch.models.detector import Detector
+    from dfd_clip_tpu_torch.ops import _cuda
+
+    cfg = Detector.get_default_config()
+    cfg.merge_from_other_cfg({"decode_mode": "index", "decode_indices": [0, 2],
+                              "out_dim": [2], "op_mode": {"kv_dtype": kv_dtype}})
+    tiny = clip_vit.ARCHITECTURES["ViT-Test-Wide"]
+
+    def build(device, dtype):
+        det = Detector(cfg, num_frames=3, compute_dtype=dtype, device=device)
+        det.vit_cfg = tiny
+        det.transform = dataclasses.replace(det.transform, size=tiny.input_resolution)
+        det.decoder_cfg = dataclasses.replace(det.decoder_cfg, width=tiny.width,
+                                              heads=tiny.heads)
+        return det
+
+    card, cpu = build(dev, torch.bfloat16), build("cpu", torch.float32)
+    params = cpu.init_params(torch.Generator().manual_seed(6))
+    rng = np.random.default_rng(1)
+    idx = np.stack([rng.choice(4, 3, replace=False) for _ in range(2)])
+    x = rng.integers(0, 256, (2, 3, 3, 40, 48), dtype=np.uint8)
+    m = np.array([[True] * 3, [True, True, False]])
+    _cuda.reset_launches()
+    got = card.predict(card.prepare_params(params), x, m, patch_indices=idx)[0][0]
+    counter = "fused_decoder_attention" + ("_int8" if kv_dtype == "int8_rows" else "")
+    assert _cuda.launches().get(counter) == 2
+    want = cpu.predict(cpu.prepare_params(params), x, m, patch_indices=idx)[0][0]
     assert rel_err(got.cpu(), want) <= 5e-2     # bf16 through 3 layers vs f32
 
 

@@ -1,10 +1,11 @@
 """The PyTorch port stands alone: no module of dfd_clip_tpu_torch, and not
 chip_smoke.py, imports jax, optax or the JAX package, or reads the
 environment (the JAX package's kernel switches are explicit arguments
-here); importing the port (its training engine, both towers and the
-whole-encoder tower included) pulls in neither jax, optax nor yaml; its
-entry points default to the card and raise without one; the options it has
-not ported raise."""
+here); importing the port (its training engine, both towers, the
+whole-encoder tower, the serving and evaluation entries and the data side
+included) pulls in neither jax, optax, yaml nor cv2; its entry points
+default to the card and raise without one; the options it has not ported
+raise."""
 
 import ast
 import subprocess
@@ -57,7 +58,11 @@ def test_port_reads_no_environment(path):
     "dfd_clip_tpu_torch.ops.study_attention, dfd_clip_tpu_torch.ops.gemm_chain, "
     "dfd_clip_tpu_torch.tools.bench_attention, dfd_clip_tpu_torch.tools.bench_megakernel_probe, "
     "dfd_clip_tpu_torch.tools.bench_tower_stages",
-], ids=["serve", "train", "towers", "tools"])
+    "dfd_clip_tpu_torch.inference, dfd_clip_tpu_torch.data, dfd_clip_tpu_torch.data.video, "
+    "dfd_clip_tpu_torch.data.loader, dfd_clip_tpu_torch.data.datasets, "
+    "dfd_clip_tpu_torch.utils.metrics, dfd_clip_tpu_torch.scoring, "
+    "dfd_clip_tpu_torch.ops.image_ops, dfd_clip_tpu_torch.device, dfd_clip_tpu_torch.runtime",
+], ids=["serve", "train", "towers", "tools", "eval"])
 def test_importing_the_port_loads_no_jax_or_yaml(modules):
     code = ("import sys\n"
             f"import {modules}\n"
@@ -68,13 +73,16 @@ def test_importing_the_port_loads_no_jax_or_yaml(modules):
     assert out.stdout.strip() == "[]", out.stdout + out.stderr
 
 
-@pytest.mark.parametrize("entry", ["resolve_device", "Detector", "Trainer"])
+@pytest.mark.parametrize("entry", ["resolve_device", "Detector", "Trainer",
+                                   "Scorer.from_preset", "inference.main"])
 def test_default_device_is_the_card(entry):
-    """Detector (whose forward and predict run on its device) and Trainer
-    default to the card."""
-    from dfd_clip_tpu_torch import resolve_device
+    """Detector (whose forward and predict run on its device), Trainer, the
+    run-directory Scorer and the evaluation CLI default to the card."""
+    from dfd_clip_tpu_torch import inference, resolve_device
+    from dfd_clip_tpu_torch.config import CN
     from dfd_clip_tpu_torch.engine.trainer import Trainer
     from dfd_clip_tpu_torch.models.detector import Detector
+    from dfd_clip_tpu_torch.serve import Scorer
 
     if torch.cuda.is_available():
         pytest.skip("this check is for a machine without a card")
@@ -86,6 +94,12 @@ def test_default_device_is_the_card(entry):
             resolve_device()
         elif entry == "Detector":
             Detector(cfg, num_frames=4)
+        elif entry == "Scorer.from_preset":
+            Scorer.from_preset(CN({"model": cfg.to_dict(),
+                                   "data": {"num_frames": 4, "clip_duration": 1.0}}),
+                               "/nonexistent")
+        elif entry == "inference.main":
+            inference.main(inference.parse_args(["/nonexistent"]))
         else:
             Trainer(Trainer.get_default_config(), Detector(cfg, num_frames=4, device="cpu"), {})
     assert resolve_device("cpu").type == "cpu"
