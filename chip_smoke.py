@@ -72,7 +72,28 @@
    plain versions of the decoder kernels and through the plain versions of
    all kernels (same parameters, batch and dropout seed); then a
    device-resident train step is timed, its peak memory read, and one step
-   traced with torch.profiler;
+   traced with torch.profiler; then the training CLI (`[train cli]`):
+   python -m dfd_clip_tpu_torch.main's main, in this process, on
+   configs/deepfake/deepfake.yaml (the 768-x-768-z0 adapter on the
+   unpadded export, normal+frame augmentation of FFPP contrast pairs)
+   with its roots, scales, max_steps (4), evaluation, training-evaluation
+   and checkpoint intervals (2) and tracking directory changed, each
+   change printed, over cv2-written 224-pixel MJPG FFPP, DFDC and CDF
+   trees: each step's loss finite and its lr schedule(step), 12 / 11 / 6 /
+   6 launches a step and 12 / 11 / 6 / 7 an evaluation predict, the
+   decoder backward's plain version never called, two evaluations
+   reporting accuracy and roc_auc for ffpp, dfdc and cdf, the run
+   directory's setting.yaml, best_weights.pt, last_weights.pt,
+   metrics.jsonl and checkpoints/; a run stopped after step 2's checkpoint
+   and resumed to step 4 bit-equal to the uninterrupted run (`[train cli
+   resume]`); inference.main on the run directory, each video's P(fake)
+   equal to Scorer.from_run_dir's on the same clips (`[train cli
+   inference]`); a step with a non-z0 768-x-768 adapter, its conditioning
+   recorded, every backward call's dq / dpos / dK / dV on its own inputs
+   and every gradient leaf through the decoder kernels held to the plain
+   versions, timed, its peak memory read and traced (`[train cli adapter
+   step]`); the backward's dK/dV form is held in the kernel phase at L =
+   3,920 unpadded and 4,000 stacked;
 7. checks the 257-token kernels at their path shapes (`[kernels wide]`):
    the packed encoder attention at CLIP ViT-L/14's (320, 257, 16 x 64), the
    separate-q/k/v one at DINOv2 ViT-B/14's (320, 257, 12 x 64) on strided
@@ -1178,7 +1199,15 @@ def check_train_attention(row, gen, dev) -> None:
 
     del o_sc, st, o_p, st_p
     check_decoder_bwd(row, "fused_decoder_attention_bwd", bargs, ("train",))
+    # dK/dV from the same launch: the stacked padded export at slot 3 (L =
+    # 4,000), then the adapter's per-layer unpadded K/V (L = 20 x 196 = 3,920)
+    check_decoder_bwd_kv(row, "fused_decoder_attention_bwd dK/dV stacked, L 4000", bargs, ())
     del bargs, args
+    bargs = decoder_bwd_inputs(gen, dev, b, 196, 196, hh)
+    bargs = bargs[:2] + (bargs[2][3].contiguous(), bargs[3][3].contiguous()) + bargs[4:6] \
+        + (None,) + bargs[7:]
+    check_decoder_bwd_kv(row, "fused_decoder_attention_bwd dK/dV", bargs, ("train_cli",))
+    del bargs
     # the forward's wide rows: 16 heads over the 257-token towers' 5,120 and
     # ViT-L@336's 11,520 keys, at the train batch (no path trains there: no
     # launches)
@@ -1294,6 +1323,62 @@ def check_decoder_bwd(row, name: str, bargs: tuple, paths: tuple) -> None:
         None, 27.0 * valid * w,
         4.0 * valid * w + 2.0 * l * w + b * l + 4.0 * b * w + 2.0 * b * w + 4.0 * b * w
         + 8.0 * b * hh + 8.0 * b * w + 4.0 * l * w, PEAK_F32, err,
+        counter="fused_decoder_attention_bwd", paths=paths)
+
+
+def check_decoder_bwd_kv(row, name: str, bargs: tuple, paths: tuple) -> None:
+    """The backward's dK/dV form (``with_kv``: the same launch also writes
+    the slot's dK and dV in bf16) on ``bargs``: dK and dV held against
+    _bwd_math's at TOL_DECODER, exactly 0 at every masked token (the fully
+    masked last sample's included), dq and dpos bit-equal to the launch
+    without dK/dV and within TOL_DECODER of the plain version, two calls
+    bit-equal; its time by CUDA events and device time beside its bound (the
+    reads of check_decoder_bwd plus both (B, L, H, 64) bf16 outputs) and
+    the plain version's."""
+    import torch
+
+    from dfd_clip_tpu_torch.ops import fused_decoder_attention_bwd as fdb
+
+    qs, mask = bargs[0], bargs[4]
+    b, _, hh, d = qs.shape
+    l, w = mask.shape[1], hh * d
+    valid = mask.sum().item()
+    got = fdb.fused_decoder_attention_bwd(*bargs, with_kv=True)
+    again = fdb.fused_decoder_attention_bwd(*bargs, with_kv=True)
+    without = fdb.fused_decoder_attention_bwd(*bargs)
+    want = fdb.fused_decoder_attention_bwd_plain(*bargs, with_kv=True)
+    err = 0.0
+    for g_, w_, part in zip(got, want, ("dq_smax", "dq_coda", "dpos", "dK", "dV")):
+        err = max(err, compare(f"{name} {part}", g_, w_, TOL_DECODER))
+    dead = ~mask
+    for g_, part in zip(got[3:], ("dK", "dV")):
+        if g_.dtype != torch.bfloat16 or g_[dead].abs().max().item() != 0 \
+                or g_[b - 1].abs().max().item() != 0:
+            raise SystemExit(f"FAIL {name}: {part} is not bf16 with zeros at the masked tokens")
+    if not all(torch.equal(x, y) for x, y in zip(got, again)):
+        raise SystemExit(f"FAIL {name}: two calls differ")
+    if not all(torch.equal(x, y) for x, y in zip(got[:3], without)):
+        raise SystemExit(f"FAIL {name}: dq / dpos differ from the launch without dK/dV")
+    print(f"  {name}: dK/dV zero on {int(dead.sum())} masked tokens of {b * l}", flush=True)
+    del got, again, without, want
+    ms = time_ms(lambda: fdb.fused_decoder_attention_bwd(*bargs, with_kv=True), iters=50)
+    dev_ms = device_ms(lambda: fdb.fused_decoder_attention_bwd(*bargs, with_kv=True))
+    base = time_ms(lambda: fdb.fused_decoder_attention_bwd(*bargs), iters=50)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(50):
+        fdb.fused_decoder_attention_bwd(*bargs, with_kv=True)
+    host = (time.perf_counter() - t0) * 1e3 / 50
+    torch.cuda.synchronize()
+    print(f"  {name}: {ms:.4f} ms by events, device {dev_ms:.4f} ms, host {host:.4f} ms a call; "
+          f"without dK/dV {base:.4f} ms by events, on {card_line()}", flush=True)
+    row(name, "dfd_clip_tpu/ops/pallas_decoder_attention.py:477",
+        "dfd_clip_tpu_torch/csrc/decoder_attention_bwd.cu", ms,
+        time_ms(lambda: fdb.fused_decoder_attention_bwd_plain(*bargs, with_kv=True), iters=3,
+                warmup=1),
+        None, 27.0 * valid * w,
+        4.0 * valid * w + 2.0 * l * w + b * l + 4.0 * b * w + 2.0 * b * w + 4.0 * b * w
+        + 8.0 * b * hh + 8.0 * b * w + 4.0 * l * w + 4.0 * b * l * w, PEAK_F32, err,
         counter="fused_decoder_attention_bwd", paths=paths)
 
 
@@ -2214,7 +2299,6 @@ def train_path(card: str) -> dict:
     import numpy as np
     import torch
 
-    from dfd_clip_tpu_torch.engine.optim import named_leaves
     from dfd_clip_tpu_torch.engine.trainer import Trainer
     from dfd_clip_tpu_torch.ops import _cuda
 
@@ -2265,32 +2349,546 @@ def train_path(card: str) -> dict:
 
     # one step's loss and decoder gradients: kernels vs the plain versions
     batch = trainer.prepare_batch(batches[0])
-    leaves = named_leaves(trainer.trainable)
+    hold_train_step(det, trainer, batch, "train")
 
-    def loss_and_grads():
-        gen = torch.Generator(device="cuda").manual_seed(7)
+    dev_round = [("deepfake", batch)]
+    timed_train_step("device-resident train step", trainer, dev_round, card)
+    profile_device("train step", lambda: trainer.train_step(dev_round))
+    return counts
+
+
+# [train cli]: the training CLI on trees of cv2-written 224-pixel MJPG videos
+CLI_VIDEO_SECONDS = 8.5   # two 4-second clips a video
+CLI_IDS = ("000", "001", "002", "003", "004", "005", "006", "007")
+CLI_STEPS, CLI_EVERY = 4, 2   # trainer.max_steps; evaluation / checkpoint interval
+TRAIN_COUNTS = {"fused_encoder_attn_block": 12, "fused_encoder_mlp_block": 11,
+                "fused_decoder_attention": 6, "fused_decoder_attention_bwd": 6,
+                "decoder_boundary": 0}
+
+
+def cli_trees(work: str) -> dict:
+    """FFPP (c23; REAL, DF, FS, F2F for training, REAL and NT for
+    evaluation; 8 ids in 4 pairs, one split file for train, val and test),
+    DFDC and Celeb-DF (two real, two fake videos each), every video
+    CLI_VIDEO_SECONDS long at 224 pixels."""
+    import json as json_
+
+    ffpp, dfdc, cdf = (str(Path(work) / n) for n in ("ffpp", "dfdc", "cdf"))
+    pairs = [list(CLI_IDS[i: i + 2]) for i in range(0, len(CLI_IDS), 2)]
+    seed = 0
+    for kind, folder in (("REAL", "real"), ("DF", "DF"), ("FS", "FS"), ("F2F", "F2F"),
+                         ("NT", "NT")):
+        names = list(CLI_IDS) if kind == "REAL" else (
+            [f"{a}_{b}" for a, b in pairs] + [f"{b}_{a}" for a, b in pairs])
+        for name in names:
+            write_video(f"{ffpp}/{folder}/c23/videos/{name}.avi", CLI_VIDEO_SECONDS, 224, "MJPG",
+                        seed=seed)
+            seed += 1
+    Path(ffpp, "splits").mkdir()
+    for split in ("train", "val", "test"):
+        Path(ffpp, "splits", f"{split}.json").write_text(json_.dumps(pairs))
+    rows = []
+    for i in range(4):
+        write_video(f"{dfdc}/videos/v{i}.avi", CLI_VIDEO_SECONDS, 224, "MJPG", seed=300 + i)
+        rows.append(f"v{i}.avi {i % 2}")
+    Path(dfdc, "csv_files").mkdir()
+    Path(dfdc, "csv_files", "test.csv").write_text("\n".join(rows))
+    Path(cdf, "csv_files").mkdir(parents=True)
+    for label in ("REAL", "FAKE"):
+        names = [f"{label.lower()}{i}" for i in range(2)]
+        for i, name in enumerate(names):
+            write_video(f"{cdf}/{label}/videos/{name}.avi", CLI_VIDEO_SECONDS, 224, "MJPG",
+                        seed=400 + 10 * (label == "FAKE") + i)
+        Path(cdf, "csv_files", f"test_{label.lower()}.csv").write_text(
+            "\n".join(f"{n}.avi {int(label == 'FAKE')}" for n in names))
+    return {"FFPP": ffpp, "DFDC": dfdc, "CDF": cdf}
+
+
+def cli_config(work: str, trees: dict, tracking: str, checkpoint_dir: str = "") -> str:
+    """configs/deepfake/deepfake.yaml with the roots, scales, max_steps, the
+    evaluation, checkpoint and training-evaluation intervals and
+    tracking.directory (and, for a run to be resumed, trainer.checkpoint_dir)
+    changed, each change printed; the file's path."""
+    import yaml
+
+    src = Path(__file__).resolve().parent / "configs" / "deepfake" / "deepfake.yaml"
+    cfg = yaml.safe_load(src.read_text())
+    changes = [(("trainer", "max_steps"), CLI_STEPS),
+               (("trainer", "checkpoint_interval"), CLI_EVERY),
+               (("system", "evaluation_interval"), CLI_EVERY),
+               (("system", "training_eval_interval"), CLI_EVERY),
+               (("tracking", "directory"), tracking)]
+    if checkpoint_dir:
+        changes.append((("trainer", "checkpoint_dir"), checkpoint_dir))
+    for where, entries in (("train", cfg["data"]["train"]), ("eval", cfg["data"]["eval"])):
+        for i, d in enumerate(entries):
+            changes.append((("data", where, i, "root_dir"), trees[d["name"]]))
+            # the FFPP evaluation set at half its (8 + 8) videos: one ragged batch
+            scale = 0.5 if where == "eval" and d["name"] == "FFPP" else 1.0
+            changes.append((("data", where, i, "scale"), scale))
+    for keys, value in changes:
+        node = cfg
+        for k in keys[:-1]:
+            node = node[k]
+        print(f"  {src.name}: {'.'.join(map(str, keys))} {node.get(keys[-1])!r} -> {value!r}",
+              flush=True)
+        node[keys[-1]] = value
+    out = Path(work) / f"train_cli_{len(list(Path(work).glob('train_cli_*.yaml')))}.yaml"
+    out.write_text(yaml.safe_dump(cfg, sort_keys=False))
+    return str(out)
+
+
+class _StopRun(Exception):
+    """Stops a training run once its checkpoint is written (the resume check)."""
+
+
+def cli_run(card: str, work: str, cfg: str, stop_at: int = 0) -> tuple:
+    """``python -m dfd_clip_tpu_torch.main --cfg cfg`` in this process on the
+    card (the working directory ``work``, where the datasets cache their
+    video tables), every launch counter zeroed before and read after. Each
+    train step's loss, lr and launches and each evaluation's launches are
+    recorded around the Trainer's own step and the Evaluator's own run.
+    ``stop_at``: stop the run right after that step's checkpoint. Returns
+    (run directory or None, counts, step log, evaluation log)."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from dfd_clip_tpu_torch import main as tmain
+    from dfd_clip_tpu_torch.engine.evaluator import Evaluator
+    from dfd_clip_tpu_torch.engine.trainer import Trainer
+    from dfd_clip_tpu_torch.ops import _cuda
+
+    steps, evals = [], []
+    train_step, run_eval, checkpoint = (Trainer.train_step, Evaluator.run,
+                                        Trainer._maybe_checkpoint)
+
+    def delta(before):
+        after = _cuda.launches()
+        return {k: after.get(k, 0) - before.get(k, 0) for k in after
+                if after.get(k, 0) != before.get(k, 0)}
+
+    def logged_step(self, round_batches):
+        lr, index = self.current_lr(), self.steps
+        torch.cuda.synchronize()
+        before, t0 = _cuda.launches(), time.perf_counter()
+        train_step(self, round_batches)
+        torch.cuda.synchronize()
+        losses = np.concatenate([np.asarray(v) for v in self.batch_losses.values()])
+        steps.append({"step": index, "lr": lr, "used": self.optimizer.param_groups[0]["lr"],
+                      "schedule": self.schedule(index), "loss": float(losses.mean()),
+                      "finite": bool(np.isfinite(losses).all()),
+                      "clips": sum(b["x"].shape[0] for _, b in round_batches),
+                      "ms": (time.perf_counter() - t0) * 1e3, "counts": delta(before)})
+
+    def logged_eval(self, trainer):
+        torch.cuda.synchronize()
+        before, t0 = _cuda.launches(), time.perf_counter()
+        run_eval(self, trainer)
+        torch.cuda.synchronize()
+        evals.append({"step": trainer.steps, "predicts": sum(len(d) for d in
+                                                             self.dataloaders.values()),
+                      "s": time.perf_counter() - t0, "counts": delta(before)})
+
+    def stopping_checkpoint(self):
+        checkpoint(self)
+        if self.steps == stop_at:
+            raise _StopRun
+
+    previous = os.getcwd()
+    Trainer.train_step, Evaluator.run = logged_step, logged_eval
+    if stop_at:
+        Trainer._maybe_checkpoint = stopping_checkpoint
+    run = None
+    os.chdir(work)
+    try:
+        torch.cuda.synchronize()
+        _cuda.reset_launches()
+        t0 = time.perf_counter()
+        try:
+            run = tmain.main(tmain.parse_args(["--cfg", cfg, "--video_backend", "opencv"]))
+        except _StopRun:
+            print(f"  stopped after step {stop_at}'s checkpoint", flush=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts, plain = _cuda.launches(), _cuda.plain_calls()
+    finally:
+        os.chdir(previous)
+        Trainer.train_step, Evaluator.run, Trainer._maybe_checkpoint = (train_step, run_eval,
+                                                                        checkpoint)
+    print(f"  main: {wall:.2f} s of wall, {len(steps)} steps, {len(evals)} evaluations, "
+          f"plain calls {plain or 'none'}, on {card}", flush=True)
+    if plain:
+        raise SystemExit(f"FAIL train cli: plain versions ran on the card: {plain}")
+    for st in steps:
+        print(f"  step {st['step']}: {st['clips']} clips, loss {st['loss']:.6f}, lr "
+              f"{st['used']:.6e}, {st['ms']:.2f} ms (host clock), launches "
+              f"{json.dumps(st['counts'])}", flush=True)
+        if not st["finite"]:
+            raise SystemExit(f"FAIL train cli step {st['step']}: loss {st['loss']}")
+        if abs(st["used"] - st["schedule"]) > 1e-12 or abs(st["lr"] - st["used"]) > 1e-12:
+            raise SystemExit(f"FAIL train cli step {st['step']}: lr {st['used']} is not "
+                             f"schedule({st['step']}) = {st['schedule']}")
+        check_counts(f"train cli step {st['step']}", st["counts"], TRAIN_COUNTS, 1)
+    for ev in evals:
+        print(f"  evaluation at step {ev['step']}: {ev['predicts']} predicts, {ev['s']:.2f} s, "
+              f"launches {json.dumps(ev['counts'])}", flush=True)
+        check_counts(f"train cli evaluation at step {ev['step']}", ev["counts"],
+                     FLAGSHIP_COUNTS, ev["predicts"])
+    return run, counts, steps, evals
+
+
+def train_cli_path(card: str) -> dict:
+    """The training CLI on the flagship recipe: main on a YAML derived from
+    configs/deepfake/deepfake.yaml (the 768-x-768-z0 adapter on the
+    unpadded export, normal+frame augmentation of FFPP contrast pairs,
+    evaluation of FFPP, DFDC and CDF), in this process on the card; its
+    steps, evaluations, run directory, plain calls and launches checked;
+    then a run stopped after step 2's checkpoint and resumed to step 4,
+    held to the uninterrupted run; then inference.main on the run
+    directory held video by video to Scorer.from_run_dir on the same clips;
+    then one train step with a non-z0 adapter held to the plain versions and
+    the adapter's device-resident train step timed and traced. Returns the
+    first run's launch counts."""
+    import pickle
+    import tempfile
+
+    import numpy as np
+    import torch
+    import yaml
+
+    from dfd_clip_tpu_torch import inference
+    from dfd_clip_tpu_torch.config import CN
+    from dfd_clip_tpu_torch.data import datasets as tds
+    from dfd_clip_tpu_torch.models.weights import load_params
+    from dfd_clip_tpu_torch.ops import _cuda
+    from dfd_clip_tpu_torch.serve import Scorer
+
+    with tempfile.TemporaryDirectory() as work:
+        t0 = time.perf_counter()
+        trees = cli_trees(work)
+        print(f"  trees: {len(list(Path(work).rglob('*.avi')))} MJPG videos of "
+              f"{CLI_VIDEO_SECONDS} s at 224 pixels in {time.perf_counter() - t0:.2f} s",
+              flush=True)
+        print("[train cli] python -m dfd_clip_tpu_torch.main --cfg <deepfake.yaml, changed "
+              "as printed> --video_backend opencv", flush=True)
+        run, counts, steps, evals = cli_run(card, work, cli_config(work, trees,
+                                                                  f"{work}/logs"))
+        if len(steps) != CLI_STEPS or [e["step"] for e in evals] != [2, 4]:
+            raise SystemExit(f"FAIL train cli: {len(steps)} steps, evaluations at "
+                             f"{[e['step'] for e in evals]}")
+        names = sorted(p.name for p in Path(run).iterdir())
+        print(f"  run directory {Path(run).relative_to(work)}: {', '.join(names)}", flush=True)
+        for need in ("setting.yaml", "best_weights.pt", "last_weights.pt", "metrics.jsonl",
+                     "checkpoints"):
+            if need not in names:
+                raise SystemExit(f"FAIL train cli: no {need} in the run directory")
+        lines = [json.loads(s) for s in Path(run, "metrics.jsonl").read_text().splitlines()]
+        for step in (2, 4):
+            got = {k: v for r in lines if r["step"] == step for k, v in r.items()
+                   if k.startswith("evaluator/metric/")}
+            print(f"  evaluation at step {step}: " + ", ".join(
+                f"{k.split('/', 2)[2]} {v:.4f}" for k, v in sorted(got.items())), flush=True)
+            for ds in ("ffpp", "dfdc", "cdf"):
+                for metric in ("accuracy", "roc_auc"):
+                    value = got.get(f"evaluator/metric/deepfake/{ds}/{metric}")
+                    if value is None or not np.isfinite(value):
+                        raise SystemExit(f"FAIL train cli: evaluation at step {step} reports "
+                                         f"{ds} {metric} {value}")
+        setting = yaml.safe_load(Path(run, "setting.yaml").read_text())
+        print(f"  setting.yaml: adapter {setting['model']['adapter']}, batch "
+              f"{setting['trainer']['batch_size']} (contrast pairs: {steps[0]['clips']} clips a "
+              f"step)", flush=True)
+
+        print(f"[train cli resume] a run stopped after step {CLI_EVERY}'s checkpoint, then "
+              f"resumed from it to step {CLI_STEPS}", flush=True)
+        ck = f"{work}/resume_checkpoints"
+        stopped, _, _, _ = cli_run(card, work, cli_config(work, trees, f"{work}/logs_stopped",
+                                                          ck), stop_at=CLI_EVERY)
+        if stopped is not None or sorted(p.name for p in Path(ck).iterdir()) != [
+                f"step_{CLI_EVERY:08d}"]:
+            raise SystemExit("FAIL train cli resume: the stopped run left no lone checkpoint")
+        resumed, _, rsteps, _ = cli_run(card, work, cli_config(work, trees,
+                                                               f"{work}/logs_resumed", ck))
+        if [s["step"] for s in rsteps] != list(range(CLI_EVERY, CLI_STEPS)):
+            raise SystemExit(f"FAIL train cli resume: steps {[s['step'] for s in rsteps]}")
+        want, got = (load_params(f"{d}/last_weights.pt") for d in (run, resumed))
+        worst, equal, n = 0.0, True, 0
+        for a, b in zip(*(_tree_leaves(t["trainable"]) for t in (got, want))):
+            worst = max(worst, float(np.abs(a - b).max()))
+            equal = equal and np.array_equal(a, b)
+            n += 1
+        print(f"  resumed vs uninterrupted last_weights.pt: {n} leaves, bit-equal {equal}, "
+              f"max |d| {worst:.3e} (hold: bit-equal; every kernel of the step is "
+              f"deterministic)", flush=True)
+        if got["steps"] != want["steps"] or not equal:
+            raise SystemExit("FAIL train cli resume: the resumed run's weights differ")
+
+        print("[train cli inference] python -m dfd_clip_tpu_torch.inference <run> "
+              f"--batch_size {CLIPS}, each video held to Scorer.from_run_dir", flush=True)
+        import os
+
+        previous = os.getcwd()
+        os.chdir(work)
+        try:
+            torch.cuda.synchronize()
+            _cuda.reset_launches()
+            t0 = time.perf_counter()
+            report = inference.main(inference.parse_args(
+                [run, "--batch_size", str(CLIPS), "--num_workers", "2",
+                 "--video_backend", "opencv"]))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            run_counts = _cuda.launches()
+            (stats_file,) = Path(run).glob("stats_*_best_video.pickle")
+            stats = pickle.loads(stats_file.read_bytes())
+            reference = Scorer.from_run_dir(run, batch_size=CLIPS)
+            videos = 0
+            for d in setting["data"]["eval"]:
+                cls = getattr(tds, d["name"])
+                dcfg = cls.get_default_config().merge_from_other_cfg(CN(d))
+                dcfg.pack, dcfg.scale = 1, 1.0
+                ds = cls(dcfg, setting["data"]["num_frames"], setting["data"]["clip_duration"],
+                         split="test", video_backend="opencv")
+                probs, labels = stats[d["name"]]["prob"], stats[d["name"]]["label"]
+                if len(probs) != len(ds):
+                    raise SystemExit(f"FAIL train cli inference: {d['name']} has {len(probs)} "
+                                     f"videos, the dataset {len(ds)}")
+                for i in range(len(ds)):
+                    clips, label = ds[i][:2]
+                    x = np.stack(clips)                      # (clips, T, 3, H, W)
+                    want_p = reference.score_frames(
+                        x.transpose(0, 1, 3, 4, 2).reshape(-1, *x.shape[3:], 3))
+                    delta = abs(probs[i] - want_p)
+                    print(f"  {d['name']} video {i}: {len(clips)} clips, label {labels[i]}, "
+                          f"P(fake) {probs[i]:.9f}, Scorer {want_p:.9f}, |d| {delta:.3e} "
+                          f"(tol {TOL_HTTP:g})", flush=True)
+                    if labels[i] != label[0] or not delta <= TOL_HTTP:
+                        raise SystemExit(f"FAIL train cli inference: {d['name']} video {i}")
+                    videos += 1
+        finally:
+            os.chdir(previous)
+        print(f"  inference.main: {wall:.2f} s, report {report}, {videos} videos", flush=True)
+        check_counts("train cli inference.main", run_counts, FLAGSHIP_COUNTS, videos)
+        del reference
+    adapter_step(card)
+    return counts
+
+
+def _tree_leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _tree_leaves(v)]
+    return [tree]
+
+
+def adapter_trainer(fc2_scale: float):
+    """A flagship Trainer with the 768-x-768 adapter (x 256), its LayerNorms
+    random and its fc2 scaled by ``fc2_scale``, and a prepared random batch
+    of TRAIN_CLIPS clips: (Detector, Trainer, batch)."""
+    import numpy as np
+    import torch
+
+    from dfd_clip_tpu_torch.engine.trainer import Trainer
+
+    det = detector(dropout=0.5, adapter={"type": "normal",
+                                         "struct": {"type": "768-x-768", "x": 256}})
+    gen = torch.Generator().manual_seed(11)
+    params = det.init_params(torch.Generator().manual_seed(0))
+    for blk in params["adapter"]["blocks"]:
+        for branch in blk.values():
+            branch["ln"]["scale"] = 1.0 + 0.2 * torch.randn(256, generator=gen)
+            branch["ln"]["bias"] = 0.2 * torch.randn(256, generator=gen)
+            branch["fc2"]["w"] = fc2_scale * branch["fc2"]["w"]
+    tcfg = Trainer.get_default_config()
+    tcfg.merge_from_other_cfg({"max_steps": TRAIN_STEPS, "learning_rate": 2.5e-3})
+    rng = np.random.default_rng(2)
+    raw = (rng.integers(0, 256, (TRAIN_CLIPS, FRAMES, 3, 224, 224), np.uint8),
+           (np.arange(TRAIN_CLIPS) % 2).astype(np.int32), np.ones((TRAIN_CLIPS, FRAMES), bool),
+           ["c23"] * TRAIN_CLIPS, np.ones(TRAIN_CLIPS, np.float32),
+           np.zeros(TRAIN_CLIPS, np.int64))
+    trainer = Trainer(tcfg, det, {"deepfake": [raw]}, params=params, seed=0)
+    return det, trainer, trainer.prepare_batch(raw)
+
+
+def l2_rel(got: list, want: list) -> float:
+    """The worst leaf's relative L2 distance of ``got`` from ``want``."""
+    return max((g - w).norm().item() / max(w.norm().item(), 1e-30) for g, w in zip(got, want))
+
+
+def adapter_step(card: str) -> None:
+    """A train step of the flagship Trainer with a non-z0 adapter (768-x-768,
+    x 256; at z0 every adapter gradient is 0, so the recipe alone cannot
+    show a wrong dK/dV). First its conditioning, recorded: with fc2 as
+    drawn, the kernels' gradients against the plain versions' beside the
+    plain versions' own against a step whose parameters were nudged by 1e-4
+    of themselves. Then, with fc2 at a tenth of its draw (a trained z0
+    adapter's scale, where the decoder's route is conditioned), every
+    backward call's dq, dpos, dK and dV on the step's own inputs held to
+    _bwd_math at TOL_DECODER, the unpadded export held to the plain
+    versions at TOL_ENCODER and to the padded export's first rows bit for
+    bit, the loss and every gradient leaf through the decoder kernels held
+    to their plain versions (hold_train_step; the all-kernels route
+    recorded beside what the export's difference alone makes of the
+    gradients), the launches counted, and its device-resident step
+    (batch TRAIN_CLIPS, as the train path's no-adapter step) timed by CUDA
+    events, its peak memory read and one step traced."""
+    import torch
+
+    from dfd_clip_tpu_torch.ops import _cuda
+    from dfd_clip_tpu_torch.ops import decoder_attention_vjp as vjp
+    from dfd_clip_tpu_torch.ops import fused_decoder_attention_bwd as fdb
+
+    print(f"[train cli adapter step] Trainer over ViT-B/16 with the 768-x-768 adapter (x 256, "
+          f"LayerNorms random), batch {TRAIN_CLIPS}, dropout 0.5", flush=True)
+    det, trainer, batch = adapter_trainer(1.0)
+    _, grads_k = step_grads(det, trainer, batch)
+    _, grads_p = step_grads(det, trainer, batch, "decoder")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    with torch.no_grad():
+        for t in _leaf_tensors(trainer.trainable):
+            t.mul_(1 + 1e-4 * (2 * torch.rand(t.shape, generator=gen, device=t.device) - 1))
+    _, grads_n = step_grads(det, trainer, batch, "decoder")
+    print(f"  conditioning, fc2 as drawn (recorded, not held): kernels vs plain, worst leaf "
+          f"{l2_rel(grads_k, grads_p):.3e} (l2 rel); plain vs plain with every parameter "
+          f"nudged by 1e-4 of itself, {l2_rel(grads_n, grads_p):.3e}", flush=True)
+    del det, trainer, batch, grads_k, grads_p, grads_n
+    torch.cuda.empty_cache()
+
+    det, trainer, batch = adapter_trainer(0.1)
+    calls, kernel = [], vjp.fused_decoder_attention_bwd
+
+    def both(*args, **kwargs):
+        got = kernel(*args, **kwargs)
+        want = fdb.fused_decoder_attention_bwd_plain(*args, **kwargs)
+        calls.append([(part, (g.float() - w.float()).abs().max().item()
+                       / max(w.float().abs().max().item(), 1e-30))
+                      for part, g, w in zip(("dq_smax", "dq_coda", "dpos", "dK", "dV"), got, want)
+                      if w is not None])
+        return got
+
+    vjp.fused_decoder_attention_bwd = both
+    try:
+        step_grads(det, trainer, batch)
+    finally:
+        vjp.fused_decoder_attention_bwd = kernel
+    worst = max((e, part, i) for i, c in enumerate(calls) for part, e in c)
+    print(f"  fc2 at a tenth: {len(calls)} backward calls on the step's own inputs vs "
+          f"_bwd_math, worst {worst[1]} of call {worst[2]} at {worst[0]:.3e} of its max (tol "
+          f"{TOL_DECODER:g})", flush=True)
+    if len(calls) != len(KEEP) or {p for c in calls for p, _ in c} != {
+            "dq_smax", "dq_coda", "dpos", "dK", "dV"} or not worst[0] <= TOL_DECODER:
+        raise SystemExit(f"FAIL train cli adapter step: backward calls {calls}")
+    # The unpadded export the adapter reads (never on the card's serve paths,
+    # whose export is padded to 200 rows): kernels against the plain
+    # versions at TOL_ENCODER, and against the kernels' own padded export's
+    # first 196 rows.
+    with torch.no_grad():
+        x = det.preprocess(batch["x"])
+        kv = det.encode_kv(trainer.frozen, x)
+        padded = det.encode_kv(trainer.frozen, x, pad_tokens=True)
+        with plain_versions():
+            plain = det.encode_kv(trainer.frozen, x)
+    for s_ in ("k", "v"):
+        compare(f"train cli unpadded export {s_.upper()} (6 layers, {tuple(kv[s_].shape[1:])})",
+                kv[s_], plain[s_], TOL_ENCODER)
+        if not torch.equal(kv[s_], padded[s_][:, :, :, :kv[s_].shape[3]]):
+            raise SystemExit(f"FAIL train cli: the unpadded export's {s_} is not the padded "
+                             f"export's first rows")
+    print(f"  the unpadded export equals the padded export's first "
+          f"{kv['k'].shape[3]} rows of {padded['k'].shape[3]}, bit for bit", flush=True)
+    del x, kv, padded, plain
+    # The all-kernels route's leaves are recorded, not held: past the decoder
+    # kernels' route (held above) it differs only in the encoder's export,
+    # within TOL_ENCODER of the plain one (just held); the decoder-plain route
+    # against the all-plain one shows what that export difference alone
+    # makes of this step's gradients.
+    grads = hold_train_step(det, trainer, batch, "train cli adapter", hold_all=False)
+    print(f"  fc2 at a tenth: the decoder-plain route (the kernels' export) against the "
+          f"all-plain route (the plain export), worst leaf "
+          f"{l2_rel(grads['decoder'], grads['all']):.3e} (l2 rel)", flush=True)
+    del grads
+    dev_round = [("deepfake", batch)]
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    trainer.train_step(dev_round)
+    torch.cuda.synchronize()
+    check_counts("train cli adapter step", _cuda.launches(), TRAIN_COUNTS, 1)
+    if _cuda.plain_calls():
+        raise SystemExit(f"FAIL train cli adapter step: plain calls {_cuda.plain_calls()}")
+    timed_train_step("device-resident train step with the adapter", trainer, dev_round, card)
+    profile_device("train step with the adapter", lambda: trainer.train_step(dev_round))
+
+
+def timed_train_step(label: str, trainer, dev_round: list, card: str) -> None:
+    """A device-resident train step's ms by CUDA events (5 after 1), and the
+    peak memory allocated while they ran, beside what was already allocated
+    when they started (the live tensors of the run, the step's parameters
+    and batch included)."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ms = time_ms(lambda: trainer.train_step(dev_round), iters=5, warmup=1)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  {label}: {ms:.2f} ms per {TRAIN_CLIPS}-clip batch ({TRAIN_CLIPS * 1e3 / ms:.2f} "
+          f"clips/s), peak memory {peak / 1e9:.3f} GB, {(peak - base) / 1e9:.3f} GB above the "
+          f"{base / 1e9:.3f} GB allocated before the steps, on {card}", flush=True)
+
+
+def _leaf_tensors(tree) -> list:
+    from dfd_clip_tpu_torch.engine.optim import named_leaves
+
+    return [t for _, t in named_leaves(tree)]
+
+
+def step_grads(det, trainer, batch: dict, plain: str = "") -> tuple:
+    """(loss, gradients of the trainable leaves) of one train-mode step of
+    ``trainer``'s parameters on ``batch`` (dropout seed 7), through the
+    kernels or, with ``plain`` "decoder" or "all", the plain versions of the
+    decoder's kernels or of every kernel."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    with plain_versions(encoder=plain == "all") if plain else contextlib.nullcontext():
         losses, _, _ = det.forward({**trainer.frozen, **trainer.trainable}, batch["x"],
                                    [batch["label"]], batch["m"], batch["comp_is_raw"],
                                    train=True, single_task=0, gen=gen)
         loss = losses[0].mean()
-        return loss.item(), torch.autograd.grad(loss, [t for _, t in leaves])
+        return loss.item(), list(torch.autograd.grad(loss, _leaf_tensors(trainer.trainable)))
 
+
+def hold_train_step(det, trainer, batch: dict, label: str, hold_all: bool = True) -> dict:
+    """One step's loss and the gradient of every trainable leaf (the
+    adapter's too, when the Detector has one) through the kernels, held
+    against the same step (parameters, batch, dropout seed) through the plain
+    versions: the decoder kernels alone, then all kernels (with
+    ``hold_all`` False the latter's leaves are printed, not held). Returns
+    each plain route's gradients."""
+    import torch
+
+    from dfd_clip_tpu_torch.engine.optim import named_leaves
+
+    leaves = named_leaves(trainer.trainable)
     # Decoder kernels alone: the same export decoded through the kernels and
     # through their plain versions, held at TOL_DECODER on the loss and
     # TOL_ENCODER of each leaf's max. The whole plain route also swaps the
     # encoder, whose bf16 export differs from the kernels' by rounding order
     # (about 7e-3 of the predict logits); the backward at dropout 0.5 amplifies
     # that, so its leaves are held by relative L2 norm at TOL_TRAIN_GRAD.
-    loss_k, grads_k = loss_and_grads()
-    for route, encoder, measure, tol in (("decoder kernels", False, "max", TOL_ENCODER),
-                                         ("all kernels", True, "l2", TOL_TRAIN_GRAD)):
-        with plain_versions(encoder=encoder):
-            loss_p, grads_p = loss_and_grads()
+    loss_k, grads_k = step_grads(det, trainer, batch)
+    routes = {}
+    for route, plain, measure, tol in (("decoder kernels", "decoder", "max", TOL_ENCODER),
+                                       ("all kernels", "all", "l2", TOL_TRAIN_GRAD)):
+        loss_p, grads_p = routes[plain] = step_grads(det, trainer, batch, plain)
         rel = abs(loss_k - loss_p) / abs(loss_p)
         print(f"  {route} vs plain: loss {loss_k:.6f} vs {loss_p:.6f}, rel {rel:.3e} "
               f"(tol {TOL_DECODER:g})", flush=True)
         if not rel <= TOL_DECODER:
-            raise SystemExit(f"FAIL train loss ({route}): relative error {rel:.3e} > "
+            raise SystemExit(f"FAIL {label} loss ({route}): relative error {rel:.3e} > "
                              f"{TOL_DECODER:g}")
         worst = []
         for (path, _), gk, gp in zip(leaves, grads_k, grads_p):
@@ -2298,22 +2896,21 @@ def train_path(card: str) -> dict:
                 err = (gk - gp).abs().max().item() / max(gp.abs().max().item(), 1e-30)
             else:
                 err = (gk - gp).norm().item() / max(gp.norm().item(), 1e-30)
-            if not (torch.isfinite(gk).all() and err <= tol):
-                raise SystemExit(f"FAIL train gradient ({route}) {path}: {measure} rel "
+            held = hold_all or plain == "decoder"
+            if not torch.isfinite(gk).all() or held and not err <= tol:
+                raise SystemExit(f"FAIL {label} gradient ({route}) {path}: {measure} rel "
                                  f"{err:.3e} > {tol:g}")
             worst.append((err, ".".join(map(str, path))))
         worst.sort(reverse=True)
-        print(f"  {route}: {len(worst)} gradient leaves within {tol:g} ({measure} rel); worst "
+        verdict = (f"within {tol:g}" if hold_all or plain == "decoder" else
+                   f"recorded, {sum(e > tol for e, _ in worst)} past {tol:g}")
+        print(f"  {route}: {len(worst)} gradient leaves {verdict} ({measure} rel); worst "
               + ", ".join(f"{name} {e:.3e}" for e, name in worst[:3]), flush=True)
-
-    dev_round = [("deepfake", batch)]
-    torch.cuda.reset_peak_memory_stats()
-    ms = time_ms(lambda: trainer.train_step(dev_round), iters=5, warmup=1)
-    print(f"  device-resident train step: {ms:.2f} ms per {TRAIN_CLIPS}-clip batch "
-          f"({TRAIN_CLIPS * 1e3 / ms:.2f} clips/s), peak memory "
-          f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB, on {card}", flush=True)
-    profile_device("train step", lambda: trainer.train_step(dev_round))
-    return counts
+        adapter = [e for e, name in worst if name.startswith("adapter")]
+        if adapter:
+            print(f"  {route}: {len(adapter)} adapter leaves, worst {max(adapter):.3e}",
+                  flush=True)
+    return {plain: grads for plain, (_, grads) in routes.items()}
 
 
 def attention_row(rows: list, name: str, replaces: str, fn, plain, qkv, n: int, t: int,
@@ -3745,6 +4342,9 @@ def main() -> int:
     print(f"[train path] Trainer over ViT-B/16, 20 frames, keep 6-11, bf16, batch "
           f"{TRAIN_CLIPS}, dropout 0.5, SGD + OneCycle, {TRAIN_STEPS} steps", flush=True)
     counts["train"] = train_path(card)
+    print("[train cli] the training CLI on the flagship recipe (configs/deepfake/deepfake.yaml: "
+          "768-x-768-z0 adapter, normal+frame, FFPP / DFDC / CDF evaluation)", flush=True)
+    counts["train_cli"] = train_cli_path(card)
     print("[kernels wide] 257 tokens: ViT-L/14 and DINOv2 B/14 attention, int8 split pair",
           flush=True)
     check_wide_kernels(rows)

@@ -1,7 +1,8 @@
 """Hierarchical configuration nodes (the port's own copy of
 ``dfd_clip_tpu/config.py``'s ``CN``): attribute access, ``get``,
-``merge_from_other_cfg``, ``merge_from_file`` and open (``new_allowed``)
-nodes. ``yaml`` is imported only by the functions that read or write it.
+``merge_from_other_cfg``, ``merge_from_file``, ``dump`` and open
+(``new_allowed``) nodes. ``yaml`` is imported only by the functions that
+read or write it.
 """
 
 from __future__ import annotations
@@ -84,6 +85,15 @@ class CfgNode:
             return v
 
         return {k: convert(v) for k, v in self._data.items()}
+
+    def dump(self, **kwargs: Any) -> str:
+        """The node as YAML (block style, keys in insertion order), as the
+        JAX package's ``CN.dump`` writes a run's setting.yaml."""
+        import yaml
+
+        kwargs.setdefault("default_flow_style", False)
+        kwargs.setdefault("sort_keys", False)
+        return yaml.safe_dump(self.to_dict(), **kwargs)
 
 
 CN = CfgNode

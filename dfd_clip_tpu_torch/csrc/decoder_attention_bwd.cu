@@ -1,9 +1,11 @@
 // Backward of the single-query dual-activation decoder attention, for the
 // trainable leaves: dq_smax, dq_coda and the temporal positional embedding's
-// cotangent dpos, in one launch over K and V.
+// cotangent dpos, and, when K and V are live (an adapter before the
+// decoder), dK and dV, in one launch over K and V.
 //
 // Replaces: dfd_clip_tpu/ops/pallas_decoder_attention.py
-// fused_decoder_attention_bwd (_bwd_kernel). Math of
+// fused_decoder_attention_bwd (_bwd_kernel), and the XLA dK/dV einsums
+// beside it (dfd_clip_tpu/ops/decoder_attention_vjp.py:180-201). Math of
 // ops/decoder_attention_vjp._bwd_math: per valid token, with kp = k + pos,
 // vp = v + pos and the forward's saved softmax state (max, denominator),
 //   a_s = exp(ls - max) / denom, t = tanh(lc), g = 2 sigmoid(-|qc - kp|_1 s)
@@ -11,7 +13,9 @@
 //   dls = a_s (da - S)        S = 0.5 sum_d g0 o_s
 //   dlc = da g (1 - t^2),  du = -s da t g (1 - g / 2)
 //   dq_smax = s sum_l dls kp,  dq_coda = s sum_l dlc kp + sum_l du sign(qc - kp)
-//   dpos[l] = sum_b dls qs s + dlc qc s - du sign(qc - kp) + 0.5 (a_s + t g) g0
+//   dk[b, l] = dls qs s + dlc qc s - du sign(qc - kp)
+//   dv[b, l] = 0.5 (a_s + t g) g0
+//   dpos[l] = sum_b dk[b, l] + dv[b, l]
 // S removes the global softmax coupling term, so a single pass suffices.
 // The logits are recomputed by the forward kernel's own function
 // (csrc/decoder_logits.cuh: k + pos in f32 from bf16 values, 8 lanes a
@@ -22,7 +26,9 @@
 //
 // Bound on an H100: bytes. At the train shape (12 samples, 12 heads, 4000
 // tokens, head_dim 64) a call reads ~126 MB of valid K/V rows for ~0.85
-// GFLOP (0.043 ms at 3.35 TB/s).
+// GFLOP (0.043 ms at 3.35 TB/s); with dK/dV it also writes two bf16 (B, L,
+// H, 64) tensors, as many bytes again as the K/V it reads (at the adapter's
+// unpadded 12 x 3,920 tokens ~144.5 MB more).
 //
 // Design: dq is a sum over L per (sample, head) and dpos a sum over samples
 // per (token, head), so the two reductions run in opposite directions.
@@ -68,6 +74,13 @@
 //   arithmetic. A batch whose partials do not fit goes in passes of
 //   `group` samples; a pass after the first adds its dpos to the stored
 //   values (the block owns those tokens, so the order is fixed).
+// - dK/dV: each consumer lane has its 8 dims of a token's dk and dv (the
+//   terms it folds into dpos) and stores them as one 16-byte bf16 word
+//   each, so a token's 8 lanes write its 128-byte row; every (sample,
+//   token, head) is written once and needs no atomics. Masked tokens get
+//   zeros: the consumers write them for the tokens of a live stage, the
+//   producer warp for a (sample, tile) whose tokens are all masked, which
+//   it moves no data for.
 #include "decoder_logits.cuh"
 #include "hopper.cuh"
 
@@ -121,6 +134,8 @@ struct Args {
   float* dq_part;                // [chunks][B][2][H x 64] f32
   void* dq;                      // [B][2][H x 64], f32 when dq_f32 else bf16
   float* dpos;                   // (L, H, 64) f32, or null without pos
+  bf16* dk;                      // (B, L, H, 64) bf16, or null: no dK/dV
+  bf16* dv;
   int* ticket;                   // [H] zeroed, left zeroed
   long long* clock;              // the stage clock: CLOCKS a block, or null
   int ct_f32, dq_f32, has_pos;
@@ -188,6 +203,20 @@ struct Smem {
   }
 };
 
+// dK/dV of (sample b, tile t, head h) set to zeros by one warp: 8 lanes a
+// token's 128-byte row.
+__device__ __forceinline__ void zero_kv_tile(const Args& a, int b, int t, int h, int lane) {
+  const size_t hd_cols = (size_t)a.heads * D;
+  const uint4 z = make_uint4(0u, 0u, 0u, 0u);
+  for (int i = lane; i < TILE * GROUP; i += 32) {
+    const int l = t * TILE + i / GROUP;
+    if (l >= a.L) break;
+    const size_t at = ((size_t)b * a.L + l) * hd_cols + h * D + (i % GROUP) * DL;
+    *reinterpret_cast<uint4*>(a.dk + at) = z;
+    *reinterpret_cast<uint4*>(a.dv + at) = z;
+  }
+}
+
 // ---- the producer warp ------------------------------------------------------------------
 __device__ __forceinline__ void produce(const Smem& sm, const Args& a, const CUtensorMap* mk,
                                         const CUtensorMap* mv, const CUtensorMap* mp, int lane) {
@@ -211,7 +240,10 @@ __device__ __forceinline__ void produce(const Smem& sm, const Args& a, const CUt
         unsigned any = 0;
 #pragma unroll
         for (int w = 0; w < MASK_WORDS; ++w) any |= bits[w];
-        if (any == 0) continue;   // every token masked: no load, no stage
+        if (any == 0) {   // every token masked: no load, no stage; zero dK/dV
+          if (a.dk != nullptr) zero_kv_tile(a, b, t, h, lane);
+          continue;
+        }
         if (a.has_pos && t != last_tile) {
           const int p = npos & 1;
           if (lane == 0) {
@@ -366,6 +398,17 @@ __device__ __forceinline__ void consume(const Smem& sm, const Args& a, int cw, i
         if (mine == 0) {   // none of the warp's tokens is valid in this sample
           warp_arrive(sm.empty(s));
           ++n;
+          if (a.dk != nullptr) {
+            const uint4 z = make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+            for (int st = 0; st < STEPS; ++st) {
+              const int l = t * TILE + cw * WTOK + st * TOKENS + g;
+              if (l >= a.L) continue;
+              const size_t at = ((size_t)b * a.L + l) * hd_cols + col;
+              *reinterpret_cast<uint4*>(a.dk + at) = z;
+              *reinterpret_cast<uint4*>(a.dv + at) = z;
+            }
+          }
           continue;
         }
         uint4 kr[STEPS], vr[STEPS];
@@ -410,6 +453,9 @@ __device__ __forceinline__ void consume(const Smem& sm, const Args& a, int cw, i
             w += gg[e] * vv[e];
           }
           w = group_sum(w);
+          float dke[DL], dve[DL];
+#pragma unroll
+          for (int e = 0; e < DL; ++e) dke[e] = dve[e] = 0.f;
           if (ok) {
             const float a_s = __expf(lg.ls - mx) * inv_den;
             // tanh and 1 - tanh^2 = sech^2 from e = exp(2 lc): r = 1 / (1 + e),
@@ -431,8 +477,20 @@ __device__ __forceinline__ void consume(const Smem& sm, const Args& a, int cw, i
               const float dsg = signed_du(du, __fsub_rn(q_c[e], kk[e]));
               aqs[e] += dls * kk[e];
               aqc[e] += sdlc * kk[e] + dsg;
-              dp[st][e] += sdls * q_s[e] + sdlc * q_c[e] - dsg + av * gg[e];
+              dke[e] = sdls * q_s[e] + sdlc * q_c[e] - dsg;
+              dve[e] = av * gg[e];
+              dp[st][e] += dke[e] + dve[e];
             }
+          }
+          const int l = t * TILE + cw * WTOK + st * TOKENS + g;
+          if (a.dk != nullptr && l < a.L) {   // zeros for a masked token
+            const size_t at = ((size_t)b * a.L + l) * hd_cols + col;
+            *reinterpret_cast<uint4*>(a.dk + at) =
+                make_uint4(pack_bf16(dke[0], dke[1]), pack_bf16(dke[2], dke[3]),
+                           pack_bf16(dke[4], dke[5]), pack_bf16(dke[6], dke[7]));
+            *reinterpret_cast<uint4*>(a.dv + at) =
+                make_uint4(pack_bf16(dve[0], dve[1]), pack_bf16(dve[2], dve[3]),
+                           pack_bf16(dve[4], dve[5]), pack_bf16(dve[6], dve[7]));
           }
         }
         // the 4 token groups' sums, scattered: lane (g, j) keeps 4 of the 128
@@ -545,8 +603,9 @@ decoder_attention_bwd_kernel(const __grid_constant__ CUtensorMap map_k,
 
 }  // namespace
 
-// dq [B, 2, H * 64] (rows dq_smax, dq_coda; f32 when dq_f32, else bf16) and
-// dpos [L, H, 64] f32 (or none when pos is null) in one launch, from
+// dq [B, 2, H * 64] (rows dq_smax, dq_coda; f32 when dq_f32, else bf16),
+// dpos [L, H, 64] f32 (or none when pos is null) and, when dk is not null,
+// dK and dV [B, L, H, 64] bf16 in one launch, from
 // queries qs / qc (row stride q_stride elements between samples, heads x 64
 // contiguous, bf16), ct [B, H, 64] (f32 when ct_f32, else bf16), o_s [B, H,
 // 64] f32, denom / mx [B, H] f32 rows stat_stride apart, K/V [B, L, H, 64]
@@ -561,13 +620,15 @@ extern "C" int dfd_decoder_attention_bwd(const void* qs, const void* qc, long lo
                                          const void* denom, const void* mx,
                                          long long stat_stride, const void* k, const void* v,
                                          const void* mask, const void* pos, void* dq_part,
-                                         void* dq, int dq_f32, void* dpos, void* ticket,
+                                         void* dq, int dq_f32, void* dpos, void* dk, void* dv,
+                                         void* ticket,
                                          int batch, int L, int heads, int tiles, int chunk_tiles,
                                          int chunks, int group, int grid, int smem, float scale,
                                          void* clock, void* stream) {
   if (batch < 1 || L < 1 || heads < 1 || group < 1 || group > batch || chunk_tiles < 1 ||
       tiles != (L + TILE - 1) / TILE || chunks != (tiles + chunk_tiles - 1) / chunk_tiles ||
-      grid < 1 || smem < TABLE_OFF + ALIGN || (long long)batch * L > 0x7fffffffLL)
+      grid < 1 || smem < TABLE_OFF + ALIGN || (long long)batch * L > 0x7fffffffLL ||
+      (dk == nullptr) != (dv == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const long long width = (long long)heads * D;
   alignas(64) CUtensorMap mk, mv, mp;
@@ -600,6 +661,8 @@ extern "C" int dfd_decoder_attention_bwd(const void* qs, const void* qc, long lo
   a.dq_part = static_cast<float*>(dq_part);
   a.dq = dq;
   a.dpos = static_cast<float*>(dpos);
+  a.dk = static_cast<bf16*>(dk);
+  a.dv = static_cast<bf16*>(dv);
   a.ticket = static_cast<int*>(ticket);
   a.clock = static_cast<long long*>(clock);
   a.ct_f32 = ct_f32;

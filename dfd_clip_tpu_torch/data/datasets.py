@@ -13,9 +13,9 @@ equals the JAX package's for the same position.
 Every dataset takes ``video_backend`` (data/video.py), the JAX package's
 DFD_VIDEO_BACKEND as an argument. The video table is cached under
 ``./.cache/dfd-clip/videos/`` with the JAX package's file names and pickle
-contents. Not ported yet, and raising NotImplementedError: FFPP's training
-augmentation (``augmentation`` other than "none" on the train split) and
-``ssl_fake``, which need data/augment.py; RPPG waits for the training CLI.
+contents. FFPP's training split runs data/augment.py's ClipAugmenter
+(``augmentation``) and, with ``ssl_fake``, its elastic forgery, as the JAX
+package does. RPPG is not ported yet.
 """
 
 from __future__ import annotations
@@ -31,6 +31,7 @@ from typing import Any, Dict, List
 import numpy as np
 
 from ..runtime import OneProcess
+from .augment import ClipAugmenter, ssl_fake_pipeline
 from .loader import default_collate
 from .video import backend_for_path
 
@@ -179,11 +180,6 @@ class FFPP(_SampleRNGMixin):
                  runtime=None, split="train", index=0, seed: int = 0,
                  video_backend: str = "auto", **_):
         assert 0 <= config.scale <= 1
-        if config.ssl_fake:
-            raise NotImplementedError("FFPP ssl_fake needs data/augment.py, not ported yet")
-        if split == "train" and config.augmentation != "none":
-            raise NotImplementedError(f"FFPP augmentation {config.augmentation!r} needs "
-                                      "data/augment.py, not ported yet")
         runtime = _runtime_or_default(runtime)
         self.video_backend = video_backend
         self.category = config.category.lower()
@@ -203,6 +199,9 @@ class FFPP(_SampleRNGMixin):
         self.pair = bool(config.pair)
         self.contrast = bool(config.contrast)
         self.contrast_pair = bool(config.contrast_pair)
+        self.ssl_fake = bool(config.ssl_fake)
+        self.augmentation = ClipAugmenter(config.augmentation)
+        self.ssl_pipeline = ssl_fake_pipeline() if self.ssl_fake else None
 
         self._init_sample_rng(seed, index)
 
@@ -289,7 +288,11 @@ class FFPP(_SampleRNGMixin):
         elif self.contrast:
             rng = self._sample_rng(idx)
             result = []
-            if self.contrast_pair:
+            if self.ssl_fake and rng.random() > 0.5:
+                result.append(self.get_dict(idx, target_label=False, rng=rng))
+                result.append(self.get_dict(result[-1]["idx"], target_label=False,
+                                            make_fake=True, rng=rng))
+            elif self.contrast_pair:
                 assert len(self.real_clip_idx) > 0, "contrast_pair needs at least one real clip indexed before fakes"
                 while True:
                     try:
@@ -324,10 +327,12 @@ class FFPP(_SampleRNGMixin):
             result = self.get_dict(idx)
             return result["frames"], result["label"], result["mask"], result["speed"], self.index
 
-    def get_dict(self, idx, block=False, target_label=None, rng=None):
+    def get_dict(self, idx, block=False, target_label=None, make_fake=False, rng=None):
         # rng is the stream-position generator (see _SampleRNGMixin); a
         # caller that draws several samples per item (contrast pairs)
         # threads one generator through so the pair is a single key.
+        if make_fake and not (self.ssl_fake and target_label is False):
+            raise ValueError("make_fake needs ssl_fake and a real target")
         if rng is None:
             rng = self._sample_rng(idx)
 
@@ -353,6 +358,7 @@ class FFPP(_SampleRNGMixin):
                     video_shift_factor = 0.0
 
                 frames = {}
+                replay: Dict[str, Any] = {}
                 for target_comp in ("raw", "c23"):
                     vid_path = video_meta["path"]
                     if target_comp not in vid_path:
@@ -367,6 +373,14 @@ class FFPP(_SampleRNGMixin):
 
                     _frames = _read_clip_frames(vid_path, fps, offset, stride, self.num_frames,
                                                 self.video_backend)
+                    if self.split == "train":
+                        # one replay for both compressions of the pair
+                        _frames, replay = self.augmentation(_frames, replay, rng)
+                        if make_fake:
+                            if "ssl_fake" not in replay:
+                                replay["ssl_fake"] = self.ssl_pipeline.sample(rng)
+                            _frames = np.stack([self.ssl_pipeline.apply(f, replay["ssl_fake"])
+                                                for f in _frames])
                     _frames = _hwc_to_chw(_frames)
                     if self.transform:
                         _frames = self.transform(_frames)
@@ -378,7 +392,7 @@ class FFPP(_SampleRNGMixin):
 
                 return {
                     "frames": frames,
-                    "label": 0 if df_type == "REAL" else 1,
+                    "label": 0 if (df_type == "REAL" and not make_fake) else 1,
                     "mask": mask,
                     "speed": video_speed_factor,
                     "idx": idx,

@@ -1,1 +1,3 @@
-"""Training engine: optimizers, learning-rate schedule and the step trainer."""
+"""Training engine: optimizers and the learning-rate schedule, the step
+Trainer, the Evaluator, the callbacks both fire, and train-state
+checkpoints."""

@@ -1,0 +1,86 @@
+"""Evaluator (counterpart of dfd_clip_tpu/engine/evaluator.py:Evaluator;
+reference src/evaluator.py).
+
+A no-grad pass over each evaluation DataLoader with the trainer's current
+parameters (``Trainer.eval_params``: the trainable leaves placed as the
+model's prepare_params places them, over the frozen ones), one
+``Detector.forward`` per batch in inference mode for the batch's task. A
+ragged tail batch is padded to the full batch by repeating its last clip,
+so every batch keeps one shape, and ``batch_valid`` marks the padding rows,
+which update_metrics (engine/callbacks.py) drops. The callback events are
+JAX's: on_evaluation_start / end, on_batch_start / end.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .callbacks import CallbackMixin
+
+
+class Evaluator(CallbackMixin):
+    @staticmethod
+    def get_default_config():
+        from ..config import CN
+
+        C = CN()
+        C.name = "Evaluator"
+        C.num_workers = 4
+        C.batch_size = 16
+        C.metrics = []
+        return C
+
+    def __init__(self, config, runtime, datasets, tracker=None):
+        from ..data.loader import DataLoader
+
+        self._init_callbacks()
+        self.config = config
+        self.runtime = runtime
+        self.tracker = tracker
+        self.dataloaders = {
+            f"{ds.category}/{ds.name}": DataLoader(
+                ds, batch_size=config.batch_size * runtime.data_parallel, shuffle=False,
+                num_workers=config.num_workers, collate_fn=ds.collate_fn, drop_last=False)
+            for ds in datasets}
+
+    def snapshot_model_state(self, include_frozen: bool = False):
+        return self.trainer.snapshot_model_state(include_frozen)
+
+    def run(self, trainer) -> None:
+        self.trigger_callbacks("on_evaluation_start")
+        self.steps = trainer.steps
+        self.trainer = trainer
+        self.batch_num = 0
+        self.total_tasks = trainer.total_tasks
+        model, to_host = trainer.model, self.runtime.to_host
+        params = trainer.eval_params()
+        full = self.config.batch_size * self.runtime.data_parallel
+        for name, loader in self.dataloaders.items():
+            for batch in loader:
+                self.trigger_callbacks("on_batch_start")
+                frames, label, mask, _comps, _speed, index = batch
+                task = int(np.asarray(index).reshape(-1)[0])
+                x, y, m = np.asarray(frames), np.asarray(label), np.asarray(mask)
+                n = x.shape[0]
+                pad = full - n if n < full else 0
+                if pad:   # the ragged tail to the full batch: one batch shape
+                    x, y, m = (np.concatenate([a, np.repeat(a[-1:], pad, axis=0)])
+                               for a in (x, y, m))
+                arrays = self.runtime.shard_batch({"x": x, "label": y, "m": m})
+                labels = [arrays["label"] if i == task else None
+                          for i in range(self.total_tasks)]
+                with torch.no_grad():
+                    losses, logits = model.forward(params, arrays["x"], labels,
+                                                   arrays["m"].bool(), train=False,
+                                                   single_task=task)
+                self.batch_losses = {name: to_host(losses[task])}
+                self.batch_logits = {name: to_host(logits[task])}
+                self.batch_labels = {name: y}
+                self.batch_valid = {name: np.arange(n + pad) < n}
+                self.batch_num += 1
+                valid = self.batch_valid[name]
+                self.batch_loss_info = (f"{np.mean(self.batch_losses[name][valid]):.6f}({name}) "
+                                        if valid.any() else f"-({name}) ")
+                self.trigger_callbacks("on_batch_end")
+        self.trigger_callbacks("on_evaluation_end")

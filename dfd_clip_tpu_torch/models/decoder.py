@@ -12,6 +12,12 @@ ops/decoder_attention_vjp.py (partials forward and backward kernels). The
 8-row pad of the export is masked as keys through ``patch_valid``. With
 int8_rows K/V ({"k_scale", "v_scale"} in the export) the decoder computes in
 bf16 and the attention dequantises each token's row (inference only).
+
+K/V come as the stacked export (Lsel, B, T, P, H, D), whose slot i block i
+reads in place (``layer=i``), or, after an adapter, as lists of per-layer
+(B, T, P, H, D) tensors, each block reading its own (``layer`` None): with
+live K/V each attention call's backward then hands back that layer's own
+dK/dV.
 """
 
 from __future__ import annotations
@@ -114,29 +120,42 @@ def apply_decoder(params: Params, kvs: Dict[str, torch.Tensor], m: torch.Tensor,
                   cfg: DecoderConfig, *, train: bool = False,
                   gen: Optional[torch.Generator] = None, patch_valid: Optional[int] = None
                   ) -> Tuple[List[torch.Tensor], torch.Tensor]:
-    """Decode K/V {"k", "v"}: (Lsel, B, T, P, H, D) with the (B, T) bool frame
-    mask into (task logits [(B, out_dim)], video feature). ``train`` runs the
+    """Decode K/V {"k", "v"}: (Lsel, B, T, P, H, D), or lists of Lsel
+    per-layer (B, T, P, H, D) tensors, with the (B, T) bool frame mask into
+    (task logits [(B, out_dim)], video feature). ``train`` runs the
     differentiable composition, with dropout drawn from ``gen``. int8 K/V
-    come with {"k_scale", "v_scale"}: (Lsel, B, T, P, 1) f32."""
+    come stacked, with {"k_scale", "v_scale"}: (Lsel, B, T, P, 1) f32."""
     if cfg.attn_mode or cfg.aug_query:
         raise NotImplementedError("attn_mode and aug_query are not ported yet")
     k_all, v_all = kvs["k"], kvs["v"]
     ks_all, vs_all = kvs.get("k_scale"), kvs.get("v_scale")
-    nsel, b, t, p, h, d = k_all.shape
+    per_layer = isinstance(k_all, (list, tuple))
+    nsel = len(k_all)
+    b, t, p, h, d = k_all[0].shape
     if nsel != cfg.num_blocks:
         raise ValueError(f"{nsel} K/V slots for {cfg.num_blocks} decoder blocks")
     if train and ks_all is not None:
         raise NotImplementedError("training on int8_rows K/V is not ported yet")
+    if per_layer and ks_all is not None:
+        raise ValueError("int8_rows K/V come as the stacked export")
     # int8 K/V: queries, residual stream and output in bf16 (the JAX rule)
-    cd = torch.bfloat16 if k_all.dtype == torch.int8 else k_all.dtype
+    cd = torch.bfloat16 if k_all[0].dtype == torch.int8 else k_all[0].dtype
     pos_tok = None
     if cfg.temporal_position:
         pos = params["positional_embedding"][:t]                  # (T, 1, H, D)
         pos_tok = pos.expand(t, p, h, d).reshape(t * p, h, d)
         if not train:   # training casts inside the Function: dpos stays f32
             pos_tok = pos_tok.to(cd).contiguous()
-    k_all = k_all.reshape(nsel, b, t * p, h, d)
-    v_all = v_all.reshape(nsel, b, t * p, h, d)
+    if per_layer:   # block i reads its own tensor
+        k_all = [f.reshape(b, t * p, h, d) for f in k_all]
+        v_all = [f.reshape(b, t * p, h, d) for f in v_all]
+    else:
+        k_all = k_all.reshape(nsel, b, t * p, h, d)
+        v_all = v_all.reshape(nsel, b, t * p, h, d)
+
+    def slot(i):
+        """Block i's K/V and the ``layer`` its attention reads them at."""
+        return (k_all[i], v_all[i], None) if per_layer else (k_all, v_all, i)
     if ks_all is not None:
         ks_all = ks_all.reshape(nsel, b, t * p, 1)
         vs_all = vs_all.reshape(nsel, b, t * p, 1)
@@ -150,9 +169,10 @@ def apply_decoder(params: Params, kvs: Dict[str, torch.Tensor], m: torch.Tensor,
         x = layers.dropout(x, cfg.dropout, gen, train)
         for i, blk in enumerate(blocks):
             qrow = layers.linear(blk["attn"]["in_proj"], layers.layer_norm(blk["ln_1"], x))
+            k_i, v_i, layer = slot(i)
             attn_out = dual_activation_attention(
                 qrow[:, : cfg.width].reshape(b, 1, h, d), qrow[:, cfg.width:].reshape(b, 1, h, d),
-                k_all, v_all, mask, temporal_pos=pos_tok, layer=i, differentiable=True)
+                k_i, v_i, mask, temporal_pos=pos_tok, layer=layer, differentiable=True)
             x = x + layers.linear(blk["attn"]["out_proj"], attn_out.reshape(b, cfg.width))
             y = layers.linear(blk["mlp"]["c_fc"], layers.layer_norm(blk["ln_2"], x))
             y = layers.dropout(layers.quick_gelu(y), cfg.dropout, gen, train)
@@ -166,9 +186,9 @@ def apply_decoder(params: Params, kvs: Dict[str, torch.Tensor], m: torch.Tensor,
         for i, blk in enumerate(blocks):
             q_smax = qrow[:, : cfg.width].reshape(b, 1, h, d)
             q_coda = qrow[:, cfg.width:].reshape(b, 1, h, d)
-            attn_out = fused_decoder_attention(q_smax, q_coda, k_all, v_all, mask,
-                                               pos_tok, layer=i, k_scale=ks_all,
-                                               v_scale=vs_all)
+            k_i, v_i, layer = slot(i)
+            attn_out = fused_decoder_attention(q_smax, q_coda, k_i, v_i, mask, pos_tok,
+                                               layer=layer, k_scale=ks_all, v_scale=vs_all)
             tail = {"attn_out_proj": blk["attn"]["out_proj"], "ln_2": blk["ln_2"],
                     "mlp": blk["mlp"]}
             nxt = query(blocks[i + 1]) if i + 1 < len(blocks) else None

@@ -17,9 +17,14 @@ scales into the decoder; both are inference-only here. ``encoder_kernels``
 package's DFD_FUSED_BLOCK, DFD_MEGAKERNEL and DFD_INT8_ATTN do (the tower's
 export is unpadded); DINOv2 ignores it, as JAX's DINOv2 tower ignores them.
 ``predict(patch_indices=...)`` gathers each kept layer's patches
-before the decoder (bf16 and int8_rows K/V alike). The adapter,
-``kv_dtype = "int8"``, the compression and temporal losses, ``ema_frame``
-and ``patch_mask`` are not ported yet and raise.
+before the decoder (bf16 and int8_rows K/V alike). With an adapter
+(``adapter.type`` "scratch" or "pretrain", models/adapter.py) the export
+is unpadded (the "nln" joint LayerNorm and the "768-bn" statistics must not
+see pad rows), int8_rows K/V are dequantised first, and the adapter turns
+the stacked export into per-layer K/V between the encoder and the decoder,
+under autograd in training, so the decoder attention's backward hands back
+dK/dV into the adapter. ``kv_dtype = "int8"``, the compression and temporal
+losses, ``ema_frame`` and ``patch_mask`` are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -32,7 +37,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from . import clip_vit, decoder as decoder_lib, dinov2_vit
+from . import adapter as adapter_lib, clip_vit, decoder as decoder_lib, dinov2_vit
 from ..device import resolve_device
 from ..ops import image_ops
 
@@ -166,8 +171,6 @@ class Detector:
             mean, std = IMAGENET_MEAN, IMAGENET_STD
         else:
             raise NotImplementedError(f"Unknown foundation: {config.foundation}")
-        if config.adapter.type != "none":
-            raise NotImplementedError("the CompInv adapter is not ported yet")
         op = config.op_mode
         clip = config.foundation != "dinov2"
         if clip and op.get("kv_dtype", "auto") == "int8":
@@ -192,20 +195,44 @@ class Detector:
             global_prediction=bool(op.get("global_prediction", 0)),
             concat_ref=bool(config.concat_ref),
         )
+        self.adapter_type = config.adapter.type
+        self.adapter_cfg = None
+        if self.adapter_type != "none":
+            if config.adapter.struct.type not in adapter_lib.STRUCT_TYPES:
+                raise NotImplementedError(f"Unknown adapter struct: {config.adapter.struct.type}")
+            self.adapter_cfg = adapter_lib.AdapterConfig(
+                struct_type=config.adapter.struct.type,
+                inner_dim=int(config.adapter.struct.get("x", self.vit_cfg.width)),
+                width=self.vit_cfg.width,
+                num_layers=len(self.layer_indices),
+                dropout=config.dropout,
+                num_frames=num_frames,
+                patches=self.vit_cfg.num_patches,
+            )
 
     # -- params ---------------------------------------------------------------
     def init_params(self, gen: torch.Generator,
                     encoder_params: Optional[Params] = None) -> Params:
         """Random f32 params (CPU) from ``gen``; the decoder's LayerNorms and
-        MLPs are seeded from the encoder's kept layers."""
+        MLPs are seeded from the encoder's kept layers. With an adapter also
+        ``adapter``, read from ``adapter.path`` for ``adapter.type``
+        "pretrain"."""
         if encoder_params is None:
             init = dinov2_vit.init_dinov2 if self._dinov2() else clip_vit.init_clip_vision
             encoder_params = init(gen, self.vit_cfg)
-        return {
+        params = {
             "encoder": encoder_params,
             "decoder": decoder_lib.init_decoder(gen, self.decoder_cfg,
                                                 encoder_params["blocks"]),
         }
+        if self.adapter_cfg is not None:
+            params["adapter"] = adapter_lib.init_adapter(gen, self.adapter_cfg)
+            if self.adapter_type == "pretrain":
+                from .weights import load_adapter_checkpoint
+
+                params["adapter"] = load_adapter_checkpoint(self.config.adapter.path,
+                                                            params["adapter"])
+        return params
 
     def prepare_params(self, params: Params) -> Params:
         """Move params to the detector's device, with the matrix weights
@@ -214,7 +241,7 @@ class Detector:
         f32. With ``compute_int8`` the tower's block weights are first
         quantised from f32 (clip_vit.prepare_int8_params), and their int8
         ``wq`` stay int8."""
-        if self.compute_int8:
+        if self.compute_int8 and "encoder" in params:
             params = {**params, "encoder": clip_vit.prepare_int8_params(params["encoder"])}
 
         def place(path, leaf):
@@ -227,9 +254,14 @@ class Detector:
         return _map_tree(place, params)
 
     def partition_params(self, params: Params) -> Tuple[Params, Params]:
-        """(trainable, frozen): the encoder never trains."""
+        """(trainable, frozen): the encoder never trains; a pretrained adapter
+        with ``adapter.frozen`` set does not either."""
         trainable = {k: v for k, v in params.items() if k != "encoder"}
-        return trainable, {"encoder": params["encoder"]}
+        frozen = {"encoder": params["encoder"]}
+        if self.adapter_type == "pretrain" and self.config.adapter.get("frozen", 0) \
+                and "adapter" in trainable:
+            frozen["adapter"] = trainable.pop("adapter")
+        return trainable, frozen
 
     def optimizer_spec(self):
         return {"name": self.config.optimizer, "weight_decay": self.config.weight_decay}
@@ -249,6 +281,14 @@ class Detector:
         """op_mode.kv_dtype "int8_rows": per-row int8 K/V that stay
         quantised into the decoder (CLIP towers only)."""
         return not self._dinov2() and self.config.op_mode.get("kv_dtype", "auto") == "int8_rows"
+
+    def _dequant_kvs(self, kvs: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """Float K/V in the compute dtype from the int8_rows form (the
+        adapter reads float K/V); other exports as they are."""
+        if "k_scale" not in kvs:
+            return kvs
+        return {s: (kvs[s].float() * kvs[f"{s}_scale"][..., None]).to(self.compute_dtype)
+                for s in ("k", "v")}
 
     def encode_kv(self, params: Params, x: torch.Tensor,
                   pad_tokens: bool = False) -> Dict[str, torch.Tensor]:
@@ -272,39 +312,53 @@ class Detector:
 
     def predict(self, params: Params, x, m, *, train: bool = False,
                 gen: Optional[torch.Generator] = None, patch_indices=None,
-                with_video_features: bool = False):
+                with_video_features: bool = False, with_adapt_features: bool = False):
         """Logits for a clip batch: x (B, T, 3, H, W) uint8 or float, m (B, T)
         bool, as arrays or tensors. Returns (task logits list, features).
-        ``train`` runs the decoder's differentiable composition (dropout
-        drawn from ``gen``, a generator on the detector's device).
+        ``train`` runs the adapter and the decoder's differentiable
+        composition (dropout drawn from ``gen``, a generator on the
+        detector's device: the adapter's draws first, then the decoder's).
         ``patch_indices`` (Lsel, num_select) keeps, of each kept layer's
         export, the patches it lists (src/models.py:511-544); the gathered
-        rows are all real patches, so no pad row is masked."""
+        rows are all real patches, so no pad row is masked.
+        ``with_adapt_features``: features["adapt"] holds the adapter's
+        output, {"k", "v"}: lists of per-layer (B, T, P, H, D)."""
         if train and (self.compute_int8 or self._kv_rows8()):
             raise NotImplementedError("training with compute_int8 or int8_rows K/V is not "
                                       "ported yet")
         x = torch.as_tensor(np.asarray(x) if not torch.is_tensor(x) else x, device=self.device)
         m = torch.as_tensor(np.asarray(m) if not torch.is_tensor(m) else m,
                             device=self.device).bool()
+        if with_adapt_features and self.adapter_cfg is None:
+            raise ValueError("cannot return adaptive features without an adapter")
+        # the export's patch axis is 8-aligned (196 -> 200, not on the tower)
+        # without an adapter; the decoder masks the pad rows as keys through
+        # patch_valid. An adapter reads the exact-P export.
+        pad_tokens = self.adapter_cfg is None
         with torch.no_grad():
             x = self.preprocess(x)
-            # the export's patch axis is 8-aligned (196 -> 200, not on the
-            # tower); the decoder masks the pad rows as keys through patch_valid
-            kvs = self.encode_kv(params, x, pad_tokens=True)
-            patch_valid = self.vit_cfg.num_patches
+            kvs = self.encode_kv(params, x, pad_tokens=pad_tokens)
+            patch_valid = self.vit_cfg.num_patches if pad_tokens else None
             if patch_indices is not None:
                 # per layer on the patch axis; int8_rows scales (Lsel, B, T, P, 1) alike
                 idx = torch.as_tensor(patch_indices, device=self.device).long()
                 kvs = {s: torch.stack([f[i].index_select(2, idx[i]) for i in range(len(f))])
                        for s, f in kvs.items()}
                 patch_valid = None
+            if self.adapter_cfg is not None:
+                kvs = self._dequant_kvs(kvs)
         with contextlib.nullcontext() if train else torch.no_grad():
+            if self.adapter_cfg is not None:
+                kvs = adapter_lib.apply_adapter(params["adapter"], kvs, self.adapter_cfg,
+                                                train=train, gen=gen)
             task_logits, video = decoder_lib.apply_decoder(
                 params["decoder"], kvs, m, self.decoder_cfg, train=train, gen=gen,
                 patch_valid=patch_valid)
             task_logits = [5.0 * t / (torch.linalg.vector_norm(t, dim=-1, keepdim=True) + 1e-10)
                            for t in task_logits]
         features = {"video": video} if with_video_features else {}
+        if with_adapt_features:
+            features["adapt"] = kvs
         return task_logits, features
 
     def forward(self, params: Params, x, y: Sequence[Optional[torch.Tensor]], m,

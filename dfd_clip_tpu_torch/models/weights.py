@@ -129,6 +129,34 @@ def save_params(path: str, tree: Any) -> None:
         pickle.dump(params_to_jax(tree), f, protocol=pickle.HIGHEST_PROTOCOL)
 
 
+def load_adapter_checkpoint(path: str, template: Any) -> Any:
+    """A CompInvEncoder run's adapter weights (the JAX package's pickled
+    numpy tree, bare or under ``"adapter"``; src/models.py:472-478) as the
+    port's adapter params, each leaf's shape checked against ``template``
+    (``init_adapter``'s tree)."""
+    state = load_params(path)
+    if isinstance(state, dict) and "adapter" in state:
+        state = state["adapter"]
+
+    def check(got, want, where):
+        if isinstance(want, dict):
+            if not isinstance(got, dict) or set(got) != set(want):
+                raise ValueError(f"adapter checkpoint: keys differ at {where or 'the root'}")
+            for k in want:
+                check(got[k], want[k], f"{where}.{k}")
+        elif isinstance(want, (list, tuple)):
+            if not isinstance(got, (list, tuple)) or len(got) != len(want):
+                raise ValueError(f"adapter checkpoint: lengths differ at {where}")
+            for i, (g, w) in enumerate(zip(got, want)):
+                check(g, w, f"{where}[{i}]")
+        elif tuple(np.shape(got)) != tuple(want.shape):
+            raise ValueError(f"adapter shape mismatch at {where}: {np.shape(got)} vs "
+                             f"{tuple(want.shape)}")
+
+    check(state, template, "")
+    return _to_torch(state)
+
+
 # -- pretrained PyTorch checkpoints (the JAX package's numpy layout) -------------
 
 def _load_torch_state_dict(path: str) -> Dict[str, np.ndarray]:

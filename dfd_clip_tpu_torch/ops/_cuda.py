@@ -10,6 +10,9 @@ failed build raises with the compiler's output.
 Launch counters: every wrapper that launches a kernel adds one to its count
 in ``LAUNCHES`` where it launches, and nowhere else, so a run can show that
 its path went through the kernels (``reset_launches`` / ``launches``).
+``PLAIN_CALLS`` counts the calls of the plain versions that a run on the
+card must not reach (the decoder backward's ``_bwd_math``); ``reset_launches``
+clears it too (``plain_calls``).
 
 ``gemm`` and ``layer_norm_rows`` are the shared building blocks of the fused
 encoder blocks (``layer_norm_rows``: a persistent kernel, the row in
@@ -61,6 +64,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 LAUNCHES: Counter = Counter()
+PLAIN_CALLS: Counter = Counter()
 
 # gemm epilogue flags (csrc/gemm.cu)
 BIAS_F32, BIAS_BF16, GELU, RESID, STORE, EXPORT = 1, 2, 4, 8, 16, 32
@@ -129,10 +133,15 @@ CHAIN_MAX_WIDTH = 768
 
 def reset_launches() -> None:
     LAUNCHES.clear()
+    PLAIN_CALLS.clear()
 
 
 def launches() -> Dict[str, int]:
     return dict(LAUNCHES)
+
+
+def plain_calls() -> Dict[str, int]:
+    return dict(PLAIN_CALLS)
 
 
 def _nvcc() -> str:
@@ -221,8 +230,8 @@ _SIGNATURES = {
                                   ctypes.POINTER(ctypes.c_int), _I, _I, _I, _I],
     "dfd_decoder_boundary": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "dfd_decoder_attention_bwd": [_P, _P, _LL, _P, _I, _P, _P, _P, _LL, _P, _P, _P, _P, _P,
-                                  _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F,
-                                  _P, _P],
+                                  _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                                  _F, _P, _P],
 }
 
 

@@ -8,10 +8,14 @@ A ``torch.autograd.Function`` around the two decoder-attention kernels:
   out = 0.5 (o_s / max(denom, 1e-30) + o_c) in the K/V dtype; the
   normalised softmax output o_s joins the saved tensors;
 * backward: the backward kernel (ops/fused_decoder_attention_bwd.py), one
-  launch, for dq_smax and dq_coda (written in the queries' dtype) and the
-  temporal embedding's dpos (f32). dK/dV come from the
-  plain einsums (``_bwd_math``), and only when K or V requires a gradient:
-  never on the frozen-encoder path, where K/V come from under no_grad.
+  launch, for dq_smax and dq_coda (written in the queries' dtype), the
+  temporal embedding's dpos (f32) and, when K or V requires a gradient (an
+  adapter between the export and the decoder), dK and dV in K/V's dtype from
+  the same launch. On the frozen-encoder path K/V come from under no_grad
+  and the kernel writes no dK/dV. Unstacked K/V (``layer`` None: the
+  adapter's per-layer tensors) get their own dK/dV; a stacked buffer read at
+  ``layer`` gets the slot's cotangents placed in a zero stack, which
+  autograd sums across the decoder's per-block calls.
 
 The temporal embedding arrives in its own dtype (the f32 parameter on the
 training path) and is cast to the K/V dtype inside the Function, so dpos
@@ -27,19 +31,7 @@ from typing import Optional
 import torch
 
 from .fused_decoder_attention import fused_decoder_attention
-from .fused_decoder_attention_bwd import _bwd_math, fused_decoder_attention_bwd
-
-
-def _scatter_slot(dk, dv, k, v, layer):
-    """Place the selected-slot cotangents into full-shape buffers (stacked
-    (Lsel, B, L, H, D) form when ``layer`` is set; identity otherwise).
-    Autograd sums them across the decoder's per-block calls."""
-    if layer is None:
-        return dk, dv
-    full_k, full_v = torch.zeros_like(k), torch.zeros_like(v)
-    full_k[layer] = dk
-    full_v[layer] = dv
-    return full_k, full_v
+from .fused_decoder_attention_bwd import fused_decoder_attention_bwd
 
 
 class _TrainableAttention(torch.autograd.Function):
@@ -62,12 +54,17 @@ class _TrainableAttention(torch.autograd.Function):
     def backward(ctx, ct):
         q_smax, q_coda, k, v, mask, pos, denom, mx, o_s = ctx.saved_tensors
         layer = ctx.layer
-        dqs, dqc, dpos = fused_decoder_attention_bwd(q_smax, q_coda, k, v, mask, pos, layer,
-                                                     denom, mx, o_s, ct, q_smax.dtype)
+        live = ctx.needs_input_grad[2] or ctx.needs_input_grad[3]
+        dqs, dqc, dpos, *dkv = fused_decoder_attention_bwd(
+            q_smax, q_coda, k, v, mask, pos, layer, denom, mx, o_s, ct, q_smax.dtype,
+            with_kv=live)
         dk = dv = None
-        if ctx.needs_input_grad[2] or ctx.needs_input_grad[3]:
-            *_, dk, dv = _bwd_math(layer, q_smax, q_coda, k, v, mask, pos, denom, mx, ct)
-            dk, dv = _scatter_slot(dk, dv, k, v, layer)
+        if live:
+            dk, dv = dkv
+            if layer is not None:   # the slot's cotangents in a zero stack
+                full_k, full_v = torch.zeros_like(k), torch.zeros_like(v)
+                full_k[layer], full_v[layer] = dk, dv
+                dk, dv = full_k, full_v
         if dpos is not None:
             dpos = dpos.to(ctx.pos_dtype)
         return dqs, dqc, dk, dv, None, dpos, None

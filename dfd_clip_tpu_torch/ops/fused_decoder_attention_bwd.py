@@ -4,11 +4,14 @@ fused_decoder_attention_bwd, and of _bwd_math in
 dfd_clip_tpu/ops/decoder_attention_vjp.py, its plain version).
 
 On a CUDA tensor this launches csrc/decoder_attention_bwd.cu once: dq_smax,
-dq_coda and dpos over slot ``layer`` of the stacked K/V export, from the
-forward's saved softmax state, with the softmax coupling term S = 0.5 sum_d
-g0 o_s and g0's f32 values computed inside the kernel, so the wrapper does no
-arithmetic (its launch geometry is _cuda.bwd_geometry). On a CPU tensor the
-plain version (``_bwd_math``, which also gives dK/dV) runs instead.
+dq_coda and dpos over slot ``layer`` of the stacked K/V export (or over
+unstacked K/V with ``layer`` None), from the forward's saved softmax state,
+with the softmax coupling term S = 0.5 sum_d g0 o_s and g0's f32 values
+computed inside the kernel, so the wrapper does no arithmetic (its launch
+geometry is _cuda.bwd_geometry); with ``with_kv`` the same launch also
+writes the slot's dK and dV in K/V's bf16. On a CPU tensor the plain version
+(``_bwd_math``) runs instead. ``_bwd_math`` counts its calls in
+``_cuda.PLAIN_CALLS``, so a run on the card can show that it never ran.
 """
 
 from __future__ import annotations
@@ -20,11 +23,13 @@ import torch
 from . import _cuda
 from .fused_decoder_attention import check_inputs
 
+
 def _bwd_math(layer, q_smax, q_coda, k, v, mask, temporal_pos, denom, mx, ct):
     """Cotangents (dq_smax, dq_coda, dpos, dk, dv) from the saved softmax
     stats, all arithmetic in f32. dq and dpos come back in f32 (the caller
     casts them to its leaves' dtypes); dk/dv, in K/V's dtype, are for the
     SELECTED slot (B, L, H, D) and are zero at masked tokens."""
+    _cuda.PLAIN_CALLS["_bwd_math"] += 1
     kl, vl = (k[layer], v[layer]) if layer is not None else (k, v)
     b, l = mask.shape
     _, _, h, d = q_smax.shape
@@ -94,7 +99,8 @@ def fused_decoder_attention_bwd(
     mask: torch.Tensor, temporal_pos: Optional[torch.Tensor], layer: Optional[int],
     denom: torch.Tensor, mx: torch.Tensor, o_s: torch.Tensor, ct: torch.Tensor,
     dq_dtype: torch.dtype = torch.float32, stage_clock: Optional[torch.Tensor] = None,
-) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    with_kv: bool = False,
+) -> Tuple[Optional[torch.Tensor], ...]:
     """The forward's inputs, its saved denominator and maximum (B, H) f32,
     its normalised softmax output o_s (B, H, D) f32 and the output
     cotangent ct (B, 1, H, D) -> (dq_smax (B,1,H,D), dq_coda (B,1,H,D) in
@@ -103,15 +109,14 @@ def fused_decoder_attention_bwd(
     ``stage_clock``: None, or an int64 tensor on the card of
     _cuda.bwd_geometry's grid x len(_cuda.BWD_CLOCK) entries, into which
     each block writes %globaltimer (ns) at the BWD_CLOCK points of its first
-    item (tools/bench_decoder_bwd.py reads it)."""
+    item (tools/bench_decoder_bwd.py reads it). ``with_kv``: also return the
+    slot's dK and dV, (B, L, H, D) in K/V's dtype, zero at masked tokens."""
     name = "fused_decoder_attention_bwd"
     if dq_dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"{name}: dq_dtype {dq_dtype} is neither f32 nor bf16")
     if _cuda.on_cpu(name, k):
-        dqs, dqc, dpos = fused_decoder_attention_bwd_plain(q_smax, q_coda, k, v, mask,
-                                                           temporal_pos, layer, denom, mx, o_s,
-                                                           ct)
-        return dqs.to(dq_dtype), dqc.to(dq_dtype), dpos
+        return fused_decoder_attention_bwd_plain(q_smax, q_coda, k, v, mask, temporal_pos,
+                                                 layer, denom, mx, o_s, ct, dq_dtype, with_kv)
     kl, vl, b, l, h, d = check_inputs(name, q_smax, q_coda, k, v, mask, temporal_pos, layer)
     if denom.shape != (b, h) or mx.shape != (b, h) or o_s.shape != (b, h, d) \
             or ct.shape != (b, 1, h, d):
@@ -134,6 +139,8 @@ def fused_decoder_attention_bwd(
     scratch = torch.empty(n_pos + geo["chunks"] * b * 2 * h * d, dtype=f32, device=kl.device)
     dpos = scratch[:n_pos].view(l, h, d) if temporal_pos is not None else None
     dq = torch.empty((b, 2, h * d), dtype=dq_dtype, device=kl.device)
+    dk = torch.empty_like(kl) if with_kv else None
+    dv = torch.empty_like(vl) if with_kv else None
     stream = torch._C._cuda_getCurrentRawStream(index)
     ticket = _cuda.bwd_ticket(index, stream, h)
     if stage_clock is not None:
@@ -148,19 +155,24 @@ def fused_decoder_attention_bwd(
         kl.data_ptr(), vl.data_ptr(), mask.data_ptr(),
         temporal_pos.data_ptr() if temporal_pos is not None else None,
         scratch.data_ptr() + 4 * n_pos, dq.data_ptr(), int(dq_dtype == f32),
-        dpos.data_ptr() if dpos is not None else None, ticket.data_ptr(),
+        dpos.data_ptr() if dpos is not None else None,
+        dk.data_ptr() if with_kv else None, dv.data_ptr() if with_kv else None,
+        ticket.data_ptr(),
         b, l, h, geo["tiles"], geo["chunk_tiles"], geo["chunks"], geo["group"], geo["grid"],
         geo["smem"], d ** -0.5, stage_clock.data_ptr() if stage_clock is not None else None,
         stream)
     _cuda.check_launch(name, err)
     _cuda.LAUNCHES[name] += 1
-    return dq[:, 0].reshape(b, 1, h, d), dq[:, 1].reshape(b, 1, h, d), dpos
+    out = (dq[:, 0].reshape(b, 1, h, d), dq[:, 1].reshape(b, 1, h, d), dpos)
+    return out + (dk, dv) if with_kv else out
 
 
 def fused_decoder_attention_bwd_plain(q_smax, q_coda, k, v, mask, temporal_pos, layer,
-                                      denom, mx, o_s, ct, dq_dtype=torch.float32):
+                                      denom, mx, o_s, ct, dq_dtype=torch.float32,
+                                      with_kv: bool = False):
     """Plain version of fused_decoder_attention_bwd (same contract; the
     coupling term comes from the affinities, so o_s is not read)."""
-    dqs, dqc, dpos, _, _ = _bwd_math(layer, q_smax, q_coda, k, v, mask, temporal_pos,
-                                     denom, mx, ct)
-    return dqs.to(dq_dtype), dqc.to(dq_dtype), dpos
+    dqs, dqc, dpos, dk, dv = _bwd_math(layer, q_smax, q_coda, k, v, mask, temporal_pos,
+                                       denom, mx, ct)
+    out = (dqs.to(dq_dtype), dqc.to(dq_dtype), dpos)
+    return out + (dk, dv) if with_kv else out

@@ -200,6 +200,28 @@ def test_bwd_wrapper_on_cpu(with_pos, stacked):
     assert all(torch.equal(x, y) for x, y in zip(lo[:2], plain[:2]))
 
 
+@pytest.mark.parametrize("stacked", [True, False])
+def test_bwd_wrapper_with_kv_on_cpu(stacked):
+    """with_kv: the wrapper also returns the slot's dK and dV, (B, L, H,
+    64) in K/V's bf16, _bwd_math's own, exactly 0 at masked tokens; dq and
+    dpos as without; each plain call counted in _cuda.plain_calls (which
+    reset_launches clears), no launch."""
+    args = bwd_args(np.random.default_rng(7), stacked=stacked)
+    _cuda.reset_launches()
+    got = fused_decoder_attention_bwd(*args, with_kv=True)
+    assert _cuda.launches() == {} and _cuda.plain_calls() == {"_bwd_math": 1}
+    without = fused_decoder_attention_bwd(*args)
+    assert _cuda.plain_calls() == {"_bwd_math": 2}
+    assert len(got) == 5 and all(torch.equal(a, b) for a, b in zip(got[:3], without))
+    want = _bwd_math(args[6], *args[:6], args[7], args[8], args[10])
+    mask = args[4]
+    for g, w in zip(got[3:], want[3:]):
+        assert g.dtype == torch.bfloat16 and g.shape == (3, 37, 2, 64) and torch.equal(g, w)
+        assert torch.equal(g[~mask], torch.zeros_like(g[~mask]))
+    _cuda.reset_launches()
+    assert _cuda.plain_calls() == {}
+
+
 def test_bwd_wrapper_refuses_on_cpu():
     """dq_dtype other than f32 / bf16 is a TypeError; another device than CPU
     or CUDA a ValueError."""

@@ -518,6 +518,85 @@ def test_decoder_attention_bwd_one_kernel(dev):
     assert int(ticket.abs().sum()) == 0
 
 
+def check_bwd_kv(args, dead_tokens):
+    """The kernel's dK/dV (``with_kv``) against _bwd_math's for the slot:
+    within REL of each one's max; exactly 0 at every masked token (a fully
+    masked sample's, a tile's and a ragged run's alike); dq and dpos equal to
+    the launch without dK/dV, two calls bit-equal."""
+    from dfd_clip_tpu_torch.ops.fused_decoder_attention_bwd import (
+        fused_decoder_attention_bwd,
+        fused_decoder_attention_bwd_plain,
+    )
+
+    got = fused_decoder_attention_bwd(*args, with_kv=True)
+    again = fused_decoder_attention_bwd(*args, with_kv=True)
+    without = fused_decoder_attention_bwd(*args)
+    want = fused_decoder_attention_bwd_plain(*args, with_kv=True)
+    for g, a, w in zip(got[3:], again[3:], want[3:]):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape
+        assert rel_err(g, w) <= REL
+        assert torch.equal(g, a)
+        assert torch.equal(g[dead_tokens], torch.zeros_like(g[dead_tokens]))
+    for g, w in zip(got[:3], without):
+        assert (g is None and w is None) or torch.equal(g, w)
+
+
+@pytest.mark.parametrize("geo", [(12, 3920, False), (12, 4000, True), (2, 1, False),
+                                 (4, 97, True), (16, 300, False)],
+                         ids=["h12-l3920", "h12-l4000-stacked", "h2-l1", "h4-l97-stacked",
+                              "h16-l300"])
+def test_decoder_attention_bwd_dkv(dev, geo):
+    """dK/dV written by the backward's launch: the adapter's unpadded train
+    shape (L = 20 x 196 = 3,920, 40.8 tiles of 96 tokens), the padded stack's
+    4,000 at slot 1, one token and ragged tiles; sample 1 partly and the
+    last fully masked."""
+    h, l, stacked = geo
+    args = decoder_bwd_args(dev, torch.Generator().manual_seed(11), 3, h, l, stacked, True)
+    check_bwd_kv(args, ~args[4])
+
+
+def test_decoder_attention_bwd_dkv_masked_tiles(dev):
+    """Whole (sample, tile) pairs masked, which the producer moves no data
+    for: their dK/dV are zeros too."""
+    from dfd_clip_tpu_torch.ops import _cuda
+
+    args = decoder_bwd_args(dev, torch.Generator().manual_seed(12), 4, 12, 1000, False, True)
+    mask, tile = args[4], _cuda.BWD_TILE
+    mask[:] = True
+    mask[0, tile: 3 * tile] = False
+    mask[1, tile:] = False
+    mask[2, 5: 2 * tile + 7] = False
+    mask[3] = False
+    args = decoder_bwd_args_from(args)
+    check_bwd_kv(args, ~mask)
+
+
+def test_trainable_function_dkv_from_the_kernel(dev):
+    """The autograd Function on per-layer K/V that require a gradient: dK/dV
+    come from the backward kernel's launch (one launch, _bwd_math never
+    called) and equal autograd through the plain composition within REL."""
+    from dfd_clip_tpu_torch.ops import _cuda
+    from dfd_clip_tpu_torch.ops.decoder_attention import dual_activation_attention
+
+    qs, qc, k, v, pos, mask = decoder_inputs(dev, torch.Generator().manual_seed(13), 3, 12,
+                                             3920, False)
+    r = randn(torch.Generator().manual_seed(14), 3, 1, 12, 64).to(dev)
+
+    def grads(differentiable):
+        leaves = [t.detach().clone().requires_grad_(True) for t in (qs, qc, k, v)]
+        out = dual_activation_attention(*leaves, mask, temporal_pos=pos.float(),
+                                        differentiable=differentiable)
+        return torch.autograd.grad((out.float() * r).sum(), leaves)
+
+    _cuda.reset_launches()
+    got = grads(True)
+    assert _cuda.launches() == {"fused_decoder_attention": 1, "fused_decoder_attention_bwd": 1}
+    assert _cuda.plain_calls() == {}
+    want = grads(False)
+    for g, w in zip(got, want):
+        assert rel_err(g, w) <= REL
+
+
 def test_tiny_wide_trainer_on_card(dev):
     """Two steps of a ViT-Test-Wide (head_dim 64) Trainer through the
     kernels, against the same steps through the plain versions in f32 on

@@ -188,15 +188,19 @@ def test_dataset_items_equal_jax(tmp_path, monkeypatch, trees, case):
 @pytest.mark.parametrize("over", [dict(ssl_fake=1), dict(augmentation="normal")],
                          ids=["ssl_fake", "augmentation"])
 def test_ffpp_training_augmentation_raises(tmp_path, monkeypatch, trees, over):
-    """data/augment.py is not ported: FFPP's ssl_fake and any training
-    augmentation raise; the test split ignores augmentation, as in JAX."""
+    """data/augment.py is ported (tests/test_torch_port_augment.py holds its
+    items to JAX's): FFPP builds with ssl_fake or a training augmentation on
+    both splits; what still raises, in both packages alike, is a spec the
+    engine does not know ("dev-mode" without a force-* op)."""
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match="augment"):
-        tds.FFPP(dataset_cfg(tds.FFPP, trees["ffpp"], **over), 4, 1.0, split="train",
+    for split in ("train", "test"):
+        tds.FFPP(dataset_cfg(tds.FFPP, trees["ffpp"], **over), 4, 1.0, split=split,
                  video_backend="opencv")
-    if "augmentation" in over:
-        tds.FFPP(dataset_cfg(tds.FFPP, trees["ffpp"], **over), 4, 1.0, split="test",
-                 video_backend="opencv")
+        for mod, extra in ((tds, {"video_backend": "opencv"}), (jds, {})):
+            with pytest.raises(NotImplementedError, match="augmentation spec"):
+                mod.FFPP(dataset_cfg(mod.FFPP, trees["ffpp"], **{**over,
+                                                                 "augmentation": "dev-mode"}),
+                         4, 1.0, split=split, **extra)
 
 
 # -- inference.main ---------------------------------------------------------------

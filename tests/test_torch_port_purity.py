@@ -62,7 +62,12 @@ def test_port_reads_no_environment(path):
     "dfd_clip_tpu_torch.data.loader, dfd_clip_tpu_torch.data.datasets, "
     "dfd_clip_tpu_torch.utils.metrics, dfd_clip_tpu_torch.scoring, "
     "dfd_clip_tpu_torch.ops.image_ops, dfd_clip_tpu_torch.device, dfd_clip_tpu_torch.runtime",
-], ids=["serve", "train", "towers", "tools", "eval"])
+    "dfd_clip_tpu_torch.main, dfd_clip_tpu_torch.engine.evaluator, "
+    "dfd_clip_tpu_torch.engine.checkpoint, dfd_clip_tpu_torch.engine.callbacks, "
+    "dfd_clip_tpu_torch.models.adapter, dfd_clip_tpu_torch.data.augment, "
+    "dfd_clip_tpu_torch.utils.logging, dfd_clip_tpu_torch.utils.tracking, "
+    "dfd_clip_tpu_torch.utils.notify",
+], ids=["serve", "train", "towers", "tools", "eval", "cli"])
 def test_importing_the_port_loads_no_jax_or_yaml(modules):
     code = ("import sys\n"
             f"import {modules}\n"
@@ -74,10 +79,11 @@ def test_importing_the_port_loads_no_jax_or_yaml(modules):
 
 
 @pytest.mark.parametrize("entry", ["resolve_device", "Detector", "Trainer",
-                                   "Scorer.from_preset", "inference.main"])
+                                   "Scorer.from_preset", "inference.main", "main.main"])
 def test_default_device_is_the_card(entry):
     """Detector (whose forward and predict run on its device), Trainer, the
-    run-directory Scorer and the evaluation CLI default to the card."""
+    run-directory Scorer, the evaluation CLI and the training CLI default to
+    the card."""
     from dfd_clip_tpu_torch import inference, resolve_device
     from dfd_clip_tpu_torch.config import CN
     from dfd_clip_tpu_torch.engine.trainer import Trainer
@@ -100,6 +106,10 @@ def test_default_device_is_the_card(entry):
                                "/nonexistent")
         elif entry == "inference.main":
             inference.main(inference.parse_args(["/nonexistent"]))
+        elif entry == "main.main":
+            from dfd_clip_tpu_torch import main
+
+            main.main(main.parse_args(["--cfg", "/nonexistent.yaml"]))
         else:
             Trainer(Trainer.get_default_config(), Detector(cfg, num_frames=4, device="cpu"), {})
     assert resolve_device("cpu").type == "cpu"
@@ -113,9 +123,11 @@ def test_unported_options_raise():
                               "op_mode": {"kv_dtype": "int8"}})
     with pytest.raises(NotImplementedError):
         Detector(cfg, num_frames=4, device="cpu")
+    # the adapter is ported (tests/test_torch_port_adapter.py); a struct
+    # type the JAX package does not know raises
     cfg = Detector.get_default_config()
     cfg.merge_from_other_cfg({"decode_mode": "index", "decode_indices": [0], "out_dim": [2],
-                              "adapter": {"type": "normal"}})
+                              "adapter": {"type": "normal", "struct": {"type": "768-x-9"}}})
     with pytest.raises(NotImplementedError):
         Detector(cfg, num_frames=4, device="cpu")
 

@@ -168,6 +168,58 @@ def test_function_grads_match(rng, monkeypatch, reference, stacked):
     assert torch.equal(got[0][2], torch.zeros_like(got[0][2]))
 
 
+def test_decoder_per_layer_kv_grads_match_jax(rng, monkeypatch):
+    """apply_decoder in training on per-layer K/V lists (the adapter's form:
+    each block's attention reads its own tensor, layer None, and hands back
+    its own dK/dV) against jax.grad of JAX's apply_decoder on the stacked
+    export (its trainable attention: the Pallas kernels interpreted, dK/dV
+    from its einsums), w.r.t. K/V and the temporal embedding; the port's
+    stacked form gives the same cotangents. One sample partly and one fully
+    masked; the fully masked sample's dK/dV are exactly 0."""
+    from dfd_clip_tpu.models import decoder as jdec
+    from dfd_clip_tpu_torch.models import decoder as tdec
+
+    monkeypatch.setenv("DFD_ATTENTION_BACKEND", "pallas")
+    monkeypatch.setenv("DFD_DEC_VJP", "1")
+    cfg = jdec.DecoderConfig(width=128, heads=2, num_frames=3, layer_indices=(0, 1),
+                             out_dims=(2,))
+    params = jax.tree_util.tree_map(np.asarray, jdec.init_decoder(jax.random.key(2), cfg))
+    kvs = {s: rng.standard_normal((2, 3, 3, 5, 2, 64)).astype(np.float32) for s in ("k", "v")}
+    m = np.array([[True, True, True], [True, True, False], [False, False, False]])
+    r = rng.standard_normal((3, 2)).astype(np.float32)
+
+    def jloss(kv, pos):
+        p_ = {**jax.tree_util.tree_map(jnp.asarray, params), "positional_embedding": pos}
+        logits, _ = jdec.apply_decoder(p_, kv, jnp.asarray(m), cfg, train=True)
+        return jnp.sum(logits[0] * r)
+
+    want_kv, want_pos = jax.grad(jloss, argnums=(0, 1))(
+        {s: jnp.asarray(a) for s, a in kvs.items()}, jnp.asarray(params["positional_embedding"]))
+    tcfg = tdec.DecoderConfig(**dataclasses.asdict(cfg))
+
+    def port_grads(per_layer):
+        tparams = params_from_jax(params)
+        pos = tparams["positional_embedding"].requires_grad_(True)
+        if per_layer:
+            leaves = {s: [t(a[i]).requires_grad_(True) for i in range(2)] for s, a in kvs.items()}
+            flat = leaves["k"] + leaves["v"]
+        else:
+            leaves = {s: t(a).requires_grad_(True) for s, a in kvs.items()}
+            flat = [leaves["k"], leaves["v"]]
+        logits, _ = tdec.apply_decoder(tparams, leaves, torch.from_numpy(m), tcfg, train=True)
+        grads = torch.autograd.grad((logits[0] * t(r)).sum(), flat + [pos])
+        if per_layer:
+            return {"k": torch.stack(grads[:2]), "v": torch.stack(grads[2:4])}, grads[-1]
+        return {"k": grads[0], "v": grads[1]}, grads[-1]
+
+    for per_layer in (True, False):
+        got_kv, got_pos = port_grads(per_layer)
+        for s in ("k", "v"):
+            close(got_kv[s], want_kv[s], err_msg=f"d{s}", **VJP_TOL)
+            assert torch.equal(got_kv[s][:, 2], torch.zeros_like(got_kv[s][:, 2]))
+        close(got_pos, want_pos, err_msg="dpos", **VJP_TOL)
+
+
 def test_function_forward_matches_plain(rng):
     """The partials-reconstructed forward equals the plain forward."""
     qs, qc, k, v, pos, mask = dec_inputs(rng, 3, 2, 4, 32, 5, 8, None)
