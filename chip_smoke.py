@@ -351,6 +351,7 @@ SWEEP_TOKENS = (1, 17, 64, 65, 197, 257, 320, 321, 577, 1025)
 # item after item
 SWEEP_FRAMES = 24
 VITB_PATHS = ("serve", "serve_http", "train", "int8_serve", "int8_rows")
+RECIPE_PATHS = ("compinv", "mix", "modes")   # [train cli compinv] / [train cli mix], [train modes]
 VITL_PATHS = ("vitl_serve", "vitl_int8_serve")
 # the encoder's alternative kernel paths (EncoderKernels): block="full" in
 # bf16, compute_int8 with int8_attn "1" and "qk", and the tower
@@ -533,7 +534,8 @@ def check_kernels(rows: list) -> None:
     # -- layer_norm_rows ------------------------------------------------------
     h2 = h.reshape(m_rows, w)
     ln1 = blk["ln_1"]
-    check_layer_norm(rows, "layer_norm_rows", h2, ln1, VITB_PATHS + VARIANT_PATHS)
+    check_layer_norm(rows, "layer_norm_rows", h2, ln1,
+                     VITB_PATHS + VARIANT_PATHS + RECIPE_PATHS)
     # f32 rows: the bf16 whole block's LN2 of its f32 residual stream hmid
     check_layer_norm(rows, f"layer_norm_rows f32 {m_rows} x {w}",
                      3.0 * torch.randn(m_rows, w, device=dev,
@@ -551,7 +553,8 @@ def check_kernels(rows: list) -> None:
         time_ms(lambda: layers.linear_f32_bias(y, wq, bq)),
         time_ms(lambda: torch.addmm(bq16, y, wq)),
         2.0 * m_rows * w * 3 * w, 2.0 * (m_rows * w + 3 * w * w + m_rows * 3 * w) + 12.0 * w,
-        PEAK_BF16_TC, err, paths=VITB_PATHS + ("dinov2_serve",) + VARIANT_PATHS)
+        PEAK_BF16_TC, err,
+        paths=VITB_PATHS + ("dinov2_serve",) + VARIANT_PATHS + RECIPE_PATHS)
 
     # -- encoder_attention --------------------------------------------------------
     qkv = got
@@ -568,7 +571,7 @@ def check_kernels(rows: list) -> None:
         time_ms(lambda: plain_attention_qkv(qkv.reshape(n, t, 3 * w), hh, d)),
         time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4)),
         4.0 * n * hh * t * t * d, 2.0 * (m_rows * 3 * w + m_rows * w), PEAK_BF16_TC, err,
-        paths=("serve", "serve_http", "train", "full_bf16"))
+        paths=("serve", "serve_http", "train", "full_bf16") + RECIPE_PATHS)
     del qkv, q4, k4, v4, att, y, got
 
     # -- fused_encoder_attn_block: full + stacked export, and last_only -----------
@@ -614,7 +617,7 @@ def check_kernels(rows: list) -> None:
     row("fused_encoder_attn_block", "dfd_clip_tpu/ops/pallas_attention.py:532",
         "dfd_clip_tpu_torch/ops/encoder_block.py", time_ms(attn_full), time_ms(attn_plain),
         None, flops, nbytes, PEAK_BF16_TC, err,
-        paths=("serve", "serve_http", "train", "full_bf16"))
+        paths=("serve", "serve_http", "train", "full_bf16") + RECIPE_PATHS)
     last_ms = time_ms(lambda: eb.fused_encoder_attn_block(
         h, ln1, blk["attn"], hh, d, drop_cls=True, last_only=True,
         export_into=(kl, vl, 5, nsel), kv_pad=4))
@@ -633,7 +636,7 @@ def check_kernels(rows: list) -> None:
         time_ms(lambda: eb.fused_encoder_mlp_block(h, blk["ln_2"], blk["mlp"])),
         time_ms(lambda: eb.fused_encoder_mlp_block_plain(h, blk["ln_2"], blk["mlp"])),
         None, 16.0 * m_rows * w * w, 4.0 * m_rows * w + 16.0 * w * w + 28.0 * w,
-        PEAK_BF16_TC, err, paths=("serve", "serve_http", "train"))
+        PEAK_BF16_TC, err, paths=("serve", "serve_http", "train") + RECIPE_PATHS)
     del got, h
 
     # -- fused_decoder_attention and decoder_boundary (the ViT-B export: 200
@@ -642,7 +645,7 @@ def check_kernels(rows: list) -> None:
                             ("serve", "serve_http", "int8_serve") + VARIANT_PATHS)
     check_train_attention(row, gen, dev)
     check_decoder_boundary(rows, "decoder_boundary", blk, 2,
-                           VITB_PATHS + ("dinov2_serve",) + VARIANT_PATHS)
+                           VITB_PATHS + ("dinov2_serve",) + VARIANT_PATHS + ("mix",))
 
 
 # The GEMMs' path shapes (csrc/gemm.cu, csrc/gemm_s8.cu), rows M of each
@@ -1195,10 +1198,10 @@ def check_train_attention(row, gen, dev) -> None:
         time_ms(lambda: fda.fused_decoder_attention_plain(*args, partials=True)),
         None, 16.0 * valid * w,
         4.0 * valid * w + 2.0 * l * w + b * l + 4.0 * b * w + 8.0 * b * w + 8.0 * b * hh,
-        PEAK_F32, err, counter="fused_decoder_attention", paths=("train",))
+        PEAK_F32, err, counter="fused_decoder_attention", paths=("train", "mix", "modes"))
 
     del o_sc, st, o_p, st_p
-    check_decoder_bwd(row, "fused_decoder_attention_bwd", bargs, ("train",))
+    check_decoder_bwd(row, "fused_decoder_attention_bwd", bargs, ("train", "modes"))
     # dK/dV from the same launch: the stacked padded export at slot 3 (L =
     # 4,000), then the adapter's per-layer unpadded K/V (L = 20 x 196 = 3,920)
     check_decoder_bwd_kv(row, "fused_decoder_attention_bwd dK/dV stacked, L 4000", bargs, ())
@@ -1206,7 +1209,7 @@ def check_train_attention(row, gen, dev) -> None:
     bargs = decoder_bwd_inputs(gen, dev, b, 196, 196, hh)
     bargs = bargs[:2] + (bargs[2][3].contiguous(), bargs[3][3].contiguous()) + bargs[4:6] \
         + (None,) + bargs[7:]
-    check_decoder_bwd_kv(row, "fused_decoder_attention_bwd dK/dV", bargs, ("train_cli",))
+    check_decoder_bwd_kv(row, "fused_decoder_attention_bwd dK/dV", bargs, ("train_cli", "mix"))
     del bargs
     # the forward's wide rows: 16 heads over the 257-token towers' 5,120 and
     # ViT-L@336's 11,520 keys, at the train batch (no path trains there: no
@@ -1985,8 +1988,11 @@ def http_call(port: int, endpoint: str, body=None) -> tuple:
         return e.code, json.loads(e.read())
 
 
-def write_video(file: str, seconds: float, size: int, fourcc: str, seed: int) -> None:
-    """A 25 fps video of a seeded image drifting in brightness (cv2)."""
+def write_video(file: str, seconds: float, size: int, fourcc: str, seed: int,
+                noise: int = 0) -> None:
+    """A 25 fps video of a seeded image drifting in brightness (cv2);
+    ``noise`` adds seeded noise of up to that amplitude to the image (the
+    c23 member of a raw / c23 pair: the same picture, degraded)."""
     import cv2
     import numpy as np
 
@@ -1995,9 +2001,23 @@ def write_video(file: str, seconds: float, size: int, fourcc: str, seed: int) ->
     if not writer.isOpened():
         raise SystemExit(f"FAIL serve_http: cv2 cannot write {file} ({fourcc})")
     base = np.random.default_rng(seed).integers(0, 200, (size, size, 3), np.uint8)
+    if noise:
+        base = np.clip(base.astype(np.int32) + np.random.default_rng(seed + 7919).integers(
+            -noise, noise + 1, base.shape), 0, 255).astype(np.uint8)
     for i in range(int(seconds * 25)):
         writer.write(np.clip(base.astype(np.int32) + i % 50, 0, 255).astype(np.uint8))
     writer.release()
+
+
+def write_videos(jobs: list) -> None:
+    """write_video(*job) for every job, on a thread a core (cv2 encodes
+    without the GIL); each job's seed fixes its content."""
+    import os
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(max_workers=os.cpu_count() or 4) as pool:
+        for f in [pool.submit(write_video, *job) for job in jobs]:
+            f.result()
 
 
 def sampled_frames(backend, file: str):
@@ -2375,32 +2395,33 @@ def cli_trees(work: str) -> dict:
 
     ffpp, dfdc, cdf = (str(Path(work) / n) for n in ("ffpp", "dfdc", "cdf"))
     pairs = [list(CLI_IDS[i: i + 2]) for i in range(0, len(CLI_IDS), 2)]
-    seed = 0
+    jobs, seed = [], 0
     for kind, folder in (("REAL", "real"), ("DF", "DF"), ("FS", "FS"), ("F2F", "F2F"),
                          ("NT", "NT")):
         names = list(CLI_IDS) if kind == "REAL" else (
             [f"{a}_{b}" for a, b in pairs] + [f"{b}_{a}" for a, b in pairs])
         for name in names:
-            write_video(f"{ffpp}/{folder}/c23/videos/{name}.avi", CLI_VIDEO_SECONDS, 224, "MJPG",
-                        seed=seed)
+            jobs.append((f"{ffpp}/{folder}/c23/videos/{name}.avi", CLI_VIDEO_SECONDS, 224, "MJPG",
+                         seed))
             seed += 1
-    Path(ffpp, "splits").mkdir()
+    Path(ffpp, "splits").mkdir(parents=True)
     for split in ("train", "val", "test"):
         Path(ffpp, "splits", f"{split}.json").write_text(json_.dumps(pairs))
     rows = []
     for i in range(4):
-        write_video(f"{dfdc}/videos/v{i}.avi", CLI_VIDEO_SECONDS, 224, "MJPG", seed=300 + i)
+        jobs.append((f"{dfdc}/videos/v{i}.avi", CLI_VIDEO_SECONDS, 224, "MJPG", 300 + i))
         rows.append(f"v{i}.avi {i % 2}")
-    Path(dfdc, "csv_files").mkdir()
+    Path(dfdc, "csv_files").mkdir(parents=True)
     Path(dfdc, "csv_files", "test.csv").write_text("\n".join(rows))
     Path(cdf, "csv_files").mkdir(parents=True)
     for label in ("REAL", "FAKE"):
         names = [f"{label.lower()}{i}" for i in range(2)]
         for i, name in enumerate(names):
-            write_video(f"{cdf}/{label}/videos/{name}.avi", CLI_VIDEO_SECONDS, 224, "MJPG",
-                        seed=400 + 10 * (label == "FAKE") + i)
+            jobs.append((f"{cdf}/{label}/videos/{name}.avi", CLI_VIDEO_SECONDS, 224, "MJPG",
+                         400 + 10 * (label == "FAKE") + i))
         Path(cdf, "csv_files", f"test_{label.lower()}.csv").write_text(
             "\n".join(f"{n}.avi {int(label == 'FAKE')}" for n in names))
+    write_videos(jobs)
     return {"FFPP": ffpp, "DFDC": dfdc, "CDF": cdf}
 
 
@@ -2442,13 +2463,20 @@ class _StopRun(Exception):
     """Stops a training run once its checkpoint is written (the resume check)."""
 
 
-def cli_run(card: str, work: str, cfg: str, stop_at: int = 0) -> tuple:
+def cli_run(card: str, work: str, cfg: str, stop_at: int = 0, compinv: bool = False,
+            keep: dict = None) -> tuple:
     """``python -m dfd_clip_tpu_torch.main --cfg cfg`` in this process on the
     card (the working directory ``work``, where the datasets cache their
     video tables), every launch counter zeroed before and read after. Each
-    train step's loss, lr and launches and each evaluation's launches are
-    recorded around the Trainer's own step and the Evaluator's own run.
-    ``stop_at``: stop the run right after that step's checkpoint. Returns
+    train step's losses, lr and launches and each evaluation's launches are
+    recorded around the trainer's own step and the evaluator's own run
+    (CompInvTrainer's and CompInvEvaluator's with ``compinv``), and held:
+    a step's launches TRAIN_COUNTS (COMPINV_COUNTS) a task batch, an
+    evaluation's FLAGSHIP_COUNTS (COMPINV_COUNTS) a predict. ``stop_at``:
+    stop the run right after that step's checkpoint. ``keep``: gets the
+    trainer ("trainer"), its first step's round of task batches ("round"),
+    the first of them ("batch") and its trainable leaves before that step
+    ("start"). Returns
     (run directory or None, counts, step log, evaluation log)."""
     import os
 
@@ -2456,12 +2484,15 @@ def cli_run(card: str, work: str, cfg: str, stop_at: int = 0) -> tuple:
     import torch
 
     from dfd_clip_tpu_torch import main as tmain
-    from dfd_clip_tpu_torch.engine.evaluator import Evaluator
-    from dfd_clip_tpu_torch.engine.trainer import Trainer
+    from dfd_clip_tpu_torch.engine.evaluator import CompInvEvaluator, Evaluator
+    from dfd_clip_tpu_torch.engine.trainer import CompInvTrainer, Trainer
     from dfd_clip_tpu_torch.ops import _cuda
 
+    Trainer_, Evaluator_ = (CompInvTrainer, CompInvEvaluator) if compinv else (Trainer, Evaluator)
+    step_counts, eval_counts = ((COMPINV_COUNTS, COMPINV_COUNTS) if compinv
+                                else (TRAIN_COUNTS, FLAGSHIP_COUNTS))
     steps, evals = [], []
-    train_step, run_eval, checkpoint = (Trainer.train_step, Evaluator.run,
+    train_step, run_eval, checkpoint = (Trainer_.train_step, Evaluator_.run,
                                         Trainer._maybe_checkpoint)
 
     def delta(before):
@@ -2471,15 +2502,21 @@ def cli_run(card: str, work: str, cfg: str, stop_at: int = 0) -> tuple:
 
     def logged_step(self, round_batches):
         lr, index = self.current_lr(), self.steps
+        if keep is not None and "trainer" not in keep:
+            keep["trainer"], keep["batch"], keep["round"] = (self, round_batches[0][1],
+                                                             round_batches)
+            keep["start"] = [t.detach().clone() for t in _leaf_tensors(self.trainable)]
         torch.cuda.synchronize()
         before, t0 = _cuda.launches(), time.perf_counter()
         train_step(self, round_batches)
         torch.cuda.synchronize()
-        losses = np.concatenate([np.asarray(v) for v in self.batch_losses.values()])
+        losses = np.concatenate([np.ravel(v) for v in self.batch_losses.values()])
         steps.append({"step": index, "lr": lr, "used": self.optimizer.param_groups[0]["lr"],
                       "schedule": self.schedule(index), "loss": float(losses.mean()),
+                      "losses": {k: float(np.mean(v)) for k, v in self.batch_losses.items()},
                       "finite": bool(np.isfinite(losses).all()),
                       "clips": sum(b["x"].shape[0] for _, b in round_batches),
+                      "tasks": len(round_batches),
                       "ms": (time.perf_counter() - t0) * 1e3, "counts": delta(before)})
 
     def logged_eval(self, trainer):
@@ -2497,7 +2534,7 @@ def cli_run(card: str, work: str, cfg: str, stop_at: int = 0) -> tuple:
             raise _StopRun
 
     previous = os.getcwd()
-    Trainer.train_step, Evaluator.run = logged_step, logged_eval
+    Trainer_.train_step, Evaluator_.run = logged_step, logged_eval
     if stop_at:
         Trainer._maybe_checkpoint = stopping_checkpoint
     run = None
@@ -2515,27 +2552,28 @@ def cli_run(card: str, work: str, cfg: str, stop_at: int = 0) -> tuple:
         counts, plain = _cuda.launches(), _cuda.plain_calls()
     finally:
         os.chdir(previous)
-        Trainer.train_step, Evaluator.run, Trainer._maybe_checkpoint = (train_step, run_eval,
-                                                                        checkpoint)
+        Trainer_.train_step, Evaluator_.run, Trainer._maybe_checkpoint = (train_step, run_eval,
+                                                                          checkpoint)
     print(f"  main: {wall:.2f} s of wall, {len(steps)} steps, {len(evals)} evaluations, "
           f"plain calls {plain or 'none'}, on {card}", flush=True)
     if plain:
         raise SystemExit(f"FAIL train cli: plain versions ran on the card: {plain}")
     for st in steps:
-        print(f"  step {st['step']}: {st['clips']} clips, loss {st['loss']:.6f}, lr "
-              f"{st['used']:.6e}, {st['ms']:.2f} ms (host clock), launches "
+        print(f"  step {st['step']}: {st['clips']} clips in {st['tasks']} task batches, losses "
+              + ", ".join(f"{k} {v:.6f}" for k, v in st["losses"].items())
+              + f", lr {st['used']:.6e}, {st['ms']:.2f} ms (host clock), launches "
               f"{json.dumps(st['counts'])}", flush=True)
         if not st["finite"]:
-            raise SystemExit(f"FAIL train cli step {st['step']}: loss {st['loss']}")
+            raise SystemExit(f"FAIL train cli step {st['step']}: losses {st['losses']}")
         if abs(st["used"] - st["schedule"]) > 1e-12 or abs(st["lr"] - st["used"]) > 1e-12:
             raise SystemExit(f"FAIL train cli step {st['step']}: lr {st['used']} is not "
                              f"schedule({st['step']}) = {st['schedule']}")
-        check_counts(f"train cli step {st['step']}", st["counts"], TRAIN_COUNTS, 1)
+        check_counts(f"train cli step {st['step']}", st["counts"], step_counts, st["tasks"])
     for ev in evals:
         print(f"  evaluation at step {ev['step']}: {ev['predicts']} predicts, {ev['s']:.2f} s, "
               f"launches {json.dumps(ev['counts'])}", flush=True)
         check_counts(f"train cli evaluation at step {ev['step']}", ev["counts"],
-                     FLAGSHIP_COUNTS, ev["predicts"])
+                     eval_counts, ev["predicts"])
     return run, counts, steps, evals
 
 
@@ -2549,8 +2587,9 @@ def train_cli_path(card: str) -> dict:
     held to the uninterrupted run; then inference.main on the run
     directory held video by video to Scorer.from_run_dir on the same clips;
     then one train step with a non-z0 adapter held to the plain versions and
-    the adapter's device-resident train step timed and traced. Returns the
-    first run's launch counts."""
+    the adapter's device-resident train step timed and traced; then, on the
+    same trees, the other recipes (compinv_paths). Returns the launch
+    counts of the first run ("train_cli") and of compinv_paths'."""
     import pickle
     import tempfile
 
@@ -2672,8 +2711,9 @@ def train_cli_path(card: str) -> dict:
         print(f"  inference.main: {wall:.2f} s, report {report}, {videos} videos", flush=True)
         check_counts("train cli inference.main", run_counts, FLAGSHIP_COUNTS, videos)
         del reference
-    adapter_step(card)
-    return counts
+        adapter_step(card)
+        recipes = compinv_paths(card, work, trees)
+    return {"train_cli": counts, **recipes}
 
 
 def _tree_leaves(tree) -> list:
@@ -2682,6 +2722,21 @@ def _tree_leaves(tree) -> list:
     if isinstance(tree, (list, tuple)):
         return [x for v in tree for x in _tree_leaves(v)]
     return [tree]
+
+
+def adapter_params(det, fc2_scale: float) -> dict:
+    """``det``'s params (seed 0) with its 768-x-768 adapter's (x 256)
+    LayerNorms drawn at random and its fc2 scaled by ``fc2_scale``."""
+    import torch
+
+    gen = torch.Generator().manual_seed(11)
+    params = det.init_params(torch.Generator().manual_seed(0))
+    for blk in params["adapter"]["blocks"]:
+        for branch in blk.values():
+            branch["ln"]["scale"] = 1.0 + 0.2 * torch.randn(256, generator=gen)
+            branch["ln"]["bias"] = 0.2 * torch.randn(256, generator=gen)
+            branch["fc2"]["w"] = fc2_scale * branch["fc2"]["w"]
+    return params
 
 
 def adapter_trainer(fc2_scale: float):
@@ -2695,13 +2750,7 @@ def adapter_trainer(fc2_scale: float):
 
     det = detector(dropout=0.5, adapter={"type": "normal",
                                          "struct": {"type": "768-x-768", "x": 256}})
-    gen = torch.Generator().manual_seed(11)
-    params = det.init_params(torch.Generator().manual_seed(0))
-    for blk in params["adapter"]["blocks"]:
-        for branch in blk.values():
-            branch["ln"]["scale"] = 1.0 + 0.2 * torch.randn(256, generator=gen)
-            branch["ln"]["bias"] = 0.2 * torch.randn(256, generator=gen)
-            branch["fc2"]["w"] = fc2_scale * branch["fc2"]["w"]
+    params = adapter_params(det, fc2_scale)
     tcfg = Trainer.get_default_config()
     tcfg.merge_from_other_cfg({"max_steps": TRAIN_STEPS, "learning_rate": 2.5e-3})
     rng = np.random.default_rng(2)
@@ -2822,6 +2871,451 @@ def adapter_step(card: str) -> None:
     profile_device("train step with the adapter", lambda: trainer.train_step(dev_round))
 
 
+# [train cli compinv], [train cli pretrain], [train cli mix], [train modes]:
+# the recipes of configs/ beside the flagship one, and the Detector's
+# training modes, at full width
+COMPINV_SECONDS = 12.0    # clip_duration 10: a shorter video has no clip
+COMPINV_IDS = CLI_IDS[:4]   # 20 pairs to train on (batch 5), 8 to evaluate (batch 6)
+COMPINV_COUNTS = {"fused_encoder_attn_block": 11, "fused_encoder_mlp_block": 10,
+                  "fused_decoder_attention": 0, "fused_decoder_attention_bwd": 0,
+                  "decoder_boundary": 0}
+MIX_STEPS = 2             # trainer.max_steps of the mix run (one evaluation, at step 2)
+HCI_SESSIONS, HCI_SECONDS = 8, 8.5   # two 4-second clips a session; 6 train, 2 val
+TOL_COMPINV = 1e-2        # a CompInv step's match, kernels vs plain (relative)
+
+
+def compinv_tree(work: str) -> str:
+    """FFPP of every type, raw and c23 (the same picture with noise) for
+    COMPINV_IDS, COMPINV_SECONDS long at 224 pixels, one split file."""
+    import json as json_
+
+    root = f"{work}/ffpp_pairs"
+    pairs = [list(COMPINV_IDS[i: i + 2]) for i in range(0, len(COMPINV_IDS), 2)]
+    jobs, seed = [], 600
+    for kind, folder in (("REAL", "real"), ("DF", "DF"), ("FS", "FS"), ("F2F", "F2F"),
+                         ("NT", "NT")):
+        names = list(COMPINV_IDS) if kind == "REAL" else (
+            [f"{a}_{b}" for a, b in pairs] + [f"{b}_{a}" for a, b in pairs])
+        for name in names:
+            for comp, noise in (("raw", 0), ("c23", 12)):
+                jobs.append((f"{root}/{folder}/{comp}/videos/{name}.avi", COMPINV_SECONDS, 224,
+                             "MJPG", seed, noise))
+            seed += 1
+    write_videos(jobs)
+    Path(root, "splits").mkdir()
+    for split in ("train", "val", "test"):
+        Path(root, "splits", f"{split}.json").write_text(json_.dumps(pairs))
+    return root
+
+
+def hci_tree(work: str) -> str:
+    """MAHNOB-HCI as preprocessing/rppg.py lays it out: per session
+    Metas/<id>/meta.pickle, Measures/<id>/data.pickle (bpm measures every
+    2 s, 60 to 117 bpm) and cropped_faces/c23/<id>/cam.avi (224 pixels,
+    HCI_SECONDS long)."""
+    import pickle
+
+    root = f"{work}/hci"
+    hr_freq = 256.0
+    write_videos([(f"{root}/cropped_faces/c23/{10 + i}/cam.avi", HCI_SECONDS, 224, "MJPG",
+                   700 + i) for i in range(HCI_SESSIONS)])
+    for i in range(HCI_SESSIONS):
+        sid = str(10 + i)
+        session = f"{root}/Sessions/{sid}"
+        Path(session).mkdir(parents=True)
+        meta = {"session_dir": session, "video_path": f"{session}/cam.avi",
+                "bdf_path": f"{session}/ecg.bdf", "session_video_sample_freq": 25.0,
+                "session_video_beg_sample": 0, "flag_video_beg_sample": 0,
+                "session_hr_sample_freq": hr_freq, "flag_hr_beg_sample": 0,
+                "duration": HCI_SECONDS}
+        measures = {"idx": [int(hr_freq * t) for t in range(0, 13, 2)],
+                    "data": [{"bpm": 60.0 + 3 * j + 7 * i} for j in range(7)]}
+        for folder, name, obj in (("Metas", "meta.pickle", meta),
+                                  ("Measures", "data.pickle", measures)):
+            Path(root, folder, sid).mkdir(parents=True)
+            Path(root, folder, sid, name).write_bytes(pickle.dumps(obj))
+    return root
+
+
+def recipe_config(work: str, name: str, src: str, changes: list) -> str:
+    """``src`` (a YAML under configs/) with ``changes`` [(keys, value)]
+    applied, each printed; the written file's path."""
+    import yaml
+
+    path_ = Path(__file__).resolve().parent / "configs" / src
+    cfg = yaml.safe_load(path_.read_text())
+    for keys, value in changes:
+        node = cfg
+        for k in keys[:-1]:
+            node = node[k]
+        print(f"  {src}: {'.'.join(map(str, keys))} {node.get(keys[-1])!r} -> {value!r}",
+              flush=True)
+        node[keys[-1]] = value
+    out = Path(work) / f"{name}.yaml"
+    out.write_text(yaml.safe_dump(cfg, sort_keys=False))
+    return str(out)
+
+
+def roots_changes(cfg_src: str, roots: dict) -> list:
+    """The data roots of every train and eval entry of ``cfg_src``."""
+    import yaml
+
+    cfg = yaml.safe_load((Path(__file__).resolve().parent / "configs" / cfg_src).read_text())
+    return [(("data", where, i, "root_dir"), roots[d["name"]])
+            for where in ("train", "eval") for i, d in enumerate(cfg["data"][where])]
+
+
+def steps_changes(steps: int, every: int, tracking: str) -> list:
+    return [(("trainer", "max_steps"), steps), (("system", "evaluation_interval"), every),
+            (("system", "training_eval_interval"), every), (("tracking", "directory"), tracking)]
+
+
+def eval_metrics(run: str, prefix: str) -> dict:
+    """{step: {metric or loss name: value}} of a run's evaluations."""
+    out = {}
+    for line in Path(run, "metrics.jsonl").read_text().splitlines():
+        r = json.loads(line)
+        got = {k.split("/", 1)[1]: v for k, v in r.items() if k.startswith(prefix + "/")}
+        if got:
+            out.setdefault(r["step"], {}).update(got)
+    return out
+
+
+def device_step(label: str, fn, card: str, per: str) -> None:
+    """A step's ms by CUDA events (3 after 1), the peak memory while they ran
+    and one traced step's device busy share."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ms = time_ms(fn, iters=3, warmup=1)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  {label}: {ms:.2f} ms per {per}, peak memory {peak / 1e9:.3f} GB, "
+          f"{(peak - base) / 1e9:.3f} GB above the {base / 1e9:.3f} GB allocated before, "
+          f"on {card}", flush=True)
+    profile_device(label, fn)
+
+
+def compinv_paths(card: str, work: str, trees: dict) -> dict:
+    """configs/comp-inv-encoder/deepfake.yaml through the training CLI
+    ([train cli compinv]), its adapter read by the flagship recipe as
+    ``adapter.type: pretrain`` ([train cli pretrain]), then
+    configs/cross-task/mix.yaml ([train cli mix]), in ``work`` beside the
+    flagship ``trees`` (cli_trees). Returns the launch counts of the CompInv
+    run ("compinv") and of the mix run ("mix")."""
+    import numpy as np
+    import torch
+
+    from dfd_clip_tpu_torch.models.adapter import CompInvEncoder
+    from dfd_clip_tpu_torch.models.weights import load_params, save_params
+    from dfd_clip_tpu_torch.ops import _cuda
+
+    print("[train cli compinv] the training CLI on the CompInv adapter pretrainer "
+          "(configs/comp-inv-encoder/deepfake.yaml: ViT-B/16, 50 frames, keep 0-10 stride 2, "
+          "768-x-768 adapter x 256, batch 5 raw / c23 pairs), its adapter read as "
+          "adapter.type pretrain, then the cross-task mix (configs/cross-task/mix.yaml)",
+          flush=True)
+    counts = {}
+    t0 = time.perf_counter()
+    pairs_root, hci = compinv_tree(work), hci_tree(work)
+    print(f"  trees: FFPP raw / c23 pairs of {COMPINV_SECONDS} s and {HCI_SESSIONS} HCI "
+          f"sessions of {HCI_SECONDS} s, MJPG at 224 pixels, in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+    # -- [train cli compinv] -----------------------------------------------------
+    src = "comp-inv-encoder/deepfake.yaml"
+    print(f"[train cli compinv] python -m dfd_clip_tpu_torch.main --cfg <{src}, changed "
+          "as printed> --video_backend opencv", flush=True)
+    cfg = recipe_config(work, "compinv", src,
+                        roots_changes(src, {"FFPP": pairs_root})
+                        + steps_changes(CLI_STEPS, CLI_EVERY, f"{work}/logs"))
+    keep = {}
+    run, counts["compinv"], steps, evals = cli_run(card, work, cfg, compinv=True, keep=keep)
+    trainer, batch = keep["trainer"], keep["batch"]
+    model = trainer.model
+    if len(steps) != CLI_STEPS or [e["step"] for e in evals] != [2, 4]:
+        raise SystemExit(f"FAIL train cli compinv: {len(steps)} steps, evaluations at "
+                         f"{[e['step'] for e in evals]}")
+    for st in steps:
+        if not (np.isfinite(st["losses"]["match"]) and st["losses"]["recon"] == 0.0):
+            raise SystemExit(f"FAIL train cli compinv step {st['step']}: {st['losses']} "
+                             "(mode 1: recon 0, match finite)")
+    print(f"  {steps[0]['clips']} clips of {model.num_frames} frames a step "
+          f"({steps[0]['clips'] * model.num_frames} frames, keep "
+          f"{list(model.layer_indices)}, mode {model.mode}, adapter "
+          f"{model.adapter_cfg.struct_type} x {model.adapter_cfg.inner_dim})", flush=True)
+    names = sorted(p.name for p in Path(run).iterdir())
+    print(f"  run directory {Path(run).relative_to(work)}: {', '.join(names)}", flush=True)
+    if "best_weights.pt" not in names or "last_weights.pt" not in names:
+        raise SystemExit("FAIL train cli compinv: no best_weights.pt / last_weights.pt")
+    got = eval_metrics(run, "compinvevaluator")
+    for step in (2, 4):
+        print(f"  evaluation at step {step}: " + ", ".join(
+            f"{k} {v:.6f}" for k, v in sorted(got.get(step, {}).items())), flush=True)
+        if not np.isfinite(got.get(step, {}).get("loss/match", np.nan)):
+            raise SystemExit(f"FAIL train cli compinv: no finite loss/match at step {step}")
+    first = load_params(f"{run}/last_weights.pt")
+    if set(first["trainable"]) != {"adapter"} or first["steps"] != CLI_STEPS:
+        raise SystemExit("FAIL train cli compinv: last_weights.pt is not {trainable: "
+                         "{adapter}, steps}")
+    # the adapter moved: its leaves now against the same leaves before step 0
+    moved = max((a - b).abs().max().item() for a, b in zip(
+        _leaf_tensors(trainer.trainable["adapter"]), keep["start"]))
+    print(f"  the adapter's leaves moved by up to {moved:.3e}", flush=True)
+    if not moved > 0:
+        raise SystemExit("FAIL train cli compinv: the adapter did not train")
+    # one step's match through the kernels against the plain versions
+    params = trainer.eval_params()
+    with torch.no_grad():
+        _, match_k = model.forward(params, batch["x"], batch["comp_is_raw"], train=False)
+        with plain_versions():
+            _, match_p = model.forward(params, batch["x"], batch["comp_is_raw"],
+                                       train=False)
+    rel = abs(match_k.item() - match_p.item()) / abs(match_p.item())
+    print(f"  match through the kernels {match_k.item():.6f}, plain {match_p.item():.6f}, "
+          f"rel {rel:.3e} (tol {TOL_COMPINV:g})", flush=True)
+    if not rel <= TOL_COMPINV:
+        raise SystemExit(f"FAIL train cli compinv: match rel {rel:.3e}")
+    if _cuda.plain_calls():
+        raise SystemExit(f"FAIL train cli compinv: plain calls {_cuda.plain_calls()}")
+    dev_round = [("deepfake/ffpp", batch)]
+    device_step("device-resident CompInv step", lambda: trainer.train_step(dev_round), card,
+                f"{batch['x'].shape[0]}-clip batch ({batch['x'].shape[0] * model.num_frames}"
+                " frames)")
+    adapter_file = f"{work}/compinv_adapter.pt"
+    save_params(adapter_file, {"adapter": trainer.trainable["adapter"]})
+    del trainer, keep, params, batch, dev_round
+    torch.cuda.empty_cache()
+
+    # -- [train cli pretrain] ----------------------------------------------------
+    src = "deepfake/deepfake.yaml"
+    print(f"[train cli pretrain] the CompInv adapter ({{'adapter': ...}} by save_params) "
+          f"read by {src} as adapter.type pretrain, frozen", flush=True)
+    cfg = recipe_config(work, "pretrain", src, roots_changes(src, trees) + [
+        (("model", "adapter", "type"), "pretrain"), (("model", "adapter", "frozen"), 1),
+        (("model", "adapter", "path"), adapter_file),
+        (("model", "adapter", "struct", "type"), "768-x-768"),
+        (("trainer", "max_steps"), 2), (("system", "evaluation_interval"), 4),
+        (("system", "training_eval_interval"), 2),
+        (("tracking", "directory"), f"{work}/logs_pretrain")])
+    keep = {}
+    run, _, psteps, pevals = cli_run(card, work, cfg, keep=keep)
+    trainer, batch = keep["trainer"], keep["batch"]
+    det = trainer.model
+    if len(psteps) != 2 or pevals:
+        raise SystemExit(f"FAIL train cli pretrain: {len(psteps)} steps, {len(pevals)} "
+                         "evaluations")
+    if "adapter" in trainer.trainable or "adapter" not in trainer.frozen:
+        raise SystemExit("FAIL train cli pretrain: the adapter is not frozen")
+    saved = load_params(adapter_file)["adapter"]
+    placed = det.prepare_params({"adapter": saved_tensors(saved)})["adapter"]
+    equal = all(torch.equal(a, b) for a, b in zip(_leaf_tensors(trainer.frozen["adapter"]),
+                                                   _leaf_tensors(placed)))
+    print(f"  the frozen adapter after 2 steps equals the file's, placed: {equal}",
+          flush=True)
+    if not equal:
+        raise SystemExit("FAIL train cli pretrain: the frozen adapter changed")
+    ccfg = CompInvEncoder.get_default_config()
+    ccfg.merge_from_other_cfg({"decode_mode": "index", "decode_indices": list(KEEP),
+                               "adapter": {"struct": {"type": "768-x-768", "x": 256}}})
+    enc = CompInvEncoder(ccfg, num_frames=FRAMES, device="cuda")
+    with torch.no_grad():
+        _, feats = det.predict(trainer.eval_params(), batch["x"], batch["m"],
+                               with_adapt_features=True)
+        want, _ = enc.predict({"encoder": trainer.frozen["encoder"],
+                               "adapter": trainer.frozen["adapter"]}, batch["x"])
+    err = max(compare(f"pretrain adapted {s.upper()} layer {i}", g, w, TOL_DECODER)
+              for s in ("k", "v") for i, (g, w) in enumerate(zip(feats["adapt"][s], want[s])))
+    print(f"  the Detector's adapted K/V against CompInvEncoder.predict's on the same "
+          f"{batch['x'].shape[0]} clips: worst {err:.3e} of the max (tol {TOL_DECODER:g})",
+          flush=True)
+    del trainer, keep, det, enc, feats, want, batch
+    torch.cuda.empty_cache()
+
+    # -- [train cli mix] ---------------------------------------------------------
+    src = "cross-task/mix.yaml"
+    print(f"[train cli mix] python -m dfd_clip_tpu_torch.main --cfg <{src}, changed as "
+          "printed> --video_backend opencv", flush=True)
+    cfg = recipe_config(work, "mix", src,
+                        roots_changes(src, {"RPPG": hci, "FFPP": trees["FFPP"]})
+                        + steps_changes(MIX_STEPS, MIX_STEPS, f"{work}/logs_mix"))
+    keep = {}
+    run, counts["mix"], msteps, mevals = cli_run(card, work, cfg, keep=keep)
+    if len(msteps) != MIX_STEPS or [e["step"] for e in mevals] != [MIX_STEPS]:
+        raise SystemExit(f"FAIL train cli mix: {len(msteps)} steps, evaluations at "
+                         f"{[e['step'] for e in mevals]}")
+    for st in msteps:
+        if st["tasks"] != 2 or set(st["losses"]) != {"rppg/rppg", "deepfake/ffpp"}:
+            raise SystemExit(f"FAIL train cli mix step {st['step']}: {st['losses']}")
+    got = eval_metrics(run, "evaluator")
+    for step, values in sorted(got.items()):
+        print(f"  evaluation at step {step}: rppg/rppg rmse "
+              f"{values.get('metric/rppg/rppg/rmse', 'not reported')} (the JAX package's "
+              "rmse takes bpm labels, the recipe's are distributions), loss/rppg/rppg "
+              f"{values.get('loss/rppg/rppg', float('nan')):.6f}, deepfake/ffpp accuracy "
+              f"{values.get('metric/deepfake/ffpp/accuracy', float('nan')):.4f}, roc_auc "
+              f"{values.get('metric/deepfake/ffpp/roc_auc', float('nan')):.4f}", flush=True)
+        for k in ("loss/rppg/rppg", "metric/deepfake/ffpp/accuracy",
+                  "metric/deepfake/ffpp/roc_auc"):
+            if not np.isfinite(values.get(k, np.nan)):
+                raise SystemExit(f"FAIL train cli mix: evaluation at step {step}: {k}")
+    trainer, mix_round = keep["trainer"], keep["round"]
+    device_step("device-resident mix step", lambda: trainer.train_step(mix_round), card,
+                " + ".join(f"{b['x'].shape[0]}-clip {n} batch" for n, b in mix_round))
+    del trainer, mix_round, keep
+    torch.cuda.empty_cache()
+    return counts
+
+
+def saved_tensors(tree):
+    import torch
+
+    if isinstance(tree, dict):
+        return {k: saved_tensors(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [saved_tensors(v) for v in tree]
+    return torch.from_numpy(tree)
+
+
+# [train modes]: (label, model overrides, the decoder's L and valid keys a sample)
+TRAIN_MODES = (
+    ("compression sync", {"adapter": {"type": "normal",
+                                      "struct": {"type": "768-x-768", "x": 256}},
+                          "train_mode": {"compression": "sync"}}, FRAMES * 196, FRAMES * 196),
+    ("compression feature-match", {"train_mode": {"compression": "feature-match"},
+                                   "op_mode": {"temporal_position": 1, "global_prediction": 1}},
+     FRAMES * 200, FRAMES * 196),
+    ("temporal ranking", {"train_mode": {"temporal": "ranking"}}, FRAMES * 200, FRAMES * 196),
+    ("temporal triplet", {"train_mode": {"temporal": "triplet"}}, FRAMES * 200, FRAMES * 196),
+    ("ema_frame 0.5", {"op_mode": {"temporal_position": 1, "ema_frame": 0.5}}, 200, 196),
+    ("patch_mask sample 0.5", {"train_mode": {"patch_mask": {"type": "sample", "ratio": 0.5}}},
+     FRAMES * 98, FRAMES * 98),
+)
+
+
+def train_modes(card: str) -> dict:
+    """One flagship Trainer step (batch TRAIN_CLIPS, 20 frames, keep 6-11,
+    dropout 0.5; the sync mode's adapter as adapter_params(det, 0.1) makes
+    it) in each of TRAIN_MODES through the kernels: finite task and
+    auxiliary losses, the decoder attention's launches at the mode's L,
+    _bwd_math never; then every backward call of a step on its own inputs
+    held to _bwd_math and every gradient leaf to the decoder-plain route
+    (hold_train_step's decoder hold). Rows 2i and 2i + 1 of the batch are a
+    raw / c23 pair of one clip. Returns the steps' launches."""
+    import numpy as np
+    import torch
+
+    from dfd_clip_tpu_torch.engine.trainer import Trainer, order_triplets
+    from dfd_clip_tpu_torch.ops import _cuda
+    from dfd_clip_tpu_torch.ops import decoder_attention_vjp as vjp
+    from dfd_clip_tpu_torch.ops import fused_decoder_attention_bwd as fdb
+
+    # rows 2i and 2i + 1 a raw / c23 pair, as FFPP with pair 1 collates them:
+    # the same frames, the c23 member with seeded noise of up to 12 levels
+    rng = np.random.default_rng(4)
+    frames = rng.integers(0, 256, (TRAIN_CLIPS // 2, FRAMES, 3, 224, 224), np.uint8)
+    noisy = np.clip(frames.astype(np.int16) + rng.integers(-12, 13, frames.shape), 0, 255)
+    raw = (np.stack([frames, noisy.astype(np.uint8)], axis=1).reshape(
+               TRAIN_CLIPS, FRAMES, 3, 224, 224),
+           (np.arange(TRAIN_CLIPS) // 2 % 2).astype(np.int32),
+           np.ones((TRAIN_CLIPS, FRAMES), bool),
+           ["raw" if i % 2 == 0 else "c23" for i in range(TRAIN_CLIPS)],
+           (0.5 + 0.5 * rng.random(TRAIN_CLIPS)).astype(np.float32),
+           np.zeros(TRAIN_CLIPS, np.int64))
+    del frames, noisy
+    total, seen, kernel = {}, [], vjp.fused_decoder_attention
+
+    def recording(q_smax, q_coda, k, v, mask, *args, **kwargs):
+        seen.append((k.shape[-3], int(mask[0].sum().item())))
+        return kernel(q_smax, q_coda, k, v, mask, *args, **kwargs)
+
+    for label, over, length, valid in TRAIN_MODES:
+        det = detector(dropout=0.5, **over)
+        tcfg = Trainer.get_default_config()
+        tcfg.merge_from_other_cfg({"max_steps": TRAIN_STEPS, "learning_rate": 2.5e-3})
+        # the adapter at [train cli adapter step]'s conditioned scale: fc2 at a
+        # tenth of its draw
+        params = adapter_params(det, 0.1) if "adapter" in over else None
+        trainer = Trainer(tcfg, det, {"deepfake": [raw]}, params=params, seed=0)
+        batch = trainer.prepare_batch(raw)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _cuda.reset_launches()
+        seen.clear()
+        vjp.fused_decoder_attention = recording
+        t0 = time.perf_counter()
+        try:
+            trainer.train_step([("deepfake", batch)])
+        finally:
+            vjp.fused_decoder_attention = kernel
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3
+        counts, plain = _cuda.launches(), _cuda.plain_calls()
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        losses = {k: float(np.mean(v)) for k, v in trainer.batch_losses.items()}
+        print(f"[train modes] {label}: losses " + ", ".join(f"{k} {v:.6f}"
+                                                           for k, v in losses.items())
+              + f"; decoder attention at (L, valid keys a sample) {sorted(set(seen))}, "
+              f"{step_ms:.2f} ms (host clock, the mode's first step, synchronised), "
+              f"peak memory {torch.cuda.max_memory_allocated() / 1e9:.3f} GB, on {card}; "
+              f"launches {json.dumps(counts)}", flush=True)
+        aux = {"compression": {"recon", "match"}, "temporal ranking": {"speed/rank"},
+               "temporal triplet": {"speed/triplet"}}
+        want = next((v for k, v in aux.items() if label.startswith(k)), set())
+        if set(losses) != {"deepfake"} | want or not np.isfinite(list(losses.values())).all():
+            raise SystemExit(f"FAIL train modes {label}: losses {losses}")
+        if set(seen) != {(length, valid)} or len(seen) != len(KEEP):
+            raise SystemExit(f"FAIL train modes {label}: decoder attention at {seen}, expected "
+                             f"{len(KEEP)} calls at L {length} with {valid} valid keys")
+        check_counts(f"train modes {label}", counts, TRAIN_COUNTS, 1)
+        if plain:
+            raise SystemExit(f"FAIL train modes {label}: plain calls {plain}")
+        # the step's own extras, drawn again for both routes of the hold
+        patch_indices, triplets = trainer._host_extras(TRAIN_CLIPS)
+        if triplets is not None:
+            triplets = order_triplets(triplets, raw[4])
+        extras = {"patch_indices": patch_indices, "triplet_indices": triplets}
+        # each backward call on the step's own inputs against _bwd_math
+        calls, bwd = [], vjp.fused_decoder_attention_bwd
+
+        def both(*args, **kwargs):
+            got = bwd(*args, **kwargs)
+            want = fdb.fused_decoder_attention_bwd_plain(*args, **kwargs)
+            calls.append(max((g.float() - w.float()).abs().max().item()
+                             / max(w.float().abs().max().item(), 1e-30)
+                             for g, w in zip(got, want) if w is not None))
+            return got
+
+        vjp.fused_decoder_attention_bwd = both
+        try:
+            step_grads(det, trainer, batch, extras=extras)
+        finally:
+            vjp.fused_decoder_attention_bwd = bwd
+        print(f"  {len(calls)} backward calls on the step's own inputs vs _bwd_math, worst "
+              f"{max(calls):.3e} of its max (tol {TOL_DECODER:g})", flush=True)
+        if len(calls) != len(KEEP) or not max(calls) <= TOL_DECODER:
+            raise SystemExit(f"FAIL train modes {label}: backward calls {calls}")
+        grads = hold_train_step(det, trainer, batch, f"train modes {label}",
+                                routes=("decoder",), extras=extras)["decoder"]
+        # the step's conditioning, recorded: the same route with every
+        # parameter nudged by 1e-4 of itself
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        with torch.no_grad():
+            for t in _leaf_tensors(trainer.trainable):
+                t.mul_(1 + 1e-4 * (2 * torch.rand(t.shape, generator=gen, device=t.device) - 1))
+        _, nudged = step_grads(det, trainer, batch, "decoder", extras)
+        worst = max((n - g).abs().max().item() / max(g.abs().max().item(), 1e-30)
+                    for n, g in zip(nudged, grads))
+        print(f"  conditioning (recorded, not held): the decoder-plain route against itself "
+              f"with every parameter nudged by 1e-4 of itself, worst leaf {worst:.3e} (max rel)",
+              flush=True)
+        del det, trainer, batch, params, grads, nudged
+        torch.cuda.empty_cache()
+    return total
+
+
 def timed_train_step(label: str, trainer, dev_round: list, card: str) -> None:
     """A device-resident train step's ms by CUDA events (5 after 1), and the
     peak memory allocated while they ran, beside what was already allocated
@@ -2845,29 +3339,34 @@ def _leaf_tensors(tree) -> list:
     return [t for _, t in named_leaves(tree)]
 
 
-def step_grads(det, trainer, batch: dict, plain: str = "") -> tuple:
+def step_grads(det, trainer, batch: dict, plain: str = "", extras: dict = None) -> tuple:
     """(loss, gradients of the trainable leaves) of one train-mode step of
     ``trainer``'s parameters on ``batch`` (dropout seed 7), through the
     kernels or, with ``plain`` "decoder" or "all", the plain versions of the
-    decoder's kernels or of every kernel."""
+    decoder's kernels or of every kernel. ``extras``: the step's
+    patch_indices / triplet_indices; the loss is the task loss plus the
+    auxiliary losses, as the Trainer's."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(7)
     with plain_versions(encoder=plain == "all") if plain else contextlib.nullcontext():
-        losses, _, _ = det.forward({**trainer.frozen, **trainer.trainable}, batch["x"],
-                                   [batch["label"]], batch["m"], batch["comp_is_raw"],
-                                   train=True, single_task=0, gen=gen)
-        loss = losses[0].mean()
+        losses, _, other = det.forward({**trainer.frozen, **trainer.trainable}, batch["x"],
+                                       [batch["label"]], batch["m"], batch["comp_is_raw"],
+                                       batch.get("speed"), train=True, single_task=0, gen=gen,
+                                       **(extras or {}))
+        loss = losses[0].mean() + sum(v.mean() for v in other.values())
         return loss.item(), list(torch.autograd.grad(loss, _leaf_tensors(trainer.trainable)))
 
 
-def hold_train_step(det, trainer, batch: dict, label: str, hold_all: bool = True) -> dict:
+def hold_train_step(det, trainer, batch: dict, label: str, hold_all: bool = True,
+                    extras: dict = None, routes: tuple = ("decoder", "all")) -> dict:
     """One step's loss and the gradient of every trainable leaf (the
     adapter's too, when the Detector has one) through the kernels, held
-    against the same step (parameters, batch, dropout seed) through the plain
-    versions: the decoder kernels alone, then all kernels (with
-    ``hold_all`` False the latter's leaves are printed, not held). Returns
-    each plain route's gradients."""
+    against the same step (parameters, batch, dropout seed, ``extras``)
+    through the plain versions: the decoder kernels alone, then all kernels
+    (with ``hold_all`` False the latter's leaves are printed, not held);
+    ``routes`` the plain routes taken. Returns each plain route's
+    gradients."""
     import torch
 
     from dfd_clip_tpu_torch.engine.optim import named_leaves
@@ -2879,11 +3378,13 @@ def hold_train_step(det, trainer, batch: dict, label: str, hold_all: bool = True
     # encoder, whose bf16 export differs from the kernels' by rounding order
     # (about 7e-3 of the predict logits); the backward at dropout 0.5 amplifies
     # that, so its leaves are held by relative L2 norm at TOL_TRAIN_GRAD.
-    loss_k, grads_k = step_grads(det, trainer, batch)
-    routes = {}
+    loss_k, grads_k = step_grads(det, trainer, batch, extras=extras)
+    taken = {}
     for route, plain, measure, tol in (("decoder kernels", "decoder", "max", TOL_ENCODER),
                                        ("all kernels", "all", "l2", TOL_TRAIN_GRAD)):
-        loss_p, grads_p = routes[plain] = step_grads(det, trainer, batch, plain)
+        if plain not in routes:
+            continue
+        loss_p, grads_p = taken[plain] = step_grads(det, trainer, batch, plain, extras)
         rel = abs(loss_k - loss_p) / abs(loss_p)
         print(f"  {route} vs plain: loss {loss_k:.6f} vs {loss_p:.6f}, rel {rel:.3e} "
               f"(tol {TOL_DECODER:g})", flush=True)
@@ -2910,7 +3411,7 @@ def hold_train_step(det, trainer, batch: dict, label: str, hold_all: bool = True
         if adapter:
             print(f"  {route}: {len(adapter)} adapter leaves, worst {max(adapter):.3e}",
                   flush=True)
-    return {plain: grads for plain, (_, grads) in routes.items()}
+    return {plain: grads for plain, (_, grads) in taken.items()}
 
 
 def attention_row(rows: list, name: str, replaces: str, fn, plain, qkv, n: int, t: int,
@@ -4289,6 +4790,12 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     card = card_line()
+    t_start = time.perf_counter()
+
+    def elapsed() -> None:
+        print(f"  [elapsed {time.perf_counter() - t_start:.1f} s since the build began]",
+              flush=True)
+
     nvcc = subprocess.run([_cuda._nvcc(), "--version"], capture_output=True, text=True,
                           check=True).stdout.strip().splitlines()[-1]
     print(f"[card] {card}; torch {torch.__version__} (CUDA {torch.version.cuda}); {nvcc}",
@@ -4317,53 +4824,73 @@ def main() -> int:
     rows: list = []
     print("[kernels] flagship shapes, bf16", flush=True)
     check_kernels(rows)
+    elapsed()
     print("[kernels sweep] the encoder attention at 1 to 1025 tokens, both entries and outputs",
           flush=True)
     check_attention_sweep()
+    elapsed()
     print("[kernels int8] flagship shapes, W8A8 and int8_rows K/V", flush=True)
     check_int8_kernels(rows)
+    elapsed()
     print("[kernels int8 sweep] the int8 encoder attention at 1 to 1025 tokens in both modes, "
           f"then at the paths' shapes beside the bf16 attention; every time on {card}",
           flush=True)
     check_int8_attention_sweep(rows)
+    elapsed()
     print(f"[kernels gemm] gemm and gemm_s8 at every path shape; every time on {card}",
           flush=True)
     check_gemm_kernels()
+    elapsed()
     counts = {}
     print("[serve path] Scorer over ViT-B/16, 20 frames, keep 6-11, bf16, batch 16", flush=True)
     counts["serve"] = serve_path(card)
+    elapsed()
     print("[serve http] Scorer.from_run_dir on a run directory (ViT-B/16, 20 frames, keep "
           "6-11, bf16, batch 16), HTTP on 127.0.0.1, four synthetic:// videos and a video "
           "file's bytes; inference.main on the same run", flush=True)
     counts["serve_http"] = serve_http_path(card)
+    elapsed()
     print("[int8 serve path] Scorer over ViT-B/16, 20 frames, keep 6-11, compute_int8, "
           "batch 16", flush=True)
     counts["int8_serve"], counts["int8_rows"] = int8_serve_path(card)
+    elapsed()
     print(f"[train path] Trainer over ViT-B/16, 20 frames, keep 6-11, bf16, batch "
           f"{TRAIN_CLIPS}, dropout 0.5, SGD + OneCycle, {TRAIN_STEPS} steps", flush=True)
     counts["train"] = train_path(card)
+    elapsed()
     print("[train cli] the training CLI on the flagship recipe (configs/deepfake/deepfake.yaml: "
           "768-x-768-z0 adapter, normal+frame, FFPP / DFDC / CDF evaluation)", flush=True)
-    counts["train_cli"] = train_cli_path(card)
+    counts.update(train_cli_path(card))
+    elapsed()
+    print(f"[train modes] Trainer steps over ViT-B/16, 20 frames, keep 6-11, batch "
+          f"{TRAIN_CLIPS}, dropout 0.5, in each training mode", flush=True)
+    counts["modes"] = train_modes(card)
+    elapsed()
     print("[kernels wide] 257 tokens: ViT-L/14 and DINOv2 B/14 attention, int8 split pair",
           flush=True)
     check_wide_kernels(rows)
+    elapsed()
     print("[vit-l serve path] Scorer over ViT-L/14, 20 frames, keep 0-20 stride 4, bf16, "
           "batch 16", flush=True)
     counts["vitl_serve"], counts["vitl_int8_serve"] = vitl_serve_path(
         card, args.pfake_seeds)
+    elapsed()
     print("[dinov2 serve path] Scorer over DINOv2 ViT-B/14, 20 frames, keep 6-11, bf16, "
           "batch 16", flush=True)
     counts["dinov2_serve"] = dinov2_serve_path(card, args.pfake_seeds)
+    elapsed()
     print("[kernels variants] flagship shapes: bf16 whole block, int8 attention, tower",
           flush=True)
     check_variant_kernels(rows)
+    elapsed()
     print("[variant serve paths] Scorers over ViT-B/16, 20 frames, keep 6-11, batch 16, "
           "through the encoder's alternative kernels", flush=True)
     counts.update(variant_serve_paths(card))
+    elapsed()
     print("[kernels 577] ViT-L/14@336px shapes: the encoder attention, the int8 "
           "split pair, the decoder over L = 11520", flush=True)
     check_577_kernels(rows)
+    elapsed()
     print("[vit-l@336 serve path] Scorer over ViT-L/14@336px, 20 frames, keep 0-20 stride 4, "
           "bf16, batch 16", flush=True)
     seeds336 = L336_SEEDS if args.pfake_seeds == PFAKE_SEEDS else args.pfake_seeds
@@ -4373,13 +4900,17 @@ def main() -> int:
           "tokens, the whole int8 block and the 24-layer tower at width 1024, 257 and 577 "
           f"tokens; every time on {card}", flush=True)
     check_tower_wide_kernels(rows)
+    elapsed()
     print("[vit-l ladder] ViT-L/14 and ViT-L/14@336px, 20 frames, keep 18-23, compute_int8, "
           "batch 16, through each encoder form", flush=True)
     counts.update(ladder_paths(card))
+    elapsed()
     print("[kernels study] the tools' shapes: the study attention modes at (320, 197, 12 x 64), "
           "the megakernel probe's pair at (63040, 768) x 12 layers", flush=True)
     check_study_kernels(rows)
+    elapsed()
     counts.update(tool_paths())
+    elapsed()
 
     if DEFERRED:
         raise SystemExit("\n".join(DEFERRED))

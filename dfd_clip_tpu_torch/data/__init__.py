@@ -1,6 +1,6 @@
-"""The port's data side: video backends, the host loader and the evaluation
-datasets (FFPP, CDF, DFDC)."""
+"""The port's data side: video backends, the host loader and the datasets
+(FFPP, CDF, DFDC, RPPG)."""
 
-from .datasets import CDF, DFDC, FFPP
+from .datasets import CDF, DFDC, FFPP, RPPG
 
-__all__ = ["FFPP", "CDF", "DFDC"]
+__all__ = ["FFPP", "CDF", "DFDC", "RPPG"]

@@ -1,5 +1,5 @@
-"""Evaluation datasets (the port's own copy of the FFPP, CDF and DFDC half of
-dfd_clip_tpu/data/datasets.py).
+"""Datasets (the port's own copy of dfd_clip_tpu/data/datasets.py: FFPP,
+CDF, DFDC and RPPG).
 
 Items are raw uint8 CHW frame stacks; the Detector normalises them on the
 card. Sampling follows the reference (src/datasets.py:636-662): per clip,
@@ -15,7 +15,10 @@ DFD_VIDEO_BACKEND as an argument. The video table is cached under
 ``./.cache/dfd-clip/videos/`` with the JAX package's file names and pickle
 contents. FFPP's training split runs data/augment.py's ClipAugmenter
 (``augmentation``) and, with ``ssl_fake``, its elastic forgery, as the JAX
-package does. RPPG is not ported yet.
+package does. RPPG reads the MAHNOB-HCI layout that
+preprocessing/rppg.py writes (``Metas/*/meta.pickle``,
+``Measures/*/data.pickle``, ``cropped_faces/<comp>/...`` videos) without
+importing it.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from __future__ import annotations
 import csv
 import json
 import logging
+import math
 import os
 import pickle
 from os import path, makedirs
@@ -647,3 +651,227 @@ class DFDC(_TestOnlyVideoDataset):
 
     def _table_key(self, label: str) -> str:
         return "ALL"
+
+
+class RPPG(_SampleRNGMixin):
+    """MAHNOB-HCI heart-rate dataset (reference src/datasets.py:737-1024) over
+    the offline artefacts of preprocessing/rppg.py: each session's
+    ``Metas/<id>/meta.pickle`` summary and ``Measures/<id>/data.pickle`` bpm
+    measures (``runtime: 1`` computes the bpm from the session's ECG with
+    heartpy and pyedflib instead, when both import; without them it warns
+    and reads the measures). Sessions split by a seeded shuffle (python's
+    ``random.Random(777)``, the reference's split bit for bit); a clip's
+    label is its bpm interpolated between the measures around its end:
+    "dist", a Gaussian over ``label_dim`` bins at bpm - 41, or "num", bpm -
+    41."""
+
+    @staticmethod
+    def get_default_config():
+        from ..config import CN
+
+        C = CN()
+        C.category = "train"
+        C.root_dir = "./datasets/hci/"
+        C.detection_level = "video"
+        C.train_ratio = 0.95
+        C.scale = 1.0
+        C.cropped_folder = "cropped_faces"
+        C.meta_folder = "Metas"
+        C.measure_folder = "Measures"
+        C.name = "RPPG"
+        C.compressions = ["raw"]
+        C.runtime = True
+        C.label_type = "dist"
+        C.label_dim = 140
+        return C
+
+    def __init__(self, config, num_frames, clip_duration, transform=None,
+                 runtime=None, split="train", index=0, seed: int = 0,
+                 video_backend: str = "auto", **_):
+        import random
+        from glob import glob
+
+        assert 0 <= config.scale <= 1
+        assert 0 <= config.train_ratio <= 1
+        assert 140 <= config.label_dim
+        assert split in ("train", "val")
+        assert config.label_type in ("num", "dist")
+
+        self.video_backend = video_backend
+        self.category = config.category.lower()
+        self.name = config.name.lower()
+        self.transform = transform
+        self.num_frames = num_frames
+        self.clip_duration = clip_duration
+        self.index = index
+        self.scale = config.scale
+        self.compressions = list(config.compressions)
+        self.cropped_folder = config.cropped_folder
+        self.runtime_labels = bool(config.runtime)
+        if self.runtime_labels:
+            # without the optional packages the loader falls back to the
+            # Measures files (a missing import inside get_dict would fail
+            # every index, and the retry loop would never end)
+            try:
+                import heartpy  # noqa: F401
+                import pyedflib  # noqa: F401
+            except ImportError:
+                logger.warning("RPPG runtime=1 but heartpy/pyedflib are not importable;"
+                               " falling back to offline Measures labels")
+                self.runtime_labels = False
+        self.label_type = config.label_type
+        self.label_dim = config.label_dim
+        self._init_sample_rng(seed, index)
+
+        rng = random.Random()
+        rng.seed(777)
+        session_dirs = sorted(glob(path.join(config.root_dir, "Sessions", "*")))
+        rng.shuffle(session_dirs)
+        if split == "train":
+            target = session_dirs[: int(len(session_dirs) * config.train_ratio * self.scale)]
+        else:
+            target = session_dirs[int(len(session_dirs) * (
+                (1 - config.train_ratio) * (1 - self.scale) + config.train_ratio)):]
+
+        self.session_metas = []
+        for session_dir in target:
+            meta_path = path.join(
+                session_dir.replace("Sessions", config.meta_folder or "Metas"), "meta.pickle")
+            try:
+                with open(meta_path, "rb") as f:
+                    self.session_metas.append(pickle.load(f))
+            except Exception as e:
+                logger.debug("Error while loading meta pickle: %s", e)
+
+        self.session_measures = []
+        if not self.runtime_labels:
+            metas, measures = [], []
+            for meta in self.session_metas:
+                try:
+                    mp = path.join(meta["session_dir"].replace("Sessions", config.measure_folder),
+                                   "data.pickle")
+                    with open(mp, "rb") as f:
+                        measures.append(pickle.load(f))
+                    metas.append(meta)
+                except Exception:
+                    continue
+            self.session_metas, self.session_measures = metas, measures
+
+        self.session_clips = [int(m["duration"] // self.clip_duration)
+                              for m in self.session_metas]
+        self.stack_session_clips = [0]
+        for c in self.session_clips:
+            self.stack_session_clips.append(self.stack_session_clips[-1] + c)
+        self.stack_session_clips.pop(0)
+
+    def __len__(self):
+        if not self.stack_session_clips:
+            return 0
+        return self.stack_session_clips[-1] * len(self.compressions)
+
+    def _bpm_label(self, bpm: float):
+        assert 41 <= bpm <= 180, f"bpm out of range: {bpm}"
+        if self.label_type == "dist":
+            k = np.arange(self.label_dim)
+            return (1.0 / math.sqrt(2 * math.pi)
+                    * np.exp(-np.square(k - (bpm - 41)) / 2.0)).astype(np.float32)
+        return np.float32(bpm - 41)
+
+    def get_dict(self, idx):
+        rng = self._sample_rng(idx)
+        while True:
+            try:
+                comp = self.compressions[int(idx // self.stack_session_clips[-1])]
+                idx = idx % self.stack_session_clips[-1]
+                session_idx = next(i for i, x in enumerate(self.stack_session_clips) if idx < x)
+                meta = self.session_metas[session_idx]
+                offset_duration = (idx - (0 if session_idx == 0
+                                          else self.stack_session_clips[session_idx - 1])
+                                   ) * self.clip_duration
+
+                hr_freq = meta["session_hr_sample_freq"]
+                hr_offset = meta["flag_hr_beg_sample"] + int(offset_duration * hr_freq)
+                hr_end = hr_offset + int(hr_freq * self.clip_duration)
+
+                if not self.runtime_labels:
+                    sm = self.session_measures[session_idx]
+                    mi = next(i for i, x in enumerate(sm["idx"]) if hr_end <= x)
+                    # the reference asserts 0 < measure_idx: mi == 0 would
+                    # interpolate against the last measure; the retry resamples
+                    assert 0 < mi, f"clip precedes first measure (session {session_idx})"
+                    ratio = (sm["idx"][mi] - hr_end) / (sm["idx"][mi] - sm["idx"][mi - 1])
+                    bpm = ratio * sm["data"][mi - 1]["bpm"] + (1 - ratio) * sm["data"][mi]["bpm"]
+                else:
+                    bpm = self._runtime_bpm(meta, hr_offset, hr_end - hr_offset)
+
+                label = self._bpm_label(bpm)
+
+                vid_path = meta["video_path"].replace(
+                    "Sessions",
+                    path.join("Sessions" if not self.cropped_folder else self.cropped_folder,
+                              comp))
+                fps = meta["session_video_sample_freq"]
+                offset = (int(meta["flag_video_beg_sample"] - meta["session_video_beg_sample"])
+                          / fps + int(offset_duration))
+                clip_samples = int(fps * self.clip_duration)
+                stride = (clip_samples - 1) / (self.num_frames - 1) / fps
+                frames = _read_clip_frames(vid_path, fps, offset, stride, self.num_frames,
+                                           self.video_backend)
+                frames = _hwc_to_chw(frames)
+                if self.transform:
+                    frames = self.transform(frames)
+                frames, mask = _pad_and_mask(frames, self.num_frames)
+                return {"frames": frames, "label": label, "mask": mask}
+            except Exception as e:
+                logger.error("Error occur: %s", e)
+                idx = int(rng.integers(0, len(self)))
+
+    def _runtime_bpm(self, meta, hr_offset: int, hr_samples: int) -> float:
+        """The reference's ECG path (src/datasets.py:909-949): the most
+        regular (least sdnn) of the three leads' heartpy measures in 41-180
+        bpm. Needs pyedflib, heartpy and scipy."""
+        import heartpy as hp  # type: ignore
+        from pyedflib import highlevel as bdf_reader  # type: ignore
+        from scipy.signal import resample
+
+        signals, _, _ = bdf_reader.read_edf(meta["bdf_path"],
+                                            ch_names=["EXG1", "EXG2", "EXG3", "Status"])
+        candidates = []
+        for ch in range(3):
+            try:
+                data = signals[ch][hr_offset: hr_offset + hr_samples]
+                data = hp.filter_signal(data, cutoff=0.05,
+                                        sample_rate=meta["session_hr_sample_freq"],
+                                        filtertype="notch")
+                data = (data - data.min()) / (data.max() - data.min()) * 3.4
+                data = resample(data, len(data) * 4)
+                _, measures = hp.process(hp.scale_data(data),
+                                         meta["session_hr_sample_freq"] * 4)
+                if not 41 <= measures["bpm"] <= 180:
+                    continue
+                if any(isinstance(v, float) and math.isnan(v) for v in measures.values()):
+                    continue
+                candidates.append(measures)
+            except Exception:
+                continue
+        if not candidates:
+            raise RuntimeError("Unable to process the ECG data")
+        return sorted(candidates, key=lambda m: m["sdnn"])[0]["bpm"]
+
+    def __getitem__(self, idx):
+        result = self.get_dict(idx)
+        return result["frames"], result["label"], result["mask"], self.index
+
+    def collate_fn(self, batch):
+        """The six-field batch (comps "raw", speed 1; the reference has no
+        collate for RPPG)."""
+        frames, label, mask, index = list(zip(*batch))
+        n = len(frames)
+        return [
+            np.stack(frames),
+            np.stack(label) if np.ndim(label[0]) else np.asarray(label, np.float32),
+            np.stack(mask),
+            ["raw"] * n,
+            np.ones((n,), np.float32),
+            np.asarray(index, np.int64),
+        ]

@@ -92,7 +92,9 @@ def update_metrics(agent) -> None:
                 labels=trim(name, labels),
             )
     for name, loss in batch_losses.items():
-        vals = trim(name, loss)
+        # a scalar loss (CompInv's recon / match, a train step's auxiliary
+        # losses) is one value; the JAX package's len() refuses it
+        vals = np.atleast_1d(trim(name, loss))
         if len(vals):
             agent.losses.setdefault(name, []).append(float(np.mean(vals)))
 

@@ -53,16 +53,19 @@ def load_pretrained_encoder(model, config) -> None:
     foundation's file under ``misc/``. A framework-native pickle
     (``{"backbone": tree}`` or a bare tree with ``blocks``, in the JAX
     layout) is read as it is; anything else as a CLIP or DINOv2 torch
-    checkpoint. Without one it warns and the encoder starts random."""
+    checkpoint. Without one it warns and the encoder starts random. A model
+    config without ``foundation`` (CompInvEncoder's, a CLIP tower) reads as
+    "clip"; the JAX package's raises on it."""
     candidates = []
     if "pretrained" in config.model and config.model.pretrained:
         candidates.append(config.model.pretrained)
-    if config.model.foundation == "clip":
+    foundation = config.model.get("foundation", "clip")
+    if foundation == "clip":
         name = config.model.architecture.replace("/", "-").replace("@", "-")
         candidates += [f"misc/{name}.pt", f"misc/{name}.npz"]
-    elif config.model.foundation == "farl":
+    elif foundation == "farl":
         candidates += ["misc/FaRL-Base-Patch16-LAIONFace20M-ep64.pth", "misc/farl.pth"]
-    elif config.model.foundation == "dinov2":
+    elif foundation == "dinov2":
         candidates += ["misc/dinov2_vitb14_pretrain.pth"]
     for c in candidates:
         if not path.isfile(c):
@@ -77,7 +80,7 @@ def load_pretrained_encoder(model, config) -> None:
         except Exception:   # not a pickle: a torch checkpoint
             tree = None
         if tree is None:
-            if config.model.foundation in ("clip", "farl"):
+            if foundation in ("clip", "farl"):
                 tree, _ = weights_lib.load_clip_visual(c)
             else:
                 tree = weights_lib.load_dinov2(c, model.vit_cfg)

@@ -5,14 +5,16 @@
         [--video_backend auto|opencv|synthetic]
 
 Reads the JAX package's YAML schema (class-name reflection for the model,
-trainer, evaluator and datasets), makes the run directory where the JAX
+trainer, evaluator and datasets: root main.py's ten classes, so the
+deepfake, CompInv adapter pretraining and cross-task recipes of
+``configs/`` all run), makes the run directory where the JAX
 CLI makes it (the repository root joined with ``tracking.directory``, an
 absolute directory as it is; ``<prefix>_<n>`` without a project name, else
 ``<project>/<MMDDTHHMM>``), writes ``setting.yaml`` there, builds the
 Detector (with the foundation's checkpoint from ``misc/`` when there is
-one, else a random draw and a warning: nothing is downloaded), the training
-and evaluation datasets, the Trainer and the Evaluator, registers the
-callbacks, and trains. The run directory then holds ``setting.yaml``,
+one, else a random draw and a warning: nothing is downloaded) or the
+CompInvEncoder, the training and evaluation datasets, the trainer and the
+evaluator the YAML names, registers the callbacks, and trains. The run directory then holds ``setting.yaml``,
 ``best_weights.pt`` and ``last_weights.pt`` (the JAX layout, which this
 package's and the JAX package's inference.main both read, with
 ``tracking.enabled``), ``metrics.jsonl``, per-rank logs, ``checkpoints/``
@@ -39,14 +41,15 @@ from pathlib import Path
 import torch
 
 from .config import CN
-from .data import CDF, DFDC, FFPP
+from .data import CDF, DFDC, FFPP, RPPG
 from .device import resolve_device
 from .engine.callbacks import (cache_best_model, compute_metrics, end_timer, init_metrics,
                                start_timer, update_metrics, update_trackers)
-from .engine.evaluator import Evaluator
-from .engine.trainer import Trainer
+from .engine.evaluator import CompInvEvaluator, Evaluator
+from .engine.trainer import CompInvTrainer, Trainer
 from .inference import load_pretrained_encoder
 from .models import weights as weights_lib
+from .models.adapter import CompInvEncoder
 from .models.detector import Detector
 from .runtime import OneProcess
 from .utils.notify import send_to_telegram
@@ -55,21 +58,24 @@ from .utils.tracking import Tracker
 REPO_ROOT = Path(__file__).resolve().parents[1]
 PROJECT_DIR = None
 
-# class-name reflection registry (the reference's globals(); main.py:71-97).
-# CompInvEncoder, CompInvTrainer, CompInvEvaluator and RPPG are not ported.
+# class-name reflection registry (the reference's globals(); main.py:71-97)
 REGISTRY = {
     "Detector": Detector,
+    "CompInvEncoder": CompInvEncoder,
     "Trainer": Trainer,
+    "CompInvTrainer": CompInvTrainer,
     "Evaluator": Evaluator,
+    "CompInvEvaluator": CompInvEvaluator,
     "FFPP": FFPP,
     "CDF": CDF,
     "DFDC": DFDC,
+    "RPPG": RPPG,
 }
 
 
 def _registered(name: str):
     if name not in REGISTRY:
-        raise NotImplementedError(f"{name} is not ported yet (the port's main takes "
+        raise NotImplementedError(f"{name} is not a registered class (the port's main takes "
                                   f"{', '.join(REGISTRY)})")
     return REGISTRY[name]
 

@@ -1,6 +1,7 @@
-"""Compression-invariant K/V adapter (counterpart of the adapter half of
-dfd_clip_tpu/models/adapter.py: ``STRUCT_TYPES``, ``AdapterConfig``,
-``init_adapter``, ``apply_adapter`` and ``calibrate_bn_stats``).
+"""Compression-invariant K/V adapter and its standalone pretrainer
+(counterpart of dfd_clip_tpu/models/adapter.py: ``STRUCT_TYPES``,
+``AdapterConfig``, ``init_adapter``, ``apply_adapter``,
+``calibrate_bn_stats`` and ``CompInvEncoder``).
 
 Per kept encoder layer and per subject ("k" / "v") a small bottleneck MLP
 transforms the exported K/V stream, residual-added except for the "linear"
@@ -21,14 +22,18 @@ Differences from the JAX package, by design:
 
 The adapter's linears are plain matrix products outside any kernel (the
 JAX package leaves them to XLA): ``layers.linear``. Its GELU is JAX's
-default ``jax.nn.gelu``, the tanh approximation. The standalone
-``CompInvEncoder`` pretrainer is not ported.
+default ``jax.nn.gelu``, the tanh approximation.
+
+``CompInvEncoder`` runs the frozen CLIP tower (``clip_vision_kv``, the
+kept layers' unpadded export, the port's kernels on the card, under
+``torch.no_grad``) and the adapter on raw / c23 clip pairs, with the
+reference's recon and match losses.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -229,3 +234,154 @@ def calibrate_bn_stats(params: Params, kv_batches, cfg: AdapterConfig) -> Params
             nb[subject] = {**nb[subject], "bn": bn}
         blocks.append(nb)
     return {**params, "blocks": blocks}
+
+
+class CompInvEncoder:
+    """Standalone adapter pretrainer (reference src/models.py:943-1046):
+    frozen CLIP -> adapter -> (recon, match) over raw / c23 pairs, the
+    clips of a batch interleaved in pairs (rows 2i, 2i + 1), ``comp_is_raw``
+    telling which member is raw. Losses (src/models.py:1002-1040):
+    mode 0: recon = ||raw_orig - raw_adapted||, match = ||raw_adapted -
+    c23_adapted||; mode 1: recon = 0, match = ||raw_orig - c23_adapted||;
+    each the L1 maps summed over layers, pairs, K and V, then the reference's
+    per-patch L2 norm of the frame-averaged map."""
+
+    @staticmethod
+    def get_default_config():
+        from ..config import CN
+
+        C = CN()
+        C.name = "CompInvEncoder"
+        C.architecture = "ViT-B/16"
+        C.decode_mode = "stride"
+        C.decode_stride = 2
+        C.decode_indices = []
+        C.adapter = CN(new_allowed=True)
+        C.dropout = 0.0
+        C.mode = 0
+        return C
+
+    def __init__(self, config, num_frames: int = 50, compute_dtype=torch.bfloat16,
+                 device="cuda"):
+        from . import clip_vit
+        from .detector import resolve_layer_indices
+        from ..device import resolve_device
+
+        if config.adapter.struct.type not in STRUCT_TYPES:
+            raise NotImplementedError(f"Unknown adapter struct: {config.adapter.struct.type}")
+        self.device = resolve_device(device)
+        self.config = config
+        self.vit_cfg = clip_vit.ARCHITECTURES[config.architecture]
+        self.layer_indices = resolve_layer_indices(config, self.vit_cfg.layers)
+        self.mode = int(config.mode)
+        if self.mode not in (0, 1):
+            raise ValueError(f"CompInvEncoder mode {self.mode} (0 or 1)")
+        self.num_frames = num_frames
+        self.compute_dtype = compute_dtype
+        self.adapter_cfg = AdapterConfig(
+            struct_type=config.adapter.struct.type,
+            inner_dim=int(config.adapter.struct.get("x", self.vit_cfg.width)),
+            width=self.vit_cfg.width,
+            num_layers=len(self.layer_indices),
+            dropout=config.dropout,
+            num_frames=num_frames,
+            patches=self.vit_cfg.num_patches,
+        )
+
+    def init_params(self, gen: torch.Generator, encoder_params: Optional[Params] = None
+                    ) -> Params:
+        """Random f32 params (CPU) from ``gen``: the encoder (unless given),
+        then the adapter."""
+        from . import clip_vit
+
+        if encoder_params is None:
+            encoder_params = clip_vit.init_clip_vision(gen, self.vit_cfg)
+        return {"encoder": encoder_params, "adapter": init_adapter(gen, self.adapter_cfg)}
+
+    def partition_params(self, params: Params) -> Tuple[Params, Params]:
+        """(trainable, frozen): the adapter trains, the encoder is frozen."""
+        return {"adapter": params["adapter"]}, {"encoder": params["encoder"]}
+
+    def prepare_params(self, params: Params) -> Params:
+        """Params on the model's device: matrix weights (``w``, ``conv1``)
+        in the compute dtype, everything else in f32."""
+        from .detector import _map_tree
+
+        def place(path, leaf):
+            dtype = self.compute_dtype if path[-1] == "w" else torch.float32
+            return leaf.to(device=self.device, dtype=dtype).contiguous()
+
+        return _map_tree(place, params)
+
+    def optimizer_spec(self):
+        return {"name": "adamw", "weight_decay": 0.01}
+
+    def preprocess(self, x: torch.Tensor) -> torch.Tensor:
+        """uint8 (..., 3, H, W) -> resized, CLIP-normalised float on the
+        device (the Detector's transform)."""
+        from ..ops import image_ops
+        from .detector import CLIP_MEAN, CLIP_STD
+
+        if x.is_floating_point():
+            return x
+        return image_ops.resize_crop_normalize(x, self.vit_cfg.input_resolution, CLIP_MEAN,
+                                               CLIP_STD)
+
+    def predict(self, params: Params, x, *, train: bool = False,
+                gen: Optional[torch.Generator] = None):
+        """(adapted, raw) K/V of a clip batch x (B, T, 3, H, W): raw
+        {"k", "v"} (Lsel, B, T, P, H, D), the tower's unpadded export
+        without CLS, computed under no_grad; adapted, lists of per-layer
+        (B, T, P, H, D) (apply_adapter), under autograd with ``train``."""
+        from . import clip_vit
+
+        x = torch.as_tensor(np.asarray(x) if not torch.is_tensor(x) else x, device=self.device)
+        cfg = self.vit_cfg
+        with torch.no_grad():
+            x = self.preprocess(x)
+            b, t = x.shape[:2]
+            kvs = clip_vit.clip_vision_kv(params["encoder"], x.reshape((b * t,) + x.shape[2:]),
+                                          cfg, self.compute_dtype,
+                                          keep_layers=tuple(self.layer_indices), drop_cls=True)
+            kv_raw = {s: kvs[s].reshape(len(self.layer_indices), b, t, cfg.num_patches,
+                                        cfg.heads, cfg.head_dim) for s in ("k", "v")}
+        adapted = apply_adapter(params["adapter"], kv_raw, self.adapter_cfg, train=train, gen=gen)
+        return adapted, kv_raw
+
+    def forward(self, params: Params, x, comp_is_raw, *, train: bool = True,
+                gen: Optional[torch.Generator] = None):
+        """(recon, match) scalars for x (B, T, 3, H, W), raw / c23 pairs
+        interleaved, and comp_is_raw (B,) bool."""
+        adapted, raw = self.predict(params, x, train=train, gen=gen)
+        nsel = len(self.layer_indices)
+        _, b, t, p, h, d = raw["k"].shape
+        w = b // 2
+        raw_first = torch.as_tensor(comp_is_raw, device=self.device).bool().reshape(w, 2)[:, 0]
+        sel = raw_first.reshape(w, 1, 1, 1, 1)
+
+        def pair_order(feats: torch.Tensor):
+            """(B, T, P, H, D) -> its (raw, c23) members, each (w, T, P, H, D)."""
+            pairs = feats.reshape(w, 2, t, p, h, d)
+            return (torch.where(sel, pairs[:, 0], pairs[:, 1]),
+                    torch.where(sel, pairs[:, 1], pairs[:, 0]))
+
+        zeros = torch.zeros((t, p, h, d), dtype=torch.float32, device=self.device)
+        recon_diff, match_diff = zeros, zeros
+        for s in ("k", "v"):
+            for i in range(nsel):
+                a_raw, a_c23 = pair_order(adapted[s][i])
+                o_raw, _ = pair_order(raw[s][i])
+                if self.mode == 0:
+                    recon_diff = recon_diff + (o_raw.float() - a_raw.float()).abs().sum(0)
+                    match_diff = match_diff + (a_raw.float() - a_c23.float()).abs().sum(0)
+                else:
+                    match_diff = match_diff + (o_raw.float() - a_c23.float()).abs().sum(0)
+        denom = w * nsel * 2
+
+        def per_patch(diff: torch.Tensor) -> torch.Tensor:
+            # the reference's reshape of the (T, P, H, D) map to (P, T, -1):
+            # a reinterpretation of its memory, not a transpose
+            # (src/models.py:1037-1038)
+            return torch.linalg.vector_norm((diff / denom).reshape(p, t, -1).mean(dim=1)) / p
+
+        return per_patch(recon_diff), per_patch(match_diff)

@@ -23,8 +23,15 @@ is unpadded (the "nln" joint LayerNorm and the "768-bn" statistics must not
 see pad rows), int8_rows K/V are dequantised first, and the adapter turns
 the stacked export into per-layer K/V between the encoder and the decoder,
 under autograd in training, so the decoder attention's backward hands back
-dK/dV into the adapter. ``kv_dtype = "int8"``, the compression and temporal
-losses, ``ema_frame`` and ``patch_mask`` are not ported yet and raise.
+dK/dV into the adapter. ``forward`` in training also returns the JAX
+package's auxiliary losses: ``train_mode.compression`` ("feature-match" on
+the video feature, "sync" on the adapter's per-layer K/V: "recon" and
+"match"), ``train_mode.temporal`` ("ranking" on the trainable
+``ranking_proj``: "speed/rank"; "triplet" on host-drawn triples:
+"speed/triplet"); ``train_mode.patch_mask`` draws each step's patch
+indices on the host (``sample_patch_indices``) and ``op_mode.ema_frame``
+collapses a clip to one geometrically weighted frame. ``kv_dtype =
+"int8"`` is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -51,8 +58,9 @@ IMAGENET_STD = (0.229, 0.224, 0.225)
 
 # -- loss factories (per-sample losses, reduction left to the caller) ----------
 
-def mse():
-    """Expectation-vs-bpm squared error over a 140-bin distribution head."""
+def mse(*_, **__):
+    """Expectation-vs-bpm squared error over a 140-bin distribution head
+    (loss arguments are ignored, as in the JAX package)."""
 
     def per_sample(logits: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         bins = torch.arange(140, dtype=torch.float32, device=logits.device)
@@ -62,8 +70,9 @@ def mse():
     return per_sample
 
 
-def kl_div():
-    """Elementwise KL(target || softmax(logits)), reduction='none'."""
+def kl_div(*_, **__):
+    """Elementwise KL(target || softmax(logits)), reduction='none' (loss
+    arguments are ignored, as in the JAX package)."""
 
     def per_sample(logits: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         log_q = torch.log_softmax(logits.float(), dim=1)
@@ -75,15 +84,22 @@ def kl_div():
     return per_sample
 
 
-def auc_roc():
-    """Per-sample cross-entropy against class indices or soft targets."""
+def auc_roc(weight=None, label_smoothing: float = 0.0, *_, **__):
+    """Per-sample cross-entropy against class indices or soft targets,
+    optionally label-smoothed and class-weighted."""
 
     def per_sample(logits: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        num_classes = logits.shape[-1]
         log_p = torch.log_softmax(logits.float(), dim=-1)
         if y.ndim == 1 and not y.is_floating_point():
-            targets = F.one_hot(y.long(), logits.shape[-1]).float()
+            targets = F.one_hot(y.long(), num_classes).float()
         else:
             targets = y.float()
+        if label_smoothing:
+            targets = targets * (1.0 - label_smoothing) + label_smoothing / num_classes
+        if weight is not None:
+            w = torch.as_tensor(weight, dtype=torch.float32, device=logits.device)
+            return -torch.sum(w * targets * log_p, dim=-1)
         return -torch.sum(targets * log_p, dim=-1)
 
     return per_sample
@@ -177,9 +193,9 @@ class Detector:
             raise NotImplementedError("kv_dtype 'int8' (per-(layer, head) scales) is not "
                                       "ported yet")
         self.compute_int8 = clip and bool(op.get("compute_int8", 0))
-        if not all(isinstance(loss, str) for loss in config.losses):
-            raise NotImplementedError("loss arguments are not ported yet")
-        self.losses = [LOSSES[loss]() for loss in config.losses]
+        self.losses = [LOSSES[loss]() if isinstance(loss, str)
+                       else LOSSES[loss.name](**(loss.args.to_dict() if "args" in loss else {}))
+                       for loss in config.losses]
         self.transform = TransformSpec(self.vit_cfg.input_resolution, mean, std)
         self.layer_indices = resolve_layer_indices(config, self.vit_cfg.layers)
         self.decoder_cfg = decoder_lib.DecoderConfig(
@@ -209,6 +225,13 @@ class Detector:
                 num_frames=num_frames,
                 patches=self.vit_cfg.num_patches,
             )
+        tm = config.train_mode
+        self.guide_map = None
+        if "patch_mask" in tm and tm.patch_mask.type == "guide":
+            import pickle
+
+            with open(tm.patch_mask.path, "rb") as f:
+                self.guide_map = pickle.load(f)
 
     # -- params ---------------------------------------------------------------
     def init_params(self, gen: torch.Generator,
@@ -216,7 +239,8 @@ class Detector:
         """Random f32 params (CPU) from ``gen``; the decoder's LayerNorms and
         MLPs are seeded from the encoder's kept layers. With an adapter also
         ``adapter``, read from ``adapter.path`` for ``adapter.type``
-        "pretrain"."""
+        "pretrain"; with ``train_mode.temporal`` "ranking" also the trainable
+        ``ranking_proj`` (W, 1), drawn last."""
         if encoder_params is None:
             init = dinov2_vit.init_dinov2 if self._dinov2() else clip_vit.init_clip_vision
             encoder_params = init(gen, self.vit_cfg)
@@ -232,6 +256,9 @@ class Detector:
 
                 params["adapter"] = load_adapter_checkpoint(self.config.adapter.path,
                                                             params["adapter"])
+        if self._temporal() == "ranking":
+            w = self.vit_cfg.width
+            params["ranking_proj"] = (w ** -0.5) * torch.randn(w, 1, generator=gen)
         return params
 
     def prepare_params(self, params: Params) -> Params:
@@ -276,6 +303,10 @@ class Detector:
 
     def _dinov2(self) -> bool:
         return self.config.foundation == "dinov2"
+
+    def _temporal(self) -> Optional[str]:
+        tm = self.config.train_mode
+        return tm.temporal if "temporal" in tm else None
 
     def _kv_rows8(self) -> bool:
         """op_mode.kv_dtype "int8_rows": per-row int8 K/V that stay
@@ -361,24 +392,64 @@ class Detector:
             features["adapt"] = kvs
         return task_logits, features
 
+    def sample_patch_indices(self, rng: np.random.Generator) -> Optional[np.ndarray]:
+        """A step's patch indices (Lsel, num_select) for ``train_mode.patch_mask``,
+        drawn from the host generator ``rng`` as the JAX package draws them:
+        "batch" one draw for every kept layer, "sample" one a layer, "guide"
+        one a layer weighted by the guide map's "v" of that encoder layer.
+        None without a patch mask."""
+        tm = self.config.train_mode
+        if "patch_mask" not in tm:
+            return None
+        pm = tm.patch_mask
+        num_patch = self.vit_cfg.num_patches
+        num_select = int(num_patch * pm.ratio)
+        nsel = len(self.layer_indices)
+        if pm.type == "batch":
+            return np.tile(rng.choice(num_patch, num_select, replace=False), (nsel, 1))
+        if pm.type == "sample":
+            return np.stack([rng.choice(num_patch, num_select, replace=False)
+                             for _ in range(nsel)])
+        if pm.type == "guide":
+            return np.stack([rng.choice(num_patch, num_select, replace=False,
+                                        p=self.guide_map["v"][self.layer_indices[i]].flatten())
+                             for i in range(nsel)])
+        raise NotImplementedError(pm.type)
+
     def forward(self, params: Params, x, y: Sequence[Optional[torch.Tensor]], m,
-                comp_is_raw: Optional[torch.Tensor] = None, *, train: bool = False,
-                single_task: Optional[int] = None, gen: Optional[torch.Generator] = None):
+                comp_is_raw: Optional[torch.Tensor] = None, speed: Optional[torch.Tensor] = None,
+                *, train: bool = False, single_task: Optional[int] = None,
+                gen: Optional[torch.Generator] = None, patch_indices=None,
+                triplet_indices=None):
         """Per-task losses and logits for a clip batch.
 
         y: per-task labels on the detector's device (None = task inactive);
-        comp_is_raw: (B,) bool compression flags (``train_mode.nerf_raw``).
-        Returns (task_losses, task_logits), and with ``train`` also the
-        auxiliary losses (an empty dict: none is ported yet)."""
+        comp_is_raw: (B,) bool compression flags (``train_mode.nerf_raw`` and
+        ``compression``); speed: (B,) f32 clip speeds (``temporal``);
+        patch_indices: (Lsel, num_select) from ``sample_patch_indices``;
+        triplet_indices: (R, 3) batch rows, each triple ordered fastest to
+        slowest. Returns (task_losses, task_logits), and with ``train`` also
+        the auxiliary losses {"recon", "match", "speed/rank",
+        "speed/triplet"} of the modes that are on."""
         tm, op = self.config.train_mode, self.config.op_mode
-        unported = [name for name, on in (("compression", "compression" in tm),
-                                          ("temporal", "temporal" in tm),
-                                          ("patch_mask", "patch_mask" in tm),
-                                          ("ema_frame", bool(op.get("ema_frame", 0)))) if on]
-        if unported:
-            raise NotImplementedError(f"{', '.join(unported)} not ported yet")
-        b = x.shape[0]
-        task_logits, _ = self.predict(params, x, m, train=train, gen=gen)
+        x = torch.as_tensor(np.asarray(x) if not torch.is_tensor(x) else x, device=self.device)
+        m = torch.as_tensor(np.asarray(m) if not torch.is_tensor(m) else m,
+                            device=self.device).bool()
+        b, t = x.shape[:2]
+        if op.get("ema_frame", 0):
+            # one frame a clip: the preprocessed frames weighted (1 - r) r^(T-1-i)
+            r = op.ema_frame
+            with torch.no_grad():
+                xf = self.preprocess(x)
+                coef = (1 - r) * r ** torch.arange(t - 1, -1, -1, dtype=torch.float32,
+                                                   device=self.device)
+                x = torch.einsum("t,btchw->bchw", coef.to(xf.dtype), xf)[:, None]
+            m = m[:, :1]
+        need_adapt = self.adapter_cfg is not None and "compression" in tm
+        task_logits, features = self.predict(params, x, m, train=train, gen=gen,
+                                             patch_indices=patch_indices,
+                                             with_video_features=True,
+                                             with_adapt_features=need_adapt)
         task_losses = [
             loss_fn(logits, labels)
             if labels is not None and (single_task is None or i == single_task)
@@ -387,9 +458,96 @@ class Detector:
         ]
         if not train:
             return task_losses, task_logits
+        video = features["video"]
+        other: Dict[str, torch.Tensor] = {}
+        if "compression" in tm:
+            other.update(self._compression_losses(video, features.get("adapt"),
+                                                  torch.as_tensor(comp_is_raw,
+                                                                  device=self.device), b))
         if "nerf_raw" in tm:
             nerf_power = min(tm.nerf_raw, 0)
             scale = torch.where(comp_is_raw.to(self.device), nerf_power, 2.0 - nerf_power)
             task_losses = [loss * scale.reshape((b,) + (1,) * (loss.ndim - 1))
                            for loss in task_losses]
-        return task_losses, task_logits, {}
+        temporal = self._temporal()
+        if temporal is not None:
+            speed = torch.as_tensor(speed, dtype=torch.float32, device=self.device)
+            if temporal == "ranking":
+                other["speed/rank"] = self._ranking_loss(params, video, speed)
+            elif temporal == "triplet":
+                other["speed/triplet"] = self._triplet_loss(
+                    video, speed, torch.as_tensor(triplet_indices, device=self.device).long())
+            else:
+                raise NotImplementedError(temporal)
+        return task_losses, task_logits, other
+
+    # -- auxiliary losses ---------------------------------------------------------
+    def _compression_losses(self, video: torch.Tensor, adapt: Optional[Dict],
+                            comp_is_raw: torch.Tensor, b: int) -> Dict[str, torch.Tensor]:
+        """raw / c23 invariance of interleaved pairs (rows 2i, 2i + 1): "recon"
+        0, and "match" 100 x the KL of the c23 member's softmax from the raw
+        member's, over the video feature's last axis ("feature-match", each
+        block's feature apart under global_prediction) or over the head_dim
+        of each adapted K/V layer ("sync", averaged over layers, pairs and
+        K and V)."""
+        w = b // 2
+        raw_first = comp_is_raw.reshape(w, 2)[:, 0]
+
+        def pair_order(feats: torch.Tensor):
+            pairs = feats.reshape((w, 2) + tuple(feats.shape[1:]))
+            sel = raw_first.reshape((w,) + (1,) * (feats.ndim - 1))
+            return (torch.where(sel, pairs[:, 0], pairs[:, 1]),
+                    torch.where(sel, pairs[:, 1], pairs[:, 0]))
+
+        def kl(feats: torch.Tensor) -> torch.Tensor:
+            """Per pair, the mean over its elements of p (log p - log q)."""
+            raw, c23 = pair_order(feats.float())
+            log_p, log_q = torch.log_softmax(raw, dim=-1), torch.log_softmax(c23, dim=-1)
+            return (log_p.exp() * (log_p - log_q)).flatten(1).mean(dim=1)
+
+        mode = self.config.train_mode.compression
+        out = {"recon": torch.zeros((), device=self.device)}
+        if mode == "feature-match":
+            out["match"] = 100.0 * kl(video).sum() / w
+        elif mode == "sync":
+            if adapt is None:
+                raise ValueError("train_mode.compression 'sync' needs an adapter")
+            nsel = len(self.layer_indices)
+            total = torch.zeros((), device=self.device)
+            for s in ("k", "v"):
+                total = total + sum(kl(f).sum() for f in adapt[s]) / (w * nsel * 2)
+            out["match"] = 100.0 * total
+        else:
+            raise NotImplementedError(mode)
+        return out
+
+    @staticmethod
+    def _last_feature(video: torch.Tensor) -> torch.Tensor:
+        return video if video.ndim == 2 else video[:, -1]
+
+    def _ranking_loss(self, params: Params, video: torch.Tensor,
+                      speed: torch.Tensor) -> torch.Tensor:
+        """0.05 x the mean hinge of (x_j - x_i) over the pairs i < j of the
+        batch ordered fastest first (a stable sort), x the clips' projections
+        on ``ranking_proj``."""
+        logits = (self._last_feature(video) @ params["ranking_proj"].float()).squeeze(-1)
+        x = logits[torch.argsort(-speed, stable=True)]
+        n = x.shape[0]
+        upper = torch.triu(torch.ones(n, n, dtype=torch.bool, device=x.device), diagonal=1)
+        hinge = torch.clamp_min(x[None, :] - x[:, None], 0.0)
+        return 0.05 * torch.where(upper, hinge, 0.0).sum() / upper.sum()
+
+    def _triplet_loss(self, video: torch.Tensor, speed: torch.Tensor,
+                      triplets: torch.Tensor) -> torch.Tensor:
+        """Speed-ordered triplet margins over the (R, 3) rows (fastest,
+        middle, slowest)."""
+        vf = self._last_feature(video)
+        a, p, n = vf[triplets[:, 0]], vf[triplets[:, 1]], vf[triplets[:, 2]]
+        s = speed[triplets]
+
+        def dist(u, v):
+            return torch.linalg.vector_norm(u - v + 1e-6, dim=-1)
+
+        l1 = torch.clamp_min(dist(a, p) - dist(a, n) + (s[:, 2] - s[:, 1]).abs(), 0.0)
+        l2 = torch.clamp_min(dist(n, p) - dist(n, a) + (s[:, 1] - s[:, 0]).abs(), 0.0)
+        return 0.01 * (l1.sum() + l2.sum()) / (triplets.shape[0] * 2)

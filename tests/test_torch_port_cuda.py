@@ -1639,3 +1639,89 @@ def test_layer_norm_rows_persistent(dev, dtype, rows, width):
     assert _cuda.launches() == {"layer_norm_rows": 1}
     assert got.dtype == torch.bfloat16 and got.shape == (rows, width)
     assert rel_err(got, layer_norm(ln, x).to(torch.bfloat16)) <= REL
+
+
+def _function_grads(leaves, mask, pos_param, slice_pos, differentiable, layer=None, r=None,
+                    live_kv=True):
+    """The gradients of sum(out * r) with respect to the queries, K / V (with
+    ``live_kv``) and ``pos_param`` through the decoder attention, the
+    temporal embedding sliced and expanded from ``pos_param`` as the
+    decoder does (models/decoder.py): the trainable Function
+    (``differentiable``) or autograd through the plain composition."""
+    from dfd_clip_tpu_torch.ops.decoder_attention import dual_activation_attention
+
+    leaves = [t.detach().clone().requires_grad_(i < 2 or live_kv) for i, t in enumerate(leaves)]
+    # f32 values that bf16 holds exactly: the Function casts the embedding to
+    # the K/V dtype, the plain composition adds it in f32
+    param = pos_param.detach().to(torch.bfloat16).float().requires_grad_(True)
+    pos = slice_pos(param)
+    out = dual_activation_attention(*leaves, mask, temporal_pos=pos, layer=layer,
+                                    differentiable=differentiable)
+    wrt = [t for t in leaves if t.requires_grad] + [param]
+    return torch.autograd.grad((out.float() * r).sum(), wrt)
+
+
+def test_trainable_function_one_frame_sliced_pos(dev):
+    """op_mode.ema_frame's decoder call: T = 1, the export's 200 padded rows
+    with 196 valid (the pad rows masked), the temporal embedding (20, 1, H,
+    D) sliced to its first frame; with an adapter's live per-layer K/V. dq,
+    dpos (row 0 only; rows 1-19 exactly 0) and dK/dV from the kernels'
+    launches against autograd through the plain composition, within REL;
+    _bwd_math never runs."""
+    from dfd_clip_tpu_torch.ops import _cuda
+
+    gen = torch.Generator().manual_seed(21)
+    b, h, p = 12, 12, 200
+    qs, qc, k, v, _, _ = decoder_inputs(dev, gen, b, h, p, False)
+    mask = (torch.arange(p, device=dev) < 196)[None].expand(b, p).contiguous()
+    pos_param = randn(gen, 20, 1, h, 64, scale=0.1).to(dev)
+    r = randn(gen, b, 1, h, 64).to(dev)
+
+    def one_frame(param):
+        return param[:1].expand(1, p, h, 64).reshape(p, h, 64)
+
+    _cuda.reset_launches()
+    got = _function_grads((qs, qc, k, v), mask, pos_param, one_frame, True, r=r)
+    assert _cuda.launches() == {"fused_decoder_attention": 1, "fused_decoder_attention_bwd": 1}
+    assert _cuda.plain_calls() == {}
+    want = _function_grads((qs, qc, k, v), mask, pos_param, one_frame, False, r=r)
+    for g, w in zip(got, want):
+        assert rel_err(g, w) <= REL
+    dpos = got[-1]
+    assert dpos.abs().max().item() > 0 and not dpos[1:].any()
+    assert not got[2][:, 196:].any() and not got[3][:, 196:].any()
+
+
+def test_trainable_function_patch_gather_l1960(dev):
+    """patch_mask's training call: each kept layer's export gathered to 98
+    of its 196 patches (a stack of (2, B, 20 x 98, H, D), read at slot 1,
+    L = 1,960, every token valid), the temporal embedding per frame over
+    the gathered patches: dq and dpos from the kernels against autograd
+    through the plain composition, within REL."""
+    from dfd_clip_tpu_torch.ops import _cuda
+
+    gen = torch.Generator().manual_seed(22)
+    b, h, t = 12, 12, 20
+    export = randn(gen, 2, 2, b, t, 200, h, 64, scale=0.5).to(dev, torch.bfloat16)
+    idx = torch.stack([torch.randperm(196, generator=gen)[:98] for _ in range(2)]).to(dev)
+    k, v = (torch.stack([export[s, i].index_select(2, idx[i]) for i in range(2)])
+            .reshape(2, b, t * 98, h, 64) for s in range(2))
+    q = randn(gen, b, 2 * h * 64).to(dev, torch.bfloat16)
+    qs, qc = q[:, : h * 64].reshape(b, 1, h, 64), q[:, h * 64:].reshape(b, 1, h, 64)
+    mask = torch.ones(b, t * 98, dtype=torch.bool, device=dev)
+    pos_param = randn(gen, t, 1, h, 64, scale=0.1).to(dev)
+    r = randn(gen, b, 1, h, 64).to(dev)
+
+    def per_frame(param):
+        return param.expand(t, 98, h, 64).reshape(t * 98, h, 64)
+
+    _cuda.reset_launches()
+    got = _function_grads((qs, qc, k, v), mask, pos_param, per_frame, True, layer=1, r=r,
+                          live_kv=False)
+    assert _cuda.launches() == {"fused_decoder_attention": 1, "fused_decoder_attention_bwd": 1}
+    assert _cuda.plain_calls() == {}
+    want = _function_grads((qs, qc, k, v), mask, pos_param, per_frame, False, layer=1, r=r,
+                           live_kv=False)
+    assert len(got) == len(want) == 3   # dq_smax, dq_coda, dpos: the frozen export's K/V
+    for g, w in zip(got, want):
+        assert rel_err(g, w) <= REL

@@ -137,17 +137,21 @@ def test_two_runs_with_one_seed_are_equal(env):
 
 
 def test_main_refuses_what_it_does_not_port_and_defaults_to_the_card(env, monkeypatch):
-    """A registry name the port lacks (RPPG, CompInvTrainer) raises
-    NotImplementedError; without --device the card, which a machine without
-    one lacks."""
+    """A registry name neither package has raises NotImplementedError; the
+    port's registry names exactly root main.py's ten classes; without
+    --device the card, which a machine without one lacks."""
+    import main as jmain
+
     from dfd_clip_tpu_torch import main as tmain
 
     tmp_path, root = env
     cfg = yaml.safe_load(open(write_config(tmp_path, root)))
-    cfg["trainer"]["name"] = "CompInvTrainer"
-    (tmp_path / "compinv.yaml").write_text(yaml.safe_dump(cfg))
-    with pytest.raises(NotImplementedError, match="CompInvTrainer"):
-        run_main(str(tmp_path / "compinv.yaml"))
+    cfg["trainer"]["name"] = "SSLTrainer"
+    assert "SSLTrainer" not in jmain.REGISTRY
+    (tmp_path / "unknown.yaml").write_text(yaml.safe_dump(cfg))
+    with pytest.raises(NotImplementedError, match="SSLTrainer"):
+        run_main(str(tmp_path / "unknown.yaml"))
+    assert sorted(tmain.REGISTRY) == sorted(jmain.REGISTRY)
     assert tmain.parse_args([]).device == "cuda"
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):

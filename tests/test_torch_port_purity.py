@@ -12,6 +12,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -65,6 +66,7 @@ def test_port_reads_no_environment(path):
     "dfd_clip_tpu_torch.main, dfd_clip_tpu_torch.engine.evaluator, "
     "dfd_clip_tpu_torch.engine.checkpoint, dfd_clip_tpu_torch.engine.callbacks, "
     "dfd_clip_tpu_torch.models.adapter, dfd_clip_tpu_torch.data.augment, "
+    "dfd_clip_tpu_torch.engine, dfd_clip_tpu_torch.models, "
     "dfd_clip_tpu_torch.utils.logging, dfd_clip_tpu_torch.utils.tracking, "
     "dfd_clip_tpu_torch.utils.notify",
 ], ids=["serve", "train", "towers", "tools", "eval", "cli"])
@@ -79,11 +81,12 @@ def test_importing_the_port_loads_no_jax_or_yaml(modules):
 
 
 @pytest.mark.parametrize("entry", ["resolve_device", "Detector", "Trainer",
-                                   "Scorer.from_preset", "inference.main", "main.main"])
+                                   "Scorer.from_preset", "inference.main", "main.main",
+                                   "CompInvEncoder", "CompInvTrainer"])
 def test_default_device_is_the_card(entry):
     """Detector (whose forward and predict run on its device), Trainer, the
-    run-directory Scorer, the evaluation CLI and the training CLI default to
-    the card."""
+    run-directory Scorer, the evaluation CLI, the training CLI and the
+    CompInv pretrainer's model and trainer default to the card."""
     from dfd_clip_tpu_torch import inference, resolve_device
     from dfd_clip_tpu_torch.config import CN
     from dfd_clip_tpu_torch.engine.trainer import Trainer
@@ -110,6 +113,18 @@ def test_default_device_is_the_card(entry):
             from dfd_clip_tpu_torch import main
 
             main.main(main.parse_args(["--cfg", "/nonexistent.yaml"]))
+        elif entry.startswith("CompInv"):
+            from dfd_clip_tpu_torch.engine import CompInvTrainer
+            from dfd_clip_tpu_torch.models import CompInvEncoder
+
+            ccfg = CompInvEncoder.get_default_config()
+            ccfg.merge_from_other_cfg({"architecture": "ViT-Test",
+                                       "adapter": {"struct": {"type": "768-x-768", "x": 8}}})
+            if entry == "CompInvEncoder":
+                CompInvEncoder(ccfg, num_frames=4)
+            else:
+                CompInvTrainer(CompInvTrainer.get_default_config(),
+                               CompInvEncoder(ccfg, num_frames=4, device="cpu"), {})
         else:
             Trainer(Trainer.get_default_config(), Detector(cfg, num_frames=4, device="cpu"), {})
     assert resolve_device("cpu").type == "cpu"
@@ -132,24 +147,43 @@ def test_unported_options_raise():
         Detector(cfg, num_frames=4, device="cpu")
 
 
-@pytest.mark.parametrize("option", [{"train_mode": {"compression": "sync"}},
+@pytest.mark.parametrize("option", [{"train_mode": {"compression": "sync"},
+                                     "adapter": {"type": "normal",
+                                                 "struct": {"type": "768-x-768", "x": 32}}},
                                     {"train_mode": {"temporal": "ranking"}},
-                                    {"train_mode": {"patch_mask": {"type": "batch"}}},
+                                    {"train_mode": {"patch_mask": {"type": "batch",
+                                                                   "ratio": 0.5}}},
                                     {"op_mode": {"ema_frame": 0.5}},
                                     {"op_mode": {"compute_int8": 1}},
                                     {"op_mode": {"kv_dtype": "int8_rows"}}],
                          ids=["compression", "temporal", "patch_mask", "ema_frame",
                               "compute_int8", "int8_rows"])
 def test_unported_train_modes_raise(option):
+    """Training with compute_int8 or int8_rows K/V still raises; the
+    compression, temporal, patch_mask and ema_frame modes build and a CPU
+    train forward returns the task loss and the mode's auxiliary losses
+    (tests/test_torch_port_train_modes.py holds them to JAX's)."""
     from dfd_clip_tpu_torch.models.detector import Detector
 
     cfg = Detector.get_default_config()
-    cfg.merge_from_other_cfg({"decode_mode": "index", "decode_indices": [0], "out_dim": [2],
-                              "losses": ["auc_roc"], **option})
-    det = Detector(cfg, num_frames=4, device="cpu")
-    with pytest.raises(NotImplementedError):
-        det.forward(None, torch.zeros(1, 4, 3, 32, 32), [None], torch.ones(1, 4, dtype=torch.bool),
-                    train=True)
+    cfg.merge_from_other_cfg({"architecture": "ViT-Test", "decode_mode": "index",
+                              "decode_indices": [0], "out_dim": [2], "losses": ["auc_roc"],
+                              **option})
+    det = Detector(cfg, num_frames=4, compute_dtype=torch.float32, device="cpu")
+    x, m = torch.zeros(2, 4, 3, 32, 32), torch.ones(2, 4, dtype=torch.bool)
+    if "op_mode" in option and "ema_frame" not in option["op_mode"]:
+        with pytest.raises(NotImplementedError):
+            det.forward(None, x, [None], m, train=True)
+        return
+    params = det.init_params(torch.Generator().manual_seed(0))
+    losses, _, other = det.forward(
+        params, x, [torch.tensor([0, 1])], m, torch.tensor([True, False]),
+        torch.tensor([0.6, 0.9]), train=True, single_task=0,
+        patch_indices=det.sample_patch_indices(np.random.default_rng(0)))
+    assert torch.isfinite(losses[0]).all()
+    want = {"compression": {"recon", "match"},
+            "temporal": {"speed/rank"}}.get(next(iter(option.get("train_mode", {})), ""), set())
+    assert set(other) == want and all(torch.isfinite(v) for v in other.values())
 
 
 @pytest.mark.parametrize("option", ["swiglu_ffn", "int8_wider_than_1024", "foundation"])
