@@ -118,7 +118,26 @@
    the kernels and the bf16 plain route and read layer by layer;
 9. drives DINOv2 ViT-B/14 serving (`[dinov2 serve path]`, keep 6-11) the
    same way in bf16;
-10. checks the encoder's alternative kernels at the flagship shapes
+10. runs the Detector's remaining options: the ViT-g/14 kernels at their
+   shapes (`[kernels boundary wide]`: the decoder boundary at width 1536, MLP
+   6144, in its streamed form, its three forms held and timed as at the
+   narrower widths, which keep the resident form; the encoder attention at
+   (320, 257, 24 x 64); layer_norm_rows at (82240, 1536); the decoder
+   attention at 24 heads over L = 5,120); DINOv2 ViT-g/14 serving
+   (`[dinov2 giant serve]`, 40 layers, keep 34-39, one seed held against the
+   f32 plain route, launches a predict from the code: 39 encoder attention,
+   79 layer_norm_rows, 6 decoder attention, 7 boundary); the flagship with
+   kv_dtype "int8" (`[kv int8 serve]`: four requests counted, held to its
+   plain route, |dP(fake)| against the bf16-K/V predict recorded);
+   device-resident Trainer steps with compute_int8 and compute_int8 +
+   int8_rows (`[int8 train]`, counted, every decoder leaf held to the
+   decoder-plain route, timed and traced beside the bf16 step); a step and
+   a predict with each decoder option (`[decoder options]`: attn_mode
+   "frame", "temporal", "temporal+frame", aug_query; counted, the predict
+   held to its plain route); and the four int8 AUROC gates at flagship
+   width (`[int8 gates]`, dfd_clip_tpu_torch/tools/int8_gates.py, JAX's
+   thresholds);
+11. checks the encoder's alternative kernels at the flagship shapes
    (`[kernels variants]`): the bf16 whole block with its stacked export, the
    int8 encoder attention in both modes at (320, 197, 12 x 64), and the
    whole-encoder tower (12 layers, keep 6-11) in bf16 and int8 with int8
@@ -129,7 +148,7 @@
    by layer), timed with its bound beside the chain's time on the same
    input, its chunk, grid, grid barriers and the build's time, one launch's
    stage clock, and (bf16, int8 attention "1") its time at each chunk rule;
-11. drives the six paths of those kernels (`[variant serve paths]`): a
+12. drives the six paths of those kernels (`[variant serve paths]`): a
    Scorer over the flagship Detector with EncoderKernels(block="full"), with
    compute_int8 and int8_attn "1", and with tower=True in bf16 and in
    compute_int8 with int8_attn "0", "1" and "qk" answers the four requests,
@@ -140,30 +159,30 @@
    paths' logits are compared with the bf16 whole block's by cosine (gated at
    0.99 without int8 attention, recorded with it), and a device-resident
    predict is timed and traced;
-12. checks the 577-token kernels at CLIP ViT-L/14@336px's shapes
+13. checks the 577-token kernels at CLIP ViT-L/14@336px's shapes
    (`[kernels 577]`): the encoder attention at (320, 577, 16 x 64)
    through both entries, bf16 and f32 out, each against its plain version
    with a scaled_dot_product_attention yardstick, the int8 split pair at
    (320, 577, 1024), quant_rows on the whole int8 block's (184640, 1024)
    attention output, layer_norm_rows on (184640, 1024) rows, and the
    decoder attention over L = 20 x 576 keys;
-13. drives ViT-L/14@336px serving (`[vit-l@336 serve path]`, keep 0, 4, ...,
+14. drives ViT-L/14@336px serving (`[vit-l@336 serve path]`, keep 0, 4, ...,
    20) as in 8, on one parameter seed (`--pfake-seeds` N other than the
    default reads N here too): the four requests in bf16 and in
    compute_int8 (20 encoder attention launches a predict), logits and
    P(fake) held
    against the f32 plain route, int8 against bf16 by cosine, a
    device-resident predict timed, its peak memory read and traced;
-14. checks the ViT-L int8 ladder's kernels at its shapes (`[kernels tower
+15. checks the ViT-L int8 ladder's kernels at its shapes (`[kernels tower
    wide]`, 320 frames, width 1024, 16 heads): the whole int8 block at 257 and
    577 tokens with int8 attention "0" and "1"; the 24-layer int8 tower
    (keep 18-23) at 257 and 577 tokens in each int8 attention mode, against
-   the per-layer kernel chain (bit-level, as in 10; with bf16 attention
+   the per-layer kernel chain (bit-level, as in 11; with bf16 attention
    each layer's stage on the same input too) and the plain chain, timed
    beside the chain with its chunk, grid, grid barriers and stage clock
    (mode "0": at each chunk rule too), printing the kernel chain's drift
    from the plain chain layer by layer;
-15. drives the JAX package's megaL ladder (`[vit-l ladder]`,
+16. drives the JAX package's megaL ladder (`[vit-l ladder]`,
    tools/bench_r3_ladder.py:330-393): on ViT-L/14 and ViT-L/14@336px (24
    layers, keep 18-23, compute_int8, one parameter seed) each rung, the
    split control, block "full" with int8 attention "0" and "1" and the
@@ -172,9 +191,9 @@
    the last request's batch is held against the plain route in f32, its
    logits compared with the split control's by cosine (gated without int8
    attention), each tower rung's K/V held to its per-layer kernel chain
-   (bit-level, as in 10);
+   (bit-level, as in 11);
    a device-resident predict is timed and traced;
-16. checks the tools' kernels (`[kernels study]`): every numerics mode of
+17. checks the tools' kernels (`[kernels study]`): every numerics mode of
    the study attention at (320, 197, 12 x 64) through the port tool's
    variants, each against the tool's own check and its plain version, and
    the megakernel probe's two entries at (63040, 768) x 12 layers,
@@ -183,7 +202,7 @@
    operations bound beside 12 chained torch.matmul; then runs both
    ported tools as a user does (`[tool_attention]`, `[tool_probe]`),
    counters zeroed before and read after each;
-17. prints the kernel table as one JSON line, the card line, and last
+18. prints the kernel table as one JSON line, the card line, and last
    {"ok": true, "device": {...}}.
 
 Any failed phase raises and the script exits nonzero without the last line.
@@ -350,7 +369,8 @@ SWEEP_TOKENS = (1, 17, 64, 65, 197, 257, 320, 321, 577, 1025)
 # H100 SXM), so that tiles are dealt across items and the ring refills
 # item after item
 SWEEP_FRAMES = 24
-VITB_PATHS = ("serve", "serve_http", "train", "int8_serve", "int8_rows")
+VITB_PATHS = ("serve", "serve_http", "train", "int8_serve", "int8_rows", "kv_int8",
+              "int8_train", "int8_rows_train", "options", "gates")
 RECIPE_PATHS = ("compinv", "mix", "modes")   # [train cli compinv] / [train cli mix], [train modes]
 VITL_PATHS = ("vitl_serve", "vitl_int8_serve")
 # the encoder's alternative kernel paths (EncoderKernels): block="full" in
@@ -497,7 +517,7 @@ def plain_versions(encoder: bool = True):
     swaps += [
         (decoder, "fused_decoder_attention",
          fused_decoder_attention.fused_decoder_attention_plain),
-        (decoder, "decoder_boundary", decoder_stack.decoder_boundary_plain),
+        (decoder_stack, "decoder_boundary", decoder_stack.decoder_boundary_plain),
         (decoder_attention_vjp, "fused_decoder_attention",
          fused_decoder_attention.fused_decoder_attention_plain),
         (decoder_attention_vjp, "fused_decoder_attention_bwd",
@@ -642,7 +662,8 @@ def check_kernels(rows: list) -> None:
     # -- fused_decoder_attention and decoder_boundary (the ViT-B export: 200
     # rows a frame, 196 of them valid); DINOv2's boundaries run at this width
     check_decoder_attention(rows, "fused_decoder_attention", gen, dev, hh, t_out, 196,
-                            ("serve", "serve_http", "int8_serve") + VARIANT_PATHS)
+                            ("serve", "serve_http", "int8_serve", "kv_int8", "options",
+                             "gates") + VARIANT_PATHS)
     check_train_attention(row, gen, dev)
     check_decoder_boundary(rows, "decoder_boundary", blk, 2,
                            VITB_PATHS + ("dinov2_serve",) + VARIANT_PATHS + ("mix",))
@@ -1156,9 +1177,10 @@ def check_decoder_boundary(rows: list, name: str, blk: dict, seed: int, paths: t
         for label, fn in (("kernel", ds.decoder_boundary), ("chain", tbd.six_launch_chain),
                           ("plain", ds.decoder_boundary_plain)):
             times[form, label] = time_ms(lambda: fn(*args), iters=100)
-            print(f"    {label}: {times[form, label]:.4f} ms (device "
-                  f"{device_ms(lambda: fn(*args)):.4f} ms, host {tbd.host_ms(fn, *args):.4f} ms "
-                  f"a call)", flush=True)
+            dev_ms = device_ms(lambda: fn(*args))
+            on_device = f"device {dev_ms:.4f} ms" if dev_ms > 0 else "device not measured"
+            print(f"    {label}: {times[form, label]:.4f} ms ({on_device}, host "
+                  f"{tbd.host_ms(fn, *args):.4f} ms a call)", flush=True)
         print("    stage clock (us): " + ", ".join(f"{k} {v:.2f}"
                                                    for k, v in tbd.stage_clock(args).items()),
               flush=True)
@@ -1198,10 +1220,12 @@ def check_train_attention(row, gen, dev) -> None:
         time_ms(lambda: fda.fused_decoder_attention_plain(*args, partials=True)),
         None, 16.0 * valid * w,
         4.0 * valid * w + 2.0 * l * w + b * l + 4.0 * b * w + 8.0 * b * w + 8.0 * b * hh,
-        PEAK_F32, err, counter="fused_decoder_attention", paths=("train", "mix", "modes"))
+        PEAK_F32, err, counter="fused_decoder_attention",
+        paths=("train", "mix", "modes", "int8_train", "int8_rows_train"))
 
     del o_sc, st, o_p, st_p
-    check_decoder_bwd(row, "fused_decoder_attention_bwd", bargs, ("train", "modes"))
+    check_decoder_bwd(row, "fused_decoder_attention_bwd", bargs,
+                      ("train", "modes", "int8_train", "int8_rows_train", "options", "gates"))
     # dK/dV from the same launch: the stacked padded export at slot 3 (L =
     # 4,000), then the adapter's per-layer unpadded K/V (L = 20 x 196 = 3,920)
     check_decoder_bwd_kv(row, "fused_decoder_attention_bwd dK/dV stacked, L 4000", bargs, ())
@@ -1473,7 +1497,8 @@ def check_int8_kernels(rows: list) -> None:
     h = torch.randn(n, t, w, generator=gen).to(dev, bf)
     h2 = h.reshape(m_rows, w)
     ln1, attn, mlp = blk["ln_1"], blk["attn"], blk["mlp"]
-    int8_paths = ("int8_serve", "int8_rows") + INT8_VARIANTS
+    int8_paths = ("int8_serve", "int8_rows", "int8_train", "int8_rows_train",
+                  "gates") + INT8_VARIANTS
     row = functools.partial(kernel_row, rows, paths=int8_paths)
 
     # -- layer_norm_quant (LN1 on the bf16 residual stream) ----------------------
@@ -2325,12 +2350,7 @@ def train_path(card: str) -> dict:
     det = detector(dropout=0.5)
     tcfg = Trainer.get_default_config()
     tcfg.merge_from_other_cfg({"max_steps": TRAIN_STEPS, "learning_rate": 2.5e-3})
-    rng = np.random.default_rng(1)
-    labels = (np.arange(TRAIN_CLIPS) % 2).astype(np.int32)
-    batches = [(rng.integers(0, 256, (TRAIN_CLIPS, FRAMES, 3, 224, 224), np.uint8), labels,
-                np.ones((TRAIN_CLIPS, FRAMES), bool), ["raw"] * TRAIN_CLIPS,
-                np.ones(TRAIN_CLIPS, np.float32), np.zeros(TRAIN_CLIPS, np.int64))
-               for _ in range(2)]
+    batches = train_batches(2)
     trainer = Trainer(tcfg, det, {"deepfake": batches}, seed=0)
 
     # each step's time, loss and learning rate, read around the Trainer's own step
@@ -2836,10 +2856,10 @@ def adapter_step(card: str) -> None:
     # first 196 rows.
     with torch.no_grad():
         x = det.preprocess(batch["x"])
-        kv = det.encode_kv(trainer.frozen, x)
-        padded = det.encode_kv(trainer.frozen, x, pad_tokens=True)
+        kv = det.encode_kv(trainer.frozen_run, x)
+        padded = det.encode_kv(trainer.frozen_run, x, pad_tokens=True)
         with plain_versions():
-            plain = det.encode_kv(trainer.frozen, x)
+            plain = det.encode_kv(trainer.frozen_run, x)
     for s_ in ("k", "v"):
         compare(f"train cli unpadded export {s_.upper()} (6 layers, {tuple(kv[s_].shape[1:])})",
                 kv[s_], plain[s_], TOL_ENCODER)
@@ -3106,12 +3126,13 @@ def compinv_paths(card: str, work: str, trees: dict) -> dict:
     if len(psteps) != 2 or pevals:
         raise SystemExit(f"FAIL train cli pretrain: {len(psteps)} steps, {len(pevals)} "
                          "evaluations")
-    if "adapter" in trainer.trainable or "adapter" not in trainer.frozen:
+    if "adapter" in trainer.trainable or "adapter" not in trainer.frozen_run:
         raise SystemExit("FAIL train cli pretrain: the adapter is not frozen")
     saved = load_params(adapter_file)["adapter"]
     placed = det.prepare_params({"adapter": saved_tensors(saved)})["adapter"]
-    equal = all(torch.equal(a, b) for a, b in zip(_leaf_tensors(trainer.frozen["adapter"]),
-                                                   _leaf_tensors(placed)))
+    equal = all(torch.equal(a, b)
+                for a, b in zip(_leaf_tensors(trainer.frozen_run["adapter"]),
+                                _leaf_tensors(placed)))
     print(f"  the frozen adapter after 2 steps equals the file's, placed: {equal}",
           flush=True)
     if not equal:
@@ -3123,8 +3144,8 @@ def compinv_paths(card: str, work: str, trees: dict) -> dict:
     with torch.no_grad():
         _, feats = det.predict(trainer.eval_params(), batch["x"], batch["m"],
                                with_adapt_features=True)
-        want, _ = enc.predict({"encoder": trainer.frozen["encoder"],
-                               "adapter": trainer.frozen["adapter"]}, batch["x"])
+        want, _ = enc.predict({"encoder": trainer.frozen_run["encoder"],
+                               "adapter": trainer.frozen_run["adapter"]}, batch["x"])
     err = max(compare(f"pretrain adapted {s.upper()} layer {i}", g, w, TOL_DECODER)
               for s in ("k", "v") for i, (g, w) in enumerate(zip(feats["adapt"][s], want[s])))
     print(f"  the Detector's adapted K/V against CompInvEncoder.predict's on the same "
@@ -3350,7 +3371,7 @@ def step_grads(det, trainer, batch: dict, plain: str = "", extras: dict = None) 
 
     gen = torch.Generator(device="cuda").manual_seed(7)
     with plain_versions(encoder=plain == "all") if plain else contextlib.nullcontext():
-        losses, _, other = det.forward({**trainer.frozen, **trainer.trainable}, batch["x"],
+        losses, _, other = det.forward({**trainer.frozen_run, **trainer.trainable}, batch["x"],
                                        [batch["label"]], batch["m"], batch["comp_is_raw"],
                                        batch.get("speed"), train=True, single_task=0, gen=gen,
                                        **(extras or {}))
@@ -3786,7 +3807,7 @@ def check_split_chain(rows: list, h, blk: dict) -> None:
 
 
 def wide_serve(card: str, label: str, det, raws: list, expected: dict, used: tuple,
-               halves: bool = False, hold_bf16: bool = False):
+               halves: bool = False, hold_bf16: bool = False, drift: bool = True):
     """A Scorer over ``det`` with params ``raws[0]`` answers the four
     requests (counted); then, on the params of every seed in ``raws`` and on
     the batches of the last two requests, the kernels, the bf16 plain route
@@ -3796,8 +3817,9 @@ def wide_serve(card: str, label: str, det, raws: list, expected: dict, used: tup
     with ``hold_bf16`` their |dP(fake)| must also lie within TOL_PFAKE of the
     bf16 plain route on every batch; a device-resident predict is timed and
     traced; with ``halves`` each block's two halves are read on the same
-    input (half_drift). Returns (counts, the logits of seed 0 on the last
-    request's batch)."""
+    input (half_drift); without ``drift`` the kept layers' K/V and the
+    attention outputs are not read layer by layer (kv_drift). Returns
+    (counts, the logits of seed 0 on the last request's batch)."""
     import torch
 
     from dfd_clip_tpu_torch.serve import Scorer
@@ -3809,7 +3831,8 @@ def wide_serve(card: str, label: str, det, raws: list, expected: dict, used: tup
     det32 = copy.copy(det)
     det32.compute_dtype = torch.float32
     readings = []
-    kv_drift(label, det, scorer.params, last_batch(requests)[0])
+    if drift:
+        kv_drift(label, det, scorer.params, last_batch(requests)[0])
     if halves:
         half_drift(label, det, scorer.params, last_batch(requests)[0])
     for seed, raw in enumerate(raws):
@@ -4734,6 +4757,338 @@ def tool_paths() -> dict:
     return counts
 
 
+# DINOv2 ViT-g/14 (giant2: width 1536, 40 layers, 24 heads, the fused SwiGLU
+# FFN), kept layers 34-39: every layer runs
+GIANT_KEEP = tuple(range(34, 40))
+# the Detector's decoder options (op_mode), each a Trainer step and a predict
+OPTIONS = {"attn_mode frame": {"attn_mode": "frame"},
+           "attn_mode temporal": {"attn_mode": "temporal"},
+           "attn_mode temporal+frame": {"attn_mode": "temporal+frame"},
+           "aug_query": {"aug_query": 1}}
+# launches of a flagship train step with the W8A8 encoder (the whole int8
+# block a layer, the int8 last_only layer) and of the decoder's kernels
+INT8_TRAIN_COUNTS = {"fused_encoder_block": 11, "fused_encoder_attn_block": 1,
+                     "fused_decoder_attention": 6, "fused_decoder_attention_bwd": 6,
+                     "fused_decoder_attention_int8": 0, "decoder_boundary": 0}
+
+
+def check_giant_kernels(rows: list) -> None:
+    """The ViT-g/14 path's kernels at its shapes (320 frames x 257 tokens,
+    width 1536, 24 heads): the decoder boundary at width 1536 (MLP 6144) in
+    its streamed form, held and timed in its three forms as at the narrower
+    widths (check_decoder_boundary), the separate-entry encoder attention at
+    (320, 257, 24 x 64), layer_norm_rows on (82240, 1536) rows, and the
+    decoder attention at 24 heads over L = 20 x 256. Widths 768 and 1024
+    keep the resident form. The boundary's device time a call is traced in
+    a new process (boundary_device_times): this late in the run the
+    profiler loses rows."""
+    import torch
+
+    from dfd_clip_tpu_torch.models import clip_vit
+    from dfd_clip_tpu_torch.ops import _cuda
+    from dfd_clip_tpu_torch.ops import attention as att
+
+    n, t, w, hh, bf = CLIPS * FRAMES, WIDE_TOKENS, 1536, 24, torch.bfloat16
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(9)
+    sms = _cuda._sms(0)
+    forms = {w_: _cuda.boundary_geometry(w_, 4 * w_, CLIPS, sms) for w_ in (768, 1024, w)}
+    geo = forms[w]
+    print(f"  decoder_boundary forms: " + ", ".join(f"{w_} {g['form']} ({g['smem']} bytes)"
+                                                    for w_, g in forms.items())
+          + f"; at {w}: chunks of {geo['kc']} K values through {geo['slots']} slots, grid "
+          f"{geo['grid']}", flush=True)
+    if [g["form"] for g in forms.values()] != ["resident", "resident", "streamed"]:
+        raise SystemExit("FAIL decoder_boundary: widths 768 / 1024 must stay resident, 1536 "
+                         "streamed")
+    blk = random_block(gen, dev, cfg=dataclasses.replace(clip_vit.VIT_B16, width=w, heads=hh))
+    check_decoder_boundary(rows, "decoder_boundary width 1536 (streamed)", blk, 7,
+                           ("dinov2_giant",))
+    del blk
+    here = Path(__file__).resolve().parent
+    res = subprocess.run([sys.executable, "-c", f"import chip_smoke; "
+                          f"chip_smoke.boundary_device_times({w})"], cwd=here,
+                         capture_output=True, text=True, timeout=600)
+    if res.returncode != 0:
+        raise SystemExit(f"FAIL the boundary's traces (exit {res.returncode}):\n"
+                         f"{res.stderr[-3000:]}")
+    traced = json.loads(res.stdout.strip().splitlines()[-1])
+    print(f"  decoder_boundary width {w}, device ms a call traced in a new process "
+          "(a trace this late in the run loses rows; null: not measured): "
+          + ", ".join(f"{form} {v[0] if v[0] is None else round(v[0], 4)} ({v[1]} of {v[2]} "
+                      f"launches traced)" for form, v in traced.items()), flush=True)
+    qkv = torch.randn(n, t, 3 * w, generator=gen).to(dev, bf)
+    q, k, v = (s_.reshape(n, t, hh, 64) for s_ in qkv.split(w, dim=-1))
+    attention_row(rows, "fused_encoder_attention 24 heads",
+                  "dfd_clip_tpu/ops/pallas_attention.py:1346",
+                  lambda: att.fused_encoder_attention(q, k, v),
+                  lambda: att.plain_attention(q, k, v), qkv, n, t, hh, ("dinov2_giant",),
+                  counter="fused_encoder_attention")
+    del qkv, q, k, v
+    ln = {"scale": (1.0 + 0.1 * torch.randn(w, generator=gen)).to(dev),
+          "bias": (0.1 * torch.randn(w, generator=gen)).to(dev)}
+    h2 = torch.randn(n * t, w, generator=gen).to(dev, bf)
+    check_layer_norm(rows, f"layer_norm_rows {n * t} x {w}", h2, ln, ("dinov2_giant",))
+    del h2
+    check_decoder_attention(rows, "fused_decoder_attention 24 heads, L 5120", gen, dev, hh,
+                            t - 1, t - 1, ("dinov2_giant",))
+    torch.cuda.empty_cache()
+
+
+def boundary_device_times(width: int) -> None:
+    """Each form's device time a call of the decoder boundary at ``width``
+    on tools/bench_decoder_boundary.py's inputs (16 rows), from
+    launches_ms, printed as one JSON line {form: [ms or null, rows traced,
+    launches issued]}. Run in a process of its own by check_giant_kernels."""
+    import torch
+
+    from dfd_clip_tpu_torch.ops import _cuda
+    from dfd_clip_tpu_torch.ops import decoder_stack as ds
+    from dfd_clip_tpu_torch.tools import bench_decoder_boundary as tbd
+
+    _cuda.library()
+    inputs = tbd.boundary_inputs(width, torch.device("cuda"))
+    print(json.dumps({form: launches_ms(
+        lambda f=form: ds.decoder_boundary(*tbd.form_args(f, *inputs)), 1)
+        for form in tbd.FORMS}))
+
+
+def giant_serve_path(card: str) -> dict:
+    """A DINOv2 ViT-g/14 Scorer (keep 34-39, bf16, random weights from a
+    seeded torch.Generator) answers the four requests, counted against the
+    launches the code gives a predict: the encoder attention once a layer
+    before the last kept one, layer_norm_rows twice a layer and once more
+    (the last kept layer runs LN1 and its qkv only), the decoder's 6
+    attention and 7 boundary launches; then held against the f32 plain
+    route as the DINOv2 B/14 path is (wide_serve, one seed), timed and
+    traced."""
+    import torch
+
+    det = detector(foundation="dinov2", architecture="ViT-g/14",
+                   decode_indices=list(GIANT_KEEP))
+    cfg, last = det.vit_cfg, max(det.layer_indices)
+    expected = {"fused_encoder_attention": last, "layer_norm_rows": 2 * last + 1,
+                "fused_decoder_attention": len(GIANT_KEEP),
+                "decoder_boundary": len(GIANT_KEEP) + 1, "fused_encoder_attention_qkv": 0,
+                "fused_encoder_attn_block": 0, "fused_encoder_mlp_block": 0, "gemm": 0}
+    print(f"  ViT-g/14: width {cfg.width}, {cfg.layers} layers, {cfg.heads} heads, SwiGLU "
+          f"hidden {cfg.swiglu_hidden}, {cfg.num_tokens} tokens; launches a predict: "
+          f"{json.dumps(expected)}", flush=True)
+    t0 = time.perf_counter()
+    raw = det.init_params(torch.Generator().manual_seed(0))
+    count = sum(t_.numel() for t_ in _leaf_tensors(raw))
+    print(f"  random init on the host (torch.Generator seed 0): {count} parameters, "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    counts, _ = wide_serve(card, "dinov2 giant serve", det, [raw], expected,
+                           used=("fused_encoder_attention", "layer_norm_rows"), drift=False)
+    del raw
+    torch.cuda.empty_cache()
+    return counts
+
+
+def kv_int8_serve_path(card: str) -> dict:
+    """A Scorer over the flagship with op_mode kv_dtype "int8" (per-(layer,
+    head) scales, dequantised at the export) answers the four requests,
+    counted as the bf16 flagship; one batch is held against its own plain
+    route at TOL_PFAKE and read against the bf16-K/V predict on the same
+    parameters (|dP(fake)| recorded); a device-resident predict is timed."""
+    import torch
+    import torch.nn.functional as F
+
+    from dfd_clip_tpu_torch.serve import Scorer
+
+    det = detector(op_mode={"temporal_position": 1, "kv_dtype": "int8"})
+    raw = det.init_params(torch.Generator().manual_seed(0))
+    scorer = Scorer(det, raw, batch_size=CLIPS)
+    requests = make_requests()
+    counts = answer(scorer, requests, card, "kv int8 serve")
+    check_counts("kv int8 serve", counts, FLAGSHIP_COUNTS, len(requests))
+    x, m = last_batch(requests)
+    got = hold_against_plain("kv int8 predict",
+                             lambda x_, m_: scorer.predict(scorer.params, x_, m_), x, m)
+    bf16 = detector()
+    with torch.no_grad():
+        (ref,), _ = bf16.predict(bf16.prepare_params(raw), x, m)
+    cos = F.cosine_similarity(got.float().flatten(), ref.float().flatten(), dim=0).item()
+    print(f"  kv int8 vs bf16 K/V, same params and batch: |dP(fake)| max "
+          f"{p_delta(got, ref):.3e}, logits cosine {cos:.6f} (recorded)", flush=True)
+    xd, md = torch.as_tensor(x, device="cuda"), torch.as_tensor(m, device="cuda")
+    ms = time_ms(lambda: scorer.predict(scorer.params, xd, md), iters=5, warmup=1)
+    print(f"  device-resident kv int8 predict: {ms:.2f} ms per {CLIPS}-clip batch "
+          f"({CLIPS * 1e3 / ms:.2f} clips/s) on {card}", flush=True)
+    profile_device("kv int8 predict", lambda: scorer.predict(scorer.params, xd, md))
+    return counts
+
+
+def train_batches(n: int, seed: int = 1) -> list:
+    """``n`` seeded flagship train batches (TRAIN_CLIPS uint8 clips of
+    FRAMES 224-pixel frames, labels alternating), in the six-field form."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    labels = (np.arange(TRAIN_CLIPS) % 2).astype(np.int32)
+    return [(rng.integers(0, 256, (TRAIN_CLIPS, FRAMES, 3, 224, 224), np.uint8), labels,
+             np.ones((TRAIN_CLIPS, FRAMES), bool), ["raw"] * TRAIN_CLIPS,
+             np.ones(TRAIN_CLIPS, np.float32), np.zeros(TRAIN_CLIPS, np.int64))
+            for _ in range(n)]
+
+
+def counted_run(trainer, label: str) -> dict:
+    """trainer.run() with every launch counter zeroed just before and read
+    just after; each step's loss printed (a non-finite one aborts the step).
+    Returns the counts."""
+    import numpy as np
+    import torch
+
+    from dfd_clip_tpu_torch.ops import _cuda
+
+    losses = []
+    trainer.add_callback("on_batch_end", lambda t: losses.append(
+        float(np.mean(t.batch_losses["deepfake"]))))
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    trainer.run()
+    torch.cuda.synchronize()
+    counts = _cuda.launches()
+    print(f"  {label}: losses " + ", ".join(f"{v:.6f}" for v in losses), flush=True)
+    if len(losses) != trainer.config.max_steps or not np.isfinite(losses).all():
+        raise SystemExit(f"FAIL {label}: losses {losses}")
+    return counts
+
+
+def int8_train_path(card: str) -> dict:
+    """Flagship Trainers (batch 12, dropout 0.5, SGD + OneCycle) with the
+    W8A8 encoder, in two forms: compute_int8, and compute_int8 + int8_rows
+    (each slot dequantised to bf16 for the trainable attention). Two steps
+    each, counted; one step's loss and every decoder leaf's gradient through
+    the kernels held to the decoder-plain route on the same K/V; a
+    device-resident step timed (events) and traced (busy share), the bf16
+    step timed the same way beside them. Returns the counts by path."""
+    import torch
+
+    from dfd_clip_tpu_torch.engine.trainer import Trainer
+
+    batches = train_batches(2)
+    counts = {}
+    for label, path, op in (("bf16", None, {}), ("compute_int8", "int8_train",
+                                                  {"compute_int8": 1}),
+                            ("compute_int8 + int8_rows", "int8_rows_train",
+                             {"compute_int8": 1, "kv_dtype": "int8_rows"})):
+        det = detector(dropout=0.5, op_mode={"temporal_position": 1, **op})
+        tcfg = Trainer.get_default_config()
+        tcfg.merge_from_other_cfg({"max_steps": 2, "learning_rate": 2.5e-3})
+        trainer = Trainer(tcfg, det, {"deepfake": batches}, seed=0)
+        batch = trainer.prepare_batch(batches[0])
+        if path is not None:
+            counts[path] = counted_run(trainer, f"int8 train {label}")
+            check_counts(f"int8 train {label}", counts[path], INT8_TRAIN_COUNTS, 2,
+                         used=("gemm_s8", "gemm_s8_quant", "layer_norm_quant"))
+            hold_train_step(det, trainer, batch, f"int8 train {label}", routes=("decoder",))
+        dev_round = [("deepfake", batch)]
+        timed_train_step(f"device-resident {label} train step", trainer, dev_round, card)
+        profile_device(f"{label} train step", lambda: trainer.train_step(dev_round))
+        del trainer, det, batch, dev_round
+        torch.cuda.empty_cache()
+    return counts
+
+
+def options_path(card: str) -> dict:
+    """For each decoder option (OPTIONS: the factorised attn_mode "frame",
+    "temporal", "temporal+frame", and aug_query with its offsets drawn away
+    from their zero init) one flagship Trainer step (batch 12, dropout 0.5)
+    and one predict (batch 16), each counted: 0 decoder attention launches
+    (forward or backward) and 0 boundary launches with attn_mode, whose
+    attention is the torch composition; 6 attention (6 backward in the
+    step) and 0 boundary launches with aug_query. The step's loss finite,
+    its ms by events; the predict's P(fake) held to its plain route at
+    TOL_PFAKE. Returns the counts of the steps and predicts, summed."""
+    import torch
+
+    from dfd_clip_tpu_torch.engine.trainer import Trainer
+    from dfd_clip_tpu_torch.ops import _cuda
+
+    batches = train_batches(1, seed=2)
+    x, m = last_batch(make_requests())
+    xd, md = torch.as_tensor(x, device="cuda"), torch.as_tensor(m, device="cuda")
+    total = {}
+    for label, op in OPTIONS.items():
+        det = detector(dropout=0.5, op_mode={"temporal_position": 1, **op})
+        raw = det.init_params(torch.Generator().manual_seed(0))
+        if "aug_query" in op:
+            raw["decoder"]["aug_query"] = 0.1 * torch.randn(
+                raw["decoder"]["aug_query"].shape, generator=torch.Generator().manual_seed(3))
+        attn = 0 if "attn_mode" in op else len(KEEP)
+        tcfg = Trainer.get_default_config()
+        tcfg.merge_from_other_cfg({"max_steps": 1, "learning_rate": 2.5e-3})
+        trainer = Trainer(tcfg, det, {"deepfake": batches}, params=raw, seed=0)
+        step = counted_run(trainer, f"{label} step")
+        check_counts(f"{label} step", step, {
+            "fused_encoder_attn_block": 12, "fused_encoder_mlp_block": 11,
+            "fused_decoder_attention": attn, "fused_decoder_attention_bwd": attn,
+            "decoder_boundary": 0}, 1)
+        params = trainer.eval_params()
+        predict = functools.partial(det.predict, params)
+        torch.cuda.synchronize()
+        _cuda.reset_launches()
+        with torch.no_grad():
+            (logits,), _ = predict(xd, md)
+        torch.cuda.synchronize()
+        counted = _cuda.launches()
+        check_counts(f"{label} predict", counted, {
+            "fused_encoder_attn_block": 12, "fused_encoder_mlp_block": 11,
+            "fused_decoder_attention": attn, "decoder_boundary": 0}, 1)
+        if not torch.isfinite(logits).all():
+            raise SystemExit(f"FAIL {label} predict: logits not finite")
+        hold_against_plain(f"{label} predict", lambda x_, m_: predict(x_, m_)[0][0], xd, md)
+        dev_round = [("deepfake", trainer.prepare_batch(batches[0]))]
+        step_ms = time_ms(lambda: trainer.train_step(dev_round), iters=3, warmup=1)
+        with torch.no_grad():
+            pred_ms = time_ms(lambda: predict(xd, md), iters=5, warmup=1)
+        print(f"  {label}: device-resident step {step_ms:.2f} ms ({TRAIN_CLIPS} clips), "
+              f"predict {pred_ms:.2f} ms ({CLIPS} clips) on {card}", flush=True)
+        for k, v in list(step.items()) + list(counted.items()):
+            total[k] = total.get(k, 0) + v
+        del trainer, det, raw, params, dev_round
+        torch.cuda.empty_cache()
+    return total
+
+
+def int8_gates_path(card: str) -> dict:
+    """The four int8 AUROC gates (dfd_clip_tpu_torch/tools/int8_gates.py,
+    the port of tests/test_int8_e2e.py:47-250) at flagship width on the
+    card's kernels, JAX's step counts and thresholds, over the two fixture
+    trees the tool writes (numpy + cv2), counted. Returns the counts."""
+    import tempfile
+
+    import torch
+
+    from dfd_clip_tpu_torch.ops import _cuda
+    from dfd_clip_tpu_torch.runtime import OneProcess
+    from dfd_clip_tpu_torch.tools import int8_gates
+
+    class Quiet(OneProcess):
+        def print(self, *a, **k):
+            pass
+
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    with tempfile.TemporaryDirectory() as work:
+        out = int8_gates.run_gates(int8_gates.flagship_factory("cuda"), work, Quiet("cuda"),
+                                   log=lambda line: print(line, flush=True))
+    torch.cuda.synchronize()
+    counts = _cuda.launches()
+    print(f"  the four gates in {time.perf_counter() - t0:.1f} s on {card}; kernels "
+          f"{json.dumps(counts)}", flush=True)
+    if out["failures"]:
+        raise SystemExit("FAIL int8 gates:\n" + "\n".join(out["failures"]))
+    for name in ("fused_encoder_block", "fused_decoder_attention_bwd", "decoder_boundary",
+                 "fused_encoder_tower", "fused_decoder_attention_int8"):
+        if counts.get(name, 0) <= 0:
+            raise SystemExit(f"FAIL int8 gates: {name} never launched")
+    return counts
+
+
 def device_us(event) -> float:
     """Self device time of a profiler row (the attribute's name varies
     across torch versions)."""
@@ -4878,6 +5233,33 @@ def main() -> int:
     print("[dinov2 serve path] Scorer over DINOv2 ViT-B/14, 20 frames, keep 6-11, bf16, "
           "batch 16", flush=True)
     counts["dinov2_serve"] = dinov2_serve_path(card, args.pfake_seeds)
+    elapsed()
+    print("[kernels boundary wide] ViT-g/14 shapes: the decoder boundary at width 1536 in its "
+          "streamed form, the encoder attention at 24 heads, layer_norm_rows at width 1536, "
+          "the decoder attention at 24 heads over L = 5120", flush=True)
+    check_giant_kernels(rows)
+    elapsed()
+    print("[dinov2 giant serve] Scorer over DINOv2 ViT-g/14, 20 frames, keep 34-39, bf16, "
+          "batch 16", flush=True)
+    counts["dinov2_giant"] = giant_serve_path(card)
+    elapsed()
+    print("[kv int8 serve] Scorer over ViT-B/16, 20 frames, keep 6-11, kv_dtype int8, batch 16",
+          flush=True)
+    counts["kv_int8"] = kv_int8_serve_path(card)
+    elapsed()
+    print(f"[int8 train] Trainer over ViT-B/16, 20 frames, keep 6-11, batch {TRAIN_CLIPS}, "
+          "dropout 0.5: compute_int8, and compute_int8 + int8_rows, beside bf16", flush=True)
+    counts.update(int8_train_path(card))
+    elapsed()
+    print(f"[decoder options] ViT-B/16, 20 frames, keep 6-11: a Trainer step (batch "
+          f"{TRAIN_CLIPS}) and a predict (batch {CLIPS}) with each of "
+          + ", ".join(OPTIONS), flush=True)
+    counts["options"] = options_path(card)
+    elapsed()
+    print("[int8 gates] the four int8 AUROC gates at flagship width (ViT-B/16, keep 6-11, "
+          "4-frame clips of 2 s, batch 16) on the separable and adversarial fixture trees",
+          flush=True)
+    counts["gates"] = int8_gates_path(card)
     elapsed()
     print("[kernels variants] flagship shapes: bf16 whole block, int8 attention, tower",
           flush=True)

@@ -7,8 +7,13 @@ summed across its task batches, then takes one optimizer step: the
 reference's "zero_grad -> backward per task -> single optimizer.step()". A
 non-finite loss aborts the step before the optimizer touches a parameter.
 
-The frozen encoder is placed on the device once, with its matrices in the
-compute dtype; the trainable leaves (the decoder and, with one, the
+The frozen tree is prepared for the device once, into ``frozen_run``
+(``Detector.prepare_params``: its matrices in the compute dtype, and with
+``compute_int8`` the tower's int8 ``wq`` / f32 ``ws`` beside them), which
+every step and every evaluation reads; ``frozen`` stays the pristine tree
+on the host, as the JAX trainer keeps it (trainer.py:40-50), so that
+snapshots never see the runtime-only leaves and the card holds the tower
+once. The trainable leaves (the decoder and, with one, the
 adapter) stay f32 master weights that the model casts per call (an SGD
 update of lr x g ~ 1e-6 would vanish in bf16). Teacher mode (``mode:
 teacher``) keeps an EMA copy of the trainable leaves, p_t = (1 - r) p_t + r
@@ -156,7 +161,8 @@ class _StepLoop(CallbackMixin):
                                        encoder_params=getattr(model, "pretrained_encoder",
                                                               None))
         trainable, frozen = model.partition_params(params)
-        self.frozen = model.prepare_params(frozen)
+        self.frozen = _map(lambda t: t.detach().cpu(), frozen)
+        self.frozen_run = model.prepare_params(frozen)
         self.trainable = _map(lambda t: t.detach().to(self.device, torch.float32)
                               .clone().requires_grad_(True), trainable)
         self.optimizer = optim.build_optimizer(model.optimizer_spec(), self.schedule,
@@ -182,10 +188,10 @@ class _StepLoop(CallbackMixin):
     def eval_params(self, trainable: Optional[Dict] = None) -> Dict:
         """The parameters an inference-mode prediction reads: ``trainable``
         (default the live leaves), detached and placed as the model's
-        prepare_params places them, over the frozen ones."""
+        prepare_params places them, over ``frozen_run``."""
         trainable = self.trainable if trainable is None else trainable
         return _merge(self.model.prepare_params(_map(lambda t: t.detach(), trainable)),
-                      self.frozen)
+                      self.frozen_run)
 
     def _next_batch(self, iterators, name):
         try:
@@ -420,7 +426,7 @@ class Trainer(_StepLoop):
             y = [labels if i == task_index else None for i in range(self.total_tasks)]
             single_task = task_index
         task_losses, task_logits, other = self.model.forward(
-            _merge(self.trainable, self.frozen), batch["x"], y, batch["m"],
+            _merge(self.trainable, self.frozen_run), batch["x"], y, batch["m"],
             batch["comp_is_raw"], batch.get("speed"), train=True, single_task=single_task,
             gen=self.gen, patch_indices=patch_indices, triplet_indices=triplets)
         if self.teaching:
@@ -521,7 +527,7 @@ class CompInvTrainer(_StepLoop):
         to_host = self.runtime.to_host
         for name, batch in round_batches:
             self.optimizer.zero_grad(set_to_none=True)
-            recon, match = self.model.forward(_merge(self.trainable, self.frozen), batch["x"],
+            recon, match = self.model.forward(_merge(self.trainable, self.frozen_run), batch["x"],
                                               batch["comp_is_raw"], train=True, gen=self.gen)
             (recon + match).backward()
             self.batch_losses["recon"] = to_host(recon)

@@ -29,7 +29,11 @@ DFD_MEGAKERNEL, DFD_INT8_ATTN), the port takes explicit arguments
 * ``int8_attn`` "1" or "qk" runs the int8 whole block's or the tower's
   attention on int8 (``compute_int8`` only; the split pair has none).
 
-With ``kv_int8_rows`` the export is int8 with per-row scales.
+With ``kv_int8_rows`` the export is int8 with per-row scales. With
+``kv_int8`` (op_mode kv_dtype "int8") the usual export is quantised after
+it, as the JAX package quantises its collected K/V on the XLA path: each
+kept layer's K and V with one absmax scale a head over frames, tokens and
+head lanes, so the scale spans the whole batch.
 """
 
 from __future__ import annotations
@@ -81,6 +85,12 @@ class ViTConfig:
     @property
     def head_dim(self) -> int:
         return self.width // self.heads
+
+    @property
+    def swiglu_hidden(self) -> int:
+        """The fused SwiGLU FFN's hidden width: 2/3 of 4 W, rounded up to a
+        multiple of 8 (4096 at W = 1536)."""
+        return (int(4 * self.width * 2 / 3) + 7) // 8 * 8
 
 
 VIT_B16 = ViTConfig()
@@ -198,6 +208,17 @@ def _layer_scale(bp: Params, key: str, y: torch.Tensor) -> torch.Tensor:
     return bp[key].to(y.dtype) * y if key in bp else y
 
 
+def quantize_kv_heads(f: torch.Tensor) -> tuple:
+    """(Lsel, N, T, H, D) K or V -> (int8 values, (Lsel, H) f32 scales): a
+    layer's scale of head h is max |f| over its frames, tokens and lanes +
+    1e-8, and q = clip(round(f / s * 127), -127, 127) (clip_vit.py:272-280);
+    zero pad rows quantise to 0."""
+    f32 = f.float()
+    scale = f32.abs().amax(dim=(1, 2, 4)) + 1e-8
+    q = torch.round(f32 / scale[:, None, None, :, None] * 127.0)
+    return torch.clamp(q, -127, 127).to(torch.int8), scale
+
+
 BLOCK_FORMS = ("auto", "full", "split")
 
 
@@ -217,9 +238,12 @@ def clip_vision_kv(
     quantised per row at the export, plus {"k_scale", "v_scale"}: (Lsel, N,
     T', 1) f32, dequant q * s, pad rows 0. ``block``, ``tower`` and
     ``int8_attn`` choose the encoder's kernels as DFD_FUSED_BLOCK,
-    DFD_MEGAKERNEL and DFD_INT8_ATTN do in the JAX package (module note)."""
-    if kv_int8:
-        raise NotImplementedError("kv_dtype 'int8' (per-(layer, head) scales) is not ported yet")
+    DFD_MEGAKERNEL and DFD_INT8_ATTN do in the JAX package (module note).
+    ``kv_int8``: K/V int8 with per-(layer, head) scales, {"k_scale",
+    "v_scale"}: (Lsel, H) f32, dequant q * s / 127 (quantize_kv_heads; not
+    on the tower, as in JAX)."""
+    if kv_int8 and kv_int8_rows:
+        raise ValueError("pick one K/V quantisation: kv_int8 or kv_int8_rows")
     if block not in BLOCK_FORMS:
         raise ValueError(f"block must be one of {BLOCK_FORMS}, got {block!r}")
     check_int8_attn(int8_attn)
@@ -237,7 +261,8 @@ def clip_vision_kv(
     t_real = t - 1 if drop_cls else t
     keep = tuple(range(cfg.layers)) if keep_layers is None else tuple(keep_layers)
     last = max(keep)
-    if tower and fused and not kv_int8_rows and keep == tuple(range(keep[0], last + 1)):
+    if tower and fused and not (kv_int8 or kv_int8_rows) \
+            and keep == tuple(range(keep[0], last + 1)):
         k, v = fused_encoder_tower(h, params["blocks"], cfg.heads, cfg.head_dim, keep=keep,
                                    drop_cls=drop_cls, int8_gemm=compute_int8,
                                    int8_attn=int8_attn)
@@ -286,6 +311,9 @@ def clip_vision_kv(
             h = fused_encoder_mlp_block(h, bp["ln_2"], bp["mlp"], int8_gemm=compute_int8)
     shape = (nsel, n, t_out, cfg.heads, cfg.head_dim)
     result = {"k": kacc.view(shape), "v": vacc.view(shape)}
+    if kv_int8:
+        (result["k"], result["k_scale"]), (result["v"], result["v_scale"]) = (
+            quantize_kv_heads(result["k"]), quantize_kv_heads(result["v"]))
     if kv_int8_rows:
         result["k_scale"] = torch.stack([scales[i][0] for i in keep])
         result["v_scale"] = torch.stack([scales[i][1] for i in keep])

@@ -11,7 +11,16 @@ autograd, and the attention through the trainable Function of
 ops/decoder_attention_vjp.py (partials forward and backward kernels). The
 8-row pad of the export is masked as keys through ``patch_valid``. With
 int8_rows K/V ({"k_scale", "v_scale"} in the export) the decoder computes in
-bf16 and the attention dequantises each token's row (inference only).
+bf16; the inference kernel dequantises each token's row, training each slot
+to bf16 first.
+
+The op_mode options take the routes JAX's apply_decoder takes
+(decoder.py:221-229): with ``aug_query`` (a learned (blocks - 1, W) offset
+added to the residual stream after each block but the last) or a
+factorised ``attn_mode``, inference leaves the boundary kernel for the
+composition of the block interstitial; ``aug_query`` alone keeps the fused
+attention kernel, ``attn_mode`` runs the attention's torch composition
+(ops/decoder_attention.py) in inference and training.
 
 K/V come as the stacked export (Lsel, B, T, P, H, D), whose slot i block i
 reads in place (``layer=i``), or, after an adapter, as lists of per-layer
@@ -29,7 +38,9 @@ import torch
 
 from . import layers
 from ..ops.decoder_attention import dual_activation_attention
-from ..ops.decoder_stack import decoder_boundary
+# the module, not its function: ops.decoder_stack imports models.layers, so a
+# process that imports it first meets this module half-built
+from ..ops import decoder_stack
 from ..ops.fused_decoder_attention import fused_decoder_attention
 
 Params = Dict[str, Any]
@@ -87,7 +98,10 @@ def init_decoder(gen: torch.Generator, cfg: DecoderConfig,
             blk["ln_1"], blk["ln_2"] = _clone(ref["ln_1"]), _clone(ref["ln_2"])
             mlp_ref = (encoder_blocks[cfg.layer_indices[i + 1] - 1]["mlp"]
                        if cfg.concat_ref and i < n - 1 else ref["mlp"])
-            blk["mlp"] = _clone(mlp_ref)
+            # a SwiGLU tower (DINOv2 giant2) has no c_fc / c_proj to seed the
+            # decoder's MLP with: it keeps its random init (decoder.py:105-110)
+            if "c_fc" in mlp_ref:
+                blk["mlp"] = _clone(mlp_ref)
         blocks.append(blk)
     params: Params = {
         "class_embedding": scale * torch.randn(w, generator=gen),
@@ -98,6 +112,8 @@ def init_decoder(gen: torch.Generator, cfg: DecoderConfig,
     if cfg.temporal_position:
         params["positional_embedding"] = scale * torch.randn(
             cfg.num_frames, 1, cfg.heads, cfg.head_dim, generator=gen)
+    if cfg.aug_query:
+        params["aug_query"] = torch.zeros(n - 1, w)
     n_mats = n if cfg.global_prediction else 1
     params["task_projections"] = [
         [scale * torch.randn(w, out_dim, generator=gen) for _ in range(n_mats)]
@@ -125,8 +141,6 @@ def apply_decoder(params: Params, kvs: Dict[str, torch.Tensor], m: torch.Tensor,
     (task logits [(B, out_dim)], video feature). ``train`` runs the
     differentiable composition, with dropout drawn from ``gen``. int8 K/V
     come stacked, with {"k_scale", "v_scale"}: (Lsel, B, T, P, 1) f32."""
-    if cfg.attn_mode or cfg.aug_query:
-        raise NotImplementedError("attn_mode and aug_query are not ported yet")
     k_all, v_all = kvs["k"], kvs["v"]
     ks_all, vs_all = kvs.get("k_scale"), kvs.get("v_scale")
     per_layer = isinstance(k_all, (list, tuple))
@@ -134,8 +148,6 @@ def apply_decoder(params: Params, kvs: Dict[str, torch.Tensor], m: torch.Tensor,
     b, t, p, h, d = k_all[0].shape
     if nsel != cfg.num_blocks:
         raise ValueError(f"{nsel} K/V slots for {cfg.num_blocks} decoder blocks")
-    if train and ks_all is not None:
-        raise NotImplementedError("training on int8_rows K/V is not ported yet")
     if per_layer and ks_all is not None:
         raise ValueError("int8_rows K/V come as the stacked export")
     # int8 K/V: queries, residual stream and output in bf16 (the JAX rule)
@@ -165,24 +177,33 @@ def apply_decoder(params: Params, kvs: Dict[str, torch.Tensor], m: torch.Tensor,
                           params["class_embedding"].to(cd).expand(b, cfg.width).contiguous())
     blocks = params["blocks"]
     results = []
-    if train:
+    if train or cfg.attn_mode or cfg.aug_query:
         x = layers.dropout(x, cfg.dropout, gen, train)
         for i, blk in enumerate(blocks):
             qrow = layers.linear(blk["attn"]["in_proj"], layers.layer_norm(blk["ln_1"], x))
+            q_smax = qrow[:, : cfg.width].reshape(b, 1, h, d)
+            q_coda = qrow[:, cfg.width:].reshape(b, 1, h, d)
             k_i, v_i, layer = slot(i)
-            attn_out = dual_activation_attention(
-                qrow[:, : cfg.width].reshape(b, 1, h, d), qrow[:, cfg.width:].reshape(b, 1, h, d),
-                k_i, v_i, mask, temporal_pos=pos_tok, layer=layer, differentiable=True)
+            if train or cfg.attn_mode:
+                attn_out = dual_activation_attention(
+                    q_smax, q_coda, k_i, v_i, mask, num_frames=t, attn_mode=cfg.attn_mode,
+                    temporal_pos=pos_tok, layer=layer, differentiable=train,
+                    k_scale=ks_all, v_scale=vs_all)
+            else:   # aug_query's inference: the fused kernel, single query
+                attn_out = fused_decoder_attention(q_smax, q_coda, k_i, v_i, mask, pos_tok,
+                                                   layer=layer, k_scale=ks_all, v_scale=vs_all)
             x = x + layers.linear(blk["attn"]["out_proj"], attn_out.reshape(b, cfg.width))
             y = layers.linear(blk["mlp"]["c_fc"], layers.layer_norm(blk["ln_2"], x))
             y = layers.dropout(layers.quick_gelu(y), cfg.dropout, gen, train)
             x = x + layers.linear(blk["mlp"]["c_proj"], y)
             results.append(x)
+            if cfg.aug_query and i < cfg.num_blocks - 1:
+                x = x + params["aug_query"][i].to(x.dtype)
     else:
         def query(blk):
             return {"ln_1": blk["ln_1"], "in_proj": blk["attn"]["in_proj"]}
 
-        _, qrow = decoder_boundary(x, None, None, query(blocks[0]))
+        _, qrow = decoder_stack.decoder_boundary(x, None, None, query(blocks[0]))
         for i, blk in enumerate(blocks):
             q_smax = qrow[:, : cfg.width].reshape(b, 1, h, d)
             q_coda = qrow[:, cfg.width:].reshape(b, 1, h, d)
@@ -192,7 +213,8 @@ def apply_decoder(params: Params, kvs: Dict[str, torch.Tensor], m: torch.Tensor,
             tail = {"attn_out_proj": blk["attn"]["out_proj"], "ln_2": blk["ln_2"],
                     "mlp": blk["mlp"]}
             nxt = query(blocks[i + 1]) if i + 1 < len(blocks) else None
-            x, qrow = decoder_boundary(x, attn_out.reshape(b, cfg.width), tail, nxt)
+            x, qrow = decoder_stack.decoder_boundary(x, attn_out.reshape(b, cfg.width),
+                                                     tail, nxt)
             results.append(x)
 
     feats = torch.stack(results, dim=1)                           # (B, blocks, W)

@@ -10,9 +10,14 @@ unpadded export; as in the JAX package it ignores ``compute_int8`` and
 under ``torch.no_grad``; with ``train=True`` the decoder runs under autograd
 (its attention's Function saves the K/V export for its backward, so the
 export must not be an inference-mode tensor). ``op_mode.compute_int8`` runs
-the W8A8 tower on weights that ``prepare_params`` pre-quantises, and
-``op_mode.kv_dtype = "int8_rows"`` keeps the K/V export int8 with per-row
-scales into the decoder; both are inference-only here. ``encoder_kernels``
+the W8A8 tower on weights that ``prepare_params`` pre-quantises (in
+training too: the tower is frozen), ``op_mode.kv_dtype = "int8_rows"``
+keeps the K/V export int8 with per-row scales into the decoder (training
+dequantises each slot to bf16 for the trainable attention), and
+``kv_dtype = "int8"`` quantises it with per-(layer, head) scales that
+``encode_kv`` dequantises at once, in the compute dtype (capacity only, as
+in the JAX package). ``op_mode.attn_mode`` and ``aug_query`` reach the
+decoder (models/decoder.py). ``encoder_kernels``
 (``EncoderKernels``) chooses the CLIP encoder's kernel paths, as the JAX
 package's DFD_FUSED_BLOCK, DFD_MEGAKERNEL and DFD_INT8_ATTN do (the tower's
 export is unpadded); DINOv2 ignores it, as JAX's DINOv2 tower ignores them.
@@ -30,8 +35,7 @@ the video feature, "sync" on the adapter's per-layer K/V: "recon" and
 ``ranking_proj``: "speed/rank"; "triplet" on host-drawn triples:
 "speed/triplet"); ``train_mode.patch_mask`` draws each step's patch
 indices on the host (``sample_patch_indices``) and ``op_mode.ema_frame``
-collapses a clip to one geometrically weighted frame. ``kv_dtype =
-"int8"`` is not ported yet and raises.
+collapses a clip to one geometrically weighted frame.
 """
 
 from __future__ import annotations
@@ -188,11 +192,7 @@ class Detector:
         else:
             raise NotImplementedError(f"Unknown foundation: {config.foundation}")
         op = config.op_mode
-        clip = config.foundation != "dinov2"
-        if clip and op.get("kv_dtype", "auto") == "int8":
-            raise NotImplementedError("kv_dtype 'int8' (per-(layer, head) scales) is not "
-                                      "ported yet")
-        self.compute_int8 = clip and bool(op.get("compute_int8", 0))
+        self.compute_int8 = config.foundation != "dinov2" and bool(op.get("compute_int8", 0))
         self.losses = [LOSSES[loss]() if isinstance(loss, str)
                        else LOSSES[loss.name](**(loss.args.to_dict() if "args" in loss else {}))
                        for loss in config.losses]
@@ -313,6 +313,11 @@ class Detector:
         quantised into the decoder (CLIP towers only)."""
         return not self._dinov2() and self.config.op_mode.get("kv_dtype", "auto") == "int8_rows"
 
+    def _kv_int8(self) -> bool:
+        """op_mode.kv_dtype "int8": per-(layer, head) int8 K/V, dequantised
+        as soon as they are exported (CLIP towers only)."""
+        return not self._dinov2() and self.config.op_mode.get("kv_dtype", "auto") == "int8"
+
     def _dequant_kvs(self, kvs: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """Float K/V in the compute dtype from the int8_rows form (the
         adapter reads float K/V); other exports as they are."""
@@ -338,7 +343,11 @@ class Detector:
                 params["encoder"], frames, self.vit_cfg, self.compute_dtype,
                 keep_layers=self.layer_indices, drop_cls=True, pad_tokens=pad_tokens,
                 compute_int8=self.compute_int8, kv_int8_rows=self._kv_rows8(),
-                **dataclasses.asdict(self.encoder_kernels))
+                kv_int8=self._kv_int8(), **dataclasses.asdict(self.encoder_kernels))
+            if self._kv_int8():   # q.astype(cd) * (s / 127).astype(cd), detector.py:297-318
+                cd = self.compute_dtype
+                kvs = {s: kvs[s].to(cd) * (kvs[f"{s}_scale"][:, None, None, :, None] / 127.0)
+                       .to(cd) for s in ("k", "v")}
         return {s: f.reshape((f.shape[0], b, t) + tuple(f.shape[2:])) for s, f in kvs.items()}
 
     def predict(self, params: Params, x, m, *, train: bool = False,
@@ -354,9 +363,6 @@ class Detector:
         rows are all real patches, so no pad row is masked.
         ``with_adapt_features``: features["adapt"] holds the adapter's
         output, {"k", "v"}: lists of per-layer (B, T, P, H, D)."""
-        if train and (self.compute_int8 or self._kv_rows8()):
-            raise NotImplementedError("training with compute_int8 or int8_rows K/V is not "
-                                      "ported yet")
         x = torch.as_tensor(np.asarray(x) if not torch.is_tensor(x) else x, device=self.device)
         m = torch.as_tensor(np.asarray(m) if not torch.is_tensor(m) else m,
                             device=self.device).bool()

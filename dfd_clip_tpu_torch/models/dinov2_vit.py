@@ -2,20 +2,21 @@
 dfd_clip_tpu/models/dinov2_vit.py).
 
 A patch-14 ViT with a biased patch embedding, no ``ln_pre``, LayerScale
-(``ls1``, ``ls2``), an exact-GELU MLP and a biased qkv projection; K and V
+(``ls1``, ``ls2``), an exact-GELU MLP (giant2: the fused SwiGLU FFN,
+``w12`` then silu(x1) * x2 then ``w3``) and a biased qkv projection; K and V
 are captured from the qkv projection before attention. Params are plain
 dicts of tensors in the layout of models/weights.py (``conv1.w`` OIHW,
 ``blocks`` a per-layer list). The blocks are the JAX package's composition
 (dinov2_vit.py:281-293), run by clip_vit.composition_block with the
-LayerScale factors and the exact-GELU FFN: ``linear`` on bf16 operands,
-LayerNorm through the row kernel, and the attention on the q, k and v
-column blocks of the packed qkv projection, read in place by
-``encoder_self_attention`` (csrc/encoder_attention.cu, separate entry).
+LayerScale factors and the FFN: ``linear`` on bf16 operands, LayerNorm
+through the row kernel, and the attention on the q, k and v column blocks
+of the packed qkv projection, read in place by ``encoder_self_attention``
+(csrc/encoder_attention.cu, separate entry). The JAX package computes
+both FFNs as XLA ops (dinov2_vit.py:65-91), so here they are torch ops.
 
-Not ported yet: the fused SwiGLU FFN of giant2 (``ffn_layer
-"swiglufused"``, which raises), ``dinov2_forward`` with its iBOT masks and
-stochastic depth, and ``_pos_embed_for`` (the positional embedding is used
-at its stored grid).
+Not ported yet: ``dinov2_forward`` with its iBOT masks and stochastic
+depth, and ``_pos_embed_for`` (the positional embedding is used at its
+stored grid).
 """
 
 from __future__ import annotations
@@ -47,25 +48,34 @@ ARCHITECTURES = {
     "ViT-B/14": DINOV2_B14,
     "ViT-L/14": DINOV2_L14,
     "ViT-g/14": DINOV2_G14,
-    # tiny tower for tests (not a DINOv2 release)
+    # tiny towers for tests (not DINOv2 releases)
     "ViT-Test": ViTConfig(input_resolution=28, patch_size=14, width=32, layers=2, heads=2,
                           output_dim=32),
+    "ViT-Test-SwiGLU": ViTConfig(input_resolution=28, patch_size=14, width=32, layers=2,
+                                 heads=2, output_dim=32, ffn_layer="swiglufused"),
 }
 
 
 def init_ffn(gen: torch.Generator, cfg: ViTConfig, std: float) -> Params:
-    if cfg.ffn_layer != "mlp":
-        raise NotImplementedError(f"ffn_layer {cfg.ffn_layer!r} (giant2's fused SwiGLU) is "
-                                  "not ported yet")
+    """The FFN's params for the configured family: ``mlp`` (c_fc, c_proj) or
+    ``swiglufused`` (w12 (W, 2 hidden), w3 (hidden, W))."""
     w = cfg.width
+    if cfg.ffn_layer == "swiglufused":
+        hidden = cfg.swiglu_hidden
+        return {"w12": layers.init_linear(gen, w, 2 * hidden, std=std),
+                "w3": layers.init_linear(gen, hidden, w, std=std)}
+    if cfg.ffn_layer != "mlp":
+        raise NotImplementedError(f"ffn_layer: {cfg.ffn_layer}")
     return {"c_fc": layers.init_linear(gen, w, 4 * w, std=std),
             "c_proj": layers.init_linear(gen, 4 * w, w, std=std)}
 
 
 def apply_ffn(mlp: Params, y: torch.Tensor) -> torch.Tensor:
-    """The exact-GELU MLP (the ``mlp`` FFN family)."""
+    """The exact-GELU MLP or, keyed on ``w12``, the fused SwiGLU: silu(x1) *
+    x2 of w12's two halves, then w3."""
     if "w12" in mlp:
-        raise NotImplementedError("the fused SwiGLU FFN (giant2) is not ported yet")
+        x1, x2 = layers.linear(mlp["w12"], y).chunk(2, dim=-1)
+        return layers.linear(mlp["w3"], F.silu(x1) * x2)
     return layers.linear(mlp["c_proj"], layers.gelu(layers.linear(mlp["c_fc"], y)))
 
 

@@ -103,6 +103,12 @@ LN_CHUNK, LN_MAX_CHUNKS = 256, 8
 BOUNDARY_TILE, BOUNDARY_UNIT, BOUNDARY_KSTEP, BOUNDARY_MAX_UNITS = 16, 8, 32, 6
 BOUNDARY_WARPS, BOUNDARY_PAD, BOUNDARY_MAX_WIDTH = 8, 32, 1024
 BOUNDARY_ALIGN, BOUNDARY_BARS = 128, 128
+# its streamed form (widths whose resident slices do not fit): the K values
+# a weight chunk may take (the first that divides both K), the ring's slots,
+# the bf16 pad of a chunk's weight row in a slot, and the widest row (its
+# LayerNorm's registers, 6 x 256)
+BOUNDARY_CHUNKS, BOUNDARY_SLOTS, BOUNDARY_WPAD, BOUNDARY_STREAM_MAX_WIDTH = (512, 256), (2, 4), \
+    32, 1536
 # the boundary's stage clock: readings a block (csrc/decoder_boundary.cu),
 # the launch's start, its loads issued, each stage's slices in and end, each
 # grid barrier met, the LayerNorms' parameters in and their tiles done, and
@@ -227,7 +233,8 @@ _SIGNATURES = {
                               _I, _I, _I, _F, _P],
     "dfd_decoder_boundary_plan_bytes": [],
     "dfd_decoder_boundary_plan": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                  ctypes.POINTER(ctypes.c_int), _I, _I, _I, _I],
+                                  ctypes.POINTER(ctypes.c_int), _I, _I, _I, _I, _I, _I, _I,
+                                  _I, _I],
     "dfd_decoder_boundary": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "dfd_decoder_attention_bwd": [_P, _P, _LL, _P, _I, _P, _P, _P, _LL, _P, _P, _P, _P, _P,
                                   _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
@@ -417,21 +424,27 @@ def boundary_geometry(width: int, hidden: int, rows: int, sms: int) -> dict:
     cooperative grid of one block a SM (no more blocks than the widest
     stage has units of 8 columns); each stage's (K, N) -- out-proj (W, W),
     c_fc (W, hidden), c_proj (hidden, W), in-proj (W, 2W) -- with its units
-    dealt to block c as [c U / grid, (c + 1) U / grid) (``slices``) and the
-    byte offset of its slices in shared memory (room for the most units a
-    block takes, 8 transposed rows of K values each); the two LayerNorms'
-    scale and shift (16 W bytes) and the LayerNorm tile / the warps' partial
-    sums above them; the launch's shared memory; and the
-    16-row tiles of ``rows``. W and hidden must be multiples of 32, W at most
-    1024; a layout above a block's shared memory, or above 6 units a block in
-    a stage, raises."""
+    dealt to block c as [c U / grid, (c + 1) U / grid) (``slices``); the two
+    LayerNorms' scale and shift (16 W bytes) and the LayerNorm tile / the
+    warps' partial sums above them; the launch's shared memory; and the
+    16-row tiles of ``rows``.
+
+    ``form`` "resident" (W <= 1024, where every slice fits): each stage's
+    ``w_off``, the byte offset of its slices in shared memory (room for the
+    most units a block takes, 8 transposed rows of K values each).
+    ``form`` "streamed" (above, up to 1536): the weights pass through a ring
+    of ``slots`` slots at ``ring_off``, ``slot_bytes`` apart, each a chunk of
+    ``kc`` K values of the block's units, its rows ``pitch`` bytes apart.
+    W and hidden must be multiples of 32 (of 256 streamed); a layout above
+    a block's shared memory, or above 6 units a block in a stage, raises."""
     if rows < 1 or sms < 1:
         raise ValueError(f"decoder_boundary: {rows} rows on {sms} SMs")
-    if width < BOUNDARY_KSTEP or width % BOUNDARY_KSTEP or width > BOUNDARY_MAX_WIDTH \
+    if width < BOUNDARY_KSTEP or width % BOUNDARY_KSTEP \
+            or width > BOUNDARY_STREAM_MAX_WIDTH \
             or hidden < BOUNDARY_KSTEP or hidden % BOUNDARY_KSTEP:
         raise ValueError(f"decoder_boundary: takes widths that are multiples of "
-                         f"{BOUNDARY_KSTEP} up to {BOUNDARY_MAX_WIDTH} (an MLP width a multiple "
-                         f"of {BOUNDARY_KSTEP}), got width {width}, MLP width {hidden}")
+                         f"{BOUNDARY_KSTEP} up to {BOUNDARY_STREAM_MAX_WIDTH} (an MLP width a "
+                         f"multiple of {BOUNDARY_KSTEP}), got width {width}, MLP width {hidden}")
     shapes = ((width, width), (width, hidden), (hidden, width), (width, 2 * width))
     grid = min(sms, max(n // BOUNDARY_UNIT for _, n in shapes))
     stages, off, most = [], BOUNDARY_BARS, 0
@@ -450,14 +463,35 @@ def boundary_geometry(width: int, hidden: int, rows: int, sms: int) -> dict:
         most = max(most, per_block)
     tile = BOUNDARY_TILE * (width + BOUNDARY_PAD) * 2
     partials = BOUNDARY_WARPS * most * 32 * 16
-    ln_off = off
-    a_off = -(-(ln_off + 16 * width) // BOUNDARY_ALIGN) * BOUNDARY_ALIGN
-    smem = BOUNDARY_ALIGN + a_off + max(tile, partials)
-    if smem > SMEM_LIMIT:
+    above = max(tile, partials)
+
+    def layout(ln_off: int) -> tuple:
+        a_off = -(-(ln_off + 16 * width) // BOUNDARY_ALIGN) * BOUNDARY_ALIGN
+        return a_off, BOUNDARY_ALIGN + a_off + above
+
+    geo = {"grid": grid, "tiles": -(-rows // BOUNDARY_TILE), "stages": stages}
+    a_off, smem = layout(off)
+    if width <= BOUNDARY_MAX_WIDTH and smem <= SMEM_LIMIT:
+        return {**geo, "form": "resident", "ln_off": off, "a_off": a_off, "smem": smem}
+    kc = next((c for c in BOUNDARY_CHUNKS if width % c == 0 and hidden % c == 0), None)
+    if kc is None:
         raise ValueError(f"decoder_boundary: width {width} (MLP {hidden}) on {grid} blocks "
-                         f"needs {smem} bytes of shared memory a block, more than {SMEM_LIMIT}")
-    return {"grid": grid, "tiles": -(-rows // BOUNDARY_TILE), "stages": stages,
-            "ln_off": ln_off, "a_off": a_off, "smem": smem}
+                         f"needs {smem} bytes of shared memory a block, more than {SMEM_LIMIT}, "
+                         f"and no chunk of {BOUNDARY_CHUNKS} K values divides both widths")
+    pitch = (kc + BOUNDARY_WPAD) * 2
+    slot_bytes = most * BOUNDARY_UNIT * pitch
+    for stage in stages:
+        stage["w_off"] = None
+    for slots in range(BOUNDARY_SLOTS[1], BOUNDARY_SLOTS[0] - 1, -1):
+        ln_off = BOUNDARY_BARS + slots * slot_bytes
+        a_off, smem = layout(ln_off)
+        if smem <= SMEM_LIMIT:
+            return {**geo, "form": "streamed", "kc": kc, "slots": slots, "pitch": pitch,
+                    "slot_bytes": slot_bytes, "ring_off": BOUNDARY_BARS, "ln_off": ln_off,
+                    "a_off": a_off, "smem": smem}
+    raise ValueError(f"decoder_boundary: width {width} (MLP {hidden}) on {grid} blocks needs "
+                     f"{smem} bytes of shared memory a block with a ring of "
+                     f"{BOUNDARY_SLOTS[0]} slots, more than {SMEM_LIMIT}")
 
 
 @functools.cache
@@ -467,10 +501,14 @@ def _sms(index: int) -> int:
 
 @functools.cache
 def _boundary_layout(width: int, hidden: int, sms: int) -> tuple:
-    """boundary_geometry's numbers that the launch takes, once a shape."""
+    """boundary_geometry's numbers that the launch takes, once a shape: the
+    stages' slice offsets (0 streamed), the LayerNorms', the tile's, the
+    shared memory, the grid, and the streamed form's kc (0 resident), slots,
+    pitch, slot bytes and ring offset."""
     geo = boundary_geometry(width, hidden, 1, sms)
-    return ([s["w_off"] for s in geo["stages"]], geo["ln_off"], geo["a_off"], geo["smem"],
-            geo["grid"])
+    ring = tuple(geo.get(k, 0) for k in ("kc", "slots", "pitch", "slot_bytes", "ring_off"))
+    return ([s["w_off"] or 0 for s in geo["stages"]], geo["ln_off"], geo["a_off"], geo["smem"],
+            geo["grid"], *ring)
 
 
 # prepared decoder boundaries by their parameter tensors (BoundaryPlan), and
@@ -511,13 +549,14 @@ class BoundaryPlan:
         self.params = (weights, biases, norms)
         self.width, self.hidden = width, hidden
         self.weights_t = tuple(None if w is None else w.t().contiguous() for w in weights)
-        w_off, ln_off, a_off, smem, self.grid = _boundary_layout(width, hidden, _sms(index))
+        w_off, ln_off, a_off, smem, self.grid, *ring = _boundary_layout(width, hidden,
+                                                                         _sms(index))
         lib = library()
         self.c_plan = ctypes.create_string_buffer(lib.dfd_decoder_boundary_plan_bytes())
         ptr = [None if t is None else t.data_ptr() for t in (*self.weights_t, *biases, *norms)]
         check_launch(name, lib.dfd_decoder_boundary_plan(
             self.c_plan, *ptr, width, hidden, (ctypes.c_int * 4)(*w_off), ln_off, a_off, smem,
-            self.grid))
+            self.grid, *ring))
 
 
 def boundary_stream(index: int, stream_handle: int, rows: int, width: int, hidden: int) -> list:

@@ -1,10 +1,22 @@
 """Plain dual-activation (softmax + CoDA) decoder attention (counterpart of
 dfd_clip_tpu/ops/decoder_attention.py:dual_activation_attention for a single
-query and no factorised ``attn_mode``), the plain ``partials`` form of
-the fused kernel, and the merge of partials over chunks of L (counterpart of
-the combine in dfd_clip_tpu/ops/spmd.py, the fused kernel's second launch). With int8_rows K/V (``k_scale``/``v_scale``) the plain
-version dequantises each token's row in f32, as the port's kernel does (the
-JAX XLA path rounds it to the query dtype, its kernel to bf16).
+query), the plain ``partials`` form of the fused kernel, and the merge of
+partials over chunks of L (counterpart of the combine in
+dfd_clip_tpu/ops/spmd.py, the fused kernel's second launch). With int8_rows
+K/V (``k_scale``/``v_scale``) the plain version dequantises each token's row
+in f32, as the port's kernel does (the JAX XLA path rounds it to the query
+dtype, its kernel to bf16).
+
+The factorised ``attn_mode`` ("frame", "temporal" or both) replaces the
+softmax over all L tokens by a softmax over each frame's patches and/or
+one over the frames at each patch position, summed (decoder_attention.py:
+160-171). No Pallas kernel computes it: the JAX package runs it on its XLA
+path in inference and training alike, so here the torch composition below
+is its port, under autograd in training; its int8_rows K/V are dequantised
+to the queries' dtype first, as on that path. The training path without
+``attn_mode`` is the fused kernels' autograd Function
+(ops/decoder_attention_vjp.py), on int8_rows K/V after that dequantisation
+too, so the backward never reads int8 K.
 
 A learned query attends the flattened (frames x patches) K/V stream with the
 mean of a masked softmax and CoDA (tanh affinity gated by 2 sigmoid(-L1 x
@@ -37,9 +49,35 @@ def _stream(k, v, temporal_pos, layer, k_scale=None, v_scale=None):
     return kp, vp
 
 
+def dequant_rows(k: torch.Tensor, k_scale: torch.Tensor, layer: Optional[int],
+                 dtype: torch.dtype) -> torch.Tensor:
+    """The slot's int8_rows K (or V), (B, L, H, D), times its (B, L, 1) row
+    scales in f32, rounded to ``dtype`` (the JAX XLA path's dequantisation)."""
+    if layer is not None:
+        k, k_scale = k[layer], k_scale[layer]
+    return (k.float() * k_scale[..., None].float()).to(dtype)
+
+
+def factorised_softmax(logits: torch.Tensor, num_frames: int,
+                       attn_mode: Sequence[str]) -> torch.Tensor:
+    """(B, L, H) masked logits (-inf at masked tokens), L = num_frames x P ->
+    the sum of the softmax over each frame's P tokens ("frame") and the one
+    over the frames at each of the P positions ("temporal")."""
+    b, l, h = logits.shape
+    fact = logits.reshape(b, num_frames, l // num_frames, h)
+    parts = []
+    if "frame" in attn_mode:
+        parts.append(torch.softmax(fact, dim=2))
+    if "temporal" in attn_mode:
+        parts.append(torch.softmax(fact, dim=1))
+    if not parts:
+        raise ValueError(f"attn_mode must contain 'frame' or 'temporal', got {attn_mode}")
+    return sum(parts).reshape(b, l, h)
+
+
 def dual_activation_attention(
     q_smax: torch.Tensor, q_coda: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-    mask: torch.Tensor, *, attn_mode: Sequence[str] = (),
+    mask: torch.Tensor, *, num_frames: Optional[int] = None, attn_mode: Sequence[str] = (),
     temporal_pos: Optional[torch.Tensor] = None, layer: Optional[int] = None,
     differentiable: bool = False, k_scale: Optional[torch.Tensor] = None,
     v_scale: Optional[torch.Tensor] = None,
@@ -49,17 +87,22 @@ def dual_activation_attention(
     -> (B, 1, H, D). ``temporal_pos`` (L, H, D) is added to K and V. With
     int8 K/V, ``k_scale``/``v_scale`` (B, L, 1) (stacked (Lsel, B, L, 1))
     dequantise each token's row, and the output takes the queries' dtype.
+    ``attn_mode`` ("frame" and/or "temporal") factorises the softmax over
+    the ``num_frames`` frames of L (module note); fully masked frames or
+    positions give 0, not NaN.
 
-    ``differentiable`` (the training path) routes to the fused kernels'
-    autograd Function (ops/decoder_attention_vjp.py), whose backward gives
-    the queries', the embedding's and, when asked, K/V's gradients."""
-    if attn_mode:
-        raise NotImplementedError("factorised attn_mode is not ported yet")
+    ``differentiable`` (the training path) without ``attn_mode`` routes to
+    the fused kernels' autograd Function (ops/decoder_attention_vjp.py),
+    whose backward gives the queries', the embedding's and, when asked,
+    K/V's gradients; with ``attn_mode`` autograd runs through the
+    composition."""
     if q_smax.shape[1] != 1:
         raise NotImplementedError("only the single-query decoder is ported")
-    if differentiable:
-        if k_scale is not None:
-            raise NotImplementedError("training on int8_rows K/V is not ported yet")
+    if k_scale is not None and (attn_mode or differentiable):
+        k = dequant_rows(k, k_scale, layer, q_smax.dtype)
+        v = dequant_rows(v, v_scale, layer, q_smax.dtype)
+        layer = k_scale = v_scale = None
+    if differentiable and not attn_mode:
         # imported here: the Function's module imports this one
         from .decoder_attention_vjp import fused_decoder_attention_trainable
 
@@ -71,8 +114,13 @@ def dual_activation_attention(
     qs, qc = q_smax[:, 0].float(), q_coda[:, 0].float()          # (B, H, D)
     m = mask[:, :, None]                                         # (B, L, 1)
 
-    logits = torch.einsum("bhd,blhd->blh", qs * scale, kp)
-    aff_smax = torch.softmax(logits.masked_fill(~m, float("-inf")), dim=1)
+    logits = torch.einsum("bhd,blhd->blh", qs * scale, kp).masked_fill(~m, float("-inf"))
+    if attn_mode:
+        if num_frames is None:
+            raise ValueError("a factorised attn_mode needs num_frames")
+        aff_smax = factorised_softmax(logits, num_frames, attn_mode)
+    else:
+        aff_smax = torch.softmax(logits, dim=1)
     aff_smax = torch.nan_to_num(aff_smax, nan=0.0)               # fully masked -> 0
 
     coda = torch.tanh(torch.einsum("bhd,blhd->blh", qc * scale, kp))

@@ -12,8 +12,11 @@ On a CUDA tensor the boundary is one cooperative launch
 (csrc/decoder_boundary.cu, _cuda.decoder_boundary) in all three forms: the
 weights stream into shared memory by TMA while the stages run, a grid
 barrier between the stages, gemm's epilogues and layer_norm_rows's
-arithmetic at each of those rounding points. On a CPU tensor the plain
-version runs.
+arithmetic at each of those rounding points. Up to width 1024 each block's
+weight slices stay resident in shared memory; wider rows (1536, DINOv2
+ViT-g/14) take the streamed form, which passes them through a ring of
+K-chunks (_cuda.boundary_geometry picks the form by width). On a CPU
+tensor the plain version runs.
 """
 
 from __future__ import annotations

@@ -8,8 +8,10 @@ and keeps every block's weight slices, its LayerNorm tile and its partial
 sums in shared memory at once: at the decoder widths (64 and 256 in the
 tests' configurations, 768 and 1024 on the models) on an H100's 132 SMs,
 every column of every stage goes to exactly one block, and no block asks
-for more shared memory than it may have. The kernels themselves run on the
-card (tests/test_torch_port_cuda.py, chip_smoke.py).
+for more shared memory than it may have. At width 1536 (DINOv2 ViT-g/14's
+decoder) the slices do not fit, and the streamed form passes each block's
+weights through a ring of K-chunks instead. The kernels themselves run on
+the card (tests/test_torch_port_cuda.py, chip_smoke.py).
 """
 
 import pytest
@@ -19,10 +21,11 @@ from dfd_clip_tpu_torch.ops import _cuda
 H100_SMS = 132
 
 
-@pytest.mark.parametrize("width", [64, 256, 768, 1024])
+@pytest.mark.parametrize("width", [64, 256, 768, 1024, 1536])
 def test_boundary_geometry_covers_every_column_once(width):
     geo = _cuda.boundary_geometry(width, 4 * width, 16, H100_SMS)
     assert geo["grid"] <= H100_SMS and geo["tiles"] == 1
+    assert geo["form"] == ("streamed" if width > 1024 else "resident")
     shapes = {"out_proj": (width, width), "c_fc": (width, 4 * width),
               "c_proj": (4 * width, width), "in_proj": (width, 2 * width)}
     assert [s["name"] for s in geo["stages"]] == list(shapes)
@@ -49,6 +52,36 @@ def test_boundary_geometry_fits_shared_memory(width):
     assert geo["a_off"] >= end + 16 * width and geo["a_off"] % 128 == 0
     tile = _cuda.BOUNDARY_TILE * (width + _cuda.BOUNDARY_PAD) * 2
     assert geo["smem"] >= _cuda.BOUNDARY_ALIGN + geo["a_off"] + tile
+
+
+@pytest.mark.parametrize("width,hidden", [(1536, 6144), (1280, 5120), (1536, 4096)])
+def test_boundary_geometry_streams_what_does_not_fit(width, hidden):
+    """Above width 1024 each block's slices of the four stages would take
+    more than a block's shared memory (541,952 bytes at 1536, against
+    232,448): the streamed form's ring of K-chunks takes their place. Each
+    slot holds a chunk of the block's widest stage (its units' weight rows,
+    KC values each, 64 bytes apart to keep the quarter-warp's loads on
+    distinct banks); the chunk divides both K, and the warps split it in
+    K-steps of 32; the LayerNorms' parameters and the tile lie above the
+    ring, inside the block's shared memory."""
+    geo = _cuda.boundary_geometry(width, hidden, 16, H100_SMS)
+    resident = sum(s["max_units"] * s["k"] * 2 * _cuda.BOUNDARY_UNIT for s in geo["stages"])
+    assert resident + _cuda.BOUNDARY_BARS > _cuda.SMEM_LIMIT
+    assert geo["form"] == "streamed" and all(s["w_off"] is None for s in geo["stages"])
+    kc, slots = geo["kc"], geo["slots"]
+    assert width % kc == hidden % kc == 0 and kc % (_cuda.BOUNDARY_KSTEP * 8) == 0
+    assert 2 <= slots <= 4 and geo["pitch"] == 2 * kc + 64 and geo["pitch"] % 128 == 64
+    most = max(s["max_units"] for s in geo["stages"])
+    assert geo["slot_bytes"] == most * _cuda.BOUNDARY_UNIT * geo["pitch"]
+    assert geo["ring_off"] == _cuda.BOUNDARY_BARS and geo["ring_off"] % 16 == 0
+    assert geo["ln_off"] == geo["ring_off"] + slots * geo["slot_bytes"]
+    assert geo["a_off"] >= geo["ln_off"] + 16 * width and geo["a_off"] % 128 == 0
+    tile = _cuda.BOUNDARY_TILE * (width + _cuda.BOUNDARY_PAD) * 2
+    assert _cuda.BOUNDARY_ALIGN + geo["a_off"] + tile <= geo["smem"] <= _cuda.SMEM_LIMIT
+    if (width, hidden) == (1536, 6144):   # the resident layout's bytes, then the ring's
+        ln_end = _cuda.BOUNDARY_BARS + resident + 16 * width
+        assert _cuda.BOUNDARY_ALIGN + -(-ln_end // 128) * 128 + tile == 541952
+        assert (kc, slots, geo["smem"]) == (512, 3, 231680)
 
 
 @pytest.mark.parametrize("rows,tiles", [(1, 1), (12, 1), (16, 1), (17, 2), (100, 7)])

@@ -1564,13 +1564,13 @@ TOL_DECODER = 1e-2   # chip_smoke.py's hold of the decoder against its plain ver
 
 
 @pytest.mark.parametrize("rows", [1, 12, 16, 17])
-@pytest.mark.parametrize("width", [64, 256, 768, 1024])
+@pytest.mark.parametrize("width", [64, 256, 768, 1024, 1536])
 @pytest.mark.parametrize("form", ["first", "middle", "last"])
 def test_decoder_boundary_one_launch(dev, form, width, rows):
     """decoder_boundary on the card: one launch of csrc/decoder_boundary.cu a
     call in each form, at the test configurations' and the models' decoder
-    widths and at 1, 12, 16 and 17 rows (a partial 16-row tile, one tile, one
-    past it); held against decoder_boundary_plain at TOL_DECODER and, link
+    widths (1536, DINOv2 ViT-g/14's, in the streamed form) and at 1, 12, 16
+    and 17 rows (a partial 16-row tile, one tile, one past it); held against decoder_boundary_plain at TOL_DECODER and, link
     by link, against the six-launch chain of gemm and layer_norm_rows that it
     replaced, each link fed the kernel's own input: the two keep the same
     rounding points and differ only in the f32 order of a product's sums, so

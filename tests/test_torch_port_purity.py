@@ -5,7 +5,7 @@ here); importing the port (its training engine, both towers, the
 whole-encoder tower, the serving and evaluation entries and the data side
 included) pulls in neither jax, optax, yaml nor cv2; its entry points
 default to the card and raise without one; the options it has not ported
-raise."""
+raise, and those ported since build and run."""
 
 import ast
 import subprocess
@@ -131,13 +131,21 @@ def test_default_device_is_the_card(entry):
 
 
 def test_unported_options_raise():
+    """kv_dtype "int8" (per-(layer, head) scales) is ported: the Detector
+    builds and its export comes back dequantised in the compute dtype
+    (tests/test_torch_port_options.py holds it to JAX's); an adapter struct
+    the JAX package does not know still raises."""
     from dfd_clip_tpu_torch.models.detector import Detector
 
     cfg = Detector.get_default_config()
-    cfg.merge_from_other_cfg({"decode_mode": "index", "decode_indices": [0], "out_dim": [2],
+    cfg.merge_from_other_cfg({"architecture": "ViT-Test", "decode_mode": "index",
+                              "decode_indices": [0], "out_dim": [2],
                               "op_mode": {"kv_dtype": "int8"}})
-    with pytest.raises(NotImplementedError):
-        Detector(cfg, num_frames=4, device="cpu")
+    det = Detector(cfg, num_frames=4, compute_dtype=torch.float32, device="cpu")
+    params = det.prepare_params(det.init_params(torch.Generator().manual_seed(0)))
+    kvs = det.encode_kv(params, torch.zeros(2, 4, 3, 32, 32), pad_tokens=True)
+    assert set(kvs) == {"k", "v"} and kvs["k"].dtype == torch.float32
+    assert kvs["k"].shape == (1, 2, 4, 8, 4, 16) and torch.isfinite(kvs["v"]).all()
     # the adapter is ported (tests/test_torch_port_adapter.py); a struct
     # type the JAX package does not know raises
     cfg = Detector.get_default_config()
@@ -159,10 +167,11 @@ def test_unported_options_raise():
                          ids=["compression", "temporal", "patch_mask", "ema_frame",
                               "compute_int8", "int8_rows"])
 def test_unported_train_modes_raise(option):
-    """Training with compute_int8 or int8_rows K/V still raises; the
-    compression, temporal, patch_mask and ema_frame modes build and a CPU
-    train forward returns the task loss and the mode's auxiliary losses
-    (tests/test_torch_port_train_modes.py holds them to JAX's)."""
+    """Every training mode builds and a CPU train forward returns the task
+    loss and the mode's auxiliary losses: compression, temporal,
+    patch_mask and ema_frame (tests/test_torch_port_train_modes.py holds
+    them to JAX's), and training with compute_int8 or int8_rows K/V
+    (tests/test_torch_port_options.py)."""
     from dfd_clip_tpu_torch.models.detector import Detector
 
     cfg = Detector.get_default_config()
@@ -171,11 +180,7 @@ def test_unported_train_modes_raise(option):
                               **option})
     det = Detector(cfg, num_frames=4, compute_dtype=torch.float32, device="cpu")
     x, m = torch.zeros(2, 4, 3, 32, 32), torch.ones(2, 4, dtype=torch.bool)
-    if "op_mode" in option and "ema_frame" not in option["op_mode"]:
-        with pytest.raises(NotImplementedError):
-            det.forward(None, x, [None], m, train=True)
-        return
-    params = det.init_params(torch.Generator().manual_seed(0))
+    params = det.prepare_params(det.init_params(torch.Generator().manual_seed(0)))
     losses, _, other = det.forward(
         params, x, [torch.tensor([0, 1])], m, torch.tensor([True, False]),
         torch.tensor([0.6, 0.9]), train=True, single_task=0,
@@ -188,15 +193,25 @@ def test_unported_train_modes_raise(option):
 
 @pytest.mark.parametrize("option", ["swiglu_ffn", "int8_wider_than_1024", "foundation"])
 def test_unported_tower_options_raise(option):
-    """giant2's fused SwiGLU FFN, W8A8 towers wider than 1024 (JAX's XLA
-    linear_w8a8 composition) and unknown foundations raise."""
+    """W8A8 towers wider than 1024 (JAX's XLA linear_w8a8 composition) and
+    unknown foundations raise; giant2's fused SwiGLU FFN is ported: its
+    hidden width is 4096 at ViT-g/14's 1536, and a tiny SwiGLU tower builds
+    w12 / w3 and exports finite K/V (tests/test_torch_port_options.py holds
+    it to JAX's)."""
     from dfd_clip_tpu_torch.models import clip_vit, dinov2_vit
     from dfd_clip_tpu_torch.models.detector import Detector
 
+    if option == "swiglu_ffn":
+        assert dinov2_vit.ARCHITECTURES["ViT-g/14"].swiglu_hidden == 4096
+        cfg = dinov2_vit.ARCHITECTURES["ViT-Test-SwiGLU"]
+        params = dinov2_vit.init_dinov2(torch.Generator().manual_seed(0), cfg)
+        mlp = params["blocks"][0]["mlp"]
+        assert mlp["w12"]["w"].shape == (32, 2 * cfg.swiglu_hidden) and "c_fc" not in mlp
+        kv = dinov2_vit.dinov2_kv(params, torch.zeros(2, 3, 28, 28), cfg, torch.float32)
+        assert kv["k"].shape == (2, 2, 5, 2, 16) and torch.isfinite(kv["k"]).all()
+        return
     with pytest.raises(NotImplementedError):
-        if option == "swiglu_ffn":
-            dinov2_vit.init_dinov2(torch.Generator(), dinov2_vit.ARCHITECTURES["ViT-g/14"])
-        elif option == "int8_wider_than_1024":
+        if option == "int8_wider_than_1024":
             cfg = clip_vit.ViTConfig(input_resolution=32, width=1280, heads=16)
             clip_vit.clip_vision_kv({}, torch.zeros(1, 3, 32, 32), cfg, compute_int8=True)
         else:
