@@ -202,8 +202,37 @@
    operations bound beside 12 chained torch.matmul; then runs both
    ported tools as a user does (`[tool_attention]`, `[tool_probe]`),
    counters zeroed before and read after each;
-18. prints the kernel table as one JSON line, the card line, and last
+18. runs the SSL slice (DINOv2 pretraining and its evaluation): the
+   encoder attention at the SSL crops' shapes, (64, 257, 12 x 64) and (256,
+   50, 12 x 64), against its plain version with the SDPA yardstick, and its
+   autograd Function's dq / dk / dv against autograd through
+   plain_attention in f32 (`[kernels ssl]`); python -m
+   dfd_clip_tpu_torch.ssl_train's main in this process on
+   configs/ssl/base.yaml at full width and depth (ViT-B/14, out_dim 65536,
+   batch 32, 2 x 224 globals and 8 x 98 locals, remat 1, fsdp 1) over
+   --synthetic 256 for 6 steps, with warmup, the prototype freeze, the
+   teacher temperature's warmup and the checkpoint interval changed as
+   printed: every step's losses finite, counters zeroed before and read
+   after each step (60 encoder attention launches: 36 at 257 tokens, 24 at
+   50), last_v / last_g held through the freeze and moved after it, each
+   step timed by CUDA events and on the host clock with its peak memory
+   (`[ssl train]`); a run resumed from step 3's checkpoint against the
+   uninterrupted run's teacher and student, reported bit-equal or by its
+   largest difference (`[ssl train resume]`); a step traced in a child
+   process (busy share); one forward_loss + gradient with drop_path_rate
+   0.1 and one with centering sinkhorn_knopp held against the plain route
+   (plain_attention under autograd) with the step's own sensitivity
+   beside it, then each step counted (`[ssl train drop_path_rate]`, `[ssl
+   train centering]`); python -m dfd_clip_tpu_torch.ssl_eval on the
+   exported teacher over cv2-written labelled folders in every mode, 12
+   launches a feature batch, the CLS features held to the plain route
+   (`[ssl eval]`);
+19. prints the kernel table as one JSON line, the card line, and last
    {"ok": true, "device": {...}}.
+
+Before the build it prints one line on what the native video decoder would
+need on this machine (`[ffmpeg probe]`: FFmpeg's headers and libraries,
+pkg-config's view, g++); it installs nothing.
 
 Any failed phase raises and the script exits nonzero without the last line.
 It needs one card and no network; it imports nothing of the JAX package.
@@ -5089,6 +5118,537 @@ def int8_gates_path(card: str) -> dict:
     return counts
 
 
+# -- the SSL slice: DINOv2 pretraining and its evaluation --------------------------------
+
+# configs/ssl/base.yaml at full width and depth (ViT-B/14, out_dim 65536,
+# batch 32, 2 x 224 globals and 8 x 98 locals, remat 1, fsdp 1) on
+# --synthetic 256, with these changes so that 6 steps run both sides of the
+# prototype freeze and a checkpoint in the middle
+SSL_CFG, SSL_SYNTHETIC, SSL_STEPS = "ssl/base.yaml", 256, 6
+SSL_CHANGES = (("warmup_steps", 2), ("freeze_last_layer_steps", 2),
+               ("warmup_teacher_temp_steps", 2), ("checkpoint_interval", 3))
+# encoder attention launches of a train step at ViT-B/14 with remat 1: 12 for
+# the teacher, 12 for the student's global crops, 12 for its local crops and
+# 24 recomputed in the backward (36 with remat 0); by token count, 36 at 257
+# (globals) and 24 at 50 (locals); 12 a feature batch of extract_features
+SSL_STEP_LAUNCHES = {257: 36, 50: 24}
+SSL_FEATURE_LAUNCHES = 12
+# ssl_eval's labelled folders: classes (told apart by colour), train and
+# test images a class, at 224 pixels
+SSL_EVAL_IMAGES = (3, 16, 8, 224)
+
+
+@contextlib.contextmanager
+def attention_tally(tally):
+    """Tally the separate-q/k/v encoder attention's launches by token count
+    (``tally[t] += 1`` where ``_cuda.encoder_attention_separate`` is called,
+    which fused_encoder_attention calls exactly where it counts a launch)."""
+    from dfd_clip_tpu_torch.ops import _cuda
+
+    entry = _cuda.encoder_attention_separate
+
+    def tallied(q, k, v, *args, **kwargs):
+        tally[q.shape[1]] += 1
+        return entry(q, k, v, *args, **kwargs)
+
+    _cuda.encoder_attention_separate = tallied
+    try:
+        yield tally
+    finally:
+        _cuda.encoder_attention_separate = entry
+
+
+@contextlib.contextmanager
+def plain_ssl_attention():
+    """dinov2_forward's blocks through plain_attention (under autograd where
+    the tower takes a gradient) in place of the kernel's Function: the
+    plain route of the SSL holds."""
+    from dfd_clip_tpu_torch.models import dinov2_vit
+    from dfd_clip_tpu_torch.ops import attention as att
+
+    kernel = dinov2_vit.trainable_encoder_attention
+    dinov2_vit.trainable_encoder_attention = att.plain_attention
+    try:
+        yield
+    finally:
+        dinov2_vit.trainable_encoder_attention = kernel
+
+
+def ffmpeg_probe() -> dict:
+    """What the native video decoder (g++ over FFmpeg's libraries) would need
+    on this machine, looked up without installing anything: FFmpeg's
+    development headers, its shared libraries (the unversioned ``.so`` that
+    ``-lavformat`` links against, and versioned runtime ones), pkg-config's
+    view of them, and g++."""
+    import glob
+    import shutil
+
+    incs = ("/usr/include", "/usr/local/include", "/usr/include/x86_64-linux-gnu",
+            "/usr/include/ffmpeg")
+    libdirs = ("/usr/lib/x86_64-linux-gnu", "/usr/lib64", "/usr/lib", "/usr/local/lib")
+    out = {}
+    for header in ("libavformat/avformat.h", "libavcodec/avcodec.h", "libswscale/swscale.h"):
+        out[header] = next((str(Path(i, header)) for i in incs if Path(i, header).is_file()),
+                           None)
+    for lib in ("libavformat", "libavcodec", "libswscale", "libavutil"):
+        found = sorted(f for d in libdirs for f in glob.glob(f"{d}/{lib}.so*"))
+        out[f"{lib}.so"] = next((f for f in found if f.endswith(".so")), None)
+        out[f"{lib} runtime"] = [f for f in found if not f.endswith(".so")][:2]
+    try:
+        import cv2
+
+        bundled = sorted(glob.glob(str(Path(cv2.__file__).resolve().parent.parent
+                                       / "opencv_python*.libs" / "libavformat*")))
+        out["cv2's bundled libavformat"] = bundled[:1]
+    except ImportError:
+        out["cv2's bundled libavformat"] = None
+    pc = shutil.which("pkg-config")
+    out["pkg-config libavformat"] = None
+    if pc:
+        res = subprocess.run([pc, "--modversion", "libavformat", "libavcodec", "libswscale"],
+                             capture_output=True, text=True, timeout=30)
+        out["pkg-config libavformat"] = (res.stdout.split() if res.returncode == 0
+                                         else res.stderr.strip()[:120])
+    gxx = shutil.which("g++")
+    out["g++"] = gxx and subprocess.run([gxx, "--version"], capture_output=True, text=True,
+                                        timeout=30).stdout.splitlines()[0]
+    out["native decoder buildable"] = bool(out["libavformat/avformat.h"]
+                                           and out["libavcodec/avcodec.h"]
+                                           and out["libswscale/swscale.h"]
+                                           and out["libavformat.so"] and out["libavcodec.so"]
+                                           and out["libswscale.so"] and gxx)
+    return out
+
+
+def check_ssl_kernels(rows: list) -> None:
+    """The encoder attention at the SSL path's shapes, separate q / k / v on
+    strided views of one packed buffer: the 224-pixel global crops (64
+    frames of 257 tokens: 2 crops of batch 32) and the 98-pixel local crops
+    (256 frames of 50 tokens: 8 crops of 32), each against its plain version
+    with the scaled_dot_product_attention yardstick; then the trainable
+    Function's dq, dk and dv (kernel forward, encoder_attention_vjp
+    backward) against autograd through plain_attention in f32 on the same
+    bf16 inputs and cotangent, within TOL_ENCODER of each one's max, and
+    the backward timed."""
+    import torch
+
+    from dfd_clip_tpu_torch.ops import attention as att
+
+    dev, bf, hh, w = torch.device("cuda"), torch.bfloat16, 12, 768
+    gen = torch.Generator().manual_seed(21)
+    for n, t in ((64, 257), (256, 50)):
+        qkv = torch.randn(n, t, 3 * w, generator=gen).to(dev, bf)
+        q, k, v = (s.reshape(n, t, hh, 64) for s in qkv.split(w, dim=-1))
+        attention_row(rows, f"fused_encoder_attention ssl {t} tokens",
+                      "dfd_clip_tpu/ops/pallas_attention.py:1346",
+                      lambda: att.fused_encoder_attention(q, k, v),
+                      lambda: att.plain_attention(q, k, v), qkv, n, t, hh,
+                      (f"ssl_train_{t}",) + (("ssl_eval_257",) if t == 257 else ()),
+                      counter="fused_encoder_attention")
+        ct = torch.randn(n, t, hh, 64, generator=gen).to(dev, bf)
+        got = qkv.detach().clone().requires_grad_()
+        att.trainable_encoder_attention(*(s.reshape(n, t, hh, 64)
+                                          for s in got.split(w, dim=-1))).backward(ct)
+        want = qkv.detach().float().requires_grad_()
+        att.plain_attention(*(s.reshape(n, t, hh, 64) for s in want.split(w, dim=-1))
+                            ).backward(ct.float())
+        for i, name in enumerate(("dq", "dk", "dv")):
+            err = rel_err(got.grad[..., i * w:(i + 1) * w], want.grad[..., i * w:(i + 1) * w])
+            print(f"  trainable attention {t} tokens {name}: rel_err {err:.3e} against "
+                  f"autograd through plain_attention in f32 (tol {TOL_ENCODER:g})", flush=True)
+            if not err <= TOL_ENCODER:
+                raise SystemExit(f"FAIL trainable attention {t} tokens {name}: rel_err "
+                                 f"{err:.3e} > {TOL_ENCODER:g}")
+        bwd = time_ms(lambda: att.encoder_attention_vjp(q, k, v, ct), iters=5, warmup=1)
+        print(f"  trainable attention {t} tokens: backward (torch products) {bwd:.3f} ms by "
+              f"CUDA events", flush=True)
+        del qkv, q, k, v, ct, got, want
+    torch.cuda.empty_cache()
+
+
+def ssl_config(work: str, changes: tuple) -> str:
+    """configs/ssl/base.yaml with ``changes`` (key, value) applied, each
+    printed; the written file's path."""
+    import yaml
+
+    cfg = yaml.safe_load((Path(__file__).resolve().parent / "configs" / SSL_CFG).read_text())
+    for key, value in changes:
+        print(f"  {SSL_CFG}: {key} {cfg.get(key)!r} -> {value!r}", flush=True)
+        cfg[key] = value
+    out = Path(work) / "ssl.yaml"
+    out.write_text(yaml.safe_dump(cfg, sort_keys=False))
+    return str(out)
+
+
+def ssl_cli_run(out_dir: str, cfg: str, tally) -> tuple:
+    """python -m dfd_clip_tpu_torch.ssl_train's main in this process (--cfg
+    ``cfg``, --synthetic SSL_SYNTHETIC, --steps SSL_STEPS) with every train
+    step observed: the launch counters and the tally zeroed just before the
+    step and read just after, its ms by CUDA events and on the host clock
+    (synchronised), the peak memory, its losses, and whether each head's
+    prototype layer (last_v, last_g) moved. Returns (trainer, steps)."""
+    import torch
+
+    from dfd_clip_tpu_torch import ssl_train
+    from dfd_clip_tpu_torch.ops import _cuda
+    from dfd_clip_tpu_torch.ssl.train import SSLTrainer
+
+    steps, step_fn = [], SSLTrainer.train_step
+
+    def observed(self, g, loc, masks, step):
+        before = [t.detach().clone() for h in ("dino_head", "ibot_head")
+                  for t in (self.student[h]["last_v"], self.student[h]["last_g"])]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _cuda.reset_launches()
+        tally.clear()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0 = time.perf_counter()
+        start.record()
+        out = step_fn(self, g, loc, masks, step)
+        end.record()
+        torch.cuda.synchronize()
+        host = (time.perf_counter() - t0) * 1e3
+        after = [self.student[h][k] for h in ("dino_head", "ibot_head")
+                 for k in ("last_v", "last_g")]
+        steps.append({"step": step, "losses": {k: float(v) for k, v in out.items()},
+                      "ms": start.elapsed_time(end), "host_ms": host,
+                      "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                      "launches": _cuda.launches(), "by_tokens": dict(tally),
+                      "moved": [not torch.equal(a, b) for a, b in zip(after, before)]})
+        return out
+
+    SSLTrainer.train_step = observed
+    try:
+        trainer = ssl_train.main(ssl_train.parse_args(
+            ["--cfg", cfg, "--synthetic", str(SSL_SYNTHETIC), "--steps", str(SSL_STEPS),
+             "--out_dir", out_dir]))
+    finally:
+        SSLTrainer.train_step = step_fn
+    return trainer, steps
+
+
+def ssl_train_path(card: str, work: str) -> tuple:
+    """ssl_train on configs/ssl/base.yaml at full width and depth, changed
+    as SSL_CHANGES prints: every step's dino / ibot / koleo / total finite,
+    SSL_STEP_LAUNCHES attention launches a step (60 with remat), the
+    prototype layers unchanged through the freeze window (steps 0 and 1)
+    and moved after it; then a run resumed from step 3's checkpoint
+    against the uninterrupted run's teacher and student (bit-equal, or
+    the largest difference printed); then the step traced in a child
+    process (its busy share). Returns (the first run's counts by path, its
+    run directory)."""
+    import collections
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from dfd_clip_tpu_torch.engine.optim import named_leaves
+
+    cfg = ssl_config(work, SSL_CHANGES)
+    tally = collections.Counter()
+    run = str(Path(work) / "ssl_run")
+    print(f"[ssl train] python -m dfd_clip_tpu_torch.ssl_train --cfg <base.yaml, changed as "
+          f"printed> --synthetic {SSL_SYNTHETIC} --steps {SSL_STEPS}", flush=True)
+    with attention_tally(tally):
+        trainer, steps = ssl_cli_run(run, cfg, tally)
+    want = {"fused_encoder_attention": sum(SSL_STEP_LAUNCHES.values())}
+    freeze = dict(SSL_CHANGES)["freeze_last_layer_steps"]
+    for s in steps:
+        print(f"  step {s['step']}: " + ", ".join(f"{k} {v:.6f}" for k, v in s["losses"].items())
+              + f"; {s['ms']:.2f} ms by CUDA events, {s['host_ms']:.2f} ms on the host clock, "
+              f"peak memory {s['peak_gb']:.3f} GB, launches {json.dumps(s['launches'])}, by "
+              f"tokens {json.dumps(s['by_tokens'])}, prototypes moved {s['moved']}; on {card}",
+              flush=True)
+        if not all(np.isfinite(v) for v in s["losses"].values()):
+            raise SystemExit(f"FAIL ssl train step {s['step']}: losses {s['losses']}")
+        if s["launches"] != want or s["by_tokens"] != SSL_STEP_LAUNCHES:
+            raise SystemExit(f"FAIL ssl train step {s['step']}: launches {s['launches']} by "
+                             f"tokens {s['by_tokens']}, expected {want} {SSL_STEP_LAUNCHES}")
+        if s["moved"] != [s["step"] >= freeze] * 4:
+            raise SystemExit(f"FAIL ssl train step {s['step']}: last_v / last_g moved "
+                             f"{s['moved']} with freeze_last_layer_steps {freeze}")
+    if [s["step"] for s in steps] != list(range(SSL_STEPS)):
+        raise SystemExit(f"FAIL ssl train: steps {[s['step'] for s in steps]}")
+    names = sorted(p.name for p in Path(run).iterdir())
+    ckpts = sorted(p.name for p in (Path(run) / "checkpoints").iterdir())
+    print(f"  run directory: {names}; checkpoints {ckpts}", flush=True)
+    if not {"setting.yaml", "teacher_backbone.pt", "checkpoints"} <= set(names) or \
+            ckpts != ["step_00000003", "step_00000006"]:
+        raise SystemExit(f"FAIL ssl train: run directory {names}, checkpoints {ckpts}")
+    counts = {f"ssl_train_{t}": {"fused_encoder_attention": n * SSL_STEPS}
+              for t, n in SSL_STEP_LAUNCHES.items()}
+
+    print("[ssl train resume] a run resumed from step 3's checkpoint to step 6", flush=True)
+    resumed_dir = Path(work) / "ssl_resumed"
+    shutil.copytree(Path(run) / "checkpoints" / "step_00000003",
+                    resumed_dir / "checkpoints" / "step_00000003")
+    resumed, rsteps = ssl_cli_run(str(resumed_dir), cfg, collections.Counter())
+    if [s["step"] for s in rsteps] != [3, 4, 5] or resumed.optimizer.count != SSL_STEPS:
+        raise SystemExit(f"FAIL ssl train resume: steps {[s['step'] for s in rsteps]}, "
+                         f"optimizer count {resumed.optimizer.count}")
+    for name in ("teacher", "student"):
+        pairs = list(zip(named_leaves(getattr(trainer, name)),
+                         named_leaves(getattr(resumed, name))))
+        differ = [(path, (a - b).abs().max().item(), a.abs().max().item())
+                  for (path, a), (_, b) in pairs if not torch.equal(a, b)]
+        if not differ:
+            print(f"  {name}: bit-equal to the uninterrupted run ({len(pairs)} leaves)",
+                  flush=True)
+        else:
+            worst = max(differ, key=lambda d: d[1] / max(d[2], 1e-30))
+            print(f"  {name}: {len(differ)} of {len(pairs)} leaves differ from the "
+                  f"uninterrupted run; largest {worst[1]:.3e} at {'.'.join(map(str, worst[0]))} "
+                  f"(max |value| {worst[2]:.3e})", flush=True)
+    for s, r in zip(steps[3:], rsteps):
+        print(f"  step {r['step']}: total {r['losses']['total']:.6f} resumed, "
+              f"{s['losses']['total']:.6f} uninterrupted", flush=True)
+    del resumed
+    torch.cuda.empty_cache()
+    trace = ssl_trace_child(cfg)
+    print(f"  traced step (a child process, step 2 of 3 with the prefetch thread live): wall "
+          f"{trace['wall_ms']:.2f} ms, device busy {trace['device_ms']:.2f} ms "
+          f"({100 * trace['busy']:.1f} %), {trace['kernels']} device kernels and copies; on "
+          f"{card}", flush=True)
+    for ms, count, key in trace["top"]:
+        print(f"    {ms:9.3f} ms {count:5d}x {key}", flush=True)
+    del trainer
+    torch.cuda.empty_cache()
+    return counts, run
+
+
+def ssl_trace() -> None:
+    """One SSL train step traced with torch.profiler (the third of three, the
+    prefetch thread running as in a real run) on configs/ssl/base.yaml with
+    SSL_CHANGES at full width; prints one JSON line: the step's wall ms
+    (synchronised), the device rows' summed ms, their share, their count
+    and the eight largest. Run in a process of its own by ssl_trace_child."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from dfd_clip_tpu_torch.ops import _cuda
+    from dfd_clip_tpu_torch.runtime import OneProcess
+    from dfd_clip_tpu_torch.ssl_train import SyntheticImages
+    from dfd_clip_tpu_torch.ssl.train import SSLTrainer
+
+    _cuda.library()
+    cfg = SSLTrainer.get_default_config()
+    cfg.merge_from_file(sys.argv[1])
+    cfg.max_steps, cfg.checkpoint_interval = 3, 0
+    trainer = SSLTrainer(cfg, OneProcess("cuda"), SyntheticImages(SSL_SYNTHETIC), device="cuda")
+    out, step_fn = {}, trainer.train_step
+
+    def traced(g, loc, masks, step):
+        if step != 2:
+            return step_fn(g, loc, masks, step)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            res = step_fn(g, loc, masks, step)
+            torch.cuda.synchronize()
+            out["wall_ms"] = (time.perf_counter() - t0) * 1e3
+        events = [e for e in prof.key_averages()
+                  if e.self_cpu_time_total == 0 and device_us(e) > 0
+                  and not getattr(e, "is_user_annotation", False)]
+        out["device_ms"] = sum(device_us(e) for e in events) / 1e3
+        out["busy"] = out["device_ms"] / out["wall_ms"]
+        out["kernels"] = sum(e.count for e in events)
+        out["top"] = [(device_us(e) / 1e3, e.count, e.key[:70])
+                      for e in sorted(events, key=lambda e: -device_us(e))[:8]]
+        return res
+
+    trainer.train_step = traced
+    trainer.run()
+    print(json.dumps(out))
+
+
+def ssl_trace_child(cfg: str) -> dict:
+    """ssl_trace in a new process (the kernels already built), waited for."""
+    here = Path(__file__).resolve().parent
+    res = subprocess.run([sys.executable, "-c", "import chip_smoke; chip_smoke.ssl_trace()",
+                          cfg], cwd=here, capture_output=True, text=True, timeout=600)
+    if res.returncode != 0:
+        raise SystemExit(f"FAIL the SSL step's trace (exit {res.returncode}):\n"
+                         f"{res.stderr[-3000:]}")
+    return json.loads(res.stdout.strip().splitlines()[-1])
+
+
+def ssl_route_holds(card: str) -> None:
+    """One SSLTrainer step (base.yaml, batch 32, full width) with
+    drop_path_rate 0.1 and one with centering sinkhorn_knopp: first one
+    forward_loss + gradient through the kernels held against the plain
+    route (plain_attention under autograd) on the same params, batch and
+    stochastic-depth seed, the loss within TOL_DECODER relative and every
+    student leaf within a relative L2 of TOL_TRAIN_GRAD; the step's own
+    sensitivity recorded beside it (the plain route against itself with
+    every parameter nudged by 1e-4 of itself); then the step itself,
+    counted (SSL_STEP_LAUNCHES) and its losses finite."""
+    import collections
+
+    import numpy as np
+    import torch
+
+    from dfd_clip_tpu_torch.ops import _cuda
+    from dfd_clip_tpu_torch.runtime import OneProcess
+    from dfd_clip_tpu_torch.ssl_train import SyntheticImages
+    from dfd_clip_tpu_torch.ssl.train import SSLTrainer
+
+    base = Path(__file__).resolve().parent / "configs" / SSL_CFG
+    for label, change in (("drop_path_rate", 0.1), ("centering", "sinkhorn_knopp")):
+        print(f"[ssl train {label}] an SSLTrainer step on {SSL_CFG} with {label} {change!r}",
+              flush=True)
+        cfg = SSLTrainer.get_default_config()
+        cfg.merge_from_file(str(base))
+        cfg.merge_from_other_cfg({label: change, "checkpoint_interval": 0})
+        trainer = SSLTrainer(cfg, OneProcess("cuda"), SyntheticImages(SSL_SYNTHETIC),
+                             device="cuda")
+        trainer._sampler_iter = iter(range(cfg.batch_size))
+        g, loc, masks = (trainer._place(a) for a in trainer._next_batch(cfg.batch_size))
+
+        def loss_grads(plain: bool) -> tuple:
+            with plain_ssl_attention() if plain else contextlib.nullcontext():
+                total, _ = trainer.meta.forward_loss(
+                    trainer.student, trainer.teacher, trainer.centers, g, loc, masks,
+                    trainer.temp_schedule(0), gen=trainer._drop_path_gen(0))
+                return total.item(), list(torch.autograd.grad(total, trainer.leaves))
+
+        loss_k, grads_k = loss_grads(False)
+        loss_p, grads_p = loss_grads(True)
+        rel = abs(loss_k - loss_p) / abs(loss_p)
+        errs = sorted(((gk - gp).norm().item() / max(gp.norm().item(), 1e-30),
+                       ".".join(map(str, path)))
+                      for path, gk, gp in zip(trainer.optimizer.paths, grads_k, grads_p))[::-1]
+        with torch.no_grad():
+            ngen = torch.Generator(device="cuda").manual_seed(3)
+            for t in trainer.leaves:
+                t.mul_(1 + 1e-4 * (2 * torch.rand(t.shape, generator=ngen, device=t.device) - 1))
+        _, grads_n = loss_grads(True)
+        print(f"  kernels vs plain route: loss {loss_k:.6f} vs {loss_p:.6f}, rel {rel:.3e} (tol "
+              f"{TOL_DECODER:g}); {len(errs)} student leaves, worst l2 rel "
+              + ", ".join(f"{name} {e:.3e}" for e, name in errs[:3])
+              + f" (tol {TOL_TRAIN_GRAD:g}); sensitivity (recorded, not held): the plain "
+              f"route against itself with every parameter nudged by 1e-4 of itself, worst "
+              f"leaf {l2_rel(grads_n, grads_p):.3e} (l2 rel)", flush=True)
+        if not rel <= TOL_DECODER or not errs[0][0] <= TOL_TRAIN_GRAD or \
+                not all(torch.isfinite(x).all() for x in grads_k):
+            raise SystemExit(f"FAIL ssl train {label}: loss rel {rel:.3e}, worst leaf "
+                             f"{errs[0]}")
+        del grads_k, grads_p, grads_n
+        torch.cuda.synchronize()
+        _cuda.reset_launches()
+        tally = collections.Counter()
+        with attention_tally(tally):
+            t0 = time.perf_counter()
+            losses = {k: float(v) for k, v in trainer.train_step(g, loc, masks, 0).items()}
+            torch.cuda.synchronize()
+        counted = _cuda.launches()
+        print(f"  step: " + ", ".join(f"{k} {v:.6f}" for k, v in losses.items())
+              + f"; {(time.perf_counter() - t0) * 1e3:.2f} ms on the host clock; launches "
+              f"{json.dumps(counted)}, by tokens {json.dumps(dict(tally))}; on {card}",
+              flush=True)
+        if not all(np.isfinite(v) for v in losses.values()) or \
+                dict(tally) != SSL_STEP_LAUNCHES:
+            raise SystemExit(f"FAIL ssl train {label}: losses {losses}, launches {counted}")
+        del trainer, g, loc, masks
+        torch.cuda.empty_cache()
+
+
+def ssl_eval_path(card: str, work: str, run: str) -> dict:
+    """ssl_eval on the exported teacher_backbone.pt over cv2-written
+    labelled folders (SSL_EVAL_IMAGES: classes told apart by colour), in
+    every mode: SSL_FEATURE_LAUNCHES attention launches each feature batch
+    (counters zeroed just before it and read just after), the CLS features
+    of the train folder within TOL_ENCODER of the plain route's max, the
+    results printed. Returns the run's counts by path."""
+    import collections
+
+    import cv2
+    import numpy as np
+    import torch
+
+    from dfd_clip_tpu_torch import ssl_eval
+    from dfd_clip_tpu_torch.models import dinov2_vit
+    from dfd_clip_tpu_torch.models import weights as weights_lib
+    from dfd_clip_tpu_torch.ops import _cuda
+    from dfd_clip_tpu_torch.ssl import evals
+
+    n_cls, n_train, n_test, size = SSL_EVAL_IMAGES
+    rng = np.random.default_rng(31)
+    colours = [(200, 60, 60), (60, 200, 60), (60, 60, 200)]
+    for split, n in (("train", n_train), ("test", n_test)):
+        for c in range(n_cls):
+            d = Path(work) / "ssl_eval" / split / f"class{c}"
+            d.mkdir(parents=True)
+            for i in range(n):
+                img = np.clip(np.array(colours[c])[None, None]
+                              + rng.normal(0, 40, (size, size, 3)), 0, 255).astype(np.uint8)
+                cv2.imwrite(str(d / f"{i}.png"), img)
+    weights = str(Path(run) / "teacher_backbone.pt")
+    print(f"[ssl eval] python -m dfd_clip_tpu_torch.ssl_eval --weights <run>/teacher_backbone.pt "
+          f"--arch ViT-B/14 --mode knn linear linear-grid logreg over {n_cls} classes x "
+          f"{n_train} train / {n_test} test cv2-written {size}-pixel images", flush=True)
+    calls, tally, cls = [], collections.Counter(), evals._cls
+
+    def counted(params, arch, x, dtype):
+        torch.cuda.synchronize()
+        _cuda.reset_launches()
+        tally.clear()
+        out = cls(params, arch, x, dtype)
+        calls.append((len(x), _cuda.launches(), dict(tally)))
+        return out
+
+    evals._cls = counted
+    try:
+        with attention_tally(tally):
+            t0 = time.perf_counter()
+            results = ssl_eval.main(ssl_eval.parse_args(
+                ["--weights", weights, "--train_dir", str(Path(work) / "ssl_eval" / "train"),
+                 "--test_dir", str(Path(work) / "ssl_eval" / "test"), "--size", str(size),
+                 "--mode", "knn", "linear", "linear-grid", "logreg"]))
+            wall = time.perf_counter() - t0
+    finally:
+        evals._cls = cls
+    print(f"  results {json.dumps(results)}; {wall:.2f} s on the host clock; feature batches "
+          f"(images, launches, by tokens): {calls}; on {card}", flush=True)
+    want = {"fused_encoder_attention": SSL_FEATURE_LAUNCHES}
+    tokens = (size // 14) ** 2 + 1
+    if [c[0] for c in calls] != [n_cls * n_train, n_cls * n_test] or \
+            any(c[1] != want or c[2] != {tokens: SSL_FEATURE_LAUNCHES} for c in calls):
+        raise SystemExit(f"FAIL ssl eval: feature batches {calls}")
+    if set(results) != {"knn_top1", "linear_top1", "linear_grid_top1", "linear_grid_best",
+                        "logreg_top1"}:
+        raise SystemExit(f"FAIL ssl eval: results {results}")
+    state = weights_lib.load_params(weights)
+    backbone = weights_lib.to_device(weights_lib.params_from_jax(state["backbone"]), "cuda")
+    x, _, _ = ssl_eval.load_labeled_folder(str(Path(work) / "ssl_eval" / "train"), size)
+    arch = dinov2_vit.ARCHITECTURES["ViT-B/14"]
+    got = torch.from_numpy(evals.extract_features(backbone, arch, x))
+    with plain_ssl_attention():
+        plain = torch.from_numpy(evals.extract_features(backbone, arch, x))
+        plain32 = torch.from_numpy(evals.extract_features(backbone, arch, x,
+                                                          compute_dtype=torch.float32))
+    print(f"  ssl eval CLS features, kernels vs the bf16 plain route: rel_err "
+          f"{rel_err(got, plain):.3e}; the bf16 plain route vs the f32 plain route: "
+          f"{rel_err(plain, plain32):.3e}", flush=True)
+    compare("ssl eval CLS features, kernels vs the f32 plain route", got, plain32, TOL_ENCODER)
+    del backbone
+    torch.cuda.empty_cache()
+    return {f"ssl_eval_{tokens}": {"fused_encoder_attention": sum(
+        c[1]["fused_encoder_attention"] for c in calls)}}
+
+
+def ssl_paths(card: str) -> dict:
+    """The SSL slice's phases in one work directory; their counts by path."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as work:
+        counts, run = ssl_train_path(card, work)
+        ssl_route_holds(card)
+        counts.update(ssl_eval_path(card, work, run))
+    return counts
+
+
 def device_us(event) -> float:
     """Self device time of a profiler row (the attribute's name varies
     across torch versions)."""
@@ -5156,6 +5716,7 @@ def main() -> int:
     print(f"[card] {card}; torch {torch.__version__} (CUDA {torch.version.cuda}); {nvcc}",
           flush=True)
     print("[note] plain versions run with TF32 off (matmul and cudnn)", flush=True)
+    print(f"[ffmpeg probe] {json.dumps(ffmpeg_probe())}", flush=True)
 
     global BUILD_S
     t0 = time.perf_counter()
@@ -5292,6 +5853,12 @@ def main() -> int:
     check_study_kernels(rows)
     elapsed()
     counts.update(tool_paths())
+    elapsed()
+    print("[kernels ssl] the encoder attention at the SSL crops' shapes: (64, 257, 12 x 64) "
+          "and (256, 50, 12 x 64), forward and under autograd", flush=True)
+    check_ssl_kernels(rows)
+    elapsed()
+    counts.update(ssl_paths(card))
     elapsed()
 
     if DEFERRED:

@@ -14,9 +14,15 @@ of the packed qkv projection, read in place by ``encoder_self_attention``
 (csrc/encoder_attention.cu, separate entry). The JAX package computes
 both FFNs as XLA ops (dinov2_vit.py:65-91), so here they are torch ops.
 
-Not ported yet: ``dinov2_forward`` with its iBOT masks and stochastic
-depth, and ``_pos_embed_for`` (the positional embedding is used at its
-stored grid).
+``dinov2_forward`` is the whole tower under autograd for SSL training and
+evaluation (dinov2_vit.py:196-245): the iBOT mask token in place of masked
+patch embeddings, the positional embedding resized to any token count
+(``_pos_embed_for``), per-sample stochastic depth with keep masks drawn from
+an explicit generator, each block optionally rematerialised in the
+backward (torch.utils.checkpoint), and ``ln_post``. Its blocks (``_block``)
+run LayerNorm as differentiable torch ops, as the JAX package's XLA
+LayerNorm, and the attention through ``trainable_encoder_attention`` (the
+same kernel under an autograd Function).
 """
 
 from __future__ import annotations
@@ -25,9 +31,12 @@ from typing import Any, Dict, Optional
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from . import layers
 from .clip_vit import ViTConfig, composition_block
+from .weights import _resize_weights
+from ..ops.attention import trainable_encoder_attention
 
 Params = Dict[str, Any]
 
@@ -106,13 +115,86 @@ def init_dinov2(gen: torch.Generator, cfg: ViTConfig) -> Params:
 
 
 def embed(params: Params, x: torch.Tensor, cfg: ViTConfig,
-          compute_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
-    """(N, 3, H, W) normalized frames -> [CLS; patches + b] + pos, (N, T, W)."""
+          compute_dtype: torch.dtype = torch.bfloat16,
+          masks: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(N, 3, H, W) normalized frames -> [CLS; patches + b] + pos, (N, T, W),
+    with the patches that the (N, P) bool ``masks`` marks replaced by the
+    mask token (dinov2_vit.py:133-156) and the positional embedding resized
+    to the frames' grid (``_pos_embed_for``)."""
     x = F.conv2d(x.to(compute_dtype), params["conv1"]["w"].to(compute_dtype),
                  stride=cfg.patch_size)
     x = x.flatten(2).transpose(1, 2) + params["conv1"]["b"].to(compute_dtype)
+    if masks is not None:
+        x = torch.where(masks[..., None], params["mask_token"].to(compute_dtype), x)
     cls = params["class_embedding"].to(compute_dtype).expand(x.shape[0], 1, cfg.width)
-    return torch.cat([cls, x], dim=1) + params["positional_embedding"].to(compute_dtype)
+    x = torch.cat([cls, x], dim=1)
+    return x + _pos_embed_for(params["positional_embedding"], x.shape[1]).to(compute_dtype)
+
+
+def _pos_embed_for(pos: torch.Tensor, n_tokens: int) -> torch.Tensor:
+    """The (1 + S^2, W) positional embedding for ``n_tokens`` = 1 + g^2
+    tokens: CLS kept, the S x S grid resized to g x g by jax.image.resize's
+    bicubic with antialias=False (dinov2_vit.py:159-175): Keys' cubic
+    (a = -0.5) with the kernel not stretched when shrinking, which is
+    neither F.interpolate's bicubic (a = -0.75) nor the converter's
+    antialiased resize. The (S, g) weight matrix is applied along one grid
+    axis, then the other (jax.image's order), as torch products, so ``pos``
+    stays in the autograd graph."""
+    if n_tokens == pos.shape[0]:
+        return pos
+    src = int(round((pos.shape[0] - 1) ** 0.5))
+    dst = int(round((n_tokens - 1) ** 0.5))
+    wts = torch.from_numpy(_resize_weights(src, dst, antialias=False)).to(pos.device)
+    grid = pos[1:].reshape(src, src, -1).float()
+    grid = torch.tensordot(grid, wts, dims=([0], [0])).movedim(-1, 0)
+    grid = torch.tensordot(grid, wts, dims=([1], [0])).movedim(-1, 1).to(pos.dtype)
+    return torch.cat([pos[:1], grid.reshape(dst * dst, -1)])
+
+
+def _block(bp: Params, h: torch.Tensor, cfg: ViTConfig, dp1: Optional[torch.Tensor] = None,
+           dp2: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One pre-LN block under autograd (dinov2_vit.py:178-193). ``dp1`` /
+    ``dp2``: per-sample stochastic-depth keep masks (N, 1, 1), pre-scaled by
+    1 / keep, on the attention and FFN branches (None: kept)."""
+    n, t, w = h.shape
+    qkv = layers.linear(bp["attn"]["in_proj"], layers.layer_norm(bp["ln_1"], h))
+    q, k, v = (s.reshape(n, t, cfg.heads, cfg.head_dim) for s in qkv.split(w, dim=-1))
+    att = layers.linear(bp["attn"]["out_proj"],
+                        trainable_encoder_attention(q, k, v).reshape(n, t, w))
+    ls1, ls2 = bp["ls1"].to(h.dtype), bp["ls2"].to(h.dtype)
+    h = h + (ls1 if dp1 is None else dp1 * ls1) * att
+    y = apply_ffn(bp["mlp"], layers.layer_norm(bp["ln_2"], h))
+    return h + (ls2 if dp2 is None else dp2 * ls2) * y
+
+
+def dinov2_forward(
+    params: Params, x: torch.Tensor, cfg: ViTConfig,
+    compute_dtype: torch.dtype = torch.bfloat16, masks: Optional[torch.Tensor] = None,
+    drop_path_rate: float = 0.0, gen: Optional[torch.Generator] = None, remat: bool = False,
+) -> Dict[str, torch.Tensor]:
+    """The whole tower for SSL and evaluation: {"cls": (N, W), "patch":
+    (N, P, W)} in f32 after ``ln_post`` (dinov2_vit.py:196-245), with the
+    iBOT ``masks`` (N, P) bool, and with ``drop_path_rate`` > 0 and a
+    generator (on x's device) each block's two keep masks drawn per sample
+    from ``gen`` (Bernoulli(1 - rate) / (1 - rate)); the draws are not the
+    JAX package's (another generator). ``remat`` checkpoints each block
+    (use_reentrant=False): its masks are drawn before the checkpointed call
+    and passed in, because a recompute restores the global RNG state but
+    not an explicit generator's, so the backward sees the same masks."""
+    h = embed(params, x, cfg, compute_dtype, masks)
+    keep = 1.0 - drop_path_rate
+    for bp in params["blocks"]:
+        dps = ()
+        if drop_path_rate > 0.0 and gen is not None:
+            dps = tuple((torch.rand((h.shape[0], 1, 1), generator=gen, device=h.device)
+                         < keep).to(h.dtype) / keep for _ in range(2))
+        if remat:
+            h = torch.utils.checkpoint.checkpoint(_block, bp, h, cfg, *dps,
+                                                  use_reentrant=False)
+        else:
+            h = _block(bp, h, cfg, *dps)
+    h = layers.layer_norm(params["ln_post"], h)
+    return {"cls": h[:, 0].float(), "patch": h[:, 1:].float()}
 
 
 def dinov2_kv(

@@ -15,7 +15,8 @@ params in the JAX layout:
 
 A CLIP encoder tree and a DINOv2 one (``conv1.b``, the blocks' LayerScale
 ``ls1``/``ls2``, ``mask_token`` and ``ln_post``, no ``ln_pre``) convert
-alike.
+alike, and so do the SSL trees (student / teacher with their ``backbone``
+and heads, the centers): each dict holding ``conv1`` is an encoder.
 
 The foundation converters read pretrained PyTorch checkpoints: OpenAI CLIP's
 visual tower (plain state dicts, ``{"state_dict": ...}`` wrappers and
@@ -69,13 +70,24 @@ def encoder_from_jax(enc: dict) -> dict:
 
 
 def params_from_jax(tree: Any) -> Any:
-    """JAX params (numpy leaves) -> the port's params (CPU tensors)."""
+    """JAX params (numpy leaves) -> the port's params (CPU tensors): every
+    dict holding ``conv1`` (a Detector's ``encoder``, an SSL tree's
+    ``backbone``, a bare backbone) through ``encoder_from_jax``, every other
+    leaf as it is."""
     if "conv1" in tree:
         return encoder_from_jax(tree)
-    out = {k: _to_torch(v) for k, v in tree.items() if k != "encoder"}
-    if "encoder" in tree:
-        out["encoder"] = encoder_from_jax(tree["encoder"])
-    return out
+    return {k: params_from_jax(v) if isinstance(v, dict) else _to_torch(v)
+            for k, v in tree.items()}
+
+
+def to_device(tree: Any, device) -> Any:
+    """A copy of the port's params (any nesting of dicts and lists of
+    tensors) on ``device``."""
+    if isinstance(tree, dict):
+        return {k: to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [to_device(v, device) for v in tree]
+    return tree.detach().to(device, copy=True)
 
 
 def to_numpy_tree(tree: Any) -> Any:
@@ -250,14 +262,15 @@ def _keys_cubic(x: np.ndarray) -> np.ndarray:
     return np.where(x >= 2.0, 0.0, out)
 
 
-def _resize_weights(in_size: int, out_size: int) -> np.ndarray:
-    """(in, out) f32 weights of jax.image.resize's antialiased bicubic along
-    one axis (jax._src.image.scale.compute_weight_mat): the kernel is
-    stretched by the scale when shrinking."""
+def _resize_weights(in_size: int, out_size: int, antialias: bool = True) -> np.ndarray:
+    """(in, out) f32 weights of jax.image.resize's bicubic along one axis
+    (jax._src.image.scale.compute_weight_mat): antialiased (the converter's
+    resize) the kernel is stretched by the scale when shrinking; without
+    (dinov2_vit._pos_embed_for's) it is not."""
     inv_scale = 1.0 / (out_size / in_size)
     sample = (np.arange(out_size, dtype=np.float32) + 0.5) * inv_scale - 0.5
     x = np.abs(sample[None, :] - np.arange(in_size, dtype=np.float32)[:, None])
-    w = _keys_cubic(x / max(inv_scale, 1.0))
+    w = _keys_cubic(x / (max(inv_scale, 1.0) if antialias else 1.0))
     total = w.sum(0, keepdims=True)
     w = np.where(np.abs(total) > 1000.0 * np.finfo(np.float32).eps,
                  w / np.where(total != 0, total, 1), 0)

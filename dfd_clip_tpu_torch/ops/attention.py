@@ -16,6 +16,14 @@ the int8 attention of the int8 whole block and tower (DFD_INT8_ATTN in the
 JAX package; one TMA / int8 wgmma kernel at every token count),
 with ``attn_int8_cols_plain`` as its plain version. Both plain versions go
 in frame chunks of at most PLAIN_LOGITS_BYTES of f32 logits.
+
+``trainable_encoder_attention`` is the separate entry under autograd (the
+DINOv2 student's blocks, models/dinov2_vit.py:dinov2_forward): its forward
+is ``fused_encoder_attention`` (the kernel on the card, ``plain_attention``
+on the CPU), its backward ``encoder_attention_vjp``, the VJP of the JAX
+package's ``_xla_attention`` (ops/attention.py:44-51) as torch products.
+The JAX package has no backward kernel for this attention: its gradient is
+XLA autodiff outside any Pallas kernel.
 """
 
 from __future__ import annotations
@@ -85,6 +93,52 @@ def fused_encoder_attention_qkv(qkv: torch.Tensor, heads: int, head_dim: int) ->
     out = _cuda.encoder_attention_packed(qkv.reshape(n * t, w3), n, t, heads, head_dim)
     _cuda.LAUNCHES["fused_encoder_attention_qkv"] += 1
     return out.reshape(n, t, heads * head_dim)
+
+
+def encoder_attention_vjp(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          d_out: torch.Tensor) -> tuple:
+    """(dq, dk, dv) of softmax(q k^T d^-1/2) v at the cotangent ``d_out``,
+    all (N, T, H, D) in q's dtype: the f32 logits recomputed from q and k,
+    P = softmax, dV = P^T dO, dP = dO V^T, dS = P (dP - rowsum(P dP)),
+    dQ = dS K d^-1/2, dK = dS^T Q d^-1/2, with P and dP rounded to v's
+    dtype where _xla_attention's VJP rounds them (its probabilities and
+    their cotangent are in v's dtype). Frames go in chunks of at most
+    PLAIN_LOGITS_BYTES of logits, which changes nothing computed."""
+    n, t, h = q.shape[:3]
+    step = max(1, PLAIN_LOGITS_BYTES // (4 * h * t * t))
+    if n > step:
+        parts = [encoder_attention_vjp(q[i: i + step], k[i: i + step], v[i: i + step],
+                                       d_out[i: i + step]) for i in range(0, n, step)]
+        return tuple(torch.cat(g) for g in zip(*parts))
+    scale = q.shape[-1] ** -0.5
+    q32, k32, v32, do32 = q.float(), k.float(), v.float(), d_out.float()
+    p = torch.softmax(torch.einsum("nqhd,nkhd->nhqk", q32 * scale, k32), dim=-1)
+    dv = torch.einsum("nhqk,nqhd->nkhd", p.to(v.dtype).float(), do32)
+    dp = torch.einsum("nqhd,nkhd->nhqk", do32, v32).to(v.dtype).float()
+    ds = p * (dp - (p * dp).sum(-1, keepdim=True))
+    dq = torch.einsum("nhqk,nkhd->nqhd", ds, k32) * scale
+    dk = torch.einsum("nhqk,nqhd->nkhd", ds, q32) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class _TrainableEncoderAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v):
+        ctx.save_for_backward(q, k, v)
+        return fused_encoder_attention(q, k, v)
+
+    @staticmethod
+    def backward(ctx, d_out):
+        return encoder_attention_vjp(*ctx.saved_tensors, d_out)
+
+
+def trainable_encoder_attention(q: torch.Tensor, k: torch.Tensor,
+                                v: torch.Tensor) -> torch.Tensor:
+    """``fused_encoder_attention`` differentiable in q, k and v (N, T, H, D),
+    which may be the column blocks of one packed qkv buffer: the kernel
+    forward (a launch, counted under fused_encoder_attention) and the
+    torch-product backward ``encoder_attention_vjp``."""
+    return _TrainableEncoderAttention.apply(q, k, v)
 
 
 def encoder_self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

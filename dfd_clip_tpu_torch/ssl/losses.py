@@ -1,0 +1,102 @@
+"""SSL objectives (counterpart of dfd_clip_tpu/ssl/losses.py): the DINO CLS
+loss, its EMA center, Sinkhorn-Knopp centering (CLS and masked patches),
+the iBOT masked-patch loss and the KoLeo regulariser, as torch ops in f32.
+One process holds the whole batch, so the JAX package's cross-replica
+means are plain means."""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+
+def dino_loss(student_logits: torch.Tensor, teacher_logits: torch.Tensor,
+              center: torch.Tensor, student_temp: float, teacher_temp,
+              teacher_probs: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Soft cross-entropy of the student (n_s, B, K) against the teacher
+    (n_t, B, K), centered and sharpened (or ``teacher_probs``, the
+    Sinkhorn-Knopp assignment), over every (teacher crop, student crop) pair
+    except same-view ones. Returns (loss, the batch mean of the raw teacher
+    logits for the center's EMA)."""
+    if teacher_probs is None:
+        teacher_probs = torch.softmax((teacher_logits - center) / teacher_temp, dim=-1)
+    s_logp = torch.log_softmax(student_logits / student_temp, dim=-1)
+    total, n_terms = 0.0, 0
+    for it in range(teacher_probs.shape[0]):
+        for is_ in range(s_logp.shape[0]):
+            if it == is_:
+                continue
+            total = total - (teacher_probs[it] * s_logp[is_]).sum(-1).mean()
+            n_terms += 1
+    return total / max(n_terms, 1), teacher_logits.mean(dim=(0, 1))
+
+
+def update_center(center: torch.Tensor, batch_center: torch.Tensor,
+                  momentum: float = 0.9) -> torch.Tensor:
+    return center * momentum + batch_center * (1.0 - momentum)
+
+
+def sinkhorn_knopp(teacher_logits: torch.Tensor, teacher_temp,
+                   n_iterations: int = 3) -> torch.Tensor:
+    """Sinkhorn-Knopp assignment (B, K) of the teacher's (B, K) logits; the
+    global maximum is subtracted before the exp (a constant factor that the
+    first normalisation removes)."""
+    z = (teacher_logits / teacher_temp).float()
+    q = torch.exp(z - z.max()).T
+    q = q / q.sum()
+    k, b = q.shape
+    for _ in range(n_iterations):
+        q = q / q.sum(dim=1, keepdim=True) / k
+        q = q / q.sum(dim=0, keepdim=True) / b
+    return (q * b).T
+
+
+def sinkhorn_knopp_masked(teacher_patch_logits: torch.Tensor, patch_mask: torch.Tensor,
+                          teacher_temp, n_iterations: int = 3) -> torch.Tensor:
+    """Sinkhorn-Knopp over the masked patches only (N, P, K): B is the
+    masked-patch count, unmasked columns stay 0 (the loss never reads
+    them), and an empty mask gives zeros, not 0/0."""
+    n, p, k = teacher_patch_logits.shape
+    z = (teacher_patch_logits.reshape(n * p, k) / teacher_temp).float()
+    m = patch_mask.reshape(n * p).float()
+    q = torch.exp(z - z.max()).T * m[None, :]
+    b = torch.clamp(m.sum(), min=1.0)
+    q = q / torch.clamp(q.sum(), min=1e-30)
+    for _ in range(n_iterations):
+        rows = q.sum(dim=1, keepdim=True)
+        q = q / torch.where(rows > 0, rows, torch.ones_like(rows)) / k
+        cols = q.sum(dim=0, keepdim=True)
+        q = q / torch.where(cols > 0, cols, torch.ones_like(cols)) / b
+    return (q * b).T.reshape(n, p, k)
+
+
+def ibot_patch_loss(student_patch_logits: torch.Tensor, teacher_patch_logits: torch.Tensor,
+                    patch_mask: torch.Tensor, center: torch.Tensor, student_temp: float,
+                    teacher_temp, teacher_probs: Optional[torch.Tensor] = None,
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Cross-entropy of student and teacher patch distributions (B, P, K) on
+    the masked patches only, each image's patches weighted by 1 / its own
+    masked count and the sum divided by the image count. Returns (loss, the
+    mean raw teacher logits over the masked patches)."""
+    if teacher_probs is None:
+        teacher_probs = torch.softmax((teacher_patch_logits - center) / teacher_temp, dim=-1)
+    s_logp = torch.log_softmax(student_patch_logits / student_temp, dim=-1)
+    per_patch = -(teacher_probs * s_logp).sum(-1)
+    per_image = torch.clamp(patch_mask.sum(-1, keepdim=True).float(), min=1.0)
+    masked = torch.where(patch_mask, per_patch / per_image, torch.zeros_like(per_patch))
+    loss = masked.sum() / patch_mask.shape[0]
+    count = torch.clamp(patch_mask.sum(), min=1)
+    batch_center = torch.where(patch_mask[..., None], teacher_patch_logits,
+                               torch.zeros((), device=teacher_patch_logits.device)
+                               ).sum(dim=(0, 1)) / count
+    return loss, batch_center
+
+
+def koleo_loss(features: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
+    """-mean log of each L2-normalised feature's distance to its nearest
+    neighbour (the Kozachenko-Leonenko entropy estimate)."""
+    f = features / (torch.linalg.vector_norm(features, dim=-1, keepdim=True) + eps)
+    sim = f @ f.T - 2.0 * torch.eye(f.shape[0], device=f.device)
+    nn = f[sim.argmax(-1)]
+    return -torch.log(torch.linalg.vector_norm(f - nn, dim=-1) + eps).mean()

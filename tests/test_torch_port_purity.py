@@ -69,7 +69,13 @@ def test_port_reads_no_environment(path):
     "dfd_clip_tpu_torch.engine, dfd_clip_tpu_torch.models, "
     "dfd_clip_tpu_torch.utils.logging, dfd_clip_tpu_torch.utils.tracking, "
     "dfd_clip_tpu_torch.utils.notify",
-], ids=["serve", "train", "towers", "tools", "eval", "cli"])
+    "dfd_clip_tpu_torch.ssl, dfd_clip_tpu_torch.ssl.train, dfd_clip_tpu_torch.ssl.meta_arch, "
+    "dfd_clip_tpu_torch.ssl.dino_head, dfd_clip_tpu_torch.ssl.losses, "
+    "dfd_clip_tpu_torch.ssl.masking, dfd_clip_tpu_torch.ssl.samplers, "
+    "dfd_clip_tpu_torch.ssl.augmentations, dfd_clip_tpu_torch.ssl.schedules, "
+    "dfd_clip_tpu_torch.ssl.data_adapters, dfd_clip_tpu_torch.ssl.evals, "
+    "dfd_clip_tpu_torch.ssl_train, dfd_clip_tpu_torch.ssl_eval",
+], ids=["serve", "train", "towers", "tools", "eval", "cli", "ssl"])
 def test_importing_the_port_loads_no_jax_or_yaml(modules):
     code = ("import sys\n"
             f"import {modules}\n"
@@ -82,11 +88,13 @@ def test_importing_the_port_loads_no_jax_or_yaml(modules):
 
 @pytest.mark.parametrize("entry", ["resolve_device", "Detector", "Trainer",
                                    "Scorer.from_preset", "inference.main", "main.main",
-                                   "CompInvEncoder", "CompInvTrainer"])
+                                   "CompInvEncoder", "CompInvTrainer", "SSLTrainer",
+                                   "ssl_train.main", "ssl_eval.main", "ssl.evals"])
 def test_default_device_is_the_card(entry):
     """Detector (whose forward and predict run on its device), Trainer, the
-    run-directory Scorer, the evaluation CLI, the training CLI and the
-    CompInv pretrainer's model and trainer default to the card."""
+    run-directory Scorer, the evaluation CLI, the training CLI, the CompInv
+    pretrainer's model and trainer, the SSL trainer, both SSL CLIs and the
+    SSL evaluations' classifiers default to the card."""
     from dfd_clip_tpu_torch import inference, resolve_device
     from dfd_clip_tpu_torch.config import CN
     from dfd_clip_tpu_torch.engine.trainer import Trainer
@@ -113,6 +121,23 @@ def test_default_device_is_the_card(entry):
             from dfd_clip_tpu_torch import main
 
             main.main(main.parse_args(["--cfg", "/nonexistent.yaml"]))
+        elif entry == "SSLTrainer":
+            from dfd_clip_tpu_torch.runtime import OneProcess
+            from dfd_clip_tpu_torch.ssl import SSLTrainer
+
+            SSLTrainer(SSLTrainer.get_default_config(), OneProcess(), [])
+        elif entry.startswith("ssl_"):
+            from dfd_clip_tpu_torch import ssl_eval, ssl_train
+
+            mod = ssl_train if entry == "ssl_train.main" else ssl_eval
+            argv = (["--synthetic", "2"] if mod is ssl_train else
+                    ["--weights", "/nonexistent", "--train_dir", "/x", "--test_dir", "/y"])
+            mod.main(mod.parse_args(argv))
+        elif entry == "ssl.evals":
+            from dfd_clip_tpu_torch.ssl import evals
+
+            evals.knn_classify(np.zeros((2, 4), np.float32), np.array([0, 1]),
+                               np.zeros((1, 4), np.float32))
         elif entry.startswith("CompInv"):
             from dfd_clip_tpu_torch.engine import CompInvTrainer
             from dfd_clip_tpu_torch.models import CompInvEncoder
