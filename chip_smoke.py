@@ -227,7 +227,28 @@
    exported teacher over cv2-written labelled folders in every mode, 12
    launches a feature batch, the CLS features held to the plain route
    (`[ssl eval]`);
-19. prints the kernel table as one JSON line, the card line, and last
+19. drives the port on several ranks (`[multi rank]`, runtime.MeshRuntime
+   over torch.distributed): the flagship predict through a one-rank NCCL
+   runtime, bit-equal to the one-process predict; then two ranks spawned
+   on this one card over Gloo (NCCL refuses two ranks on one device), each
+   building the
+   same seeded weights: at (data 1, seq 2) each rank encodes 10 of the 20
+   frames and runs the decoder's partials kernel on its tokens, combined
+   over the two ranks (the gathered P(fake) held to the one-process
+   predict at TOL_PFAKE); a flagship Trainer step at batch 12 at (2, 1)
+   and at (1, 2) against the one-process step on the same 12 clips: at
+   dropout 0 its loss and every gradient leaf at the train-step limits, at
+   dropout 0.5 (the masks drawn for the global batch from one seeded
+   stream) its loss at that limit and each clip's within MR_CLIP_LOSS_TOL;
+   SSL on configs/ssl/base.yaml (ViT-B/14 at full width and depth) at
+   MR_SSL_IMAGES images a rank, with fsdp 0 for one step and then with
+   fsdp 1 for MR_SSL_STEPS, a checkpoint and a resume bit-equal to the
+   run, the same gathered checksum on both ranks; each rank's device
+   memory held after set-up and at its peak in each (fsdp 1 must hold
+   under 0.6 of fsdp 0's: its leaves and Adam moments are slices).
+   Each rank's launch counts (6 partials a predict or step, 6 backward a
+   step) and each collective's bytes are printed;
+20. prints the kernel table as one JSON line, the card line, and last
    {"ok": true, "device": {...}}.
 
 Before the build it prints one line on what the native video decoder would
@@ -695,7 +716,7 @@ def check_kernels(rows: list) -> None:
                              "gates") + VARIANT_PATHS)
     check_train_attention(row, gen, dev)
     check_decoder_boundary(rows, "decoder_boundary", blk, 2,
-                           VITB_PATHS + ("dinov2_serve",) + VARIANT_PATHS + ("mix",))
+                           VITB_PATHS + ("dinov2_serve",) + VARIANT_PATHS + ("mix", "mr"))
 
 
 # The GEMMs' path shapes (csrc/gemm.cu, csrc/gemm_s8.cu), rows M of each
@@ -1250,11 +1271,12 @@ def check_train_attention(row, gen, dev) -> None:
         None, 16.0 * valid * w,
         4.0 * valid * w + 2.0 * l * w + b * l + 4.0 * b * w + 8.0 * b * w + 8.0 * b * hh,
         PEAK_F32, err, counter="fused_decoder_attention",
-        paths=("train", "mix", "modes", "int8_train", "int8_rows_train"))
+        paths=("train", "mix", "modes", "int8_train", "int8_rows_train", "mr"))
 
     del o_sc, st, o_p, st_p
     check_decoder_bwd(row, "fused_decoder_attention_bwd", bargs,
-                      ("train", "modes", "int8_train", "int8_rows_train", "options", "gates"))
+                      ("train", "modes", "int8_train", "int8_rows_train", "options", "gates",
+                       "mr"))
     # dK/dV from the same launch: the stacked padded export at slot 3 (L =
     # 4,000), then the adapter's per-layer unpadded K/V (L = 20 x 196 = 3,920)
     check_decoder_bwd_kv(row, "fused_decoder_attention_bwd dK/dV stacked, L 4000", bargs, ())
@@ -1739,6 +1761,19 @@ def check_int8_kernels(rows: list) -> None:
                   fda.fused_decoder_attention_plain(*args, **scales), TOL_DECODER)
     if got[b - 1].abs().max().item() != 0:
         raise SystemExit("FAIL fused_decoder_attention int8: a fully masked sample is not 0")
+    # its partials form (a token shard's input, ops/spmd.py): the int8 kernel
+    # then the merge into the softmax state, no path runs it at this shape
+    o_sc, st = fda.fused_decoder_attention(*args, partials=True, **scales)
+    o_p, st_p = fda.fused_decoder_attention_plain(*args, partials=True, **scales)
+    compare("fused_decoder_attention int8 partials numerator|coda", o_sc, o_p, TOL_DECODER)
+    compare("fused_decoder_attention int8 partials denominator", st[: b - 1, 0],
+            st_p[: b - 1, 0], TOL_DECODER)
+    compare("fused_decoder_attention int8 partials maximum", st[: b - 1, 1], st_p[: b - 1, 1],
+            TOL_DECODER)
+    if o_sc[b - 1].abs().max().item() != 0 or (st[b - 1, 1] != -1e30).any().item():
+        raise SystemExit("FAIL fused_decoder_attention int8 partials: a fully masked sample "
+                         "is not (0, 0, -1e30)")
+    del o_sc, st, o_p, st_p
     valid = mask.sum().item()
     row("fused_decoder_attention int8", "dfd_clip_tpu/ops/pallas_decoder_attention.py:633",
         "dfd_clip_tpu_torch/csrc/decoder_attention.cu",
@@ -1749,10 +1784,10 @@ def check_int8_kernels(rows: list) -> None:
         PEAK_F32, err, counter="fused_decoder_attention_int8", paths=("int8_rows",))
 
 
-def detector(kernels=None, **extra):
-    """A Detector on the card, bf16, 20 frames, out_dim [2]: the flagship
-    (bench.py:_detector_cfg) with ``extra``'s keys overridden and the
-    encoder's kernel paths ``kernels`` (EncoderKernels arguments)."""
+def detector(kernels=None, device="cuda", **extra):
+    """A Detector on the card (``device``), bf16, 20 frames, out_dim [2]: the
+    flagship (bench.py:_detector_cfg) with ``extra``'s keys overridden and
+    the encoder's kernel paths ``kernels`` (EncoderKernels arguments)."""
     import torch
 
     from dfd_clip_tpu_torch.models.detector import Detector, EncoderKernels
@@ -1761,7 +1796,7 @@ def detector(kernels=None, **extra):
     cfg.merge_from_other_cfg({"decode_mode": "index", "decode_indices": list(KEEP),
                               "out_dim": [2], "losses": ["auc_roc"],
                               "op_mode": {"temporal_position": 1}, **extra})
-    return Detector(cfg, num_frames=FRAMES, compute_dtype=torch.bfloat16, device="cuda",
+    return Detector(cfg, num_frames=FRAMES, compute_dtype=torch.bfloat16, device=device,
                     encoder_kernels=EncoderKernels(**(kernels or {})))
 
 
@@ -5681,6 +5716,392 @@ def profile_device(name: str, fn) -> None:
         print(f"    {device_us(e) / 1e3:9.3f} ms {e.count:5d}x {e.key[:70]}", flush=True)
 
 
+# [multi rank]: two ranks on this card over Gloo
+MR_SEED = 0               # the ranks' and the one-process run's weights
+MR_SSL_IMAGES = 4         # SSL images a rank (configs/ssl/base.yaml: batch 32)
+MR_SSL_STEPS = 3          # the SSL run's steps; its checkpoint is at the last
+MR_TIMEOUT = 600          # seconds the two ranks may take
+# the train steps' dropouts: at 0 the step is held to the train-step limits
+# (loss and every leaf); at 0.5 each clip's loss is held within
+# MR_CLIP_LOSS_TOL of the one-process step's, which shows that a rank drew
+# the global batch's masks for its rows (another mask moves a clip's loss by
+# O(1): dropout 0 vs 0.5 moves them 30 % to 25x), while its leaves carry the
+# bf16 rounding of a 6-row batch beside a 12-row one through the dropped
+# units (about 3e-2 of a leaf's max, recorded, not held)
+MR_DROPOUTS = (0.0, 0.5)
+MR_CLIP_LOSS_TOL = 5e-2
+
+
+def mr_work() -> Path:
+    import shutil
+
+    work = Path(__file__).resolve().parent / "build" / "multi_rank"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    return work
+
+
+def mr_free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def mr_flagship():
+    """The seeded flagship Detector and its prepared params, and the last
+    request's batch on the card."""
+    import torch
+
+    det = detector()
+    params = det.prepare_params(det.init_params(torch.Generator().manual_seed(MR_SEED)))
+    x, m = last_batch(make_requests())
+    return det, params, x, m
+
+
+def mr_train_step(trainer, batch) -> tuple:
+    """One counted step of ``trainer`` on ``batch`` (six-field, this rank's
+    rows): (losses, gradient leaves as host tensors, counts, plain calls,
+    ms on the host clock around a synchronised step)."""
+    import torch
+
+    from dfd_clip_tpu_torch.ops import _cuda
+
+    prepared = trainer.prepare_batch(batch)
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    trainer.train_step([("deepfake", prepared)])
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    grads = [t.grad.detach().float().cpu() for t in _leaf_tensors(trainer.trainable)]
+    return (trainer.batch_losses["deepfake"], grads, _cuda.launches(), _cuda.plain_calls(), ms,
+            prepared["x"].shape[1])
+
+
+def mr_rank(rank: int, world: int, work: str) -> int:
+    """One of the two ranks of the [multi rank] phase (run by main with
+    --rank-job): the seq-sharded predict, the two train-step layouts, SSL
+    with fsdp 1; results into <work>/rank<rank>.pt."""
+    import numpy as np
+    import torch
+
+    from dfd_clip_tpu_torch.engine.trainer import Trainer
+    from dfd_clip_tpu_torch.ops import _cuda
+    from dfd_clip_tpu_torch.runtime import MeshRuntime, launch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    launch.initialize("gloo", init_method=f"file://{work}/store", world_size=world, rank=rank)
+    out = {}
+    try:
+        rt = MeshRuntime(seq_parallel=2, device="cuda:0", backend="gloo")
+        det, params, x, m = mr_flagship()
+        fr = rt.frames(FRAMES)
+        xs, ms_ = (torch.from_numpy(np.ascontiguousarray(a[:, fr])).cuda() for a in (x, m))
+        det.predict(params, xs, ms_)        # warm
+        torch.cuda.synchronize()
+        _cuda.reset_launches()
+        rt.traffic.clear()
+        t0 = time.perf_counter()
+        logits = det.predict(params, xs, ms_)[0][0].float()
+        torch.cuda.synchronize()
+        out["predict"] = {"logits": logits.cpu(), "counts": _cuda.launches(),
+                          "plain": _cuda.plain_calls(), "traffic": dict(rt.traffic),
+                          "ms": (time.perf_counter() - t0) * 1e3, "frames": xs.shape[1]}
+        # the runtime's other collectives on the card's tensors and the host's
+        sent = rt.broadcast_(torch.full((4,), float(rank + 1), device="cuda:0"))
+        ragged = rt.gather_ragged(np.full((rank + 1, 2), rank, np.int64))
+        out["collectives"] = {"broadcast": sent.tolist(), "ragged": ragged.tolist(),
+                              "name": rt.broadcast_str(f"rank {rank}"),
+                              "metrics": rt.gather_for_metrics(np.arange(2) + 10 * rank).tolist()}
+        rt.deactivate()
+        del det, params, xs, ms_
+
+        batch = train_batches(1)[0]
+        for dp, sp in ((2, 1), (1, 2)):
+            rt = MeshRuntime(seq_parallel=sp, device="cuda:0", backend="gloo")
+            tcfg = Trainer.get_default_config()
+            tcfg.merge_from_other_cfg({"max_steps": TRAIN_STEPS, "learning_rate": 2.5e-3,
+                                       "batch_size": TRAIN_CLIPS // dp, "num_workers": 0})
+            rows = rt.rows(TRAIN_CLIPS)
+            local = tuple(f[rows] for f in batch)
+            for dropout in MR_DROPOUTS:
+                trainer = Trainer(tcfg, rt, detector(dropout=dropout, device=rt.device), [],
+                                  seed=MR_SEED)
+                rt.traffic.clear()
+                losses, grads, counts, plain, ms, frames = mr_train_step(trainer, local)
+                res = {"losses": losses, "counts": counts, "plain": plain, "ms": ms,
+                       "traffic": dict(rt.traffic), "frames": frames,
+                       "grad_sums": [float(g.double().sum()) for g in grads]}
+                if rank == 0:
+                    torch.save(grads, Path(work) / f"grads_{dp}{sp}_{dropout}.pt")
+                out[f"train_{dp}{sp}_{dropout}"] = res
+                del trainer, grads
+                torch.cuda.empty_cache()
+            rt.deactivate()
+
+        out["ssl"] = mr_ssl(work)
+    finally:
+        launch.shutdown()
+    torch.save(out, Path(work) / f"rank{rank}.pt")
+    return 0
+
+
+def mr_ssl(work: str) -> dict:
+    """SSL on the two ranks (configs/ssl/base.yaml, MR_SSL_IMAGES images a
+    rank) with fsdp 0 for one step, then with fsdp 1 for MR_SSL_STEPS steps
+    and a checkpoint at the last, then a trainer resumed from it: its start
+    step, whether its gathered student equals the run's bit for bit, the
+    gathered checksum, and this rank's device memory (MiB, the allocator's)
+    held after each run's set-up and at each run's peak (a step's: the
+    moments are allocated at set-up, so later steps reach the same)."""
+    import numpy as np
+    import torch
+
+    from dfd_clip_tpu_torch.engine.optim import named_leaves
+    from dfd_clip_tpu_torch.ops import _cuda
+    from dfd_clip_tpu_torch.runtime import MeshRuntime
+    from dfd_clip_tpu_torch.ssl import SSLTrainer
+    from dfd_clip_tpu_torch.ssl_train import SyntheticImages
+
+    rt = MeshRuntime(device="cuda:0", backend="gloo")
+    data = SyntheticImages(8 * MR_SSL_IMAGES)
+    memory = {}
+
+    def config(**over):
+        cfg = SSLTrainer.get_default_config()
+        cfg.merge_from_file(str(Path(__file__).resolve().parent / "configs" / SSL_CFG))
+        cfg.merge_from_other_cfg({"batch_size": MR_SSL_IMAGES, "max_steps": MR_SSL_STEPS,
+                                  "warmup_steps": 1, **over})
+        return cfg
+
+    def build(cfg):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        trainer = SSLTrainer(cfg, rt, data, device="cuda:0")
+        torch.cuda.synchronize()
+        memory[f"fsdp{cfg.fsdp}"] = {"held": (torch.cuda.memory_allocated() - base) / 2**20}
+        return trainer, base
+
+    def peak(fsdp: int, base: int) -> None:
+        torch.cuda.synchronize()
+        memory[f"fsdp{fsdp}"]["peak"] = (torch.cuda.max_memory_allocated() - base) / 2**20
+
+    replicated, base = build(config(fsdp=0, max_steps=1))
+    replicated.run()
+    peak(0, base)
+    del replicated
+    cfg = config(fsdp=1, checkpoint_interval=MR_SSL_STEPS,
+                 checkpoint_dir=str(Path(work) / "ssl_ckpt"))
+    trainer, base = build(cfg)
+    sharded = sum(f for _, f in named_leaves(trainer.sharded))
+    times = []
+    step_fn = trainer.train_step
+
+    def timed_step(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = step_fn(*args)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        return metrics
+
+    trainer.train_step = timed_step
+    rt.traffic.clear()
+    _cuda.reset_launches()
+    metrics = trainer.run()
+    peak(1, base)
+    counts = _cuda.launches()
+    traffic = dict(rt.traffic)
+    whole = rt.materialize(trainer.student, trainer.sharded)
+    resumed = SSLTrainer(cfg, rt, data, device="cuda:0")
+    again = rt.materialize(resumed.student, resumed.sharded)
+    equal = all(np.array_equal(a, b) for (_, a), (_, b) in zip(named_leaves(whole),
+                                                                named_leaves(again)))
+    return {"metrics": metrics, "step_ms": times, "counts": counts, "traffic": traffic,
+            "sharded": (sharded, len(named_leaves(trainer.sharded))),
+            "start_step": resumed.start_step, "resumed_equal": equal, "memory": memory,
+            "checksum": float(sum(np.float64(np.sum(a)) for _, a in named_leaves(again)))}
+
+
+def mr_print_rank(r: int, label: str, res: dict) -> None:
+    traffic = ", ".join(f"{k} {v} B" for k, v in sorted(res["traffic"].items()))
+    print(f"  rank {r} {label}: {res['ms']:.2f} ms (host clock), launches "
+          + json.dumps(res["counts"]) + f"; collectives: {traffic or 'none'}", flush=True)
+
+
+def multi_rank_paths(card: str) -> dict:
+    """[multi rank] (docstring item 19); returns the ranks' summed launch
+    counts of the sharded predict and the two train steps as path "mr"."""
+    import numpy as np
+    import torch
+
+    from dfd_clip_tpu_torch.engine.optim import named_leaves
+    from dfd_clip_tpu_torch.engine.trainer import Trainer
+    from dfd_clip_tpu_torch.runtime import MeshRuntime, launch
+
+    work = mr_work()
+    det, params, x, m = mr_flagship()
+    xt, mt = torch.from_numpy(x).cuda(), torch.from_numpy(m).cuda()
+    want = det.predict(params, xt, mt)[0][0].float()
+
+    # one rank on NCCL: the one-rank path, bit for bit
+    launch.initialize("nccl", init_method=f"tcp://127.0.0.1:{mr_free_port()}", world_size=1,
+                      rank=0)
+    try:
+        rt = MeshRuntime(device="cuda:0", backend="nccl")
+        got = det.predict(params, xt, mt)[0][0].float()
+        rt.deactivate()
+    finally:
+        launch.shutdown()
+    if not torch.equal(got, want):
+        raise SystemExit("FAIL [multi rank] NCCL world size 1: the predict differs from the "
+                         f"one-process predict by {(got - want).abs().max().item():.3e}")
+    print(f"  NCCL, world size 1: the flagship predict (16 clips x 20 frames) bit-equal to "
+          f"the one-process predict, on {card}", flush=True)
+    p_want = torch.softmax(want, -1)[:, 1].cpu()
+    del det, params, xt, mt
+
+    # the one-process train steps on the same 12 clips, at each dropout
+    tcfg = Trainer.get_default_config()
+    tcfg.merge_from_other_cfg({"max_steps": TRAIN_STEPS, "learning_rate": 2.5e-3,
+                               "batch_size": TRAIN_CLIPS})
+    batch = train_batches(1)[0]
+    one_step = {}
+    for dropout in MR_DROPOUTS:
+        one = Trainer(tcfg, detector(dropout=dropout), {}, seed=MR_SEED)
+        one_step[dropout] = mr_train_step(one, batch)[:2]
+        names = [".".join(map(str, p)) for p, _ in named_leaves(one.trainable)]
+        del one
+        torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    logs = [work / f"rank{r}.log" for r in range(2)]
+    procs = []
+    for r, log in enumerate(logs):
+        with open(log, "w") as f:
+            procs.append(subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()), "--rank-job", str(r), "2",
+                 str(work)], stdout=f, stderr=subprocess.STDOUT))
+    try:
+        for p in procs:
+            p.wait(timeout=max(MR_TIMEOUT - (time.perf_counter() - t0), 1.0))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise SystemExit(f"FAIL [multi rank] rank {r} exited {p.returncode}:\n"
+                             + log.read_text()[-3000:])
+    res = [torch.load(work / f"rank{r}.pt", weights_only=False) for r in range(2)]
+    print(f"  two ranks on cuda:0 over Gloo: {time.perf_counter() - t0:.1f} s with their "
+          "start-up", flush=True)
+
+    # the seq-sharded predict: 10 frames a rank, its tokens' partials combined
+    counts = {}
+    for r, rr in enumerate(res):
+        pr = rr["predict"]
+        mr_print_rank(r, f"predict (data 1, seq 2), {pr['frames']} frames", pr)
+        check_counts("[multi rank] predict", pr["counts"], FLAGSHIP_COUNTS, 1)
+        if pr["plain"]:
+            raise SystemExit(f"FAIL [multi rank] predict ran plain versions: {pr['plain']}")
+        if pr["traffic"].get("all_reduce_max seq", 0) == 0:
+            raise SystemExit("FAIL [multi rank] predict: no combine over the seq ranks")
+        counts = {k: counts.get(k, 0) + pr["counts"].get(k, 0)
+                  for k in set(counts) | set(pr["counts"])}
+    if not torch.equal(res[0]["predict"]["logits"], res[1]["predict"]["logits"]):
+        raise SystemExit("FAIL [multi rank] predict: the two seq ranks' logits differ")
+    # at (1, 2) the two ranks share their rows: the metric gather keeps seq rank 0's
+    want_coll = {"broadcast": [1.0] * 4, "ragged": [[0, 0], [1, 1], [1, 1]], "name": "rank 0",
+                 "metrics": [0, 1]}
+    for r, rr in enumerate(res):
+        if rr["collectives"] != want_coll:
+            raise SystemExit(f"FAIL [multi rank] rank {r}'s collectives: {rr['collectives']}")
+    print("  broadcast_ (a card tensor), gather_ragged (1 and 2 host rows), broadcast_str, "
+          "gather_for_metrics: as expected on both ranks", flush=True)
+    p_got = torch.softmax(res[0]["predict"]["logits"], -1)[:, 1]
+    dp_max = (p_got - p_want).abs().max().item()
+    print(f"  seq-sharded predict: |dP(fake)| <= {dp_max:.3e} against the one-process kernel "
+          f"predict (tol {TOL_PFAKE:g})", flush=True)
+    if not dp_max <= TOL_PFAKE:
+        raise SystemExit(f"FAIL [multi rank] predict: |dP(fake)| {dp_max:.3e} > {TOL_PFAKE:g}")
+
+    # the train steps against the one-process step
+    for dp, sp in ((2, 1), (1, 2)):
+        for dropout in MR_DROPOUTS:
+            key = f"train_{dp}{sp}_{dropout}"
+            loss_one, grads_one = one_step[dropout]
+            for r, rr in enumerate(res):
+                tr = rr[key]
+                mr_print_rank(r, f"train step (data {dp}, seq {sp}), dropout {dropout}, "
+                              f"{tr['frames']} frames", tr)
+                check_counts(f"[multi rank] train ({dp}, {sp})", tr["counts"], TRAIN_COUNTS, 1)
+                if tr["plain"]:
+                    raise SystemExit(f"FAIL [multi rank] train ran plain versions: "
+                                     f"{tr['plain']}")
+                counts = {k: counts.get(k, 0) + tr["counts"].get(k, 0)
+                          for k in set(counts) | set(tr["counts"])}
+            if res[0][key]["grad_sums"] != res[1][key]["grad_sums"]:
+                raise SystemExit(f"FAIL [multi rank] train ({dp}, {sp}): the ranks' gradients "
+                                 "differ")
+            losses = np.concatenate([rr[key]["losses"] for rr in res[::sp]])
+            rel = abs(losses.mean() - loss_one.mean()) / abs(loss_one.mean())
+            clip_rel = np.abs(losses - loss_one) / np.abs(loss_one)
+            grads = torch.load(work / f"grads_{dp}{sp}_{dropout}.pt")
+            worst = max(((g - w).abs().max().item() / max(w.abs().max().item(), 1e-30), n)
+                        for g, w, n in zip(grads, grads_one, names))
+            print(f"  train ({dp}, {sp}), dropout {dropout}, vs one process: loss "
+                  f"{losses.mean():.6f} vs {loss_one.mean():.6f}, rel {rel:.3e} (tol "
+                  f"{TOL_DECODER:g}); each clip's loss within {clip_rel.max():.3e} relative, "
+                  f"{int((losses == loss_one).sum())} of {len(losses)} bit-equal; "
+                  f"{len(grads)} gradient leaves, worst {worst[1]} {worst[0]:.3e} of its max "
+                  + (f"(tol {TOL_ENCODER:g})" if not dropout else "(recorded)"), flush=True)
+            if not rel <= TOL_DECODER:
+                raise SystemExit(f"FAIL [multi rank] train ({dp}, {sp}), dropout {dropout}: "
+                                 "the loss beyond the train-step limit")
+            if not dropout and not worst[0] <= TOL_ENCODER:
+                raise SystemExit(f"FAIL [multi rank] train ({dp}, {sp}): a gradient leaf "
+                                 "beyond the train-step limit")
+            if dropout and not clip_rel.max() <= MR_CLIP_LOSS_TOL:
+                raise SystemExit(f"FAIL [multi rank] train ({dp}, {sp}), dropout {dropout}: "
+                                 f"a clip's loss {clip_rel.max():.3e} from the one-process "
+                                 "step's: its dropout masks are not the global batch's")
+            del grads
+
+    # SSL, fsdp 1
+    for r, rr in enumerate(res):
+        ss = rr["ssl"]
+        traffic = ", ".join(f"{k} {v} B" for k, v in sorted(ss["traffic"].items()))
+        print(f"  rank {r} ssl (fsdp 1, {MR_SSL_IMAGES} images, {ss['sharded'][0]} of "
+              f"{ss['sharded'][1]} leaves sharded): steps "
+              + ", ".join(f"{t:.1f}" for t in ss["step_ms"]) + " ms (host clock), losses "
+              + json.dumps({k: round(v, 6) for k, v in ss["metrics"].items()})
+              + f", launches {json.dumps(ss['counts'])}; collectives: {traffic}; resumed at "
+              f"step {ss['start_step']}, bit-equal {ss['resumed_equal']}, checksum "
+              f"{ss['checksum']!r}", flush=True)
+        mem = ss["memory"]
+        print(f"  rank {r} ssl device memory (MiB; held after set-up, peak over its "
+              f"steps): fsdp 0 {mem['fsdp0']['held']!r}, "
+              f"{mem['fsdp0']['peak']!r}; fsdp 1 {mem['fsdp1']['held']!r}, "
+              f"{mem['fsdp1']['peak']!r}; on {card}", flush=True)
+        if ss["start_step"] != MR_SSL_STEPS or not ss["resumed_equal"] \
+                or not np.isfinite(ss["metrics"]["total"]) or not 0 < ss["sharded"][0]:
+            raise SystemExit(f"FAIL [multi rank] ssl on rank {r}")
+        if not mem["fsdp1"]["held"] < 0.6 * mem["fsdp0"]["held"]:
+            raise SystemExit(f"FAIL [multi rank] ssl on rank {r}: fsdp 1 holds "
+                             f"{mem['fsdp1']['held']:.1f} MiB after set-up, fsdp 0 "
+                             f"{mem['fsdp0']['held']:.1f} MiB: its leaves are not slices")
+    if res[0]["ssl"]["checksum"] != res[1]["ssl"]["checksum"]:
+        raise SystemExit("FAIL [multi rank] ssl: the ranks' checksums differ")
+    return counts
+
+
 def main() -> int:
     import argparse
 
@@ -5691,6 +6112,8 @@ def main() -> int:
                     help="parameter seeds each 257-token path is held on (default "
                          f"{PFAKE_SEEDS}; ViT-L/14@336px {L336_SEEDS} unless another N is "
                          "given); more widen the P(fake) noise readings")
+    ap.add_argument("--rank-job", nargs=3, metavar=("RANK", "WORLD", "WORKDIR"),
+                    help=argparse.SUPPRESS)   # one rank of [multi rank], spawned by it
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5703,6 +6126,9 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.rank_job:
+        rank, world, work = args.rank_job
+        return mr_rank(int(rank), int(world), work)
 
     card = card_line()
     t_start = time.perf_counter()
@@ -5859,6 +6285,13 @@ def main() -> int:
     check_ssl_kernels(rows)
     elapsed()
     counts.update(ssl_paths(card))
+    elapsed()
+    print("[multi rank] runtime.MeshRuntime: the flagship predict on one NCCL rank; two ranks "
+          "on cuda:0 over Gloo: the seq-sharded predict (data 1, seq 2), a train step at "
+          f"(2, 1) and (1, 2), batch {TRAIN_CLIPS}, dropout 0 and 0.5; SSL fsdp 0 and 1 on "
+          "ViT-B/14; every time on "
+          f"{card}", flush=True)
+    counts["mr"] = multi_rank_paths(card)
     elapsed()
 
     if DEFERRED:

@@ -34,7 +34,6 @@ from typing import Any, Dict, List
 
 import numpy as np
 
-from ..runtime import OneProcess
 from .augment import ClipAugmenter, ssl_fake_pipeline
 from .loader import default_collate
 from .video import backend_for_path
@@ -44,8 +43,18 @@ logger = logging.getLogger(__name__)
 CACHE_DIR = "./.cache/dfd-clip/videos"
 
 
+class _MainProcessGate:
+    """What a dataset reads of a runtime (the main-process check and its
+    print) when it is given none: it places nothing, so it needs no device."""
+    is_main_process = True
+
+    @staticmethod
+    def print(*args, **kwargs):
+        print(*args, **kwargs)
+
+
 def _runtime_or_default(runtime):
-    return runtime if runtime is not None else OneProcess()
+    return runtime if runtime is not None else _MainProcessGate()
 
 
 def _probe_video_table(root: str, subdir: str, vid_ext: str, cache_name: str,

@@ -3,8 +3,10 @@
 A map-style dataset + collate, per-epoch seeded shuffling, and a thread-pool
 prefetcher (cv2 releases the GIL during decode, so threads scale). With
 ``num_shards`` > 1 each process owns a rank-strided shard of the index
-stream. The index stream, shuffle included, equals the JAX package's for the
-same seed, epoch and shard.
+stream. With ``rows`` (a slice) every process draws the same stream of
+global batches and decodes only those rows of each (a data-parallel rank's
+share). The index stream, shuffle included, equals the JAX package's for
+the same seed, epoch and shard.
 """
 
 from __future__ import annotations
@@ -47,6 +49,7 @@ class DataLoader:
         seed: int = 0,
         num_shards: int = 1,
         shard_index: int = 0,
+        rows: Optional[slice] = None,
     ):
         self.dataset = dataset
         self.batch_size = batch_size
@@ -58,6 +61,7 @@ class DataLoader:
         self.epoch = 0
         self.num_shards = num_shards
         self.shard_index = shard_index
+        self.rows = rows
         self._skip_batches = 0
 
     def set_position(self, epoch: int, batches_done: int) -> None:
@@ -101,6 +105,8 @@ class DataLoader:
         if self._skip_batches:
             batches = batches[self._skip_batches:]
             self._skip_batches = 0
+        if self.rows is not None:
+            batches = [b[self.rows] for b in batches]
         if not batches:
             return iter(())
 

@@ -12,7 +12,8 @@ reference's XLA products do.
 
 ``prefetch_iter`` (the counterpart of dfd_clip_tpu/utils/device.py's) runs
 the host-to-card copies of an input stream one item ahead on a background
-thread.
+thread. ``sync`` and ``timed`` (its ``sync`` and ``timed``) wait for the
+card and time a function by CUDA events.
 """
 
 from __future__ import annotations
@@ -31,6 +32,51 @@ def resolve_device(device="cuda") -> torch.device:
     if dev.type == "cuda":
         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     return dev
+
+
+def same_device(a, b) -> bool:
+    """Whether two devices name one place: "cuda" without an index is the
+    current card."""
+    def canonical(d):
+        d = torch.device(d)
+        return torch.device("cuda", torch.cuda.current_device()) \
+            if d.type == "cuda" and d.index is None else d
+
+    return canonical(a) == canonical(b)
+
+
+def _cuda_devices(tree) -> set:
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, (list, tuple)):
+        return set().union(*(_cuda_devices(t) for t in tree)) if tree else set()
+    return {tree.device} if torch.is_tensor(tree) and tree.is_cuda else set()
+
+
+def sync(tree):
+    """Wait until every card that holds a tensor of ``tree`` has finished its
+    queued work; returns the tree."""
+    for dev in _cuda_devices(tree):
+        torch.cuda.synchronize(dev)
+    return tree
+
+
+def timed(fn, *args, iters: int = 10):
+    """(ms a call, last output) of ``fn(*args)`` on the card: one warm-up
+    call, then ``iters`` calls between two CUDA events on the current
+    stream. Raises without a card: a host clock around asynchronous
+    launches measures their issue, not their work."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("timed measures work on the card, and there is none")
+    out = fn(*args)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        out = fn(*args)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters, out
 
 
 def prefetch_iter(iterable, place_fn, lookahead: int = 1):

@@ -8,7 +8,11 @@ model's prepare_params places them, over the frozen ones), one
 ragged tail batch is padded to the full batch by repeating its last clip,
 so every batch keeps one shape, and ``batch_valid`` marks the padding rows,
 which update_metrics (engine/callbacks.py) drops. The callback events are
-JAX's: on_evaluation_start / end, on_batch_start / end.
+JAX's: on_evaluation_start / end, on_batch_start / end. On a multi-rank
+runtime each rank predicts its rows of the padded global batch (and its
+seq share of the frames where the trainer keeps only those), and its
+``batch_labels`` and ``batch_valid`` are those same rows, so that the
+metric gather pairs every logit with its own label.
 
 ``CompInvEvaluator`` (counterpart of JAX's) runs a CompInvTrainer's
 parameters over its loaders round robin, one batch of each loader a
@@ -74,7 +78,9 @@ class Evaluator(CallbackMixin):
                 if pad:   # the ragged tail to the full batch: one batch shape
                     x, y, m = (np.concatenate([a, np.repeat(a[-1:], pad, axis=0)])
                                for a in (x, y, m))
-                arrays = self.runtime.shard_batch({"x": x, "label": y, "m": m})
+                cut = ("x", "m") if trainer.frame_slice(x.shape[1]) is not None else ()
+                arrays = self.runtime.shard_batch({"x": x, "label": y, "m": m}, frames=cut)
+                rows = self.runtime.rows(full)
                 labels = [arrays["label"] if i == task else None
                           for i in range(self.total_tasks)]
                 with torch.no_grad():
@@ -83,8 +89,8 @@ class Evaluator(CallbackMixin):
                                                    single_task=task)
                 self.batch_losses = {name: to_host(losses[task])}
                 self.batch_logits = {name: to_host(logits[task])}
-                self.batch_labels = {name: y}
-                self.batch_valid = {name: np.arange(n + pad) < n}
+                self.batch_labels = {name: y[rows]}
+                self.batch_valid = {name: (np.arange(full) < n)[rows]}
                 self.batch_num += 1
                 valid = self.batch_valid[name]
                 self.batch_loss_info = (f"{np.mean(self.batch_losses[name][valid]):.6f}({name}) "

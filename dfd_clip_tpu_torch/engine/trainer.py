@@ -52,6 +52,19 @@ in the JAX package's order, so they equal JAX's from one seed; the
 auxiliary losses the Detector returns join the step's loss and
 ``batch_losses``.
 
+On a multi-rank runtime (runtime.MeshRuntime) every rank draws the same
+global index stream and decodes only its data index's rows of each batch
+(the loader's ``rows``); where the model takes frame shards
+(``Detector.takes_frame_shards``) and the seq width divides the clip, a
+rank also keeps only its seq share of the frames (trainer.py:283-298).
+After the backward every trainable gradient is all-reduced (one packed
+SUM over the world, with a flag for a non-finite loss on any rank) and
+divided by the world size before the step, so every rank takes the same
+step, on the global batch's gradient. Checkpoints are written by rank 0
+between barriers; each rank's host RNG is ``seed + process_index``, and
+on resume rank 0 restores its saved state while the others re-derive
+theirs from (seed + rank, step).
+
 ``CompInvTrainer`` (counterpart of JAX's CompInvTrainer) pretrains the
 compression-invariant adapter of a ``CompInvEncoder``: AdamW over the
 adapter (the encoder frozen) on the OneCycle schedule, each task batch of
@@ -73,6 +86,7 @@ import torch
 from . import optim
 from .callbacks import CallbackMixin
 from ..models import weights as weights_lib
+from ..ops import spmd
 from ..runtime import OneProcess
 
 
@@ -141,10 +155,10 @@ class _StepLoop(CallbackMixin):
             model, loaders = args
             runtime = OneProcess(device if device is not None else "cuda")
             datasets = ()
-        from ..device import resolve_device
+        from ..device import resolve_device, same_device
 
         self.device = resolve_device(runtime.device)
-        if model.device != self.device:
+        if not same_device(model.device, self.device):
             raise ValueError(f"the model runs on {model.device}, the trainer on {self.device}")
         self._init_callbacks()
         self.config = config
@@ -170,16 +184,49 @@ class _StepLoop(CallbackMixin):
         if loaders is None:
             from ..data.loader import DataLoader
 
-            # batch_size is per data-parallel replica; the loader emits the
-            # global batch
+            # batch_size is per data-parallel replica; the loader draws the
+            # global batch and decodes this rank's rows of it
+            full = config.batch_size * runtime.data_parallel
+            rows = runtime.rows(full) if runtime.num_processes > 1 else None
             loaders = {f"{ds.category}/{ds.name}": DataLoader(
-                ds, batch_size=config.batch_size * runtime.data_parallel, shuffle=True,
-                num_workers=config.num_workers, collate_fn=ds.collate_fn, drop_last=True,
-                seed=seed) for ds in datasets}
+                ds, batch_size=full, shuffle=True, num_workers=config.num_workers,
+                collate_fn=ds.collate_fn, drop_last=True, seed=seed, rows=rows)
+                for ds in datasets}
         self.loaders = dict(loaders)
         self.batch_losses: Dict[str, np.ndarray] = {}   # name -> the last step's losses
         self.batch_logits: Dict[str, np.ndarray] = {}
         self.batch_labels: Dict[str, np.ndarray] = {}
+
+    def frame_slice(self, t: int) -> Optional[slice]:
+        """This rank's frames of a clip of ``t``, when it keeps only those: on
+        a seq width above 1 that divides ``t`` (``spmd.encoder_shapes_ok``),
+        for a model whose clips may be split (``takes_frame_shards``)."""
+        rt = self.runtime
+        takes = getattr(self.model, "takes_frame_shards", lambda: False)()
+        if rt.num_processes == 1 or rt.seq_parallel == 1 or not takes \
+                or not spmd.encoder_shapes_ok(rt.data_parallel, t, rt) \
+                or t != self.model.num_frames:
+            return None
+        return rt.frames(t)
+
+    def _sync_grads(self, finite: bool) -> bool:
+        """Every trainable gradient as its mean over the world (one SUM of a
+        packed buffer, with a non-finite flag at its end); returns whether
+        every rank's losses were finite. One rank: nothing to do."""
+        rt = self.runtime
+        if rt.num_processes == 1:
+            return finite
+        leaves = [t for t in _leaves(self.trainable) if t.grad is not None]
+        flag = torch.tensor([0.0 if finite else 1.0], device=self.device)
+        packed = torch.cat([t.grad.reshape(-1) for t in leaves] + [flag])
+        rt.all_reduce_(packed, "sum")
+        packed[:-1] /= rt.num_processes
+        offset = 0
+        for t in leaves:
+            n = t.grad.numel()
+            t.grad.copy_(packed[offset:offset + n].view_as(t.grad))
+            offset += n
+        return bool(packed[-1].item() == 0)
 
     def current_lr(self) -> float:
         return float(self.schedule(min(self.steps,
@@ -316,6 +363,7 @@ class Trainer(_StepLoop):
         if config.lr_scheduler != "one_cycle":
             raise NotImplementedError(config.lr_scheduler)
         self._setup(config, args, tracker, seed, params, device)
+        self.seed = seed
         self.mode = config.mode
         self.total_tasks = len(self.model.config.out_dim)
         self.host_rng = np.random.default_rng(seed + self.runtime.process_index)
@@ -357,17 +405,24 @@ class Trainer(_StepLoop):
         self.gen.set_state(torch.from_numpy(np.array(arrays["dropout_gen"])))
         self.start_step = self.steps = int(aux["step"])
         self.teaching = bool(aux.get("teaching", False))
-        self.host_rng = np.random.default_rng()
-        self.host_rng.bit_generator.state = aux["host_rng_state"]
+        rt = self.runtime
+        if rt.is_main_process:
+            self.host_rng = np.random.default_rng()
+            self.host_rng.bit_generator.state = aux["host_rng_state"]
+        else:   # only rank 0's stream is saved: the others re-derive theirs
+            self.host_rng = np.random.default_rng(
+                (self.seed + rt.process_index) * 1_000_003 + self.start_step)
 
     def _maybe_checkpoint(self) -> None:
         interval = self.config.get("checkpoint_interval", 0)
         if not self.checkpointer or not interval or self.steps % interval:
             return
+        self.runtime.barrier("checkpoint start")
         if self.runtime.is_main_process:
             self.checkpointer.save(self.steps, self._checkpoint_arrays(),
                                    {"teaching": self.teaching,
                                     "host_rng_state": self.host_rng.bit_generator.state})
+        self.runtime.barrier("checkpoint end")
 
     # -- helpers ----------------------------------------------------------------
     def snapshot_model_state(self, include_frozen: bool = False):
@@ -380,6 +435,9 @@ class Trainer(_StepLoop):
         """A collated six-field batch -> tensors on the device and its task."""
         frames, label, mask, comps, speed, index = batch
         dev = self.device
+        fs = self.frame_slice(np.asarray(frames).shape[1])
+        if fs is not None:   # this rank's seq share of the frames
+            frames, mask = np.asarray(frames)[:, fs], np.asarray(mask)[:, fs]
         return {
             "x": torch.as_tensor(np.asarray(frames)).to(dev),
             "label": torch.as_tensor(np.asarray(label)).to(dev),
@@ -458,9 +516,10 @@ class Trainer(_StepLoop):
         self.batch_loss_info = ",".join(f"{np.mean(v):.6f}({n}) "
                                         for n, v in self.batch_losses.items())
         # before the optimizer: an abort leaves the last good parameters
-        for name, losses in self.batch_losses.items():
-            if not np.isfinite(losses).all():
-                raise FloatingPointError(f"NaN/Inf loss for '{name}' at step {self.steps + 1}")
+        bad = [n for n, losses in self.batch_losses.items() if not np.isfinite(losses).all()]
+        if not self._sync_grads(not bad):
+            where = f"'{bad[0]}'" if bad else "another rank's batch"
+            raise FloatingPointError(f"NaN/Inf loss for {where} at step {self.steps + 1}")
         lr = self.current_lr()
         for group in self.optimizer.param_groups:
             group["lr"] = lr
@@ -532,10 +591,11 @@ class CompInvTrainer(_StepLoop):
             (recon + match).backward()
             self.batch_losses["recon"] = to_host(recon)
             self.batch_losses["match"] = to_host(match)
-            for k, v in self.batch_losses.items():
-                if not np.isfinite(v).all():
-                    raise FloatingPointError(f"NaN/Inf loss '{k}' of '{name}' at step "
-                                             f"{self.steps + 1}")
+            bad = [k for k, v in self.batch_losses.items() if not np.isfinite(v).all()]
+            if not self._sync_grads(not bad):
+                where = f"'{bad[0]}'" if bad else "another rank's batch"
+                raise FloatingPointError(f"NaN/Inf loss {where} of '{name}' at step "
+                                         f"{self.steps + 1}")
             lr = float(self.schedule(self.updates))
             for group in self.optimizer.param_groups:
                 group["lr"] = lr
@@ -567,5 +627,7 @@ class CompInvTrainer(_StepLoop):
                     _, kv_raw = self.model.predict(params, x, train=False)
                 yield kv_raw
 
-        adapter = adapter_lib.calibrate_bn_stats(self.trainable["adapter"], raw_kv_batches(), cfg)
+        reduce_sum = self.runtime.all_reduce_ if self.runtime.num_processes > 1 else None
+        adapter = adapter_lib.calibrate_bn_stats(self.trainable["adapter"], raw_kv_batches(), cfg,
+                                                 reduce_sum)
         self.trainable = {**self.trainable, "adapter": adapter}

@@ -15,10 +15,13 @@ repeating its last clip) and averages the clips' softmax per video
 ``report_<ts>_<mode>_<modality>.json`` (accuracy, roc_auc per dataset) and
 ``stats_*.pickle`` (labels and P(fake)) into the run directory, after adding
 the reference's [0, 1] sentinel batch to both metrics (reference
-inference.py:159-160). One process: ``runtime.OneProcess`` stands in for
-the JAX package's MeshRuntime. The run goes on the card unless ``--device
-cpu`` is given; without a card it raises. Nothing is sent anywhere when it
-ends.
+inference.py:159-160). The runtime is ``runtime.MeshRuntime``: launched by
+torchrun or SLURM, each rank (``cuda:<LOCAL_RANK>``, NCCL; Gloo with
+``--device cpu``) scores a rank-strided shard of each dataset's videos and
+the per-video probabilities are gathered (``gather_ragged``) before rank 0
+computes and writes the report; alone it is one process. The run goes on
+the card unless ``--device cpu`` is given; without a card it raises.
+Nothing is sent anywhere when it ends.
 """
 
 from __future__ import annotations
@@ -41,7 +44,7 @@ from .data.loader import DataLoader
 from .device import prefetch_iter, resolve_device
 from .models import weights as weights_lib
 from .models.detector import Detector
-from .runtime import OneProcess
+from .runtime import MeshRuntime, launch
 from .utils import metrics as metrics_lib
 
 REGISTRY = {"FFPP": FFPP, "CDF": CDF, "DFDC": DFDC}
@@ -145,7 +148,7 @@ def get_config(cfg_file: str, args) -> CN:
 
 
 def main(args):
-    device = resolve_device(args.device)
+    device = resolve_device(launch.local_device(args.device))
     root = args.artifacts_dir
     cfg_file = path.join(root, f"{args.cfg_name}.yaml")
     if not path.isfile(cfg_file):
@@ -155,7 +158,9 @@ def main(args):
     if not path.isfile(path.join(root, f"{args.weight_mode}_weights.pt")):
         raise SystemExit(f"no {args.weight_mode}_weights.pt in {root} (--weight_mode best|last)")
     config = get_config(cfg_file, args)
-    runtime = OneProcess()
+    backend = "nccl" if device.type == "cuda" else "gloo"
+    launch.initialize(backend)
+    runtime = MeshRuntime(device=device, backend=backend)
 
     report, stats = {}, {}
     model = Detector(config.model, config.data.num_frames, device=device)

@@ -21,8 +21,13 @@ package's and the JAX package's inference.main both read, with
 with ``trainer.checkpoint_interval`` and ``profile/`` with
 ``system.profile_steps``. ``main`` returns the run directory.
 
-One process on one device: ``runtime.OneProcess`` stands in for the JAX
-package's MeshRuntime. The run goes on the card unless ``--device cpu`` is
+The runtime is ``runtime.MeshRuntime`` over ``torch.distributed``: launched
+by torchrun (``torchrun --nproc_per_node N -m dfd_clip_tpu_torch.main
+--cfg ...``) or under SLURM it runs one rank a card, ``cuda:<LOCAL_RANK>``,
+on NCCL (Gloo with ``--device cpu``), laid out (data, seq) by
+``system.seq_parallel``; launched alone it is one process, as before. The
+run directory's name comes from rank 0 (``broadcast_str``), which alone
+writes setting.yaml. The run goes on the card unless ``--device cpu`` is
 given; without a card it raises. The completion notice (utils/notify.py)
 goes nowhere: its credentials are arguments, and the port reads none from
 the environment.
@@ -51,7 +56,7 @@ from .inference import load_pretrained_encoder
 from .models import weights as weights_lib
 from .models.adapter import CompInvEncoder
 from .models.detector import Detector
-from .runtime import OneProcess
+from .runtime import MeshRuntime, launch
 from .utils.notify import send_to_telegram
 from .utils.tracking import Tracker
 
@@ -226,10 +231,15 @@ def resolve_compute_dtype(mixed_precision: str) -> torch.dtype:
 
 
 def init_runtime(config, device="cuda"):
-    """The runtime on ``device``, the run directory (made, setting.yaml
-    written), logging into it and the run's Tracker."""
+    """The runtime on ``device`` (the launcher's process group started
+    first, when there is one: NCCL for cards, Gloo for the CPU), the run
+    directory (made, setting.yaml written), logging into it and the run's
+    Tracker."""
     global PROJECT_DIR
-    runtime = OneProcess(device)
+    backend = "nccl" if torch.device(device).type == "cuda" else "gloo"
+    launch.initialize(backend)
+    runtime = MeshRuntime(seq_parallel=config.system.seq_parallel, device=device,
+                          backend=backend)
 
     project_name = config.tracking.default_project_prefix
     tracking_root = os.path.join(REPO_ROOT, config.tracking.directory)
@@ -268,7 +278,7 @@ def category_index_map(train_cfgs) -> dict:
 
 def main(params):
     global PROJECT_DIR
-    device = resolve_device(getattr(params, "device", "cuda"))
+    device = resolve_device(launch.local_device(getattr(params, "device", "cuda")))
     backend = getattr(params, "video_backend", "auto")
     config = get_config(params)
     runtime, tracker = init_runtime(config, device)

@@ -40,6 +40,7 @@ import torch
 import torch.nn.functional as F
 
 from . import layers
+from ..ops import spmd
 
 Params = Dict[str, Any]
 
@@ -141,9 +142,10 @@ def _batch_norm(p: Params, y: torch.Tensor, train: bool, eps: float = 1e-5) -> t
 def _apply_branch(p: Params, x: torch.Tensor, cfg: AdapterConfig,
                   gen: Optional[torch.Generator], train: bool) -> torch.Tensor:
     st = cfg.struct_type
+    rows = spmd.data_rows(x.shape[0]) if train else None
 
     def drop(v, rate):
-        return layers.dropout(v, rate, gen, train)
+        return layers.dropout(v, rate, gen, train, rows)
 
     if st == "768-x-768":
         y = layers.layer_norm(p["ln"], _gelu(layers.linear(p["fc1"], x)))
@@ -183,7 +185,8 @@ def apply_adapter(params: Params, kvs: Dict[str, Any], cfg: AdapterConfig, *,
     """Adapt {"k", "v"}: (Lsel, B, T, P, H, D) stacked, or lists of per-layer
     (B, T, P, H, D), layer by layer with the residual add -> {"k", "v"}:
     lists of per-layer (B, T, P, H, D) tensors. Dropout (``train``) draws
-    from ``gen``."""
+    from ``gen``, for the global batch on a data-parallel layout
+    (``spmd.data_rows``)."""
     out = {}
     for subject in ("k", "v"):
         adapted = []
@@ -196,12 +199,15 @@ def apply_adapter(params: Params, kvs: Dict[str, Any], cfg: AdapterConfig, *,
     return out
 
 
-def calibrate_bn_stats(params: Params, kv_batches, cfg: AdapterConfig) -> Params:
+def calibrate_bn_stats(params: Params, kv_batches, cfg: AdapterConfig,
+                       reduce_sum=None) -> Params:
     """Fill the "768-bn" running statistics from data in one pass: the
     population mean and variance (f64 sums) of each branch's post-fc1
     activations per frame channel, over ``kv_batches`` (an iterable of raw
     encoder exports {"k", "v"}: (Lsel, B, T, P, H, D), tensors or arrays).
-    Other structs come back unchanged."""
+    ``reduce_sum`` (a multi-rank run's in-place SUM over the ranks) adds
+    every rank's counts and sums before the statistics are taken, so that
+    they are the population's. Other structs come back unchanged."""
     if cfg.struct_type != "768-bn":
         return params
     stats = None   # [subject][layer] -> [count, sum, sum of squares] per frame channel
@@ -221,6 +227,13 @@ def calibrate_bn_stats(params: Params, kv_batches, cfg: AdapterConfig) -> Params
                 st[2] = st[2] + (y * y).sum(dim=(0, 2, 3))
     if stats is None:
         raise ValueError("calibrate_bn_stats needs at least one batch")
+    if reduce_sum is not None:
+        for subject in ("k", "v"):
+            for st in stats[subject]:
+                packed = reduce_sum(torch.cat([torch.tensor([float(st[0])], dtype=torch.float64),
+                                               st[1], st[2]]))
+                c = (packed.numel() - 1) // 2
+                st[0], st[1], st[2] = packed[0], packed[1:1 + c], packed[1 + c:]
     blocks = []
     for i, blk in enumerate(params["blocks"]):
         nb = dict(blk)

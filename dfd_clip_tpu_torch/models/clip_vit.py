@@ -208,13 +208,18 @@ def _layer_scale(bp: Params, key: str, y: torch.Tensor) -> torch.Tensor:
     return bp[key].to(y.dtype) * y if key in bp else y
 
 
-def quantize_kv_heads(f: torch.Tensor) -> tuple:
+def quantize_kv_heads(f: torch.Tensor, reduce_max=None) -> tuple:
     """(Lsel, N, T, H, D) K or V -> (int8 values, (Lsel, H) f32 scales): a
     layer's scale of head h is max |f| over its frames, tokens and lanes +
     1e-8, and q = clip(round(f / s * 127), -127, 127) (clip_vit.py:272-280);
-    zero pad rows quantise to 0."""
+    zero pad rows quantise to 0. ``reduce_max`` (in place, on the (Lsel, H)
+    maxima) takes them over the other data ranks' frames too, so that the
+    scale spans the global batch as JAX's does."""
     f32 = f.float()
-    scale = f32.abs().amax(dim=(1, 2, 4)) + 1e-8
+    amax = f32.abs().amax(dim=(1, 2, 4))
+    if reduce_max is not None:
+        reduce_max(amax)
+    scale = amax + 1e-8
     q = torch.round(f32 / scale[:, None, None, :, None] * 127.0)
     return torch.clamp(q, -127, 127).to(torch.int8), scale
 
@@ -227,7 +232,7 @@ def clip_vision_kv(
     compute_dtype: torch.dtype = torch.bfloat16,
     keep_layers: Optional[tuple] = None, kv_int8: bool = False, drop_cls: bool = False,
     compute_int8: bool = False, kv_int8_rows: bool = False, pad_tokens: bool = False,
-    block: str = "auto", tower: bool = False, int8_attn: str = "0",
+    block: str = "auto", tower: bool = False, int8_attn: str = "0", kv_scale_reduce=None,
 ) -> Dict[str, torch.Tensor]:
     """Run the frozen tower, exporting the kept layers' head-split K and V.
 
@@ -241,7 +246,7 @@ def clip_vision_kv(
     DFD_MEGAKERNEL and DFD_INT8_ATTN do in the JAX package (module note).
     ``kv_int8``: K/V int8 with per-(layer, head) scales, {"k_scale",
     "v_scale"}: (Lsel, H) f32, dequant q * s / 127 (quantize_kv_heads; not
-    on the tower, as in JAX)."""
+    on the tower, as in JAX), its maxima reduced by ``kv_scale_reduce``."""
     if kv_int8 and kv_int8_rows:
         raise ValueError("pick one K/V quantisation: kv_int8 or kv_int8_rows")
     if block not in BLOCK_FORMS:
@@ -313,7 +318,8 @@ def clip_vision_kv(
     result = {"k": kacc.view(shape), "v": vacc.view(shape)}
     if kv_int8:
         (result["k"], result["k_scale"]), (result["v"], result["v_scale"]) = (
-            quantize_kv_heads(result["k"]), quantize_kv_heads(result["v"]))
+            quantize_kv_heads(result["k"], kv_scale_reduce),
+            quantize_kv_heads(result["v"], kv_scale_reduce))
     if kv_int8_rows:
         result["k_scale"] = torch.stack([scales[i][0] for i in keep])
         result["v_scale"] = torch.stack([scales[i][1] for i in keep])

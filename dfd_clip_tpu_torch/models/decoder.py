@@ -22,6 +22,15 @@ composition of the block interstitial; ``aug_query`` alone keeps the fused
 attention kernel, ``attn_mode`` runs the attention's torch composition
 (ops/decoder_attention.py) in inference and training.
 
+On a multi-rank layout whose ranks hold a seq share of each clip's frames
+(``seq_layout``, ops/spmd.py) each block's attention is the token-sharded
+one: the rank's partials combined exactly over its seq row in inference,
+the sharded trainable Function in training, the temporal embedding handed
+over whole (the row's T x P tokens). Everything after the attention sees
+the combined output, equal on every rank of the row. Dropout draws its
+masks for the global batch and keeps the rank's rows (``spmd.data_rows``),
+so the ranks of a data column draw from one stream as one process does.
+
 K/V come as the stacked export (Lsel, B, T, P, H, D), whose slot i block i
 reads in place (``layer=i``), or, after an adapter, as lists of per-layer
 (B, T, P, H, D) tensors, each block reading its own (``layer`` None): with
@@ -40,7 +49,8 @@ from . import layers
 from ..ops.decoder_attention import dual_activation_attention
 # the module, not its function: ops.decoder_stack imports models.layers, so a
 # process that imports it first meets this module half-built
-from ..ops import decoder_stack
+from ..ops import decoder_stack, spmd
+from ..ops.decoder_attention_vjp import spmd_decoder_attention_trainable
 from ..ops.fused_decoder_attention import fused_decoder_attention
 
 Params = Dict[str, Any]
@@ -134,13 +144,15 @@ def token_mask(m: torch.Tensor, patches: int, patch_valid: Optional[int]) -> tor
 
 def apply_decoder(params: Params, kvs: Dict[str, torch.Tensor], m: torch.Tensor,
                   cfg: DecoderConfig, *, train: bool = False,
-                  gen: Optional[torch.Generator] = None, patch_valid: Optional[int] = None
-                  ) -> Tuple[List[torch.Tensor], torch.Tensor]:
+                  gen: Optional[torch.Generator] = None, patch_valid: Optional[int] = None,
+                  seq_layout=None) -> Tuple[List[torch.Tensor], torch.Tensor]:
     """Decode K/V {"k", "v"}: (Lsel, B, T, P, H, D), or lists of Lsel
     per-layer (B, T, P, H, D) tensors, with the (B, T) bool frame mask into
     (task logits [(B, out_dim)], video feature). ``train`` runs the
     differentiable composition, with dropout drawn from ``gen``. int8 K/V
-    come stacked, with {"k_scale", "v_scale"}: (Lsel, B, T, P, 1) f32."""
+    come stacked, with {"k_scale", "v_scale"}: (Lsel, B, T, P, 1) f32.
+    ``seq_layout``: the multi-rank layout when K/V and ``m`` hold this rank's
+    seq share of the frames (module note), else None."""
     k_all, v_all = kvs["k"], kvs["v"]
     ks_all, vs_all = kvs.get("k_scale"), kvs.get("v_scale")
     per_layer = isinstance(k_all, (list, tuple))
@@ -154,8 +166,9 @@ def apply_decoder(params: Params, kvs: Dict[str, torch.Tensor], m: torch.Tensor,
     cd = torch.bfloat16 if k_all[0].dtype == torch.int8 else k_all[0].dtype
     pos_tok = None
     if cfg.temporal_position:
-        pos = params["positional_embedding"][:t]                  # (T, 1, H, D)
-        pos_tok = pos.expand(t, p, h, d).reshape(t * p, h, d)
+        tw = t * seq_layout.seq_parallel if seq_layout is not None else t   # the row's frames
+        pos = params["positional_embedding"][:tw]                 # (T, 1, H, D)
+        pos_tok = pos.expand(tw, p, h, d).reshape(tw * p, h, d)
         if not train:   # training casts inside the Function: dpos stays f32
             pos_tok = pos_tok.to(cd).contiguous()
     if per_layer:   # block i reads its own tensor
@@ -172,29 +185,43 @@ def apply_decoder(params: Params, kvs: Dict[str, torch.Tensor], m: torch.Tensor,
         ks_all = ks_all.reshape(nsel, b, t * p, 1)
         vs_all = vs_all.reshape(nsel, b, t * p, 1)
     mask = token_mask(m, p, patch_valid)
+    rows = spmd.data_rows(b) if train else None
+
+    def drop(y):
+        return layers.dropout(y, cfg.dropout, gen, train, rows)
+
+    def fused(q_smax, q_coda, k_i, v_i, layer):
+        """The fused single-query attention, token-sharded on a layout."""
+        if seq_layout is None:
+            return fused_decoder_attention(q_smax, q_coda, k_i, v_i, mask, pos_tok, layer=layer,
+                                           k_scale=ks_all, v_scale=vs_all)
+        return spmd.spmd_decoder_attention(q_smax, q_coda, k_i, v_i, mask, pos_tok, layer,
+                                           seq_layout, k_scale=ks_all, v_scale=vs_all)
 
     x = layers.layer_norm(params["ln_pre"],
                           params["class_embedding"].to(cd).expand(b, cfg.width).contiguous())
     blocks = params["blocks"]
     results = []
     if train or cfg.attn_mode or cfg.aug_query:
-        x = layers.dropout(x, cfg.dropout, gen, train)
+        x = drop(x)
         for i, blk in enumerate(blocks):
             qrow = layers.linear(blk["attn"]["in_proj"], layers.layer_norm(blk["ln_1"], x))
             q_smax = qrow[:, : cfg.width].reshape(b, 1, h, d)
             q_coda = qrow[:, cfg.width:].reshape(b, 1, h, d)
             k_i, v_i, layer = slot(i)
-            if train or cfg.attn_mode:
+            if train and seq_layout is not None:
+                attn_out = spmd_decoder_attention_trainable(q_smax, q_coda, k_i, v_i, mask,
+                                                            pos_tok, layer, seq_layout)
+            elif train or cfg.attn_mode:
                 attn_out = dual_activation_attention(
                     q_smax, q_coda, k_i, v_i, mask, num_frames=t, attn_mode=cfg.attn_mode,
                     temporal_pos=pos_tok, layer=layer, differentiable=train,
                     k_scale=ks_all, v_scale=vs_all)
             else:   # aug_query's inference: the fused kernel, single query
-                attn_out = fused_decoder_attention(q_smax, q_coda, k_i, v_i, mask, pos_tok,
-                                                   layer=layer, k_scale=ks_all, v_scale=vs_all)
+                attn_out = fused(q_smax, q_coda, k_i, v_i, layer)
             x = x + layers.linear(blk["attn"]["out_proj"], attn_out.reshape(b, cfg.width))
             y = layers.linear(blk["mlp"]["c_fc"], layers.layer_norm(blk["ln_2"], x))
-            y = layers.dropout(layers.quick_gelu(y), cfg.dropout, gen, train)
+            y = drop(layers.quick_gelu(y))
             x = x + layers.linear(blk["mlp"]["c_proj"], y)
             results.append(x)
             if cfg.aug_query and i < cfg.num_blocks - 1:
@@ -208,8 +235,7 @@ def apply_decoder(params: Params, kvs: Dict[str, torch.Tensor], m: torch.Tensor,
             q_smax = qrow[:, : cfg.width].reshape(b, 1, h, d)
             q_coda = qrow[:, cfg.width:].reshape(b, 1, h, d)
             k_i, v_i, layer = slot(i)
-            attn_out = fused_decoder_attention(q_smax, q_coda, k_i, v_i, mask, pos_tok,
-                                               layer=layer, k_scale=ks_all, v_scale=vs_all)
+            attn_out = fused(q_smax, q_coda, k_i, v_i, layer)
             tail = {"attn_out_proj": blk["attn"]["out_proj"], "ln_2": blk["ln_2"],
                     "mlp": blk["mlp"]}
             nxt = query(blocks[i + 1]) if i + 1 < len(blocks) else None
@@ -221,7 +247,7 @@ def apply_decoder(params: Params, kvs: Dict[str, torch.Tensor], m: torch.Tensor,
     if not cfg.global_prediction:
         feats = feats[:, -1]
     feats = layers.layer_norm(params["ln_post"], feats)
-    video_feature = layers.dropout(feats, cfg.dropout, gen, train).float()
+    video_feature = drop(feats).float()
 
     task_logits = []
     for mats in params["task_projections"]:

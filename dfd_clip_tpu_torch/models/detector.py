@@ -36,12 +36,20 @@ the video feature, "sync" on the adapter's per-layer K/V: "recon" and
 "speed/triplet"); ``train_mode.patch_mask`` draws each step's patch
 indices on the host (``sample_patch_indices``) and ``op_mode.ema_frame``
 collapses a clip to one geometrically weighted frame.
+
+On a multi-rank layout (runtime.MeshRuntime, ops/spmd.py) a rank holds its
+rows of the global batch and, where ``takes_frame_shards`` allows it and
+the seq width is above 1, its seq share of each clip's frames (the
+trainer, the evaluator and ``MeshRuntime.shard_batch`` cut them). The
+tower then runs on those frames (``spmd.spmd_encoder_kv``) and the
+decoder's attention is the token-sharded one, combined over the seq row.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -50,7 +58,7 @@ import torch.nn.functional as F
 
 from . import adapter as adapter_lib, clip_vit, decoder as decoder_lib, dinov2_vit
 from ..device import resolve_device
-from ..ops import image_ops
+from ..ops import image_ops, spmd
 
 Params = Dict[str, Any]
 
@@ -318,6 +326,24 @@ class Detector:
         as soon as they are exported (CLIP towers only)."""
         return not self._dinov2() and self.config.op_mode.get("kv_dtype", "auto") == "int8"
 
+    def takes_frame_shards(self) -> bool:
+        """Whether a rank may hold only its seq share of each clip's frames.
+        Not with kv_dtype "int8" or "int8_rows" (their scales span the
+        whole batch in the JAX package, which keeps them off its sharded
+        tower), an adapter (its statistics and losses span the clip), a
+        factorised attn_mode or ema_frame (they mix the clip's frames), nor
+        with host-drawn patch masks or speed triplets (each rank draws its
+        own, and a seq row must compute one loss)."""
+        tm, op = self.config.train_mode, self.config.op_mode
+        return not (self._kv_int8() or self._kv_rows8() or self.adapter_cfg is not None
+                    or self.decoder_cfg.attn_mode or op.get("ema_frame", 0)
+                    or "patch_mask" in tm or self._temporal() == "triplet")
+
+    def seq_layout(self, t_local: int):
+        """The multi-rank layout when a batch of ``t_local`` frames a clip
+        holds this rank's seq share of them (spmd.seq_layout), else None."""
+        return spmd.seq_layout(t_local, self.num_frames) if self.takes_frame_shards() else None
+
     def _dequant_kvs(self, kvs: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """Float K/V in the compute dtype from the int8_rows form (the
         adapter reads float K/V); other exports as they are."""
@@ -331,24 +357,32 @@ class Detector:
         """(B, T, 3, H, W) -> {"k", "v"}: (Lsel, B, T, P, H, D); with
         ``pad_tokens`` a CLIP tower's P is zero-padded to a multiple of 8 (the
         DINOv2 export and the whole-encoder tower's are never padded). With
-        int8_rows also {"k_scale", "v_scale"}: (Lsel, B, T, P, 1) f32."""
-        b, t = x.shape[:2]
-        frames = x.reshape((b * t,) + tuple(x.shape[2:]))
-        if self._dinov2():
-            kvs = dinov2_vit.dinov2_kv(params["encoder"], frames, self.vit_cfg,
-                                       self.compute_dtype, keep_layers=self.layer_indices,
-                                       drop_cls=True)
-        else:
+        int8_rows also {"k_scale", "v_scale"}: (Lsel, B, T, P, 1) f32. On a
+        multi-rank layout B and T are this rank's clips and frames
+        (``spmd_encoder_kv``: the tower needs no collective, save that
+        kv_dtype "int8" takes its per-(layer, head) maxima over the data
+        ranks, whose clips make up the global batch)."""
+        layout = spmd.spmd_layout()
+        reduce_max = (functools.partial(layout.all_reduce_, op="max", axis="data")
+                      if layout is not None and self._kv_int8() else None)
+
+        def tower(enc, frames):
+            if self._dinov2():
+                return dinov2_vit.dinov2_kv(enc, frames, self.vit_cfg, self.compute_dtype,
+                                            keep_layers=self.layer_indices, drop_cls=True)
             kvs = clip_vit.clip_vision_kv(
-                params["encoder"], frames, self.vit_cfg, self.compute_dtype,
+                enc, frames, self.vit_cfg, self.compute_dtype,
                 keep_layers=self.layer_indices, drop_cls=True, pad_tokens=pad_tokens,
                 compute_int8=self.compute_int8, kv_int8_rows=self._kv_rows8(),
-                kv_int8=self._kv_int8(), **dataclasses.asdict(self.encoder_kernels))
+                kv_int8=self._kv_int8(), kv_scale_reduce=reduce_max,
+                **dataclasses.asdict(self.encoder_kernels))
             if self._kv_int8():   # q.astype(cd) * (s / 127).astype(cd), detector.py:297-318
                 cd = self.compute_dtype
                 kvs = {s: kvs[s].to(cd) * (kvs[f"{s}_scale"][:, None, None, :, None] / 127.0)
                        .to(cd) for s in ("k", "v")}
-        return {s: f.reshape((f.shape[0], b, t) + tuple(f.shape[2:])) for s, f in kvs.items()}
+            return kvs
+
+        return spmd.spmd_encoder_kv(tower, params["encoder"], x)
 
     def predict(self, params: Params, x, m, *, train: bool = False,
                 gen: Optional[torch.Generator] = None, patch_indices=None,
@@ -390,7 +424,7 @@ class Detector:
                                                 train=train, gen=gen)
             task_logits, video = decoder_lib.apply_decoder(
                 params["decoder"], kvs, m, self.decoder_cfg, train=train, gen=gen,
-                patch_valid=patch_valid)
+                patch_valid=patch_valid, seq_layout=self.seq_layout(x.shape[1]))
             task_logits = [5.0 * t / (torch.linalg.vector_norm(t, dim=-1, keepdim=True) + 1e-10)
                            for t in task_logits]
         features = {"video": video} if with_video_features else {}

@@ -91,15 +91,22 @@ def linear_f32_bias(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.
 
 
 def dropout(x: torch.Tensor, rate: float, gen: Optional[torch.Generator],
-            train: bool) -> torch.Tensor:
+            train: bool, rows=None) -> torch.Tensor:
     """Inverted dropout: keep each element with probability 1 - rate, drawn
     from ``gen`` (a generator on x's device), and scale the kept ones by
     1 / (1 - rate). Identity outside training, at rate 0 or without a
-    generator. The draws are not the JAX package's (other generator)."""
+    generator. The draws are not the JAX package's (other generator).
+    ``rows`` (n, slice), where x holds a data rank's rows of a global
+    batch (ops/spmd.py:data_rows): the mask is drawn for all n rows and x
+    takes its slice, so every rank draws from one stream and a row's mask
+    is the one a single process draws for it."""
     if not train or rate == 0.0 or gen is None:
         return x
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
+    shape = x.shape if rows is None else (rows[0],) + tuple(x.shape[1:])
+    mask = torch.rand(shape, generator=gen, device=x.device) < keep
+    if rows is not None:
+        mask = mask[rows[1]]
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 

@@ -18,6 +18,14 @@ to the queries' dtype first, as on that path. The training path without
 (ops/decoder_attention_vjp.py), on int8_rows K/V after that dequantisation
 too, so the backward never reads int8 K.
 
+The dispatch at the top of ``dual_activation_attention`` (counterpart of
+dfd_clip_tpu/ops/decoder_attention.py:66-98) sends a single-query call
+without ``attn_mode`` to the token-sharded attention (ops/spmd.py, and its
+trainable Function in training) when a multi-rank layout is registered and
+the call carries this rank's token shard (``spmd.decoder_shapes_ok``: a
+seq width above 1), except int8_rows K/V in training, which stay on the
+one-rank path.
+
 A learned query attends the flattened (frames x patches) K/V stream with the
 mean of a masked softmax and CoDA (tanh affinity gated by 2 sigmoid(-L1 x
 scale), masked tokens contributing exactly 0). Fully masked rows give 0, not
@@ -98,6 +106,19 @@ def dual_activation_attention(
     composition."""
     if q_smax.shape[1] != 1:
         raise NotImplementedError("only the single-query decoder is ported")
+    if not attn_mode and not (k_scale is not None and differentiable):
+        from . import spmd   # imported here: spmd imports the kernels' modules
+
+        layout = spmd.spmd_layout()
+        if layout is not None and spmd.decoder_shapes_ok(
+                (k[layer] if layer is not None else k).shape[1], temporal_pos, layout):
+            if differentiable:
+                from .decoder_attention_vjp import spmd_decoder_attention_trainable
+
+                return spmd_decoder_attention_trainable(q_smax, q_coda, k, v, mask,
+                                                        temporal_pos, layer, layout)
+            return spmd.spmd_decoder_attention(q_smax, q_coda, k, v, mask, temporal_pos, layer,
+                                               layout, k_scale=k_scale, v_scale=v_scale)
     if k_scale is not None and (attn_mode or differentiable):
         k = dequant_rows(k, k_scale, layer, q_smax.dtype)
         v = dequant_rows(v, v_scale, layer, q_smax.dtype)
@@ -134,15 +155,17 @@ def dual_activation_attention(
 def decoder_attention_partials_plain(
     q_smax: torch.Tensor, q_coda: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     mask: torch.Tensor, temporal_pos: Optional[torch.Tensor] = None,
-    layer: Optional[int] = None,
+    layer: Optional[int] = None, k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The softmax state of the single-query attention, as the fused
     kernel's ``partials`` form returns it: ``(o_sc, st)`` with o_sc
     (B, 2, H*D) f32 [row 0: the un-normalised softmax numerator, row 1: the
     CoDA output] and st (B, 2, H) f32 [row 0: the denominator, row 1: the
     maximum logit], numerator and denominator relative to that maximum. A
-    fully masked sample gives numerator 0, denominator 0 and maximum -1e30."""
-    kp, vp = _stream(k, v, temporal_pos, layer)
+    fully masked sample gives numerator 0, denominator 0 and maximum -1e30.
+    int8_rows K/V are dequantised row by row in f32 with their scales."""
+    kp, vp = _stream(k, v, temporal_pos, layer, k_scale, v_scale)
     b, _, h, d = q_smax.shape
     scale = d ** -0.5
     qs, qc = q_smax[:, 0].float(), q_coda[:, 0].float()          # (B, H, D)

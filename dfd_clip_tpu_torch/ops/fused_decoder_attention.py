@@ -1,7 +1,8 @@
 """Fused single-query decoder attention (counterpart of
 dfd_clip_tpu/ops/pallas_decoder_attention.py:fused_decoder_attention,
 forward, with and without ``partials``, and with int8_rows K/V and their
-``k_scale``/``v_scale`` in the normalised form).
+``k_scale``/``v_scale`` in both forms: the partials of int8_rows K/V feed
+the token-sharded attention of ops/spmd.py).
 
 On a CUDA tensor this launches csrc/decoder_attention.cu: one pass over slot
 ``layer`` of the stacked K/V export (and of the stacked scales), split over
@@ -79,11 +80,8 @@ def fused_decoder_attention(
     (B, 2, H*D) f32 [un-normalised numerator, CoDA output] and st (B, 2, H)
     f32 [denominator, maximum] (see decoder_attention_partials_plain).
     ``k_scale``/``v_scale``: int8_rows K/V with (B, L, 1) f32 scales (stacked
-    (Lsel, B, L, 1), read at ``layer``); the output is bf16 like the
-    queries."""
-    if k_scale is not None and partials:
-        raise NotImplementedError("the partials form on int8_rows K/V (training) is not "
-                                  "ported yet")
+    (Lsel, B, L, 1), read at ``layer``); the normalised output is bf16 like
+    the queries."""
     if _cuda.on_cpu("fused_decoder_attention", k):
         return fused_decoder_attention_plain(q_smax, q_coda, k, v, mask, temporal_pos, layer,
                                              partials=partials, k_scale=k_scale,
@@ -116,10 +114,8 @@ def fused_decoder_attention_plain(q_smax, q_coda, k, v, mask, temporal_pos=None,
                                   layer=None, partials: bool = False, k_scale=None,
                                   v_scale=None):
     """Plain version: the f32 compositions of ops/decoder_attention.py."""
-    if k_scale is not None and partials:
-        raise NotImplementedError("the partials form on int8_rows K/V (training) is not "
-                                  "ported yet")
     if partials:
-        return decoder_attention_partials_plain(q_smax, q_coda, k, v, mask, temporal_pos, layer)
+        return decoder_attention_partials_plain(q_smax, q_coda, k, v, mask, temporal_pos, layer,
+                                                k_scale, v_scale)
     return dual_activation_attention(q_smax, q_coda, k, v, mask, temporal_pos=temporal_pos,
                                      layer=layer, k_scale=k_scale, v_scale=v_scale)

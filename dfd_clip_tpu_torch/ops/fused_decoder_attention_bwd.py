@@ -24,11 +24,15 @@ from . import _cuda
 from .fused_decoder_attention import check_inputs
 
 
-def _bwd_math(layer, q_smax, q_coda, k, v, mask, temporal_pos, denom, mx, ct):
+def _bwd_math(layer, q_smax, q_coda, k, v, mask, temporal_pos, denom, mx, ct, o_s=None):
     """Cotangents (dq_smax, dq_coda, dpos, dk, dv) from the saved softmax
     stats, all arithmetic in f32. dq and dpos come back in f32 (the caller
     casts them to its leaves' dtypes); dk/dv, in K/V's dtype, are for the
-    SELECTED slot (B, L, H, D) and are zero at masked tokens."""
+    SELECTED slot (B, L, H, D) and are zero at masked tokens. ``o_s`` (B, H,
+    D), the normalised softmax output: when given, the softmax coupling
+    term sum_l a_s da = 0.5 sum_d g0 o_s comes from it, as the kernel takes
+    it; a token shard must take it so, since its own affinities sum over
+    its tokens only."""
     _cuda.PLAIN_CALLS["_bwd_math"] += 1
     kl, vl = (k[layer], v[layer]) if layer is not None else (k, v)
     b, l = mask.shape
@@ -60,7 +64,11 @@ def _bwd_math(layer, q_smax, q_coda, k, v, mask, temporal_pos, denom, mx, ct):
     # ---- cotangents; out = 0.5 * sum_l (a_s + tanh*gate) * vp ----
     w = torch.einsum("bhd,blhd->blh", g0, vp)            # d(a_s + a_c)
     da = 0.5 * w
-    dls = a_s * (da - torch.sum(a_s * da, dim=1, keepdim=True))
+    if o_s is None:
+        coupling = torch.sum(a_s * da, dim=1, keepdim=True)
+    else:
+        coupling = 0.5 * torch.sum(g0 * o_s.to(f32), dim=-1)[:, None]
+    dls = a_s * (da - coupling)
     dt = da * gate
     dgate = da * t
     dlc = dt * (1.0 - t * t)
@@ -99,7 +107,7 @@ def fused_decoder_attention_bwd(
     mask: torch.Tensor, temporal_pos: Optional[torch.Tensor], layer: Optional[int],
     denom: torch.Tensor, mx: torch.Tensor, o_s: torch.Tensor, ct: torch.Tensor,
     dq_dtype: torch.dtype = torch.float32, stage_clock: Optional[torch.Tensor] = None,
-    with_kv: bool = False,
+    with_kv: bool = False, shard: bool = False,
 ) -> Tuple[Optional[torch.Tensor], ...]:
     """The forward's inputs, its saved denominator and maximum (B, H) f32,
     its normalised softmax output o_s (B, H, D) f32 and the output
@@ -110,13 +118,17 @@ def fused_decoder_attention_bwd(
     _cuda.bwd_geometry's grid x len(_cuda.BWD_CLOCK) entries, into which
     each block writes %globaltimer (ns) at the BWD_CLOCK points of its first
     item (tools/bench_decoder_bwd.py reads it). ``with_kv``: also return the
-    slot's dK and dV, (B, L, H, D) in K/V's dtype, zero at masked tokens."""
+    slot's dK and dV, (B, L, H, D) in K/V's dtype, zero at masked tokens.
+    ``shard``: K/V are one rank's token shard and the stats and o_s the seq
+    row's combined ones (ops/spmd.py); the kernel reads them the same way,
+    the plain version then takes the coupling from o_s (``_bwd_math``)."""
     name = "fused_decoder_attention_bwd"
     if dq_dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"{name}: dq_dtype {dq_dtype} is neither f32 nor bf16")
     if _cuda.on_cpu(name, k):
         return fused_decoder_attention_bwd_plain(q_smax, q_coda, k, v, mask, temporal_pos,
-                                                 layer, denom, mx, o_s, ct, dq_dtype, with_kv)
+                                                 layer, denom, mx, o_s, ct, dq_dtype, with_kv,
+                                                 shard)
     kl, vl, b, l, h, d = check_inputs(name, q_smax, q_coda, k, v, mask, temporal_pos, layer)
     if denom.shape != (b, h) or mx.shape != (b, h) or o_s.shape != (b, h, d) \
             or ct.shape != (b, 1, h, d):
@@ -169,10 +181,10 @@ def fused_decoder_attention_bwd(
 
 def fused_decoder_attention_bwd_plain(q_smax, q_coda, k, v, mask, temporal_pos, layer,
                                       denom, mx, o_s, ct, dq_dtype=torch.float32,
-                                      with_kv: bool = False):
+                                      with_kv: bool = False, shard: bool = False):
     """Plain version of fused_decoder_attention_bwd (same contract; the
-    coupling term comes from the affinities, so o_s is not read)."""
+    coupling term comes from the affinities, and from o_s for a ``shard``)."""
     dqs, dqc, dpos, dk, dv = _bwd_math(layer, q_smax, q_coda, k, v, mask, temporal_pos,
-                                       denom, mx, ct)
+                                       denom, mx, ct, o_s if shard else None)
     out = (dqs.to(dq_dtype), dqc.to(dq_dtype), dpos)
     return out + (dk, dv) if with_kv else out

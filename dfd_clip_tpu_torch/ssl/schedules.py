@@ -118,15 +118,18 @@ class SSLOptimizer:
         self.count = 0
 
     @torch.no_grad()
-    def step(self, grads: List[torch.Tensor], hold=()) -> None:
+    def step(self, grads: List[torch.Tensor], hold=(), norm=None) -> None:
         """One update of every leaf from ``grads``; the leaves whose paths
         are in ``hold`` get a zero update (their moments still move). Every
         stage is a multi-tensor (foreach) operation over all the leaves,
         rounding as the per-leaf chain does: a few launches a stage
         instead of one a leaf. The clip multiplies by clip / norm where
-        optax divides by the norm, then multiplies (an ulp apart)."""
+        optax divides by the norm, then multiplies (an ulp apart). ``norm``:
+        the gradient's global norm when the leaves are slices of it (FSDP);
+        by default the norm of ``grads``."""
         b1, b2 = self.betas
-        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        if norm is None:
+            norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
         factor = torch.where(norm < self.clip_norm, torch.ones_like(norm),
                              self.clip_norm / norm)
         g = torch._foreach_mul(grads, factor)

@@ -21,10 +21,23 @@ the JAX loop saves the state when it checkpoints, by which time its
 producer may have drawn the next batch. So a resumed run here draws the
 crops that the uninterrupted run drew.
 
-One process drives one device (runtime.OneProcess), so ``fsdp: 1`` places
-every leaf whole: what the JAX package's P('data') gives over a data axis of
-size 1. Sharding the leaves across cards waits for the port's multi-GPU
-runtime.
+On a multi-rank runtime (runtime.MeshRuntime) each rank draws its own
+images (the sampler's shard), every leaf's gradient is the mean over the
+ranks, the loss centers are averaged over them (the reference's
+all-reduced batch center), and ``fsdp: 1`` is JAX's ``_shard_params``
+(train.py:212-224): each student and teacher leaf whose leading axis the
+data width divides is held as this rank's slice of that axis, and so are
+its Adam moments. ``_GatherLeaf`` all-gathers the whole leaf where the
+step uses it, and its backward sums the gradient over the ranks (an
+all-reduce, then this rank's slice: Gloo has no reduce-scatter to lean
+on); every other leaf is replicated and its gradient all-reduced. The
+clip's global norm adds the slices' squares over the ranks. Checkpoints
+gather the leaves (``MeshRuntime.materialize``, which every rank calls) and
+rank 0 writes them between barriers; on resume rank 0 restores its host
+RNG state and the others re-derive theirs as (seed + rank) * 1_000_003 +
+step (train.py:201-210). One rank: every leaf whole, as before, whatever
+``fsdp`` says. Sinkhorn-Knopp centering normalises over the rank's own
+batch.
 """
 
 from __future__ import annotations
@@ -40,7 +53,7 @@ from ..config import CN
 from ..device import resolve_device
 from ..engine.optim import named_leaves
 from ..models.clip_vit import ViTConfig
-from ..models.weights import to_device, to_numpy_tree
+from ..models.weights import to_device
 from . import schedules as sched_lib
 from .augmentations import MultiCropAugmentation
 from .masking import BlockMaskGenerator
@@ -50,6 +63,42 @@ from .samplers import ShardedInfiniteSampler
 # the prototype layers that the freeze window holds (both heads)
 FROZEN_LEAVES = tuple((head, leaf) for head in ("dino_head", "ibot_head")
                       for leaf in ("last_v", "last_g"))
+
+
+def _map2(fn, tree, flags):
+    """``fn(leaf, flag)`` over a tree and a tree of flags beside it."""
+    if isinstance(tree, dict):
+        return {k: _map2(fn, v, flags[k]) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_map2(fn, v, f) for v, f in zip(tree, flags)]
+    return fn(tree, flags)
+
+
+def _flags(tree, dp: int):
+    """JAX's _shard_params rule: a leaf is sharded over the data axis when
+    its leading axis is at least the data width and divisible by it."""
+    if isinstance(tree, dict):
+        return {k: _flags(v, dp) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_flags(v, dp) for v in tree]
+    return tree.ndim >= 1 and tree.shape[0] >= dp and tree.shape[0] % dp == 0
+
+
+class _GatherLeaf(torch.autograd.Function):
+    """This rank's slice of a leaf -> the whole leaf (all-gather over the
+    data axis); backward: the whole leaf's gradient summed over the ranks,
+    this rank's slice of it."""
+
+    @staticmethod
+    def forward(ctx, local, runtime):
+        ctx.runtime = runtime
+        return torch.cat(runtime.all_gather(local.detach().contiguous(), "data"))
+
+    @staticmethod
+    def backward(ctx, g):
+        rt = ctx.runtime
+        g = rt.all_reduce_(g.contiguous().clone(), "sum", "data")
+        return g[rt.rows(g.shape[0])].clone(), None   # not a view: the whole is freed
 
 
 class SSLTrainer:
@@ -111,7 +160,14 @@ class SSLTrainer:
         self.meta = SSLMetaArch(self.ssl_cfg)
         if params is None:
             params = self.meta.init_params(torch.Generator().manual_seed(config.seed))
-        self.student, self.teacher, self.centers = (to_device(t, self.device) for t in params)
+        student, teacher, centers = params
+        self.multi = runtime.num_processes > 1
+        self.sharded = _flags(student, runtime.data_parallel) \
+            if self.multi and config.get("fsdp", 0) else None
+        if self.sharded is not None:   # this rank's slice of each sharded leaf
+            student, teacher = (_map2(self._slice, t, self.sharded) for t in (student, teacher))
+        self.student, self.teacher, self.centers = (to_device(t, self.device)
+                                                    for t in (student, teacher, centers))
         self.leaves = [t.requires_grad_() for _, t in named_leaves(self.student)]
 
         global_batch = config.batch_size * runtime.data_parallel
@@ -147,23 +203,69 @@ class SSLTrainer:
             if restored is not None:
                 self._restore(*restored)
 
+    # -- placement -------------------------------------------------------------------
+    def _slice(self, t, sharded: bool):
+        """This rank's rows of a whole leaf (tensor or array) when sharded,
+        as a copy of its own: the whole leaf's storage is not kept alive."""
+        if not sharded:
+            return t
+        part = t[self.runtime.rows(t.shape[0])]
+        return part.clone() if torch.is_tensor(part) else part.copy()
+
+    def _whole(self, tree, grad: bool = False):
+        """``tree`` (student- or teacher-shaped) with every sharded leaf
+        gathered whole; ``grad``: differentiably (``_GatherLeaf``)."""
+        if self.sharded is None:
+            return tree
+
+        def one(t, sharded):
+            if not sharded:
+                return t
+            if grad:
+                return _GatherLeaf.apply(t, self.runtime)
+            return torch.cat(self.runtime.all_gather(t.detach().contiguous(), "data"))
+
+        return _map2(one, tree, self.sharded)
+
+    def teacher_whole(self) -> Dict:
+        """The teacher with every leaf whole, as host tensors (copies). A
+        collective on several ranks: every rank calls it."""
+        whole = self.runtime.materialize(self.teacher, self.sharded)
+        return _map2(lambda a, _: torch.from_numpy(a), whole, whole)
+
     # -- checkpoint and resume -------------------------------------------------------
     def _arrays(self) -> Dict:
-        opt = self.optimizer.state_dict()
-        return to_numpy_tree({"student": self.student, "teacher": self.teacher,
-                              "centers": self.centers,
-                              "opt_state": {"mu": opt["mu"], "nu": opt["nu"]}}) \
-            | {"opt_count": opt["count"]}
+        """The train state, every leaf whole, as numpy (a collective on
+        several ranks: every rank calls it)."""
+        rt, opt = self.runtime, self.optimizer.state_dict()
+        flat = [f for _, f in named_leaves(self.sharded)] if self.sharded is not None else None
+        return {"student": rt.materialize(self.student, self.sharded),
+                "teacher": rt.materialize(self.teacher, self.sharded),
+                "centers": rt.materialize(self.centers),
+                "opt_state": {m: rt.materialize(opt[m], flat) for m in ("mu", "nu")},
+                "opt_count": opt["count"]}
 
     @torch.no_grad()
     def _restore(self, arrays: Dict, aux: Dict) -> None:
         for name in ("student", "teacher", "centers"):
-            for (_, t), (_, a) in zip(named_leaves(getattr(self, name)),
-                                      named_leaves(arrays[name])):
+            whole = arrays[name]
+            if name != "centers" and self.sharded is not None:
+                whole = _map2(self._slice, whole, self.sharded)
+            for (_, t), (_, a) in zip(named_leaves(getattr(self, name)), named_leaves(whole)):
                 t.copy_(torch.from_numpy(np.asarray(a)))
-        self.optimizer.load_state_dict({**arrays["opt_state"], "count": arrays["opt_count"]})
+        opt_state = arrays["opt_state"]
+        if self.sharded is not None:
+            flat = [f for _, f in named_leaves(self.sharded)]
+            opt_state = {m: [self._slice(np.asarray(a), f) for a, f in zip(opt_state[m], flat)]
+                         for m in ("mu", "nu")}
+        self.optimizer.load_state_dict({**opt_state, "count": arrays["opt_count"]})
         self.start_step = aux["step"]
-        self.host_rng.bit_generator.state = aux["host_rng_state"]
+        rt = self.runtime
+        if rt.is_main_process:
+            self.host_rng.bit_generator.state = aux["host_rng_state"]
+        else:   # only rank 0's stream is saved: the others re-derive theirs
+            self.host_rng = np.random.default_rng(
+                (self.config.seed + rt.process_index) * 1_000_003 + self.start_step)
 
     # -- the step ----------------------------------------------------------------------
     def _drop_path_gen(self, step: int) -> Optional[torch.Generator]:
@@ -178,19 +280,50 @@ class SSLTrainer:
                    patch_masks: torch.Tensor, step: int) -> Dict[str, torch.Tensor]:
         """One step on a batch already on the device; returns the step's
         metrics (dino, ibot, koleo, total) as 0-d tensors."""
+        with torch.no_grad():
+            teacher = self._whole(self.teacher)
         total, (metrics, new_centers) = self.meta.forward_loss(
-            self.student, self.teacher, self.centers, global_crops, local_crops, patch_masks,
-            self.temp_schedule(step), gen=self._drop_path_gen(step))
+            self._whole(self.student, grad=True), teacher, self.centers, global_crops,
+            local_crops, patch_masks, self.temp_schedule(step), gen=self._drop_path_gen(step))
+        del teacher
         grads = list(torch.autograd.grad(total, self.leaves))
         hold = ()
         if step < self.config.get("freeze_last_layer_steps", 0):
             for i in self.frozen:
                 grads[i] = torch.zeros_like(grads[i])
             hold = FROZEN_LEAVES
-        self.optimizer.step(grads, hold)
+        norm = self._mean_over_ranks(grads) if self.multi else None
+        self.optimizer.step(grads, hold, norm=norm)
         self.meta.ema_update(self.teacher, self.student, self.momentum_schedule(step))
         self.centers = {k: v.detach() for k, v in new_centers.items()}
+        if self.multi:
+            for v in self.centers.values():   # the ranks' batch centers, averaged
+                self.runtime.all_reduce_(v, "sum").div_(self.runtime.num_processes)
         return {k: v.detach() for k, v in metrics.items()}
+
+    def _mean_over_ranks(self, grads) -> torch.Tensor:
+        """Each gradient (in place) as its mean over the ranks: a sharded
+        leaf's slice was summed by ``_GatherLeaf``, the replicated ones are
+        summed here in one packed all-reduce. Returns the global norm of
+        the mean gradient (the slices' squares summed over the ranks), or
+        None when no leaf is sharded."""
+        rt = self.runtime
+        flags = ([f for _, f in named_leaves(self.sharded)] if self.sharded is not None
+                 else [False] * len(grads))
+        rep = [g for g, f in zip(grads, flags) if not f]
+        if rep:
+            packed = rt.all_reduce_(torch.cat([g.reshape(-1) for g in rep]), "sum")
+            offset = 0
+            for g in rep:
+                g.copy_(packed[offset:offset + g.numel()].view_as(g))
+                offset += g.numel()
+        torch._foreach_div_(grads, float(rt.num_processes))
+        if not any(flags):
+            return None   # whole gradients: the optimizer's own norm
+        sq = torch.stack(torch._foreach_norm(grads)) ** 2
+        flags_t = torch.tensor(flags, device=sq.device)
+        shard_sq = rt.all_reduce_(sq[flags_t].sum().reshape(1), "sum", "data")
+        return torch.sqrt(shard_sq[0] + sq[~flags_t].sum())
 
     # -- the host side -------------------------------------------------------------
     def _next_batch(self, batch_size: int):
@@ -273,8 +406,11 @@ class SSLTrainer:
             if self.tracker is not None and step % 10 == 0:
                 self.tracker.log({f"ssl/{k}": v for k, v in last.items()}, step=step)
             if self.checkpointer and (step + 1) % cfg.checkpoint_interval == 0:
-                self.checkpointer.save(step + 1, self._arrays(),
-                                       {"host_rng_state": rng_state})
+                arrays = self._arrays()   # every rank gathers, rank 0 writes
+                self.runtime.barrier("checkpoint start")
+                if self.runtime.is_main_process:
+                    self.checkpointer.save(step + 1, arrays, {"host_rng_state": rng_state})
+                self.runtime.barrier("checkpoint end")
             if step % 10 == 0:
                 self.runtime.print(f"ssl step {step}: {last}")
         return last

@@ -13,7 +13,11 @@ the teacher's backbone as ``{"backbone": ...}`` through
 ``models.weights.save_params``, which the JAX package's
 ``weights.load_params`` and this package's ``ssl_eval`` read. The run goes
 on the card unless ``--device cpu`` is given; without a card it raises.
-``main`` returns the trainer.
+The runtime is ``runtime.MeshRuntime``: launched by torchrun or SLURM it
+runs one rank a card (``cuda:<LOCAL_RANK>``, NCCL; Gloo with ``--device
+cpu``), each drawing its own images, with ``fsdp: 1`` sharding the leaves
+over the ranks (ssl/train.py); rank 0 writes the files. ``main`` returns
+the trainer.
 """
 
 from __future__ import annotations
@@ -27,7 +31,7 @@ import numpy as np
 
 from .device import resolve_device
 from .models import weights as weights_lib
-from .runtime import OneProcess
+from .runtime import MeshRuntime, launch
 from .ssl import SSLTrainer
 from .utils.logging import setup_logging
 from .utils.tracking import Tracker
@@ -89,8 +93,10 @@ def parse_args(argv=None):
 
 
 def main(args) -> SSLTrainer:
-    device = resolve_device(args.device)
-    runtime = OneProcess(device)
+    device = resolve_device(launch.local_device(args.device))
+    backend = "nccl" if device.type == "cuda" else "gloo"
+    launch.initialize(backend)
+    runtime = MeshRuntime(device=device, backend=backend)
     cfg = SSLTrainer.get_default_config()
     if args.cfg:
         cfg.merge_from_file(args.cfg)
@@ -112,17 +118,22 @@ def main(args) -> SSLTrainer:
         raise SystemExit("one of --data_dir / --synthetic is required")
 
     os.makedirs(args.out_dir, exist_ok=True)
-    setup_logging(args.out_dir)
+    setup_logging(args.out_dir, rank=runtime.process_index)
     tracker = Tracker(args.out_dir, enabled=False)
-    with open(os.path.join(args.out_dir, "setting.yaml"), "w") as f:
-        f.write(cfg.dump())
+    if runtime.is_main_process:
+        with open(os.path.join(args.out_dir, "setting.yaml"), "w") as f:
+            f.write(cfg.dump())
 
     trainer = SSLTrainer(cfg, runtime, dataset, tracker=tracker, device=device)
     metrics = trainer.run()
     runtime.print("final:", metrics)
-    # the teacher's backbone: the evaluation-ready weights (dinov2 convention)
-    weights_lib.save_params(os.path.join(args.out_dir, "teacher_backbone.pt"),
-                            {"backbone": trainer.teacher["backbone"]})
+    # the teacher's backbone: the evaluation-ready weights (dinov2 convention),
+    # gathered whole by every rank, written by rank 0
+    teacher = trainer.teacher_whole()
+    if runtime.is_main_process:
+        weights_lib.save_params(os.path.join(args.out_dir, "teacher_backbone.pt"),
+                                {"backbone": teacher["backbone"]})
+    runtime.barrier("teacher saved")
     runtime.print(f"teacher backbone saved to {args.out_dir}/teacher_backbone.pt")
     return trainer
 

@@ -106,7 +106,7 @@ def test_callbacks_match_jax(tmp_path):
                 rng.random(4).astype(np.float32), np.array([True, True, True, i == 0]))
                for i in range(3)]
     agents = {"jax": agent("jax", JTracker(str(tmp_path / "jax")), JaxOneDevice()),
-              "port": agent("port", Tracker(str(tmp_path / "port")), QuietOneProcess())}
+              "port": agent("port", Tracker(str(tmp_path / "port")), QuietOneProcess("cpu"))}
     for (pkg, a), cb in zip(agents.items(), (jcb, tcb)):
         cb.init_metrics(a)
         for step, (logits, labels, losses, valid) in enumerate(batches, 1):

@@ -359,11 +359,21 @@ def test_int8_kv_decoder_attention_matches_jax(int8_kv, reference):
         np.testing.assert_allclose(got.numpy(), want, rtol=2e-4, atol=2e-5)
     else:
         assert rel_err(got, want) <= REL
-    with pytest.raises(NotImplementedError):
-        fused_decoder_attention(*(torch.from_numpy(a[s]).to(qdt) for s in ("qs", "qc")),
-                                *(torch.from_numpy(a[s]) for s in ("k", "v", "mask")),
-                                layer=1, partials=True, k_scale=torch.from_numpy(a["k_scale"]),
-                                v_scale=torch.from_numpy(a["v_scale"]))
+    # the partials form on int8_rows K/V (the token-sharded attention's
+    # input), normalised by the merge, gives the same output
+    from dfd_clip_tpu_torch.ops.decoder_attention import merge_decoder_partials_plain
+
+    parts = fused_decoder_attention(
+        *(torch.from_numpy(a[s]).to(qdt) for s in ("qs", "qc")),
+        *(torch.from_numpy(a[s]) for s in ("k", "v", "mask")),
+        torch.from_numpy(a["pos"]).to(qdt), layer=1, partials=True,
+        k_scale=torch.from_numpy(a["k_scale"]), v_scale=torch.from_numpy(a["v_scale"]))
+    normalised = merge_decoder_partials_plain([parts], normalise=True)
+    assert np.all(normalised[2].numpy() == 0)
+    if reference == "xla":
+        np.testing.assert_allclose(normalised.numpy(), want, rtol=2e-4, atol=2e-5)
+    else:
+        assert rel_err(normalised, want) <= REL
 
 
 # -- the tower and the detector ---------------------------------------------------------

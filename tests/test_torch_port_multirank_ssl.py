@@ -1,0 +1,149 @@
+"""SSL pretraining on two ranks with ``fsdp: 1`` (the counterpart of JAX's
+tests/test_multihost.py::test_two_process_ssl_fsdp_checkpoint), and the
+runtime's pieces that need no second rank: the card as every runtime's
+default device, KeySeq, device.sync / timed, the launcher's variables.
+
+The "ssl" job (tests/torch_multirank_jobs.py: two Gloo ranks over a
+FileStore) trains the tiny SSL config (ViT-Test, batch 1 a rank) for 2
+steps with ``fsdp: 0`` and again with ``fsdp: 1``, which keeps each
+shardable leaf as the rank's slice and checkpoints at step 2, then builds
+a third trainer that resumes from that checkpoint. Held: the sharded run
+equal to the replicated one at 1e-5 (the same steps; the gradient's norm
+and sums are taken in another order), the resumed trainer at step 2 with
+the optimizer's count, its gathered student bit-equal to the run's, and
+the same checksum on both ranks.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from dfd_clip_tpu_torch.engine.optim import named_leaves
+from torch_multirank_jobs import run_job
+
+SSL_TOL = dict(rtol=1e-5, atol=1e-5)
+CONFIG = {"arch": "ViT-Test", "batch_size": 1, "max_steps": 2, "out_dim": 64,
+          "n_local_crops": 2, "local_size": 14, "warmup_steps": 1,
+          "warmup_teacher_temp_steps": 1, "freeze_last_layer_steps": 1}
+
+
+@pytest.fixture(scope="module")
+def ssl_job(tmp_path_factory):
+    work = tmp_path_factory.mktemp("ssl")
+    return run_job("ssl", 2, work, {"config": CONFIG, "ckpt_dir": str(work / "ckpt")})
+
+
+def test_fsdp_step_equals_replicated_step(ssl_job):
+    for res in ssl_job:
+        for k in ("dino", "ibot", "koleo", "total"):
+            assert np.isfinite(res["fsdp1_metrics"][k])
+            assert res["fsdp1_metrics"][k] == pytest.approx(res["fsdp0_metrics"][k], rel=1e-5)
+        for (path, a), (_, b) in zip(named_leaves(res["fsdp1"]), named_leaves(res["fsdp0"])):
+            np.testing.assert_allclose(a, b, **SSL_TOL, err_msg=str(path))
+    for (path, a), (_, b) in zip(named_leaves(ssl_job[0]["fsdp1"]),
+                                 named_leaves(ssl_job[1]["fsdp1"])):
+        np.testing.assert_array_equal(a, b, err_msg=str(path))   # one model on both ranks
+
+
+def test_fsdp_holds_slices(ssl_job):
+    """The leaves whose leading axis 2 divides are held as halves; the
+    gathered leaves have the whole shape. Each held tensor (student,
+    teacher, Adam moments) owns storage of its own size: no slice is a view
+    that keeps its whole leaf alive."""
+    for res in ssl_job:
+        for storage, own in res["storage"]:
+            assert storage == own
+    n_sharded, n_leaves, local = ssl_job[0]["sharded_leaves"]
+    assert 0 < n_sharded < n_leaves
+    whole = [a.shape for _, a in named_leaves(ssl_job[0]["fsdp1"])]
+    halves = sum(1 for lo, wh in zip(local, whole)
+                 if tuple(lo) != tuple(wh) and lo[0] * 2 == wh[0] and lo[1:] == wh[1:])
+    assert halves == n_sharded
+    assert all(tuple(lo) == tuple(wh) for lo, wh in zip(local, whole)
+               if not (lo[0] * 2 == wh[0] and tuple(lo) != tuple(wh)))
+
+
+def test_fsdp_checkpoint_resume(ssl_job):
+    for res in ssl_job:
+        assert res["start_step"] == 2 and res["opt_count"] == 2
+        for (path, a), (_, b) in zip(named_leaves(res["resumed"]), named_leaves(res["fsdp1"])):
+            np.testing.assert_array_equal(a, b, err_msg=str(path))
+    assert ssl_job[0]["checksum"] == ssl_job[1]["checksum"]
+    assert np.isfinite(ssl_job[0]["checksum"])
+
+
+def test_runtime_without_a_device_is_the_card():
+    """OneProcess and MeshRuntime built without a device take the card, and
+    without one they raise: they never land on the CPU."""
+    from dfd_clip_tpu_torch.runtime import MeshRuntime, OneProcess
+
+    if torch.cuda.is_available():
+        pytest.skip("this check is for a machine without a card")
+    for build in (OneProcess, MeshRuntime):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build()
+    assert OneProcess("cpu").device == torch.device("cpu")
+
+
+def test_keyseq_streams():
+    """runtime.prng.KeySeq (JAX's KeySeq): each next() a fresh generator,
+    the stream reproducible from its seed, fold_in not advancing it."""
+    from dfd_clip_tpu_torch.runtime import KeySeq
+
+    a, b = KeySeq(3), KeySeq(3)
+    draws = [torch.rand(4, generator=a.next()) for _ in range(3)]
+    assert all(torch.equal(d, torch.rand(4, generator=b())) for d in draws)
+    assert not torch.equal(draws[0], draws[1])
+    f1, f2 = (torch.rand(4, generator=a.fold_in(7)) for _ in range(2))
+    assert torch.equal(f1, f2)
+    assert not torch.equal(f1, torch.rand(4, generator=a.fold_in(8)))
+    assert torch.equal(torch.rand(4, generator=a.next()), torch.rand(4, generator=b.next()))
+
+
+def test_device_sync_and_timed_without_a_card():
+    """device.sync returns its tree (nothing to wait for on the host);
+    device.timed measures on the card only, and raises without one."""
+    from dfd_clip_tpu_torch.device import sync, timed
+
+    tree = {"a": torch.ones(2), "b": [torch.zeros(1), 3]}
+    assert sync(tree) is tree
+    if torch.cuda.is_available():
+        pytest.skip("this check is for a machine without a card")
+    with pytest.raises(RuntimeError, match="on the card"):
+        timed(torch.ones, 2)
+
+
+def test_launch_reads_the_launchers_variables(monkeypatch):
+    """runtime.launch: torchrun's and SLURM's variables (the first host of
+    SLURM's node list, through scontrol), nothing without either, and
+    initialize() starting nothing then."""
+    from dfd_clip_tpu_torch.runtime import launch
+
+    for var in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT", "LOCAL_RANK",
+                "SLURM_PROCID", "SLURM_NTASKS", "SLURM_JOB_NODELIST", "SLURM_LOCALID"):
+        monkeypatch.delenv(var, raising=False)
+    assert launch.torchrun_env() is None and launch.slurm_env() is None
+    assert launch.initialize("gloo") is False
+    assert launch.local_rank() == 0 and launch.local_device("cpu") == torch.device("cpu")
+    monkeypatch.setenv("RANK", "3")
+    monkeypatch.setenv("WORLD_SIZE", "8")
+    monkeypatch.setenv("MASTER_ADDR", "localhost")
+    monkeypatch.setenv("MASTER_PORT", "29500")
+    monkeypatch.setenv("LOCAL_RANK", "1")
+    assert launch.torchrun_env() == {"init_method": "env://", "world_size": 8, "rank": 3}
+    assert launch.local_rank() == 1
+    monkeypatch.setenv("SLURM_PROCID", "5")
+    monkeypatch.setenv("SLURM_NTASKS", "16")
+    monkeypatch.setenv("SLURM_JOB_NODELIST", "node[07-08]")
+    calls = []
+
+    def scontrol(cmd, text):
+        calls.append(cmd)
+        return "node07\nnode08\n"
+
+    monkeypatch.setattr(launch.subprocess, "check_output", scontrol)
+    assert launch.slurm_env() == {"init_method": f"tcp://node07:{launch.DEFAULT_PORT}",
+                                  "world_size": 16, "rank": 5}
+    assert calls == [["scontrol", "show", "hostnames", "node[07-08]"]]
+    with pytest.raises(ValueError, match="world_size and rank"):
+        launch.initialize("gloo", init_method="file:///nowhere")

@@ -35,11 +35,34 @@ def test_port_imports_no_jax(path):
         assert top not in ("jax", "jaxlib", "optax", "dfd_clip_tpu"), f"{path.name} imports {mod}"
 
 
+# what a launcher (torchrun, SLURM) hands its ranks: runtime/launch.py's input
+LAUNCH = ROOT / "dfd_clip_tpu_torch" / "runtime" / "launch.py"
+LAUNCHER_VARS = {"RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT",
+                 "SLURM_PROCID", "SLURM_NTASKS", "SLURM_JOB_NODELIST", "SLURM_LOCALID"}
+
+
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_reads_no_environment(path):
     """No os.environ / os.getenv / os.putenv: a kernel path is chosen by an
     argument (EncoderKernels, clip_vision_kv's block / tower / int8_attn),
-    never by a process-wide switch."""
+    never by a process-wide switch. The one reader is runtime/launch.py,
+    whose input is the launcher's environment: it reads os.environ, only
+    the launcher's variables, and writes nothing there."""
+    if path == LAUNCH:
+        tree = ast.parse(path.read_text(), filename=str(path))
+        names = {n.value for n in ast.walk(tree)
+                 if isinstance(n, ast.Constant) and isinstance(n.value, str)
+                 and n.value.isupper() and n.value.replace("_", "").isalpha()}
+        assert names and names <= LAUNCHER_VARS, names - LAUNCHER_VARS
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Attribute):
+                assert node.attr not in ("getenv", "putenv", "environb"), node.lineno
+            if isinstance(node, (ast.Assign, ast.AugAssign)):
+                targets = node.targets if isinstance(node, ast.Assign) else [node.target]
+                for t in targets:
+                    assert not (isinstance(t, ast.Subscript) and "environ" in ast.dump(t)), \
+                        f"launch.py:{node.lineno} writes the environment"
+        return
     for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
         if isinstance(node, ast.Attribute):
             assert node.attr not in ("environ", "getenv", "putenv", "environb"), \
