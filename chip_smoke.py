@@ -84,8 +84,8 @@
    decoder backward's plain version never called, two evaluations
    reporting accuracy and roc_auc for ffpp, dfdc and cdf, the run
    directory's setting.yaml, best_weights.pt, last_weights.pt,
-   metrics.jsonl and checkpoints/; a run stopped after step 2's checkpoint
-   and resumed to step 4 bit-equal to the uninterrupted run (`[train cli
+   metrics.jsonl and checkpoints/; a run resumed from the run's step-2
+   checkpoint to step 4 bit-equal to the uninterrupted run (`[train cli
    resume]`); inference.main on the run directory, each video's P(fake)
    equal to Scorer.from_run_dir's on the same clips (`[train cli
    inference]`); a step with a non-z0 768-x-768 adapter, its conditioning
@@ -180,11 +180,13 @@
    the per-layer kernel chain (bit-level, as in 11; with bf16 attention
    each layer's stage on the same input too) and the plain chain, timed
    beside the chain with its chunk, grid, grid barriers and stage clock
-   (mode "0": at each chunk rule too), printing the kernel chain's drift
-   from the plain chain layer by layer;
+   (the chunk rules are timed at ViT-B in 11, not here, to hold the run's
+   time), printing the kernel chain's drift from the plain chain layer by
+   layer;
 16. drives the JAX package's megaL ladder (`[vit-l ladder]`,
-   tools/bench_r3_ladder.py:330-393): on ViT-L/14 and ViT-L/14@336px (24
-   layers, keep 18-23, compute_int8, one parameter seed) each rung, the
+   tools/bench_r3_ladder.py:330-393): on ViT-L/14 and ViT-L/14@336px (cut
+   from 24 to 12 layers, keep 6-11, compute_int8, one parameter seed;
+   [kernels tower wide] keeps the 24-layer tower's timings) each rung, the
    split control, block "full" with int8 attention "0" and "1" and the
    tower with "0", "1" and "qk", answers the four requests through a
    Scorer, counters zeroed before and read after, its launches asserted;
@@ -227,7 +229,29 @@
    exported teacher over cv2-written labelled folders in every mode, 12
    launches a feature batch, the CLS features held to the plain route
    (`[ssl eval]`);
-19. drives the port on several ranks (`[multi rank]`, runtime.MeshRuntime
+19. drives CLIP's zero-shot surface (`[zero shot]`): 8 prompts tokenised
+   with the repo's BPE table (framing and EOT at each row's argmax
+   checked), the text tower at ViT-B/16's (12 layers, width 512, 77 tokens,
+   causal, f32) held to the same call on the CPU at TOL_TEXT; ViT-B/16's
+   pooled image features (seeded ln_post and proj) on 16 images in bf16
+   through the packed encoder attention kernel, 12 launches counted, held
+   to the bf16 plain route (the f32 route's distance printed); RN50's
+   features in bf16 (cuDNN convolutions, BN statistics away from 0 and 1)
+   held to its f32 route at TOL_RN; the (16, 8) zero-shot logits held to
+   the f32 route's at 2e-2 of their range exp(logit_scale) (random towers
+   put the cosines near 0, so the max-relative reading is printed beside
+   it), with their argmax agreement; each tower timed; then the
+   encoder-analysis CLIs (`[analysis]`, python -m
+   dfd_clip_tpu_torch.tools.analysis's main in this process on the [train
+   cli] FFPP tree, ViT-B/16, 20 frames): kv-dist on one clip (its q / k / v
+   / out held block by block to the bf16 plain route on the same input,
+   each route's whole export recorded), semantic-patches
+   over 4 samples, augment-impact with one setting over 2, comb-impact into
+   a guide map, each counted (12 packed attention launches a clip forward)
+   and its pickle checked, then a flagship predict with patch_mask type
+   "guide" reading that map, counted and held to its plain route; the
+   packed attention timed at both paths' shapes;
+20. drives the port on several ranks (`[multi rank]`, runtime.MeshRuntime
    over torch.distributed): the flagship predict through a one-rank NCCL
    runtime, bit-equal to the one-process predict; then two ranks spawned
    on this one card over Gloo (NCCL refuses two ranks on one device), each
@@ -242,13 +266,14 @@
    stream) its loss at that limit and each clip's within MR_CLIP_LOSS_TOL;
    SSL on configs/ssl/base.yaml (ViT-B/14 at full width and depth) at
    MR_SSL_IMAGES images a rank, with fsdp 0 for one step and then with
-   fsdp 1 for MR_SSL_STEPS, a checkpoint and a resume bit-equal to the
-   run, the same gathered checksum on both ranks; each rank's device
+   fsdp 1 for MR_SSL_STEPS (most student leaves moved from their initial
+   values), a checkpoint and a resume bit-equal to the run, the same
+   gathered checksum on both ranks; each rank's device
    memory held after set-up and at its peak in each (fsdp 1 must hold
    under 0.6 of fsdp 0's: its leaves and Adam moments are slices).
    Each rank's launch counts (6 partials a predict or step, 6 backward a
    step) and each collective's bytes are printed;
-20. prints the kernel table as one JSON line, the card line, and last
+21. prints the kernel table as one JSON line, the card line, and last
    {"ok": true, "device": {...}}.
 
 Before the build it prints one line on what the native video decoder would
@@ -445,9 +470,16 @@ WIDE_TOKENS, VITL_KEEP = 257, (0, 4, 8, 12, 16, 20)
 L336_TOKENS, L336_SEEDS = 577, 1
 VITL336_PATHS = ("vitl336_serve", "vitl336_int8_serve")
 # the JAX package's megaL ladder (tools/bench_r3_ladder.py:330-393, BENCH_ARCH
-# ViT-L/14 or ViT-L/14@336px; bench.py:63-68 adds the qk rung): 24 layers,
-# the last 6 kept, compute_int8, through the encoder's kernel forms
-LADDER_KEEP = tuple(range(18, 24))
+# ViT-L/14 or ViT-L/14@336px; bench.py:63-68 adds the qk rung): the last 6
+# layers kept, compute_int8, through the encoder's kernel forms. Its towers
+# are cut from 24 layers to LADDER_LAYERS to hold the run's time ([kernels
+# tower wide] times the 24-layer tower at these widths and token counts).
+# Not to 8: there the random tower's P(fake) is unsaturated (~0.83, against
+# ~0.0015 at 12 and 24) and the W8A8 rungs' |dP(fake)| from the f32 plain
+# route reads 3.2e-2 to 5.0e-2, past TOL_PFAKE_F32 (ROADMAP queue 3 item 1)
+LADDER_LAYERS = 12
+LADDER_KEEP = tuple(range(LADDER_LAYERS - 6, LADDER_LAYERS))
+TOWER_WIDE_KEEP = tuple(range(18, 24))   # [kernels tower wide]: the 24-layer tower's
 LADDER_RUNGS = {  # rung: EncoderKernels arguments
     "split": {},
     "full": {"block": "full"},
@@ -554,7 +586,6 @@ def plain_versions(encoder: bool = True):
         fused_decoder_attention_bwd,
         tower,
     )
-
     swaps = [
         (clip_vit, "fused_encoder_tower", tower.fused_encoder_tower_plain),
         (clip_vit, "fused_encoder_attn_block", encoder_block.fused_encoder_attn_block_plain),
@@ -1461,13 +1492,15 @@ def check_decoder_bwd_kv(row, name: str, bargs: tuple, paths: tuple) -> None:
 
 
 def to_device(tree, dev):
-    """Params to the card: matrix weights ("w") in bf16, int8 weights as
-    they are, the rest f32."""
+    """Params (dicts and lists of tensors) to the card: matrix weights ("w")
+    in bf16, int8 weights as they are, the rest f32."""
     import torch
 
     if isinstance(tree, dict):
         return {k: (v.to(dev, torch.bfloat16) if k == "w" else to_device(v, dev))
                 for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [to_device(v, dev) for v in tree]
     return tree.to(dev) if tree.dtype == torch.int8 else tree.to(dev, torch.float32)
 
 
@@ -2543,11 +2576,7 @@ def cli_config(work: str, trees: dict, tracking: str, checkpoint_dir: str = "") 
     return str(out)
 
 
-class _StopRun(Exception):
-    """Stops a training run once its checkpoint is written (the resume check)."""
-
-
-def cli_run(card: str, work: str, cfg: str, stop_at: int = 0, compinv: bool = False,
+def cli_run(card: str, work: str, cfg: str, compinv: bool = False,
             keep: dict = None) -> tuple:
     """``python -m dfd_clip_tpu_torch.main --cfg cfg`` in this process on the
     card (the working directory ``work``, where the datasets cache their
@@ -2556,12 +2585,11 @@ def cli_run(card: str, work: str, cfg: str, stop_at: int = 0, compinv: bool = Fa
     recorded around the trainer's own step and the evaluator's own run
     (CompInvTrainer's and CompInvEvaluator's with ``compinv``), and held:
     a step's launches TRAIN_COUNTS (COMPINV_COUNTS) a task batch, an
-    evaluation's FLAGSHIP_COUNTS (COMPINV_COUNTS) a predict. ``stop_at``:
-    stop the run right after that step's checkpoint. ``keep``: gets the
+    evaluation's FLAGSHIP_COUNTS (COMPINV_COUNTS) a predict. ``keep``: gets the
     trainer ("trainer"), its first step's round of task batches ("round"),
     the first of them ("batch") and its trainable leaves before that step
     ("start"). Returns
-    (run directory or None, counts, step log, evaluation log)."""
+    (run directory, counts, step log, evaluation log)."""
     import os
 
     import numpy as np
@@ -2576,8 +2604,7 @@ def cli_run(card: str, work: str, cfg: str, stop_at: int = 0, compinv: bool = Fa
     step_counts, eval_counts = ((COMPINV_COUNTS, COMPINV_COUNTS) if compinv
                                 else (TRAIN_COUNTS, FLAGSHIP_COUNTS))
     steps, evals = [], []
-    train_step, run_eval, checkpoint = (Trainer_.train_step, Evaluator_.run,
-                                        Trainer._maybe_checkpoint)
+    train_step, run_eval = Trainer_.train_step, Evaluator_.run
 
     def delta(before):
         after = _cuda.launches()
@@ -2612,32 +2639,20 @@ def cli_run(card: str, work: str, cfg: str, stop_at: int = 0, compinv: bool = Fa
                                                              self.dataloaders.values()),
                       "s": time.perf_counter() - t0, "counts": delta(before)})
 
-    def stopping_checkpoint(self):
-        checkpoint(self)
-        if self.steps == stop_at:
-            raise _StopRun
-
     previous = os.getcwd()
     Trainer_.train_step, Evaluator_.run = logged_step, logged_eval
-    if stop_at:
-        Trainer._maybe_checkpoint = stopping_checkpoint
-    run = None
     os.chdir(work)
     try:
         torch.cuda.synchronize()
         _cuda.reset_launches()
         t0 = time.perf_counter()
-        try:
-            run = tmain.main(tmain.parse_args(["--cfg", cfg, "--video_backend", "opencv"]))
-        except _StopRun:
-            print(f"  stopped after step {stop_at}'s checkpoint", flush=True)
+        run = tmain.main(tmain.parse_args(["--cfg", cfg, "--video_backend", "opencv"]))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts, plain = _cuda.launches(), _cuda.plain_calls()
     finally:
         os.chdir(previous)
-        Trainer_.train_step, Evaluator_.run, Trainer._maybe_checkpoint = (train_step, run_eval,
-                                                                          checkpoint)
+        Trainer_.train_step, Evaluator_.run = train_step, run_eval
     print(f"  main: {wall:.2f} s of wall, {len(steps)} steps, {len(evals)} evaluations, "
           f"plain calls {plain or 'none'}, on {card}", flush=True)
     if plain:
@@ -2661,21 +2676,23 @@ def cli_run(card: str, work: str, cfg: str, stop_at: int = 0, compinv: bool = Fa
     return run, counts, steps, evals
 
 
-def train_cli_path(card: str) -> dict:
+def train_cli_path(card: str, work: str) -> tuple:
     """The training CLI on the flagship recipe: main on a YAML derived from
     configs/deepfake/deepfake.yaml (the 768-x-768-z0 adapter on the
     unpadded export, normal+frame augmentation of FFPP contrast pairs,
     evaluation of FFPP, DFDC and CDF), in this process on the card; its
     steps, evaluations, run directory, plain calls and launches checked;
-    then a run stopped after step 2's checkpoint and resumed to step 4,
+    then a run resumed from the run's step-2 checkpoint to step 4,
     held to the uninterrupted run; then inference.main on the run
     directory held video by video to Scorer.from_run_dir on the same clips;
     then one train step with a non-z0 adapter held to the plain versions and
     the adapter's device-resident train step timed and traced; then, on the
-    same trees, the other recipes (compinv_paths). Returns the launch
-    counts of the first run ("train_cli") and of compinv_paths'."""
+    same trees, the other recipes (compinv_paths). The trees and runs go
+    under ``work``, which the caller keeps for the [analysis] phase.
+    Returns (the launch counts of the first run ("train_cli") and of
+    compinv_paths', the trees)."""
     import pickle
-    import tempfile
+    import shutil
 
     import numpy as np
     import torch
@@ -2688,116 +2705,117 @@ def train_cli_path(card: str) -> dict:
     from dfd_clip_tpu_torch.ops import _cuda
     from dfd_clip_tpu_torch.serve import Scorer
 
-    with tempfile.TemporaryDirectory() as work:
+    t0 = time.perf_counter()
+    trees = cli_trees(work)
+    print(f"  trees: {len(list(Path(work).rglob('*.avi')))} MJPG videos of "
+          f"{CLI_VIDEO_SECONDS} s at 224 pixels in {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    print("[train cli] python -m dfd_clip_tpu_torch.main --cfg <deepfake.yaml, changed "
+          "as printed> --video_backend opencv", flush=True)
+    run, counts, steps, evals = cli_run(card, work, cli_config(work, trees,
+                                                              f"{work}/logs"))
+    if len(steps) != CLI_STEPS or [e["step"] for e in evals] != [2, 4]:
+        raise SystemExit(f"FAIL train cli: {len(steps)} steps, evaluations at "
+                         f"{[e['step'] for e in evals]}")
+    names = sorted(p.name for p in Path(run).iterdir())
+    print(f"  run directory {Path(run).relative_to(work)}: {', '.join(names)}", flush=True)
+    for need in ("setting.yaml", "best_weights.pt", "last_weights.pt", "metrics.jsonl",
+                 "checkpoints"):
+        if need not in names:
+            raise SystemExit(f"FAIL train cli: no {need} in the run directory")
+    lines = [json.loads(s) for s in Path(run, "metrics.jsonl").read_text().splitlines()]
+    for step in (2, 4):
+        got = {k: v for r in lines if r["step"] == step for k, v in r.items()
+               if k.startswith("evaluator/metric/")}
+        print(f"  evaluation at step {step}: " + ", ".join(
+            f"{k.split('/', 2)[2]} {v:.4f}" for k, v in sorted(got.items())), flush=True)
+        for ds in ("ffpp", "dfdc", "cdf"):
+            for metric in ("accuracy", "roc_auc"):
+                value = got.get(f"evaluator/metric/deepfake/{ds}/{metric}")
+                if value is None or not np.isfinite(value):
+                    raise SystemExit(f"FAIL train cli: evaluation at step {step} reports "
+                                     f"{ds} {metric} {value}")
+    setting = yaml.safe_load(Path(run, "setting.yaml").read_text())
+    print(f"  setting.yaml: adapter {setting['model']['adapter']}, batch "
+          f"{setting['trainer']['batch_size']} (contrast pairs: {steps[0]['clips']} clips a "
+          f"step)", flush=True)
+
+    print(f"[train cli resume] a run resumed from the run's step {CLI_EVERY} checkpoint to "
+          f"step {CLI_STEPS}", flush=True)
+    ck = Path(work, "resume_checkpoints")
+    ck.mkdir()
+    shutil.copytree(Path(run, "checkpoints", f"step_{CLI_EVERY:08d}"),
+                    ck / f"step_{CLI_EVERY:08d}")
+    resumed, _, rsteps, _ = cli_run(card, work, cli_config(work, trees,
+                                                           f"{work}/logs_resumed", str(ck)))
+    if [s["step"] for s in rsteps] != list(range(CLI_EVERY, CLI_STEPS)):
+        raise SystemExit(f"FAIL train cli resume: steps {[s['step'] for s in rsteps]}")
+    want, got = (load_params(f"{d}/last_weights.pt") for d in (run, resumed))
+    worst, equal, n = 0.0, True, 0
+    for a, b in zip(*(_tree_leaves(t["trainable"]) for t in (got, want))):
+        worst = max(worst, float(np.abs(a - b).max()))
+        equal = equal and np.array_equal(a, b)
+        n += 1
+    print(f"  resumed vs uninterrupted last_weights.pt: {n} leaves, bit-equal {equal}, "
+          f"max |d| {worst:.3e} (hold: bit-equal; every kernel of the step is "
+          f"deterministic)", flush=True)
+    if got["steps"] != want["steps"] or not equal:
+        raise SystemExit("FAIL train cli resume: the resumed run's weights differ")
+
+    print("[train cli inference] python -m dfd_clip_tpu_torch.inference <run> "
+          f"--batch_size {CLIPS}, each video held to Scorer.from_run_dir", flush=True)
+    import os
+    from concurrent.futures import ThreadPoolExecutor
+
+    previous = os.getcwd()
+    os.chdir(work)
+    try:
+        torch.cuda.synchronize()
+        _cuda.reset_launches()
         t0 = time.perf_counter()
-        trees = cli_trees(work)
-        print(f"  trees: {len(list(Path(work).rglob('*.avi')))} MJPG videos of "
-              f"{CLI_VIDEO_SECONDS} s at 224 pixels in {time.perf_counter() - t0:.2f} s",
-              flush=True)
-        print("[train cli] python -m dfd_clip_tpu_torch.main --cfg <deepfake.yaml, changed "
-              "as printed> --video_backend opencv", flush=True)
-        run, counts, steps, evals = cli_run(card, work, cli_config(work, trees,
-                                                                  f"{work}/logs"))
-        if len(steps) != CLI_STEPS or [e["step"] for e in evals] != [2, 4]:
-            raise SystemExit(f"FAIL train cli: {len(steps)} steps, evaluations at "
-                             f"{[e['step'] for e in evals]}")
-        names = sorted(p.name for p in Path(run).iterdir())
-        print(f"  run directory {Path(run).relative_to(work)}: {', '.join(names)}", flush=True)
-        for need in ("setting.yaml", "best_weights.pt", "last_weights.pt", "metrics.jsonl",
-                     "checkpoints"):
-            if need not in names:
-                raise SystemExit(f"FAIL train cli: no {need} in the run directory")
-        lines = [json.loads(s) for s in Path(run, "metrics.jsonl").read_text().splitlines()]
-        for step in (2, 4):
-            got = {k: v for r in lines if r["step"] == step for k, v in r.items()
-                   if k.startswith("evaluator/metric/")}
-            print(f"  evaluation at step {step}: " + ", ".join(
-                f"{k.split('/', 2)[2]} {v:.4f}" for k, v in sorted(got.items())), flush=True)
-            for ds in ("ffpp", "dfdc", "cdf"):
-                for metric in ("accuracy", "roc_auc"):
-                    value = got.get(f"evaluator/metric/deepfake/{ds}/{metric}")
-                    if value is None or not np.isfinite(value):
-                        raise SystemExit(f"FAIL train cli: evaluation at step {step} reports "
-                                         f"{ds} {metric} {value}")
-        setting = yaml.safe_load(Path(run, "setting.yaml").read_text())
-        print(f"  setting.yaml: adapter {setting['model']['adapter']}, batch "
-              f"{setting['trainer']['batch_size']} (contrast pairs: {steps[0]['clips']} clips a "
-              f"step)", flush=True)
-
-        print(f"[train cli resume] a run stopped after step {CLI_EVERY}'s checkpoint, then "
-              f"resumed from it to step {CLI_STEPS}", flush=True)
-        ck = f"{work}/resume_checkpoints"
-        stopped, _, _, _ = cli_run(card, work, cli_config(work, trees, f"{work}/logs_stopped",
-                                                          ck), stop_at=CLI_EVERY)
-        if stopped is not None or sorted(p.name for p in Path(ck).iterdir()) != [
-                f"step_{CLI_EVERY:08d}"]:
-            raise SystemExit("FAIL train cli resume: the stopped run left no lone checkpoint")
-        resumed, _, rsteps, _ = cli_run(card, work, cli_config(work, trees,
-                                                               f"{work}/logs_resumed", ck))
-        if [s["step"] for s in rsteps] != list(range(CLI_EVERY, CLI_STEPS)):
-            raise SystemExit(f"FAIL train cli resume: steps {[s['step'] for s in rsteps]}")
-        want, got = (load_params(f"{d}/last_weights.pt") for d in (run, resumed))
-        worst, equal, n = 0.0, True, 0
-        for a, b in zip(*(_tree_leaves(t["trainable"]) for t in (got, want))):
-            worst = max(worst, float(np.abs(a - b).max()))
-            equal = equal and np.array_equal(a, b)
-            n += 1
-        print(f"  resumed vs uninterrupted last_weights.pt: {n} leaves, bit-equal {equal}, "
-              f"max |d| {worst:.3e} (hold: bit-equal; every kernel of the step is "
-              f"deterministic)", flush=True)
-        if got["steps"] != want["steps"] or not equal:
-            raise SystemExit("FAIL train cli resume: the resumed run's weights differ")
-
-        print("[train cli inference] python -m dfd_clip_tpu_torch.inference <run> "
-              f"--batch_size {CLIPS}, each video held to Scorer.from_run_dir", flush=True)
-        import os
-
-        previous = os.getcwd()
-        os.chdir(work)
-        try:
-            torch.cuda.synchronize()
-            _cuda.reset_launches()
-            t0 = time.perf_counter()
-            report = inference.main(inference.parse_args(
-                [run, "--batch_size", str(CLIPS), "--num_workers", "2",
-                 "--video_backend", "opencv"]))
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            run_counts = _cuda.launches()
-            (stats_file,) = Path(run).glob("stats_*_best_video.pickle")
-            stats = pickle.loads(stats_file.read_bytes())
-            reference = Scorer.from_run_dir(run, batch_size=CLIPS)
-            videos = 0
-            for d in setting["data"]["eval"]:
-                cls = getattr(tds, d["name"])
-                dcfg = cls.get_default_config().merge_from_other_cfg(CN(d))
-                dcfg.pack, dcfg.scale = 1, 1.0
-                ds = cls(dcfg, setting["data"]["num_frames"], setting["data"]["clip_duration"],
-                         split="test", video_backend="opencv")
-                probs, labels = stats[d["name"]]["prob"], stats[d["name"]]["label"]
-                if len(probs) != len(ds):
-                    raise SystemExit(f"FAIL train cli inference: {d['name']} has {len(probs)} "
-                                     f"videos, the dataset {len(ds)}")
-                for i in range(len(ds)):
-                    clips, label = ds[i][:2]
-                    x = np.stack(clips)                      # (clips, T, 3, H, W)
-                    want_p = reference.score_frames(
-                        x.transpose(0, 1, 3, 4, 2).reshape(-1, *x.shape[3:], 3))
-                    delta = abs(probs[i] - want_p)
-                    print(f"  {d['name']} video {i}: {len(clips)} clips, label {labels[i]}, "
-                          f"P(fake) {probs[i]:.9f}, Scorer {want_p:.9f}, |d| {delta:.3e} "
-                          f"(tol {TOL_HTTP:g})", flush=True)
-                    if labels[i] != label[0] or not delta <= TOL_HTTP:
-                        raise SystemExit(f"FAIL train cli inference: {d['name']} video {i}")
-                    videos += 1
-        finally:
-            os.chdir(previous)
-        print(f"  inference.main: {wall:.2f} s, report {report}, {videos} videos", flush=True)
-        check_counts("train cli inference.main", run_counts, FLAGSHIP_COUNTS, videos)
-        del reference
-        adapter_step(card)
-        recipes = compinv_paths(card, work, trees)
-    return {"train_cli": counts, **recipes}
+        report = inference.main(inference.parse_args(
+            [run, "--batch_size", str(CLIPS), "--num_workers", "2",
+             "--video_backend", "opencv"]))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        run_counts = _cuda.launches()
+        (stats_file,) = Path(run).glob("stats_*_best_video.pickle")
+        stats = pickle.loads(stats_file.read_bytes())
+        reference = Scorer.from_run_dir(run, batch_size=CLIPS)
+        videos = 0
+        for d in setting["data"]["eval"]:
+            cls = getattr(tds, d["name"])
+            dcfg = cls.get_default_config().merge_from_other_cfg(CN(d))
+            dcfg.pack, dcfg.scale = 1, 1.0
+            ds = cls(dcfg, setting["data"]["num_frames"], setting["data"]["clip_duration"],
+                     split="test", video_backend="opencv")
+            probs, labels = stats[d["name"]]["prob"], stats[d["name"]]["label"]
+            if len(probs) != len(ds):
+                raise SystemExit(f"FAIL train cli inference: {d['name']} has {len(probs)} "
+                                 f"videos, the dataset {len(ds)}")
+            # the videos decoded on a thread a core (cv2 decodes without the
+            # GIL; each item is a pure function of its index), scored in turn
+            with ThreadPoolExecutor(max_workers=os.cpu_count() or 4) as pool:
+                items = list(pool.map(lambda i: ds[i][:2], range(len(ds))))
+            for i, (clips, label) in enumerate(items):
+                x = np.stack(clips)                      # (clips, T, 3, H, W)
+                want_p = reference.score_frames(
+                    x.transpose(0, 1, 3, 4, 2).reshape(-1, *x.shape[3:], 3))
+                delta = abs(probs[i] - want_p)
+                print(f"  {d['name']} video {i}: {len(clips)} clips, label {labels[i]}, "
+                      f"P(fake) {probs[i]:.9f}, Scorer {want_p:.9f}, |d| {delta:.3e} "
+                      f"(tol {TOL_HTTP:g})", flush=True)
+                if labels[i] != label[0] or not delta <= TOL_HTTP:
+                    raise SystemExit(f"FAIL train cli inference: {d['name']} video {i}")
+                videos += 1
+    finally:
+        os.chdir(previous)
+    print(f"  inference.main: {wall:.2f} s, report {report}, {videos} videos", flush=True)
+    check_counts("train cli inference.main", run_counts, FLAGSHIP_COUNTS, videos)
+    del reference
+    adapter_step(card)
+    recipes = compinv_paths(card, work, trees)
+    return {"train_cli": counts, **recipes}, trees
 
 
 def _tree_leaves(tree) -> list:
@@ -4434,8 +4452,8 @@ def check_tower_wide_kernels(rows: list) -> None:
 
     # -- the 24-layer int8 tower, keep 18-23 ---------------------------------------------------
     blocks = tower_params(torch.Generator().manual_seed(14), dev, clip_vit.VIT_L14)
-    first, last = LADDER_KEEP[0], LADDER_KEEP[-1]
-    nsel = len(LADDER_KEEP)
+    first, last = TOWER_WIDE_KEEP[0], TOWER_WIDE_KEEP[-1]
+    nsel = len(TOWER_WIDE_KEEP)
     for t, arch in ((WIDE_TOKENS, "vitl"), (L336_TOKENS, "vitl336")):
         h = torch.randn(n, t, w, generator=dgen, device=dev).to(bf)
         m_rows = n * t
@@ -4445,7 +4463,7 @@ def check_tower_wide_kernels(rows: list) -> None:
         for mode in ("0", "1", "qk"):
             label = {"0": "", "1": " attn", "qk": " qk"}[mode]
             name = f"fused_encoder_tower int8{label} 24 layers {t}"
-            kw = dict(keep=LADDER_KEEP, drop_cls=True, int8_gemm=True, int8_attn=mode)
+            kw = dict(keep=TOWER_WIDE_KEEP, drop_cls=True, int8_gemm=True, int8_attn=mode)
             k, v = tower.fused_encoder_tower(h, blocks, hh, d, **kw)
             # the per-layer kernel chain (a launch a kernel: the bodies the
             # tower's stages run), keeping h after every layer
@@ -4466,8 +4484,8 @@ def check_tower_wide_kernels(rows: list) -> None:
             print(f"  {name} vs the per-layer kernel chain, layers {first}-{last}: "
                   + " ".join(f"{max(rel_err(k[j], kc[j]), rel_err(v[j], vc[j])):.2e}"
                              for j in range(nsel)), flush=True)
-            chain_ms = time_ms(lambda: bts.kernel_chain(h, blocks, hh, LADDER_KEEP, True, mode,
-                                                        kc, vc), iters=2, warmup=1)
+            chain_ms = time_ms(lambda: bts.kernel_chain(h, blocks, hh, TOWER_WIDE_KEEP, True,
+                                                        mode, kc, vc), iters=2, warmup=1)
             del kc, vc, x
             if mode == "0":   # each stage on the same input as the per-layer kernels
                 tower_stage_holds(name, blocks, [h] + hs[:-1], hh, d, True, mode)
@@ -4516,8 +4534,7 @@ def check_tower_wide_kernels(rows: list) -> None:
                 plain_ms, None, 0, 0, 0, err, counter="fused_encoder_tower",
                 paths=(f"{arch}_tower{label.replace(' ', '_')}",),
                 bound=(max(ops_t, nb / HBM) * 1e3, "operations" if ops_t >= nb / HBM else "bytes"))
-            tower_timings(name, h, blocks, hh, LADDER_KEEP, True, mode, ms, chain_ms,
-                          rules=mode == "0")
+            tower_timings(name, h, blocks, hh, TOWER_WIDE_KEEP, True, mode, ms, chain_ms)
         del h
         torch.cuda.empty_cache()
     del blocks
@@ -4525,27 +4542,36 @@ def check_tower_wide_kernels(rows: list) -> None:
 
 
 def ladder_counts(rung: str) -> dict:
-    """A ladder rung's encoder and decoder launches a predict (24 layers: 23
-    blocks and the last kept layer's K/V columns)."""
+    """A ladder rung's encoder and decoder launches a predict (LADDER_LAYERS
+    layers: the blocks before the last kept layer and its K/V columns)."""
     decoder = {"fused_decoder_attention": 6, "decoder_boundary": 7}
+    n = LADDER_LAYERS - 1
     if rung.startswith("tower"):
         return {**TOWER_COUNTS, **decoder}
     if rung == "split":   # the MLP's rows quantised in c_fc: no quant_rows
-        return {"fused_encoder_attn_block": 24, "fused_encoder_mlp_block": 23,
-                "fused_encoder_block": 0, "fused_encoder_tower": 0, "encoder_attention": 23,
-                "encoder_attention_int8": 0, "gemm_s8_quant": 23, "quant_rows": 0,
+        return {"fused_encoder_attn_block": n + 1, "fused_encoder_mlp_block": n,
+                "fused_encoder_block": 0, "fused_encoder_tower": 0, "encoder_attention": n,
+                "encoder_attention_int8": 0, "gemm_s8_quant": n, "quant_rows": 0,
                 "layer_norm_rows": 0, **decoder}
     int8_attn = rung == "full_attn"
-    return {"fused_encoder_block": 23, "fused_encoder_attn_block": 1,
+    return {"fused_encoder_block": n, "fused_encoder_attn_block": 1,
             "fused_encoder_mlp_block": 0, "fused_encoder_tower": 0,
-            "encoder_attention": 0 if int8_attn else 23,
-            "encoder_attention_int8": 23 if int8_attn else 0, "gemm_s8_quant": 23,
-            "quant_rows": 23, **NO_BF16_ROWS, **decoder}
+            "encoder_attention": 0 if int8_attn else n,
+            "encoder_attention_int8": n if int8_attn else 0, "gemm_s8_quant": n,
+            "quant_rows": n, **NO_BF16_ROWS, **decoder}
+
+
+def ladder_detector(kernels, cfg: dict):
+    """``detector(kernels, **cfg)`` with its tower cut to LADDER_LAYERS."""
+    det = detector(kernels, **cfg)
+    det.vit_cfg = dataclasses.replace(det.vit_cfg, layers=LADDER_LAYERS)
+    return det
 
 
 def ladder_paths(card: str) -> dict:
-    """The megaL ladder on ViT-L/14 and ViT-L/14@336px (24 layers, keep
-    18-23, compute_int8, one parameter seed each): each rung of LADDER_RUNGS
+    """The megaL ladder on ViT-L/14 and ViT-L/14@336px (LADDER_LAYERS
+    layers, the last 6 kept, compute_int8, one parameter seed each): each
+    rung of LADDER_RUNGS
     through a Scorer answers the four requests, counters zeroed before and
     read after; on the last request's batch its logits and P(fake) are held
     against the plain route in f32, compared with the split control's by
@@ -4567,9 +4593,9 @@ def ladder_paths(card: str) -> dict:
     enc = None
     for arch, tag in LADDER_ARCHS:
         cfg = {"architecture": arch, "decode_indices": list(LADDER_KEEP), "op_mode": int8_mode}
-        base = detector(**cfg)
+        base = ladder_detector(None, cfg)
         tokens = base.vit_cfg.num_tokens
-        if base.layer_indices != LADDER_KEEP or base.vit_cfg.layers != 24:
+        if base.layer_indices != LADDER_KEEP or base.vit_cfg.layers != LADDER_LAYERS:
             raise SystemExit(f"FAIL {tag} ladder: kept layers {base.layer_indices}")
         gen = torch.Generator().manual_seed(20)
         if enc is None:   # ViT-L/14's tower; the 336-pixel one shares its blocks
@@ -4584,9 +4610,10 @@ def ladder_paths(card: str) -> dict:
         plain, ref = {}, None
         for rung, kernels in LADDER_RUNGS.items():
             path = f"{tag}_{rung}"
-            print(f"[{tag} ladder {rung}] {arch}, EncoderKernels({kernels}), compute_int8, keep "
-                  f"18-23", flush=True)
-            det = detector(kernels, **cfg)
+            print(f"[{tag} ladder {rung}] {arch} at {LADDER_LAYERS} layers, EncoderKernels("
+                  f"{kernels}), compute_int8, keep {LADDER_KEEP[0]}-{LADDER_KEEP[-1]}",
+                  flush=True)
+            det = ladder_detector(kernels, cfg)
             scorer = Scorer(det, raw, batch_size=CLIPS)
             counts[path] = answer(scorer, requests, card, path)
             used = ("fused_encoder_tower",) if kernels.get("tower") else (
@@ -4619,8 +4646,8 @@ def ladder_paths(card: str) -> dict:
                     fail(f"FAIL {path}: cosine to the split control {cos:.6f} < {TOL_COSINE:g}",
                          True)
             if kernels.get("tower"):
-                chain = detector({"block": "full", "int8_attn": kernels.get("int8_attn", "0")},
-                                 **cfg)
+                chain = ladder_detector({"block": "full",
+                                         "int8_attn": kernels.get("int8_attn", "0")}, cfg)
                 frames = det.preprocess(xd)
                 kv = det.encode_kv(scorer.params, frames)
                 kv_chain = chain.encode_kv(scorer.params, frames)
@@ -5716,10 +5743,337 @@ def profile_device(name: str, fn) -> None:
         print(f"    {device_us(e) / 1e3:9.3f} ms {e.count:5d}x {e.key[:70]}", flush=True)
 
 
+# [zero shot]: CLIP's zero-shot surface at ViT-B/16 width
+ZS_PROMPTS = ("a photo of a real face.", "a photo of a fake face.",
+              "a face swapped by deepfakes.", "a face reenacted by face2face.",
+              "a face swapped by faceswap.", "a face rendered by neural textures.",
+              "an unaltered video frame of a person talking, lit from the left.",
+              "a blurry, over-compressed frame (c23) of a newsreader!")
+ZS_IMAGES = 2 * len(ZS_PROMPTS)   # images through each image tower: a pair a prompt
+ZS_NUDGE = 0.1            # the second image of a pair: the first + this x fresh noise
+TOL_TEXT = 1e-3           # the text tower on the card vs the CPU, f32 (TF32 off)
+TOL_RN = 5e-2             # RN50 in bf16 vs its f32 route on the card
+ZS_COUNTS = {"fused_encoder_attention_qkv": 12, "layer_norm_rows": 24}
+# [analysis]: the encoder-analysis CLIs on the [train cli] FFPP tree
+AN_COUNTS = {"fused_encoder_attention_qkv": 12, "layer_norm_rows": 24}   # a clip forward
+
+
+def zero_shot_path(card: str, rows: list) -> dict:
+    """CLIP's zero-shot surface at ViT-B/16 width: the prompts tokenised
+    with the repo's BPE table (framing, EOT at each row's argmax); the text
+    tower ("ViT-B/16": 12 layers, width 512, 77 tokens, causal, f32) on the
+    card held to the CPU's; the pooled image features of ViT-B/16 (seeded
+    ln_post and proj) on ZS_IMAGES images in bf16 through the packed
+    attention kernel, counted (ZS_COUNTS) and held to the bf16 plain route,
+    the f32 route's distance printed; RN50 in bf16 held to its f32 route;
+    the (images, prompts) zero-shot logits held to the f32 route's at
+    TOL_ENCODER of their max, each image's argmax held to its pair's
+    prompt on both routes (the text projection fitted so that prompt j's
+    feature shares the f32 image features' mean direction and what sets
+    images j and j + 8 apart); the packed attention at the path's shape
+    against its plain version; each tower timed by CUDA events. Returns
+    the vision forward's counts ("zs")."""
+    import numpy as np
+    import torch
+
+    from dfd_clip_tpu_torch.data import tokenizer
+    from dfd_clip_tpu_torch.models import clip_resnet, clip_text, clip_vit
+    from dfd_clip_tpu_torch.ops import _cuda
+    from dfd_clip_tpu_torch.ops import attention as att
+
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    tok = tokenizer.ClipTokenizer()
+    tokens = tokenizer.tokenize(list(ZS_PROMPTS), tok)
+    eot_at = (tokens == tok.eot).argmax(-1)
+    framed = (tokens[:, 0] == tok.sot).all() and (tokens.argmax(-1) == eot_at).all() and all(
+        (row[e + 1:] == 0).all() for row, e in zip(tokens, eot_at))
+    print(f"  tokens {tokens.shape}: lengths {(eot_at + 1).tolist()}, framed {bool(framed)}",
+          flush=True)
+    if not framed:
+        raise SystemExit("FAIL [zero shot]: the tokens are not framed <sot> ... <eot> 0...")
+
+    tcfg = clip_text.ARCHITECTURES["ViT-B/16"]
+    tparams = clip_text.init_clip_text(torch.Generator().manual_seed(30), tcfg)
+    tokens_d = torch.as_tensor(tokens, device=dev)
+    want_txt = clip_text.clip_text_encode(tparams, tokens, tcfg)
+    tcard = to_card(tparams)
+    txt = clip_text.clip_text_encode(tcard, tokens_d, tcfg)
+    compare("[zero shot] text features (card vs CPU, f32)", txt, want_txt.to(dev), TOL_TEXT)
+    txt_ms = time_ms(lambda: clip_text.clip_text_encode(tcard, tokens_d, tcfg), iters=10)
+
+    vcfg = clip_vit.VIT_B16
+    gen = torch.Generator().manual_seed(31)
+    vparams = clip_vit.init_clip_vision(gen, vcfg)
+    vparams["ln_post"] = {"scale": 1 + 0.1 * torch.randn(vcfg.width, generator=gen),
+                          "bias": 0.1 * torch.randn(vcfg.width, generator=gen)}
+    vparams["proj"] = vcfg.width ** -0.5 * torch.randn(vcfg.width, vcfg.output_dim, generator=gen)
+    vbf, v32 = to_device(vparams, dev), to_card(vparams)
+    base = torch.randn(len(ZS_PROMPTS), 3, 224, 224, generator=gen)
+    x = torch.cat([base, base + ZS_NUDGE * torch.randn(base.shape, generator=gen)]).to(dev)
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    img = clip_text.clip_vision_features(vbf, x, vcfg, bf)
+    torch.cuda.synchronize()
+    counts = _cuda.launches()
+    check_counts("zs", counts, ZS_COUNTS, 1, used=tuple(ZS_COUNTS))
+    with plain_versions():
+        img_plain = clip_text.clip_vision_features(vbf, x, vcfg, bf)
+        img_f32 = clip_text.clip_vision_features(v32, x, vcfg, torch.float32)
+    compare("[zero shot] ViT-B/16 image features (kernels vs bf16 plain)", img, img_plain,
+            TOL_ENCODER)
+    print(f"  ViT-B/16 image features vs the f32 route: kernels {rel_err(img, img_f32):.3e}, "
+          f"bf16 plain route {rel_err(img_plain, img_f32):.3e} (recorded)", flush=True)
+    vis_ms = time_ms(lambda: clip_text.clip_vision_features(vbf, x, vcfg, bf), iters=10)
+
+    rcfg = clip_resnet.ARCHITECTURES["RN50"]
+    rgen = torch.Generator().manual_seed(32)
+    rparams = clip_resnet.init_clip_resnet(rgen, rcfg)
+
+    def running_stats(tree):   # BN statistics and affine away from (0, 1)
+        if isinstance(tree, list):
+            for t in tree:
+                running_stats(t)
+        elif isinstance(tree, dict):
+            if "var" in tree:
+                c = tree["var"].shape[0]
+                tree.update(mean=0.1 * torch.randn(c, generator=rgen),
+                            var=0.5 + torch.rand(c, generator=rgen),
+                            scale=1 + 0.1 * torch.randn(c, generator=rgen),
+                            bias=0.1 * torch.randn(c, generator=rgen))
+            for t in tree.values():
+                running_stats(t)
+
+    running_stats(rparams)
+    rcard = to_card(rparams)
+    rn = clip_resnet.clip_resnet_features(rcard, x, rcfg, bf)
+    rn32 = clip_resnet.clip_resnet_features(rcard, x, rcfg, torch.float32)
+    compare("[zero shot] RN50 features (bf16 vs its f32 route)", rn, rn32, TOL_RN)
+    rn_ms = time_ms(lambda: clip_resnet.clip_resnet_features(rcard, x, rcfg, bf), iters=10)
+    rn32_ms = time_ms(lambda: clip_resnet.clip_resnet_features(rcard, x, rcfg, torch.float32),
+                      iters=5)
+
+    # random towers give every image nearly one pooled feature, and every
+    # prompt a cosine near 0 with it. So the prompts'
+    # projection is fitted (to f32 rounding: the text tower is f32 on both
+    # routes) so that prompt j's feature is the f32 image features' mean
+    # direction plus the unit part, orthogonal to it, that sets pair j
+    # (images j and j + 8) apart from the mean: each image's argmax is its
+    # pair's prompt, and a route that moves what tells images apart moves it
+    pairs = len(ZS_PROMPTS)
+    mean = img_f32.mean(0)
+    m = mean / mean.norm()
+    d = (img_f32 - mean)[:pairs] + (img_f32 - mean)[pairs:]
+    d = d - (d @ m)[:, None] * m
+    targets = (m + d / d.norm(dim=-1, keepdim=True)) / 2 ** 0.5
+    eye = dict(tcard, text_projection=torch.eye(tcfg.width, device=dev))
+    eot_rows = clip_text.clip_text_encode(eye, tokens_d, tcfg).double()
+    fitted = dict(tcard, text_projection=(torch.linalg.pinv(eot_rows) @ targets.double()).float())
+    txt_zs = clip_text.clip_text_encode(fitted, tokens_d, tcfg)
+    print(f"  prompt features fitted to their targets within {rel_err(txt_zs, targets):.3e} "
+          "of the max (recorded)", flush=True)
+    logits = clip_text.zero_shot_logits(img.float(), txt_zs, tcard["logit_scale"])
+    logits32 = clip_text.zero_shot_logits(img_f32, txt_zs, tcard["logit_scale"])
+    if tuple(logits.shape) != (ZS_IMAGES, pairs):
+        raise SystemExit(f"FAIL [zero shot]: logits {tuple(logits.shape)}")
+    top2 = logits32.topk(2, dim=-1).values
+    print(f"  f32 route logits: max {logits32.abs().max().item():.4f}, spread "
+          f"{(logits32.max() - logits32.min()).item():.4f}, least top-1 - top-2 margin "
+          f"{(top2[:, 0] - top2[:, 1]).min().item():.4f}", flush=True)
+    compare("[zero shot] logits (kernels vs the f32 route)", logits, logits32, TOL_ENCODER)
+    want_top = torch.arange(ZS_IMAGES, device=dev) % pairs
+    agree = (logits.argmax(-1) == logits32.argmax(-1)).float().mean().item()
+    print(f"  zero-shot argmax: kernels route {logits.argmax(-1).tolist()}, f32 route "
+          f"{logits32.argmax(-1).tolist()}, agreement {agree:.4f} of {ZS_IMAGES} images",
+          flush=True)
+    if not ((logits.argmax(-1) == want_top).all() and (logits32.argmax(-1) == want_top).all()):
+        raise SystemExit("FAIL [zero shot]: an image's argmax is not its pair's prompt")
+    print(f"  text tower {len(ZS_PROMPTS)} x 77 tokens f32: {txt_ms:.3f} ms; ViT-B/16 image "
+          f"features {ZS_IMAGES} images bf16: {vis_ms:.3f} ms; RN50 {ZS_IMAGES} images bf16: "
+          f"{rn_ms:.3f} ms (f32 {rn32_ms:.3f} ms); on {card}", flush=True)
+
+    qkv = torch.randn(ZS_IMAGES, vcfg.num_tokens, 3 * vcfg.width,
+                      generator=torch.Generator(device=dev).manual_seed(33), device=dev).to(bf)
+    attention_row(rows, "fused_encoder_attention_qkv zs",
+                  "dfd_clip_tpu/ops/pallas_attention.py:145",
+                  lambda: att.fused_encoder_attention_qkv(qkv, vcfg.heads, 64),
+                  lambda: att.plain_attention_qkv(qkv, vcfg.heads, 64), qkv, ZS_IMAGES,
+                  vcfg.num_tokens, vcfg.heads, ("zs",), counter="fused_encoder_attention_qkv")
+    del vbf, v32, rcard, tcard, x, qkv
+    torch.cuda.empty_cache()
+    return counts
+
+
+def analysis_path(card: str, rows: list, ffpp: str) -> dict:
+    """python -m dfd_clip_tpu_torch.tools.analysis as a user runs it (main
+    in this process, on the card, ViT-B/16, random weights seeded 0, 20
+    frames) over the [train cli] FFPP tree, in a working directory of its
+    own: kv-dist on one clip, semantic-patches over 4 samples,
+    augment-impact with the setting "any" over 2 samples, comb-impact of those
+    into a guide map, each with the counters zeroed before and read after
+    (12 packed attention launches a clip forward) and its pickle checked
+    for its layout and finiteness; kv-dist's clip's q / k / v / out held
+    block by block to the bf16 plain route on the same input (each route's
+    whole export, where a layer's input carries the earlier layers'
+    rounding, recorded beside it); then a flagship predict with
+    patch_mask type "guide" reading the map, counted and held to its plain
+    route; the packed attention at the analysis shape against its plain
+    version. Returns the counts by subcommand, summed ("an")."""
+    import os
+    import pickle
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from dfd_clip_tpu_torch.ops import _cuda
+    from dfd_clip_tpu_torch.ops import attention as att
+    from dfd_clip_tpu_torch.tools import analysis
+
+    common = ["--root", ffpp, "--arch", "ViT-B/16", "--types", "REAL", "DF", "--num-frames",
+              str(FRAMES), "--seed", "0"]
+    total: dict = {}
+    previous = os.getcwd()
+    with tempfile.TemporaryDirectory() as work:
+        os.chdir(work)   # the video-table cache and misc/ lookups go under it
+        try:
+            def run(label, argv, forwards):
+                print(f"[analysis {label}] python -m dfd_clip_tpu_torch.tools.analysis "
+                      + " ".join(argv), flush=True)
+                torch.cuda.synchronize()
+                _cuda.reset_launches()
+                t0 = time.perf_counter()
+                analysis.main(argv)
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+                counts = _cuda.launches()
+                expected = {k: v * forwards for k, v in AN_COUNTS.items()} if forwards else {}
+                check_counts(f"analysis {label}", counts, expected, 1,
+                             used=tuple(AN_COUNTS) if forwards else ())
+                print(f"  {label}: {dt:.2f} s host clock, {forwards} clip forwards, on {card}",
+                      flush=True)
+                for k, v in counts.items():
+                    total[k] = total.get(k, 0) + v
+
+            def load(name):
+                with open(name, "rb") as f:
+                    return pickle.load(f)
+
+            def finite_maps(label, tree, shape):
+                leaves = [a for v in tree.values() for a in (v if isinstance(v, list) else
+                                                             v.values())]
+                bad = [np.shape(a) for a in leaves if np.shape(a) != shape
+                       or not np.isfinite(a).all()]
+                if bad or not leaves:
+                    raise SystemExit(f"FAIL [analysis {label}]: maps {bad[:3]} vs {shape}")
+
+            run("kv-dist", ["kv-dist", *common, "--index", "0", "--out-dir", "kv"], 1)
+            kv = load("kv/kv_distribution.pickle")
+            for comp, res in kv.items():
+                for kind, shape in (("variance", (14, 14)), ("similarity", (14, 14 * FRAMES))):
+                    if set(res[kind]) != set(analysis.SUBJECTS) or any(
+                            len(v) != 12 for v in res[kind].values()):
+                        raise SystemExit(f"FAIL [analysis kv-dist]: {comp} {kind} layout")
+                    finite_maps(f"kv-dist {comp} {kind}", res[kind], shape)
+            run("semantic-patches", ["semantic-patches", *common, "--num-samples", "4",
+                                     "--out", "sem.pickle"], 4)
+            sem = load("sem.pickle")
+            for s, regions in sem.items():
+                if set(regions) != set(analysis.SEMANTIC_LOCATIONS):
+                    raise SystemExit("FAIL [analysis semantic-patches]: regions")
+                finite_maps(f"semantic-patches {s}", regions, (768,))
+            setting = "any"   # two clips: a fixed augmentation's two draws are equal
+            run("augment-impact", ["augment-impact", *common, "--settings", setting,
+                                   "--num-samples", "2", "--out-dir", "."], 4)
+            finite_maps("augment-impact", load(f"{setting}.pickle"), (14, 14))
+            run("comb-impact", ["comb-impact", "--inputs", f"{setting}.pickle", "--weights",
+                                "1.0", "--out", "guide_map.pickle"], 0)
+            guide = load("guide_map.pickle")
+            finite_maps("comb-impact", guide, (14, 14))
+            if not all(abs(m.sum() - 1.0) < 1e-9 for s in guide for m in guide[s]):
+                raise SystemExit("FAIL [analysis comb-impact]: a map does not sum to 1")
+
+            # kv-dist's clip: each block through the kernels and the bf16 plain
+            # route on the same input (the plain route's previous output),
+            # then the whole export of each route
+            args = analysis.parse_args(["kv-dist", *common])
+            args.dev = torch.device("cuda")
+            params, cfg = analysis.load_encoder("ViT-B/16", args.dev)
+            clip = analysis.fetch_clip(analysis.build_dataset(args, "none"), 0)["c23"]
+            clip_d = torch.as_tensor(clip).cuda()
+            with torch.no_grad():
+                with plain_versions():
+                    h = analysis.embed(params, clip_d, cfg)
+                per_layer = []
+                for i, bp in enumerate(params["blocks"]):
+                    got = analysis.tower_block(bp, h, cfg)
+                    with plain_versions():
+                        want = analysis.tower_block(bp, h, cfg)
+                    per_layer.append(max((rel_err(got[s][:, 1:], want[s][:, 1:]), s, i)
+                                         for s in analysis.SUBJECTS))
+                    h = want["out"]
+            worst = max(per_layer)
+            print(f"  kv-dist clip ({len(clip)} frames), each block on the same input: q / k / "
+                  "v / out vs the bf16 plain route, worst a layer "
+                  + " ".join(f"{r[0]:.2e}" for r in per_layer)
+                  + f"; worst {worst[0]:.3e} of the max at {worst[1]} layer {worst[2]} (tol "
+                  f"{TOL_ENCODER:g})", flush=True)
+            if not worst[0] <= TOL_ENCODER:
+                raise SystemExit(f"FAIL [analysis]: features {worst}")
+            got = analysis.extract_features(params, cfg, clip, device=args.dev)
+            with plain_versions():
+                want = analysis.extract_features(params, cfg, clip, device=args.dev)
+            drift = {s: max(float(np.abs(got[s][l] - want[s][l]).max() / np.abs(want[s][l]).max())
+                            for l in range(cfg.layers)) for s in analysis.SUBJECTS}
+            print("  the whole export, each route on its own stream (a layer's input carries "
+                  "the earlier layers' rounding): worst a subject " + json.dumps(
+                      {s: float(f"{v:.3e}") for s, v in drift.items()}) + " (recorded)",
+                  flush=True)
+            fwd_ms = time_ms(lambda: analysis.export_qkv_out(params, clip_d, cfg), iters=5)
+            print(f"  analysis tower forward ({len(clip)} frames, q / k / v / out export): "
+                  f"{fwd_ms:.3f} ms on {card}", flush=True)
+
+            # the guide map read by a flagship Detector's patch_mask type "guide"
+            det = detector(train_mode={"patch_mask": {"type": "guide", "ratio": 0.5,
+                                                      "path": os.path.abspath(
+                                                          "guide_map.pickle")}})
+            if det.guide_map is None:
+                raise SystemExit("FAIL [analysis guide]: the Detector read no guide map")
+            dparams = det.prepare_params(
+                to_card(det.init_params(torch.Generator().manual_seed(0))))
+            idx = det.sample_patch_indices(np.random.default_rng(0))
+            x, m = last_batch(make_requests())
+            xd, md = torch.as_tensor(x, device="cuda"), torch.as_tensor(m, device="cuda")
+
+            def predict(x_, m_):
+                return det.predict(dparams, x_, m_, patch_indices=idx)[0][0]
+
+            print(f"[analysis guide] flagship predict, patch_mask guide: "
+                  f"{np.shape(idx)[-1]} of 196 patches a kept layer", flush=True)
+            torch.cuda.synchronize()
+            _cuda.reset_launches()
+            predict(xd, md)
+            torch.cuda.synchronize()
+            check_counts("analysis guide predict", _cuda.launches(), FLAGSHIP_COUNTS, 1)
+            hold_against_plain("guide predict", predict, xd, md)
+            del det, dparams, params, clip_d
+        finally:
+            os.chdir(previous)
+    qkv = torch.randn(FRAMES, 197, 3 * 768, device="cuda",
+                      generator=torch.Generator(device="cuda").manual_seed(34)
+                      ).to(torch.bfloat16)
+    attention_row(rows, "fused_encoder_attention_qkv an",
+                  "dfd_clip_tpu/ops/pallas_attention.py:145",
+                  lambda: att.fused_encoder_attention_qkv(qkv, 12, 64),
+                  lambda: att.plain_attention_qkv(qkv, 12, 64), qkv, FRAMES, 197, 12, ("an",),
+                  counter="fused_encoder_attention_qkv")
+    torch.cuda.empty_cache()
+    return total
+
+
 # [multi rank]: two ranks on this card over Gloo
 MR_SEED = 0               # the ranks' and the one-process run's weights
 MR_SSL_IMAGES = 4         # SSL images a rank (configs/ssl/base.yaml: batch 32)
-MR_SSL_STEPS = 3          # the SSL run's steps; its checkpoint is at the last
+MR_SSL_STEPS = 2          # the SSL run's steps (lr 0 at step 0); its checkpoint is at the last
 MR_TIMEOUT = 600          # seconds the two ranks may take
 # the train steps' dropouts: at 0 the step is held to the train-step limits
 # (loss and every leaf); at 0.5 each clip's loss is held within
@@ -5853,8 +6207,10 @@ def mr_ssl(work: str) -> dict:
     """SSL on the two ranks (configs/ssl/base.yaml, MR_SSL_IMAGES images a
     rank) with fsdp 0 for one step, then with fsdp 1 for MR_SSL_STEPS steps
     and a checkpoint at the last, then a trainer resumed from it: its start
-    step, whether its gathered student equals the run's bit for bit, the
-    gathered checksum, and this rank's device memory (MiB, the allocator's)
+    step, how many of the run's gathered student leaves moved from their
+    initial values, whether the resumed student equals the run's bit for
+    bit, the gathered checksum, and this rank's device memory (MiB, the
+    allocator's)
     held after each run's set-up and at each run's peak (a step's: the
     moments are allocated at set-up, so later steps reach the same)."""
     import numpy as np
@@ -5899,6 +6255,8 @@ def mr_ssl(work: str) -> dict:
                  checkpoint_dir=str(Path(work) / "ssl_ckpt"))
     trainer, base = build(cfg)
     sharded = sum(f for _, f in named_leaves(trainer.sharded))
+    initial = [a for _, a in named_leaves(rt.materialize(trainer.student, trainer.sharded))]
+    torch.cuda.reset_peak_memory_stats()   # the gather above is not a step's
     times = []
     step_fn = trainer.train_step
 
@@ -5918,6 +6276,7 @@ def mr_ssl(work: str) -> dict:
     counts = _cuda.launches()
     traffic = dict(rt.traffic)
     whole = rt.materialize(trainer.student, trainer.sharded)
+    moved = sum(not np.array_equal(a, b) for a, (_, b) in zip(initial, named_leaves(whole)))
     resumed = SSLTrainer(cfg, rt, data, device="cuda:0")
     again = rt.materialize(resumed.student, resumed.sharded)
     equal = all(np.array_equal(a, b) for (_, a), (_, b) in zip(named_leaves(whole),
@@ -5925,6 +6284,7 @@ def mr_ssl(work: str) -> dict:
     return {"metrics": metrics, "step_ms": times, "counts": counts, "traffic": traffic,
             "sharded": (sharded, len(named_leaves(trainer.sharded))),
             "start_step": resumed.start_step, "resumed_equal": equal, "memory": memory,
+            "moved": (moved, len(initial)),
             "checksum": float(sum(np.float64(np.sum(a)) for _, a in named_leaves(again)))}
 
 
@@ -6084,7 +6444,8 @@ def multi_rank_paths(card: str) -> dict:
               + json.dumps({k: round(v, 6) for k, v in ss["metrics"].items()})
               + f", launches {json.dumps(ss['counts'])}; collectives: {traffic}; resumed at "
               f"step {ss['start_step']}, bit-equal {ss['resumed_equal']}, checksum "
-              f"{ss['checksum']!r}", flush=True)
+              f"{ss['checksum']!r}; {ss['moved'][0]} of {ss['moved'][1]} student leaves "
+              "moved from their initial values", flush=True)
         mem = ss["memory"]
         print(f"  rank {r} ssl device memory (MiB; held after set-up, peak over its "
               f"steps): fsdp 0 {mem['fsdp0']['held']!r}, "
@@ -6093,6 +6454,10 @@ def multi_rank_paths(card: str) -> dict:
         if ss["start_step"] != MR_SSL_STEPS or not ss["resumed_equal"] \
                 or not np.isfinite(ss["metrics"]["total"]) or not 0 < ss["sharded"][0]:
             raise SystemExit(f"FAIL [multi rank] ssl on rank {r}")
+        if not 2 * ss["moved"][0] > ss["moved"][1]:
+            raise SystemExit(f"FAIL [multi rank] ssl on rank {r}: {ss['moved'][0]} of "
+                             f"{ss['moved'][1]} student leaves moved, so the resume and the "
+                             "checksums compare (nearly) the initial weights")
         if not mem["fsdp1"]["held"] < 0.6 * mem["fsdp0"]["held"]:
             raise SystemExit(f"FAIL [multi rank] ssl on rank {r}: fsdp 1 holds "
                              f"{mem['fsdp1']['held']:.1f} MiB after set-up, fsdp 0 "
@@ -6104,6 +6469,7 @@ def multi_rank_paths(card: str) -> dict:
 
 def main() -> int:
     import argparse
+    import tempfile
 
     import torch
 
@@ -6202,7 +6568,9 @@ def main() -> int:
     elapsed()
     print("[train cli] the training CLI on the flagship recipe (configs/deepfake/deepfake.yaml: "
           "768-x-768-z0 adapter, normal+frame, FFPP / DFDC / CDF evaluation)", flush=True)
-    counts.update(train_cli_path(card))
+    cli_work = tempfile.TemporaryDirectory()   # the CLI trees, read again by [analysis]
+    cli_counts, cli_tree = train_cli_path(card, cli_work.name)
+    counts.update(cli_counts)
     elapsed()
     print(f"[train modes] Trainer steps over ViT-B/16, 20 frames, keep 6-11, batch "
           f"{TRAIN_CLIPS}, dropout 0.5, in each training mode", flush=True)
@@ -6270,8 +6638,9 @@ def main() -> int:
           f"tokens; every time on {card}", flush=True)
     check_tower_wide_kernels(rows)
     elapsed()
-    print("[vit-l ladder] ViT-L/14 and ViT-L/14@336px, 20 frames, keep 18-23, compute_int8, "
-          "batch 16, through each encoder form", flush=True)
+    print(f"[vit-l ladder] ViT-L/14 and ViT-L/14@336px cut to {LADDER_LAYERS} layers, 20 "
+          f"frames, keep {LADDER_KEEP[0]}-{LADDER_KEEP[-1]}, compute_int8, batch 16, through "
+          "each encoder form", flush=True)
     counts.update(ladder_paths(card))
     elapsed()
     print("[kernels study] the tools' shapes: the study attention modes at (320, 197, 12 x 64), "
@@ -6285,6 +6654,17 @@ def main() -> int:
     check_ssl_kernels(rows)
     elapsed()
     counts.update(ssl_paths(card))
+    elapsed()
+    print("[zero shot] CLIP's zero-shot surface at ViT-B/16 width: 8 prompts through the "
+          f"text tower, {ZS_IMAGES} images through the ViT-B/16 and RN50 towers; every time on "
+          f"{card}", flush=True)
+    counts["zs"] = zero_shot_path(card, rows)
+    elapsed()
+    print("[analysis] python -m dfd_clip_tpu_torch.tools.analysis on the [train cli] FFPP tree "
+          f"(ViT-B/16, {FRAMES} frames): kv-dist, semantic-patches, augment-impact, "
+          f"comb-impact, a guide-map predict; every time on {card}", flush=True)
+    counts["an"] = analysis_path(card, rows, cli_tree["FFPP"])
+    cli_work.cleanup()
     elapsed()
     print("[multi rank] runtime.MeshRuntime: the flagship predict on one NCCL rank; two ranks "
           "on cuda:0 over Gloo: the seq-sharded predict (data 1, seq 2), a train step at "

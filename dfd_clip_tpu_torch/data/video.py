@@ -18,6 +18,10 @@ read from the environment.
 
 Seek semantics match TorchVision's ``seek(t); next()``: the first frame
 whose pts >= t, for constant-fps streams frame ``ceil(t * fps - eps)``.
+
+``DECODE_ERRORS`` are the exceptions a backend raises for a clip it cannot
+read (a file it cannot open or decode, a seek past the end): what a caller
+that resamples a corrupt clip may catch, and nothing else.
 """
 
 from __future__ import annotations
@@ -27,6 +31,9 @@ import urllib.parse
 from typing import Dict, Sequence
 
 import numpy as np
+
+
+DECODE_ERRORS = (OSError, IndexError)
 
 
 @dataclasses.dataclass

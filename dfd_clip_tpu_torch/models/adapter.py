@@ -18,7 +18,9 @@ Differences from the JAX package, by design:
   dropouts in order), so the k- and v-branch masks are independent; the
   draws are not JAX's;
 * the "768-bn" batch statistics and the "nln" joint LayerNorm are computed
-  in f32 and cast back to the activation dtype.
+  in f32 and cast back to the activation dtype; on a data-parallel layout
+  the batch statistics, and CompInv's loss maps, span the global batch
+  through ``spmd.data_sum``, as JAX's reductions over its sharded batch do.
 
 The adapter's linears are plain matrix products outside any kernel (the
 JAX package leaves them to XLA): ``layers.linear``. Its GELU is JAX's
@@ -126,11 +128,20 @@ def _joint_layer_norm(p: Params, y: torch.Tensor, eps: float = 1e-5) -> torch.Te
 
 def _batch_norm(p: Params, y: torch.Tensor, train: bool, eps: float = 1e-5) -> torch.Tensor:
     """BatchNorm2d over the frame axis of (B, T, P, X): batch statistics in
-    training, the stored running statistics in evaluation, in f32."""
+    training, the stored running statistics in evaluation, in f32. The
+    batch statistics are the global batch's on a data-parallel layout: the
+    mean from Σy and the row count summed over the data ranks, then the
+    biased variance from Σ(y - mean)² summed over them (``spmd.data_sum``,
+    through which the gradient flows)."""
     f32 = y.float()
     if train:
-        mean = f32.mean(dim=(0, 2, 3), keepdim=True)
-        var = (f32 - mean).square().mean(dim=(0, 2, 3), keepdim=True)
+        dims = (0, 2, 3)
+        t = f32.shape[1]
+        rows = torch.full((1,), float(f32.numel() // t), device=f32.device)
+        packed = spmd.data_sum(torch.cat([f32.sum(dim=dims), rows]))
+        mean = (packed[:t] / packed[t]).reshape(1, t, 1, 1)
+        var = (spmd.data_sum((f32 - mean).square().sum(dim=dims)) / packed[t]
+               ).reshape(1, t, 1, 1)
     else:
         mean = p["mean"].float()[None, :, None, None]
         var = p["var"].float()[None, :, None, None]
@@ -257,7 +268,9 @@ class CompInvEncoder:
     mode 0: recon = ||raw_orig - raw_adapted||, match = ||raw_adapted -
     c23_adapted||; mode 1: recon = 0, match = ||raw_orig - c23_adapted||;
     each the L1 maps summed over layers, pairs, K and V, then the reference's
-    per-patch L2 norm of the frame-averaged map."""
+    per-patch L2 norm of the frame-averaged map. On a data-parallel layout
+    the maps are summed over the data ranks' pairs (the global batch's)
+    before the norm, so every rank holds the global batch's losses."""
 
     @staticmethod
     def get_default_config():
@@ -389,7 +402,11 @@ class CompInvEncoder:
                     match_diff = match_diff + (a_raw.float() - a_c23.float()).abs().sum(0)
                 else:
                     match_diff = match_diff + (o_raw.float() - a_c23.float()).abs().sum(0)
-        denom = w * nsel * 2
+        # the maps summed over the global batch's pairs and divided by their
+        # count before the norm, as JAX's loss over the sharded batch
+        recon_diff, match_diff = spmd.data_sum(recon_diff), spmd.data_sum(match_diff)
+        layout = spmd.spmd_layout()
+        denom = w * (layout.data_parallel if layout is not None else 1) * nsel * 2
 
         def per_patch(diff: torch.Tensor) -> torch.Tensor:
             # the reference's reshape of the (T, P, H, D) map to (P, T, -1):

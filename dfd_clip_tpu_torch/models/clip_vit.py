@@ -187,13 +187,27 @@ def composition_block(bp: Params, h: torch.Tensor, cfg: ViTConfig, export_into: 
     (``encoder_self_attention``). Returns (h, the kv_rows8 scales or ()); h
     is None without ``attend`` (the last kept layer)."""
     n, t, w = h.shape
-    qkv = layers.linear(bp["attn"]["in_proj"], layers.layer_norm_rows(bp["ln_1"], h))
+    qkv = block_qkv(bp, h)
     scales = ()
     if export_into is not None:
         scales = export_kv(qkv.reshape(n * t, 3 * w), n, t, w, 1 if drop_cls else 0, kv_pad,
                            kv_rows8, export_into)[2]
     if not attend:
         return None, scales
+    return block_tail(bp, h, qkv, cfg, ffn, separate_qkv), scales
+
+
+def block_qkv(bp: Params, h: torch.Tensor) -> torch.Tensor:
+    """A block's LN1 and packed qkv projection on h (N, T, W): (N, T, 3W)."""
+    return layers.linear(bp["attn"]["in_proj"], layers.layer_norm_rows(bp["ln_1"], h))
+
+
+def block_tail(bp: Params, h: torch.Tensor, qkv: torch.Tensor, cfg: ViTConfig, ffn=clip_mlp,
+               separate_qkv: bool = False) -> torch.Tensor:
+    """The rest of the block from its ``block_qkv``: attention,
+    out-projection and residual, LN2, ``ffn`` and residual, each branch
+    scaled by its LayerScale factor when present."""
+    n, t, w = h.shape
     if separate_qkv:
         q, k, v = (s.reshape(n, t, cfg.heads, cfg.head_dim) for s in qkv.split(w, dim=-1))
         att = encoder_self_attention(q, k, v).reshape(n, t, w)
@@ -201,7 +215,7 @@ def composition_block(bp: Params, h: torch.Tensor, cfg: ViTConfig, export_into: 
         att = encoder_self_attention_qkv(qkv, cfg.heads, cfg.head_dim)
     h = h + _layer_scale(bp, "ls1", layers.linear(bp["attn"]["out_proj"], att))
     y = ffn(bp["mlp"], layers.layer_norm_rows(bp["ln_2"], h))
-    return h + _layer_scale(bp, "ls2", y), scales
+    return h + _layer_scale(bp, "ls2", y)
 
 
 def _layer_scale(bp: Params, key: str, y: torch.Tensor) -> torch.Tensor:

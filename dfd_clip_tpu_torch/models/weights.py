@@ -13,6 +13,9 @@ params in the JAX layout:
   per-layer dicts;
 * every other leaf, linear ``w`` (in, out) included, keeps its layout.
 
+A CLIP text tree (its ``blocks`` stacked likewise -> a list) and a CLIP
+ResNet tree (each convolution's ``w`` HWIO -> OIHW) convert too.
+
 A CLIP encoder tree and a DINOv2 one (``conv1.b``, the blocks' LayerScale
 ``ls1``/``ls2``, ``mask_token`` and ``ln_post``, no ``ln_pre``) convert
 alike, and so do the SSL trees (student / teacher with their ``backbone``
@@ -20,10 +23,11 @@ and heads, the centers): each dict holding ``conv1`` is an encoder.
 
 The foundation converters read pretrained PyTorch checkpoints: OpenAI CLIP's
 visual tower (plain state dicts, ``{"state_dict": ...}`` wrappers and
-TorchScript archives) and Meta's DINOv2 state dicts, whose positional
-embedding is resized to the working grid by the JAX package's
-antialiased bicubic (jax.image.resize). Each gives the JAX package's numpy
-tree; ``params_from_jax`` then makes it the port's encoder.
+TorchScript archives), its ResNet tower and its text tower, Meta's DINOv2
+state dicts, whose positional embedding is resized to the working grid by
+the JAX package's antialiased bicubic (jax.image.resize), and the reference
+Detector's decoder. Each gives the JAX package's numpy tree;
+``params_from_jax`` then makes it the port's.
 """
 
 from __future__ import annotations
@@ -69,13 +73,42 @@ def encoder_from_jax(enc: dict) -> dict:
     return out
 
 
+def clip_text_from_jax(tree: dict) -> dict:
+    """A JAX clip_text tree -> the port's: the layer-stacked ``blocks``
+    leaves (L, ...) -> a list of L per-layer dicts."""
+    out = _to_torch({k: v for k, v in tree.items() if k != "blocks"})
+    blocks = _to_torch(tree["blocks"])
+    n_layers = len(next(iter(blocks["ln_1"].values())))
+    out["blocks"] = [_unstack(blocks, i) for i in range(n_layers)]
+    return out
+
+
+def clip_resnet_from_jax(tree: Any) -> Any:
+    """A JAX clip_resnet tree -> the port's: every convolution's ``w`` HWIO
+    (k, k, I, O) -> OIHW (O, I, k, k), the layout ``F.conv2d`` reads."""
+    if isinstance(tree, dict):
+        if set(tree) == {"w"} and np.ndim(tree["w"]) == 4:
+            return {"w": torch.from_numpy(np.ascontiguousarray(
+                np.asarray(tree["w"]).transpose(3, 2, 0, 1)))}
+        return {k: clip_resnet_from_jax(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [clip_resnet_from_jax(v) for v in tree]
+    return _to_torch(tree)
+
+
 def params_from_jax(tree: Any) -> Any:
     """JAX params (numpy leaves) -> the port's params (CPU tensors): every
     dict holding ``conv1`` (a Detector's ``encoder``, an SSL tree's
-    ``backbone``, a bare backbone) through ``encoder_from_jax``, every other
-    leaf as it is."""
+    ``backbone``, a bare backbone) through ``encoder_from_jax``, a CLIP text
+    tree (``token_embedding``) through ``clip_text_from_jax``, a CLIP ResNet
+    tree (``stem``) through ``clip_resnet_from_jax``, every other leaf as it
+    is."""
     if "conv1" in tree:
         return encoder_from_jax(tree)
+    if "token_embedding" in tree:
+        return clip_text_from_jax(tree)
+    if "stem" in tree:
+        return clip_resnet_from_jax(tree)
     return {k: params_from_jax(v) if isinstance(v, dict) else _to_torch(v)
             for k, v in tree.items()}
 
@@ -211,16 +244,7 @@ def convert_clip_visual(sd: Dict[str, np.ndarray], cfg: ViTConfig) -> Params:
     """OpenAI CLIP state dict (``visual.*`` or bare) -> the JAX package's
     clip_vit params."""
     pre = "visual." if any(k.startswith("visual.") for k in sd) else ""
-    blocks = []
-    for i in range(cfg.layers):
-        b = f"{pre}transformer.resblocks.{i}"
-        blocks.append({
-            "ln_1": _ln(sd, f"{b}.ln_1"),
-            "attn": {"in_proj": _qkv(sd, f"{b}.attn.in_proj_weight", f"{b}.attn.in_proj_bias"),
-                     "out_proj": _lin(sd, f"{b}.attn.out_proj")},
-            "ln_2": _ln(sd, f"{b}.ln_2"),
-            "mlp": {"c_fc": _lin(sd, f"{b}.mlp.c_fc"), "c_proj": _lin(sd, f"{b}.mlp.c_proj")},
-        })
+    blocks = [_block(sd, f"{pre}transformer.resblocks.{i}") for i in range(cfg.layers)]
     params: Params = {
         "conv1": {"w": _hwio(sd[f"{pre}conv1.weight"])},
         "class_embedding": sd[f"{pre}class_embedding"],
@@ -236,6 +260,122 @@ def convert_clip_visual(sd: Dict[str, np.ndarray], cfg: ViTConfig) -> Params:
     return params
 
 
+def _block(sd: Dict[str, np.ndarray], b: str) -> Params:
+    """A CLIP residual block (``{b}.ln_1`` ... ``{b}.mlp.c_proj``)."""
+    return {
+        "ln_1": _ln(sd, f"{b}.ln_1"),
+        "attn": {"in_proj": _qkv(sd, f"{b}.attn.in_proj_weight", f"{b}.attn.in_proj_bias"),
+                 "out_proj": _lin(sd, f"{b}.attn.out_proj")},
+        "ln_2": _ln(sd, f"{b}.ln_2"),
+        "mlp": {"c_fc": _lin(sd, f"{b}.mlp.c_fc"), "c_proj": _lin(sd, f"{b}.mlp.c_proj")},
+    }
+
+
+def convert_clip_resnet(sd: Dict[str, np.ndarray]) -> Params:
+    """OpenAI CLIP RN state dict (``visual.*`` or a bare ModifiedResNet) ->
+    the JAX package's clip_resnet params (convolutions HWIO)."""
+    pre = "visual." if any(k.startswith("visual.") for k in sd) else ""
+
+    def conv(prefix: str) -> Params:
+        return {"w": _hwio(sd[f"{prefix}.weight"])}
+
+    def bnp(prefix: str) -> Params:
+        return {"scale": sd[f"{prefix}.weight"], "bias": sd[f"{prefix}.bias"],
+                "mean": sd[f"{prefix}.running_mean"], "var": sd[f"{prefix}.running_var"]}
+
+    params: Params = {"stem": {f"{kind}{i}": (conv if kind == "conv" else bnp)(
+        f"{pre}{kind}{i}") for i in (1, 2, 3) for kind in ("conv", "bn")}}
+    for stage in range(1, 5):
+        blocks = []
+        while f"{pre}layer{stage}.{len(blocks)}.conv1.weight" in sd:
+            base = f"{pre}layer{stage}.{len(blocks)}"
+            blk = {f"{kind}{i}": (conv if kind == "conv" else bnp)(f"{base}.{kind}{i}")
+                   for i in (1, 2, 3) for kind in ("conv", "bn")}
+            # the downsample Sequential: "-1" avgpool (no params), "0" conv, "1" bn
+            if f"{base}.downsample.0.weight" in sd:
+                blk["downsample"] = {"conv": conv(f"{base}.downsample.0"),
+                                     "bn": bnp(f"{base}.downsample.1")}
+            blocks.append(blk)
+        params[f"layer{stage}"] = blocks
+    ap = f"{pre}attnpool"
+    params["attnpool"] = {"positional_embedding": sd[f"{ap}.positional_embedding"],
+                          **{k: _lin(sd, f"{ap}.{k}")
+                             for k in ("q_proj", "k_proj", "v_proj", "c_proj")}}
+    return params
+
+
+def convert_clip_text(sd: Dict[str, np.ndarray]) -> Params:
+    """OpenAI CLIP state dict (its text half) -> the JAX package's clip_text
+    params (blocks layer-stacked)."""
+    n_layers = 1 + max(int(k.split(".")[2]) for k in sd
+                       if k.startswith("transformer.resblocks."))
+    return {
+        "token_embedding": sd["token_embedding.weight"],
+        "positional_embedding": sd["positional_embedding"],
+        "blocks": _stack([_block(sd, f"transformer.resblocks.{i}") for i in range(n_layers)]),
+        "ln_final": _ln(sd, "ln_final"),
+        "text_projection": sd["text_projection"],
+        "logit_scale": np.asarray(sd.get("logit_scale", np.float32(2.6592))),
+    }
+
+
+def convert_reference_decoder(sd: Dict[str, np.ndarray], cfg) -> Params:
+    """The reference Detector's decoder state dict (its ``decoder.*`` keys,
+    prefix stripped) -> the JAX package's decoder params; ``cfg`` a
+    DecoderConfig:
+
+    * the dual in_proj's columns are per-head [smax | coda] pairs there and
+      [all smax | all coda], head-major, here: permuted;
+    * ``transformer.augment_query_{i}`` (width,) stack to (blocks - 1, width);
+    * ``proj{t}x{dim}[_L{layer}]`` become the nested task projection list."""
+    w, h, d = cfg.width, cfg.heads, cfg.head_dim
+
+    def dual_in_proj(prefix: str) -> Params:
+        wt = sd[f"{prefix}.weight"].T.reshape(w, h, 2, d)
+        bt = sd[f"{prefix}.bias"].reshape(h, 2, d)
+        return {"w": np.concatenate([wt[:, :, 0].reshape(w, w), wt[:, :, 1].reshape(w, w)],
+                                    axis=1),
+                "b": np.concatenate([bt[:, 0].reshape(w), bt[:, 1].reshape(w)])}
+
+    blocks = []
+    for i in range(cfg.num_blocks):
+        b = f"transformer.resblocks.{i}"
+        blocks.append({
+            "ln_1": _ln(sd, f"{b}.ln_1"),
+            "attn": {"in_proj": dual_in_proj(f"{b}.attn.in_proj"),
+                     "out_proj": _lin(sd, f"{b}.attn.out_proj")},
+            "ln_2": _ln(sd, f"{b}.ln_2"),
+            "mlp": {"c_fc": _lin(sd, f"{b}.mlp.c_fc"), "c_proj": _lin(sd, f"{b}.mlp.c_proj")},
+        })
+    params: Params = {"class_embedding": sd["class_embedding"], "ln_pre": _ln(sd, "ln_pre"),
+                      "ln_post": _ln(sd, "ln_post"), "blocks": blocks}
+    if cfg.temporal_position:
+        params["positional_embedding"] = sd["positional_embedding"]
+    if cfg.aug_query:
+        params["aug_query"] = np.stack([sd[f"transformer.augment_query_{i}"]
+                                        for i in range(cfg.num_blocks - 1)])
+    params["task_projections"] = [
+        [sd[f"proj{t}x{dim}_L{layer}"] for layer in cfg.layer_indices]
+        if cfg.global_prediction else [sd[f"proj{t}x{dim}"]]
+        for t, dim in enumerate(cfg.out_dims)]
+    return params
+
+
+def infer_clip_resnet_config(sd: Dict[str, np.ndarray]):
+    """The RN geometry of a CLIP state dict (the reference's build_model
+    counts and widths)."""
+    from .clip_resnet import ResNetConfig
+
+    pre = "visual." if any(k.startswith("visual.") for k in sd) else ""
+    layers = tuple(len({k.split(".")[2 if pre else 1] for k in sd
+                        if k.startswith(f"{pre}layer{s}.")}) for s in (1, 2, 3, 4))
+    width = sd[f"{pre}conv1.weight"].shape[0] * 2   # the stem's conv1 is width // 2
+    spacial = int(round((sd[f"{pre}attnpool.positional_embedding"].shape[0] - 1) ** 0.5))
+    return ResNetConfig(layers=layers, width=width, heads=width * 32 // 64,
+                        input_resolution=spacial * 32,
+                        output_dim=sd[f"{pre}attnpool.c_proj.weight"].shape[0])
+
+
 def infer_clip_vit_config(sd: Dict[str, np.ndarray]) -> ViTConfig:
     """The tower's geometry from a CLIP state dict (head_dim 64)."""
     pre = "visual." if any(k.startswith("visual.") for k in sd) else ""
@@ -246,6 +386,11 @@ def infer_clip_vit_config(sd: Dict[str, np.ndarray]) -> ViTConfig:
     return ViTConfig(input_resolution=grid * patch, patch_size=patch, width=width,
                      layers=n_layers, heads=width // 64,
                      output_dim=sd[f"{pre}proj"].shape[1] if f"{pre}proj" in sd else width)
+
+
+def load_clip_text(path: str) -> Params:
+    """The JAX-layout clip_text params of a CLIP checkpoint's text half."""
+    return convert_clip_text(_load_torch_state_dict(path))
 
 
 def load_clip_visual(path: str) -> tuple:

@@ -20,6 +20,11 @@ on those. Two wrappers:
   CoDA) buffer. The temporal embedding comes whole (L, H, D), and the
   rank reads its rows of it.
 
+``data_reduce`` is a MAX or SUM over the data ranks outside autograd
+(Sinkhorn-Knopp's normalisations), and ``data_sum`` the differentiable SUM
+that global-batch statistics (the 768-bn adapter's, CompInv's loss maps)
+are built from.
+
 The layout is the registered ``runtime.MeshRuntime`` (``spmd_layout``):
 None on one rank, so a one-process run never reaches these paths. The
 trainable form is ops/decoder_attention_vjp.py's
@@ -53,6 +58,46 @@ def data_rows(b_local: int):
         return None
     n = b_local * layout.data_parallel
     return n, layout.rows(n)
+
+
+def data_reduce(t: torch.Tensor, op: str, layout) -> torch.Tensor:
+    """``t`` reduced with ``op`` ("sum" or "max") over the data ranks of
+    ``layout``, a copy outside autograd; ``t`` itself without a layout or
+    at one data rank."""
+    if layout is None or layout.data_parallel == 1:
+        return t
+    return layout.all_reduce_(t.detach().contiguous().clone(), op, "data")
+
+
+class _DataSum(torch.autograd.Function):
+    """Forward: the tensor summed over the data ranks; backward: its
+    cotangent summed over them, so that each rank's gradient through its
+    own rows is that of the ranks' summed loss."""
+
+    @staticmethod
+    def forward(ctx, t, layout):
+        ctx.layout = layout
+        return data_reduce(t, "sum", layout)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return data_reduce(ct, "sum", ctx.layout), None
+
+
+def data_sum(t: torch.Tensor, layout=None) -> torch.Tensor:
+    """``t`` summed over the data ranks of ``layout`` (default the
+    registered one), differentiable: a statistic of the global batch built
+    from each rank's partial sums. The backward sums the cotangent over the
+    data ranks, the scaling under which the trainers' mean of the ranks'
+    gradients is the gradient of the global batch's loss: a loss that is a
+    rank's mean over its rows sums to dp times the global mean, and a loss
+    that is itself global (the same on every rank) gets dp times its
+    gradient, the trainers' division by the world undoing both. One data
+    rank: ``t`` itself."""
+    layout = layout if layout is not None else spmd_layout()
+    if layout is None or layout.data_parallel == 1:
+        return t
+    return _DataSum.apply(t, layout)
 
 
 def encoder_shapes_ok(b: int, t: int, layout) -> bool:

@@ -1,14 +1,19 @@
 """SSL objectives (counterpart of dfd_clip_tpu/ssl/losses.py): the DINO CLS
 loss, its EMA center, Sinkhorn-Knopp centering (CLS and masked patches),
 the iBOT masked-patch loss and the KoLeo regulariser, as torch ops in f32.
-One process holds the whole batch, so the JAX package's cross-replica
-means are plain means."""
+Sinkhorn-Knopp's normalisations span the global batch: on a data-parallel
+layout (the runtime passed as ``layout``) the global maximum is one MAX and
+each sum over the batch one SUM over the data ranks, as JAX's sums over its
+sharded batch are; the teacher side has no gradient, so plain collectives
+do."""
 
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
 import torch
+
+from ..ops.spmd import data_reduce
 
 
 def dino_loss(student_logits: torch.Tensor, teacher_logits: torch.Tensor,
@@ -38,33 +43,36 @@ def update_center(center: torch.Tensor, batch_center: torch.Tensor,
 
 
 def sinkhorn_knopp(teacher_logits: torch.Tensor, teacher_temp,
-                   n_iterations: int = 3) -> torch.Tensor:
-    """Sinkhorn-Knopp assignment (B, K) of the teacher's (B, K) logits; the
-    global maximum is subtracted before the exp (a constant factor that the
-    first normalisation removes)."""
+                   n_iterations: int = 3, layout=None) -> torch.Tensor:
+    """Sinkhorn-Knopp assignment (B, K) of the teacher's (B, K) logits, B
+    this rank's rows of a global batch spread over ``layout``'s data ranks
+    (every rank holding as many); the global maximum is subtracted before
+    the exp (a constant factor that the first normalisation removes)."""
     z = (teacher_logits / teacher_temp).float()
-    q = torch.exp(z - z.max()).T
-    q = q / q.sum()
+    q = torch.exp(z - data_reduce(z.max(), "max", layout)).T
+    q = q / data_reduce(q.sum(), "sum", layout)
     k, b = q.shape
+    b *= 1 if layout is None else layout.data_parallel
     for _ in range(n_iterations):
-        q = q / q.sum(dim=1, keepdim=True) / k
+        q = q / data_reduce(q.sum(dim=1, keepdim=True), "sum", layout) / k
         q = q / q.sum(dim=0, keepdim=True) / b
     return (q * b).T
 
 
 def sinkhorn_knopp_masked(teacher_patch_logits: torch.Tensor, patch_mask: torch.Tensor,
-                          teacher_temp, n_iterations: int = 3) -> torch.Tensor:
+                          teacher_temp, n_iterations: int = 3, layout=None) -> torch.Tensor:
     """Sinkhorn-Knopp over the masked patches only (N, P, K): B is the
-    masked-patch count, unmasked columns stay 0 (the loss never reads
-    them), and an empty mask gives zeros, not 0/0."""
+    global batch's masked-patch count (summed over ``layout``'s data ranks),
+    unmasked columns stay 0 (the loss never reads them), and an empty mask
+    gives zeros, not 0/0."""
     n, p, k = teacher_patch_logits.shape
     z = (teacher_patch_logits.reshape(n * p, k) / teacher_temp).float()
     m = patch_mask.reshape(n * p).float()
-    q = torch.exp(z - z.max()).T * m[None, :]
-    b = torch.clamp(m.sum(), min=1.0)
-    q = q / torch.clamp(q.sum(), min=1e-30)
+    q = torch.exp(z - data_reduce(z.max(), "max", layout)).T * m[None, :]
+    b = torch.clamp(data_reduce(m.sum(), "sum", layout), min=1.0)
+    q = q / torch.clamp(data_reduce(q.sum(), "sum", layout), min=1e-30)
     for _ in range(n_iterations):
-        rows = q.sum(dim=1, keepdim=True)
+        rows = data_reduce(q.sum(dim=1, keepdim=True), "sum", layout)
         q = q / torch.where(rows > 0, rows, torch.ones_like(rows)) / k
         cols = q.sum(dim=0, keepdim=True)
         q = q / torch.where(cols > 0, cols, torch.ones_like(cols)) / b

@@ -22,6 +22,7 @@ import torch
 from ..engine.optim import named_leaves
 from ..models import dinov2_vit
 from ..models.clip_vit import ViTConfig
+from ..ops import spmd
 from . import losses as loss_lib
 from .dino_head import apply_dino_head, init_dino_head
 
@@ -113,12 +114,14 @@ class SSLMetaArch:
 
         t_probs_dino = t_probs_ibot = None
         if c.centering == "sinkhorn_knopp":
+            layout = spmd.spmd_layout()   # the assignments span the global batch
             with torch.no_grad():
                 t_probs_dino = loss_lib.sinkhorn_knopp(
-                    t_cls_logits.reshape(two * b, -1), teacher_temp).reshape(two, b, -1)
+                    t_cls_logits.reshape(two * b, -1), teacher_temp, layout=layout
+                ).reshape(two, b, -1)
                 t_probs_ibot = loss_lib.sinkhorn_knopp_masked(
                     t_patch_logits.reshape(two * b, -1, c.ibot_out_dim), flat_masks,
-                    teacher_temp)
+                    teacher_temp, layout=layout)
         elif c.centering != "centering":
             raise NotImplementedError(f"centering: {c.centering}")
 

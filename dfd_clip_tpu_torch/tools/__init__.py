@@ -2,7 +2,8 @@
 (bench_attention, bench_megakernel_probe), and the port's own timing of the
 decoder boundary beside the six-launch chain it replaced
 (bench_decoder_boundary) and of the decoder attention's backward with its
-stage clock (bench_decoder_bwd), and the int8 AUROC gates (int8_gates)."""
+stage clock (bench_decoder_bwd), the int8 AUROC gates (int8_gates), and
+the encoder-analysis CLIs (analysis)."""
 
 from __future__ import annotations
 

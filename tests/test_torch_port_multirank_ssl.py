@@ -1,4 +1,5 @@
-"""SSL pretraining on two ranks with ``fsdp: 1`` (the counterpart of JAX's
+"""Sinkhorn-Knopp over two ranks' global batch (the "sk" job), SSL
+pretraining on two ranks with ``fsdp: 1`` (the counterpart of JAX's
 tests/test_multihost.py::test_two_process_ssl_fsdp_checkpoint), and the
 runtime's pieces that need no second rank: the card as every runtime's
 default device, KeySeq, device.sync / timed, the launcher's variables.
@@ -70,6 +71,59 @@ def test_fsdp_checkpoint_resume(ssl_job):
             np.testing.assert_array_equal(a, b, err_msg=str(path))
     assert ssl_job[0]["checksum"] == ssl_job[1]["checksum"]
     assert np.isfinite(ssl_job[0]["checksum"])
+
+
+@pytest.fixture(scope="module")
+def sk_job(tmp_path_factory):
+    """The "sk" job's inputs: 2 crops of 4 images' CLS logits and 5 patches'
+    logits (K = 16) at a temperature that keeps every exp above f32's
+    subnormals (where the order of a sum would show), masks that differ
+    between the ranks' images (one image with no masked patch)."""
+    rng = np.random.default_rng(3)
+    a = {"cls": rng.standard_normal((2, 4, 16)).astype(np.float32),
+         "patch": rng.standard_normal((2, 4, 5, 16)).astype(np.float32),
+         "mask": rng.random((2, 4, 5)) < 0.4, "temp": 0.5}
+    a["mask"][:, 0] = True
+    a["mask"][1, 3] = False
+    return a, run_job("sk", 2, tmp_path_factory.mktemp("sk"), a)
+
+
+def test_sinkhorn_knopp_spans_the_global_batch(sk_job):
+    """Sinkhorn-Knopp at (data 2, seq 1), each rank holding 2 of the 4
+    images of both crops: the ranks' assignments put together are one
+    process's over the global batch and JAX's with the batch sharded over a
+    (2, 1) mesh, CLS and masked patches alike; one rank's own batch alone
+    gives other assignments."""
+    import jax
+    from jax.sharding import NamedSharding, PartitionSpec as P
+
+    from dfd_clip_tpu.ssl import losses as jlosses
+    from dfd_clip_tpu_torch.ssl import losses
+    from test_torch_port_multirank import jax_mesh
+
+    a, res = sk_job
+    k = a["cls"].shape[-1]
+    got_cls = np.concatenate([r["cls"] for r in res], axis=1)
+    got_patch = np.concatenate([r["patch"] for r in res], axis=1)
+    cls, patch, mask = (torch.from_numpy(np.ascontiguousarray(a[n])) for n in ("cls", "patch",
+                                                                              "mask"))
+    want_cls = losses.sinkhorn_knopp(cls.reshape(-1, k), a["temp"]).reshape(2, 4, k)
+    want_patch = losses.sinkhorn_knopp_masked(patch.reshape(8, 5, k), mask.reshape(8, 5),
+                                              a["temp"]).reshape(2, 4, 5, k)
+    np.testing.assert_allclose(got_cls, want_cls.numpy(), **SSL_TOL)
+    np.testing.assert_allclose(got_patch, want_patch.numpy(), **SSL_TOL)
+
+    mesh = jax_mesh(2, 1)
+    put = lambda x: jax.device_put(x, NamedSharding(mesh, P("data")))   # noqa: E731
+    jcls = jax.jit(jlosses.sinkhorn_knopp)(put(a["cls"].reshape(-1, k)), a["temp"])
+    jpatch = jax.jit(jlosses.sinkhorn_knopp_masked)(put(a["patch"].reshape(8, 5, k)),
+                                                    put(a["mask"].reshape(8, 5)), a["temp"])
+    np.testing.assert_allclose(got_cls, np.asarray(jcls).reshape(2, 4, k), **SSL_TOL)
+    np.testing.assert_allclose(got_patch, np.asarray(jpatch).reshape(2, 4, 5, k), **SSL_TOL)
+
+    local = losses.sinkhorn_knopp(cls[:, :2].reshape(-1, k), a["temp"]).reshape(2, 2, k)
+    assert not np.allclose(local.numpy(), got_cls[:, :2], **SSL_TOL)
+    assert np.isfinite(got_patch).all() and (got_patch[~a["mask"]] == 0).all()
 
 
 def test_runtime_without_a_device_is_the_card():

@@ -1,5 +1,8 @@
 """The port's training side on two ranks (see test_torch_port_multirank.py
-for the jobs and tolerances): the "train" job at (data 2, seq 1) and then
+for the jobs and tolerances): the "stats" job at (data 2, seq 1), a step
+of a 768-bn adapter Detector against one process and JAX's mesh and a
+CompInvTrainer step against one process, each statistic over the global
+batch; the "train" job at (data 2, seq 1) and then
 (1, 2) on one Gloo group. One Trainer step against the port's
 one-process step on the global batch and against JAX's train step with its
 batch sharded over a mesh of the same layout (the spmd kernels
@@ -24,13 +27,14 @@ import torch
 from jax.sharding import NamedSharding, PartitionSpec as P
 
 from dfd_clip_tpu.engine import optim as joptim
+from dfd_clip_tpu.models.detector import Detector as JDetector
 from dfd_clip_tpu.runtime import mesh as jmesh_rt
 from dfd_clip_tpu_torch.engine.evaluator import Evaluator
 from dfd_clip_tpu_torch.engine.trainer import Trainer
 from dfd_clip_tpu_torch.models.weights import params_from_jax
 from dfd_clip_tpu_torch.runtime import OneProcess
 from test_torch_port_multirank import STEP_TOL, jax_detector, jax_mesh, port_detector
-from torch_multirank_jobs import ClipSet, run_job
+from torch_multirank_jobs import ClipSet, grads_of, run_job
 
 
 # -- job "train" ------------------------------------------------------------------------
@@ -252,3 +256,142 @@ def test_bn_calibration_sums_over_ranks(train_job):
                 for stat in ("mean", "var"):
                     np.testing.assert_allclose(got[s][stat], blk[s]["bn"][stat].numpy(),
                                                rtol=1e-6, atol=1e-7)
+
+
+# -- job "stats": statistics of the global batch ------------------------------------------
+
+BN_ADAPTER = {"type": "normal", "struct": {"type": "768-bn"}}
+COMPINV_CFG = {"architecture": "ViT-Test", "decode_mode": "index", "decode_indices": [0, 2],
+               "adapter": {"struct": {"type": "768-x-768", "x": 32}}}
+
+
+def jax_bn_detector():
+    cfg = JDetector.get_default_config()
+    cfg.merge_from_other_cfg({"architecture": "ViT-Test", "decode_mode": "index",
+                              "decode_indices": [0, 2], "out_dim": [2], "losses": ["auc_roc"],
+                              "adapter": BN_ADAPTER})
+    return JDetector(cfg, num_frames=4, compute_dtype=jnp.float32)
+
+
+@pytest.fixture(scope="module")
+def stats_job(tmp_path_factory):
+    """Inputs of the "stats" job: a 768-bn Detector's params (its adapter's
+    leaves and BN affine drawn at random) with a batch of 4 clips, and a
+    CompInvEncoder's (768-x-768 adapter) with 4 raw / c23 pairs."""
+    from dfd_clip_tpu_torch.models import CompInvEncoder
+    from dfd_clip_tpu_torch.models.weights import params_to_jax
+
+    rng = np.random.default_rng(7)
+    params = jax.tree_util.tree_map(np.asarray, jax_bn_detector().init_params(jax.random.key(2)))
+    params["adapter"] = jax.tree_util.tree_map(
+        lambda x: (x + 0.3 * rng.standard_normal(x.shape)).astype(np.float32), params["adapter"])
+    a = {"bn_adapter": BN_ADAPTER, "bn_params": params,
+         "x": rng.integers(0, 256, (4, 4, 3, 40, 48), dtype=np.uint8),
+         "label": np.array([0, 1, 1, 0], np.int64), "m": np.ones((4, 4), bool),
+         "compinv_cfg": COMPINV_CFG,
+         "ci_x": rng.integers(0, 256, (8, 4, 3, 40, 48), dtype=np.uint8),
+         "ci_m": np.ones((8, 4), bool),
+         "ci_comps": np.array(["raw", "c23", "c23", "raw", "raw", "c23", "c23", "raw"])}
+    ccfg = CompInvEncoder.get_default_config()
+    ccfg.merge_from_other_cfg(COMPINV_CFG)
+    enc = CompInvEncoder(ccfg, num_frames=4, compute_dtype=torch.float32, device="cpu")
+    a["ci_params"] = params_to_jax(enc.init_params(torch.Generator().manual_seed(3)))
+    a["ci_params"]["adapter"] = jax.tree_util.tree_map(
+        lambda x: (x + 0.2 * rng.standard_normal(x.shape)).astype(np.float32),
+        a["ci_params"]["adapter"])
+    return a, run_job("stats", 2, tmp_path_factory.mktemp("stats"), a)
+
+
+def test_bn_adapter_statistics_span_the_data_ranks(stats_job):
+    """A Trainer step of a Detector with a 768-bn adapter at (data 2, seq 1):
+    its training statistics (mean and biased variance over batch, patches
+    and width a frame channel) are the global batch's, so the ranks' losses
+    and leaves are one process's step on the global batch and JAX's with
+    the batch sharded over a (2, 1) mesh."""
+    a, results = stats_job
+    trainer = Trainer(_tcfg(4), OneProcess("cpu"), port_detector(adapter=BN_ADAPTER), [],
+                      params=params_from_jax(a["bn_params"]))
+    trainer.train_step([("task0", trainer.prepare_batch(
+        (a["x"], a["label"], a["m"], ["raw"] * 4, np.ones(4), np.zeros(4, np.int64))))])
+    want = trainer.snapshot_model_state()["trainable"]
+    np.testing.assert_allclose(np.concatenate([r["bn"]["loss"] for r in results]),
+                               trainer.batch_losses["task0"], **STEP_TOL)
+    for r in results:
+        for gg, wg in zip(r["bn"]["grads"], grads_of(trainer), strict=True):
+            assert (gg is None) == (wg is None)
+            if gg is not None:
+                np.testing.assert_allclose(gg, wg, **STEP_TOL)
+
+    jdet = jax_bn_detector()
+    mesh = jax_mesh(2, 1)
+    trainable, frozen = jdet.partition_params(jax.tree_util.tree_map(jnp.asarray,
+                                                                     a["bn_params"]))
+    opt = joptim.build_optimizer(jdet.optimizer_spec(), joptim.one_cycle_schedule(1.0, 20))
+
+    def loss_fn(tr, x, y, m):
+        losses, _, _ = jdet.forward({**frozen, **tr}, x, [y], m, train=True, single_task=0)
+        return losses[0].mean()
+
+    x = jax.device_put(a["x"], NamedSharding(mesh, P("data")))
+    y, m = (jax.device_put(a[k], NamedSharding(mesh, P("data"))) for k in ("label", "m"))
+    prev = jmesh_rt.current_mesh()
+    try:
+        _, g = jax.jit(jax.value_and_grad(loss_fn))(trainable, x, y, m)
+    finally:
+        jmesh_rt.set_current_mesh(prev)
+    updates, _ = opt.update(g, opt.init(trainable), trainable)
+    jwant = jax.tree_util.tree_map(np.asarray, optax.apply_updates(trainable, updates))
+    start = jax.tree_util.tree_leaves(trainable)
+    moved = 0.0
+    for r in results:
+        got = jax.tree_util.tree_leaves(r["bn"]["trainable"])
+        assert len(got) == len(jax.tree_util.tree_leaves(jwant))
+        for gl, w, j, s0 in zip(got, jax.tree_util.tree_leaves(want),
+                                jax.tree_util.tree_leaves(jwant), start):
+            np.testing.assert_allclose(gl, w, **STEP_TOL)
+            np.testing.assert_allclose(gl, j, **STEP_TOL)
+            moved = max(moved, float(np.abs(gl - np.asarray(s0)).max()))
+    assert moved > 100 * STEP_TOL["atol"]
+
+
+def _tcfg(batch_size):
+    tcfg = Trainer.get_default_config()
+    tcfg.merge_from_other_cfg({"max_steps": 10, "learning_rate": 1.0, "batch_size": batch_size,
+                               "num_workers": 0})
+    return tcfg
+
+
+def test_compinv_loss_spans_the_data_ranks(stats_job):
+    """A CompInvTrainer step at (data 2, seq 1), two pairs a rank: recon and
+    match are the global batch's (the difference maps summed over both
+    ranks' pairs before the norm) on both ranks, and the adapter's leaves
+    are one process's step on the 4 pairs."""
+    from dfd_clip_tpu_torch.engine.trainer import CompInvTrainer
+    from dfd_clip_tpu_torch.models import CompInvEncoder
+
+    a, results = stats_job
+    ccfg = CompInvEncoder.get_default_config()
+    ccfg.merge_from_other_cfg(COMPINV_CFG)
+    enc = CompInvEncoder(ccfg, num_frames=4, compute_dtype=torch.float32, device="cpu")
+    ctcfg = CompInvTrainer.get_default_config()
+    ctcfg.merge_from_other_cfg({"max_steps": 10, "num_workers": 0, "learning_rate": 1.0,
+                                "batch_size": 8})
+    ctr = CompInvTrainer(ctcfg, OneProcess("cpu"), enc, [], params=params_from_jax(a["ci_params"]))
+    ctr.train_step([("task0", ctr.prepare_batch((a["ci_x"], np.zeros(8), a["ci_m"],
+                                                 list(a["ci_comps"]))))])
+    want = jax.tree_util.tree_leaves(ctr.snapshot_model_state()["trainable"])
+    start = jax.tree_util.tree_leaves(a["ci_params"]["adapter"])
+    moved = 0.0
+    for r in results:
+        for k in ("recon", "match"):
+            np.testing.assert_allclose(r["compinv"][k], ctr.batch_losses[k], **STEP_TOL)
+        for gg, wg in zip(r["compinv"]["grads"], grads_of(ctr), strict=True):
+            assert (gg is None) == (wg is None)
+            if gg is not None:
+                np.testing.assert_allclose(gg, wg, **STEP_TOL)   # the global loss's gradient
+        got = jax.tree_util.tree_leaves(r["compinv"]["trainable"])
+        assert len(got) == len(want) == len(start)
+        for gl, w, s0 in zip(got, want, start):
+            np.testing.assert_allclose(gl, w, **STEP_TOL)
+            moved = max(moved, float(np.abs(gl - s0).max()))
+    assert moved > 100 * STEP_TOL["atol"]

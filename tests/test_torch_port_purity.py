@@ -70,6 +70,21 @@ def test_port_reads_no_environment(path):
     assert "getenv" not in path.read_text()
 
 
+FIRST_IMPORTS = sorted(
+    ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(".__init__")
+    for sub in ("ops", "models") for p in (ROOT / "dfd_clip_tpu_torch" / sub).glob("*.py"))
+
+
+@pytest.mark.parametrize("module", FIRST_IMPORTS)
+def test_module_imports_first_in_a_fresh_interpreter(module):
+    """Each module of ops/ and models/ imports as the first module of a fresh
+    interpreter: no import cycle among them (ops/encoder_block.py reads
+    models/layers.py, whose package resolves the Detector only on use)."""
+    out = subprocess.run([sys.executable, "-c", f"import {module}"], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+
+
 @pytest.mark.parametrize("modules", [
     "dfd_clip_tpu_torch, dfd_clip_tpu_torch.serve, dfd_clip_tpu_torch.config, "
     "dfd_clip_tpu_torch.ops._cuda, dfd_clip_tpu_torch.models.weights, "
@@ -81,7 +96,9 @@ def test_port_reads_no_environment(path):
     "dfd_clip_tpu_torch.ops.tower",
     "dfd_clip_tpu_torch.ops.study_attention, dfd_clip_tpu_torch.ops.gemm_chain, "
     "dfd_clip_tpu_torch.tools.bench_attention, dfd_clip_tpu_torch.tools.bench_megakernel_probe, "
-    "dfd_clip_tpu_torch.tools.bench_tower_stages",
+    "dfd_clip_tpu_torch.tools.bench_tower_stages, dfd_clip_tpu_torch.tools.analysis",
+    "dfd_clip_tpu_torch.data.tokenizer, dfd_clip_tpu_torch.models.clip_text, "
+    "dfd_clip_tpu_torch.models.clip_resnet",
     "dfd_clip_tpu_torch.inference, dfd_clip_tpu_torch.data, dfd_clip_tpu_torch.data.video, "
     "dfd_clip_tpu_torch.data.loader, dfd_clip_tpu_torch.data.datasets, "
     "dfd_clip_tpu_torch.utils.metrics, dfd_clip_tpu_torch.scoring, "
@@ -98,7 +115,7 @@ def test_port_reads_no_environment(path):
     "dfd_clip_tpu_torch.ssl.augmentations, dfd_clip_tpu_torch.ssl.schedules, "
     "dfd_clip_tpu_torch.ssl.data_adapters, dfd_clip_tpu_torch.ssl.evals, "
     "dfd_clip_tpu_torch.ssl_train, dfd_clip_tpu_torch.ssl_eval",
-], ids=["serve", "train", "towers", "tools", "eval", "cli", "ssl"])
+], ids=["serve", "train", "towers", "tools", "zero_shot", "eval", "cli", "ssl"])
 def test_importing_the_port_loads_no_jax_or_yaml(modules):
     code = ("import sys\n"
             f"import {modules}\n"
@@ -112,12 +129,14 @@ def test_importing_the_port_loads_no_jax_or_yaml(modules):
 @pytest.mark.parametrize("entry", ["resolve_device", "Detector", "Trainer",
                                    "Scorer.from_preset", "inference.main", "main.main",
                                    "CompInvEncoder", "CompInvTrainer", "SSLTrainer",
-                                   "ssl_train.main", "ssl_eval.main", "ssl.evals"])
+                                   "ssl_train.main", "ssl_eval.main", "ssl.evals",
+                                   "analysis.main"])
 def test_default_device_is_the_card(entry):
     """Detector (whose forward and predict run on its device), Trainer, the
     run-directory Scorer, the evaluation CLI, the training CLI, the CompInv
-    pretrainer's model and trainer, the SSL trainer, both SSL CLIs and the
-    SSL evaluations' classifiers default to the card."""
+    pretrainer's model and trainer, the SSL trainer, both SSL CLIs, the
+    SSL evaluations' classifiers and the encoder-analysis CLI default to
+    the card."""
     from dfd_clip_tpu_torch import inference, resolve_device
     from dfd_clip_tpu_torch.config import CN
     from dfd_clip_tpu_torch.engine.trainer import Trainer
@@ -156,6 +175,10 @@ def test_default_device_is_the_card(entry):
             argv = (["--synthetic", "2"] if mod is ssl_train else
                     ["--weights", "/nonexistent", "--train_dir", "/x", "--test_dir", "/y"])
             mod.main(mod.parse_args(argv))
+        elif entry == "analysis.main":
+            from dfd_clip_tpu_torch.tools import analysis
+
+            analysis.main(["comb-impact", "--inputs", "/nonexistent", "--weights", "1"])
         elif entry == "ssl.evals":
             from dfd_clip_tpu_torch.ssl import evals
 

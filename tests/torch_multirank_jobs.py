@@ -301,7 +301,82 @@ def job_ssl(rt_args, a):
     return out
 
 
-JOBS = {"spmd": job_spmd, "train": job_train, "ssl": job_ssl}
+# -- job "sk": 2 ranks, (data 2, seq 1): Sinkhorn-Knopp over the global batch ------------
+
+def job_sk(rt_args, a):
+    """Each rank's images of both crops: the CLS assignment and the masked
+    patches' (the masked form's count summed over the ranks)."""
+    from dfd_clip_tpu_torch.ssl import losses
+
+    rt = MeshRuntime(**rt_args)
+    rows = rt.rows(a["cls"].shape[1])
+    two, k = a["cls"].shape[0], a["cls"].shape[-1]
+    cls = t(a["cls"][:, rows]).reshape(-1, k)
+    patch = t(a["patch"][:, rows]).reshape(-1, *a["patch"].shape[2:])
+    mask = t(a["mask"][:, rows]).reshape(-1, a["mask"].shape[-1])
+    out = {"cls": losses.sinkhorn_knopp(cls, a["temp"], layout=rt).reshape(two, -1, k).numpy(),
+           "patch": losses.sinkhorn_knopp_masked(patch, mask, a["temp"], layout=rt)
+           .reshape(two, -1, *a["patch"].shape[2:]).numpy()}
+    rt.deactivate()
+    return out
+
+
+def grads_of(trainer) -> list:
+    """The trainable leaves' gradients of the last step (as the optimizer
+    took them: the mean over the ranks), in named_leaves order; None for a
+    leaf the loss does not read (the BN running statistics)."""
+    from dfd_clip_tpu_torch.engine.optim import named_leaves
+
+    return [None if x.grad is None else x.grad.detach().numpy().copy()
+            for _, x in named_leaves(trainer.trainable)]
+
+
+# -- job "stats": 2 ranks, (data 2, seq 1): steps whose statistics span the batch -----------
+
+def job_stats(rt_args, a):
+    """A Trainer step of a Detector with a 768-bn adapter (its training
+    statistics over the global batch) and a CompInvTrainer step (its loss
+    maps summed over the global batch's pairs), each on the rank's rows."""
+    from dfd_clip_tpu_torch.engine.trainer import CompInvTrainer, Trainer
+    from dfd_clip_tpu_torch.models import CompInvEncoder
+    from dfd_clip_tpu_torch.models.weights import params_from_jax, to_numpy_tree
+
+    rt = MeshRuntime(**rt_args)
+    out = {}
+    tcfg = Trainer.get_default_config()
+    tcfg.merge_from_other_cfg({"max_steps": 10, "learning_rate": 1.0,
+                               "batch_size": a["x"].shape[0] // rt.data_parallel,
+                               "num_workers": 0})
+    trainer = Trainer(tcfg, rt, tiny_detector(adapter=a["bn_adapter"]), [],
+                      params=params_from_jax(a["bn_params"]))
+    rows = rt.rows(a["x"].shape[0])
+    n = rows.stop - rows.start
+    batch = (a["x"][rows], a["label"][rows], a["m"][rows], ["raw"] * n, np.ones(n),
+             np.zeros(n, np.int64))
+    trainer.train_step([("task0", trainer.prepare_batch(batch))])
+    out["bn"] = {"trainable": to_numpy_tree(trainer.trainable),
+                 "loss": trainer.batch_losses["task0"], "grads": grads_of(trainer)}
+
+    ccfg = CompInvEncoder.get_default_config()
+    ccfg.merge_from_other_cfg(a["compinv_cfg"])
+    enc = CompInvEncoder(ccfg, num_frames=a["ci_x"].shape[1], compute_dtype=torch.float32,
+                         device="cpu")
+    ctcfg = CompInvTrainer.get_default_config()
+    ctcfg.merge_from_other_cfg({"max_steps": 10, "num_workers": 0, "learning_rate": 1.0,
+                                "batch_size": a["ci_x"].shape[0] // rt.data_parallel})
+    ctr = CompInvTrainer(ctcfg, rt, enc, [], params=params_from_jax(a["ci_params"]))
+    rows = rt.rows(a["ci_x"].shape[0])
+    n = rows.stop - rows.start
+    ctr.train_step([("task0", ctr.prepare_batch((a["ci_x"][rows], np.zeros(n), a["ci_m"][rows],
+                                                 list(a["ci_comps"][rows]))))])
+    out["compinv"] = {"trainable": to_numpy_tree(ctr.trainable), "grads": grads_of(ctr),
+                      **{k: ctr.batch_losses[k] for k in ("recon", "match")}}
+    rt.deactivate()
+    return out
+
+
+JOBS = {"spmd": job_spmd, "train": job_train, "ssl": job_ssl, "sk": job_sk,
+        "stats": job_stats}
 
 
 def main() -> None:
