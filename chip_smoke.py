@@ -251,7 +251,36 @@
    and its pickle checked, then a flagship predict with patch_mask type
    "guide" reading that map, counted and held to its plain route; the
    packed attention timed at both paths' shapes;
-20. drives the port on several ranks (`[multi rank]`, runtime.MeshRuntime
+20. drives a W8A8 CLIP tower wider than 1024 (`[int8 wide]`): width 1280,
+   20 heads of 64, 32 layers, patch 14 at 224 pixels (257 tokens), output
+   1024, what models/weights.py:infer_clip_vit_config reads from a
+   1280-wide, 32-block CLIP-layout state dict (OpenCLIP ViT-H/14's visual
+   tree), its weights drawn on the card from a seeded CUDA generator and
+   quantised by prepare_int8_params, keep 26-31, compute_int8 in bf16: the
+   XLA linear_w8a8 composition (layers.linear_w8a8 on quant_rows' linear
+   form and gemm_s8, the packed attention at 20 heads, layer_norm_rows).
+   Its kernels at the path's shapes against their plain versions (the
+   quantiser's int8 values equal, scales within TOL_SCALE; gemm_s8 at the
+   four products bit for bit, torch._int_mm beside it; the attention with
+   the SDPA yardstick); a 16-clip x 20-frame forward and its int8_rows form
+   counted exactly (W8_COUNTS), each timed by CUDA events and, in a fresh
+   process, traced and timed by its device time over two traced forwards
+   (given where that trace holds twice a one-forward trace's rows); on 2
+   clips every layer on the same input held to the plain W8A8 route at
+   TOL_ENCODER, the whole export to the plain chain at TOL_TOWER
+   (recorded, not held, where every layer holds and the chain alone reads
+   past it) with the bf16 plain route's distance from f32 beside it, the
+   int8 export to the bf16 composition by cosine (TOL_COSINE), and the
+   int8_rows export, dequantised, to its plain route;
+21. runs the native video decoder (`[native video]`) where this machine can
+   build it (g++, FFmpeg's headers and libraries; data/native_video.py's
+   own check): [serve http]'s /score video decoded natively beside opencv
+   (probe equal, frames bit-equal at score_video's seeks), its YUV planes
+   read into pinned buffers (read_frames_yuv_into), converted on the card
+   by yuv420_to_rgb and scored by the flagship predict against the RGB
+   frames (|dP(fake)| <= TOL_PFAKE); elsewhere one line names what is
+   missing and that it did not run (no pass, and no later phase needs it);
+22. drives the port on several ranks (`[multi rank]`, runtime.MeshRuntime
    over torch.distributed): the flagship predict through a one-rank NCCL
    runtime, bit-equal to the one-process predict; then two ranks spawned
    on this one card over Gloo (NCCL refuses two ranks on one device), each
@@ -270,10 +299,13 @@
    values), a checkpoint and a resume bit-equal to the run, the same
    gathered checksum on both ranks; each rank's device
    memory held after set-up and at its peak in each (fsdp 1 must hold
-   under 0.6 of fsdp 0's: its leaves and Adam moments are slices).
-   Each rank's launch counts (6 partials a predict or step, 6 backward a
-   step) and each collective's bytes are printed;
-21. prints the kernel table as one JSON line, the card line, and last
+   under 0.6 of fsdp 0's: its leaves and Adam moments are slices); KoLeo
+   over the global batch: each rank's value and feature gradient on its
+   rows of seeded features, and one SSL step on its rows of seeded images
+   (f32, plain attention), against one process on the whole batch at
+   TOL_KOLEO. Each rank's launch counts (6 partials a predict or step, 6
+   backward a step) and each collective's bytes are printed;
+23. prints the kernel table as one JSON line, the card line, and last
    {"ok": true, "device": {...}}.
 
 Before the build it prints one line on what the native video decoder would
@@ -576,6 +608,8 @@ def plain_versions(encoder: bool = True):
     """Route the Detector through the plain PyTorch versions (for the
     end-to-end reference only); with ``encoder=False`` only the decoder's
     kernels, so both routes decode the same encoder export."""
+    import functools
+
     from dfd_clip_tpu_torch.models import clip_vit, decoder, layers
     from dfd_clip_tpu_torch.ops import (
         attention,
@@ -584,6 +618,7 @@ def plain_versions(encoder: bool = True):
         encoder_block,
         fused_decoder_attention,
         fused_decoder_attention_bwd,
+        int8,
         tower,
     )
     swaps = [
@@ -594,6 +629,8 @@ def plain_versions(encoder: bool = True):
         (clip_vit, "encoder_self_attention_qkv", attention.plain_attention_qkv),
         (clip_vit, "encoder_self_attention", attention.plain_attention),
         (layers, "layer_norm_rows", layers.layer_norm),
+        (layers, "w8a8_linear", int8.w8a8_linear_plain),
+        (encoder_block, "export_kv_rows8", functools.partial(int8.export_kv_rows8, plain=True)),
     ] if encoder else []
     swaps += [
         (decoder, "fused_decoder_attention",
@@ -1615,7 +1652,7 @@ def check_int8_kernels(rows: list) -> None:
     # -- quant_rows, the K/V export form (bf16 K columns, CLS dropped, 4 pad rows)
     kq = torch.full((nsel, n, t_out, w), 7, dtype=torch.int8, device=dev)
     k_s = torch.full((n, t_out), 7.0, device=dev)
-    _cuda.quant_rows(xf[:, w: 2 * w], kv=True, export=(kq[2], k_s, t, t_out, 1))
+    _cuda.quant_rows(xf[:, w: 2 * w], form="kv", export=(kq[2], k_s, t, t_out, 1))
     q_p, s_p = int8.quant_kv_rows_plain(xf[:, w: 2 * w].reshape(n, t, w)[:, 1:])
     compare_int8("quant_rows kv export", kq[2, :, : t - 1].reshape(-1, w),
                  k_s[:, : t - 1].reshape(-1), q_p.reshape(-1, w), s_p, TOL_FLIPS_QUANT, step=1.0)
@@ -6070,6 +6107,396 @@ def analysis_path(card: str, rows: list, ffpp: str) -> dict:
     return total
 
 
+# [int8 wide]: a W8A8 CLIP tower wider than 1024 (the XLA linear_w8a8
+# composition): what infer_clip_vit_config reads from a 1280-wide, 32-block
+# CLIP-layout state dict (OpenCLIP ViT-H/14's visual tree), keep 26-31
+W8_GEOMETRY = dict(input_resolution=224, patch_size=14, width=1280, layers=32, heads=20,
+                   output_dim=1024)
+W8_KEEP = tuple(range(26, 32))
+W8_SEED = 24              # the tower's weights and the frames (CUDA generators)
+W8_CHECK_CLIPS = 2        # clips of the holds against the plain and bf16 routes
+W8_ITERS = 3              # timed forwards (CUDA events)
+# launches a forward: both LayerNorms, the four products' quantiser and
+# gemm_s8 and the packed attention a layer before the last kept one, whose
+# LN1 and qkv alone run; the int8_rows form adds the K/V export's quantiser
+# twice a kept layer
+W8_LAST = W8_KEEP[-1]
+W8_COUNTS = {"layer_norm_rows": 2 * W8_LAST + 1, "quant_rows": 4 * W8_LAST + 1,
+             "gemm_s8": 4 * W8_LAST + 1, "fused_encoder_attention_qkv": W8_LAST}
+W8_USED = tuple(W8_COUNTS)
+
+
+def w8_tower(gen):
+    """The [int8 wide] tower's seeded params, drawn on the card (W8_GEOMETRY,
+    CLIP's init scales, LayerNorms and biases off their init values), f32
+    weights beside the int8 ones prepare_int8_params quantises from them."""
+    import torch
+
+    from dfd_clip_tpu_torch.models import clip_vit
+
+    cfg = clip_vit.ViTConfig(**W8_GEOMETRY)
+    with torch.device("cuda"):
+        params = clip_vit.init_clip_vision(gen, cfg)
+        for blk in params["blocks"]:
+            for ln in (blk["ln_1"], blk["ln_2"]):
+                ln["scale"].add_(0.1 * torch.randn(cfg.width, generator=gen))
+                ln["bias"].add_(0.1 * torch.randn(cfg.width, generator=gen))
+            for lin in (blk["attn"]["in_proj"], blk["attn"]["out_proj"], blk["mlp"]["c_fc"],
+                        blk["mlp"]["c_proj"]):
+                lin["b"].add_(0.02 * torch.randn(lin["b"].shape, generator=gen))
+    return cfg, clip_vit.prepare_int8_params(params)
+
+
+def w8_counted(label: str, fn, expected: dict) -> dict:
+    """One call of fn with the counters zeroed before and read after, held
+    to ``expected`` exactly: every kernel it names, and no other launch."""
+    import torch
+
+    from dfd_clip_tpu_torch.ops import _cuda
+
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    fn()
+    torch.cuda.synchronize()
+    counts = _cuda.launches()
+    check_counts(label, counts, expected, 1, used=W8_USED)
+    extra = {k: v for k, v in counts.items() if k not in expected and v}
+    if extra or _cuda.plain_calls():
+        raise SystemExit(f"FAIL {label}: launches outside the composition's kernels {extra} "
+                         f"or plain calls {_cuda.plain_calls()}")
+    return counts
+
+
+def w8_kernels(rows: list, cfg) -> None:
+    """The wide path's kernels at its shapes (320 frames x 257 tokens = 82,240
+    rows, width 1280, hidden 5120, 20 heads of 64) against their plain
+    versions: quant_rows' linear form on the LN1 and c_proj inputs (int8
+    values equal, scales within TOL_SCALE), gemm_s8 at the four products
+    with their bias and bf16 output (bit for bit), the packed attention, and
+    layer_norm_rows; each timed beside its plain version, its one-call
+    yardstick (torch._int_mm, SDPA, F.layer_norm) and its bound."""
+    import torch
+
+    from dfd_clip_tpu_torch.ops import _cuda, int8
+    from dfd_clip_tpu_torch.ops import attention as att
+
+    n, t, w, hh = CLIPS * FRAMES, cfg.num_tokens, cfg.width, cfg.heads
+    m_rows, bf, dev = n * t, torch.bfloat16, torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(W8_SEED + 1)
+    paths = ("w8", "w8r")
+
+    # -- quant_rows, the W8A8 linear's form (x / s * 127) ----------------------
+    for name, k in (("quant_rows linear", w), ("quant_rows linear c_proj in", 4 * w)):
+        x = torch.randn(m_rows, k, generator=gen, device=dev).to(bf)
+        q, s = _cuda.quant_rows(x, form="linear")
+        err = compare_int8(name, q, s, *int8.quant_linear_plain(x), 0.0)
+        args = (time_ms(lambda: _cuda.quant_rows(x, form="linear")),
+                time_ms(lambda: int8.quant_linear_plain(x)), None, 4.0 * m_rows * k,
+                3.0 * m_rows * k + 4.0 * m_rows, PEAK_F32, err)
+        if k == w:
+            kernel_row(rows, name, "dfd_clip_tpu/models/layers.py:62",
+                       "dfd_clip_tpu_torch/csrc/quant_rows.cu", *args, counter="quant_rows",
+                       paths=paths)
+        else:
+            b, by = bound_ms(*args[3:6])
+            print(f"  {name}: {args[0]:.4f} ms (plain {args[1]:.4f}, bound {b:.4f} by {by}, "
+                  f"bound / ms {b / args[0]:.3f})", flush=True)
+        del x, q, s
+
+    # -- gemm_s8 at the four products, bias and bf16 output (w8a8_linear's form)
+    for name, k, nn in (("gemm_s8 w8 qkv", w, 3 * w), ("gemm_s8 w8 out-proj", w, w),
+                        ("gemm_s8 w8 c_fc", w, 4 * w), ("gemm_s8 w8 c_proj", 4 * w, w)):
+        a = torch.randint(-127, 128, (m_rows, k), generator=gen, device=dev, dtype=torch.int8)
+        wq = torch.randint(-127, 128, (nn, k), generator=gen, device=dev, dtype=torch.int8)
+        a_s = torch.rand(m_rows, generator=gen, device=dev) + 0.5
+        ws = (torch.rand(nn, generator=gen, device=dev) + 0.5).reshape(1, nn)
+        bias = 0.1 * torch.randn(nn, generator=gen, device=dev)
+
+        got = _cuda.gemm_s8(a, a_s, wq, ws, bias)
+        want = (int8.w8a8_dot_plain(a, a_s[:, None], wq, ws) + bias).to(bf)
+        equal = torch.equal(got, want)
+        err = (got.float() - want.float()).abs().max().item()
+        print(f"  {name} ({m_rows} x {k} -> {nn}): bit-equal {equal} (max_abs_err {err:.3e})",
+              flush=True)
+        if not equal:
+            raise SystemExit(f"FAIL {name}: not bit-equal to w8a8_dot_plain + bias")
+        del got, want
+        wt = wq.t()
+        args = (time_ms(lambda: _cuda.gemm_s8(a, a_s, wq, ws, bias)),
+                time_ms(lambda: (int8.w8a8_dot_plain(a, a_s[:, None], wq, ws) + bias).to(bf),
+                        3, 1),
+                time_ms(lambda: torch._int_mm(a, wt)), 2.0 * m_rows * nn * k,
+                1.0 * (m_rows * k + k * nn) + 2.0 * m_rows * nn + 4.0 * (m_rows + 2 * nn),
+                PEAK_INT8_TC)
+        if nn == 4 * w:
+            kernel_row(rows, name, "dfd_clip_tpu/models/layers.py:64",
+                       "dfd_clip_tpu_torch/csrc/gemm_s8.cu", *args, err, counter="gemm_s8",
+                       paths=paths)
+        else:
+            gemm_line(name, *args)
+        del a, wq, wt
+        torch.cuda.empty_cache()
+
+    # -- the packed attention at 20 heads, and the row LayerNorm at width 1280 --
+    qkv = torch.randn(m_rows, 3 * w, generator=gen, device=dev).to(bf)
+    packed = qkv.view(n, t, 3 * w)
+    attention_row(rows, "fused_encoder_attention_qkv w8",
+                  "dfd_clip_tpu/ops/pallas_attention.py:145",
+                  lambda: att.fused_encoder_attention_qkv(packed, hh, 64),
+                  lambda: att.plain_attention_qkv(packed, hh, 64), qkv, n, t, hh, paths,
+                  counter="fused_encoder_attention_qkv")
+    del qkv, packed
+    ln = {"scale": 1.0 + 0.1 * torch.randn(w, generator=gen, device=dev),
+          "bias": 0.1 * torch.randn(w, generator=gen, device=dev)}
+    check_layer_norm(rows, "layer_norm_rows w8", torch.randn(m_rows, w, generator=gen,
+                                                             device=dev).to(bf), ln, paths)
+    torch.cuda.empty_cache()
+
+
+def w8_forward(params, cfg, x, dtype=None, **kw):
+    """The [int8 wide] forward: clip_vision_kv with compute_int8 (bf16 by
+    default), keep W8_KEEP, the Detector's export (drop_cls, pad_tokens)."""
+    import torch
+
+    from dfd_clip_tpu_torch.models import clip_vit
+
+    return clip_vit.clip_vision_kv(params, x, cfg, dtype or torch.bfloat16, keep_layers=W8_KEEP,
+                                   drop_cls=True, pad_tokens=True, compute_int8=True, **kw)
+
+
+def w8_traces() -> None:
+    """The [int8 wide] 16-clip forward traced in each export form: the
+    profile's busy share and top kernels, then one JSON line {form: [ms or
+    null, rows traced, rows expected]} from launches_ms over two forwards
+    (a device time only where that trace holds twice the rows of a
+    one-forward trace). Run in a process of its own by w8_traces_child,
+    on the tower and frames int8_wide_path draws."""
+    import torch
+
+    from dfd_clip_tpu_torch.ops import _cuda
+
+    _cuda.library()
+    gen = torch.Generator(device="cuda").manual_seed(W8_SEED)
+    cfg, params = w8_tower(gen)
+    x = torch.randn(CLIPS * FRAMES, 3, cfg.input_resolution, cfg.input_resolution,
+                    generator=gen, device="cuda")
+    w8_forward(params, cfg, x)   # the process's first launches, untraced
+    torch.cuda.synchronize()
+    out = {}
+    for form, kw in (("bf16 export", {}), ("int8_rows", {"kv_int8_rows": True})):
+        profile_device(f"int8 wide forward, {form}", lambda: w8_forward(params, cfg, x, **kw))
+        out[form] = launches_ms(lambda: w8_forward(params, cfg, x, **kw), calls=2)
+    print(json.dumps(out))
+
+
+def w8_traces_child(card: str) -> None:
+    """w8_traces in a new process (the kernels already built), waited for,
+    its lines printed: late in this script's run the profiler loses device
+    rows (PERF.md §7), while a process that has traced nothing before holds
+    every launch."""
+    here = Path(__file__).resolve().parent
+    res = subprocess.run([sys.executable, "-c", "import chip_smoke; chip_smoke.w8_traces()"],
+                         cwd=here, capture_output=True, text=True, timeout=600)
+    if res.returncode != 0:
+        raise SystemExit(f"FAIL the [int8 wide] traces (exit {res.returncode}):\n"
+                         f"{res.stderr[-3000:]}")
+    lines = res.stdout.strip().splitlines()
+    for line in lines[:-1]:
+        print(line, flush=True)
+    for form, (ms, traced, issued) in json.loads(lines[-1]).items():
+        print(f"  [int8 wide] {form}: device time "
+              + ("not measured" if ms is None else f"{ms:.2f} ms a forward")
+              + f" ({traced} of {issued} device rows traced, a fresh process); {card}",
+              flush=True)
+
+
+def int8_wide_path(card: str, rows: list) -> dict:
+    """[int8 wide] (docstring item 20): the W8A8 tower wider than 1024 at
+    full width and depth. Returns the launch counts of its forwards as
+    paths "w8" (the bf16 export) and "w8r" (int8_rows)."""
+    import torch
+    import torch.nn.functional as F
+
+    from dfd_clip_tpu_torch.models import clip_vit, layers
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(W8_SEED)
+    cfg, params = w8_tower(gen)
+    torch.cuda.synchronize()
+    count = sum(t_.numel() for t_ in _leaf_tensors(params) if t_.dtype == torch.float32)
+    print(f"  ViT width {cfg.width}, {cfg.layers} layers, {cfg.heads} heads of "
+          f"{cfg.head_dim}, patch {cfg.patch_size}, {cfg.num_tokens} tokens, keep "
+          f"{W8_KEEP[0]}-{W8_KEEP[-1]}: {count} f32 parameters drawn on the card and "
+          f"quantised (prepare_int8_params) in {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"  launches a forward: {json.dumps(W8_COUNTS)}", flush=True)
+    w8_kernels(rows, cfg)
+
+    x = torch.randn(CLIPS * FRAMES, 3, cfg.input_resolution, cfg.input_resolution,
+                    generator=gen, device="cuda")
+    xs = x[: W8_CHECK_CLIPS * FRAMES]
+
+    def forward(frames, dtype=None, **kw):
+        return w8_forward(params, cfg, frames, dtype, **kw)
+
+    counts = {}
+    rows8 = {"kv_int8_rows": True}
+    for path, kw, extra in (("w8", {}, 0), ("w8r", rows8, 2 * len(W8_KEEP))):
+        label = f"[int8 wide] {CLIPS} clips x {FRAMES} frames" + (", int8_rows" if kw else "")
+        counts[path] = w8_counted(label, lambda: forward(x, **kw),
+                                  {**W8_COUNTS, "quant_rows": W8_COUNTS["quant_rows"] + extra})
+        ms = time_ms(lambda: forward(x, **kw), iters=W8_ITERS, warmup=1)
+        print(f"  {label}: {ms:.2f} ms a forward by CUDA events ({W8_ITERS} forwards), "
+              f"{CLIPS * 1e3 / ms:.2f} clips/s; {card}", flush=True)
+    w8_traces_child(card)
+    torch.cuda.reset_peak_memory_stats()
+    forward(x)
+    print(f"  peak device memory of a forward: "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (the tower's f32 and int8 "
+          "weights included)", flush=True)
+    del x
+
+    # each layer on the same input: the kernels vs the plain W8A8 route
+    h = clip_vit.embed_patches(params, xs, cfg, torch.bfloat16)
+    reads = []
+    for i in range(W8_LAST + 1):
+        bp = params["blocks"][i]
+
+        def block(h_in, bp=bp, i=i):
+            qkv = clip_vit.block_qkv(bp, h_in, layers.linear_w8a8)
+            if i == W8_LAST:
+                return qkv, None
+            return qkv, clip_vit.block_tail(bp, h_in, qkv, cfg, clip_vit.clip_mlp_w8a8,
+                                            lin=layers.linear_w8a8)
+
+        got = block(h)
+        with plain_versions():
+            want = block(h)
+        reads.append(max(rel_err(g, w_) for g, w_ in zip(got, want) if g is not None))
+        h = got[1]
+    worst = max(reads)
+    print(f"  each layer on the same input vs the plain W8A8 route (qkv and the block's "
+          f"output, max|d| / max|plain|), layers 0-{W8_LAST}: "
+          + " ".join(f"{r:.2e}" for r in reads) + f"; worst {worst:.3e} (tol {TOL_ENCODER:g})",
+          flush=True)
+    if not worst <= TOL_ENCODER:
+        raise SystemExit(f"FAIL [int8 wide]: a layer {worst:.3e} from the plain W8A8 route")
+    del h
+
+    # the whole export: the kernels, the plain route in bf16 and in f32, bf16
+    got = forward(xs)
+    with plain_versions():
+        plain = forward(xs)
+        plain32 = forward(xs, torch.float32)
+    whole = max(rel_err(got[s], plain[s]) for s in ("k", "v"))
+    own = max(rel_err(plain[s], plain32[s]) for s in ("k", "v"))
+    print(f"  the {cfg.layers}-layer export ({W8_CHECK_CLIPS} clips) vs the plain W8A8 chain: "
+          f"{whole:.3e} of the max (tol {TOL_TOWER:g}); the bf16 plain route's own distance "
+          f"from its f32 run {own:.3e}", flush=True)
+    if not whole <= TOL_TOWER:
+        print(f"  RECORDED, not held: every layer holds {TOL_ENCODER:g} on its input while "
+              f"the {cfg.layers}-layer chain reads {whole:.3e} (ROADMAP queue 3 item 2)",
+              flush=True)
+    bf16 = clip_vit.clip_vision_kv(params, xs, cfg, torch.bfloat16, keep_layers=W8_KEEP,
+                                   drop_cls=True, pad_tokens=True)
+    cos = min(F.cosine_similarity(got[s][j].double().flatten(), bf16[s][j].double().flatten(),
+                                  dim=0).item() for s in ("k", "v") for j in range(len(W8_KEEP)))
+    print(f"  the int8 export vs the bf16 composition at width {cfg.width}: least cosine over "
+          f"the kept layers' K and V {cos:.6f} (tol {TOL_COSINE:g})", flush=True)
+    if not cos >= TOL_COSINE:
+        raise SystemExit(f"FAIL [int8 wide]: cosine {cos:.6f} against the bf16 composition")
+    del got, plain, plain32, bf16
+
+    # the int8_rows form against its plain route (dequantised K / V)
+    got = forward(xs, **rows8)
+    with plain_versions():
+        want = forward(xs, **rows8)
+    deq = [(d[s].reshape(*d[f"{s}_scale"].shape[:3], -1).float() * d[f"{s}_scale"])
+           for d in (got, want) for s in ("k", "v")]
+    rows8_err = max(rel_err(deq[0], deq[2]), rel_err(deq[1], deq[3]))
+    print(f"  int8_rows export ({W8_CHECK_CLIPS} clips), dequantised, vs its plain route: "
+          f"{rows8_err:.3e} of the max (tol {TOL_TOWER:g})", flush=True)
+    if not rows8_err <= TOL_TOWER:
+        raise SystemExit(f"FAIL [int8 wide]: the int8_rows export {rows8_err:.3e} from its "
+                         "plain route")
+    del params, got, want, deq
+    torch.cuda.empty_cache()
+    return counts
+
+
+def native_video_path(card: str) -> None:
+    """[native video] (docstring item 21): the port's FFmpeg decoder where
+    this machine can build it; else one line naming what is missing."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from dfd_clip_tpu_torch.data import native_video
+    from dfd_clip_tpu_torch.data.video import (
+        NativeBackend,
+        OpenCVBackend,
+        _time_to_frame_index,
+        backend_name,
+    )
+    from dfd_clip_tpu_torch.ops.image_ops import yuv420_to_rgb
+
+    t0 = time.perf_counter()
+    try:
+        lib_path = native_video.build()
+    except native_video.NativeToolchainMissing as e:
+        print(f"  NOT RUN (not a pass): {e}. Every run on this machine decodes through "
+              f"{backend_name('auto')} (\"auto\"); [ffmpeg probe] above lists what it has",
+              flush=True)
+        return
+    print(f"  built {lib_path.name} in {time.perf_counter() - t0:.2f} s; \"auto\" is "
+          f"{backend_name('auto')}", flush=True)
+    nat, ocv, lib = NativeBackend(), OpenCVBackend(), native_video.NativeVideoLib.get()
+    with tempfile.TemporaryDirectory() as tmp:
+        video = f"{tmp}/score.mp4"
+        write_video(video, *SCORE_VIDEO, "mp4v", seed=5)   # [serve http]'s /score video
+        metas = nat.probe(video), ocv.probe(video)
+        if (metas[0].fps, metas[0].frames) != (metas[1].fps, metas[1].frames):
+            raise SystemExit(f"FAIL [native video]: probe {metas[0]} vs opencv's {metas[1]}")
+        times = [t for t in np.arange(0, metas[0].duration, CLIP_SECONDS / FRAMES)
+                 if _time_to_frame_index(t, metas[0].fps) < metas[0].frames]
+        decoded = {}
+        for name, fn in (("native", lambda: nat.read_frames(video, times)),
+                         ("opencv", lambda: ocv.read_frames(video, times))):
+            t1 = time.perf_counter()
+            decoded[name] = fn()
+            decoded[f"{name} ms"] = (time.perf_counter() - t1) * 1e3
+        if not np.array_equal(decoded["native"], decoded["opencv"]):
+            raise SystemExit("FAIL [native video]: native frames differ from opencv's")
+        h, w = lib.frame_size(video)
+        n = len(times)
+        bufs = [torch.empty(shape, dtype=torch.uint8).pin_memory()
+                for shape in ((n, h, w), (n, h // 2, w // 2), (n, h // 2, w // 2))]
+        t1 = time.perf_counter()
+        full = lib.read_frames_yuv_into(video, times, *(b.numpy() for b in bufs))
+        yuv_ms = (time.perf_counter() - t1) * 1e3
+    print(f"  {SCORE_VIDEO[0]} s mp4v at {SCORE_VIDEO[1]} px: probe equal, {n} frames "
+          f"bit-equal to opencv's at every seek; decode ms (host clock): native RGB "
+          f"{decoded['native ms']:.1f}, opencv {decoded['opencv ms']:.1f}, native YUV into "
+          f"pinned buffers {yuv_ms:.1f} (full range {full})", flush=True)
+    y, u, v = (b.cuda(non_blocking=True) for b in bufs)
+    rgb = yuv420_to_rgb(y, u, v, full)
+    clips = n // FRAMES
+    det = detector()
+    params = det.prepare_params(det.init_params(torch.Generator().manual_seed(MR_SEED)))
+    x_rgb = torch.from_numpy(decoded["native"][: clips * FRAMES]).cuda().permute(0, 3, 1, 2)
+    m = torch.ones(clips, FRAMES, dtype=torch.bool, device="cuda")
+    logits = [det.predict(params, xx.reshape(clips, FRAMES, 3, h, w), m)[0][0]
+              for xx in (rgb[: clips * FRAMES], x_rgb.contiguous())]
+    dp = p_delta(*logits)
+    print(f"  flagship predict on {clips} clips: the card's YUV route vs the RGB frames, "
+          f"|dP(fake)| max {dp:.3e} (tol {TOL_PFAKE:g}); {card}", flush=True)
+    if not dp <= TOL_PFAKE:
+        raise SystemExit(f"FAIL [native video]: |dP(fake)| {dp:.3e} between the YUV and RGB "
+                         "routes")
+    del det, params
+    torch.cuda.empty_cache()
+
+
 # [multi rank]: two ranks on this card over Gloo
 MR_SEED = 0               # the ranks' and the one-process run's weights
 MR_SSL_IMAGES = 4         # SSL images a rank (configs/ssl/base.yaml: batch 32)
@@ -6084,6 +6511,11 @@ MR_TIMEOUT = 600          # seconds the two ranks may take
 # units (about 3e-2 of a leaf's max, recorded, not held)
 MR_DROPOUTS = (0.0, 0.5)
 MR_CLIP_LOSS_TOL = 5e-2
+# KoLeo over the global batch: seeded f32 CLS-width features and an SSL
+# step's crops and block masks for the ranks' 2 x MR_SSL_IMAGES images, held
+# to one process on the whole batch
+MR_KOLEO_SEED = 11
+TOL_KOLEO = 1e-5
 
 
 def mr_work() -> Path:
@@ -6197,10 +6629,67 @@ def mr_rank(rank: int, world: int, work: str) -> int:
             rt.deactivate()
 
         out["ssl"] = mr_ssl(work)
+        rt = MeshRuntime(device="cuda:0", backend="gloo")
+        out["koleo"] = mr_koleo_step(rt, mr_koleo_inputs(), rt.rows(2 * MR_SSL_IMAGES))
+        rt.deactivate()
     finally:
         launch.shutdown()
     torch.save(out, Path(work) / f"rank{rank}.pt")
     return 0
+
+
+def mr_ssl_config(**over):
+    """configs/ssl/base.yaml at MR_SSL_IMAGES images a rank and MR_SSL_STEPS
+    steps, with ``over`` changed."""
+    from dfd_clip_tpu_torch.ssl import SSLTrainer
+
+    cfg = SSLTrainer.get_default_config()
+    cfg.merge_from_file(str(Path(__file__).resolve().parent / "configs" / SSL_CFG))
+    cfg.merge_from_other_cfg({"batch_size": MR_SSL_IMAGES, "max_steps": MR_SSL_STEPS,
+                              "warmup_steps": 1, **over})
+    return cfg
+
+
+def mr_koleo_inputs() -> dict:
+    """The KoLeo hold's global batch of 2 x MR_SSL_IMAGES (numpy, seeded):
+    features of the CLS width, and both global crops, the 8 local crops and
+    the block masks at configs/ssl/base.yaml's sizes."""
+    import numpy as np
+
+    rng = np.random.default_rng(MR_KOLEO_SEED)
+    n = 2 * MR_SSL_IMAGES
+    return {"features": rng.standard_normal((n, 768)).astype(np.float32),
+            "globals": rng.standard_normal((2, n, 3, 224, 224)).astype(np.float32),
+            "locals": rng.standard_normal((8, n, 3, 98, 98)).astype(np.float32),
+            "masks": rng.random((2, n, 256)) < 0.3}
+
+
+def mr_koleo_step(runtime, a: dict, rows: slice) -> dict:
+    """KoLeo on ``rows`` of the features (over the registered layout's global
+    batch on several ranks): its value and feature gradient; then one SSL
+    step on those rows of the images (configs/ssl/base.yaml, fsdp 0) in f32
+    with the plain attention (the kernel takes bf16), where only the order
+    of sums differs from one process: its metrics."""
+    import numpy as np
+    import torch
+
+    from dfd_clip_tpu_torch.ops import spmd
+    from dfd_clip_tpu_torch.ssl import SSLTrainer
+    from dfd_clip_tpu_torch.ssl.losses import koleo_loss
+    from dfd_clip_tpu_torch.ssl_train import SyntheticImages
+
+    f = torch.from_numpy(a["features"][rows]).cuda().requires_grad_()
+    value = koleo_loss(f, layout=spmd.spmd_layout())
+    value.backward()
+    n = rows.stop - rows.start
+    trainer = SSLTrainer(mr_ssl_config(fsdp=0, batch_size=n), runtime, SyntheticImages(8),
+                         device="cuda:0")
+    trainer.meta.compute_dtype = torch.float32
+    with plain_ssl_attention():
+        metrics = trainer.train_step(*(torch.from_numpy(np.ascontiguousarray(a[k][:, rows]))
+                                       .cuda() for k in ("globals", "locals", "masks")), 1)
+    return {"value": value.item(), "grad": f.grad.cpu(),
+            "metrics": {k: float(v) for k, v in metrics.items()}}
 
 
 def mr_ssl(work: str) -> dict:
@@ -6226,13 +6715,6 @@ def mr_ssl(work: str) -> dict:
     data = SyntheticImages(8 * MR_SSL_IMAGES)
     memory = {}
 
-    def config(**over):
-        cfg = SSLTrainer.get_default_config()
-        cfg.merge_from_file(str(Path(__file__).resolve().parent / "configs" / SSL_CFG))
-        cfg.merge_from_other_cfg({"batch_size": MR_SSL_IMAGES, "max_steps": MR_SSL_STEPS,
-                                  "warmup_steps": 1, **over})
-        return cfg
-
     def build(cfg):
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
@@ -6247,11 +6729,11 @@ def mr_ssl(work: str) -> dict:
         torch.cuda.synchronize()
         memory[f"fsdp{fsdp}"]["peak"] = (torch.cuda.max_memory_allocated() - base) / 2**20
 
-    replicated, base = build(config(fsdp=0, max_steps=1))
+    replicated, base = build(mr_ssl_config(fsdp=0, max_steps=1))
     replicated.run()
     peak(0, base)
     del replicated
-    cfg = config(fsdp=1, checkpoint_interval=MR_SSL_STEPS,
+    cfg = mr_ssl_config(fsdp=1, checkpoint_interval=MR_SSL_STEPS,
                  checkpoint_dir=str(Path(work) / "ssl_ckpt"))
     trainer, base = build(cfg)
     sharded = sum(f for _, f in named_leaves(trainer.sharded))
@@ -6295,14 +6777,14 @@ def mr_print_rank(r: int, label: str, res: dict) -> None:
 
 
 def multi_rank_paths(card: str) -> dict:
-    """[multi rank] (docstring item 19); returns the ranks' summed launch
+    """[multi rank] (docstring item 22); returns the ranks' summed launch
     counts of the sharded predict and the two train steps as path "mr"."""
     import numpy as np
     import torch
 
     from dfd_clip_tpu_torch.engine.optim import named_leaves
     from dfd_clip_tpu_torch.engine.trainer import Trainer
-    from dfd_clip_tpu_torch.runtime import MeshRuntime, launch
+    from dfd_clip_tpu_torch.runtime import MeshRuntime, OneProcess, launch
 
     work = mr_work()
     det, params, x, m = mr_flagship()
@@ -6464,6 +6946,29 @@ def multi_rank_paths(card: str) -> dict:
                              f"{mem['fsdp0']['held']:.1f} MiB: its leaves are not slices")
     if res[0]["ssl"]["checksum"] != res[1]["ssl"]["checksum"]:
         raise SystemExit("FAIL [multi rank] ssl: the ranks' checksums differ")
+
+    # KoLeo over the global batch, and an SSL step with it, vs one process
+    a = mr_koleo_inputs()
+    one = mr_koleo_step(OneProcess("cuda:0"), a, slice(0, 2 * MR_SSL_IMAGES))
+    value = np.mean([rr["koleo"]["value"] for rr in res])
+    grad = torch.cat([rr["koleo"]["grad"] for rr in res]) / len(res)
+    reads = {"value": abs(value - one["value"]) / abs(one["value"]),
+             "feature gradient": rel_err(grad, one["grad"])}
+    for k in ("koleo", "dino", "ibot", "total"):
+        mean = np.mean([rr["koleo"]["metrics"][k] for rr in res])
+        reads[f"step {k}"] = abs(mean - one["metrics"][k]) / abs(one["metrics"][k])
+    print(f"  KoLeo on two ranks ({MR_SSL_IMAGES} of {2 * MR_SSL_IMAGES} rows each) vs one "
+          f"process on the global batch: value {value!r} vs {one['value']!r}; the SSL step "
+          "(f32, plain attention) koleo "
+          + ", ".join(f"rank {r} {rr['koleo']['metrics']['koleo']!r}"
+                      for r, rr in enumerate(res))
+          + f" vs {one['metrics']['koleo']!r}; relative: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in reads.items()) + f" (tol {TOL_KOLEO:g})",
+          flush=True)
+    for k in ("value", "feature gradient", "step koleo"):
+        if not reads[k] <= TOL_KOLEO:
+            raise SystemExit(f"FAIL [multi rank] KoLeo {k}: {reads[k]:.3e} from one process "
+                             "on the global batch")
     return counts
 
 
@@ -6665,6 +7170,18 @@ def main() -> int:
           f"comb-impact, a guide-map predict; every time on {card}", flush=True)
     counts["an"] = analysis_path(card, rows, cli_tree["FFPP"])
     cli_work.cleanup()
+    elapsed()
+    print(f"[int8 wide] a W8A8 CLIP tower wider than 1024 (width {W8_GEOMETRY['width']}, "
+          f"{W8_GEOMETRY['heads']} heads of 64, {W8_GEOMETRY['layers']} layers, patch "
+          f"{W8_GEOMETRY['patch_size']}, {W8_GEOMETRY['input_resolution']} px, keep "
+          f"{W8_KEEP[0]}-{W8_KEEP[-1]}, compute_int8, bf16): the linear_w8a8 composition on "
+          f"quant_rows' linear form, gemm_s8 and the packed attention; every time on {card}",
+          flush=True)
+    counts.update(int8_wide_path(card, rows))
+    elapsed()
+    print("[native video] the port's FFmpeg decoder (built with g++ against FFmpeg's headers) "
+          "beside opencv, its YUV planes converted on the card", flush=True)
+    native_video_path(card)
     elapsed()
     print("[multi rank] runtime.MeshRuntime: the flagship predict on one NCCL rank; two ranks "
           "on cuda:0 over Gloo: the seq-sharded predict (data 1, seq 2), a train step at "

@@ -352,8 +352,8 @@ __device__ __forceinline__ void walk(const TowerArgs& a) {
         {
           const int R = fc() * a.tokens;
           row_stage(R, [&](int r, int lane) {
-            row_ops::quant_row(static_cast<const float*>(a.att), W, r, W, false, a.aq, W, a.as,
-                               R, R, 0, lane);
+            row_ops::quant_row(static_cast<const float*>(a.att), W, r, W, row_ops::kQuantRows,
+                               a.aq, W, a.as, R, R, 0, lane);
           });
         }
         grid_sync(a);
@@ -390,8 +390,8 @@ __device__ __forceinline__ void walk(const TowerArgs& a) {
         {
           const int R = fc() * a.tokens;
           row_stage(R, [&](int r, int lane) {
-            row_ops::quant_row(static_cast<const float*>(a.mid), hid, r, hid, false, a.aq, hid,
-                               a.as, R, R, 0, lane);
+            row_ops::quant_row(static_cast<const float*>(a.mid), hid, r, hid, row_ops::kQuantRows,
+                               a.aq, hid, a.as, R, R, 0, lane);
           });
         }
         grid_sync(a);

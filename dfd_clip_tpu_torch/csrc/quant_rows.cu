@@ -8,7 +8,10 @@
 // q = clip(round(r * (1 / s)), -127, 127), written by _write_kv_export with
 // zero pad rows and zero pad scales), and the LN1 / LN2 stages of
 // _make_full_block_kernel, whose f32 LayerNorm output is quantised without a
-// bf16 round trip.
+// bf16 round trip. Its third form is no TPU kernel's: the activation
+// quantiser of the XLA W8A8 linear (dfd_clip_tpu/models/layers.py:
+// linear_w8a8, the towers wider than 1024), s = max|x| + 1e-8 and q =
+// clip(round(x / s * 127)), the quotient rounded before the product.
 //
 // Bound on an H100: bytes. Each row is read once (f32 or bf16) and written
 // once as int8 plus one f32 scale; a handful of operations per element. At
@@ -23,7 +26,8 @@
 // TPR rows; every thread issues all its loads first, so a block has its
 // rows' bytes in flight at once. The row's maximum is taken by warp shuffles
 // and, above 32 threads a row, one step through shared memory; the values
-// are then quantised from the registers with 8-byte int8 stores. Wider rows
+// are then quantised from the registers with 8-byte int8 stores (the linear
+// form divides each value by s, then multiplies by 127). Wider rows
 // take the warp-a-row body of csrc/rows.cuh, which reads the row twice.
 // layer_norm_quant keeps the row (W <= 1024) in registers, one warp a row:
 // mean, centred variance (the two-pass form jnp.var uses), normalise,
@@ -54,7 +58,7 @@ constexpr int UNITS = 4;   // 8-value loads a thread holds
 
 template <typename T, int TPR>
 __global__ void __launch_bounds__(THREADS)
-quant_rows_kernel(const T* __restrict__ x, int ldx, int rows, int cols, bool kv,
+quant_rows_kernel(const T* __restrict__ x, int ldx, int rows, int cols, int form,
                   int8_t* __restrict__ q, int ldq, float* __restrict__ s, int tokens, int t_out,
                   int lo) {
   constexpr int WPR = TPR / 32;   // warps a row
@@ -96,12 +100,12 @@ quant_rows_kernel(const T* __restrict__ x, int ldx, int rows, int cols, bool kv,
     }
   }
   if (!read) return;
-  const float2 sc = row_ops::quant_consts(amax, kv);
+  const float2 sc = row_ops::quant_consts(amax, form == row_ops::kQuantKv);
   const size_t out = base + tok - lo;
 #pragma unroll
   for (int u = 0; u < UNITS; ++u) {
     const int c = 8 * (lt + u * TPR);
-    if (c < cols) row_ops::store_q8(q + out * ldq + c, v[u], sc.y);
+    if (c < cols) row_ops::store_q8_form(q + out * ldq + c, v[u], sc, form);
   }
   if (lt == 0) s[out] = sc.x;
 }
@@ -109,23 +113,23 @@ quant_rows_kernel(const T* __restrict__ x, int ldx, int rows, int cols, bool kv,
 // Wider rows: a warp a row, read twice.
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
-quant_rows_wide_kernel(const T* __restrict__ x, int ldx, int rows, int cols, bool kv,
+quant_rows_wide_kernel(const T* __restrict__ x, int ldx, int rows, int cols, int form,
                        int8_t* __restrict__ q, int ldq, float* __restrict__ s, int tokens,
                        int t_out, int lo) {
   const int r = blockIdx.x * WARPS + threadIdx.x / 32;
   if (r >= rows) return;
-  row_ops::quant_row(x, ldx, r, cols, kv, q, ldq, s, tokens, t_out, lo, threadIdx.x % 32);
+  row_ops::quant_row(x, ldx, r, cols, form, q, ldq, s, tokens, t_out, lo, threadIdx.x % 32);
 }
 
 template <typename T>
-int launch_quant_rows(const T* x, int ldx, int rows, int cols, bool kv, int8_t* q, int ldq,
+int launch_quant_rows(const T* x, int ldx, int rows, int cols, int form, int8_t* q, int ldq,
                       float* s, int tokens, int t_out, int lo, cudaStream_t st) {
   const int units = cols / 8;
   int tpr = 32;
   while (tpr < THREADS && units > UNITS * tpr) tpr *= 2;
   if (units > UNITS * tpr) {
     quant_rows_wide_kernel<T><<<(rows + WARPS - 1) / WARPS, THREADS, 0, st>>>(
-        x, ldx, rows, cols, kv, q, ldq, s, tokens, t_out, lo);
+        x, ldx, rows, cols, form, q, ldq, s, tokens, t_out, lo);
     return static_cast<int>(cudaGetLastError());
   }
   const int per_block = THREADS / tpr;
@@ -134,7 +138,7 @@ int launch_quant_rows(const T* x, int ldx, int rows, int cols, bool kv, int8_t* 
                 : tpr == 64  ? quant_rows_kernel<T, 64>
                 : tpr == 128 ? quant_rows_kernel<T, 128>
                              : quant_rows_kernel<T, 256>;
-  kernel<<<grid, THREADS, 0, st>>>(x, ldx, rows, cols, kv, q, ldq, s, tokens, t_out, lo);
+  kernel<<<grid, THREADS, 0, st>>>(x, ldx, rows, cols, form, q, ldq, s, tokens, t_out, lo);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -202,20 +206,23 @@ int layer_norm_quant(const T* x, int ldx, const float* scale, const float* shift
 }  // namespace
 
 // q, s = quantise the rows of x[rows, cols] (f32 when x_f32, else bf16; row
-// stride ldx elements). kv = 0: the _quant_rows constants, q row r at q + r *
-// ldq, s[r]. kv = 1: the _quant_kv_rows constants with the export mapping
-// described above (tokens = T, t_out = T', lo); pass tokens = t_out = rows and
-// lo = 0 for a plain row-to-row map. cols % 8 == 0, 16-byte aligned rows (the
-// wrapper checks).
-extern "C" int dfd_quant_rows(const void* x, int ldx, int x_f32, int rows, int cols, int kv,
+// stride ldx elements) in `form` (row_ops::QuantForm). form 0: the
+// _quant_rows constants, q row r at q + r * ldq, s[r]; form 2: the W8A8
+// linear's, mapped as form 0. form 1: the _quant_kv_rows constants with the
+// export mapping described above (tokens = T, t_out = T', lo); pass tokens =
+// t_out = rows and lo = 0 for a plain row-to-row map. cols % 8 == 0, 16-byte
+// aligned rows (the wrapper checks).
+extern "C" int dfd_quant_rows(const void* x, int ldx, int x_f32, int rows, int cols, int form,
                               void* q, int ldq, float* s, int tokens, int t_out, int lo,
                               void* stream) {
+  if (form < row_ops::kQuantRows || form > row_ops::kQuantLinear)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int8_t* qq = static_cast<int8_t*>(q);
   if (x_f32)
-    return launch_quant_rows(static_cast<const float*>(x), ldx, rows, cols, kv != 0, qq, ldq, s,
+    return launch_quant_rows(static_cast<const float*>(x), ldx, rows, cols, form, qq, ldq, s,
                              tokens, t_out, lo, st);
-  return launch_quant_rows(static_cast<const bf16*>(x), ldx, rows, cols, kv != 0, qq, ldq, s,
+  return launch_quant_rows(static_cast<const bf16*>(x), ldx, rows, cols, form, qq, ldq, s,
                            tokens, t_out, lo, st);
 }
 

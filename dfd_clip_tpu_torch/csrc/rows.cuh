@@ -179,7 +179,30 @@ __device__ __forceinline__ void store_q8(int8_t* dst, const float* v, float inv)
   *reinterpret_cast<uint2*>(dst) = make_uint2(w[0], w[1]);
 }
 
-// (scale, multiplier) of the two quantisers for a row maximum `amax`.
+// Eight values quantised in the W8A8 linear's form, q = clip(round(v / s *
+// 127)): the quotient, rounded, then the product (q8_bits on v / s), as
+// models/layers.py:linear_w8a8 computes it.
+__device__ __forceinline__ void store_q8_linear(int8_t* dst, const float* v, float s) {
+  float t[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) t[e] = __fdiv_rn(v[e], s);
+  store_q8(dst, t, 127.0f);
+}
+
+// The row quantisers' forms (csrc/quant_rows.cu): _quant_rows', the K/V
+// export's _quant_kv_rows', and the W8A8 linear's.
+enum QuantForm : int { kQuantRows = 0, kQuantKv = 1, kQuantLinear = 2 };
+
+// Eight values of a row in `form`, with the row's quant_consts `sc`.
+__device__ __forceinline__ void store_q8_form(int8_t* dst, const float* v, float2 sc, int form) {
+  if (form == kQuantLinear)
+    store_q8_linear(dst, v, sc.x);
+  else
+    store_q8(dst, v, sc.y);
+}
+
+// (scale, multiplier) of the quantisers for a row maximum `amax`: the K/V
+// form's, else s = max + 1e-8 with 127 / s (the linear form reads s only).
 __device__ __forceinline__ float2 quant_consts(float amax, bool kv) {
   if (kv) {
     const float s = __fadd_rn(__fmul_rn(amax, 1.0f / 127.0f), 1e-30f);
@@ -189,13 +212,13 @@ __device__ __forceinline__ float2 quant_consts(float amax, bool kv) {
   return make_float2(s, 127.0f / s);
 }
 
-// Quantise input row r of x (frame r / tokens, token r % tokens) into
-// output row frame * t_out + token - lo of q and s; the frame's last token
-// also writes the zero pad rows and scales. tokens = t_out = rows, lo = 0
-// is the plain row-to-row map.
+// Quantise input row r of x (frame r / tokens, token r % tokens) in `form`
+// into output row frame * t_out + token - lo of q and s; the frame's last
+// token also writes the zero pad rows and scales. tokens = t_out = rows,
+// lo = 0 is the plain row-to-row map.
 template <typename T>
 __device__ __forceinline__ void quant_row(const T* __restrict__ x, int ldx, int r, int cols,
-                                          bool kv, int8_t* __restrict__ q, int ldq,
+                                          int form, int8_t* __restrict__ q, int ldq,
                                           float* __restrict__ s, int tokens, int t_out, int lo,
                                           int lane) {
   const int frame = r / tokens, tok = r % tokens;
@@ -216,12 +239,12 @@ __device__ __forceinline__ void quant_row(const T* __restrict__ x, int ldx, int 
 #pragma unroll
     for (int e = 0; e < 8; ++e) amax = fmaxf(amax, fabsf(v[e]));
   }
-  const float2 sc = quant_consts(warp_max(amax), kv);
+  const float2 sc = quant_consts(warp_max(amax), form == kQuantKv);
   const size_t out = base + tok - lo;
   for (int c = lane * 8; c < cols; c += 256) {
     float v[8];
     load8(xr + c, v);
-    store_q8(q + out * ldq + c, v, sc.y);
+    store_q8_form(q + out * ldq + c, v, sc, form);
   }
   if (lane == 0) s[out] = sc.x;
 }

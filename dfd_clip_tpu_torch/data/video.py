@@ -9,12 +9,15 @@ times)`` -> (N, H, W, 3) uint8):
   * ``opencv`` -- cv2.VideoCapture frame-index seeking, for the constant-fps
     clips the preprocessing pipeline writes; ``cv2`` is imported only when a
     file is opened;
-  * ``native`` -- the JAX package's FFmpeg seek-decoder (csrc/videodecode.cpp)
-    is not ported: ``NativeBackend()`` raises NotImplementedError.
+  * ``native`` -- the port's FFmpeg seek-decoder (csrc/videodecode.cpp through
+    ctypes, data/native_video.py), built with g++ on first use.
 
-``"auto"`` is the JAX package's rule, native when it loads, else opencv;
-with no native decoder here it is opencv. The backend is an argument, never
-read from the environment.
+``"auto"`` is the JAX package's rule, native first: it takes opencv only
+where the decoder cannot be built for want of g++, FFmpeg's headers or its
+libraries (native_video.NativeToolchainMissing); any other failure, a
+compile error in the port's own source included, raises. The backend is an
+argument, never read from the environment; ``backend_name`` names the class
+a name resolves to, which the entry points print.
 
 Seek semantics match TorchVision's ``seek(t); next()``: the first frame
 whose pts >= t, for constant-fps streams frame ``ceil(t * fps - eps)``.
@@ -123,14 +126,19 @@ class OpenCVBackend:
 
 
 class NativeBackend:
-    """The JAX package's FFmpeg seek-decoder (csrc/videodecode.cpp through
-    ctypes) has no port yet."""
+    """The port's C++ FFmpeg decoder (csrc/videodecode.cpp) through ctypes."""
 
     def __init__(self):
-        raise NotImplementedError(
-            "the native FFmpeg video decoder (csrc/videodecode.cpp, "
-            "dfd_clip_tpu/data/native_video.py) is not ported; use the opencv or "
-            "synthetic backend")
+        from .native_video import NativeVideoLib
+
+        self._lib = NativeVideoLib.get()
+
+    def probe(self, path: str) -> VideoMeta:
+        fps, frames, duration = self._lib.probe(path)
+        return VideoMeta(fps=fps, frames=frames, duration=duration)
+
+    def read_frames(self, path: str, times: Sequence[float]) -> np.ndarray:
+        return self._lib.read_frames(path, list(times))
 
 
 _BACKENDS: Dict[str, object] = {}
@@ -143,15 +151,28 @@ def get_backend(name: str = "auto"):
         return _BACKENDS[name]
     if name == "synthetic":
         backend = SyntheticBackend()
-    elif name in ("opencv", "auto"):
-        # "auto" would take the native decoder first; it is not ported
+    elif name == "opencv":
         backend = OpenCVBackend()
     elif name == "native":
         backend = NativeBackend()
+    elif name == "auto":
+        from .native_video import NativeToolchainMissing
+
+        try:
+            backend = NativeBackend()
+        except NativeToolchainMissing:
+            backend = OpenCVBackend()
     else:
         raise ValueError(f"Unknown video backend: {name}")
     _BACKENDS[name] = backend
     return backend
+
+
+def backend_name(name: str = "auto") -> str:
+    """The class of the backend ``name`` resolves to (``"auto"``:
+    NativeBackend or OpenCVBackend), for a run to show which decoder it
+    used."""
+    return type(get_backend(name)).__name__
 
 
 def backend_for_path(path: str, backend: str = "auto"):

@@ -4,7 +4,7 @@ the loading of a run's weights that the HTTP Scorer (serve.py) shares.
     python -m dfd_clip_tpu_torch.inference <run_dir> [--modality video|clip]
         [--weight_mode best|last] [--batch_size N] [--aux_file cfg.yaml]
         [--num_workers N] [--test] [--cfg_name setting] [--device cuda|cpu]
-        [--video_backend auto|opencv|synthetic]
+        [--video_backend auto|native|opencv|synthetic]
 
 Reads the run's ``<cfg_name>.yaml`` and ``<weight_mode>_weights.pt``, packs
 every clip_duration-second clip of every test video of each Deepfake
@@ -41,6 +41,7 @@ import torch
 from .config import CN
 from .data import CDF, DFDC, FFPP
 from .data.loader import DataLoader
+from .data.video import backend_name
 from .device import prefetch_iter, resolve_device
 from .models import weights as weights_lib
 from .models.detector import Detector
@@ -163,6 +164,7 @@ def main(args):
     runtime = MeshRuntime(device=device, backend=backend)
 
     report, stats = {}, {}
+    logging.info("Video files decode through %s", backend_name(args.video_backend))
     model = Detector(config.model, config.data.num_frames, device=device)
     wrapper = CN(new_allowed=True)
     wrapper.model = config.model
@@ -289,7 +291,7 @@ def parse_args(argv=None):
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (the default: raises without a card) or cpu")
     parser.add_argument("--video_backend", type=str, default="auto",
-                        choices=("auto", "opencv", "synthetic"))
+                        choices=("auto", "native", "opencv", "synthetic"))
     return parser.parse_args(argv)
 
 

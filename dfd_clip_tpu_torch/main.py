@@ -2,7 +2,7 @@
 
     python -m dfd_clip_tpu_torch.main --cfg configs/deepfake/deepfake.yaml
         [--debug] [--test] [--device cuda|cpu]
-        [--video_backend auto|opencv|synthetic]
+        [--video_backend auto|native|opencv|synthetic]
 
 Reads the JAX package's YAML schema (class-name reflection for the model,
 trainer, evaluator and datasets: root main.py's ten classes, so the
@@ -47,6 +47,7 @@ import torch
 
 from .config import CN
 from .data import CDF, DFDC, FFPP, RPPG
+from .data.video import backend_name
 from .device import resolve_device
 from .engine.callbacks import (cache_best_model, compute_metrics, end_timer, init_metrics,
                                start_timer, update_metrics, update_trackers)
@@ -283,6 +284,7 @@ def main(params):
     config = get_config(params)
     runtime, tracker = init_runtime(config, device)
     runtime.print(config.dump())
+    runtime.print(f"Video files decode through {backend_name(backend)}")
 
     model = _registered(config.model.name)(
         config.model, num_frames=config.data.num_frames,
@@ -358,7 +360,7 @@ def parse_args(argv=None):
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (the default: raises without a card) or cpu")
     parser.add_argument("--video_backend", type=str, default="auto",
-                        choices=("auto", "opencv", "synthetic"))
+                        choices=("auto", "native", "opencv", "synthetic"))
     return parser.parse_args(argv)
 
 

@@ -21,6 +21,12 @@ DFD_MEGAKERNEL, DFD_INT8_ATTN), the port takes explicit arguments
   torch ops, with ``linear`` on bf16 operands, LayerNorm through the row
   kernel and the attention through ``encoder_self_attention_qkv``
   (csrc/encoder_attention.cu, packed entry);
+* width above 1024 with ``compute_int8`` (a CLIP-layout checkpoint whose
+  conv1 is wider, e.g. 1280 at 20 heads of 64): the same composition with
+  every block product W8A8 (``layers.linear_w8a8``: quant_rows' "linear"
+  form and ``gemm_s8`` on the card), the out-projection included, as
+  JAX's default DFD_INT8_WO does; ``tower=True`` and ``block="full"``
+  raise there, whose kernels budget for width <= 1024;
 * ``tower=True`` where JAX runs its megakernel (fused blocks, no int8_rows
   export, a contiguous keep range): ``fused_encoder_tower``
   (ops/tower.py), one launch for the whole encoder, with an unpadded
@@ -168,14 +174,21 @@ def prepare_int8_params(params: Params) -> Params:
     return {**params, "blocks": blocks}
 
 
-def clip_mlp(mlp: Params, y: torch.Tensor) -> torch.Tensor:
-    """c_fc -> QuickGELU -> c_proj in y's dtype (the composition's MLP)."""
-    return layers.linear(mlp["c_proj"], layers.quick_gelu(layers.linear(mlp["c_fc"], y)))
+def clip_mlp(mlp: Params, y: torch.Tensor, lin=layers.linear) -> torch.Tensor:
+    """c_fc -> QuickGELU -> c_proj in y's dtype (the composition's MLP), each
+    product through ``lin``."""
+    return lin(mlp["c_proj"], layers.quick_gelu(lin(mlp["c_fc"], y)))
+
+
+def clip_mlp_w8a8(mlp: Params, y: torch.Tensor) -> torch.Tensor:
+    """clip_mlp with both products W8A8 (layers.linear_w8a8)."""
+    return clip_mlp(mlp, y, layers.linear_w8a8)
 
 
 def composition_block(bp: Params, h: torch.Tensor, cfg: ViTConfig, export_into: Optional[tuple],
                       drop_cls: bool, kv_pad: int = 0, kv_rows8: bool = False,
-                      attend: bool = True, ffn=clip_mlp, separate_qkv: bool = False):
+                      attend: bool = True, ffn=clip_mlp, separate_qkv: bool = False,
+                      lin=layers.linear):
     """One block of the XLA composition (clip_vit.py:438-497, and DINOv2's
     dinov2_vit.py:281-293) on h (N, T, W): LN1, the packed qkv projection
     (product rounded to h's dtype, then the bias), the K/V export into
@@ -184,36 +197,38 @@ def composition_block(bp: Params, h: torch.Tensor, cfg: ViTConfig, export_into: 
     LayerScale factors ``ls1``/``ls2`` (DINOv2) scale the two branches when
     present. The attention reads the packed qkv (``encoder_self_attention_qkv``)
     or, with ``separate_qkv``, its q, k and v column blocks as strided views
-    (``encoder_self_attention``). Returns (h, the kv_rows8 scales or ()); h
-    is None without ``attend`` (the last kept layer)."""
+    (``encoder_self_attention``). ``lin`` computes the qkv and out
+    projections (layers.linear_w8a8 for the W8A8 composition, with
+    ``ffn=clip_mlp_w8a8``). Returns (h, the kv_rows8 scales or ()); h is
+    None without ``attend`` (the last kept layer)."""
     n, t, w = h.shape
-    qkv = block_qkv(bp, h)
+    qkv = block_qkv(bp, h, lin)
     scales = ()
     if export_into is not None:
         scales = export_kv(qkv.reshape(n * t, 3 * w), n, t, w, 1 if drop_cls else 0, kv_pad,
                            kv_rows8, export_into)[2]
     if not attend:
         return None, scales
-    return block_tail(bp, h, qkv, cfg, ffn, separate_qkv), scales
+    return block_tail(bp, h, qkv, cfg, ffn, separate_qkv, lin), scales
 
 
-def block_qkv(bp: Params, h: torch.Tensor) -> torch.Tensor:
+def block_qkv(bp: Params, h: torch.Tensor, lin=layers.linear) -> torch.Tensor:
     """A block's LN1 and packed qkv projection on h (N, T, W): (N, T, 3W)."""
-    return layers.linear(bp["attn"]["in_proj"], layers.layer_norm_rows(bp["ln_1"], h))
+    return lin(bp["attn"]["in_proj"], layers.layer_norm_rows(bp["ln_1"], h))
 
 
 def block_tail(bp: Params, h: torch.Tensor, qkv: torch.Tensor, cfg: ViTConfig, ffn=clip_mlp,
-               separate_qkv: bool = False) -> torch.Tensor:
+               separate_qkv: bool = False, lin=layers.linear) -> torch.Tensor:
     """The rest of the block from its ``block_qkv``: attention,
-    out-projection and residual, LN2, ``ffn`` and residual, each branch
-    scaled by its LayerScale factor when present."""
+    out-projection (through ``lin``) and residual, LN2, ``ffn`` and
+    residual, each branch scaled by its LayerScale factor when present."""
     n, t, w = h.shape
     if separate_qkv:
         q, k, v = (s.reshape(n, t, cfg.heads, cfg.head_dim) for s in qkv.split(w, dim=-1))
         att = encoder_self_attention(q, k, v).reshape(n, t, w)
     else:
         att = encoder_self_attention_qkv(qkv, cfg.heads, cfg.head_dim)
-    h = h + _layer_scale(bp, "ls1", layers.linear(bp["attn"]["out_proj"], att))
+    h = h + _layer_scale(bp, "ls1", lin(bp["attn"]["out_proj"], att))
     y = ffn(bp["mlp"], layers.layer_norm_rows(bp["ln_2"], h))
     return h + _layer_scale(bp, "ls2", y)
 
@@ -267,9 +282,10 @@ def clip_vision_kv(
         raise ValueError(f"block must be one of {BLOCK_FORMS}, got {block!r}")
     check_int8_attn(int8_attn)
     fused = cfg.width <= 768 or (compute_int8 and cfg.width <= 1024)
-    if compute_int8 and not fused:
-        raise NotImplementedError("W8A8 towers wider than 1024 (the XLA linear_w8a8 "
-                                  "composition) are not ported yet")
+    if compute_int8 and not fused and (tower or block == "full"):
+        raise ValueError(f"a W8A8 tower of width {cfg.width} runs the XLA composition: the "
+                         "whole-encoder tower and the whole int8 block budget for width <= "
+                         "1024, as JAX's fused kernels do")
     if block == "auto":
         block = "full" if compute_int8 and cfg.width <= 768 else "split"
     whole_block = fused and block == "full"
@@ -289,6 +305,7 @@ def clip_vision_kv(
         return {"k": k.view(shape), "v": v.view(shape)}
     kv_pad = (-t_real) % 8 if pad_tokens else 0
     slot_of = {layer: s for s, layer in enumerate(keep)}
+    lin, ffn = (layers.linear_w8a8, clip_mlp_w8a8) if compute_int8 else (layers.linear, clip_mlp)
     nsel, t_out = len(keep), t_real + kv_pad
     kv_dt = torch.int8 if kv_int8_rows else h.dtype
     kacc = torch.empty((nsel, n, t_out, w), dtype=kv_dt, device=h.device)
@@ -299,7 +316,7 @@ def clip_vision_kv(
         into = (kacc, vacc, slot_of[i], nsel) if i in keep else None
         if not fused:
             h, scales[i] = composition_block(bp, h, cfg, into, drop_cls, kv_pad, kv_int8_rows,
-                                             attend=i < last)
+                                             attend=i < last, ffn=ffn, lin=lin)
             continue
         if i == last:
             out = fused_encoder_attn_block(h, bp["ln_1"], bp["attn"], cfg.heads, cfg.head_dim,

@@ -19,7 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops import _cuda
-from ..ops.int8 import w8a8_dot_plain, weight_q
+from ..ops.int8 import w8a8_linear, weight_q
 
 Params = Dict[str, Any]
 
@@ -68,20 +68,15 @@ def linear(params: Params, x: torch.Tensor) -> torch.Tensor:
 
 
 def linear_w8a8(params: Params, x: torch.Tensor) -> torch.Tensor:
-    """x @ w (+ b) as W8A8: x quantised per row as round(x / s * 127) (the
-    JAX layers.linear_w8a8 form, not the kernels' y * (127 / s)), the
+    """x @ w (+ b) as W8A8 (the JAX layers.linear_w8a8): x quantised per
+    row as round(x / s * 127) (not the kernels' y * (127 / s)), the
     per-channel int8 weights of ``params`` ("wq" (N, K) and "ws" (1, N) when
-    pre-quantised, else from "w"), an exact integer product, the f32 dequant
-    and bias, then x's dtype."""
+    pre-quantised, else from "w"), an exact integer product, the f32
+    dequant and bias, then x's dtype: ops/int8.py:w8a8_linear, whose
+    kernels (quant_rows' "linear" form, then gemm_s8) run it on the card."""
     wq, w_scale = weight_q(params)
-    x32 = x.float()
-    x_scale = x32.abs().amax(-1, keepdim=True) + 1e-8
-    xq = torch.clamp(torch.round(x32 / x_scale * 127.0), -127, 127).to(torch.int8)
-    y = w8a8_dot_plain(xq.reshape(-1, x.shape[-1]), x_scale.reshape(-1, 1), wq, w_scale)
-    y = y.reshape(*x.shape[:-1], -1)
-    if "b" in params:
-        y = y + params["b"].float()
-    return y.to(x.dtype)
+    y = w8a8_linear(x.reshape(-1, x.shape[-1]), wq, w_scale, params.get("b"))
+    return y.reshape(*x.shape[:-1], -1)
 
 
 def linear_f32_bias(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -73,6 +73,8 @@ OUT_F32, RES_ADD_F32, RES_IS_F32 = 64, 128, 256
 S8_GELU, S8_RES_F32, S8_RES_BF16, S8_OUT_F32, S8_STORE, S8_EXPORT = 1, 2, 4, 8, 16, 32
 S8_RES_AFTER_CAST = 64
 GRID_MAX = 2 ** 31 - 1
+# quant_rows' forms (csrc/rows.cuh QuantForm)
+QUANT_FORMS = {"rows": 0, "kv": 1, "linear": 2}
 # gemm_s8_quant (csrc/gemm_s8_quant.cu): the columns a CTA may take (two
 # consumer warpgroups of 256 or 192), and the most CTAs a cluster (a
 # portable cluster), which together cover a whole row
@@ -780,15 +782,19 @@ def gemm_s8_quant(a: torch.Tensor, a_scale: torch.Tensor, b_t: torch.Tensor,
     return q, s
 
 
-def quant_rows(x: torch.Tensor, *, kv: bool = False,
+def quant_rows(x: torch.Tensor, *, form: str = "rows",
                export: Optional[tuple] = None) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
     """Per-row absmax int8 quantisation of x (R, C), f32 or bf16, any row
-    stride (16-byte multiple). ``kv=False``: the _quant_rows constants;
-    returns (q (R, C) int8, s (R,) f32). ``kv=True``: the _quant_kv_rows
-    constants; with ``export = (q_slot, s_slot, tokens, t_out, lo)`` the
-    rows go into the (frames, t_out, C) int8 slot view and the (frames,
-    t_out) f32 scale view, ``lo`` leading rows of each frame dropped and the
-    pad rows and pad scales zero (returns None)."""
+    stride (16-byte multiple), in one of QUANT_FORMS. "rows": the
+    _quant_rows constants; returns (q (R, C) int8, s (R,) f32). "linear":
+    the W8A8 linear's ``s = max|x| + 1e-8, q = clip(rint(x / s * 127))``
+    (ops/int8.py:quant_linear_plain), returned as "rows". "kv": the
+    _quant_kv_rows constants; with ``export = (q_slot, s_slot, tokens,
+    t_out, lo)`` the rows go into the (frames, t_out, C) int8 slot view and
+    the (frames, t_out) f32 scale view, ``lo`` leading rows of each frame
+    dropped and the pad rows and pad scales zero (returns None)."""
+    if form not in QUANT_FORMS:
+        raise ValueError(f"quant_rows: form must be one of {tuple(QUANT_FORMS)}, got {form!r}")
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"quant_rows: takes f32 or bf16, got {x.dtype}")
     require_cuda("quant_rows", x, dtype=x.dtype)
@@ -800,8 +806,8 @@ def quant_rows(x: torch.Tensor, *, kv: bool = False,
         s = torch.empty((rows,), dtype=torch.float32, device=x.device)
         geo = (rows, rows, 0)
     else:
-        if not kv:
-            raise ValueError("quant_rows: the export is the K/V form (kv=True)")
+        if form != "kv":
+            raise ValueError("quant_rows: the export is the K/V form (form=\"kv\")")
         q, s, tokens, t_out, lo = export
         frames = rows // tokens
         require_cuda("quant_rows", q, dtype=torch.int8)
@@ -812,7 +818,7 @@ def quant_rows(x: torch.Tensor, *, kv: bool = False,
                              f"for {rows} rows of {tokens} tokens")
         geo = (tokens, t_out, lo)
     err = library().dfd_quant_rows(x.data_ptr(), x.stride(0), int(x.dtype == torch.float32),
-                                   rows, cols, int(kv), q.data_ptr(), cols, s.data_ptr(),
+                                   rows, cols, QUANT_FORMS[form], q.data_ptr(), cols, s.data_ptr(),
                                    *geo, stream())
     check_launch("quant_rows", err)
     LAUNCHES["quant_rows"] += 1

@@ -21,9 +21,11 @@ on those. Two wrappers:
   rank reads its rows of it.
 
 ``data_reduce`` is a MAX or SUM over the data ranks outside autograd
-(Sinkhorn-Knopp's normalisations), and ``data_sum`` the differentiable SUM
+(Sinkhorn-Knopp's normalisations), ``data_sum`` the differentiable SUM
 that global-batch statistics (the 768-bn adapter's, CompInv's loss maps)
-are built from.
+are built from, and ``data_gather`` the differentiable all-gather of the
+data ranks' rows (KoLeo's nearest neighbours over the global batch, and
+SSL's FSDP leaves).
 
 The layout is the registered ``runtime.MeshRuntime`` (``spmd_layout``):
 None on one rank, so a one-process run never reaches these paths. The
@@ -98,6 +100,36 @@ def data_sum(t: torch.Tensor, layout=None) -> torch.Tensor:
     if layout is None or layout.data_parallel == 1:
         return t
     return _DataSum.apply(t, layout)
+
+
+class _DataGather(torch.autograd.Function):
+    """Forward: the data ranks' tensors concatenated along the leading axis
+    in rank order; backward: the cotangent summed over the data ranks, this
+    rank's rows of it (an all-reduce, then the slice: Gloo has no
+    reduce-scatter to lean on)."""
+
+    @staticmethod
+    def forward(ctx, t, layout):
+        ctx.layout = layout
+        return torch.cat(layout.all_gather(t.detach().contiguous(), "data"))
+
+    @staticmethod
+    def backward(ctx, ct):
+        lay = ctx.layout
+        ct = lay.all_reduce_(ct.contiguous().clone(), "sum", "data")
+        return ct[lay.rows(ct.shape[0])].clone(), None   # not a view: the whole is freed
+
+
+def data_gather(t: torch.Tensor, layout=None) -> torch.Tensor:
+    """The data ranks' ``t`` (each rank's rows of a global batch, or its
+    slice of a leaf) whole, differentiably: a rank's gradient through
+    another rank's rows reaches that rank, so each rank's gradient is that
+    of the ranks' summed loss, the scaling ``data_sum`` describes. One data
+    rank: ``t`` itself."""
+    layout = layout if layout is not None else spmd_layout()
+    if layout is None or layout.data_parallel == 1:
+        return t
+    return _DataGather.apply(t, layout)
 
 
 def encoder_shapes_ok(b: int, t: int, layout) -> bool:

@@ -3,7 +3,7 @@ loaded once and kept on the card, videos scored over HTTP.
 
     python -m dfd_clip_tpu_torch.serve <run_dir> [--port 8123] [--host 127.0.0.1]
         [--weight_mode best] [--cfg_name setting] [--batch_size 8]
-        [--device cuda|cpu] [--video_backend auto|opencv|synthetic]
+        [--device cuda|cpu] [--video_backend auto|native|opencv|synthetic]
 
   POST /score            body: raw video bytes        -> {"p_fake": ...}
   POST /score_path       body: {"path": "/x.mp4"}     -> {"p_fake": ...}
@@ -36,6 +36,7 @@ from typing import Optional
 import numpy as np
 
 from .config import CN
+from .data.video import backend_name
 from .models.detector import Detector
 from .scoring import resolve_deepfake_task, score_frames, score_video
 
@@ -152,7 +153,7 @@ def main(argv=None):
     parser.add_argument("--device", default="cuda",
                         help="cuda (the default: raises without a card) or cpu")
     parser.add_argument("--video_backend", default="auto",
-                        choices=("auto", "opencv", "synthetic"))
+                        choices=("auto", "native", "opencv", "synthetic"))
     args = parser.parse_args(argv)
 
     logging.basicConfig(level="INFO")
@@ -160,7 +161,8 @@ def main(argv=None):
                                  batch_size=args.batch_size, device=args.device,
                                  video_backend=args.video_backend)
     server = ThreadingHTTPServer((args.host, args.port), make_handler(scorer))
-    logging.info("serving on %s:%d", args.host, args.port)
+    logging.info("serving on %s:%d; video files decode through %s", args.host, args.port,
+                 backend_name(args.video_backend))
     server.serve_forever()
 
 

@@ -1,11 +1,12 @@
 """SSL objectives (counterpart of dfd_clip_tpu/ssl/losses.py): the DINO CLS
 loss, its EMA center, Sinkhorn-Knopp centering (CLS and masked patches),
 the iBOT masked-patch loss and the KoLeo regulariser, as torch ops in f32.
-Sinkhorn-Knopp's normalisations span the global batch: on a data-parallel
-layout (the runtime passed as ``layout``) the global maximum is one MAX and
-each sum over the batch one SUM over the data ranks, as JAX's sums over its
-sharded batch are; the teacher side has no gradient, so plain collectives
-do."""
+Sinkhorn-Knopp's normalisations and KoLeo's nearest neighbours span the
+global batch: on a data-parallel layout (the runtime passed as
+``layout``) the global maximum is one MAX and each sum over the batch one
+SUM over the data ranks, as JAX's sums over its sharded batch are (the
+teacher side has no gradient, so plain collectives do), and KoLeo gathers
+the student's normalised CLS rows through a differentiable all-gather."""
 
 from __future__ import annotations
 
@@ -13,7 +14,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..ops.spmd import data_reduce
+from ..ops.spmd import data_gather, data_reduce
 
 
 def dino_loss(student_logits: torch.Tensor, teacher_logits: torch.Tensor,
@@ -101,10 +102,26 @@ def ibot_patch_loss(student_patch_logits: torch.Tensor, teacher_patch_logits: to
     return loss, batch_center
 
 
-def koleo_loss(features: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
+def koleo_loss(features: torch.Tensor, eps: float = 1e-8, layout=None) -> torch.Tensor:
     """-mean log of each L2-normalised feature's distance to its nearest
-    neighbour (the Kozachenko-Leonenko entropy estimate)."""
+    neighbour other than itself (the Kozachenko-Leonenko entropy estimate).
+    On ``layout``'s data ranks ``features`` (B, C) are this rank's rows of
+    the global batch: the ranks' normalised rows are gathered
+    (``data_gather``), each own row's neighbour is taken over the global
+    batch, and the loss is the mean over the rank's own rows, so that the
+    ranks' mean is JAX's global mean and the trainers' mean of the ranks'
+    gradients is its gradient (a row that is another rank's neighbour gets
+    that rank's gradient through the gather's backward)."""
     f = features / (torch.linalg.vector_norm(features, dim=-1, keepdim=True) + eps)
-    sim = f @ f.T - 2.0 * torch.eye(f.shape[0], device=f.device)
-    nn = f[sim.argmax(-1)]
+    full, start = f, 0
+    if layout is not None and layout.data_parallel > 1:
+        full = data_gather(f, layout)
+        rows = layout.rows(full.shape[0])
+        f, start = full[rows], rows.start
+    with torch.no_grad():   # the neighbour's index carries no gradient
+        sim = f @ full.T
+        own = torch.arange(f.shape[0], device=f.device)
+        sim[own, own + start] -= 2.0   # exclude self
+        nn = sim.argmax(-1)
+    nn = full[nn]
     return -torch.log(torch.linalg.vector_norm(f - nn, dim=-1) + eps).mean()

@@ -112,9 +112,9 @@ class SSLMetaArch:
             s_cls.append(apply_dino_head(student["dino_head"], s_out_l["cls"]).reshape(nl, b, -1))
         s_cls_logits = torch.cat(s_cls)
 
+        layout = spmd.spmd_layout()   # Sinkhorn-Knopp and KoLeo span the global batch
         t_probs_dino = t_probs_ibot = None
         if c.centering == "sinkhorn_knopp":
-            layout = spmd.spmd_layout()   # the assignments span the global batch
             with torch.no_grad():
                 t_probs_dino = loss_lib.sinkhorn_knopp(
                     t_cls_logits.reshape(two * b, -1), teacher_temp, layout=layout
@@ -134,8 +134,9 @@ class SSLMetaArch:
             t_patch_logits.reshape(two * b, -1, c.ibot_out_dim), flat_masks,
             centers["ibot"], c.student_temp, teacher_temp, teacher_probs=t_probs_ibot)
         # both global crops, each on its own (never between two crops of one
-        # image: ssl_meta_arch.py:316-318)
-        koleo = loss_lib.koleo_loss(s_out_g["cls"][:b]) + loss_lib.koleo_loss(s_out_g["cls"][b:])
+        # image: ssl_meta_arch.py:316-318), each over the global batch
+        koleo = (loss_lib.koleo_loss(s_out_g["cls"][:b], layout=layout)
+                 + loss_lib.koleo_loss(s_out_g["cls"][b:], layout=layout))
 
         total = c.dino_weight * dino + c.ibot_weight * ibot + c.koleo_weight * koleo
         if c.centering == "sinkhorn_knopp":

@@ -27,17 +27,17 @@ ranks, the loss centers are averaged over them (the reference's
 all-reduced batch center), and ``fsdp: 1`` is JAX's ``_shard_params``
 (train.py:212-224): each student and teacher leaf whose leading axis the
 data width divides is held as this rank's slice of that axis, and so are
-its Adam moments. ``_GatherLeaf`` all-gathers the whole leaf where the
-step uses it, and its backward sums the gradient over the ranks (an
-all-reduce, then this rank's slice: Gloo has no reduce-scatter to lean
+its Adam moments. ``ops/spmd.py:data_gather`` all-gathers the whole leaf
+where the step uses it, and its backward sums the gradient over the ranks
+(an all-reduce, then this rank's slice: Gloo has no reduce-scatter to lean
 on); every other leaf is replicated and its gradient all-reduced. The
 clip's global norm adds the slices' squares over the ranks. Checkpoints
 gather the leaves (``MeshRuntime.materialize``, which every rank calls) and
 rank 0 writes them between barriers; on resume rank 0 restores its host
 RNG state and the others re-derive theirs as (seed + rank) * 1_000_003 +
 step (train.py:201-210). One rank: every leaf whole, as before, whatever
-``fsdp`` says. Sinkhorn-Knopp centering normalises over the rank's own
-batch.
+``fsdp`` says. Sinkhorn-Knopp centering and KoLeo span the global batch
+(ssl/losses.py).
 """
 
 from __future__ import annotations
@@ -54,6 +54,7 @@ from ..device import resolve_device
 from ..engine.optim import named_leaves
 from ..models.clip_vit import ViTConfig
 from ..models.weights import to_device
+from ..ops.spmd import data_gather
 from . import schedules as sched_lib
 from .augmentations import MultiCropAugmentation
 from .masking import BlockMaskGenerator
@@ -82,23 +83,6 @@ def _flags(tree, dp: int):
     if isinstance(tree, (list, tuple)):
         return [_flags(v, dp) for v in tree]
     return tree.ndim >= 1 and tree.shape[0] >= dp and tree.shape[0] % dp == 0
-
-
-class _GatherLeaf(torch.autograd.Function):
-    """This rank's slice of a leaf -> the whole leaf (all-gather over the
-    data axis); backward: the whole leaf's gradient summed over the ranks,
-    this rank's slice of it."""
-
-    @staticmethod
-    def forward(ctx, local, runtime):
-        ctx.runtime = runtime
-        return torch.cat(runtime.all_gather(local.detach().contiguous(), "data"))
-
-    @staticmethod
-    def backward(ctx, g):
-        rt = ctx.runtime
-        g = rt.all_reduce_(g.contiguous().clone(), "sum", "data")
-        return g[rt.rows(g.shape[0])].clone(), None   # not a view: the whole is freed
 
 
 class SSLTrainer:
@@ -214,7 +198,7 @@ class SSLTrainer:
 
     def _whole(self, tree, grad: bool = False):
         """``tree`` (student- or teacher-shaped) with every sharded leaf
-        gathered whole; ``grad``: differentiably (``_GatherLeaf``)."""
+        gathered whole; ``grad``: differentiably (``data_gather``)."""
         if self.sharded is None:
             return tree
 
@@ -222,7 +206,7 @@ class SSLTrainer:
             if not sharded:
                 return t
             if grad:
-                return _GatherLeaf.apply(t, self.runtime)
+                return data_gather(t, self.runtime)
             return torch.cat(self.runtime.all_gather(t.detach().contiguous(), "data"))
 
         return _map2(one, tree, self.sharded)
@@ -303,7 +287,7 @@ class SSLTrainer:
 
     def _mean_over_ranks(self, grads) -> torch.Tensor:
         """Each gradient (in place) as its mean over the ranks: a sharded
-        leaf's slice was summed by ``_GatherLeaf``, the replicated ones are
+        leaf's slice was summed by ``data_gather``, the replicated ones are
         summed here in one packed all-reduce. Returns the global norm of
         the mean gradient (the slices' squares summed over the ranks), or
         None when no leaf is sharded."""

@@ -54,7 +54,7 @@ from typing import Dict, Sequence
 import numpy as np
 import torch
 
-from ..data.video import DECODE_ERRORS
+from ..data.video import DECODE_ERRORS, backend_name
 from ..models import clip_vit
 
 logger = logging.getLogger("analysis")
@@ -493,6 +493,7 @@ def main(argv=None) -> None:
     logging.basicConfig(level="INFO")
     args = parse_args(argv)
     args.dev = resolve_device(args.device)
+    logging.info("Video files decode through %s", backend_name())
     args.fn(args)
 
 

@@ -870,6 +870,46 @@ def test_quant_rows_widths(dev, dtype, width):
     assert rel_err(s, s_p.reshape(-1)) <= 1e-5
 
 
+@pytest.mark.parametrize("width", [64, 1280, 5120, 8200])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_quant_rows_linear_form(dev, dtype, width):
+    """quant_rows' "linear" form (the W8A8 linear's x / s * 127) at the wide
+    tower's widths (1280, its c_proj input 5120) and past a block's row
+    (8200), 301 rows of a view: values and scales equal to
+    quant_linear_plain's on the card."""
+    from dfd_clip_tpu_torch.ops import _cuda
+    from dfd_clip_tpu_torch.ops.int8 import quant_linear_plain
+
+    x = randn(torch.Generator().manual_seed(width + 1), 301, width + 8, scale=3.0).to(dev, dtype)
+    view = x[:, :width]
+    q, s = _cuda.quant_rows(view, form="linear")
+    q_p, s_p = quant_linear_plain(view)
+    assert torch.equal(q, q_p) and torch.equal(s, s_p.reshape(-1))
+
+
+@pytest.mark.parametrize("bias", [True, False], ids=["bias", "no_bias"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_w8a8_linear_on_card(dev, dtype, bias):
+    """layers.linear_w8a8 on the card (quant_rows' linear form, then
+    gemm_s8 with the bias and x's dtype) bit for bit its plain version, on
+    (3, 67, 1280) rows of a 1280 -> 384 product, one launch of each."""
+    from dfd_clip_tpu_torch.models import layers
+    from dfd_clip_tpu_torch.ops import _cuda
+    from dfd_clip_tpu_torch.ops.int8 import w8a8_linear_plain, weight_q
+
+    gen = torch.Generator().manual_seed(21)
+    params = {"w": randn(gen, 1280, 384, scale=1280 ** -0.5).to(dev)}
+    if bias:
+        params["b"] = randn(gen, 384, scale=0.1).to(dev)
+    x = randn(gen, 3, 67, 1280).to(dev, dtype)
+    _cuda.reset_launches()
+    got = layers.linear_w8a8(params, x)
+    assert _cuda.launches() == {"quant_rows": 1, "gemm_s8": 1}
+    wq, ws = weight_q(params)
+    want = w8a8_linear_plain(x.reshape(-1, 1280), wq, ws, params.get("b")).reshape(3, 67, 384)
+    assert got.dtype == dtype and torch.equal(got, want)
+
+
 def test_quant_rows_kv_export_pad_rows(dev):
     """The int8_rows export of 4 frames x 5 tokens (CLS dropped, 4 pad rows)
     into slot 1 of a stacked buffer, from strided bf16 K/V column views."""

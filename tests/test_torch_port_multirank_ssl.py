@@ -1,4 +1,6 @@
-"""Sinkhorn-Knopp over two ranks' global batch (the "sk" job), SSL
+"""Sinkhorn-Knopp and KoLeo over two ranks' global batch (the "sk" and
+"koleo" jobs: KoLeo's value and feature gradients, and an SSL step with it,
+against one process on the global batch and JAX's koleo_loss), SSL
 pretraining on two ranks with ``fsdp: 1`` (the counterpart of JAX's
 tests/test_multihost.py::test_two_process_ssl_fsdp_checkpoint), and the
 runtime's pieces that need no second rank: the card as every runtime's
@@ -20,7 +22,7 @@ import pytest
 import torch
 
 from dfd_clip_tpu_torch.engine.optim import named_leaves
-from torch_multirank_jobs import run_job
+from torch_multirank_jobs import run_job, ssl_trainer
 
 SSL_TOL = dict(rtol=1e-5, atol=1e-5)
 CONFIG = {"arch": "ViT-Test", "batch_size": 1, "max_steps": 2, "out_dim": 64,
@@ -124,6 +126,84 @@ def test_sinkhorn_knopp_spans_the_global_batch(sk_job):
     local = losses.sinkhorn_knopp(cls[:, :2].reshape(-1, k), a["temp"]).reshape(2, 2, k)
     assert not np.allclose(local.numpy(), got_cls[:, :2], **SSL_TOL)
     assert np.isfinite(got_patch).all() and (got_patch[~a["mask"]] == 0).all()
+
+
+KOLEO_CONFIG = {"arch": "ViT-Test", "batch_size": 2, "max_steps": 2, "out_dim": 64,
+                "n_local_crops": 2, "local_size": 14, "warmup_steps": 0,
+                "warmup_teacher_temp_steps": 0, "freeze_last_layer_steps": 0}
+
+
+@pytest.fixture(scope="module")
+def koleo_job(tmp_path_factory):
+    """The "koleo" job's inputs: 6 features of 8 lanes (3 a rank), and a
+    global batch of 4 images (2 a rank) of both global crops, the local
+    crops and the block masks, for one SSL step at (data 2, seq 1)."""
+    rng = np.random.default_rng(5)
+    a = {"features": np.random.default_rng(6).standard_normal((6, 8)).astype(np.float32),
+         "globals": rng.standard_normal((2, 4, 3, 28, 28)).astype(np.float32),
+         "locals": rng.standard_normal((2, 4, 3, 14, 14)).astype(np.float32),
+         "masks": rng.random((2, 4, 4)) < 0.5, "config": KOLEO_CONFIG}
+    return a, run_job("koleo", 2, tmp_path_factory.mktemp("koleo"), a)
+
+
+def test_koleo_spans_the_global_batch(koleo_job):
+    """Each rank's KoLeo is the mean over its own rows of the distance to
+    the nearest neighbour over the global batch: the ranks' mean equals one
+    process's value and JAX's koleo_loss on the whole batch, and the ranks'
+    feature gradients put together are the global loss's times the data
+    width (the trainers divide the ranks' summed gradients by it), a row
+    that is another rank's neighbour included; the rank's own batch alone
+    gives another value."""
+    import jax
+
+    from dfd_clip_tpu.ssl import losses as jlosses
+    from dfd_clip_tpu_torch.ssl import losses
+
+    a, res = koleo_job
+    f = torch.from_numpy(a["features"]).requires_grad_()
+    want = losses.koleo_loss(f)
+    want.backward()
+    got = np.mean([r["value"] for r in res])
+    assert got == pytest.approx(want.item(), rel=1e-5)
+    jval, jgrad = jax.value_and_grad(jlosses.koleo_loss)(a["features"])
+    assert got == pytest.approx(float(jval), rel=1e-5)
+    grads = np.concatenate([r["grad"] for r in res]) / len(res)
+    np.testing.assert_allclose(grads, f.grad.numpy(), **SSL_TOL)
+    np.testing.assert_allclose(grads, np.asarray(jgrad), **SSL_TOL)
+    # the neighbours cross the ranks, so the gather's backward carries weight
+    fn = a["features"] / np.linalg.norm(a["features"], axis=-1, keepdims=True)
+    sim = fn @ fn.T - 2 * np.eye(6)
+    assert (sim[:3].argmax(-1) >= 3).any() and (sim[3:].argmax(-1) < 3).any()
+    local = float(losses.koleo_loss(torch.from_numpy(a["features"][:3])))
+    assert local != pytest.approx(res[0]["value"], rel=1e-3)
+
+
+def test_koleo_step_equals_one_process_step(koleo_job):
+    """One SSL step at (data 2, seq 1), 2 images a rank, against one process
+    on the same 4 images: the ranks' mean of each metric (KoLeo included)
+    equals the one-process value, and so does every gradient the optimizer
+    took (the ranks' mean), at 1e-5, the towers in f32 so that only the
+    order of sums differs. The gradients are what is held, not the student
+    after the step: the first Adam step moves a leaf by about lr x the sign
+    of its gradient, so a gradient within rounding of 0 moves it by lr
+    either way (1 value in 4 M differs by 1.5e-5)."""
+    from dfd_clip_tpu_torch.runtime import OneProcess
+
+    from torch_multirank_jobs import record_grads
+
+    a, res = koleo_job
+    one = ssl_trainer(OneProcess("cpu"), {**a["config"], "batch_size": 4})
+    grads = record_grads(one)
+    metrics = one.train_step(*(torch.from_numpy(a[k]) for k in ("globals", "locals", "masks")), 0)
+    for k in ("dino", "ibot", "koleo", "total"):
+        got = np.mean([r["metrics"][k] for r in res])
+        assert np.isfinite(got) and got == pytest.approx(float(metrics[k]), rel=1e-5), k
+    assert 0 < float(metrics["koleo"]) < 5   # finite distances, not -log(eps)
+    paths = [p for p, _ in named_leaves(one.student)]
+    for r in res:
+        assert len(r["grads"]) == len(grads) == len(paths)
+        for path, g, want in zip(paths, r["grads"], grads):
+            np.testing.assert_allclose(g, want, **SSL_TOL, err_msg=str(path))
 
 
 def test_runtime_without_a_device_is_the_card():

@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: no module of dfd_clip_tpu_torch, and not
 chip_smoke.py, imports jax, optax or the JAX package, or reads the
-environment (the JAX package's kernel switches are explicit arguments
+environment; the native decoder's C++ sources are the port's own copies,
+which include nothing of the JAX package's csrc/ (the JAX package's kernel switches are explicit arguments
 here); importing the port (its training engine, both towers, the
 whole-encoder tower, the serving and evaluation entries and the data side
 included) pulls in neither jax, optax, yaml nor cv2; its entry points
@@ -33,6 +34,31 @@ def test_port_imports_no_jax(path):
     for mod in imported_modules(path):
         top = mod.split(".")[0]
         assert top not in ("jax", "jaxlib", "optax", "dfd_clip_tpu"), f"{path.name} imports {mod}"
+
+
+CPP_FILES = sorted((ROOT / "dfd_clip_tpu_torch" / "csrc").glob("*.cpp"))
+
+
+@pytest.mark.parametrize("path", CPP_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_cpp_sources_stand_alone(path):
+    """The native decoder's C++ sources (the port's own copies) include
+    system headers (FFmpeg's, the C++ library's) and nothing by a quoted
+    path: nothing of the JAX package's csrc/."""
+    includes = [line.split("#include", 1)[1].strip() for line in path.read_text().splitlines()
+                if line.lstrip().startswith("#include")]
+    assert includes and all(i.startswith("<") and i.endswith(">") for i in includes), includes
+
+
+def test_native_decoder_builds_from_the_port():
+    """data/native_video.py compiles the port's csrc/ copies, into the
+    port's build directory, and names no other source."""
+    from dfd_clip_tpu_torch.data import native_video
+
+    port = ROOT / "dfd_clip_tpu_torch"
+    assert native_video.CSRC == port / "csrc"
+    assert sorted(port / "csrc" / s for s in native_video.SOURCES) == CPP_FILES
+    assert native_video.BUILD_DIR == ROOT / "build" / "dfd_clip_tpu_torch"
+    assert "csrc/build.py" not in (port / "data" / "native_video.py").read_text()
 
 
 # what a launcher (torchrun, SLURM) hands its ranks: runtime/launch.py's input
@@ -262,14 +288,14 @@ def test_unported_train_modes_raise(option):
     assert set(other) == want and all(torch.isfinite(v) for v in other.values())
 
 
-@pytest.mark.parametrize("option", ["swiglu_ffn", "int8_wider_than_1024", "foundation"])
+@pytest.mark.parametrize("option", ["swiglu_ffn", "foundation"])
 def test_unported_tower_options_raise(option):
-    """W8A8 towers wider than 1024 (JAX's XLA linear_w8a8 composition) and
-    unknown foundations raise; giant2's fused SwiGLU FFN is ported: its
+    """Unknown foundations raise; giant2's fused SwiGLU FFN is ported: its
     hidden width is 4096 at ViT-g/14's 1536, and a tiny SwiGLU tower builds
     w12 / w3 and exports finite K/V (tests/test_torch_port_options.py holds
-    it to JAX's)."""
-    from dfd_clip_tpu_torch.models import clip_vit, dinov2_vit
+    it to JAX's). W8A8 towers wider than 1024 are ported too
+    (tests/test_torch_port_int8_wide.py)."""
+    from dfd_clip_tpu_torch.models import dinov2_vit
     from dfd_clip_tpu_torch.models.detector import Detector
 
     if option == "swiglu_ffn":
@@ -282,11 +308,7 @@ def test_unported_tower_options_raise(option):
         assert kv["k"].shape == (2, 2, 5, 2, 16) and torch.isfinite(kv["k"]).all()
         return
     with pytest.raises(NotImplementedError):
-        if option == "int8_wider_than_1024":
-            cfg = clip_vit.ViTConfig(input_resolution=32, width=1280, heads=16)
-            clip_vit.clip_vision_kv({}, torch.zeros(1, 3, 32, 32), cfg, compute_int8=True)
-        else:
-            cfg = Detector.get_default_config()
-            cfg.merge_from_other_cfg({"foundation": "resnet", "decode_mode": "index",
-                                      "decode_indices": [0], "out_dim": [2]})
-            Detector(cfg, num_frames=4, device="cpu")
+        cfg = Detector.get_default_config()
+        cfg.merge_from_other_cfg({"foundation": "resnet", "decode_mode": "index",
+                                  "decode_indices": [0], "out_dim": [2]})
+        Detector(cfg, num_frames=4, device="cpu")

@@ -321,6 +321,58 @@ def job_sk(rt_args, a):
     return out
 
 
+# -- job "koleo": 2 ranks, (data 2, seq 1): KoLeo over the global batch ------------------
+
+def ssl_trainer(runtime, config: dict):
+    """An SSLTrainer of the tiny config on the CPU (the same seeded student
+    on every rank and in one process), its towers in f32: in bf16 a batch
+    of 2 and one of 4 round apart."""
+    from dfd_clip_tpu_torch.ssl import SSLTrainer
+
+    cfg = SSLTrainer.get_default_config()
+    cfg.merge_from_other_cfg(config)
+    trainer = SSLTrainer(cfg, runtime, Images(), device="cpu")
+    trainer.meta.compute_dtype = torch.float32
+    return trainer
+
+
+def record_grads(trainer) -> list:
+    """A list that holds, after each step, the gradients the trainer's
+    optimizer took (on several ranks: their mean over the ranks)."""
+    seen, step = [], trainer.optimizer.step
+
+    def recorded(grads, *args, **kw):
+        seen[:] = [g.detach().numpy().copy() for g in grads]
+        return step(grads, *args, **kw)
+
+    trainer.optimizer.step = recorded
+    return seen
+
+
+def job_koleo(rt_args, a):
+    """The rank's rows of a global batch: KoLeo's value and its gradient in
+    the rank's features, then one SSL step on the rank's images of both
+    crops (its metrics, the gradients its optimizer took and the student
+    after it)."""
+    from dfd_clip_tpu_torch.ssl import losses
+
+    rt = MeshRuntime(**rt_args)
+    rows = rt.rows(a["features"].shape[0])
+    f = t(a["features"][rows]).requires_grad_()
+    value = losses.koleo_loss(f, layout=rt)
+    value.backward()
+    out = {"value": float(value), "grad": f.grad.numpy().copy()}
+    rows = rt.rows(a["globals"].shape[1])
+    trainer = ssl_trainer(rt, a["config"])
+    out["grads"] = record_grads(trainer)
+    metrics = trainer.train_step(t(a["globals"][:, rows]), t(a["locals"][:, rows]),
+                                 t(a["masks"][:, rows]), 0)
+    out["metrics"] = {k: float(v) for k, v in metrics.items()}
+    out["student"] = rt.materialize(trainer.student)
+    rt.deactivate()
+    return out
+
+
 def grads_of(trainer) -> list:
     """The trainable leaves' gradients of the last step (as the optimizer
     took them: the mean over the ranks), in named_leaves order; None for a
@@ -376,7 +428,7 @@ def job_stats(rt_args, a):
 
 
 JOBS = {"spmd": job_spmd, "train": job_train, "ssl": job_ssl, "sk": job_sk,
-        "stats": job_stats}
+        "koleo": job_koleo, "stats": job_stats}
 
 
 def main() -> None:
